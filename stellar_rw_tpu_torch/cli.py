@@ -1,0 +1,133 @@
+"""CLI of the port: `python -m stellar_rw_tpu_torch --cmd node2vec|randomwalk`.
+
+Same flags as `python -m stellar_rw_tpu` (parsed by
+stellar_rw_tpu.utils.config.parse) and the same outputs: <output>/path
+walks, <output>/vec vectors and <output>/bin model. It runs on one CUDA
+device; from the command line a machine without a GPU gets CudaUnavailable,
+never a CPU run. Each flag value the port does not serve yet exits with
+NotPorted naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+import numpy as np
+import torch
+
+from stellar_rw_tpu.graph import io as gio
+from stellar_rw_tpu.utils.config import Params, TaskName, parse
+
+from .errors import NotPorted
+from .models import node2vec as n2v
+from .ops import sampling
+from .walk import engine
+
+
+class CudaUnavailable(RuntimeError):
+    """The command line asked for the GPU and torch sees none."""
+
+
+def check_flags(params: Params) -> None:
+    """Raise NotPorted for each flag value this port does not serve."""
+    refused = [
+        (params.cmd == TaskName.embedding,
+         "--cmd embedding (ROADMAP Queue 1 item 5)"),
+        (params.shards > 1, "--shards > 1 (ROADMAP Queue 1 item 12)"),
+        (params.partitioned, "--partitioned true (ROADMAP Queue 1 item 12)"),
+        (params.w2v_partitions > 1,
+         "--w2vPartitions > 1 (ROADMAP Queue 1 item 11)"),
+        (params.w2v_model_shards > 1,
+         "--w2vModelShards > 1 (ROADMAP Queue 1 item 11)"),
+        (params.streaming, "--streaming true (ROADMAP Queue 1 item 11)"),
+        (sampling.plan_sampler(params.sampler, params.p,
+                               params.q)[0] != "rejection",
+         "--sampler cdf or a p/q bias ratio above 32 (ROADMAP Queue 1 "
+         "item 7)"),
+        (params.rng_impl != "threefry",
+         "--rngImpl rbg|unsafe_rbg (not to port: XLA-only streams)"),
+        (params.checkpoint_every > 0,
+         "--checkpointEvery (ROADMAP Queue 1 item 5)"),
+        (params.resume, "--resume true (ROADMAP Queue 1 item 5)"),
+        (params.profile_dir is not None, "--profile (not ported yet)"),
+    ]
+    for hit, what in refused:
+        if hit:
+            raise NotPorted(f"{what} is not served by stellar_rw_tpu_torch")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def do_random_walk(params: Params, device: torch.device, report: dict):
+    """Load the graph, run the walks, save /path. Returns (walks on the
+    device, graph)."""
+    from stellar_rw_tpu.utils.stats import validate_walks, walk_stats
+
+    graph = gio.load_edge_list(params.input, weighted=params.weighted,
+                               directed=params.directed)
+    print(f"vertices: {graph.num_vertices}")
+    print(f"edges: {graph.num_edges}")
+    t0 = time.perf_counter()
+    dg = sampling.device_put_graph(graph, device)
+    walks = n2v.run_walks(graph, params, device, device_graph=dg)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    walks_np = walks.cpu().numpy()
+    ws = walk_stats(walks_np)
+    print(f"walks: {ws.num_paths} paths, {ws.num_steps} steps in {dt:.3f}s "
+          f"({ws.num_steps / max(dt, 1e-9):,.0f} steps/s, {device})")
+    print(f"Zero Neighbors: {ws.dead_ends}  (isolated starts: "
+          f"{ws.isolated_starts}, full paths: {ws.full_paths}, "
+          f"mean length: {ws.mean_length:.1f})")
+    report.update(vertices=graph.num_vertices, edges=graph.num_edges,
+                  paths=ws.num_paths, steps=ws.num_steps, walk_seconds=dt)
+    if params.validate:
+        report["invariants"] = engine.assert_corpus_invariants(dg, walks)
+        validate_walks(walks_np, graph)
+        print("walk invariants: ok")
+    gio.save_walks(walks_np, graph, params.output,
+                   n2v.output_partitions(params))
+    return walks, graph
+
+
+def run_job(params: Params, device: torch.device, report: dict) -> str:
+    check_flags(params)
+    walks, graph = do_random_walk(params, device, report)
+    if params.cmd == TaskName.node2vec:
+        t0 = time.perf_counter()
+        tokens, w_in, w_out = n2v.embed_walks(walks, graph, params, device)
+        report["train_seconds"] = time.perf_counter() - t0
+        print(f"trainer: {params.w2v_iter} epoch(s) in "
+              f"{report['train_seconds']:.3f}s ({device})")
+        n2v.save_model(params.output, tokens, w_in, w_out, params)
+        gio.save_vectors(np.asarray(tokens), w_in, params.output,
+                         n2v.output_partitions(params))
+    return params.output
+
+
+def main(argv: list[str] | None = None, device=None,
+         report: dict | None = None) -> int:
+    """Run one job. device None means the command line's CUDA device;
+    report, when given, receives the run's counts and timings."""
+    params = parse(sys.argv[1:] if argv is None else argv)
+    if params is None:
+        return 1
+    from stellar_rw_tpu.utils.logging import configure
+    configure(params.log_dir)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise CudaUnavailable("no CUDA device is visible to torch; the "
+                                  "port does not run walks on the CPU from "
+                                  "the command line")
+        device = "cuda"
+    print(params)
+    run_job(params, torch.device(device), {} if report is None else report)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,307 @@
+"""Skip-gram with negative sampling (port of stellar_rw_tpu/models/word2vec.py).
+
+Single device. The JAX package's streams are reproduced exactly
+(ops/prng.py): the embedding init, each block's dynamic window
+(jax.random.randint) and its negatives come from the same key chain
+PRNGKey(seed) -> fold_in(., epoch) -> fold_in(., block), so a run from the
+same init differs from the JAX run only by floating-point summation order.
+
+Two update forms, as in the JAX package:
+  * exact per-pair negatives (`_sgns_apply`, shared_negatives = 0), plain
+    torch; its hand kernel is ROADMAP K4;
+  * block-shared negatives in the dense shifted-window form
+    (`_sgns_apply_shared_conv`, shared_negatives = kB > 0). Its negative half
+    is exactly sgns_shared_grads with vi = ein, g_pos = 0 and
+    mask = neg_weight * vcnt, and goes through the CUDA kernel
+    (ops/sgns.py); the shift passes stay plain torch (ROADMAP K5).
+
+The tables are updated in place (JAX returns new arrays); each row moves by
+lr times the mean of its gradients in the block (scatter-mean).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from stellar_rw_tpu.ops.alias import build_alias
+
+from ..errors import NotPorted
+from ..ops import prng
+from ..ops.sgns import sgns_shared_grads
+
+# elements of per-block random draws generated in one batch
+_DRAW_BUDGET = 1 << 22
+
+
+@dataclass(frozen=True)
+class SGNSConfig:
+    dim: int = 128
+    window: int = 10
+    negatives: int = 5
+    lr: float = 0.025
+    min_lr_frac: float = 1e-4
+    iters: int = 10
+    row_block: int = 32      # walks per update step (one scatter-mean each)
+    seed: int = 0
+    power: float = 0.75      # unigram smoothing for the negative table
+    shared_negatives: int = 0  # >0: kB block-shared negatives
+    shared_impl: str = "conv"  # "conv" is ported; "band" / "pos" are not
+    model_shards: int = 1    # >1: dim-sharded tables (not ported)
+
+    def __post_init__(self):
+        if self.shared_impl not in ("band", "conv", "pos"):
+            raise ValueError(f"shared_impl must be 'band', 'conv' or 'pos', "
+                             f"got {self.shared_impl!r}")
+
+
+def params_from_numpy(w_in: np.ndarray, w_out: np.ndarray, device
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's tables (numpy f32 [V, D]) as the port's."""
+    as_t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32)
+                                     ).to(device).clone()
+    return as_t(w_in), as_t(w_out)
+
+
+def _init_embeddings(vocab: int, dim: int, key: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """word2vec init: input uniform in [-0.5/dim, 0.5/dim), output zeros."""
+    w_in = (prng.uniform(key, (vocab, dim)) - 0.5) / dim
+    return w_in, torch.zeros_like(w_in)
+
+
+def _offsets(window: int) -> list[int]:
+    return list(range(-window, 0)) + list(range(1, window + 1))
+
+
+def _valid_from_cwin(block: torch.Tensor, cwin: torch.Tensor, window: int):
+    """[B, T, 2w] pair mask and clamped context positions [T, 2w] for the
+    dynamic windows cwin [B, T]."""
+    T = block.shape[1]
+    dev = block.device
+    offs = torch.tensor(_offsets(window), dtype=torch.int64, device=dev)
+    ctx_pos = torch.arange(T, device=dev)[:, None] + offs[None, :]
+    in_bounds = (ctx_pos >= 0) & (ctx_pos < T)
+    ctx_pos_c = ctx_pos.clamp(0, T - 1)
+    contexts = block[:, ctx_pos_c]
+    valid = (in_bounds[None] & (offs.abs()[None, None, :] <= cwin[..., None])
+             & (block[..., None] >= 0) & (contexts >= 0))
+    return valid, ctx_pos_c
+
+
+def _valid_for_block(block: torch.Tensor, key: torch.Tensor, window: int):
+    """[B, T, 2w] pair-validity mask and clamped context positions; cell
+    (b, t, o) is the pair (center (b, t), context (b, t + offs[o]))."""
+    cwin = prng.randint(key, block.shape, 1, window + 1)
+    return _valid_from_cwin(block, cwin, window)
+
+
+def _pairs_for_block(block: torch.Tensor, key: torch.Tensor, window: int):
+    """(centers, contexts, valid) flattened to [B*T*2w]."""
+    valid, ctx_pos_c = _valid_for_block(block, key, window)
+    return _pairs_from_valid(block, valid, ctx_pos_c)
+
+
+def _pairs_from_valid(block, valid, ctx_pos_c):
+    centers = block[:, :, None].expand(valid.shape)
+    contexts = block[:, ctx_pos_c]
+    return centers.reshape(-1), contexts.reshape(-1), valid.reshape(-1)
+
+
+def _draw_negatives(key: torch.Tensor, shape, neg_keep: torch.Tensor,
+                    neg_alias: torch.Tensor) -> torch.Tensor:
+    """Unigram^power negatives by alias table; key may carry batch dims."""
+    n = neg_keep.shape[0]
+    u1 = prng.uniform(key, shape)
+    u2 = prng.uniform(prng.fold_in(key, 1), shape)
+    j = torch.clamp_max((u1 * n).to(torch.int32), n - 1).long()
+    return torch.where(u2 < neg_keep[j], j, neg_alias[j].long())
+
+
+def _sgns_apply(w_in, w_out, centers, contexts, valid, negs, lr: float):
+    """One exact-negative SGNS step with manual gradients and scatter-mean
+    updates (single replica), in place. P pairs, k negatives per pair."""
+    P = centers.shape[0]
+    k = negs.shape[1]
+    c = torch.where(valid, centers, 0).long()
+    targets = torch.cat([torch.where(valid, contexts, 0).long()[:, None],
+                         negs.long()], dim=1)                   # [P, 1+k]
+    vi = w_in[c]                                                # [P, D]
+    vo = w_out[targets]                                         # [P, 1+k, D]
+    logits = torch.einsum("pd,pkd->pk", vi, vo)
+    labels = torch.zeros((P, 1 + k), dtype=torch.float32, device=vi.device)
+    labels[:, 0] = 1.0
+    g = (torch.sigmoid(logits) - labels) * valid[:, None]
+    d_vi = torch.einsum("pk,pkd->pd", g, vo)
+    d_vo = (g[:, :, None] * vi[:, None, :]).reshape(-1, vi.shape[-1])
+    tflat = targets.reshape(-1)
+    vmask = valid[:, None].expand(P, 1 + k).reshape(-1).to(torch.float32)
+    cnt_in = torch.zeros(w_in.shape[0], device=vi.device).index_add_(
+        0, c, valid.to(torch.float32))
+    cnt_out = torch.zeros(w_out.shape[0], device=vi.device).index_add_(
+        0, tflat, vmask)
+    w_in.index_add_(0, c, -lr * d_vi / cnt_in.clamp_min(1.0)[c][:, None])
+    w_out.index_add_(0, tflat,
+                     -lr * d_vo / cnt_out.clamp_min(1.0)[tflat][:, None])
+    return w_in, w_out
+
+
+def _shift(x: torch.Tensor, d: int) -> torch.Tensor:
+    """y[:, t] = x[:, t + d] along axis 1, zero beyond the bounds."""
+    if d == 0:
+        return x
+    y = torch.zeros_like(x)
+    if d > 0:
+        y[:, :-d] = x[:, d:]
+    else:
+        y[:, -d:] = x[:, :d]
+    return y
+
+
+def _sgns_apply_shared_conv(w_in, w_out, block, valid, negs, lr: float,
+                            neg_weight: float, window: int):
+    """Shared-negative SGNS step in the dense shifted-window form (single
+    replica, band=False), in place. block i32 [B, T], valid bool [B, T, 2w],
+    negs [kB]."""
+    B, T = block.shape
+    N = B * T
+    D = w_in.shape[1]
+    offs = _offsets(window)
+    tok = block.reshape(-1).clamp_min(0).long()
+    negs = negs.long()
+    vf = valid.to(torch.float32)                        # [B, T, 2w]
+    ein = w_in[tok].reshape(B, T, D)
+    eout = w_out[tok].reshape(B, T, D)
+    wn = w_out[negs]                                    # [kB, D]
+    logits = torch.stack([(ein * _shift(eout, d)).sum(-1) for d in offs], -1)
+    g_pos = (torch.sigmoid(logits) - 1.0) * vf          # [B, T, 2w]
+    vcnt = vf.sum(-1)                                   # [B, T]
+    # negative half: sgns_shared_grads with vi = ein, g_pos = 0 and
+    # mask = neg_weight * vcnt (every valid pair of a center shares
+    # sigmoid(ein . wn)); d_vo is g_pos * ein = 0 and unused
+    e2 = ein.reshape(N, D)
+    d_neg, _, d_wn = sgns_shared_grads(
+        e2, e2, wn, torch.zeros(N, device=e2.device),
+        (neg_weight * vcnt).reshape(N))
+    acc_in = sum(g_pos[..., i, None] * _shift(eout, d)
+                 for i, d in enumerate(offs)) + d_neg.reshape(B, T, D)
+    acc_out = sum(_shift(g_pos[..., i, None] * ein, -d)
+                  for i, d in enumerate(offs))
+    cnt_out_pos = sum(_shift(vf[..., i], -d) for i, d in enumerate(offs))
+    cnt_in = torch.zeros(w_in.shape[0], device=e2.device).index_add_(
+        0, tok, vcnt.reshape(N))
+    cnt_out = torch.zeros(w_out.shape[0], device=e2.device).index_add_(
+        0, tok, cnt_out_pos.reshape(N))
+    cnt_n = (vf.sum() * neg_weight).clamp_min(1.0)
+    w_in.index_add_(0, tok, -lr * acc_in.reshape(N, D)
+                    / cnt_in.clamp_min(1.0)[tok][:, None])
+    w_out.index_add_(0, tok, -lr * acc_out.reshape(N, D)
+                     / cnt_out.clamp_min(1.0)[tok][:, None])
+    w_out.index_add_(0, negs, -lr * d_wn / cnt_n)
+    return w_in, w_out
+
+
+def _block_lr(i: int, n_blocks: int, lr_start: np.float32,
+              lr_end: np.float32) -> float:
+    """The JAX epoch's f32 linear decay within an epoch."""
+    frac = np.float32(i) / np.float32(n_blocks)
+    return float(lr_start * (np.float32(1.0) - frac) + lr_end * frac)
+
+
+def _train_epoch(w_in, w_out, corpus, neg_keep, neg_alias, key, lr_start,
+                 lr_end, window: int, negatives: int,
+                 shared_negatives: int = 0):
+    """One epoch over corpus [n_blocks, B, T] (-1 padded), block by block.
+    Each block's random draws are made in batches of blocks."""
+    n_blocks, B, T = corpus.shape
+    per_block = (shared_negatives if shared_negatives
+                 else B * T * 2 * window * negatives) + B * T
+    chunk = max(1, min(n_blocks, _DRAW_BUDGET // per_block))
+    for c0 in range(0, n_blocks, chunk):
+        ids = torch.arange(c0, min(c0 + chunk, n_blocks), device=key.device)
+        kb = prng.fold_in(key, ids)                          # [n, 2]
+        cwin = prng.randint(kb, (B, T), 1, window + 1)       # [n, B, T]
+        nshape = ((shared_negatives,) if shared_negatives
+                  else (B * T * 2 * window, negatives))
+        negs = _draw_negatives(prng.fold_in(kb, 2), nshape, neg_keep,
+                               neg_alias)
+        for n, i in enumerate(range(c0, c0 + len(ids))):
+            block = corpus[i]
+            lr = _block_lr(i, n_blocks, lr_start, lr_end)
+            valid, ctx_pos_c = _valid_from_cwin(block, cwin[n], window)
+            if shared_negatives:
+                _sgns_apply_shared_conv(
+                    w_in, w_out, block, valid, negs[n], lr,
+                    neg_weight=negatives / shared_negatives, window=window)
+            else:
+                centers, contexts, vflat = _pairs_from_valid(
+                    block, valid, ctx_pos_c)
+                _sgns_apply(w_in, w_out, centers, contexts, vflat, negs[n],
+                            lr)
+    return w_in, w_out
+
+
+def train_skipgram(
+    corpus: np.ndarray | torch.Tensor,
+    vocab_size: int,
+    cfg: SGNSConfig,
+    counts: np.ndarray | None = None,
+    num_partitions: int = 1,
+    init: tuple[np.ndarray, np.ndarray] | None = None,
+    start_epoch: int = 0,
+    on_epoch=None,
+    *,
+    device,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Train SGNS on a dense [N, T] i32 corpus (-1 padding) on `device`.
+    Returns (w_in, w_out) as numpy f32 [vocab, dim].
+
+    corpus may be a device tensor (the walk engine's handoff). init resumes
+    from given tables (numpy, e.g. the JAX package's) at start_epoch;
+    on_epoch(ep, w_in, w_out) receives numpy copies after each epoch."""
+    if num_partitions != 1:
+        raise NotPorted("num_partitions > 1 (--w2vPartitions): data-parallel "
+                        "training is ROADMAP Queue 1 item 11")
+    if cfg.model_shards != 1:
+        raise NotPorted("model_shards > 1 (--w2vModelShards): dim-sharded "
+                        "tables are ROADMAP Queue 1 item 11")
+    if cfg.shared_negatives and cfg.shared_impl != "conv":
+        raise NotPorted(f"shared_impl {cfg.shared_impl!r}: only 'conv' is "
+                        "ported (ROADMAP Queue 1, not to port)")
+    device = torch.device(device)
+    corpus = torch.as_tensor(corpus).to(device=device, dtype=torch.int32)
+    N, T = corpus.shape
+    if counts is None:
+        flat = corpus.reshape(-1)
+        counts = torch.bincount(flat[flat >= 0].long(), minlength=vocab_size
+                                ).cpu().numpy().astype(np.float64)
+    keep, alias = build_alias(np.maximum(counts, 1e-12) ** cfg.power)
+    neg_keep = torch.as_tensor(keep, dtype=torch.float32).to(device)
+    neg_alias = torch.as_tensor(alias, dtype=torch.int64).to(device)
+
+    B = max(1, min(cfg.row_block, max(N, 1)))
+    n_blocks = -(-N // B)
+    padded = torch.full((n_blocks * B, T), -1, dtype=torch.int32,
+                        device=device)
+    padded[:N] = corpus
+    blocks = padded.reshape(n_blocks, B, T)
+
+    key = prng.prng_key(cfg.seed, device)
+    if init is not None:
+        w_in, w_out = params_from_numpy(init[0], init[1], device)
+    else:
+        w_in, w_out = _init_embeddings(vocab_size, cfg.dim,
+                                       prng.fold_in(key, 0x1A17))
+    lr_lo = cfg.lr * cfg.min_lr_frac
+    for ep in range(start_epoch, cfg.iters):
+        lr_s = cfg.lr + (lr_lo - cfg.lr) * ep / max(cfg.iters, 1)
+        lr_e = cfg.lr + (lr_lo - cfg.lr) * (ep + 1) / max(cfg.iters, 1)
+        _train_epoch(w_in, w_out, blocks, neg_keep, neg_alias,
+                     prng.fold_in(key, ep), np.float32(lr_s),
+                     np.float32(lr_e), cfg.window, cfg.negatives,
+                     shared_negatives=cfg.shared_negatives)
+        if on_epoch is not None:
+            on_epoch(ep, w_in.cpu().numpy(), w_out.cpu().numpy())
+    return w_in.cpu().numpy(), w_out.cpu().numpy()

@@ -1,0 +1,150 @@
+"""Single-device walk engine (port of stellar_rw_tpu/walk/engine.py).
+
+All rounds of a dispatch run in one launch of the walk kernel
+(ops/walk_step.py, csrc/walk.cu): one thread per walker and round, the whole
+walk inside the kernel. Corpora are bitwise equal to
+stellar_rw_tpu.walk.engine.random_walks for the same graph, seed, p and q:
+every uniform is the JAX package's own threefry element.
+
+Left out on purpose: the static cascade's overflow counter and the dynamic
+re-dispatch. A per-thread trial loop has no compaction buffer to overflow,
+and runs the trial budget exactly.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from stellar_rw_tpu.graph.csr import CSRGraph
+
+from ..errors import NotPorted
+from ..ops import prng, sampling, walk_step
+from ..ops.sampling import DeviceGraph
+
+
+class WalkSpec(NamedTuple):
+    """Static walk configuration of the rejection sampler."""
+
+    walk_length: int
+    p: float
+    q: float
+    max_rounds: int = 16         # rejection-sampler round cap
+    k_candidates: int = 4        # candidates evaluated per rejection round
+    n_stream: int = 0            # unpadded walker count the uniform-stream
+    #                              width derives from (0 = the batch size)
+
+
+def walk_corpus(g: DeviceGraph, starts: torch.Tensor, key: torch.Tensor,
+                spec: WalkSpec, num_walks: int,
+                round_offset: int = 0) -> torch.Tensor:
+    """Rounds round_offset .. round_offset+num_walks-1 in one dispatch ->
+    i32 [num_walks*W, L+2]; round r of walker w at row r*W + w."""
+    keys = walk_step.trial_keys(key.cpu(), round_offset, num_walks,
+                                spec.walk_length,
+                                spec.max_rounds * spec.k_candidates)
+    return walk_step.walk_rounds(
+        g, starts, keys.to(g.device), spec.walk_length, spec.p, spec.q,
+        spec.n_stream or starts.shape[0])
+
+
+def in_row_hash(g: DeviceGraph, rows: torch.Tensor,
+                queries: torch.Tensor) -> torch.Tensor:
+    """Exact membership queries[i] in N(rows[i]) by the bucket tables.
+    Rows beyond V read row V-1, as the JAX package's clamped gather does."""
+    meta = g.vmeta[rows.clamp(0, g.num_vertices - 1).long()]
+    return walk_step.member(g, meta[..., 2], meta[..., 3], queries)
+
+
+def corpus_invariants(g: DeviceGraph, walks: torch.Tensor,
+                      chunk_rows: int = 1 << 18) -> torch.Tensor:
+    """Invariant counters over a dense corpus on its device, i64[3]:
+    [0] consecutive pairs that are not arcs, [1] -1 followed by a live id,
+    [2] ids outside [-1, V). All zero on a correct corpus."""
+    V = g.num_vertices
+    out = torch.zeros(3, dtype=torch.int64, device=walks.device)
+    for s in range(0, walks.shape[0], chunk_rows):
+        w = walks[s:s + chunk_rows]
+        a, b = w[:, :-1], w[:, 1:]
+        valid = (a >= 0) & (b >= 0)
+        member = in_row_hash(g, a.clamp_min(0), b.clamp_min(0))
+        out[0] += (valid & ~member).sum()
+        out[1] += ((a < 0) & (b >= 0)).sum()
+        out[2] += ((w >= V) | (w < -1)).sum()
+    return out
+
+
+def assert_corpus_invariants(g: DeviceGraph, walks: torch.Tensor) -> dict:
+    """Raise if the invariant counters are nonzero; returns them."""
+    c = corpus_invariants(g, walks).tolist()
+    out = {"bad_arcs": c[0], "resurrected": c[1], "out_of_range": c[2]}
+    if any(out.values()):
+        raise AssertionError(f"walk invariant violations: {out}")
+    return out
+
+
+def random_walks(
+    graph: CSRGraph,
+    walk_length: int,
+    num_walks: int,
+    p: float = 1.0,
+    q: float = 1.0,
+    seed: int = 0,
+    sampler: str = "rejection",
+    dtype: str = "float32",
+    starts: np.ndarray | None = None,
+    device_graph: DeviceGraph | None = None,
+    max_batch_walkers: int = 2_000_000,
+    as_numpy: bool = True,
+    rng_impl: str = "threefry",
+    schedule: str = "static",
+    *,
+    device,
+) -> np.ndarray | torch.Tensor:
+    """Full corpus: num_walks rounds of one walk per start. Returns
+    [num_walks * W, walk_length + 2] dense ids (-1 pad); round r of walker w
+    at row r*W + w. Same signature and result as the JAX package's
+    random_walks, plus the device; as_numpy=False returns the device tensor.
+
+    Rounds are grouped into as few dispatches as fit max_batch_walkers
+    (whole rounds only: streams are indexed by in-round lane). `schedule`
+    names the JAX package's execution plans; both give the one corpus the
+    per-thread trial loop computes.
+    """
+    sampler, max_rounds = sampling.plan_sampler(sampler, p, q)
+    if sampler != "rejection":
+        raise NotPorted(
+            f"sampler {sampler!r} (--sampler cdf, or a p/q bias ratio above "
+            "32): the exact-CDF samplers are ROADMAP Queue 1 item 7 (K7)")
+    if rng_impl not in ("threefry", "threefry2x32"):
+        raise NotPorted(f"rng_impl {rng_impl!r}: XLA RngBitGenerator streams "
+                        "have no port (ROADMAP Queue 1, not to port)")
+    if dtype != "float32":
+        raise NotPorted(f"dtype {dtype!r}: float64 serves the CDF oracle "
+                        "only (ROADMAP Queue 1 item 7)")
+    if schedule not in ("static", "dynamic"):
+        raise ValueError(f"schedule must be 'static' or 'dynamic', "
+                         f"got {schedule!r}")
+    device = torch.device(device)
+    g = (device_graph if device_graph is not None
+         else sampling.device_put_graph(graph, device))
+    if g.device.type != device.type:
+        raise ValueError(f"device_graph lies on {g.device}, not {device}")
+    device = g.device
+    if starts is None:
+        starts = np.arange(graph.num_vertices, dtype=np.int32)
+    W = len(starts)
+    spec = WalkSpec(walk_length=walk_length, p=float(p), q=float(q),
+                    max_rounds=max_rounds, n_stream=W)
+    starts_dev = torch.as_tensor(np.asarray(starts, dtype=np.int32),
+                                 device=device)
+    base = prng.prng_key(seed)
+    per_batch = max(1, min(num_walks, max_batch_walkers // max(W, 1)))
+    rounds = []
+    for r in range(0, num_walks, per_batch):
+        rb = min(per_batch, num_walks - r)
+        rounds.append(walk_corpus(g, starts_dev, base, spec, rb, r))
+    out = torch.cat(rounds) if len(rounds) > 1 else rounds[0]
+    return out.cpu().numpy() if as_numpy else out
