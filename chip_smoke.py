@@ -3,18 +3,28 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a), holds each against
-its plain PyTorch version on the card, then drives the main path once
-through the CLI: `node2vec --sharedNegatives 128` on a BlogCatalog-shaped
-graph (10,000 vertices, 334,000 sampled edges; the node2vec paper's
-BlogCatalog has 10,312 vertices and 333,983 edges) with walkLength 80,
-numWalks 10 and dim 128. It counts the kernels' launches in that run,
-checks the outputs, and runs the karate quality gate on the card.
+Builds the port's three CUDA kernels from csrc/ (nvcc, sm_90a, in
+parallel), holds each against its plain PyTorch version on the card, and
+drives the port's paths once each through the entry points a user calls:
 
-Every failure raises and the script exits non-zero. It needs a CUDA device
-and the repository around it; it imports nothing of JAX. The last line is
-{"ok": true, "device": {...}}; the line before it lists each kernel with
-its launches, error against its plain version and times.
+  phases 2-5  `node2vec --sharedNegatives 128` through the CLI on a
+              BlogCatalog-shaped graph (10,000 vertices, 334,000 sampled
+              edges; the node2vec paper's BlogCatalog has 10,312 vertices
+              and 333,983 edges) with walkLength 80, numWalks 10, dim 128,
+              and the karate quality gate;
+  phases 6-7  the resident-row walks (`resident_walks`): kernel against
+              plain version bit for bit with rows in shared memory and in
+              device memory, then 16-regular graphs of 4,096 and 1,024
+              vertices at numWalks 10, walkLength 80, beside the general
+              walk kernel on the same graphs;
+  phase 8     `--cmd embedding` through the CLI on phase 4's walks.
+
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after. Every failure raises and the script exits non-zero. It
+needs a CUDA device and the repository around it; it imports nothing of JAX
+and nothing of the JAX package. The last line is {"ok": true, "device":
+{...}}; the line before it lists each kernel with its launches, its error
+against its plain version, its times and its bound.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -32,10 +43,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SGNS_SHAPES = [(2624, 128, 128), (300, 50, 37), (7, 128, 256)]
 # every trial mode of csrc/walk.cu: general, p == q == 1, q == 1
 WALK_PQ = [(0.25, 0.25), (1.0, 1.0), (1.0, 4.0), (4.0, 0.25), (0.5, 1.0)]
+# published H100 SXM peaks: device memory rate, and f32 outside the tensor
+# cores (an FMA counts as two operations)
+MEM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# the walk kernels' integer work is counted in draws. One draw is one
+# threefry-2x32 block (20 rounds of add, rotate, xor; 5 key injections of 3
+# adds; 4 operations to open it) and 4 operations to make the float. The
+# card's int32 rate is not published; the f32 lanes' instruction rate,
+# F32_FLOPS / 2, is at least that, so the bound stays a lower bound.
+OPS_PER_DRAW = 20 * 3 + 5 * 3 + 4 + 4
+INT_OPS_PER_S = F32_FLOPS / 2
 MAIN_FLAGS = ["--cmd", "node2vec", "--walkLength", "80", "--numWalks", "10",
               "--p", "0.25", "--q", "0.25", "--dim", "128", "--window", "10",
               "--negatives", "5", "--sharedNegatives", "128", "--iter", "1",
               "--validate", "true"]
+EMBED_FLAGS = ["--cmd", "embedding", "--dim", "128", "--window", "10",
+               "--negatives", "5", "--sharedNegatives", "128", "--iter", "1"]
 
 
 def check(ok: bool, what: str) -> None:
@@ -57,27 +81,82 @@ def synth_power_law_arcs(num_vertices: int, num_edges: int, seed: int = 0):
 
 
 def synth_power_law_graph(num_vertices: int, num_edges: int, seed: int = 0):
-    from stellar_rw_tpu.graph.csr import from_edge_arrays
+    from stellar_rw_tpu_torch.graph.csr import from_edge_arrays
 
     src, dst = synth_power_law_arcs(num_vertices, num_edges, seed)
     return from_edge_arrays(src, dst, num_vertices=num_vertices,
                             symmetrize=True)
 
 
+def bound(nbytes: float, ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over their peak rate."""
+    by_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    by_ops = ops / ops_per_s * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def regular_graph(num_vertices: int, degree: int, seed: int,
+                  weighted: bool = False):
+    """A `degree`-regular multigraph: the union of degree/2 random
+    Hamiltonian cycles (no self-loops; a repeated edge stays a multi-edge)."""
+    from stellar_rw_tpu_torch.graph.csr import from_edge_arrays
+
+    rng = np.random.default_rng(seed)
+    orders = [rng.permutation(num_vertices) for _ in range(degree // 2)]
+    src = np.concatenate(orders)
+    dst = np.concatenate([np.roll(o, -1) for o in orders])
+    weights = (rng.random(len(src)).astype(np.float32) * 4 + 0.25
+               if weighted else None)
+    return from_edge_arrays(src, dst, weights, num_vertices=num_vertices,
+                            symmetrize=True)
+
+
+_BUSY = []
+
+
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn() in ms by CUDA events, after one warm-up."""
+    """Mean device time of fn() in ms by CUDA events, after one warm-up.
+
+    A wrapper's host side (Python, ctypes) can take longer than a short
+    kernel, and events on an idle stream would then time the host. So a
+    product of some 20 ms is queued first: the launches pile up behind it
+    and run back to back between the two events."""
     import torch
 
+    if not _BUSY:
+        _BUSY.append(torch.ones((8192, 8192), device="cuda"))
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.mm(_BUSY[0], _BUSY[0])
     t0.record()
     for _ in range(iters):
         fn()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def cuda_ms_once(fn):
+    """(fn(), its device time in ms) for one call without a warm-up: for the
+    plain versions, which take seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def phase_env(torch, kernels) -> str:
@@ -92,17 +171,26 @@ def phase_env(torch, kernels) -> str:
                           ).stdout.strip().splitlines()[-1]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    builds = {}
-    for k in kernels:
-        k.fn()
-        builds[k.source] = round(k.build_seconds, 2)
+    from stellar_rw_tpu_torch import native
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(kernels)) as pool:     # one nvcc each
+        list(pool.map(lambda k: k.fn(), kernels))
+    wall = time.perf_counter() - t0
+    builds = {k.source: round(k.build_seconds, 2) for k in kernels}
     print(f"phase 1 env: {smi} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | {nvcc} | sm_90a build seconds {builds}")
+          f"{torch.version.cuda} | {nvcc} | sm_90a build seconds {builds}, "
+          f"{wall:.2f} s together | host table builder: "
+          f"{'C++ (native/graph_builder.cpp)' if native.available() else 'NumPy (no host compiler)'}")
+    for k in kernels:
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas {k.source}: {line.strip()}")
     return smi
 
 
 def phase_walk(torch) -> None:
-    from stellar_rw_tpu.graph import io as gio
+    from stellar_rw_tpu_torch.graph import io as gio
     from stellar_rw_tpu_torch.ops import prng, sampling, walk_step
 
     graphs = {
@@ -160,11 +248,17 @@ def phase_sgns(torch) -> dict:
                                                        mask)
             runs = [cuda_ms(f, 50) for f in (plain, kern, kern, plain)]
             timing = {"ms": (runs[1] + runs[2]) / 2,
-                      "plain_ms": (runs[0] + runs[3]) / 2}
+                      "plain_ms": (runs[0] + runs[3]) / 2,
+                      # three products of 2*P*kB*D flops in f32; each input
+                      # read once, each output written once
+                      **bound(tensor_bytes(vi, vo, wn, g_pos, mask, *got),
+                              3 * 2 * P * kB * D, F32_FLOPS),
+                      "library_ms": None}
     print(f"phase 3 sgns_shared_grads: within rtol 1e-5 atol 1e-5 of the "
           f"plain f32 version at {SGNS_SHAPES}, max abs err {err:.3g}; at "
           f"{SGNS_SHAPES[0]} kernel {timing['ms']:.4f} ms, plain "
-          f"{timing['plain_ms']:.4f} ms (CUDA events, mean of 2x50)")
+          f"{timing['plain_ms']:.4f} ms (CUDA events, mean of 2x50), bound "
+          f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}")
     return {"max_abs_err": err, **timing}
 
 
@@ -180,21 +274,32 @@ def phase_walk_main_shape(torch, graph) -> dict:
     keys = walk_step.trial_keys(prng.prng_key(0), 0, 10, 80,
                                 4 * max_rounds).cuda()
     kern = lambda: walk_step.walk_rounds(dg, starts, keys, 80, 0.25, 0.25, V)
-    plain = lambda: walk_step.walk_corpus_ref(dg, starts, keys, 80, 0.25,
-                                              0.25, V)
-    got, want = kern(), plain()
+    counts = {}
+    got = kern()
+    want, plain_ms = cuda_ms_once(lambda: walk_step.walk_corpus_ref(
+        dg, starts, keys, 80, 0.25, 0.25, V, counts=counts))
     check(torch.equal(got, want),
           "walk kernel differs from its plain version at the main shape")
     err = float((got - want).abs().max())
     ms = cuda_ms(kern, 5)
-    plain_ms = cuda_ms(plain, 1)
+    # draws this corpus needed: 2 for each first-order step, 3 for a trial
+    # on the dense draws, 4 (a key fold and 3) for one on per-lane draws
+    draws = (2 * int((got[:, 1] >= 0).sum()) + 3 * counts["dense_trials"]
+             + 4 * counts["lane_trials"])
+    b = bound(tensor_bytes(starts, keys.to(torch.int32), got, dg.vmeta,
+                           dg.alias_packed, dg.hash_buckets),
+              draws * OPS_PER_DRAW, INT_OPS_PER_S)
     print(f"phase 4a walk kernel at the main shape ({V} starts x 10 rounds, "
           f"L=80, p=q=0.25): bitwise equal; kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.1f} ms (CUDA events)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+          f"{plain_ms:.1f} ms (CUDA events, one call); {draws} draws, bound "
+          f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+            "library_ms": None}
 
 
-def phase_main(torch, walk_kernel, sgns_kernel, smi, tmp) -> None:
+def phase_main(torch, walk_kernel, sgns_kernel, smi, tmp) -> dict:
+    """The node2vec path through the CLI. Returns the two kernels' launch
+    counts in this run and the output directory."""
     from stellar_rw_tpu_torch import cli
     from stellar_rw_tpu_torch.models import node2vec as n2v
 
@@ -228,11 +333,13 @@ def phase_main(torch, walk_kernel, sgns_kernel, smi, tmp) -> None:
           f"{wall:.1f} s; launches walk={walk_kernel.launches} "
           f"sgns={sgns_kernel.launches}; invariants {report['invariants']} "
           f"[{smi}]")
+    return {"walk": walk_kernel.launches,
+            "sgns_shared_grads": sgns_kernel.launches, "out": out}
 
 
 def phase_quality(torch) -> None:
-    from stellar_rw_tpu.graph import io as gio
-    from stellar_rw_tpu.models import eval as ev
+    from stellar_rw_tpu_torch.graph import io as gio
+    from stellar_rw_tpu_torch.models import eval as ev
     from stellar_rw_tpu_torch.models import word2vec as w2v
     from stellar_rw_tpu_torch.walk import engine
 
@@ -254,34 +361,210 @@ def phase_quality(torch) -> None:
           f"faction accuracy {acc:.4f} (>= 0.85)")
 
 
+def phase_resident_check(torch) -> int:
+    """Phase 6: the resident-row kernel against its plain version, bit for
+    bit, on the card: seeded draws and external uniforms, rows in shared
+    memory and rows in device memory."""
+    from stellar_rw_tpu_torch.graph import csr
+    from stellar_rw_tpu_torch.graph import io as gio
+    from stellar_rw_tpu_torch.ops import resident_walk as rw
+    from stellar_rw_tpu_torch.ops import sampling
+    from stellar_rw_tpu_torch.walk import engine
+
+    graphs = {
+        "karate": gio.load_edge_list(
+            os.path.join(ROOT, "tests", "data", "karate.txt"),
+            weighted=False, directed=False),
+        # the two small graphs of tests/test_pallas.py
+        "weighted5": csr.from_adjacency(
+            {0: [(1, 1.0)], 1: [(0, 1.0), (2, 2.0), (3, 1.0), (4, 0.5)],
+             2: [(1, 1.0), (0, 1.0)], 3: [(1, 1.0)], 4: [(1, 1.0)]}),
+        "chain": csr.from_adjacency({0: [(1, 1.0)], 1: [(2, 1.0)], 2: []}),
+        "regular2k": regular_graph(2048, 10, seed=2, weighted=True),
+    }
+    L, T, rounds = 20, 8, 3
+    n = 0
+    placed = {"shared": 0, "global": 0}
+    rng = np.random.default_rng(5)
+    for name, g in graphs.items():
+        md, V = max(g.max_degree, 1), g.num_vertices
+        tab = torch.as_tensor(rw.build_row_tables(g, md)).cuda()
+        dg = sampling.device_put_graph(g, "cuda")
+        W = rounds * V
+        W_pad = -(-max(W, 256) // 256) * 256
+        ext = torch.as_tensor(rng.random(rw.uniforms_shape(L, T, W_pad),
+                                         dtype=np.float32)).cuda()
+        fits = rw.row_placement(tab) == "shared"
+        for p, q in WALK_PQ:
+            for uniforms in (None, ext):
+                want = rw.walk_corpus_resident_ref(tab, 7, V, W, L, p, q, md,
+                                                   W_pad, T, uniforms)
+                for rows in (("shared", "global") if fits else ("global",)):
+                    got = rw.walk_corpus_resident(tab, 7, V, W, L, p, q, md,
+                                                  W_pad, T, uniforms, rows)
+                    torch.cuda.synchronize()
+                    check(torch.equal(got, want),
+                          f"resident walk kernel differs from its plain "
+                          f"version on {name} at p={p} q={q}, rows in {rows} "
+                          f"memory, "
+                          f"{'seeded' if uniforms is None else 'external'} "
+                          f"draws")
+                    bad = engine.corpus_invariants(dg, got[:W]).tolist()
+                    check(bad == [0, 0, 0] and bool((got[W:] == -1).all()),
+                          f"resident walk invariants {bad} on {name}")
+                    placed[rows] += 1
+                    n += 1
+    check(placed["shared"] > 0 and placed["global"] > 0,
+          f"row placements checked: {placed}")
+    print(f"phase 6 resident walk kernel: bitwise equal to "
+          f"walk_corpus_resident_ref on the card in {n} cases ({placed}; "
+          f"{list(graphs)}, (p, q) in {WALK_PQ}, seeded and external "
+          f"draws, L={L}, max_trials={T}); walk invariants zero on each")
+    return n
+
+
+def phase_resident_main(torch, kernel, smi) -> dict:
+    """Phase 7: resident_walks at full width on 16-regular graphs of 4,096
+    vertices (rows in device memory) and 1,024 vertices (rows in shared
+    memory): numWalks 10, walkLength 80, p = q = 0.25, max_trials 8. Then,
+    on each, the kernel against its plain version, its time, and the general
+    walk kernel's time on the same graph and walk lengths."""
+    from stellar_rw_tpu_torch.ops import prng, sampling, walk_step
+    from stellar_rw_tpu_torch.ops import resident_walk as rw
+    from stellar_rw_tpu_torch.walk import engine
+
+    L, R, T, p, q, seed = 80, 10, 8, 0.25, 0.25, 0
+    graphs = {V: regular_graph(V, 16, seed=V) for V in (4096, 1024)}
+    # the path, through its entry point, counted
+    kernel.launches = 0
+    corpora = {V: rw.resident_walks(g, L, R, p, q, seed=seed, max_trials=T,
+                                    as_numpy=False)
+               for V, g in graphs.items()}
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    check(launches == len(graphs),
+          f"resident_walks launched {launches} kernels on {len(graphs)} "
+          f"graphs")
+
+    shapes = []
+    for V, g in graphs.items():
+        md, W = g.max_degree, R * V
+        check(md == 16, f"regular graph has max degree {md}")
+        tab = torch.as_tensor(rw.build_row_tables(g, md)).cuda()
+        W_pad = -(-W // 256) * 256
+        place = rw.row_placement(tab)
+        check(place == ("global" if V == 4096 else "shared"),
+              f"rows of the V={V} table read from {place} memory")
+        dg = sampling.device_put_graph(g, "cuda")
+        counts = {}
+        want, plain_ms = cuda_ms_once(lambda: rw.walk_corpus_resident_ref(
+            tab, seed, V, W, L, p, q, md, W_pad, T, counts=counts))
+        got = corpora[V]
+        check(got.shape == (W, L + 2) and torch.equal(got, want[:W]),
+              f"resident_walks differs from the plain version at V={V}")
+        bad = engine.corpus_invariants(dg, got).tolist()
+        check(bad == [0, 0, 0], f"resident_walks invariants {bad} at V={V}")
+        kern = lambda: rw.walk_corpus_resident(tab, seed, V, W, L, p, q, md,
+                                               W_pad, T)
+        # the general walk kernel on the same graph, starts and lengths
+        starts = torch.arange(V, dtype=torch.int32, device="cuda")
+        _, max_rounds = sampling.plan_sampler("rejection", p, q)
+        keys = walk_step.trial_keys(prng.prng_key(seed), 0, R, L,
+                                    4 * max_rounds).cuda()
+        general = lambda: walk_step.walk_rounds(dg, starts, keys, L, p, q, V)
+        check(engine.corpus_invariants(dg, general()).tolist() == [0, 0, 0],
+              f"general walk invariants at V={V}")
+        runs = [cuda_ms(f, 20) for f in (general, kern, kern, general)]
+        # the wrapper's transposition of the [L+2, W_pad] corpus, alone
+        buf = torch.empty((L + 2, W_pad), dtype=torch.int32, device="cuda")
+        transpose_ms = cuda_ms(lambda: buf.t().contiguous(), 20)
+        draws = 2 * int((got[:, 1] >= 0).sum()) + 3 * counts["trials"]
+        b = bound(tensor_bytes(tab) + W_pad * (L + 2) * 4,
+                  draws * OPS_PER_DRAW, INT_OPS_PER_S)
+        shapes.append({
+            "vertices": V, "walkers": W, "steps": counts["steps"],
+            "trials": counts["trials"], "rows": place,
+            "table_bytes": tensor_bytes(tab), "max_abs_err": 0.0,
+            "ms": (runs[1] + runs[2]) / 2, "transpose_ms": transpose_ms,
+            "plain_ms": plain_ms,
+            "general_walk_ms": (runs[0] + runs[3]) / 2, **b})
+        sh = shapes[-1]
+        print(f"phase 7 resident_walks, 16-regular V={V}: {W} walkers, "
+              f"{sh['steps']} steps, {sh['trials']} trials, rows in "
+              f"{place} memory ({sh['table_bytes']} table bytes); bitwise "
+              f"equal to the plain version, invariants zero; kernel "
+              f"{sh['ms']:.4f} ms = {sh['steps'] / sh['ms'] / 1e6:.2f} G "
+              f"steps/s ({transpose_ms:.4f} ms of it the wrapper's "
+              f"transposition), plain {plain_ms:.1f} ms, general walk kernel "
+              f"{sh['general_walk_ms']:.4f} ms, bound {sh['bound_ms']:.5f} "
+              f"ms by {sh['bound_by']} (CUDA events, mean of 2x20; plain one call) "
+              f"[{smi}]")
+    main_shape = shapes[0]
+    keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    return {"launches": launches, **{k: main_shape[k] for k in keep},
+            "library_ms": None, "rows": main_shape["rows"], "shapes": shapes}
+
+
+def phase_embedding(torch, sgns_kernel, walks_dir: str, out: str) -> None:
+    """Phase 8: `--cmd embedding` through the CLI on phase 4's walks."""
+    from stellar_rw_tpu_torch import cli
+    from stellar_rw_tpu_torch.models import node2vec as n2v
+
+    report = {}
+    sgns_kernel.launches = 0
+    rc = cli.main(["--input", walks_dir, "--output", out] + EMBED_FLAGS,
+                  report=report)
+    check(rc == 0, f"cli.main returned {rc}")
+    check(sgns_kernel.launches > 0, "sgns_shared_grads was not launched")
+    for sub in ("vec/part-00000", "bin/model.npz"):
+        check(os.path.exists(os.path.join(out, sub)), f"missing /{sub}")
+    tokens, w_in, w_out = n2v.load_model(out)
+    check(report["paths"] == 100_000 and w_in.shape == (len(tokens), 128)
+          and len(tokens) == 10_000 and np.isfinite(w_in).all()
+          and np.isfinite(w_out).all(),
+          "embedding outputs not finite or of the wrong shape")
+    print(f"phase 8 --cmd embedding: {report['paths']} walks, "
+          f"{report['tokens']} tokens read back, vocabulary {len(tokens)}; "
+          f"trainer epoch {report['train_seconds']:.2f} s; launches "
+          f"sgns={sgns_kernel.launches}")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    from stellar_rw_tpu_torch.ops.resident_walk import RESIDENT_WALK_KERNEL
     from stellar_rw_tpu_torch.ops.sgns import SGNS_KERNEL
     from stellar_rw_tpu_torch.ops.walk_step import WALK_KERNEL
 
-    smi = phase_env(torch, (WALK_KERNEL, SGNS_KERNEL))
+    smi = phase_env(torch, (WALK_KERNEL, SGNS_KERNEL, RESIDENT_WALK_KERNEL))
     phase_walk(torch)
     sgns_row = phase_sgns(torch)
     walk_row = phase_walk_main_shape(
         torch, synth_power_law_graph(10_000, 334_000, seed=0))
     with tempfile.TemporaryDirectory() as tmp:
-        phase_main(torch, WALK_KERNEL, SGNS_KERNEL, smi, tmp)
-    launches = {"walk": WALK_KERNEL.launches,
-                "sgns_shared_grads": SGNS_KERNEL.launches}
-    phase_quality(torch)
+        main_run = phase_main(torch, WALK_KERNEL, SGNS_KERNEL, smi, tmp)
+        phase_quality(torch)
+        phase_resident_check(torch)
+        resident_row = phase_resident_main(torch, RESIDENT_WALK_KERNEL, smi)
+        phase_embedding(torch, SGNS_KERNEL,
+                        os.path.join(main_run["out"], "path"),
+                        os.path.join(tmp, "out_embedding"))
     kernels = [
         {"name": "walk", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/walk.cu",
          "replaces": "stellar_rw_tpu/walk/engine.py:176",
-         "launches": launches["walk"], **walk_row},
+         "launches": main_run["walk"], **walk_row},
         {"name": "sgns_shared_grads", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/sgns_shared.cu",
          "replaces": "stellar_rw_tpu/ops/pallas/sgns.py:90",
-         "launches": launches["sgns_shared_grads"], **sgns_row},
+         "launches": main_run["sgns_shared_grads"], **sgns_row},
+        {"name": "resident_walk", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/resident_walk.cu",
+         "replaces": "stellar_rw_tpu/ops/pallas/walk.py:238",
+         **resident_row},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
-"""CLI of the port: `python -m stellar_rw_tpu_torch --cmd node2vec|randomwalk`.
+"""CLI of the port: `python -m stellar_rw_tpu_torch --cmd
+node2vec|randomwalk|embedding`.
 
-Same flags as `python -m stellar_rw_tpu` (parsed by
-stellar_rw_tpu.utils.config.parse) and the same outputs: <output>/path
-walks, <output>/vec vectors and <output>/bin model. It runs on one CUDA
+Same flags as `python -m stellar_rw_tpu` (utils/config.py is the port's copy
+of that parser) and the same outputs: <output>/path walks, <output>/vec
+vectors and <output>/bin model; `embedding` reads a /path corpus back. It runs on one CUDA
 device; from the command line a machine without a GPU gets CudaUnavailable,
 never a CPU run. Each flag value the port does not serve yet exits with
 NotPorted naming its ROADMAP item.
@@ -16,12 +17,13 @@ import time
 import numpy as np
 import torch
 
-from stellar_rw_tpu.graph import io as gio
-from stellar_rw_tpu.utils.config import Params, TaskName, parse
-
 from .errors import NotPorted
+from .graph import io as gio
 from .models import node2vec as n2v
 from .ops import sampling
+from .utils.config import Params, TaskName, parse
+from .utils.logging import configure
+from .utils.stats import validate_walks, walk_stats
 from .walk import engine
 
 
@@ -31,9 +33,8 @@ class CudaUnavailable(RuntimeError):
 
 def check_flags(params: Params) -> None:
     """Raise NotPorted for each flag value this port does not serve."""
+    walks_run = params.cmd != TaskName.embedding
     refused = [
-        (params.cmd == TaskName.embedding,
-         "--cmd embedding (ROADMAP Queue 1 item 5)"),
         (params.shards > 1, "--shards > 1 (ROADMAP Queue 1 item 12)"),
         (params.partitioned, "--partitioned true (ROADMAP Queue 1 item 12)"),
         (params.w2v_partitions > 1,
@@ -47,9 +48,14 @@ def check_flags(params: Params) -> None:
          "item 7)"),
         (params.rng_impl != "threefry",
          "--rngImpl rbg|unsafe_rbg (not to port: XLA-only streams)"),
-        (params.checkpoint_every > 0,
-         "--checkpointEvery (ROADMAP Queue 1 item 5)"),
-        (params.resume, "--resume true (ROADMAP Queue 1 item 5)"),
+        # with walks the two flags also mean the walk rounds' checkpoint
+        # files; with --cmd embedding only the trainer's, which are served
+        (walks_run and params.checkpoint_every > 0,
+         "--checkpointEvery with --cmd randomwalk|node2vec: walk-round "
+         "checkpoints (ROADMAP Queue 1 item 5)"),
+        (walks_run and params.resume,
+         "--resume true with --cmd randomwalk|node2vec: walk-round "
+         "checkpoints (ROADMAP Queue 1 item 5)"),
         (params.profile_dir is not None, "--profile (not ported yet)"),
     ]
     for hit, what in refused:
@@ -65,8 +71,6 @@ def _sync(device: torch.device) -> None:
 def do_random_walk(params: Params, device: torch.device, report: dict):
     """Load the graph, run the walks, save /path. Returns (walks on the
     device, graph)."""
-    from stellar_rw_tpu.utils.stats import validate_walks, walk_stats
-
     graph = gio.load_edge_list(params.input, weighted=params.weighted,
                                directed=params.directed)
     print(f"vertices: {graph.num_vertices}")
@@ -96,10 +100,20 @@ def do_random_walk(params: Params, device: torch.device, report: dict):
 
 def run_job(params: Params, device: torch.device, report: dict) -> str:
     check_flags(params)
-    walks, graph = do_random_walk(params, device, report)
-    if params.cmd == TaskName.node2vec:
+    if params.cmd == TaskName.embedding:
+        # the walks file read back as ragged arrays (no per-token loop)
+        values, offsets = gio.load_walks_ragged(params.input)
+        report.update(paths=len(offsets) - 1, tokens=len(values))
+    else:
+        walks, graph = do_random_walk(params, device, report)
+    if params.cmd != TaskName.randomwalk:
         t0 = time.perf_counter()
-        tokens, w_in, w_out = n2v.embed_walks(walks, graph, params, device)
+        if params.cmd == TaskName.embedding:
+            tokens, w_in, w_out = n2v.embed_ragged_corpus(values, offsets,
+                                                          params, device)
+        else:
+            tokens, w_in, w_out = n2v.embed_walks(walks, graph, params,
+                                                  device)
         report["train_seconds"] = time.perf_counter() - t0
         print(f"trainer: {params.w2v_iter} epoch(s) in "
               f"{report['train_seconds']:.3f}s ({device})")
@@ -116,7 +130,6 @@ def main(argv: list[str] | None = None, device=None,
     params = parse(sys.argv[1:] if argv is None else argv)
     if params is None:
         return 1
-    from stellar_rw_tpu.utils.logging import configure
     configure(params.log_dir)
     if device is None:
         if not torch.cuda.is_available():

@@ -13,11 +13,10 @@ import os
 import numpy as np
 import torch
 
-from stellar_rw_tpu.graph.csr import CSRGraph
-from stellar_rw_tpu.utils.config import MODEL_SUFFIX, Params
-
 from ..errors import NotPorted
+from ..graph.csr import CSRGraph
 from ..ops.sampling import DeviceGraph
+from ..utils.config import MODEL_SUFFIX, Params
 from ..walk import engine
 from . import word2vec as w2v
 
@@ -29,6 +28,9 @@ def run_walks(graph: CSRGraph, params: Params, device,
     if params.shards > 1 or params.partitioned:
         raise NotPorted("--shards > 1 / --partitioned true: the sharded walk "
                         "engine is ROADMAP Queue 1 item 12 (K11)")
+    if params.checkpoint_every and params.output:
+        raise NotPorted("--checkpointEvery with walks: the walk rounds' "
+                        "checkpoint files are ROADMAP Queue 1 item 5")
     return engine.random_walks(
         graph, walk_length=params.walk_length, num_walks=params.num_walks,
         p=params.p, q=params.q, seed=params.seed, sampler=params.sampler,
@@ -75,13 +77,35 @@ def load_model(output_or_bin: str):
     return z["tokens"], z["w_in"], z["w_out"]
 
 
+def _checkpoint_path(output: str) -> str:
+    return os.path.join(output, MODEL_SUFFIX, "checkpoint.npz")
+
+
 def _train(corpus, vocab_size: int, params: Params, device):
-    if params.resume or params.checkpoint_every:
-        raise NotPorted("--resume / --checkpointEvery: trainer checkpoints "
-                        "are ROADMAP Queue 1 item 5")
-    return w2v.train_skipgram(corpus, vocab_size, sgns_config(params),
-                              num_partitions=params.w2v_partitions,
-                              device=device)
+    """Trainer with epoch checkpoints: --checkpointEvery N saves the tables
+    after every N-th epoch to <output>/bin/checkpoint.npz (the JAX package's
+    file), --resume true starts after the saved epoch. The keys are counter
+    based, so a resumed run replays the uninterrupted one exactly."""
+    init = None
+    start_epoch = 0
+    ckpt = _checkpoint_path(params.output) if params.output else None
+    if params.resume and ckpt and os.path.exists(ckpt):
+        z = np.load(ckpt)
+        init = (z["w_in"], z["w_out"])
+        start_epoch = int(z["epoch"]) + 1
+
+    on_epoch = None
+    if params.checkpoint_every and ckpt:
+        os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+
+        def on_epoch(ep, w_in, w_out):
+            if (ep + 1) % params.checkpoint_every == 0:
+                np.savez(ckpt, w_in=w_in, w_out=w_out, epoch=ep)
+
+    return w2v.train_skipgram(
+        corpus, vocab_size, sgns_config(params),
+        num_partitions=params.w2v_partitions, init=init,
+        start_epoch=start_epoch, on_epoch=on_epoch, device=device)
 
 
 def embed_walks(walks, graph: CSRGraph, params: Params, device):
@@ -89,6 +113,23 @@ def embed_walks(walks, graph: CSRGraph, params: Params, device):
     Returns (tokens = original ids, w_in, w_out)."""
     w_in, w_out = _train(walks, graph.num_vertices, params, device)
     return [int(i) for i in graph.ids], w_in, w_out
+
+
+def embed_token_corpus(token_lists, params: Params, device):
+    """Train SGNS from arbitrary token sequences. Returns (vocab, w_in,
+    w_out), vocab by descending frequency."""
+    corpus, vocab = w2v.corpus_from_token_lists(token_lists)
+    w_in, w_out = _train(corpus, len(vocab), params, device)
+    return vocab, w_in, w_out
+
+
+def embed_ragged_corpus(values: np.ndarray, offsets: np.ndarray,
+                        params: Params, device):
+    """embed_token_corpus on the ragged walks representation
+    (graph/io.load_walks_ragged): the `embedding` command's path."""
+    corpus, vocab = w2v.corpus_from_ragged(values, offsets)
+    w_in, w_out = _train(corpus, len(vocab), params, device)
+    return vocab, w_in, w_out
 
 
 def output_partitions(params: Params) -> int:

@@ -26,10 +26,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from stellar_rw_tpu.ops.alias import build_alias
-
 from ..errors import NotPorted
 from ..ops import prng
+from ..ops.alias import build_alias
 from ..ops.sgns import sgns_shared_grads
 
 # elements of per-block random draws generated in one batch
@@ -305,3 +304,43 @@ def train_skipgram(
         if on_epoch is not None:
             on_epoch(ep, w_in.cpu().numpy(), w_out.cpu().numpy())
     return w_in.cpu().numpy(), w_out.cpu().numpy()
+
+
+def corpus_from_token_lists(token_lists) -> tuple[np.ndarray, list]:
+    """(dense corpus, vocab tokens by descending frequency) from arbitrary
+    token sequences; every token kept, ties broken by str(token)."""
+    from collections import Counter
+    cnt = Counter(t for row in token_lists for t in row)
+    vocab = [t for t, _ in sorted(cnt.items(),
+                                  key=lambda kv: (-kv[1], str(kv[0])))]
+    index = {t: i for i, t in enumerate(vocab)}
+    T = max((len(r) for r in token_lists), default=0)
+    corpus = np.full((len(token_lists), T), -1, dtype=np.int32)
+    for i, row in enumerate(token_lists):
+        for j, t in enumerate(row):
+            corpus[i, j] = index[t]
+    return corpus, vocab
+
+
+def corpus_from_ragged(values: np.ndarray,
+                       offsets: np.ndarray) -> tuple[np.ndarray, list]:
+    """Vectorized corpus_from_token_lists for integer tokens in ragged form
+    (values i64[NT], offsets i64[NW+1], graph/io.load_walks_ragged): the
+    same vocab order and the same dense [N, T] i32 corpus (-1 padded), by
+    np.unique and one masked assignment."""
+    lengths = np.diff(offsets).astype(np.int64)
+    N = len(lengths)
+    T = int(lengths.max()) if N else 0
+    uniq, inv, counts = np.unique(values, return_inverse=True,
+                                  return_counts=True)
+    order = sorted(range(len(uniq)),
+                   key=lambda i: (-int(counts[i]), str(int(uniq[i]))))
+    rank = np.empty(len(uniq), dtype=np.int32)
+    rank[np.asarray(order, dtype=np.int64)] = np.arange(len(uniq),
+                                                        dtype=np.int32)
+    corpus = np.full((N, T), -1, dtype=np.int32)
+    if len(values):
+        mask = np.arange(T, dtype=np.int64)[None, :] < lengths[:, None]
+        corpus[mask] = rank[inv]
+    vocab = [int(uniq[i]) for i in order]
+    return corpus, vocab

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel source csrc/<name>.cu exposes a plain C entry point. On first
-use it is compiled by nvcc for sm_90a into build/kernels/ of the checkout,
+Each kernel source csrc/<name>.cu exposes a plain C entry point (shared
+__device__ code lives in csrc/*.cuh). On first use it is compiled by nvcc
+for sm_90a into build/kernels/ of the checkout,
 keyed by a hash of its source and flags, and loaded with ctypes. A plain C
 interface keeps each build to seconds: sources that include PyTorch's headers
 take minutes.
@@ -27,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 class KernelBuildError(RuntimeError):
@@ -59,6 +60,7 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self.build_seconds: float | None = None
+        self.build_log = ""      # ptxas -v: registers, shared memory, spills
         self._fn = None
         self._lock = threading.Lock()
 
@@ -67,7 +69,9 @@ class Kernel:
         return CSRC / self.source
 
     def _build(self) -> Path:
-        src = self.path.read_bytes()
+        # the headers a source may include are part of its key
+        src = self.path.read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
         so = BUILD_DIR / f"lib{self.path.stem}-{tag[:16]}.so"
         if so.exists():
@@ -77,8 +81,9 @@ class Kernel:
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.path)]
         try:
-            subprocess.run(cmd, check=True, capture_output=True, text=True,
-                           timeout=600)
+            done = subprocess.run(cmd, check=True, capture_output=True,
+                                  text=True, timeout=600)
+            self.build_log = done.stderr
         except subprocess.CalledProcessError as e:
             raise KernelBuildError(
                 f"nvcc failed on {self.source}:\n{e.stderr}") from e

@@ -19,10 +19,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-BUCKET_SLOTS = 4  # membership bucket width: one aligned 16-byte row gather
+from ..graph.csr import HASH_MULT  # Knuth multiplicative hash
 
-# Knuth multiplicative hash (matches graph/csr.HASH_MULT)
-HASH_MULT = np.uint32(2654435761)
+BUCKET_SLOTS = 4  # membership bucket width: one aligned 16-byte row gather
 
 DRAW_QUANTUM = 8192
 
@@ -151,7 +150,7 @@ def vmeta_host(row_meta: np.ndarray, hash_meta: np.ndarray) -> np.ndarray:
 
 
 def device_put_graph(graph, device) -> DeviceGraph:
-    """Upload a host CSRGraph (stellar_rw_tpu/graph/csr.py) as packed
+    """Upload a host CSRGraph (graph/csr.py) as packed
     tables. Raises PackingUnavailable where the JAX package would fall back
     to its unpacked tables."""
     graph.build_alias_tables()

@@ -101,8 +101,9 @@ def member(g: DeviceGraph, base, mask, cand):
     return (win == cand[..., None]).any(dim=-1)
 
 
-def _second_order(g, kt, rnd, lane, Wd, vm, pm, prev, alive, consts):
-    """One second-order step for every lane (result unused where dead)."""
+def _second_order(g, kt, rnd, lane, Wd, vm, pm, prev, alive, consts, trials):
+    """One second-order step for every lane (result unused where dead).
+    trials[j] grows by the lanes that ran trial j."""
     inv_p, inv_q, max_f, mode = consts
     dst = torch.zeros_like(prev)
     open_ = alive.clone()
@@ -110,6 +111,7 @@ def _second_order(g, kt, rnd, lane, Wd, vm, pm, prev, alive, consts):
         idx = open_.nonzero().squeeze(1)
         if idx.numel() == 0:
             break
+        trials[j] += idx.numel()
         u_pos, u_keep, u_acc = trial_uniforms(kt[rnd[idx], j], lane[idx], j,
                                               Wd)
         cand = _alias_draw(g, vm[idx, 0], vm[idx, 1], u_pos, u_keep)
@@ -127,11 +129,12 @@ def _second_order(g, kt, rnd, lane, Wd, vm, pm, prev, alive, consts):
 
 
 def walk_corpus_ref(g: DeviceGraph, starts: torch.Tensor, keys: torch.Tensor,
-                    walk_length: int, p: float, q: float,
-                    n_stream: int) -> torch.Tensor:
+                    walk_length: int, p: float, q: float, n_stream: int,
+                    counts: dict | None = None) -> torch.Tensor:
     """Plain torch version of csrc/walk.cu, vectorized over walkers: each
     step loops trials while any walker is still open. Returns i32
-    [R*W, L+2]."""
+    [R*W, L+2]. `counts`, when given, receives the trials run: those that
+    read the dense draws and those that read per-lane draws."""
     dev = starts.device
     R, W = keys.shape[0], starts.shape[0]
     N = R * W
@@ -150,15 +153,19 @@ def walk_corpus_ref(g: DeviceGraph, starts: torch.Tensor, keys: torch.Tensor,
     first = torch.where(alive, dst0, -1)
     cur, prev, pm = torch.where(alive, first, starts_b), starts_b, vm0
     cols = [starts_b, first]
+    trials = [0] * keys.shape[2]
     for t in range(1, walk_length + 1):
         vm = g.vmeta[cur.clamp_min(0).long()]
         alive = alive & (vm[:, 1] > 0)
         dst = _second_order(g, keys[:, t], rnd, lane, Wd, vm, pm, prev, alive,
-                            consts)
+                            consts, trials)
         cols.append(torch.where(alive, dst, -1))
         prev = torch.where(alive, cur, prev)
         pm = torch.where(alive[:, None], vm, pm)
         cur = torch.where(alive, dst, cur)
+    if counts is not None:
+        counts.update(dense_trials=sum(trials[:DENSE_TRIALS]),
+                      lane_trials=sum(trials[DENSE_TRIALS:]))
     return torch.stack(cols, dim=1).to(torch.int32)
 
 

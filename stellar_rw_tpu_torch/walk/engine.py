@@ -18,9 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from stellar_rw_tpu.graph.csr import CSRGraph
-
 from ..errors import NotPorted
+from ..graph.csr import CSRGraph
 from ..ops import prng, sampling, walk_step
 from ..ops.sampling import DeviceGraph
 

@@ -1,11 +1,11 @@
-"""The port must run where jax is not installed.
+"""The port stands alone: it must run where neither jax nor the JAX package
+is installed.
 
 An AST scan, not a subprocess: this image imports jax at interpreter start,
 so an import that needs jax would succeed here and fail on the GPU machine.
-Every file of stellar_rw_tpu_torch/ and chip_smoke.py, and every module of
-the JAX package they reach (followed transitively, package __init__ files
-included), must import no jax, and the JAX-package modules reached must be
-the host-only ones the port is allowed to share."""
+No file of stellar_rw_tpu_torch/ and not chip_smoke.py imports jax, bench or
+any module of stellar_rw_tpu; the port keeps its own copy of every host
+module it needs."""
 
 import ast
 import os
@@ -15,16 +15,7 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "stellar_rw_tpu_torch")
 
-# host-only, jax-free modules of the JAX package the port shares
-SHARED = {
-    "stellar_rw_tpu", "stellar_rw_tpu.graph", "stellar_rw_tpu.graph.io",
-    "stellar_rw_tpu.graph.csr", "stellar_rw_tpu.ops",
-    "stellar_rw_tpu.ops.alias", "stellar_rw_tpu.utils",
-    "stellar_rw_tpu.utils.config", "stellar_rw_tpu.utils.stats",
-    "stellar_rw_tpu.utils.logging", "stellar_rw_tpu.native",
-    "stellar_rw_tpu.models", "stellar_rw_tpu.models.eval",
-}
-FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "optax", "bench"}
+FORBIDDEN_TOP = {"jax", "jaxlib", "flax", "optax", "bench", "stellar_rw_tpu"}
 
 
 def _module_file(mod: str) -> str | None:
@@ -62,11 +53,6 @@ def _imports(path: str) -> set[str]:
     return out
 
 
-def _with_parents(mod: str) -> set[str]:
-    parts = mod.split(".")
-    return {".".join(parts[:i]) for i in range(1, len(parts) + 1)}
-
-
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PORT):
@@ -77,30 +63,23 @@ def _port_files():
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_port_file_imports_no_jax(path):
+    """No jax, no bench and nothing of the JAX package."""
     bad = {m for m in _imports(path) if m.split(".")[0] in FORBIDDEN_TOP}
     assert not bad, f"{path} imports {bad}"
 
 
-def test_shared_modules_are_jax_free_transitively():
-    seen, todo = set(), []
+def test_port_imports_resolve_inside_the_port():
+    """Every first-party module a port file imports is a file of the port
+    (a relative import that climbs out of the package would not be)."""
+    seen = set()
     for path in _port_files():
         for m in _imports(path):
-            if m.split(".")[0] == "stellar_rw_tpu":
-                todo.extend(_with_parents(m))
-    while todo:
-        m = todo.pop()
-        if m in seen:
-            continue
-        seen.add(m)
-        assert m in SHARED, f"the port reaches {m}, not a shared module"
-        f = _module_file(m)
-        assert f is not None, m
-        for sub in _imports(f):
-            top = sub.split(".")[0]
-            assert top not in FORBIDDEN_TOP, f"{m} imports {sub}"
-            if top == "stellar_rw_tpu":
-                todo.extend(_with_parents(sub))
-    assert "stellar_rw_tpu.graph.csr" in seen
+            if m.split(".")[0] == "stellar_rw_tpu_torch":
+                seen.add(m)
+                assert _module_file(m) is not None, f"{path} imports {m}"
+    for m in ("graph.csr", "graph.io", "native", "utils.config",
+              "utils.stats", "utils.logging", "ops.alias", "models.eval"):
+        assert f"stellar_rw_tpu_torch.{m}" in seen, m
 
 
 def test_scanner_sees_jax_imports():
@@ -110,3 +89,7 @@ def test_scanner_sees_jax_imports():
     assert "jax" in found and "jax.numpy" in found
     assert "stellar_rw_tpu.ops.alias" in _imports(
         os.path.join(ROOT, "stellar_rw_tpu", "models", "word2vec.py"))
+    # and a port-side import of the JAX package would be caught
+    assert "stellar_rw_tpu" in FORBIDDEN_TOP
+    assert "stellar_rw_tpu_torch.ops.alias" in _imports(
+        os.path.join(PORT, "models", "word2vec.py"))

@@ -1,7 +1,8 @@
 """The port's trainer and CLI end to end against the JAX package on karate:
 one seeded epoch from the same init, /path byte for byte, /bin loading in
 the JAX package, the karate quality gate, and the named errors for flags
-the port does not serve. JAX runs with x64 off."""
+the port does not serve. The port's side builds its graph with the port's
+loader. JAX runs with x64 off."""
 
 import filecmp
 import os
@@ -19,6 +20,8 @@ from stellar_rw_tpu.models import word2vec as jw2v
 from stellar_rw_tpu.walk import engine as jengine
 from stellar_rw_tpu_torch import cli
 from stellar_rw_tpu_torch.errors import NotPorted
+from stellar_rw_tpu_torch.graph import io as tio
+from stellar_rw_tpu_torch.models import eval as tev
 from stellar_rw_tpu_torch.models import node2vec as n2v
 from stellar_rw_tpu_torch.models import word2vec as w2v
 from stellar_rw_tpu_torch.walk import engine
@@ -28,6 +31,12 @@ torch.set_num_threads(2)
 
 @pytest.fixture(scope="module")
 def karate(karate_path):
+    """The port's graph, by the port's loader."""
+    return tio.load_edge_list(karate_path, weighted=False, directed=False)
+
+
+@pytest.fixture(scope="module")
+def jkarate(karate_path):
     return io.load_edge_list(karate_path, weighted=False, directed=False)
 
 
@@ -128,14 +137,17 @@ def test_karate_quality_gate(karate):
                                  device="cpu")
     edges = [(v, int(d)) for v in range(karate.num_vertices)
              for d in karate.neighbors(v)[0] if v < int(d)]
-    auc = ev.link_prediction_auc(w_in, np.asarray(edges),
-                                 karate.num_vertices, seed=0)
-    acc = ev.node_classification_accuracy(w_in, ev.karate_labels(karate.ids),
-                                          seed=0)
+    auc = tev.link_prediction_auc(w_in, np.asarray(edges),
+                                  karate.num_vertices, seed=0)
+    acc = tev.node_classification_accuracy(
+        w_in, tev.karate_labels(karate.ids), seed=0)
     assert auc > 0.7 and acc >= 0.85, (auc, acc)
+    # the port's copy of the metrics is the JAX package's
+    assert auc == ev.link_prediction_auc(w_in, np.asarray(edges),
+                                         karate.num_vertices, seed=0)
 
 
-def test_device_corpus_handoff(karate):
+def test_device_corpus_handoff(karate, jkarate):
     """as_numpy=False hands the trainer a tensor; same result as numpy."""
     walks = engine.random_walks(karate, walk_length=6, num_walks=2, seed=1,
                                 as_numpy=False, device="cpu")
@@ -147,13 +159,13 @@ def test_device_corpus_handoff(karate):
     np.testing.assert_array_equal(a[0], b[0])
     with jax.enable_x64(False):
         np.testing.assert_array_equal(
-            walks.numpy(), jengine.random_walks(karate, walk_length=6,
+            walks.numpy(), jengine.random_walks(jkarate, walk_length=6,
                                                 num_walks=2, seed=1,
                                                 schedule="dynamic"))
 
 
 @pytest.mark.parametrize("flags", [
-    ["--cmd", "embedding"],
+    ["--cmd", "embedding", "--shards", "2"],
     ["--shards", "2"],
     ["--partitioned", "true"],
     ["--w2vPartitions", "2"],
@@ -165,6 +177,9 @@ def test_device_corpus_handoff(karate):
     ["--rngImpl", "unsafe_rbg"],
     ["--checkpointEvery", "1"],
     ["--resume", "true"],
+    ["--cmd", "randomwalk", "--checkpointEvery", "1"],
+    ["--cmd", "randomwalk", "--resume", "true"],
+    ["--cmd", "embedding", "--w2vPartitions", "2"],
     ["--profile", "/nonexistent/profile"],
 ])
 def test_unserved_flags_raise(karate_path, tmp_path, flags):

@@ -15,10 +15,11 @@ import pytest
 import torch
 
 from stellar_rw_tpu.graph import io
-from stellar_rw_tpu.graph.csr import from_edge_arrays
 from stellar_rw_tpu.ops import sampling as jsampling
 from stellar_rw_tpu.walk import engine as jengine
 from stellar_rw_tpu_torch.errors import NotPorted
+from stellar_rw_tpu_torch.graph import csr as tcsr
+from stellar_rw_tpu_torch.graph import io as tio
 from stellar_rw_tpu_torch.ops import _build, prng, sampling, walk_step
 from stellar_rw_tpu_torch.walk import engine
 
@@ -29,6 +30,13 @@ PQ = [0.25, 1.0, 4.0]
 
 @pytest.fixture(scope="module")
 def karate(karate_path):
+    """The port's graph, by the port's loader."""
+    return tio.load_edge_list(karate_path, weighted=False, directed=False)
+
+
+@pytest.fixture(scope="module")
+def jkarate(karate_path):
+    """The JAX package's graph, by its loader."""
     return io.load_edge_list(karate_path, weighted=False, directed=False)
 
 
@@ -67,10 +75,10 @@ def test_constants_equal_jax_package():
                     jsampling.plan_sampler(s, p, q)
 
 
-def test_device_tables_bitwise_equal(karate):
+def test_device_tables_bitwise_equal(karate, jkarate):
     dg = sampling.device_put_graph(karate, "cpu")
     with jax.enable_x64(False):
-        jg = jsampling.device_put_graph(karate)
+        jg = jsampling.device_put_graph(jkarate)
     np.testing.assert_array_equal(dg.alias_packed.numpy(),
                                   np.asarray(jg.alias_packed))
     np.testing.assert_array_equal(dg.hash_buckets.numpy(),
@@ -82,19 +90,19 @@ def test_device_tables_bitwise_equal(karate):
 
 @pytest.mark.parametrize("p", PQ)
 @pytest.mark.parametrize("q", PQ)
-def test_karate_corpus_bitwise(karate, p, q):
+def test_karate_corpus_bitwise(karate, jkarate, p, q):
     kw = dict(walk_length=12, num_walks=3, p=p, q=q, seed=3)
-    want = _jax_walks(karate, schedule="dynamic", **kw)
+    want = _jax_walks(jkarate, schedule="dynamic", **kw)
     got = engine.random_walks(karate, device="cpu", **kw)
     assert got.dtype == np.int32 and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
 
 
-def test_karate_corpus_bitwise_static_schedule(karate):
+def test_karate_corpus_bitwise_static_schedule(karate, jkarate):
     kw = dict(walk_length=12, num_walks=3, p=0.25, q=0.25, seed=5)
     np.testing.assert_array_equal(
         engine.random_walks(karate, device="cpu", **kw),
-        _jax_walks(karate, **kw))
+        _jax_walks(jkarate, **kw))
 
 
 def test_trial_keys_follow_the_jax_chain():
@@ -121,7 +129,7 @@ def test_bias_constants_round_like_jax():
     assert walk_step.bias_constants(0.5, 1.0)[3] == walk_step.MODE_Q1
 
 
-def test_corpus_invariants_agree_with_jax(karate):
+def test_corpus_invariants_agree_with_jax(karate, jkarate):
     walks = engine.random_walks(karate, walk_length=8, num_walks=2, p=0.5,
                                 q=2.0, seed=1, device="cpu")
     bad = walks.copy()
@@ -131,7 +139,7 @@ def test_corpus_invariants_agree_with_jax(karate):
     bad[2, 5] = karate.num_vertices                       # out of range
     dg = sampling.device_put_graph(karate, "cpu")
     with jax.enable_x64(False):
-        jg = jsampling.device_put_graph(karate)
+        jg = jsampling.device_put_graph(jkarate)
         for w in (walks, bad):
             want = np.asarray(jengine.corpus_invariants(jg, jnp.asarray(w)))
             got = engine.corpus_invariants(dg, torch.as_tensor(w),
@@ -154,7 +162,7 @@ def test_unported_walk_options_raise(karate, kw):
 
 
 def test_empty_graph_has_no_packed_tables():
-    g = from_edge_arrays(np.zeros(0, np.int64), np.zeros(0, np.int64),
+    g = tcsr.from_edge_arrays(np.zeros(0, np.int64), np.zeros(0, np.int64),
                          num_vertices=3)
     with pytest.raises(sampling.PackingUnavailable):
         sampling.device_put_graph(g, "cpu")
