@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Time two checkouts' kernels of the PyTorch/CUDA port on one GPU, in turns.
+
+    python3 chip_compare.py OTHER_CHECKOUT
+
+OTHER_CHECKOUT is the root of another checkout of this repository under this
+checkout's build/ (say the parent commit, unpacked by `git archive` into
+build/parent; .gitignore lists build/). Its package is loaded beside this checkout's under another name and
+builds its own kernels into its own build/kernels/. At the main path's
+shapes of chip_smoke.py the script times, with chip_smoke's cuda_ms (CUDA
+events around launches queued behind a long product):
+
+  * sgns_shared_grads at (2624, 128, 128): plain, other, this, this, other,
+    plain;
+  * the walk kernel on the walk_10k graph (10 rounds, L = 80, p = q = 0.25):
+    other, this, this, other, after checking the two corpora equal;
+  * the trial-key table as each checkout's walk_corpus gets it: host wall
+    time of the call, synchronized.
+
+One JSON object a line, the card's name and power limit in each. Needs a
+CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import importlib
+import importlib.util
+import inspect
+import json
+import os
+import subprocess
+import sys
+import time
+
+from chip_smoke import SGNS_SHAPES, check, cuda_ms, synth_power_law_graph
+
+
+def load_package(root: str, name: str):
+    """The port's package of the checkout at `root`, imported as `name`."""
+    pkg = os.path.join(root, "stellar_rw_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return lambda sub: importlib.import_module(f"{name}.{sub}")
+
+
+def on_card(walk_step) -> bool:
+    """Whether a checkout's trial_keys builds the table on a given device."""
+    return "device" in inspect.signature(walk_step.trial_keys).parameters
+
+
+def wall_ms(torch, fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def main(argv: list[str]) -> int:
+    import numpy as np
+    import torch
+
+    if len(argv) != 1 or not os.path.isdir(argv[0]):
+        print(__doc__, file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.realpath(__file__))
+    other_root = os.path.realpath(argv[0])
+    if not other_root.startswith(os.path.join(root, "build") + os.sep):
+        print("chip_compare: OTHER_CHECKOUT must lie under this checkout's "
+              "build/ (it is imported, and builds its kernels there)",
+              file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_compare: torch sees no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    this = load_package(root, "srw_this")
+    other = load_package(other_root, "srw_other")
+
+    # sgns_shared_grads
+    P, D, kB = SGNS_SHAPES[0]
+    rng = np.random.default_rng(0)
+    t = lambda *s: torch.as_tensor(
+        (rng.standard_normal(s) * 0.3).astype(np.float32)).cuda()
+    vi, vo, wn = t(P, D), t(P, D), t(kB, D)
+    valid = torch.as_tensor(rng.random(P) > 0.3).cuda().float()
+    args = (vi, vo, wn, t(P) * valid, valid * 0.125)
+    fns = {"plain": lambda: this("ops.sgns").sgns_shared_grads_ref(*args),
+           "other": lambda: other("ops.sgns").sgns_shared_grads(*args),
+           "this": lambda: this("ops.sgns").sgns_shared_grads(*args)}
+    for a, b in zip(fns["this"](), fns["other"]()):
+        check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
+              "the two checkouts' sgns_shared_grads disagree")
+    order = ("plain", "other", "this", "this", "other", "plain")
+    runs = [(name, cuda_ms(fns[name], 50)) for name in order]
+    print(json.dumps({"kernel": "sgns_shared_grads", "shape": [P, D, kB],
+                      "ms_in_turns": runs, "card": smi}))
+
+    # the walk kernel and its key table
+    graph = synth_power_law_graph(10_000, 334_000, seed=0)
+    V, R, L, p, q = graph.num_vertices, 10, 80, 0.25, 0.25
+    walkers = {}
+    for name, pkg in (("other", other), ("this", this)):
+        sampling, engine = pkg("ops.sampling"), pkg("walk.engine")
+        dg = sampling.device_put_graph(graph, "cuda")
+        starts = torch.arange(V, dtype=torch.int32, device="cuda")
+        _, max_rounds = sampling.plan_sampler("rejection", p, q)
+        spec = engine.WalkSpec(walk_length=L, p=p, q=q,
+                               max_rounds=max_rounds, n_stream=V)
+        key = pkg("ops.prng").prng_key(0)
+        walkers[name] = (pkg, dg, starts, spec, key)
+    corpus = {name: pkg("walk.engine").walk_corpus(dg, starts, key, spec, R)
+              for name, (pkg, dg, starts, spec, key) in walkers.items()}
+    check(torch.equal(corpus["this"], corpus["other"]),
+          "the two checkouts' walk corpora differ")
+
+    def kernel_only(name):
+        pkg, dg, starts, spec, key = walkers[name]
+        ws = pkg("ops.walk_step")
+        T = spec.max_rounds * spec.k_candidates
+        if on_card(ws):
+            keys = ws.trial_keys(key, 0, R, L, T, device="cuda")
+        else:
+            keys = ws.trial_keys(key, 0, R, L, T).cuda()
+        return lambda: ws.walk_rounds(dg, starts, keys, L, p, q, V)
+
+    kern = {name: kernel_only(name) for name in walkers}
+    order = ("other", "this", "this", "other")
+    runs = [(name, cuda_ms(kern[name], 5)) for name in order]
+    print(json.dumps({"kernel": "walk", "walkers": R * V, "walk_length": L,
+                      "ms_in_turns": runs, "card": smi}))
+
+    def key_table(name):
+        pkg, dg, starts, spec, key = walkers[name]
+        ws = pkg("ops.walk_step")
+        T = spec.max_rounds * spec.k_candidates
+        if on_card(ws):
+            return lambda: ws.trial_keys(key, 0, R, L, T, device="cuda")
+        # a checkout that builds the table on the CPU: as its walk_corpus
+        # and walk_rounds get it
+        return lambda: ws._keys_u32(ws.trial_keys(key.cpu(), 0, R, L, T).to(
+            "cuda")).contiguous()
+
+    runs = [(name, wall_ms(torch, key_table(name), 10)) for name in order]
+    print(json.dumps({"step": "trial-key table, host wall ms a call",
+                      "ms_in_turns": runs, "card": smi}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

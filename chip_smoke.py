@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from csrc/ (nvcc, sm_90a, in
-parallel), holds each against its plain PyTorch version on the card, and
+Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process for
+each of the three sources, in parallel; walk.cu holds two kernels), holds
+each against its plain PyTorch version on the card, and
 drives the port's paths once each through the entry points a user calls:
 
   phases 2-5  `node2vec --sharedNegatives 128` through the CLI on a
@@ -40,7 +41,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SGNS_SHAPES = [(2624, 128, 128), (300, 50, 37), (7, 128, 256)]
+# (P, D, kB): the main path's shape; ragged D and kB; wn in two chunks;
+# several tiles a block; the widest D; five chunks at the third width
+SGNS_SHAPES = [(2624, 128, 128), (300, 50, 37), (7, 128, 256),
+               (20000, 128, 128), (1000, 512, 64), (100, 200, 300)]
 # every trial mode of csrc/walk.cu: general, p == q == 1, q == 1
 WALK_PQ = [(0.25, 0.25), (1.0, 1.0), (1.0, 4.0), (4.0, 0.25), (0.5, 1.0)]
 # published H100 SXM peaks: device memory rate, and f32 outside the tensor
@@ -174,10 +178,13 @@ def phase_env(torch, kernels) -> str:
     from stellar_rw_tpu_torch import native
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:     # one nvcc each
-        list(pool.map(lambda k: k.fn(), kernels))
+    sources = {k.source: k for k in kernels}.values()  # one nvcc a source
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(lambda k: k.fn(), sources))
+    for k in kernels:                       # the rest bind the built library
+        k.fn()
     wall = time.perf_counter() - t0
-    builds = {k.source: round(k.build_seconds, 2) for k in kernels}
+    builds = {k.source: round(k.build_seconds, 2) for k in sources}
     print(f"phase 1 env: {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {nvcc} | sm_90a build seconds {builds}, "
           f"{wall:.2f} s together | host table builder: "
@@ -189,9 +196,24 @@ def phase_env(torch, kernels) -> str:
     return smi
 
 
+def key_table(torch, seed, round_offset, R, L, T):
+    """The trial-key table by the kernel, checked bitwise equal to the
+    plain version's."""
+    from stellar_rw_tpu_torch.ops import prng, walk_step
+
+    key = prng.prng_key(seed)
+    keys = walk_step.trial_keys(key, round_offset, R, L, T, device="cuda")
+    ref = walk_step.trial_keys_ref(key, round_offset, R, L, T).cuda()
+    torch.cuda.synchronize()
+    check(keys.dtype == ref.dtype and torch.equal(keys, ref),
+          f"key-table kernel differs from trial_keys_ref (seed {seed}, "
+          f"offset {round_offset}, shape {(R, L + 1, T)})")
+    return keys, int((keys.long() - ref.long()).abs().max())
+
+
 def phase_walk(torch) -> None:
     from stellar_rw_tpu_torch.graph import io as gio
-    from stellar_rw_tpu_torch.ops import prng, sampling, walk_step
+    from stellar_rw_tpu_torch.ops import sampling, walk_step
 
     graphs = {
         "synth2k": synth_power_law_graph(2048, 32768, seed=1),
@@ -207,12 +229,11 @@ def phase_walk(torch) -> None:
                               device="cuda")
         for p, q in WALK_PQ:
             _, max_rounds = sampling.plan_sampler("rejection", p, q)
-            keys = walk_step.trial_keys(prng.prng_key(7), 0, R, L,
-                                        4 * max_rounds).cuda()
-            got = walk_step.walk_rounds(dg, starts, keys, L, p, q,
-                                        g.num_vertices)
+            keys, _ = key_table(torch, 7, 1, R, L, 4 * max_rounds)
             want = walk_step.walk_corpus_ref(dg, starts, keys, L, p, q,
                                              g.num_vertices)
+            got = walk_step.walk_rounds(dg, starts, keys, L, p, q,
+                                        g.num_vertices)
             torch.cuda.synchronize()
             check(torch.equal(got, want),
                   f"walk kernel differs from its plain version on {name} "
@@ -220,7 +241,8 @@ def phase_walk(torch) -> None:
             n += 1
     print(f"phase 2 walk kernel: bitwise equal to walk_corpus_ref on the "
           f"card in {n} cases (synth 2K power-law + directed testgraph, "
-          f"(p, q) in {WALK_PQ})")
+          f"(p, q) in {WALK_PQ}); key-table kernel bitwise equal to "
+          f"trial_keys_ref in each")
 
 
 def phase_sgns(torch) -> dict:
@@ -237,11 +259,16 @@ def phase_sgns(torch) -> dict:
         g_pos = t(P) * valid
         mask = valid * 0.125
         got = sgns.sgns_shared_grads(vi, vo, wn, g_pos, mask)
+        again = sgns.sgns_shared_grads(vi, vo, wn, g_pos, mask)
         want = sgns.sgns_shared_grads_ref(vi, vo, wn, g_pos, mask)
         for a, b in zip(got, want):
             check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
-                  f"sgns_shared_grads differs at {(P, D, kB)}")
+                  f"sgns_shared_grads differs at {(P, D, kB)}: max abs err "
+                  f"{float((a - b).abs().max()):.3g}")
             err = max(err, float((a - b).abs().max()))
+        for a, b in zip(got, again):
+            check(torch.equal(a, b), f"sgns_shared_grads gave two results "
+                  f"for one input at {(P, D, kB)}")
         if (P, D, kB) == SGNS_SHAPES[0]:
             kern = lambda: sgns.sgns_shared_grads(vi, vo, wn, g_pos, mask)
             plain = lambda: sgns.sgns_shared_grads_ref(vi, vo, wn, g_pos,
@@ -255,50 +282,106 @@ def phase_sgns(torch) -> dict:
                               3 * 2 * P * kB * D, F32_FLOPS),
                       "library_ms": None}
     print(f"phase 3 sgns_shared_grads: within rtol 1e-5 atol 1e-5 of the "
-          f"plain f32 version at {SGNS_SHAPES}, max abs err {err:.3g}; at "
+          f"plain f32 version at {SGNS_SHAPES}, max abs err {err:.3g}, two "
+          f"calls bit-identical at each; plan at the main shape "
+          f"{sgns.launch_plan(*SGNS_SHAPES[0])._asdict()}; at "
           f"{SGNS_SHAPES[0]} kernel {timing['ms']:.4f} ms, plain "
           f"{timing['plain_ms']:.4f} ms (CUDA events, mean of 2x50), bound "
           f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}")
     return {"max_abs_err": err, **timing}
 
 
-def phase_walk_main_shape(torch, graph) -> dict:
+def phase_walk_main_shape(torch, graph, keys_kernel) -> tuple[dict, dict]:
     """Kernel vs plain version at the main path's walk shape (all rounds in
-    one dispatch), bitwise and timed."""
+    one dispatch), bitwise and timed; the key-table kernel likewise. Returns
+    the two kernels' rows."""
     from stellar_rw_tpu_torch.ops import prng, sampling, walk_step
 
     dg = sampling.device_put_graph(graph, "cuda")
     V = graph.num_vertices
+    R, L = 10, 80
     starts = torch.arange(V, dtype=torch.int32, device="cuda")
     _, max_rounds = sampling.plan_sampler("rejection", 0.25, 0.25)
-    keys = walk_step.trial_keys(prng.prng_key(0), 0, 10, 80,
-                                4 * max_rounds).cuda()
-    kern = lambda: walk_step.walk_rounds(dg, starts, keys, 80, 0.25, 0.25, V)
+    T = 4 * max_rounds
+    keys, keys_err = key_table(torch, 0, 0, R, L, T)
+    kern = lambda: walk_step.walk_rounds(dg, starts, keys, L, 0.25, 0.25, V)
     counts = {}
     got = kern()
     want, plain_ms = cuda_ms_once(lambda: walk_step.walk_corpus_ref(
-        dg, starts, keys, 80, 0.25, 0.25, V, counts=counts))
+        dg, starts, keys, L, 0.25, 0.25, V, counts=counts))
     check(torch.equal(got, want),
           "walk kernel differs from its plain version at the main shape")
     err = float((got - want).abs().max())
-    ms = cuda_ms(kern, 5)
-    # draws this corpus needed: 2 for each first-order step, 3 for a trial
-    # on the dense draws, 4 (a key fold and 3) for one on per-lane draws
-    draws = (2 * int((got[:, 1] >= 0).sum()) + 3 * counts["dense_trials"]
-             + 4 * counts["lane_trials"])
-    b = bound(tensor_bytes(starts, keys.to(torch.int32), got, dg.vmeta,
-                           dg.alias_packed, dg.hash_buckets),
+    ms = cuda_ms(kern, 10)
+    # draws this corpus needed: 2 for each first-order step; 2 for a trial
+    # on the dense draws, 3 (a key fold and 2) for one on per-lane draws,
+    # and u_acc where it could decide (f < max_f). Counting u_acc in every
+    # trial, as the kernel drew it before, gives `draws_all`.
+    first = 2 * int((got[:, 1] >= 0).sum())
+    trials = counts["dense_trials"] + counts["lane_trials"]
+    draws = (first + 2 * counts["dense_trials"] + 3 * counts["lane_trials"]
+             + counts["acc_draws"])
+    draws_all = first + 3 * counts["dense_trials"] + 4 * counts["lane_trials"]
+    b = bound(tensor_bytes(starts, keys, got, dg.vmeta, dg.alias_packed,
+                           dg.hash_buckets),
               draws * OPS_PER_DRAW, INT_OPS_PER_S)
-    print(f"phase 4a walk kernel at the main shape ({V} starts x 10 rounds, "
-          f"L=80, p=q=0.25): bitwise equal; kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.1f} ms (CUDA events, one call); {draws} draws, bound "
+    steps = int((got[:, 2:] >= 0).sum())
+    walker = counts["walker_trials"]
+    warp_total = walk_step.warp_max(walker)
+    print(f"phase 4a walk kernel at the main shape ({V} starts x {R} rounds, "
+          f"L={L}, p=q=0.25): bitwise equal; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms (CUDA events, mean of 10; plain one call); "
+          f"{draws} draws "
+          f"({draws_all} with u_acc in every trial; it could decide in "
+          f"{counts['acc_draws']} of {trials} trials), bound "
           f"{b['bound_ms']:.4f} ms by {b['bound_by']}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
-            "library_ms": None}
+    print(f"  trials: {trials / max(steps, 1):.4f} a second-order step "
+          f"({trials} for {steps}); a walker's total "
+          f"{float(walker.float().mean()):.1f} mean, {int(walker.max())} "
+          f"max; a warp's slowest lane's total "
+          f"{float(warp_total.float().mean()):.1f} mean, "
+          f"{int(warp_total.max())} max (the flat loop's turns); sum over "
+          f"steps of the warp's "
+          f"maximum {counts['step_warp_max'] / warp_total.numel():.1f} a warp "
+          f"(the nested loop's turns)")
+    # the key table: kernel against the plain version's time on the card
+    key = prng.prng_key(0)
+    kt = lambda: walk_step.trial_keys(key, 0, R, L, T, device="cuda")
+    _, kt_plain_ms = cuda_ms_once(
+        lambda: walk_step.trial_keys_ref(key.cuda(), 0, R, L, T))
+    t0 = time.perf_counter()
+    keys_host = walk_step.trial_keys_ref(key, 0, R, L, T).cuda()
+    torch.cuda.synchronize()
+    kt_host_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(keys_host, keys), "host-built key table differs")
+    # threefry blocks the table needs: a round's and a step's key are
+    # shared by the keys below them
+    blocks = R + R * (L + 1) + R * (L + 1) * T
+    kb = bound(tensor_bytes(keys), blocks * OPS_PER_DRAW, INT_OPS_PER_S)
+    launches0 = keys_kernel.launches
+    kt_ms = cuda_ms(kt, 20)
+    check(keys_kernel.launches == launches0 + 21, "key-table launch count")
+    print(f"  key table [{R}, {L + 1}, {T}] ({tensor_bytes(keys)} bytes): "
+          f"kernel {kt_ms:.4f} ms (CUDA events, mean of 20), plain version "
+          f"on the card {kt_plain_ms:.2f} ms (one call), built on the CPU "
+          f"and copied {kt_host_ms:.2f} ms of wall (one call), bound "
+          f"{kb['bound_ms']:.5f} ms by {kb['bound_by']} ({blocks} threefry "
+          f"blocks)")
+    walk_row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                "library_ms": None,
+                "trials_per_step": trials / max(steps, 1),
+                "warp_slowest_total_mean": float(warp_total.float().mean()),
+                "warp_step_max_sum_mean":
+                    counts["step_warp_max"] / warp_total.numel(),
+                "draws": draws, "draws_with_u_acc_always": draws_all}
+    keys_row = {"max_abs_err": keys_err, "ms": kt_ms, "plain_ms": kt_plain_ms,
+                **kb, "library_ms": None, "host_built_ms": kt_host_ms}
+    return walk_row, keys_row
 
 
-def phase_main(torch, walk_kernel, sgns_kernel, smi, tmp) -> dict:
-    """The node2vec path through the CLI. Returns the two kernels' launch
+def phase_main(torch, walk_kernel, keys_kernel, sgns_kernel, smi,
+               tmp) -> dict:
+    """The node2vec path through the CLI. Returns the three kernels' launch
     counts in this run and the output directory."""
     from stellar_rw_tpu_torch import cli
     from stellar_rw_tpu_torch.models import node2vec as n2v
@@ -309,6 +392,7 @@ def phase_main(torch, walk_kernel, sgns_kernel, smi, tmp) -> dict:
     out = os.path.join(tmp, "out")
     report = {}
     walk_kernel.launches = 0
+    keys_kernel.launches = 0
     sgns_kernel.launches = 0
     t0 = time.perf_counter()
     rc = cli.main(["--input", edges, "--output", out] + MAIN_FLAGS,
@@ -316,6 +400,7 @@ def phase_main(torch, walk_kernel, sgns_kernel, smi, tmp) -> dict:
     wall = time.perf_counter() - t0
     check(rc == 0, f"cli.main returned {rc}")
     check(walk_kernel.launches > 0, "the walk kernel was not launched")
+    check(keys_kernel.launches > 0, "the key-table kernel was not launched")
     check(sgns_kernel.launches > 0, "sgns_shared_grads was not launched")
     for sub in ("path/part-00000", "vec/part-00000", "bin/model.npz"):
         check(os.path.exists(os.path.join(out, sub)), f"missing /{sub}")
@@ -331,9 +416,11 @@ def phase_main(torch, walk_kernel, sgns_kernel, smi, tmp) -> dict:
           f"{report['steps'] / report['walk_seconds']:,.0f} steps/s; "
           f"trainer epoch {report['train_seconds']:.2f} s; CLI wall "
           f"{wall:.1f} s; launches walk={walk_kernel.launches} "
+          f"trial_keys={keys_kernel.launches} "
           f"sgns={sgns_kernel.launches}; invariants {report['invariants']} "
           f"[{smi}]")
     return {"walk": walk_kernel.launches,
+            "trial_keys": keys_kernel.launches,
             "sgns_shared_grads": sgns_kernel.launches, "out": out}
 
 
@@ -470,7 +557,7 @@ def phase_resident_main(torch, kernel, smi) -> dict:
         starts = torch.arange(V, dtype=torch.int32, device="cuda")
         _, max_rounds = sampling.plan_sampler("rejection", p, q)
         keys = walk_step.trial_keys(prng.prng_key(seed), 0, R, L,
-                                    4 * max_rounds).cuda()
+                                    4 * max_rounds, device="cuda")
         general = lambda: walk_step.walk_rounds(dg, starts, keys, L, p, q, V)
         check(engine.corpus_invariants(dg, general()).tolist() == [0, 0, 0],
               f"general walk invariants at V={V}")
@@ -484,7 +571,8 @@ def phase_resident_main(torch, kernel, smi) -> dict:
         shapes.append({
             "vertices": V, "walkers": W, "steps": counts["steps"],
             "trials": counts["trials"], "rows": place,
-            "table_bytes": tensor_bytes(tab), "max_abs_err": 0.0,
+            "table_bytes": tensor_bytes(tab),
+            "max_abs_err": int((got - want[:W]).abs().max()),
             "ms": (runs[1] + runs[2]) / 2, "transpose_ms": transpose_ms,
             "plain_ms": plain_ms,
             "general_walk_ms": (runs[0] + runs[3]) / 2, **b})
@@ -537,15 +625,17 @@ def main() -> int:
         return 2
     from stellar_rw_tpu_torch.ops.resident_walk import RESIDENT_WALK_KERNEL
     from stellar_rw_tpu_torch.ops.sgns import SGNS_KERNEL
-    from stellar_rw_tpu_torch.ops.walk_step import WALK_KERNEL
+    from stellar_rw_tpu_torch.ops.walk_step import KEYS_KERNEL, WALK_KERNEL
 
-    smi = phase_env(torch, (WALK_KERNEL, SGNS_KERNEL, RESIDENT_WALK_KERNEL))
+    smi = phase_env(torch, (WALK_KERNEL, KEYS_KERNEL, SGNS_KERNEL,
+                            RESIDENT_WALK_KERNEL))
     phase_walk(torch)
     sgns_row = phase_sgns(torch)
-    walk_row = phase_walk_main_shape(
-        torch, synth_power_law_graph(10_000, 334_000, seed=0))
+    walk_row, keys_row = phase_walk_main_shape(
+        torch, synth_power_law_graph(10_000, 334_000, seed=0), KEYS_KERNEL)
     with tempfile.TemporaryDirectory() as tmp:
-        main_run = phase_main(torch, WALK_KERNEL, SGNS_KERNEL, smi, tmp)
+        main_run = phase_main(torch, WALK_KERNEL, KEYS_KERNEL, SGNS_KERNEL,
+                              smi, tmp)
         phase_quality(torch)
         phase_resident_check(torch)
         resident_row = phase_resident_main(torch, RESIDENT_WALK_KERNEL, smi)
@@ -557,6 +647,10 @@ def main() -> int:
          "source": "stellar_rw_tpu_torch/csrc/walk.cu",
          "replaces": "stellar_rw_tpu/walk/engine.py:176",
          "launches": main_run["walk"], **walk_row},
+        {"name": "trial_keys", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/walk.cu",
+         "replaces": "stellar_rw_tpu/walk/engine.py:161",
+         "launches": main_run["trial_keys"], **keys_row},
         {"name": "sgns_shared_grads", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/sgns_shared.cu",
          "replaces": "stellar_rw_tpu/ops/pallas/sgns.py:90",

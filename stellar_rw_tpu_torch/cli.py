@@ -17,7 +17,7 @@ import time
 import numpy as np
 import torch
 
-from .errors import NotPorted
+from .errors import CudaUnavailable, NotPorted, resolve_device
 from .graph import io as gio
 from .models import node2vec as n2v
 from .ops import sampling
@@ -25,10 +25,6 @@ from .utils.config import Params, TaskName, parse
 from .utils.logging import configure
 from .utils.stats import validate_walks, walk_stats
 from .walk import engine
-
-
-class CudaUnavailable(RuntimeError):
-    """The command line asked for the GPU and torch sees none."""
 
 
 def check_flags(params: Params) -> None:
@@ -131,14 +127,10 @@ def main(argv: list[str] | None = None, device=None,
     if params is None:
         return 1
     configure(params.log_dir)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise CudaUnavailable("no CUDA device is visible to torch; the "
-                                  "port does not run walks on the CPU from "
-                                  "the command line")
-        device = "cuda"
+    device = resolve_device("stellar_rw_tpu_torch",
+                            "cuda" if device is None else device)
     print(params)
-    run_job(params, torch.device(device), {} if report is None else report)
+    run_job(params, device, {} if report is None else report)
     return 0
 
 

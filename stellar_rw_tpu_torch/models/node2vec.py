@@ -21,7 +21,7 @@ from ..walk import engine
 from . import word2vec as w2v
 
 
-def run_walks(graph: CSRGraph, params: Params, device,
+def run_walks(graph: CSRGraph, params: Params, device="cuda",
               device_graph: DeviceGraph | None = None) -> torch.Tensor:
     """The corpus as a device tensor [num_walks * V, L+2] (the trainer's
     handoff: no host round trip)."""
@@ -81,7 +81,7 @@ def _checkpoint_path(output: str) -> str:
     return os.path.join(output, MODEL_SUFFIX, "checkpoint.npz")
 
 
-def _train(corpus, vocab_size: int, params: Params, device):
+def _train(corpus, vocab_size: int, params: Params, device="cuda"):
     """Trainer with epoch checkpoints: --checkpointEvery N saves the tables
     after every N-th epoch to <output>/bin/checkpoint.npz (the JAX package's
     file), --resume true starts after the saved epoch. The keys are counter
@@ -108,14 +108,14 @@ def _train(corpus, vocab_size: int, params: Params, device):
         start_epoch=start_epoch, on_epoch=on_epoch, device=device)
 
 
-def embed_walks(walks, graph: CSRGraph, params: Params, device):
+def embed_walks(walks, graph: CSRGraph, params: Params, device="cuda"):
     """Train SGNS on the dense walk corpus (vocab = graph vertices).
     Returns (tokens = original ids, w_in, w_out)."""
     w_in, w_out = _train(walks, graph.num_vertices, params, device)
     return [int(i) for i in graph.ids], w_in, w_out
 
 
-def embed_token_corpus(token_lists, params: Params, device):
+def embed_token_corpus(token_lists, params: Params, device="cuda"):
     """Train SGNS from arbitrary token sequences. Returns (vocab, w_in,
     w_out), vocab by descending frequency."""
     corpus, vocab = w2v.corpus_from_token_lists(token_lists)
@@ -124,7 +124,7 @@ def embed_token_corpus(token_lists, params: Params, device):
 
 
 def embed_ragged_corpus(values: np.ndarray, offsets: np.ndarray,
-                        params: Params, device):
+                        params: Params, device="cuda"):
     """embed_token_corpus on the ragged walks representation
     (graph/io.load_walks_ragged): the `embedding` command's path."""
     corpus, vocab = w2v.corpus_from_ragged(values, offsets)

@@ -26,7 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..errors import NotPorted
+from ..errors import NotPorted, resolve_device
 from ..ops import prng
 from ..ops.alias import build_alias
 from ..ops.sgns import sgns_shared_grads
@@ -252,9 +252,10 @@ def train_skipgram(
     start_epoch: int = 0,
     on_epoch=None,
     *,
-    device,
+    device="cuda",
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Train SGNS on a dense [N, T] i32 corpus (-1 padding) on `device`.
+    """Train SGNS on a dense [N, T] i32 corpus (-1 padding) on `device` (the
+    card unless device="cpu" is asked for; no GPU raises CudaUnavailable).
     Returns (w_in, w_out) as numpy f32 [vocab, dim].
 
     corpus may be a device tensor (the walk engine's handoff). init resumes
@@ -269,7 +270,7 @@ def train_skipgram(
     if cfg.shared_negatives and cfg.shared_impl != "conv":
         raise NotPorted(f"shared_impl {cfg.shared_impl!r}: only 'conv' is "
                         "ported (ROADMAP Queue 1, not to port)")
-    device = torch.device(device)
+    device = resolve_device("train_skipgram", device)
     corpus = torch.as_tensor(corpus).to(device=device, dtype=torch.int32)
     N, T = corpus.shape
     if counts is None:

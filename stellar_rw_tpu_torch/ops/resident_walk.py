@@ -39,6 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..errors import resolve_device
 from . import prng
 from ._build import Kernel, ptr, require_cuda, stream
 from .walk_step import bias_constants
@@ -253,10 +254,7 @@ def resident_walks(graph, walk_length: int, num_walks: int, p: float,
     and tile. `tile` only pads the walker count (it is the stream's width
     quantum). `device` defaults to the card and raises when there is none;
     as_numpy=False returns the device tensor."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("resident_walks: no CUDA device is visible to "
-                           "torch (pass device='cpu' for the plain version)")
+    device = resolve_device("resident_walks", device)
     md = max(graph.max_degree, 1)
     tab = torch.as_tensor(build_row_tables(graph, md)).to(device)
     V = graph.num_vertices

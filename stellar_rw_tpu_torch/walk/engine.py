@@ -18,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..errors import NotPorted
+from ..errors import NotPorted, resolve_device
 from ..graph.csr import CSRGraph
 from ..ops import prng, sampling, walk_step
 from ..ops.sampling import DeviceGraph
@@ -41,11 +41,12 @@ def walk_corpus(g: DeviceGraph, starts: torch.Tensor, key: torch.Tensor,
                 round_offset: int = 0) -> torch.Tensor:
     """Rounds round_offset .. round_offset+num_walks-1 in one dispatch ->
     i32 [num_walks*W, L+2]; round r of walker w at row r*W + w."""
-    keys = walk_step.trial_keys(key.cpu(), round_offset, num_walks,
+    keys = walk_step.trial_keys(key, round_offset, num_walks,
                                 spec.walk_length,
-                                spec.max_rounds * spec.k_candidates)
+                                spec.max_rounds * spec.k_candidates,
+                                device=g.device)
     return walk_step.walk_rounds(
-        g, starts, keys.to(g.device), spec.walk_length, spec.p, spec.q,
+        g, starts, keys, spec.walk_length, spec.p, spec.q,
         spec.n_stream or starts.shape[0])
 
 
@@ -100,12 +101,14 @@ def random_walks(
     rng_impl: str = "threefry",
     schedule: str = "static",
     *,
-    device,
+    device="cuda",
 ) -> np.ndarray | torch.Tensor:
     """Full corpus: num_walks rounds of one walk per start. Returns
     [num_walks * W, walk_length + 2] dense ids (-1 pad); round r of walker w
     at row r*W + w. Same signature and result as the JAX package's
-    random_walks, plus the device; as_numpy=False returns the device tensor.
+    random_walks, plus the device (the card unless device="cpu" is asked
+    for; no GPU raises CudaUnavailable); as_numpy=False returns the device
+    tensor.
 
     Rounds are grouped into as few dispatches as fit max_batch_walkers
     (whole rounds only: streams are indexed by in-round lane). `schedule`
@@ -126,7 +129,7 @@ def random_walks(
     if schedule not in ("static", "dynamic"):
         raise ValueError(f"schedule must be 'static' or 'dynamic', "
                          f"got {schedule!r}")
-    device = torch.device(device)
+    device = resolve_device("random_walks", device)
     g = (device_graph if device_graph is not None
          else sampling.device_put_graph(graph, device))
     if g.device.type != device.type:

@@ -3,11 +3,12 @@ is installed.
 
 An AST scan, not a subprocess: this image imports jax at interpreter start,
 so an import that needs jax would succeed here and fail on the GPU machine.
-No file of stellar_rw_tpu_torch/ and not chip_smoke.py imports jax, bench or
+No file of stellar_rw_tpu_torch/ and no chip_*.py script imports jax, bench or
 any module of stellar_rw_tpu; the port keeps its own copy of every host
 module it needs."""
 
 import ast
+import glob
 import os
 
 import pytest
@@ -54,7 +55,8 @@ def _imports(path: str) -> set[str]:
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = glob.glob(os.path.join(ROOT, "chip_*.py"))
+    assert os.path.join(ROOT, "chip_smoke.py") in files
     for d, _, names in os.walk(PORT):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
