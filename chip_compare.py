@@ -15,7 +15,14 @@ events around launches queued behind a long product):
   * the walk kernel on the walk_10k graph (10 rounds, L = 80, p = q = 0.25):
     other, this, this, other, after checking the two corpora equal;
   * the trial-key table as each checkout's walk_corpus gets it: host wall
-    time of the call, synchronized.
+    time of the call, synchronized;
+  * the resident-row walk kernel (walk_corpus_resident, whatever it runs
+    around its launch) on chip_smoke's three phase-7 shapes: other, this,
+    this, other, after checking the two corpora equal; then each checkout's
+    time with walk_length 0 (launch, table copy, two columns) and with
+    external uniforms (no threefry, but reads that miss the cache), and the
+    time torch takes to transpose a [walk_length + 2, walkers] corpus (a
+    checkout whose kernel stores by columns pays it inside its wrapper).
 
 One JSON object a line, the card's name and power limit in each. Needs a
 CUDA device; imports nothing of JAX.
@@ -32,7 +39,8 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import SGNS_SHAPES, check, cuda_ms, synth_power_law_graph
+from chip_smoke import (RESIDENT_SHAPES, SGNS_SHAPES, check, cuda_ms,
+                        regular_graph, synth_power_law_graph)
 
 
 def load_package(root: str, name: str):
@@ -154,6 +162,39 @@ def main(argv: list[str]) -> int:
     runs = [(name, wall_ms(torch, key_table(name), 10)) for name in order]
     print(json.dumps({"step": "trial-key table, host wall ms a call",
                       "ms_in_turns": runs, "card": smi}))
+
+    # the resident-row walk kernel
+    L, T, md = 80, 8, 16
+    for V, R in RESIDENT_SHAPES:
+        g = regular_graph(V, md, seed=V)
+        W = R * V
+        W_pad = -(-W // 256) * 256
+        ext = torch.rand((1 + L * T, 3, W_pad), device="cuda")
+
+        def wrapper(pkg):
+            rw = pkg("ops.resident_walk")
+            tab = torch.as_tensor(rw.build_row_tables(g, md)).cuda()
+            return lambda length=L, uniforms=None: rw.walk_corpus_resident(
+                tab, 0, V, W, length, p, q, md, W_pad, T, uniforms)
+
+        fns = {"other": wrapper(other), "this": wrapper(this)}
+        check(torch.equal(fns["this"](), fns["other"]()),
+              f"the two checkouts' resident corpora differ at V={V}")
+        check(torch.equal(fns["this"](L, ext), fns["other"](L, ext)),
+              f"the two checkouts' resident corpora differ at V={V} under "
+              f"external uniforms")
+        runs = [(name, cuda_ms(fns[name], 20)) for name in order]
+        split = {name: {
+            "walk_length_0": cuda_ms(lambda: fns[name](0), 20),
+            "external_uniforms": cuda_ms(lambda: fns[name](L, ext), 20)}
+            for name in ("other", "this")}
+        buf = torch.empty((L + 2, W_pad), dtype=torch.int32, device="cuda")
+        print(json.dumps({
+            "kernel": "resident_walk", "vertices": V, "walkers": W,
+            "walk_length": L, "ms_in_turns": runs, "split_ms": split,
+            "transpose_ms": cuda_ms(lambda: buf.t().contiguous(), 20),
+            "card": smi}))
+        del ext
     return 0
 
 

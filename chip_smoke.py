@@ -16,8 +16,9 @@ drives the port's paths once each through the entry points a user calls:
   phases 6-7  the resident-row walks (`resident_walks`): kernel against
               plain version bit for bit with rows in shared memory and in
               device memory, then 16-regular graphs of 4,096 and 1,024
-              vertices at numWalks 10, walkLength 80, beside the general
-              walk kernel on the same graphs;
+              vertices at numWalks 10 and of 1,024 vertices at numWalks 80,
+              walkLength 80, beside the general walk kernel on the same
+              graphs;
   phase 8     `--cmd embedding` through the CLI on phase 4's walks.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
@@ -47,6 +48,10 @@ SGNS_SHAPES = [(2624, 128, 128), (300, 50, 37), (7, 128, 256),
                (20000, 128, 128), (1000, 512, 64), (100, 200, 300)]
 # every trial mode of csrc/walk.cu: general, p == q == 1, q == 1
 WALK_PQ = [(0.25, 0.25), (1.0, 1.0), (1.0, 4.0), (4.0, 0.25), (0.5, 1.0)]
+# phase 7's 16-regular graphs: (vertices, numWalks). Rows in device memory;
+# rows in shared memory with fewer warps than the card has schedulers; rows
+# in shared memory with five warps a scheduler
+RESIDENT_SHAPES = [(4096, 10), (1024, 10), (1024, 80)]
 # published H100 SXM peaks: device memory rate, and f32 outside the tensor
 # cores (an FMA counts as two operations)
 MEM_BYTES_PER_S = 3.35e12
@@ -503,38 +508,83 @@ def phase_resident_check(torch) -> int:
                     n += 1
     check(placed["shared"] > 0 and placed["global"] > 0,
           f"row placements checked: {placed}")
+    # what the launch plan and the kernel's paths can get wrong: walkers that
+    # do not fill a block or fill one tile, walks of length 0, 1 and odd
+    # (single-column stores), one trial a step, a bias that sends most steps
+    # down the cold path, and more walkers than one launch has threads
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    edge = [  # graph, W_real, W_pad, L, T, (p, q)
+        ("karate", 200, 256, L, T, (0.25, 0.25)),
+        ("regular2k", 2048 * 3 - 77, 2048 * 3, 5, T, (0.25, 0.25)),
+        ("karate", 102, 256, 0, T, (0.25, 0.25)),
+        ("karate", 102, 256, 1, T, (0.5, 2.0)),
+        ("regular2k", 4000, 4096, 7, T, (4.0, 0.25)),
+        ("karate", 102, 256, L, 1, (0.25, 4.0)),
+        ("regular2k", 4096, 4096, L, 1, (4.0, 0.25)),
+        ("karate", 500, 512, L, T, (0.25, 4.0)),
+        ("regular2k", 6144, 6144, L, T, (0.25, 4.0)),
+        ("weighted5", 1024 * sms + 300, 1024 * sms + 512, 3, T, (0.25, 4.0)),
+    ]
+    m = 0
+    for name, W, W_pad, L_e, T_e, (p, q) in edge:
+        g = graphs[name]
+        md, V = max(g.max_degree, 1), g.num_vertices
+        tab = torch.as_tensor(rw.build_row_tables(g, md)).cuda()
+        ext = torch.as_tensor(rng.random(rw.uniforms_shape(L_e, T_e, W_pad),
+                                         dtype=np.float32)).cuda()
+        fits = rw.row_placement(tab) == "shared"
+        for uniforms in (None, ext):
+            want = rw.walk_corpus_resident_ref(tab, 7, V, W, L_e, p, q, md,
+                                               W_pad, T_e, uniforms)
+            for rows in (("shared", "global") if fits else ("global",)):
+                got = rw.walk_corpus_resident(tab, 7, V, W, L_e, p, q, md,
+                                              W_pad, T_e, uniforms, rows)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"resident walk kernel differs from its plain version "
+                      f"on {name}: W_real={W} W_pad={W_pad} L={L_e} "
+                      f"max_trials={T_e} p={p} q={q}, rows in {rows} memory, "
+                      f"plan {tuple(rw.launch_plan(W_pad, rows, sms))}")
+                m += 1
+    check(rw.launch_plan(edge[-1][2], "shared", sms).walkers_a_thread == 2,
+          "no case with more walkers than threads")
     print(f"phase 6 resident walk kernel: bitwise equal to "
           f"walk_corpus_resident_ref on the card in {n} cases ({placed}; "
           f"{list(graphs)}, (p, q) in {WALK_PQ}, seeded and external "
-          f"draws, L={L}, max_trials={T}); walk invariants zero on each")
-    return n
+          f"draws, L={L}, max_trials={T}), walk invariants zero on each; "
+          f"and in {m} cases at the edges (W_real short of a block, one "
+          f"tile, L in (0, 1, 5, 7), max_trials 1, (p, q) = (0.25, 4) where "
+          f"most steps take the cold path, {edge[-1][2]} walkers for "
+          f"{sms} SMs x 1024 threads)")
+    return n + m
 
 
 def phase_resident_main(torch, kernel, smi) -> dict:
-    """Phase 7: resident_walks at full width on 16-regular graphs of 4,096
-    vertices (rows in device memory) and 1,024 vertices (rows in shared
-    memory): numWalks 10, walkLength 80, p = q = 0.25, max_trials 8. Then,
-    on each, the kernel against its plain version, its time, and the general
+    """Phase 7: resident_walks at full width on the 16-regular graphs of
+    RESIDENT_SHAPES: walkLength 80, p = q = 0.25, max_trials 8. Then, on
+    each, the kernel against its plain version, its time, and the general
     walk kernel's time on the same graph and walk lengths."""
     from stellar_rw_tpu_torch.ops import prng, sampling, walk_step
     from stellar_rw_tpu_torch.ops import resident_walk as rw
     from stellar_rw_tpu_torch.walk import engine
 
-    L, R, T, p, q, seed = 80, 10, 8, 0.25, 0.25, 0
-    graphs = {V: regular_graph(V, 16, seed=V) for V in (4096, 1024)}
+    L, T, p, q, seed = 80, 8, 0.25, 0.25, 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    graphs = {V: regular_graph(V, 16, seed=V) for V, _ in RESIDENT_SHAPES}
     # the path, through its entry point, counted
     kernel.launches = 0
-    corpora = {V: rw.resident_walks(g, L, R, p, q, seed=seed, max_trials=T,
-                                    as_numpy=False)
-               for V, g in graphs.items()}
+    corpora = [rw.resident_walks(graphs[V], L, R, p, q, seed=seed,
+                                 max_trials=T, as_numpy=False)
+               for V, R in RESIDENT_SHAPES]
     torch.cuda.synchronize()
     launches = kernel.launches
-    check(launches == len(graphs),
-          f"resident_walks launched {launches} kernels on {len(graphs)} "
-          f"graphs")
+    check(launches == len(RESIDENT_SHAPES),
+          f"resident_walks launched {launches} kernels in "
+          f"{len(RESIDENT_SHAPES)} calls")
 
     shapes = []
-    for V, g in graphs.items():
+    for (V, R), got in zip(RESIDENT_SHAPES, corpora):
+        g = graphs[V]
         md, W = g.max_degree, R * V
         check(md == 16, f"regular graph has max degree {md}")
         tab = torch.as_tensor(rw.build_row_tables(g, md)).cuda()
@@ -542,13 +592,14 @@ def phase_resident_main(torch, kernel, smi) -> dict:
         place = rw.row_placement(tab)
         check(place == ("global" if V == 4096 else "shared"),
               f"rows of the V={V} table read from {place} memory")
+        plan = rw.launch_plan(W_pad, place, sms)
         dg = sampling.device_put_graph(g, "cuda")
         counts = {}
         want, plain_ms = cuda_ms_once(lambda: rw.walk_corpus_resident_ref(
             tab, seed, V, W, L, p, q, md, W_pad, T, counts=counts))
-        got = corpora[V]
         check(got.shape == (W, L + 2) and torch.equal(got, want[:W]),
-              f"resident_walks differs from the plain version at V={V}")
+              f"resident_walks differs from the plain version at V={V}, "
+              f"{W} walkers")
         bad = engine.corpus_invariants(dg, got).tolist()
         check(bad == [0, 0, 0], f"resident_walks invariants {bad} at V={V}")
         kern = lambda: rw.walk_corpus_resident(tab, seed, V, W, L, p, q, md,
@@ -562,31 +613,50 @@ def phase_resident_main(torch, kernel, smi) -> dict:
         check(engine.corpus_invariants(dg, general()).tolist() == [0, 0, 0],
               f"general walk invariants at V={V}")
         runs = [cuda_ms(f, 20) for f in (general, kern, kern, general)]
-        # the wrapper's transposition of the [L+2, W_pad] corpus, alone
-        buf = torch.empty((L + 2, W_pad), dtype=torch.int32, device="cuda")
-        transpose_ms = cuda_ms(lambda: buf.t().contiguous(), 20)
-        draws = 2 * int((got[:, 1] >= 0).sum()) + 3 * counts["trials"]
+        # draws this corpus needed: 2 for each first-order step, 2 a trial,
+        # and u_acc where it could decide (f < max_f before the last trial).
+        # Counting u_acc in every trial, as the kernel drew it before, gives
+        # `draws_all`.
+        first = 2 * int((got[:, 1] >= 0).sum())
+        draws = first + 2 * counts["trials"] + counts["acc_draws"]
+        draws_all = first + 3 * counts["trials"]
         b = bound(tensor_bytes(tab) + W_pad * (L + 2) * 4,
                   draws * OPS_PER_DRAW, INT_OPS_PER_S)
+        walker = counts["walker_trials"]
+        warps = -(-W_pad // 32)
         shapes.append({
             "vertices": V, "walkers": W, "steps": counts["steps"],
-            "trials": counts["trials"], "rows": place,
+            "trials": counts["trials"], "acc_draws": counts["acc_draws"],
+            "draws": draws, "draws_with_u_acc_always": draws_all,
+            "rows": place, "plan": tuple(plan),
             "table_bytes": tensor_bytes(tab),
             "max_abs_err": int((got - want[:W]).abs().max()),
-            "ms": (runs[1] + runs[2]) / 2, "transpose_ms": transpose_ms,
-            "plain_ms": plain_ms,
-            "general_walk_ms": (runs[0] + runs[3]) / 2, **b})
+            "ms": (runs[1] + runs[2]) / 2, "plain_ms": plain_ms,
+            "general_walk_ms": (runs[0] + runs[3]) / 2, **b,
+            "warp_slowest_total_mean": float(
+                walk_step.warp_max(walker).float().mean()),
+            "warp_step_max_sum_mean": counts["step_warp_max"] / warps,
+            "warp_cold_steps_mean": counts["warp_cold_steps"] / warps})
         sh = shapes[-1]
         print(f"phase 7 resident_walks, 16-regular V={V}: {W} walkers, "
               f"{sh['steps']} steps, {sh['trials']} trials, rows in "
-              f"{place} memory ({sh['table_bytes']} table bytes); bitwise "
+              f"{place} memory ({sh['table_bytes']} table bytes), "
+              f"{plan.blocks} blocks x {plan.threads} threads; bitwise "
               f"equal to the plain version, invariants zero; kernel "
               f"{sh['ms']:.4f} ms = {sh['steps'] / sh['ms'] / 1e6:.2f} G "
-              f"steps/s ({transpose_ms:.4f} ms of it the wrapper's "
-              f"transposition), plain {plain_ms:.1f} ms, general walk kernel "
-              f"{sh['general_walk_ms']:.4f} ms, bound {sh['bound_ms']:.5f} "
-              f"ms by {sh['bound_by']} (CUDA events, mean of 2x20; plain one call) "
-              f"[{smi}]")
+              f"steps/s, plain {plain_ms:.1f} ms, general walk kernel "
+              f"{sh['general_walk_ms']:.4f} ms; {draws} draws needed "
+              f"({draws_all} with u_acc in every trial; it could decide in "
+              f"{sh['acc_draws']} trials), bound {sh['bound_ms']:.5f} ms by "
+              f"{sh['bound_by']} (CUDA events, mean of 2x20; plain one "
+              f"call) [{smi}]")
+        print(f"  trials: {sh['trials'] / max(sh['steps'], 1):.4f} a step; "
+              f"a warp's slowest lane's total "
+              f"{sh['warp_slowest_total_mean']:.1f} (a flat loop's turns), "
+              f"sum over steps of the warp's maximum "
+              f"{sh['warp_step_max_sum_mean']:.1f} (the nested loop's "
+              f"turns), steps with a lane on the cold path "
+              f"{sh['warp_cold_steps_mean']:.1f} of {L} a warp")
     main_shape = shapes[0]
     keep = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"launches": launches, **{k: main_shape[k] for k in keep},

@@ -45,10 +45,24 @@ def test_row_tables_field_by_field(name, extra, karate_path):
     jg, g = _graphs(name, karate_path)
     md = max(g.max_degree, 1) + extra
     want = pw.build_row_tables(jg, md)                 # f32 [V_pad, 128]
-    got = rw.build_row_tables(g, md)                   # i32 [V, 1 + 3*md]
+    got = rw.build_row_tables(g, md)                   # i32 [V, stride]
     V = g.num_vertices
-    assert got.dtype == np.int32 and got.shape == (V, 1 + 3 * md)
+    lay = rw.row_layout(md)
+    assert got.dtype == np.int32 and got.shape == (V, lay.stride)
+    # the ids lead, 16-byte aligned rows, stride / 4 odd, fields disjoint
+    assert lay.stride % 4 == 0 and (lay.stride // 4) % 2 == 1
+    assert max(md, rw.HELD_IDS) <= lay.pairs and lay.pairs % 4 == 0
+    assert lay.pairs + 2 * md == lay.deg < lay.stride
+    assert (got[:, md:lay.pairs] == -1).all()          # ids' padding
+    assert (got[:, lay.deg + 1:] == 0).all()           # the row's tail
     deg, cols, acols, aprob = rw.row_fields(got, md)
+    # an id word carries its vertex's degree above the id; -1 pads
+    for words, ids in ((got[:, :md], cols),
+                       (got[:, lay.pairs + 1:lay.deg:2], acols)):
+        real = words != -1
+        np.testing.assert_array_equal(real, ids >= 0)
+        np.testing.assert_array_equal(
+            words.view(np.uint32)[real] >> rw.ID_BITS, deg[ids[real]])
     np.testing.assert_array_equal(deg, want[:V, 0])
     np.testing.assert_array_equal(cols, want[:V, 1:1 + md])
     np.testing.assert_array_equal(acols, want[:V, 1 + md:1 + 2 * md])
@@ -193,7 +207,10 @@ def test_ref_counts_steps_and_trials(karate_path):
     rw.walk_corpus_resident_ref(tab, 0, V, 68, 5, 1.0, 1.0, md, 256, 8,
                                 counts=counts)
     # p == q == 1: every first trial accepts; karate has no dead end
-    assert counts == {"steps": 68 * 5, "trials": 68 * 5}
+    assert {k: counts[k] for k in ("steps", "trials")} == {
+        "steps": 68 * 5, "trials": 68 * 5}
+    assert counts["acc_draws"] == counts["cold_steps"] == 0
+    assert counts["walker_trials"].tolist() == [5] * 68 + [0] * 188
     rw.walk_corpus_resident_ref(tab, 0, V, 68, 5, 0.25, 4.0, md, 256, 8,
                                 counts=counts)
     assert counts["steps"] == 68 * 5 < counts["trials"] <= 68 * 5 * 8
@@ -202,7 +219,7 @@ def test_ref_counts_steps_and_trials(karate_path):
 def test_row_placement():
     small = torch.zeros((1024, rw.row_words(16)), dtype=torch.int32)
     large = torch.zeros((4096, rw.row_words(16)), dtype=torch.int32)
-    assert small.numel() * 4 == 200_704 and large.numel() * 4 == 802_816
+    assert small.numel() * 4 == 212_992 and large.numel() * 4 == 851_968
     assert rw.row_placement(small) == "shared"
     assert rw.row_placement(large) == "global"
     assert rw.row_placement(small, "global") == "global"
@@ -220,7 +237,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
     if bad == "dtype":
         args["tab"] = tab.float()
     elif bad == "shape":
-        args["md"] = 3
+        args["md"] = 8        # another stride than the table's
     elif bad == "uniforms":
         args["uniforms"] = torch.zeros((3, 3, 8))
     else:
