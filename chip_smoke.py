@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process for
-each of the three sources, in parallel; walk.cu holds two kernels), holds
-each against its plain PyTorch version on the card, and
-drives the port's paths once each through the entry points a user calls:
+each of the five sources, in parallel; walk.cu and sgns_exact.cu hold two
+kernels each), holds each against its plain PyTorch version on the card,
+and drives the port's paths once each through the entry points a user calls:
 
   phases 2-5  `node2vec --sharedNegatives 128` through the CLI on a
               BlogCatalog-shaped graph (10,000 vertices, 334,000 sampled
@@ -19,7 +19,15 @@ drives the port's paths once each through the entry points a user calls:
               vertices at numWalks 10 and of 1,024 vertices at numWalks 80,
               walkLength 80, beside the general walk kernel on the same
               graphs;
-  phase 8     `--cmd embedding` through the CLI on phase 4's walks.
+  phase 8     `--cmd embedding` through the CLI on phase 4's walks;
+  phases 9-10 the exact-CDF walks: kernel against plain version bit for bit
+              at the edges, then `--cmd randomwalk --p 0.0625 --q 4` through
+              the CLI on phase 4's graph (a bias ratio of 64: the chunked
+              exact CDF), with walk-round checkpoints cut and resumed;
+  phases 11-12 the exact-negative SGNS step: its two kernels against the
+              plain step on one block of the main shape, then `node2vec`
+              through the CLI with the default trainer (no
+              --sharedNegatives) and the karate gate with exact negatives.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every failure raises and the script exits non-zero. It
@@ -67,6 +75,15 @@ MAIN_FLAGS = ["--cmd", "node2vec", "--walkLength", "80", "--numWalks", "10",
               "--p", "0.25", "--q", "0.25", "--dim", "128", "--window", "10",
               "--negatives", "5", "--sharedNegatives", "128", "--iter", "1",
               "--validate", "true"]
+# phase 12: the CLI's default trainer, exact negatives
+EXACT_FLAGS = (MAIN_FLAGS[:MAIN_FLAGS.index("--sharedNegatives")]
+               + MAIN_FLAGS[MAIN_FLAGS.index("--sharedNegatives") + 2:])
+# phase 10: a bias ratio of 64 sends plan_sampler to the exact CDF
+CDF_FLAGS = ["--cmd", "randomwalk", "--walkLength", "80", "--numWalks", "10",
+             "--p", "0.0625", "--q", "4", "--validate", "true"]
+# a row entry of the CDF scan: the hash multiply, mask and base add, four
+# compares and their or, the select of f, the product and the sum
+OPS_PER_ENTRY = 12
 EMBED_FLAGS = ["--cmd", "embedding", "--dim", "128", "--window", "10",
                "--negatives", "5", "--sharedNegatives", "128", "--iter", "1"]
 
@@ -426,7 +443,8 @@ def phase_main(torch, walk_kernel, keys_kernel, sgns_kernel, smi,
           f"[{smi}]")
     return {"walk": walk_kernel.launches,
             "trial_keys": keys_kernel.launches,
-            "sgns_shared_grads": sgns_kernel.launches, "out": out}
+            "sgns_shared_grads": sgns_kernel.launches, "out": out,
+            "edges": edges}
 
 
 def phase_quality(torch) -> None:
@@ -687,18 +705,401 @@ def phase_embedding(torch, sgns_kernel, walks_dir: str, out: str) -> None:
           f"sgns={sgns_kernel.launches}")
 
 
+def cdf_graphs():
+    """Phase 9's graphs: small ones with the edges of the walk semantics and
+    two whose rows exceed a warp."""
+    from stellar_rw_tpu_torch.graph import csr
+    from stellar_rw_tpu_torch.graph import io as gio
+
+    data = os.path.join(ROOT, "tests", "data")
+    return {
+        "karate": gio.load_edge_list(os.path.join(data, "karate.txt"),
+                                     weighted=False, directed=False),
+        # directed, with a dead end and an isolated start
+        "testgraph": gio.load_edge_list(os.path.join(data, "testgraph.txt"),
+                                        weighted=False, directed=True),
+        # a self-loop and a multi self-edge (tests/test_engine.py:93)
+        "multi": csr.from_adjacency({0: [(0, 1.0), (1, 1.0)],
+                                     1: [(0, 1.0), (1, 1.0), (1, 1.0)]}),
+        "weighted5": csr.from_adjacency(
+            {0: [(1, 1.0)], 1: [(0, 1.0), (2, 2.0), (3, 1.0), (4, 0.5)],
+             2: [(1, 1.0), (0, 1.0)], 3: [(1, 1.0)], 4: [(1, 1.0)]}),
+        "regular2k_weighted": regular_graph(2048, 10, seed=2, weighted=True),
+        "synth2k": synth_power_law_graph(2048, 32768, seed=1),
+    }
+
+
+def phase_cdf_check(torch) -> int:
+    """Phase 9: the CDF walk kernel against its plain version, bit for bit,
+    on the card. Both sum in one order, so every input is held bitwise:
+    unit, dyadic and arbitrary weights alike."""
+    from stellar_rw_tpu_torch.ops import cdf_walk, prng, sampling
+
+    graphs = cdf_graphs()
+    pqs = [(0.25, 4.0), (4.0, 0.25), (1.0, 1.0), (0.0625, 4.0), (0.5, 2.0)]
+    n = 0
+    key = prng.prng_key(11)
+
+    def held(name, g, starts, R, L, p, q, chunk, dtype, ro=0):
+        dg = sampling.device_put_graph(g, "cuda", cdf=True)
+        st = torch.as_tensor(starts, dtype=torch.int32, device="cuda")
+        md = max(g.max_degree, 1)
+        got = cdf_walk.cdf_walk_rounds(dg, st, key, ro, R, L, p, q, md,
+                                       chunk, dtype)
+        want = cdf_walk.cdf_walk_ref(dg, st, key, ro, R, L, p, q, md, chunk,
+                                     dtype)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"cdf walk kernel differs from its plain version on {name}: "
+              f"W={len(starts)} R={R} L={L} p={p} q={q} "
+              f"{'chunked' if chunk else 'padded'} {dtype}")
+        from stellar_rw_tpu_torch.walk import engine
+        bad = engine.corpus_invariants(dg, got).tolist()
+        check(bad == [0, 0, 0], f"cdf walk invariants {bad} on {name}")
+
+    i = 0
+    for name, g in graphs.items():
+        starts = np.arange(g.num_vertices, dtype=np.int32)
+        # the plain version's padded form loops over the columns of the
+        # widest row (6,011 entries on synth2k): fewer steps there
+        L = 6 if name == "synth2k" else 20
+        for chunk in (0, 256):
+            for dtype in ("float32", "float64"):
+                p, q = pqs[i % len(pqs)]
+                i += 1
+                held(name, g, starts, 2, L, p, q, chunk, dtype)
+                n += 1
+    # walk lengths 0, 1 and odd; ragged walker counts (a block holds 8
+    # walkers); one walker; a round offset
+    rng = np.random.default_rng(3)
+    for name, L, W, R, ro in (("karate", 0, 34, 3, 0), ("synth2k", 1, 37, 2, 5),
+                              ("synth2k", 7, 1, 1, 0),
+                              ("regular2k_weighted", 13, 1001, 3, 2),
+                              ("testgraph", 9, 3, 4, 0)):
+        g = graphs[name]
+        starts = rng.integers(0, g.num_vertices, W).astype(np.int32)
+        for chunk in (0, 256):
+            for dtype in ("float32", "float64"):
+                held(name, g, starts, R, L, 0.0625, 4.0, chunk, dtype, ro)
+                n += 1
+    print(f"phase 9 cdf walk kernel: bitwise equal to cdf_walk_ref on the "
+          f"card in {n} cases ({list(graphs)}; padded and chunked, f32 and "
+          f"f64, (p, q) in {pqs}, L in (0, 1, 6, 7, 9, 13, 20), W in (1, 3, 37, "
+          f"1001, |V|), round offsets 0-5), walk invariants zero on each")
+    return n
+
+
+def phase_cdf_main(torch, kernel, smi, tmp, edges) -> dict:
+    """Phase 10: `--cmd randomwalk --p 0.0625 --q 4` through the CLI on
+    phase 4's graph (plan_sampler: exact CDF, chunked at this corpus size),
+    the first 4,096 walkers of round 0 against the plain version, and a
+    run with walk-round checkpoints cut at 4 rounds and resumed."""
+    from stellar_rw_tpu_torch import cli
+    from stellar_rw_tpu_torch.graph import io as gio
+    from stellar_rw_tpu_torch.ops import cdf_walk, prng, sampling
+    from stellar_rw_tpu_torch.utils.config import parse
+    from stellar_rw_tpu_torch.walk import engine
+
+    out = os.path.join(tmp, "out_cdf")
+    report = {}
+    kernel.launches = 0
+    rc = cli.main(["--input", edges, "--output", out] + CDF_FLAGS,
+                  report=report)
+    torch.cuda.synchronize()
+    launches = kernel.launches
+    check(rc == 0, f"cli.main returned {rc}")
+    check(launches > 0, "the cdf walk kernel was not launched")
+    check(not any(report["invariants"].values()),
+          f"cdf walk invariants {report['invariants']}")
+    params = parse(CDF_FLAGS + ["--input", edges, "--output", out])
+    graph = gio.load_edge_list(edges, weighted=params.weighted,
+                               directed=params.directed)
+    V, L, R, p, q = graph.num_vertices, 80, 10, 0.0625, 4.0
+    spec = engine.walk_spec(graph, L, R, p, q, "cdf", 16, "float32", V)
+    check(spec.cdf_chunk == sampling.CDF_CHUNK,
+          f"the CLI's spec is not the chunked form: {spec}")
+    dg = sampling.device_put_graph(graph, "cuda", cdf=True)
+    corpus = engine.random_walks(graph, L, R, p, q, seed=0, device_graph=dg,
+                                 as_numpy=False, device="cuda")
+    # entries scanned: deg(cur) of every step taken (cur is the column
+    # before a live one)
+    deg = dg.vmeta[:, 1].long()
+    scanned_in = lambda w: int((deg[w[:, :-1].clamp_min(0).long()]
+                                * (w[:, 1:] >= 0)).sum())
+    scanned = scanned_in(corpus)
+    steps = int((corpus[:, 1:] >= 0).sum())
+    check(report["paths"] == corpus.shape[0] and report["steps"] == steps,
+          "the CLI's corpus and random_walks' differ in size")
+    n_chk = 4096
+    starts = torch.arange(n_chk, dtype=torch.int32, device="cuda")
+    key = prng.prng_key(0)
+    sub = lambda: cdf_walk.cdf_walk_ref(dg, starts, key, 0, 1, L, p, q,
+                                        spec.max_degree, spec.cdf_chunk)
+    want, plain_ms = cuda_ms_once(sub)
+    check(torch.equal(corpus[:n_chk], want),
+          "cdf walk kernel differs from its plain version on the first "
+          f"{n_chk} walkers of round 0")
+    kern = lambda: cdf_walk.cdf_walk_rounds(
+        dg, torch.arange(V, dtype=torch.int32, device="cuda"), key, 0, R, L,
+        p, q, spec.max_degree, spec.cdf_chunk)
+    kern_sub = lambda: cdf_walk.cdf_walk_rounds(
+        dg, starts, key, 0, 1, L, p, q, spec.max_degree, spec.cdf_chunk)
+    ms = cuda_ms(kern, 3)
+    ms_sub = cuda_ms(kern_sub, 3)
+    b = bound(tensor_bytes(dg.vmeta, dg.cdf_rows, dg.hash_buckets, corpus),
+              scanned * OPS_PER_ENTRY, INT_OPS_PER_S)
+    # walk-round checkpoints: 4 rounds, then resumed to 10
+    ck = os.path.join(tmp, "out_cdf_ckpt")
+    flags = ["--input", edges, "--output", ck] + CDF_FLAGS[:-2] + [
+        "--checkpointEvery", "2"]
+    numw = flags.index("--numWalks") + 1
+    cut = list(flags)
+    cut[numw] = "4"
+    check(cli.main(cut) == 0, "checkpointed cut run failed")
+    check(cli.main(flags + ["--resume", "true"]) == 0,
+          "resumed run failed")
+    with open(os.path.join(out, "path", "part-00000"), "rb") as a, \
+            open(os.path.join(ck, "path", "part-00000"), "rb") as c:
+        check(a.read() == c.read(), "the resumed walk-round checkpoint run "
+              "differs from the uninterrupted one")
+    print(f"phase 10 --cmd randomwalk --p {p} --q {q} (exact CDF, chunked): "
+          f"{report['paths']} walks, {report['steps']} steps in "
+          f"{report['walk_seconds']:.3f} s = "
+          f"{report['steps'] / report['walk_seconds']:,.0f} steps/s; "
+          f"launches cdf_walk={launches}; entries scanned (sum of deg(cur) "
+          f"over {steps} steps) {scanned:,} = {scanned / max(steps, 1):.1f} "
+          f"a step; kernel {ms:.2f} ms for the corpus (CUDA events, mean of "
+          f"3) = {scanned / ms / 1e6:.2f} G entries/s; on the first {n_chk} "
+          f"walkers of round 0 kernel {ms_sub:.2f} ms, plain version "
+          f"{plain_ms:.0f} ms (one call), bitwise equal; bound "
+          f"{b['bound_ms']:.3f} ms by {b['bound_by']}; --checkpointEvery 2 "
+          f"cut at 4 rounds and resumed: /path byte-equal [{smi}]")
+    # ms and the bound: the whole corpus; plain_ms: the first 4,096
+    # walkers of round 0 (the whole corpus would take the plain version
+    # minutes), beside the kernel's time on them
+    return {"launches": launches, "max_abs_err": 0, "ms": ms,
+            "plain_ms": plain_ms, **b, "library_ms": None,
+            "plain_scope": f"first {n_chk} walkers of round 0",
+            "kernel_ms_same_scope": ms_sub,
+            "entries_scanned": scanned, "entries_scanned_same_scope":
+                scanned_in(want), "steps": steps,
+            "walk_seconds": report["walk_seconds"]}
+
+
+def exact_block(torch, V=10_000, B=32, T=82, window=10, k=5, D=128, seed=0):
+    """One block of the main shape: Zipf-distributed tokens (so rows
+    collide), -1 padding at the end of a walk, the trainer's window and
+    negative draws, random tables."""
+    from stellar_rw_tpu_torch.models import word2vec as w2v
+    from stellar_rw_tpu_torch.ops import prng
+    from stellar_rw_tpu_torch.ops.alias import build_alias
+
+    rng = np.random.default_rng(seed)
+    block = np.minimum((V * rng.random((B, T)) ** (1 / 0.3)).astype(np.int32),
+                       V - 1)
+    block[-1, T - 7:] = -1
+    key = prng.fold_in(prng.prng_key(seed), 3).cuda()
+    cwin = prng.randint(key, (B, T), 1, window + 1)
+    keep, alias = build_alias(np.bincount(block[block >= 0], minlength=V)
+                              ** 0.75 + 1e-12)
+    negs = w2v._draw_negatives(
+        prng.fold_in(key, 2), (B * T * 2 * window, k),
+        torch.as_tensor(keep, dtype=torch.float32).cuda(),
+        torch.as_tensor(alias, dtype=torch.int64).cuda()).to(torch.int32)
+    w = lambda: torch.as_tensor((rng.standard_normal((V, D)) * 0.3)
+                                .astype(np.float32)).cuda()
+    return w(), w(), torch.as_tensor(block).cuda(), cwin, negs
+
+
+def phase_exact_check(torch) -> tuple[dict, dict]:
+    """Phase 11: sgns_exact_step's two kernels against the plain step (in
+    float64) on blocks of the main shape, and on ragged ones; the kernels'
+    times."""
+    from stellar_rw_tpu_torch.ops import sgns_exact as se
+
+    lr = 0.025
+    err = 0.0
+    shapes = [(10_000, 32, 82, 10, 5, 128), (10_000, 32, 82, 10, 5, 100),
+              (300, 7, 30, 3, 2, 16), (50, 5, 11, 5, 7, 512),
+              (10_000, 32, 82, 10, 5, 128)]
+    f32_err = 0.0
+    for i, (V, B, T, win, k, D) in enumerate(shapes):
+        w_in, w_out, block, cwin, negs = exact_block(torch, V, B, T, win, k,
+                                                     D, seed=i)
+        # the plain step in float64 as the reference: in float32 it adds
+        # each pair's share into the row one at a time, and a Zipf block's
+        # hub rows take ~10^4 of them, each rounded at the row's magnitude
+        a_in, a_out = w_in.double(), w_out.double()
+        se.sgns_exact_step_ref(a_in, a_out, block, cwin, negs, lr, win)
+        p_in, p_out = w_in.clone(), w_out.clone()
+        se.sgns_exact_step_ref(p_in, p_out, block, cwin, negs, lr, win)
+        b_in, b_out = w_in.clone(), w_out.clone()
+        se.sgns_exact_step(b_in, b_out, block, cwin, negs, lr, win)
+        torch.cuda.synchronize()
+        for got, want, plain, old in ((b_in, a_in, p_in, w_in),
+                                      (b_out, a_out, p_out, w_out)):
+            check(torch.allclose(got.double(), want, rtol=1e-5, atol=1e-6),
+                  f"sgns_exact_step differs from the plain step in float64 "
+                  f"at {(V, B, T, win, k, D)}: max abs err "
+                  f"{float((got.double() - want).abs().max()):.3g}")
+            check(bool((got != old).any()), "the step moved nothing")
+            err = max(err, float((got.double() - want).abs().max()))
+            f32_err = max(f32_err, float((plain.double() - want).abs().max()))
+    # the main shape: each kernel timed by events around its own launches
+    V, B, T, win, k, D = shapes[0]
+    w_in, w_out, block, cwin, negs = exact_block(torch, V, B, T, win, k, D)
+    ws = se.Workspace(w_in, w_out)
+    grads = lambda: se.launch_grads(ws, w_in, w_out, block, cwin, negs, win)
+    apply = lambda: se.launch_apply(ws, w_in, w_out, lr)
+    step = lambda: se.sgns_exact_step(w_in, w_out, block, cwin, negs, lr, win,
+                                      ws)
+    plain = lambda: se.sgns_exact_step_ref(w_in, w_out, block, cwin, negs,
+                                           lr, win)
+    step()
+    torch.cuda.synchronize()
+    iters = 20
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+          for _ in range(iters)]
+    if not _BUSY:
+        _BUSY.append(torch.ones((8192, 8192), device="cuda"))
+    torch.mm(_BUSY[0], _BUSY[0])
+    for e in ev:
+        e[0].record()
+        grads()
+        e[1].record()
+        apply()
+        e[2].record()
+    torch.cuda.synchronize()
+    g_ms = sum(e[0].elapsed_time(e[1]) for e in ev) / iters
+    a_ms = sum(e[1].elapsed_time(e[2]) for e in ev) / iters
+    runs = [cuda_ms(f, 5) for f in (plain, step, step, plain)]
+    # what this block needs: its valid pairs and the rows they touch
+    from stellar_rw_tpu_torch.ops.sgns_exact import (_pairs_from_valid,
+                                                    _valid_from_cwin)
+    valid, ctx = _valid_from_cwin(block, cwin, win)
+    c, x, v = _pairs_from_valid(block, valid, ctx)
+    P = int(v.sum())
+    rows_in = int(torch.unique(c[v]).numel())
+    rows_out = int(torch.unique(torch.cat(
+        [x[v], negs.reshape(-1, k)[v].reshape(-1)])).numel())
+    # kernel (a): reads the touched rows of both tables and the block's
+    # draws, adds the gradient rows; 2*D flops a logit, a center-gradient
+    # and a target-gradient row for each of P*(1+k) targets
+    in_bytes = tensor_bytes(block, cwin, negs)
+    grads_b = bound(in_bytes + (rows_in + rows_out) * D * 4 * 2,
+                    2 * P * (1 + k) * D * 3, F32_FLOPS)
+    # kernel (b): each touched row read, its delta read, both written
+    apply_b = bound((rows_in + rows_out) * D * 4 * 4,
+                    (rows_in + rows_out) * D * 3, F32_FLOPS)
+    plain_ms = (runs[0] + runs[3]) / 2
+    print(f"phase 11 sgns_exact_step: within rtol 1e-5 atol 1e-6 of the "
+          f"plain step computed in float64 at {shapes}, max abs err "
+          f"{err:.3g} (the plain step in float32: {f32_err:.3g}); at the main "
+          f"shape "
+          f"(B {B}, T {T}, w {win}, k {k}, D {D}, V {V}: {P} valid pairs, "
+          f"{rows_in} + {rows_out} rows touched) grads {g_ms:.4f} ms, apply "
+          f"{a_ms:.4f} ms (CUDA events around each launch, mean of {iters}), "
+          f"both through the wrapper {(runs[1] + runs[2]) / 2:.4f} ms, plain "
+          f"step {plain_ms:.3f} ms (mean of 2x5); bounds "
+          f"{grads_b['bound_ms']:.5f} ms by {grads_b['bound_by']} / "
+          f"{apply_b['bound_ms']:.5f} ms by {apply_b['bound_by']}")
+    common = {"max_abs_err": err, "plain_f32_max_abs_err": f32_err,
+              "plain_ms": plain_ms, "library_ms": None,
+              "valid_pairs": P, "rows_touched": rows_in + rows_out,
+              "step_ms": (runs[1] + runs[2]) / 2}
+    return ({"ms": g_ms, **grads_b, **common},
+            {"ms": a_ms, **apply_b, **common})
+
+
+def phase_exact_main(torch, grads_kernel, apply_kernel, smi, tmp,
+                     edges) -> dict:
+    """Phase 12: `node2vec` through the CLI with its default trainer (exact
+    negatives), one epoch; then the karate gate with exact negatives."""
+    from stellar_rw_tpu_torch import cli
+    from stellar_rw_tpu_torch.graph import io as gio
+    from stellar_rw_tpu_torch.models import eval as ev
+    from stellar_rw_tpu_torch.models import node2vec as n2v
+    from stellar_rw_tpu_torch.models import word2vec as w2v
+    from stellar_rw_tpu_torch.walk import engine
+
+    out = os.path.join(tmp, "out_exact")
+    report = {}
+    grads_kernel.launches = 0
+    apply_kernel.launches = 0
+    rc = cli.main(["--input", edges, "--output", out] + EXACT_FLAGS,
+                  report=report)
+    torch.cuda.synchronize()
+    launches = (grads_kernel.launches, apply_kernel.launches)
+    check(rc == 0, f"cli.main returned {rc}")
+    check(min(launches) > 0, f"sgns_exact kernels launched {launches}")
+    tokens, w_in, w_out = n2v.load_model(out)
+    check(w_in.shape == (report["vertices"], 128)
+          and np.isfinite(w_in).all() and np.isfinite(w_out).all(),
+          "embeddings not finite or of the wrong shape")
+    g = gio.load_edge_list(os.path.join(ROOT, "tests", "data", "karate.txt"),
+                           weighted=False, directed=False)
+    walks = engine.random_walks(g, walk_length=20, num_walks=10, seed=2,
+                                as_numpy=False, device="cuda")
+    cfg = w2v.SGNSConfig(dim=32, window=5, negatives=5, lr=0.2, iters=20,
+                         seed=1)
+    kw_in, _ = w2v.train_skipgram(walks, g.num_vertices, cfg, device="cuda")
+    edges_k = [(v, int(d)) for v in range(g.num_vertices)
+               for d in g.neighbors(v)[0] if v < int(d)]
+    auc = ev.link_prediction_auc(kw_in, np.asarray(edges_k), g.num_vertices,
+                                 seed=0)
+    acc = ev.node_classification_accuracy(kw_in, ev.karate_labels(g.ids),
+                                          seed=0)
+    check(auc > 0.7 and acc >= 0.85,
+          f"karate gate with exact negatives: auc {auc} acc {acc}")
+    blocks = -(-report["paths"] // 32)
+    # the epoch's other device work: a chunk of blocks' window and negative
+    # draws (int64 torch threefry), as _train_epoch makes them
+    from stellar_rw_tpu_torch.ops import prng
+    from stellar_rw_tpu_torch.ops.alias import build_alias
+
+    B, T, win, k = 32, 82, 10, 5
+    chunk = w2v._DRAW_BUDGET // (B * T * 2 * win * k + B * T)
+    keep, alias = (torch.as_tensor(a).cuda()
+                   for a in build_alias(np.ones(report["vertices"])))
+    kb = prng.fold_in(prng.fold_in(prng.prng_key(1), 0).cuda(),
+                      torch.arange(chunk, device="cuda"))
+    draws = lambda: (prng.randint(kb, (B, T), 1, win + 1),
+                     w2v._draw_negatives(prng.fold_in(kb, 2),
+                                         (B * T * 2 * win, k), keep.float(),
+                                         alias.long()).to(torch.int32))
+    draws()
+    _, draw_ms = cuda_ms_once(draws)
+    print(f"phase 12 node2vec with the default trainer (exact negatives): "
+          f"{report['paths']} walks, trainer epoch "
+          f"{report['train_seconds']:.2f} s = "
+          f"{report['train_seconds'] / blocks * 1e3:.3f} ms a block over "
+          f"{blocks} blocks, of which the draws {draw_ms / chunk:.3f} ms a "
+          f"block on the card (a chunk of {chunk} blocks, CUDA events); "
+          f"launches sgns_exact_grads={launches[0]} "
+          f"sgns_exact_apply={launches[1]}; karate gate with exact negatives "
+          f"on the card: AUC {auc:.4f} (> 0.7), faction accuracy {acc:.4f} "
+          f"(>= 0.85) [{smi}]")
+    return {"grads": launches[0], "apply": launches[1],
+            "train_seconds": report["train_seconds"], "blocks": blocks,
+            "draw_ms_a_block": draw_ms / chunk}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    from stellar_rw_tpu_torch.ops.cdf_walk import CDF_WALK_KERNEL
     from stellar_rw_tpu_torch.ops.resident_walk import RESIDENT_WALK_KERNEL
     from stellar_rw_tpu_torch.ops.sgns import SGNS_KERNEL
+    from stellar_rw_tpu_torch.ops.sgns_exact import (SGNS_EXACT_APPLY,
+                                                     SGNS_EXACT_GRADS)
     from stellar_rw_tpu_torch.ops.walk_step import KEYS_KERNEL, WALK_KERNEL
 
     smi = phase_env(torch, (WALK_KERNEL, KEYS_KERNEL, SGNS_KERNEL,
-                            RESIDENT_WALK_KERNEL))
+                            RESIDENT_WALK_KERNEL, CDF_WALK_KERNEL,
+                            SGNS_EXACT_GRADS, SGNS_EXACT_APPLY))
     phase_walk(torch)
     sgns_row = phase_sgns(torch)
     walk_row, keys_row = phase_walk_main_shape(
@@ -712,6 +1113,13 @@ def main() -> int:
         phase_embedding(torch, SGNS_KERNEL,
                         os.path.join(main_run["out"], "path"),
                         os.path.join(tmp, "out_embedding"))
+        phase_cdf_check(torch)
+        cdf_row = phase_cdf_main(torch, CDF_WALK_KERNEL, smi, tmp,
+                                 main_run["edges"])
+        grads_row, apply_row = phase_exact_check(torch)
+        exact_run = phase_exact_main(torch, SGNS_EXACT_GRADS,
+                                     SGNS_EXACT_APPLY, smi, tmp,
+                                     main_run["edges"])
     kernels = [
         {"name": "walk", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/walk.cu",
@@ -729,6 +1137,17 @@ def main() -> int:
          "source": "stellar_rw_tpu_torch/csrc/resident_walk.cu",
          "replaces": "stellar_rw_tpu/ops/pallas/walk.py:238",
          **resident_row},
+        {"name": "cdf_walk", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/cdf_walk.cu",
+         "replaces": "stellar_rw_tpu/walk/engine.py:226", **cdf_row},
+        {"name": "sgns_exact_grads", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/sgns_exact.cu",
+         "replaces": "stellar_rw_tpu/models/word2vec.py:154",
+         "launches": exact_run["grads"], **grads_row},
+        {"name": "sgns_exact_apply", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/sgns_exact.cu",
+         "replaces": "stellar_rw_tpu/models/word2vec.py:154",
+         "launches": exact_run["apply"], **apply_row},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -29,7 +29,6 @@ from .walk import engine
 
 def check_flags(params: Params) -> None:
     """Raise NotPorted for each flag value this port does not serve."""
-    walks_run = params.cmd != TaskName.embedding
     refused = [
         (params.shards > 1, "--shards > 1 (ROADMAP Queue 1 item 12)"),
         (params.partitioned, "--partitioned true (ROADMAP Queue 1 item 12)"),
@@ -38,20 +37,8 @@ def check_flags(params: Params) -> None:
         (params.w2v_model_shards > 1,
          "--w2vModelShards > 1 (ROADMAP Queue 1 item 11)"),
         (params.streaming, "--streaming true (ROADMAP Queue 1 item 11)"),
-        (sampling.plan_sampler(params.sampler, params.p,
-                               params.q)[0] != "rejection",
-         "--sampler cdf or a p/q bias ratio above 32 (ROADMAP Queue 1 "
-         "item 7)"),
         (params.rng_impl != "threefry",
          "--rngImpl rbg|unsafe_rbg (not to port: XLA-only streams)"),
-        # with walks the two flags also mean the walk rounds' checkpoint
-        # files; with --cmd embedding only the trainer's, which are served
-        (walks_run and params.checkpoint_every > 0,
-         "--checkpointEvery with --cmd randomwalk|node2vec: walk-round "
-         "checkpoints (ROADMAP Queue 1 item 5)"),
-        (walks_run and params.resume,
-         "--resume true with --cmd randomwalk|node2vec: walk-round "
-         "checkpoints (ROADMAP Queue 1 item 5)"),
         (params.profile_dir is not None, "--profile (not ported yet)"),
     ]
     for hit, what in refused:
@@ -72,7 +59,9 @@ def do_random_walk(params: Params, device: torch.device, report: dict):
     print(f"vertices: {graph.num_vertices}")
     print(f"edges: {graph.num_edges}")
     t0 = time.perf_counter()
-    dg = sampling.device_put_graph(graph, device)
+    cdf = sampling.plan_sampler(params.sampler, params.p,
+                                params.q)[0] == "cdf"
+    dg = sampling.device_put_graph(graph, device, cdf=cdf)
     walks = n2v.run_walks(graph, params, device, device_graph=dg)
     _sync(device)
     dt = time.perf_counter() - t0

@@ -7,8 +7,10 @@ PRNGKey(seed) -> fold_in(., epoch) -> fold_in(., block), so a run from the
 same init differs from the JAX run only by floating-point summation order.
 
 Two update forms, as in the JAX package:
-  * exact per-pair negatives (`_sgns_apply`, shared_negatives = 0), plain
-    torch; its hand kernel is ROADMAP K4;
+  * exact per-pair negatives (shared_negatives = 0, the CLI's default):
+    each block goes through ops/sgns_exact.py::sgns_exact_step, the two
+    CUDA kernels of csrc/sgns_exact.cu on the card and the plain
+    `_sgns_apply` over the block's pairs on the CPU;
   * block-shared negatives in the dense shifted-window form
     (`_sgns_apply_shared_conv`, shared_negatives = kB > 0). Its negative half
     is exactly sgns_shared_grads with vi = ein, g_pos = 0 and
@@ -30,6 +32,10 @@ from ..errors import NotPorted, resolve_device
 from ..ops import prng
 from ..ops.alias import build_alias
 from ..ops.sgns import sgns_shared_grads
+# the exact step's plain pieces live beside its kernels; _sgns_apply stays
+# importable here, the trainer's name for it
+from ..ops.sgns_exact import (_offsets, _pairs_from_valid, _sgns_apply,  # noqa: F401
+                              _valid_from_cwin, Workspace, sgns_exact_step)
 
 # elements of per-block random draws generated in one batch
 _DRAW_BUDGET = 1 << 22
@@ -71,25 +77,6 @@ def _init_embeddings(vocab: int, dim: int, key: torch.Tensor
     return w_in, torch.zeros_like(w_in)
 
 
-def _offsets(window: int) -> list[int]:
-    return list(range(-window, 0)) + list(range(1, window + 1))
-
-
-def _valid_from_cwin(block: torch.Tensor, cwin: torch.Tensor, window: int):
-    """[B, T, 2w] pair mask and clamped context positions [T, 2w] for the
-    dynamic windows cwin [B, T]."""
-    T = block.shape[1]
-    dev = block.device
-    offs = torch.tensor(_offsets(window), dtype=torch.int64, device=dev)
-    ctx_pos = torch.arange(T, device=dev)[:, None] + offs[None, :]
-    in_bounds = (ctx_pos >= 0) & (ctx_pos < T)
-    ctx_pos_c = ctx_pos.clamp(0, T - 1)
-    contexts = block[:, ctx_pos_c]
-    valid = (in_bounds[None] & (offs.abs()[None, None, :] <= cwin[..., None])
-             & (block[..., None] >= 0) & (contexts >= 0))
-    return valid, ctx_pos_c
-
-
 def _valid_for_block(block: torch.Tensor, key: torch.Tensor, window: int):
     """[B, T, 2w] pair-validity mask and clamped context positions; cell
     (b, t, o) is the pair (center (b, t), context (b, t + offs[o]))."""
@@ -103,12 +90,6 @@ def _pairs_for_block(block: torch.Tensor, key: torch.Tensor, window: int):
     return _pairs_from_valid(block, valid, ctx_pos_c)
 
 
-def _pairs_from_valid(block, valid, ctx_pos_c):
-    centers = block[:, :, None].expand(valid.shape)
-    contexts = block[:, ctx_pos_c]
-    return centers.reshape(-1), contexts.reshape(-1), valid.reshape(-1)
-
-
 def _draw_negatives(key: torch.Tensor, shape, neg_keep: torch.Tensor,
                     neg_alias: torch.Tensor) -> torch.Tensor:
     """Unigram^power negatives by alias table; key may carry batch dims."""
@@ -117,34 +98,6 @@ def _draw_negatives(key: torch.Tensor, shape, neg_keep: torch.Tensor,
     u2 = prng.uniform(prng.fold_in(key, 1), shape)
     j = torch.clamp_max((u1 * n).to(torch.int32), n - 1).long()
     return torch.where(u2 < neg_keep[j], j, neg_alias[j].long())
-
-
-def _sgns_apply(w_in, w_out, centers, contexts, valid, negs, lr: float):
-    """One exact-negative SGNS step with manual gradients and scatter-mean
-    updates (single replica), in place. P pairs, k negatives per pair."""
-    P = centers.shape[0]
-    k = negs.shape[1]
-    c = torch.where(valid, centers, 0).long()
-    targets = torch.cat([torch.where(valid, contexts, 0).long()[:, None],
-                         negs.long()], dim=1)                   # [P, 1+k]
-    vi = w_in[c]                                                # [P, D]
-    vo = w_out[targets]                                         # [P, 1+k, D]
-    logits = torch.einsum("pd,pkd->pk", vi, vo)
-    labels = torch.zeros((P, 1 + k), dtype=torch.float32, device=vi.device)
-    labels[:, 0] = 1.0
-    g = (torch.sigmoid(logits) - labels) * valid[:, None]
-    d_vi = torch.einsum("pk,pkd->pd", g, vo)
-    d_vo = (g[:, :, None] * vi[:, None, :]).reshape(-1, vi.shape[-1])
-    tflat = targets.reshape(-1)
-    vmask = valid[:, None].expand(P, 1 + k).reshape(-1).to(torch.float32)
-    cnt_in = torch.zeros(w_in.shape[0], device=vi.device).index_add_(
-        0, c, valid.to(torch.float32))
-    cnt_out = torch.zeros(w_out.shape[0], device=vi.device).index_add_(
-        0, tflat, vmask)
-    w_in.index_add_(0, c, -lr * d_vi / cnt_in.clamp_min(1.0)[c][:, None])
-    w_out.index_add_(0, tflat,
-                     -lr * d_vo / cnt_out.clamp_min(1.0)[tflat][:, None])
-    return w_in, w_out
 
 
 def _shift(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -218,6 +171,9 @@ def _train_epoch(w_in, w_out, corpus, neg_keep, neg_alias, key, lr_start,
     per_block = (shared_negatives if shared_negatives
                  else B * T * 2 * window * negatives) + B * T
     chunk = max(1, min(n_blocks, _DRAW_BUDGET // per_block))
+    # the exact step's kernels' scratch, zero again after every step
+    ws = (Workspace(w_in, w_out)
+          if w_in.device.type == "cuda" and not shared_negatives else None)
     for c0 in range(0, n_blocks, chunk):
         ids = torch.arange(c0, min(c0 + chunk, n_blocks), device=key.device)
         kb = prng.fold_in(key, ids)                          # [n, 2]
@@ -226,19 +182,19 @@ def _train_epoch(w_in, w_out, corpus, neg_keep, neg_alias, key, lr_start,
                   else (B * T * 2 * window, negatives))
         negs = _draw_negatives(prng.fold_in(kb, 2), nshape, neg_keep,
                                neg_alias)
+        if not shared_negatives:
+            negs = negs.to(torch.int32)   # the kernel's index type
         for n, i in enumerate(range(c0, c0 + len(ids))):
             block = corpus[i]
             lr = _block_lr(i, n_blocks, lr_start, lr_end)
-            valid, ctx_pos_c = _valid_from_cwin(block, cwin[n], window)
             if shared_negatives:
+                valid, _ = _valid_from_cwin(block, cwin[n], window)
                 _sgns_apply_shared_conv(
                     w_in, w_out, block, valid, negs[n], lr,
                     neg_weight=negatives / shared_negatives, window=window)
             else:
-                centers, contexts, vflat = _pairs_from_valid(
-                    block, valid, ctx_pos_c)
-                _sgns_apply(w_in, w_out, centers, contexts, vflat, negs[n],
-                            lr)
+                sgns_exact_step(w_in, w_out, block, cwin[n], negs[n], lr,
+                                window, ws)
     return w_in, w_out
 
 

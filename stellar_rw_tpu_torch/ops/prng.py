@@ -12,6 +12,8 @@ bitwise against the JAX package from the same seed:
   * bits(key, shape)[i] = o0 ^ o1 of threefry2x32_block(key, hi32(i), lo32(i))
     for the row-major flat index i;
   * uniform f32 = bitcast(0x3F800000 | bits >> 9) - 1;
+  * uniform f64 (x64 on) draws 64-bit words (o0 << 32) | o1 and maps them
+    as bitcast(0x3FF0000000000000 | bits >> 12) - 1;
   * randint draws two bit streams from split(key) and reduces them modulo
     the span (jax/_src/random.py::_randint).
 
@@ -96,6 +98,18 @@ def bits_at(key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def uniform_at(key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Element `idx` of jax.random.uniform(key, shape, float32)."""
     return bits_to_f32(bits_at(key, idx))
+
+
+def uniform_f64_at(key: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Element `idx` of jax.random.uniform(key, shape, float64) (x64 on):
+    the 64-bit word (o0 << 32) | o1 of the block, its top 52 bits as the
+    mantissa of a double in [1, 2), minus 1."""
+    idx = idx.to(torch.int64)
+    o0, o1 = threefry2x32_block(key[..., 0], key[..., 1],
+                                torch.zeros_like(idx), idx)
+    # the 52 mantissa bits: o0's 32 and the top 20 of o1, as one int64
+    mant = (o0 << 20) | (o1 >> 12)
+    return (mant | 0x3FF0000000000000).view(torch.float64) - 1.0
 
 
 def uniform3_at(key: torch.Tensor, w: torch.Tensor, Wd: int):

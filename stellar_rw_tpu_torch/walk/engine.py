@@ -1,10 +1,15 @@
 """Single-device walk engine (port of stellar_rw_tpu/walk/engine.py).
 
-All rounds of a dispatch run in one launch of the walk kernel
-(ops/walk_step.py, csrc/walk.cu): one thread per walker and round, the whole
-walk inside the kernel. Corpora are bitwise equal to
+All rounds of a dispatch run in one launch of a walk kernel. The rejection
+sampler (ops/walk_step.py, csrc/walk.cu) runs one thread per walker and
+round, the whole walk inside the kernel; its corpora are bitwise equal to
 stellar_rw_tpu.walk.engine.random_walks for the same graph, seed, p and q:
-every uniform is the JAX package's own threefry element.
+every uniform is the JAX package's own threefry element. The exact-CDF
+sampler (`--sampler cdf`, or a p/q ratio above 32; ops/cdf_walk.py,
+csrc/cdf_walk.cu) runs one warp per walker; its corpora equal the JAX
+package's bit for bit wherever every partial sum of the CDF is exact or the
+padded rows are at most 17 entries long, and in distribution elsewhere
+(ops/sampling.py says why).
 
 Left out on purpose: the static cascade's overflow counter and the dynamic
 re-dispatch. A per-thread trial loop has no compaction buffer to overflow,
@@ -20,20 +25,24 @@ import torch
 
 from ..errors import NotPorted, resolve_device
 from ..graph.csr import CSRGraph
-from ..ops import prng, sampling, walk_step
+from ..ops import cdf_walk, prng, sampling, walk_step
 from ..ops.sampling import DeviceGraph
 
 
 class WalkSpec(NamedTuple):
-    """Static walk configuration of the rejection sampler."""
+    """Static walk configuration."""
 
     walk_length: int
     p: float
     q: float
+    sampler: str = "rejection"   # "rejection" | "cdf"
+    max_degree: int = 0          # padded row width (cdf sampler)
     max_rounds: int = 16         # rejection-sampler round cap
     k_candidates: int = 4        # candidates evaluated per rejection round
+    dtype: str = "float32"       # CDF accumulation type ("float64": oracle)
     n_stream: int = 0            # unpadded walker count the uniform-stream
     #                              width derives from (0 = the batch size)
+    cdf_chunk: int = 0           # >0: the chunked exact CDF, else padded
 
 
 def walk_corpus(g: DeviceGraph, starts: torch.Tensor, key: torch.Tensor,
@@ -41,6 +50,10 @@ def walk_corpus(g: DeviceGraph, starts: torch.Tensor, key: torch.Tensor,
                 round_offset: int = 0) -> torch.Tensor:
     """Rounds round_offset .. round_offset+num_walks-1 in one dispatch ->
     i32 [num_walks*W, L+2]; round r of walker w at row r*W + w."""
+    if spec.sampler == "cdf":
+        return cdf_walk.cdf_walk_rounds(
+            g, starts, key, round_offset, num_walks, spec.walk_length,
+            spec.p, spec.q, spec.max_degree, spec.cdf_chunk, spec.dtype)
     keys = walk_step.trial_keys(key, round_offset, num_walks,
                                 spec.walk_length,
                                 spec.max_rounds * spec.k_candidates,
@@ -85,6 +98,21 @@ def assert_corpus_invariants(g: DeviceGraph, walks: torch.Tensor) -> dict:
     return out
 
 
+def walk_spec(graph: CSRGraph, walk_length: int, num_walks: int, p: float,
+              q: float, sampler: str, max_rounds: int, dtype: str,
+              n_starts: int) -> WalkSpec:
+    """The spec of a corpus of num_walks rounds from n_starts starts, with
+    the sampler planned by plan_sampler. The padded-or-chunked CDF decision
+    comes from the whole corpus (plan_cdf_chunk_corpus), never a batch."""
+    return WalkSpec(
+        walk_length=walk_length, p=float(p), q=float(q), sampler=sampler,
+        max_degree=max(graph.max_degree, 1), max_rounds=max_rounds,
+        dtype=dtype, n_stream=n_starts,
+        cdf_chunk=(sampling.plan_cdf_chunk_corpus(
+            num_walks, n_starts, graph.max_degree)
+            if sampler == "cdf" else 0))
+
+
 def random_walks(
     graph: CSRGraph,
     walk_length: int,
@@ -113,19 +141,20 @@ def random_walks(
     Rounds are grouped into as few dispatches as fit max_batch_walkers
     (whole rounds only: streams are indexed by in-round lane). `schedule`
     names the JAX package's execution plans; both give the one corpus the
-    per-thread trial loop computes.
+    per-thread trial loop computes. dtype is the exact-CDF sampler's
+    accumulation type ("float64" for the oracle); the padded or chunked
+    form follows from the whole corpus's walker count.
     """
     sampler, max_rounds = sampling.plan_sampler(sampler, p, q)
-    if sampler != "rejection":
-        raise NotPorted(
-            f"sampler {sampler!r} (--sampler cdf, or a p/q bias ratio above "
-            "32): the exact-CDF samplers are ROADMAP Queue 1 item 7 (K7)")
+    if sampler not in ("rejection", "cdf"):
+        raise ValueError(f"sampler must be 'rejection' or 'cdf', "
+                         f"got {sampler!r}")
     if rng_impl not in ("threefry", "threefry2x32"):
         raise NotPorted(f"rng_impl {rng_impl!r}: XLA RngBitGenerator streams "
                         "have no port (ROADMAP Queue 1, not to port)")
-    if dtype != "float32":
-        raise NotPorted(f"dtype {dtype!r}: float64 serves the CDF oracle "
-                        "only (ROADMAP Queue 1 item 7)")
+    if dtype not in ("float32", "float64"):
+        raise ValueError(f"dtype must be 'float32' or 'float64', "
+                         f"got {dtype!r}")
     if schedule not in ("static", "dynamic"):
         raise ValueError(f"schedule must be 'static' or 'dynamic', "
                          f"got {schedule!r}")
@@ -135,11 +164,13 @@ def random_walks(
     if g.device.type != device.type:
         raise ValueError(f"device_graph lies on {g.device}, not {device}")
     device = g.device
+    if sampler == "cdf":
+        g = sampling.with_cdf_rows(g, graph)
     if starts is None:
         starts = np.arange(graph.num_vertices, dtype=np.int32)
     W = len(starts)
-    spec = WalkSpec(walk_length=walk_length, p=float(p), q=float(q),
-                    max_rounds=max_rounds, n_stream=W)
+    spec = walk_spec(graph, walk_length, num_walks, p, q, sampler, max_rounds,
+                     dtype, W)
     starts_dev = torch.as_tensor(np.asarray(starts, dtype=np.int32),
                                  device=device)
     base = prng.prng_key(seed)

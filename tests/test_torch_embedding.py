@@ -19,7 +19,6 @@ from stellar_rw_tpu.graph import io as jio
 from stellar_rw_tpu.models import node2vec as jn2v
 from stellar_rw_tpu.models import word2vec as jw2v
 from stellar_rw_tpu_torch import cli
-from stellar_rw_tpu_torch.errors import NotPorted
 from stellar_rw_tpu_torch.graph import io
 from stellar_rw_tpu_torch.models import node2vec as n2v
 from stellar_rw_tpu_torch.models import word2vec as w2v
@@ -174,17 +173,43 @@ def test_checkpoint_every_writes_the_jax_packages_file(karate_corpus,
                                   ["--resume", "true"]])
 def test_walk_round_checkpoints_stay_unported(karate_path, tmp_path, cmd,
                                               flag):
-    """With walks the two flags also mean the walk rounds' checkpoint files
-    (not ported yet): refused by name, nothing half written."""
-    with pytest.raises(NotPorted, match="walk-round"):
-        cli.main(["--cmd", cmd, "--input", karate_path, "--output",
-                  str(tmp_path / "o"), *flag], device="cpu")
-    assert not os.path.exists(tmp_path / "o")
+    """With walks the two flags also mean the walk rounds' checkpoint files,
+    which the port now writes in the JAX package's layout
+    (tests/test_torch_walk_ckpt.py): /path byte for byte with the JAX CLI,
+    and the round files too where --checkpointEvery asks for them."""
+    small = ["--walkLength", "5", "--numWalks", "2", "--dim", "8", "--iter",
+             "1", "--window", "2"]
+    outs = {w: tmp_path / w for w in ("jax", "port")}
+    argv = lambda out: ["--cmd", cmd, "--input", karate_path, "--output",
+                        str(out), *small, *flag]
+    with jax.enable_x64(False):
+        assert jcli.main(argv(outs["jax"])) == 0
+    assert cli.main(argv(outs["port"]), device="cpu") == 0
+    subs = ["path/part-00000"]
+    if "--checkpointEvery" in flag:
+        subs += ["bin/walk_rounds/round-00001.npy",
+                 "bin/walk_rounds/marker.json"]
+    else:
+        assert not os.path.exists(outs["port"] / "bin" / "walk_rounds")
+    for sub in subs:
+        assert (outs["jax"] / sub).read_bytes() == \
+            (outs["port"] / sub).read_bytes(), sub
 
 
 def test_run_walks_refuses_checkpoint_params(karate_path, tmp_path):
+    """run_walks with --checkpointEvery and an output goes through the walk
+    rounds' checkpoints and hands the corpus over on the device: the JAX
+    package's run_walks corpus, bit for bit."""
     g = io.load_edge_list(karate_path, weighted=False, directed=False)
-    params = parse(["--cmd", "randomwalk", "--input", karate_path, "--output",
-                    str(tmp_path / "o"), "--checkpointEvery", "1"])
-    with pytest.raises(NotPorted):
-        n2v.run_walks(g, params, "cpu")
+    jg = jio.load_edge_list(karate_path, weighted=False, directed=False)
+    argv = ["--cmd", "randomwalk", "--input", karate_path, "--output",
+            str(tmp_path / "o"), "--checkpointEvery", "1", "--walkLength",
+            "5", "--numWalks", "2"]
+    walks = n2v.run_walks(g, parse(argv), "cpu")
+    assert isinstance(walks, torch.Tensor)
+    with jax.enable_x64(False):
+        want = jn2v.run_walks(jg, parse(argv[:5] + [str(tmp_path / "j")]
+                                        + argv[6:]))
+    np.testing.assert_array_equal(walks.numpy(), np.asarray(want))
+    assert os.path.exists(tmp_path / "o" / "bin" / "walk_rounds" /
+                          "round-00001.npy")

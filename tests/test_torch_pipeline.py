@@ -183,11 +183,33 @@ def test_device_corpus_handoff(karate, jkarate):
     ["--profile", "/nonexistent/profile"],
 ])
 def test_unserved_flags_raise(karate_path, tmp_path, flags):
-    argv = ["--input", karate_path, "--output", str(tmp_path / "o"),
-            "--cmd", "node2vec"] + flags
-    with pytest.raises(NotPorted):
-        cli.main(argv, device="cpu")
-    assert not os.path.exists(tmp_path / "o")
+    """Each flag value the port does not serve raises NotPorted before
+    anything is written. The exact-CDF sampler (--sampler cdf, a p/q ratio
+    above 32) and the walk-round checkpoints (--checkpointEvery, --resume)
+    are served: those cases run both CLIs and compare /path byte for byte
+    and the trained tables to the trainer's tolerance (rtol 1e-4 / atol
+    1e-6, the scatter-adds' summation order)."""
+    small = ["--walkLength", "6", "--numWalks", "2", "--dim", "8", "--iter",
+             "1", "--window", "3", "--seed", "2"]
+    argv = lambda out: ["--input", karate_path, "--output", str(out),
+                        "--cmd", "node2vec"] + small + flags
+    served = any(f in flags for f in ("--sampler", "--p", "--resume",
+                                      "--checkpointEvery"))
+    if not served:
+        with pytest.raises(NotPorted):
+            cli.main(argv(tmp_path / "o"), device="cpu")
+        assert not os.path.exists(tmp_path / "o")
+        return
+    jout, tout = tmp_path / "jax", tmp_path / "port"
+    with jax.enable_x64(False):
+        assert jcli.main(argv(jout)) == 0
+    assert cli.main(argv(tout), device="cpu") == 0
+    assert filecmp.cmp(jout / "path" / "part-00000",
+                       tout / "path" / "part-00000", shallow=False)
+    if "randomwalk" not in flags:
+        for a, b in zip(jn2v.load_model(str(jout)),
+                        n2v.load_model(str(tout))):
+            np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.parametrize("kw", [dict(shared_impl="pos", shared_negatives=8),

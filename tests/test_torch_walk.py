@@ -155,10 +155,18 @@ def test_corpus_invariants_agree_with_jax(karate, jkarate):
                                 dict(p=0.01, q=100.0),
                                 dict(rng_impl="rbg"),
                                 dict(dtype="float64")])
-def test_unported_walk_options_raise(karate, kw):
-    with pytest.raises(NotPorted):
-        engine.random_walks(karate, walk_length=4, num_walks=1, device="cpu",
-                            **kw)
+def test_unported_walk_options_raise(karate, jkarate, kw):
+    """Only the XLA-only rbg streams stay refused. The exact-CDF sampler, a
+    p/q ratio above 32 and the float64 accumulation type run, and give the
+    JAX package's corpus bit for bit (tests/test_torch_cdf.py has the rest)."""
+    args = dict(walk_length=4, num_walks=1, **kw)
+    if "rng_impl" in kw:
+        with pytest.raises(NotPorted):
+            engine.random_walks(karate, device="cpu", **args)
+        return
+    np.testing.assert_array_equal(
+        engine.random_walks(karate, device="cpu", **args),
+        _jax_walks(jkarate, **args))
 
 
 def test_empty_graph_has_no_packed_tables():
@@ -179,7 +187,8 @@ def test_walk_kernel_wrapper_raises_without_a_build(karate, monkeypatch,
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(walk_step.WALK_KERNEL, "_fn", None)
     dg = sampling.device_put_graph(karate, "cpu")
-    meta = sampling.DeviceGraph(*(t.to("meta") for t in dg))
+    meta = sampling.DeviceGraph(*(t if t is None else t.to("meta")
+                                  for t in dg))
     starts = torch.arange(karate.num_vertices, dtype=torch.int32,
                           device="meta")
     keys = walk_step.trial_keys(prng.prng_key(0), 0, 1, 4, 64)
