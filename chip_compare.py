@@ -22,7 +22,14 @@ events around launches queued behind a long product):
     time with walk_length 0 (launch, table copy, two columns) and with
     external uniforms (no threefry, but reads that miss the cache), and the
     time torch takes to transpose a [walk_length + 2, walkers] corpus (a
-    checkout whose kernel stores by columns pays it inside its wrapper).
+    checkout whose kernel stores by columns pays it inside its wrapper);
+  * the exact-negative step's two kernels on chip_smoke's phase-11 block
+    at D = 128 and D = 768, each launch timed between CUDA events, after checking the two checkouts'
+    tables agree (rtol 1e-5): other, this, this, other, twice, each turn
+    with a workspace and tables allocated for it;
+  * the exact-CDF walk kernel on phase 10's corpus (the walk_10k graph,
+    10 rounds, L = 80, p = 1/16, q = 4, chunked): other, this, this,
+    other, after checking the two corpora equal.
 
 One JSON object a line, the card's name and power limit in each. Needs a
 CUDA device; imports nothing of JAX.
@@ -195,6 +202,58 @@ def main(argv: list[str]) -> int:
             "transpose_ms": cuda_ms(lambda: buf.t().contiguous(), 20),
             "card": smi}))
         del ext
+
+    # the exact-negative step's two kernels at phase 11's block
+    from chip_smoke import cuda_ms_split, exact_block
+
+    B, T, win, k, lr = 32, 82, 10, 5, 0.025
+    for D in (128, 768):
+        tables = exact_block(torch, 10_000, B, T, win, k, D)
+        w_in, w_out, block, cwin, negs = tables
+        steps, results = {}, {}
+        for name, pkg in (("other", other), ("this", this)):
+            se = pkg("ops.sgns_exact")
+            ws = se.Workspace(w_in, w_out, B * T, win, k)
+            a_in, a_out = w_in.clone(), w_out.clone()
+            se.sgns_exact_step(a_in, a_out, block, cwin, negs, lr, win, ws)
+            results[name] = (a_in, a_out)
+
+            def turn(se=se):
+                # a turn's own workspace and tables (moved by the steps)
+                ws = se.Workspace(w_in, w_out, B * T, win, k)
+                t_in, t_out = w_in.clone(), w_out.clone()
+                return (lambda: se.launch_grads(ws, t_in, t_out, block, cwin,
+                                                negs, win),
+                        lambda: se.launch_apply(ws, t_in, t_out, lr))
+            steps[name] = turn
+        check(all(torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in
+                  zip(results["this"], results["other"])),
+              f"the two checkouts' exact steps disagree at D={D}")
+        runs = [(name, cuda_ms_split(steps[name](), 20))
+                for name in order + order]
+        print(json.dumps({"kernel": "sgns_exact_grads, sgns_exact_apply",
+                          "block": [B, T, win, k, D],
+                          "ms_grads_apply_in_turns": runs, "card": smi}))
+
+    # the exact-CDF walk kernel at phase 10's corpus
+    V, R, L, p, q = graph.num_vertices, 10, 80, 0.0625, 4.0
+    fns = {}
+    for name, pkg in (("other", other), ("this", this)):
+        sampling, engine = pkg("ops.sampling"), pkg("walk.engine")
+        dg = sampling.device_put_graph(graph, "cuda", cdf=True)
+        spec = engine.walk_spec(graph, L, R, p, q, "cdf", 16, "float32", V)
+        starts = torch.arange(V, dtype=torch.int32, device="cuda")
+        key = pkg("ops.prng").prng_key(0)
+        fns[name] = (lambda cw=pkg("ops.cdf_walk"), dg=dg, spec=spec,
+                     starts=starts, key=key: cw.cdf_walk_rounds(
+                         dg, starts, key, 0, R, L, p, q, spec.max_degree,
+                         spec.cdf_chunk))
+    check(torch.equal(fns["this"](), fns["other"]()),
+          "the two checkouts' exact-CDF corpora differ")
+    runs = [(name, cuda_ms(fns[name], 3)) for name in order]
+    print(json.dumps({"kernel": "cdf_walk", "walkers": R * V,
+                      "walk_length": L, "p": p, "q": q,
+                      "ms_in_turns": runs, "card": smi}))
     return 0
 
 

@@ -21,13 +21,17 @@ and drives the port's paths once each through the entry points a user calls:
               graphs;
   phase 8     `--cmd embedding` through the CLI on phase 4's walks;
   phases 9-10 the exact-CDF walks: kernel against plain version bit for bit
-              at the edges, then `--cmd randomwalk --p 0.0625 --q 4` through
-              the CLI on phase 4's graph (a bias ratio of 64: the chunked
-              exact CDF), with walk-round checkpoints cut and resumed;
+              at the edges (a hub row of 50,000 entries among them), then
+              `--cmd randomwalk --p 0.0625 --q 4` through the CLI on phase
+              4's graph (a bias ratio of 64: the chunked exact CDF), with
+              walk-round checkpoints cut and resumed;
   phases 11-12 the exact-negative SGNS step: its two kernels against the
-              plain step on one block of the main shape, then `node2vec`
-              through the CLI with the default trainer (no
-              --sharedNegatives) and the karate gate with exact negatives.
+              plain step in float64 on blocks of the main shape (D = 128,
+              100 and 768; Zipf, uniform and one-token blocks), with the
+              tables' hit rate and flushes, then `node2vec` through the CLI
+              with the default trainer (no --sharedNegatives), the karate
+              gate with exact negatives, and a `--dim 768` karate run
+              through the CLI held to the same gate.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every failure raises and the script exits non-zero. It
@@ -78,6 +82,11 @@ MAIN_FLAGS = ["--cmd", "node2vec", "--walkLength", "80", "--numWalks", "10",
 # phase 12: the CLI's default trainer, exact negatives
 EXACT_FLAGS = (MAIN_FLAGS[:MAIN_FLAGS.index("--sharedNegatives")]
                + MAIN_FLAGS[MAIN_FLAGS.index("--sharedNegatives") + 2:])
+# phase 12's karate run above the old 512 limit of the exact kernel: the
+# gate's trainer settings (dim aside) and walks
+DIM768_FLAGS = ["--dim", "768", "--window", "5", "--negatives", "5", "--lr",
+                "0.2", "--iter", "20", "--walkLength", "20", "--numWalks",
+                "10", "--seed", "2"]
 # phase 10: a bias ratio of 64 sends plan_sampler to the exact CDF
 CDF_FLAGS = ["--cmd", "randomwalk", "--walkLength", "80", "--numWalks", "10",
              "--p", "0.0625", "--q", "4", "--validate", "true"]
@@ -127,6 +136,18 @@ def tensor_bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def star_graph(leaves: int):
+    """Vertex 0 joined to each of `leaves` leaves: one row of `leaves`
+    entries, weights 0.25 to 4.25."""
+    from stellar_rw_tpu_torch.graph.csr import from_edge_arrays
+
+    rng = np.random.default_rng(leaves)
+    dst = np.arange(1, leaves + 1)
+    return from_edge_arrays(np.zeros(leaves, np.int64), dst,
+                            rng.random(leaves).astype(np.float32) * 4 + 0.25,
+                            num_vertices=leaves + 1, symmetrize=True)
+
+
 def regular_graph(num_vertices: int, degree: int, seed: int,
                   weighted: bool = False):
     """A `degree`-regular multigraph: the union of degree/2 random
@@ -168,6 +189,31 @@ def cuda_ms(fn, iters: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def cuda_ms_split(fns, iters: int) -> list[float]:
+    """Mean device time in ms of each of fns, called in turn `iters` times
+    behind the long product of cuda_ms, with CUDA events between them: the
+    time of each launch in a sequence whose launches depend on each
+    other."""
+    import torch
+
+    if not _BUSY:
+        _BUSY.append(torch.ones((8192, 8192), device="cuda"))
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
+          for _ in range(iters)]
+    torch.mm(_BUSY[0], _BUSY[0])
+    for e in ev:
+        e[0].record()
+        for fn, after in zip(fns, e[1:]):
+            fn()
+            after.record()
+    torch.cuda.synchronize()
+    return [sum(e[i].elapsed_time(e[i + 1]) for e in ev) / iters
+            for i in range(len(fns))]
 
 
 def cuda_ms_once(fn):
@@ -726,6 +772,9 @@ def cdf_graphs():
              2: [(1, 1.0), (0, 1.0)], 3: [(1, 1.0)], 4: [(1, 1.0)]}),
         "regular2k_weighted": regular_graph(2048, 10, seed=2, weighted=True),
         "synth2k": synth_power_law_graph(2048, 32768, seed=1),
+        # a hub row of 50,000 entries (1,563 pieces of 32), beyond the
+        # walk_10k graph's largest (39,303)
+        "star50k": star_graph(50_000),
     }
 
 
@@ -761,9 +810,12 @@ def phase_cdf_check(torch) -> int:
     for name, g in graphs.items():
         starts = np.arange(g.num_vertices, dtype=np.int32)
         # the plain version's padded form loops over the columns of the
-        # widest row (6,011 entries on synth2k): fewer steps there
-        L = 6 if name == "synth2k" else 20
-        for chunk in (0, 256):
+        # widest row (6,011 entries on synth2k, 50,000 on star50k): fewer
+        # steps there
+        L = {"synth2k": 6, "star50k": 4}.get(name, 20)
+        if name == "star50k":   # the hub and some leaves, chunked only
+            starts = np.arange(0, g.num_vertices, 997, dtype=np.int32)
+        for chunk in (256,) if name == "star50k" else (0, 256):
             for dtype in ("float32", "float64"):
                 p, q = pqs[i % len(pqs)]
                 i += 1
@@ -784,8 +836,9 @@ def phase_cdf_check(torch) -> int:
                 n += 1
     print(f"phase 9 cdf walk kernel: bitwise equal to cdf_walk_ref on the "
           f"card in {n} cases ({list(graphs)}; padded and chunked, f32 and "
-          f"f64, (p, q) in {pqs}, L in (0, 1, 6, 7, 9, 13, 20), W in (1, 3, 37, "
-          f"1001, |V|), round offsets 0-5), walk invariants zero on each")
+          f"f64, (p, q) in {pqs}, L in (0, 1, 4, 6, 7, 9, 13, 20), W in (1, 3, "
+          f"37, 51, 1001, |V|), round offsets 0-5; star50k's hub row is "
+          f"50,000 entries), walk invariants zero on each")
     return n
 
 
@@ -866,10 +919,13 @@ def phase_cdf_main(torch, kernel, smi, tmp, edges) -> dict:
           f"{report['paths']} walks, {report['steps']} steps in "
           f"{report['walk_seconds']:.3f} s = "
           f"{report['steps'] / report['walk_seconds']:,.0f} steps/s; "
-          f"launches cdf_walk={launches}; entries scanned (sum of deg(cur) "
-          f"over {steps} steps) {scanned:,} = {scanned / max(steps, 1):.1f} "
-          f"a step; kernel {ms:.2f} ms for the corpus (CUDA events, mean of "
-          f"3) = {scanned / ms / 1e6:.2f} G entries/s; on the first {n_chk} "
+          f"launches cdf_walk={launches}; row entries in the rows walked "
+          f"(sum of deg(cur) over {steps} steps: each weighed in the total "
+          f"pass, and again in the find pass up to the crossing) "
+          f"{scanned:,} = "
+          f"{scanned / max(steps, 1):.1f} a step; kernel {ms:.2f} ms for the "
+          f"corpus (CUDA events, mean of 3) = {scanned / ms / 1e6:.2f} G "
+          f"entries/s; on the first {n_chk} "
           f"walkers of round 0 kernel {ms_sub:.2f} ms, plain version "
           f"{plain_ms:.0f} ms (one call), bitwise equal; bound "
           f"{b['bound_ms']:.3f} ms by {b['bound_by']}; --checkpointEvery 2 "
@@ -886,17 +942,20 @@ def phase_cdf_main(torch, kernel, smi, tmp, edges) -> dict:
             "walk_seconds": report["walk_seconds"]}
 
 
-def exact_block(torch, V=10_000, B=32, T=82, window=10, k=5, D=128, seed=0):
+def exact_block(torch, V=10_000, B=32, T=82, window=10, k=5, D=128, seed=0,
+                tokens="zipf"):
     """One block of the main shape: Zipf-distributed tokens (so rows
-    collide), -1 padding at the end of a walk, the trainer's window and
-    negative draws, random tables."""
+    collide), uniform ones, or one token alone ("hub": every center and
+    target is row 0), -1 padding at the end of a walk, the trainer's window
+    and negative draws, random tables."""
     from stellar_rw_tpu_torch.models import word2vec as w2v
     from stellar_rw_tpu_torch.ops import prng
     from stellar_rw_tpu_torch.ops.alias import build_alias
 
     rng = np.random.default_rng(seed)
-    block = np.minimum((V * rng.random((B, T)) ** (1 / 0.3)).astype(np.int32),
-                       V - 1)
+    u = {"zipf": rng.random((B, T)) ** (1 / 0.3), "uniform": rng.random((B, T)),
+         "hub": np.zeros((B, T))}[tokens]
+    block = np.minimum((V * u).astype(np.int32), V - 1)
     block[-1, T - 7:] = -1
     key = prng.fold_in(prng.prng_key(seed), 3).cuda()
     cwin = prng.randint(key, (B, T), 1, window + 1)
@@ -913,19 +972,24 @@ def exact_block(torch, V=10_000, B=32, T=82, window=10, k=5, D=128, seed=0):
 
 def phase_exact_check(torch) -> tuple[dict, dict]:
     """Phase 11: sgns_exact_step's two kernels against the plain step (in
-    float64) on blocks of the main shape, and on ragged ones; the kernels'
-    times."""
+    float64) on blocks of the main shape (Zipf tokens at D = 128, ragged
+    D = 100, D = 768 above one register slice, one token alone), and on
+    small ragged ones; the kernels' times, the tables' hit rate and flushes
+    at the main shape."""
     from stellar_rw_tpu_torch.ops import sgns_exact as se
 
     lr = 0.025
     err = 0.0
-    shapes = [(10_000, 32, 82, 10, 5, 128), (10_000, 32, 82, 10, 5, 100),
-              (300, 7, 30, 3, 2, 16), (50, 5, 11, 5, 7, 512),
-              (10_000, 32, 82, 10, 5, 128)]
+    main = (10_000, 32, 82, 10, 5, 128, "zipf")
+    shapes = [main, (10_000, 32, 82, 10, 5, 100, "zipf"),
+              (300, 7, 30, 3, 2, 16, "zipf"), (50, 5, 11, 5, 7, 512, "zipf"),
+              (10_000, 32, 82, 10, 5, 768, "zipf"),
+              (10_000, 32, 82, 10, 5, 128, "hub"),
+              (10_000, 32, 82, 10, 5, 128, "uniform")]
     f32_err = 0.0
-    for i, (V, B, T, win, k, D) in enumerate(shapes):
+    for i, (V, B, T, win, k, D, tokens) in enumerate(shapes):
         w_in, w_out, block, cwin, negs = exact_block(torch, V, B, T, win, k,
-                                                     D, seed=i)
+                                                     D, seed=i, tokens=tokens)
         # the plain step in float64 as the reference: in float32 it adds
         # each pair's share into the row one at a time, and a Zipf block's
         # hub rows take ~10^4 of them, each rounded at the row's magnitude
@@ -940,39 +1004,30 @@ def phase_exact_check(torch) -> tuple[dict, dict]:
                                       (b_out, a_out, p_out, w_out)):
             check(torch.allclose(got.double(), want, rtol=1e-5, atol=1e-6),
                   f"sgns_exact_step differs from the plain step in float64 "
-                  f"at {(V, B, T, win, k, D)}: max abs err "
+                  f"at {shapes[i]}: max abs err "
                   f"{float((got.double() - want).abs().max()):.3g}")
             check(bool((got != old).any()), "the step moved nothing")
             err = max(err, float((got.double() - want).abs().max()))
             f32_err = max(f32_err, float((plain.double() - want).abs().max()))
     # the main shape: each kernel timed by events around its own launches
-    V, B, T, win, k, D = shapes[0]
+    V, B, T, win, k, D, _ = main
     w_in, w_out, block, cwin, negs = exact_block(torch, V, B, T, win, k, D)
-    ws = se.Workspace(w_in, w_out)
+    ws = se.Workspace(w_in, w_out, B * T, win, k)
+    plan = se.launch_plan(D, B, T, win, k, torch.cuda.get_device_properties(
+        0).multi_processor_count)
     grads = lambda: se.launch_grads(ws, w_in, w_out, block, cwin, negs, win)
     apply = lambda: se.launch_apply(ws, w_in, w_out, lr)
     step = lambda: se.sgns_exact_step(w_in, w_out, block, cwin, negs, lr, win,
                                       ws)
     plain = lambda: se.sgns_exact_step_ref(w_in, w_out, block, cwin, negs,
                                            lr, win)
-    step()
-    torch.cuda.synchronize()
     iters = 20
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
-          for _ in range(iters)]
-    if not _BUSY:
-        _BUSY.append(torch.ones((8192, 8192), device="cuda"))
-    torch.mm(_BUSY[0], _BUSY[0])
-    for e in ev:
-        e[0].record()
-        grads()
-        e[1].record()
-        apply()
-        e[2].record()
-    torch.cuda.synchronize()
-    g_ms = sum(e[0].elapsed_time(e[1]) for e in ev) / iters
-    a_ms = sum(e[1].elapsed_time(e[2]) for e in ev) / iters
+    g_ms, a_ms = cuda_ms_split((grads, apply), iters)
     runs = [cuda_ms(f, 5) for f in (plain, step, step, plain)]
+    stats = torch.zeros(3, dtype=torch.int32, device="cuda")
+    se.launch_grads(ws, w_in, w_out, block, cwin, negs, win, stats=stats)
+    apply()
+    in_table, in_device, flushed = stats.tolist()
     # what this block needs: its valid pairs and the rows they touch
     from stellar_rw_tpu_torch.ops.sgns_exact import (_pairs_from_valid,
                                                     _valid_from_cwin)
@@ -983,8 +1038,8 @@ def phase_exact_check(torch) -> tuple[dict, dict]:
     rows_out = int(torch.unique(torch.cat(
         [x[v], negs.reshape(-1, k)[v].reshape(-1)])).numel())
     # kernel (a): reads the touched rows of both tables and the block's
-    # draws, adds the gradient rows; 2*D flops a logit, a center-gradient
-    # and a target-gradient row for each of P*(1+k) targets
+    # draws, writes a delta row for each touched row; 2*D flops a logit, a
+    # center-gradient and a target-gradient row for each of P*(1+k) targets
     in_bytes = tensor_bytes(block, cwin, negs)
     grads_b = bound(in_bytes + (rows_in + rows_out) * D * 4 * 2,
                     2 * P * (1 + k) * D * 3, F32_FLOPS)
@@ -993,28 +1048,35 @@ def phase_exact_check(torch) -> tuple[dict, dict]:
                     (rows_in + rows_out) * D * 3, F32_FLOPS)
     plain_ms = (runs[0] + runs[3]) / 2
     print(f"phase 11 sgns_exact_step: within rtol 1e-5 atol 1e-6 of the "
-          f"plain step computed in float64 at {shapes}, max abs err "
-          f"{err:.3g} (the plain step in float32: {f32_err:.3g}); at the main "
-          f"shape "
-          f"(B {B}, T {T}, w {win}, k {k}, D {D}, V {V}: {P} valid pairs, "
-          f"{rows_in} + {rows_out} rows touched) grads {g_ms:.4f} ms, apply "
+          f"plain step computed in float64 at {shapes} (V, B, T, w, k, D, "
+          f"tokens), max abs err {err:.3g} (the plain step in float32: "
+          f"{f32_err:.3g}); at the main shape (B {B}, T {T}, w {win}, k {k}, "
+          f"D {D}, V {V}: {P} valid pairs, {rows_in} + {rows_out} rows "
+          f"touched; plan {plan._asdict()}) grads {g_ms:.4f} ms, apply "
           f"{a_ms:.4f} ms (CUDA events around each launch, mean of {iters}), "
           f"both through the wrapper {(runs[1] + runs[2]) / 2:.4f} ms, plain "
-          f"step {plain_ms:.3f} ms (mean of 2x5); bounds "
-          f"{grads_b['bound_ms']:.5f} ms by {grads_b['bound_by']} / "
-          f"{apply_b['bound_ms']:.5f} ms by {apply_b['bound_by']}")
+          f"step {plain_ms:.3f} ms (mean of 2x5); row adds into the blocks' "
+          f"tables {in_table} of {in_table + in_device} "
+          f"({in_table / max(in_table + in_device, 1):.4f}), slots flushed "
+          f"{flushed} = {flushed / plan.blocks:.1f} a block; scratch "
+          f"{ws.nbytes:,} B; bounds {grads_b['bound_ms']:.5f} ms by "
+          f"{grads_b['bound_by']} / {apply_b['bound_ms']:.5f} ms by "
+          f"{apply_b['bound_by']}")
     common = {"max_abs_err": err, "plain_f32_max_abs_err": f32_err,
               "plain_ms": plain_ms, "library_ms": None,
               "valid_pairs": P, "rows_touched": rows_in + rows_out,
               "step_ms": (runs[1] + runs[2]) / 2}
-    return ({"ms": g_ms, **grads_b, **common},
+    return ({"ms": g_ms, **grads_b, **common, "table_adds": in_table,
+             "device_adds": in_device, "flushes_a_block":
+                 flushed / plan.blocks},
             {"ms": a_ms, **apply_b, **common})
 
 
 def phase_exact_main(torch, grads_kernel, apply_kernel, smi, tmp,
                      edges) -> dict:
     """Phase 12: `node2vec` through the CLI with its default trainer (exact
-    negatives), one epoch; then the karate gate with exact negatives."""
+    negatives), one epoch; then the karate gate with exact negatives, and a
+    `--dim 768` CLI run on karate held to the same gate."""
     from stellar_rw_tpu_torch import cli
     from stellar_rw_tpu_torch.graph import io as gio
     from stellar_rw_tpu_torch.models import eval as ev
@@ -1051,6 +1113,21 @@ def phase_exact_main(torch, grads_kernel, apply_kernel, smi, tmp,
                                           seed=0)
     check(auc > 0.7 and acc >= 0.85,
           f"karate gate with exact negatives: auc {auc} acc {acc}")
+    # --dim 768 through the CLI (wider than one register slice of the
+    # kernel), exact negatives, and its karate gate
+    karate = os.path.join(ROOT, "tests", "data", "karate.txt")
+    out768 = os.path.join(tmp, "out_768")
+    check(cli.main(["--cmd", "node2vec", "--input", karate, "--output",
+                    out768] + DIM768_FLAGS) == 0, "--dim 768 run failed")
+    _, w768, _ = n2v.load_model(out768)
+    check(w768.shape == (g.num_vertices, 768) and np.isfinite(w768).all(),
+          "--dim 768 embeddings not finite or of the wrong shape")
+    auc768 = ev.link_prediction_auc(w768, np.asarray(edges_k),
+                                    g.num_vertices, seed=0)
+    acc768 = ev.node_classification_accuracy(w768, ev.karate_labels(g.ids),
+                                             seed=0)
+    check(auc768 > 0.7 and acc768 >= 0.85,
+          f"karate gate at --dim 768: auc {auc768} acc {acc768}")
     blocks = -(-report["paths"] // 32)
     # the epoch's other device work: a chunk of blocks' window and negative
     # draws (int64 torch threefry), as _train_epoch makes them
@@ -1076,9 +1153,12 @@ def phase_exact_main(torch, grads_kernel, apply_kernel, smi, tmp,
           f"{blocks} blocks, of which the draws {draw_ms / chunk:.3f} ms a "
           f"block on the card (a chunk of {chunk} blocks, CUDA events); "
           f"launches sgns_exact_grads={launches[0]} "
-          f"sgns_exact_apply={launches[1]}; karate gate with exact negatives "
-          f"on the card: AUC {auc:.4f} (> 0.7), faction accuracy {acc:.4f} "
-          f"(>= 0.85) [{smi}]")
+          f"sgns_exact_apply={launches[1]} = "
+          f"{sum(launches) / blocks:.2f} kernels a block (and a memset of "
+          f"two slot counts); karate gate with exact negatives on the card: "
+          f"AUC {auc:.4f} (> 0.7), faction accuracy {acc:.4f} (>= 0.85); "
+          f"--dim 768 through the CLI: AUC {auc768:.4f}, faction accuracy "
+          f"{acc768:.4f} [{smi}]")
     return {"grads": launches[0], "apply": launches[1],
             "train_seconds": report["train_seconds"], "blocks": blocks,
             "draw_ms_a_block": draw_ms / chunk}

@@ -5,12 +5,15 @@ Same flags as `python -m stellar_rw_tpu` (utils/config.py is the port's copy
 of that parser) and the same outputs: <output>/path walks, <output>/vec
 vectors and <output>/bin model; `embedding` reads a /path corpus back. It runs on one CUDA
 device; from the command line a machine without a GPU gets CudaUnavailable,
-never a CPU run. Each flag value the port does not serve yet exits with
-NotPorted naming its ROADMAP item.
+never a CPU run. --shards and --partitioned resolve as in the JAX package,
+to one walk shard on the one device (--partitioned true still reads the
+vertex-cut file format). Each flag value the port does not serve yet exits
+with NotPorted naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import logging
 import sys
 import time
 
@@ -20,18 +23,23 @@ import torch
 from .errors import CudaUnavailable, NotPorted, resolve_device
 from .graph import io as gio
 from .models import node2vec as n2v
-from .ops import sampling
+from .ops import sampling, sgns
 from .utils.config import Params, TaskName, parse
 from .utils.logging import configure
 from .utils.stats import validate_walks, walk_stats
 from .walk import engine
 
+logger = logging.getLogger("stellar_rw_tpu_torch")
 
-def check_flags(params: Params) -> None:
-    """Raise NotPorted for each flag value this port does not serve."""
+
+def check_flags(params: Params, device: torch.device) -> None:
+    """Raise NotPorted for each flag value this port does not serve on
+    `device`, before anything is loaded or written."""
     refused = [
-        (params.shards > 1, "--shards > 1 (ROADMAP Queue 1 item 12)"),
-        (params.partitioned, "--partitioned true (ROADMAP Queue 1 item 12)"),
+        (device.type == "cuda" and params.cmd != TaskName.randomwalk
+         and params.shared_negatives > 0 and params.w2v_dim > sgns.MAX_DIM,
+         f"--sharedNegatives > 0 with --dim > {sgns.MAX_DIM} (ROADMAP "
+         "Queue 3 F2b)"),
         (params.w2v_partitions > 1,
          "--w2vPartitions > 1 (ROADMAP Queue 1 item 11)"),
         (params.w2v_model_shards > 1,
@@ -51,14 +59,29 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _load_graph(params: Params):
+    """The edge list; with --partitioned true through the vertex-cut loader
+    (a third column is a partition id). One walk shard leaves the vertices'
+    home partitions unused, as in the JAX package."""
+    if params.partitioned:
+        return gio.load_edge_list_partitioned(
+            params.input, weighted=params.weighted, directed=params.directed,
+            partitioned=True, num_partitions=params.rdd_partitions,
+            seed=params.seed)[0]
+    return gio.load_edge_list(params.input, weighted=params.weighted,
+                              directed=params.directed)
+
+
 def do_random_walk(params: Params, device: torch.device, report: dict):
     """Load the graph, run the walks, save /path. Returns (walks on the
-    device, graph)."""
-    graph = gio.load_edge_list(params.input, weighted=params.weighted,
-                               directed=params.directed)
+    device, graph). walk_seconds spans the graph load and the walks up to
+    the corpus on the device, as the JAX package's CLI times its walks."""
+    t0 = time.perf_counter()
+    graph = _load_graph(params)
+    logger.info("vertices: %d", graph.num_vertices)
+    logger.info("edges: %d", graph.num_edges)
     print(f"vertices: {graph.num_vertices}")
     print(f"edges: {graph.num_edges}")
-    t0 = time.perf_counter()
     cdf = sampling.plan_sampler(params.sampler, params.p,
                                 params.q)[0] == "cdf"
     dg = sampling.device_put_graph(graph, device, cdf=cdf)
@@ -72,6 +95,11 @@ def do_random_walk(params: Params, device: torch.device, report: dict):
     print(f"Zero Neighbors: {ws.dead_ends}  (isolated starts: "
           f"{ws.isolated_starts}, full paths: {ws.full_paths}, "
           f"mean length: {ws.mean_length:.1f})")
+    # the path-count check of the JAX package's CLI: warned, not failed
+    expect = params.num_walks * graph.num_vertices
+    if ws.num_paths != expect:
+        logger.warning("corpus has %d paths, expected numWalks*|V| = %d",
+                       ws.num_paths, expect)
     report.update(vertices=graph.num_vertices, edges=graph.num_edges,
                   paths=ws.num_paths, steps=ws.num_steps, walk_seconds=dt)
     if params.validate:
@@ -84,7 +112,7 @@ def do_random_walk(params: Params, device: torch.device, report: dict):
 
 
 def run_job(params: Params, device: torch.device, report: dict) -> str:
-    check_flags(params)
+    check_flags(params, device)
     if params.cmd == TaskName.embedding:
         # the walks file read back as ragged arrays (no per-token loop)
         values, offsets = gio.load_walks_ragged(params.input)

@@ -7,18 +7,27 @@
 // two scatter-adds: at B = 32, T = 82, w = 10, k = 5, D = 128 a step builds
 // a [52,480, 6, 128] f32 target tensor (161 MB) and its gradient.
 //
-//   (a) sgns_exact_grads: one warp a center position (b, t). It walks the
-//       2w offsets and, for each valid pair, the context and its k
-//       negatives, D spread over the lanes (NV floats each). A logit is a
-//       warp reduction, g = (sigmoid - label); the center's gradient sums
-//       in registers and goes out as one atomic row per position, each
-//       target's g * vi as an atomic row into a delta table, with its
-//       count. The first touch of a row flags it and appends it to a list.
-//       The tables are only read: every gradient comes from the tables as
-//       they were before the step, as in the functional JAX step.
-//   (b) sgns_exact_apply: over the touched rows only (the list length is
-//       read on the device: no host sync), w += (-lr * delta) / max(cnt, 1),
-//       then delta, count and flag back to zero for the next step.
+//   (a) sgns_exact_grads: persistent blocks, two an SM, each over a
+//       contiguous range of center positions; a block's warps split its
+//       (position, offset) pairs into contiguous runs, so a warp keeps a
+//       center's row and its gradient in registers while the center stays.
+//       A pair's 1 + k targets go in groups of kGroup: their rows are read
+//       together, the logits reduced together, g = sigmoid - label. Every
+//       gradient row (g * vi for a target, the summed g * vo for a center)
+//       goes into a small open-addressing table in shared memory keyed by
+//       (table, row), holding the row's partial sum and count, when it
+//       finds a slot in kProbes probes; the hub rows, which come first and
+//       most often, take the table, and the rest go straight to device
+//       memory. At the end each occupied slot is flushed as one row of
+//       device atomics. Device rows are compact delta slots: a row-to-slot
+//       map (one int a vocabulary row, -1 when free) gives a row its slot
+//       at its first touch and lists it. The tables are only read: every
+//       gradient comes from the tables as they were before the step, as in
+//       the functional JAX step.
+//   (b) sgns_exact_apply: over the listed slots only (their number is read
+//       on the device: no host sync), w[row] += (-lr * delta) / max(cnt, 1),
+//       then the slot's delta and count and the row's map entry go back to
+//       their empty values for the next step.
 //
 // The pair enumeration, dynamic window and negatives are the JAX package's
 // (the block, its window draws cwin and the negative draws come in). Sums
@@ -26,12 +35,21 @@
 // in no fixed order; the scatter-mean as sum-then-divide instead of
 // divide-then-sum), so a step agrees with it to rounding, not bit for bit.
 //
-// What bounds it: the rows it moves. A step reads each valid pair's 1 + k
-// target rows and adds as many gradient rows (about 2 * 4 * D bytes a
-// target, in L2 when the tables fit there), and 2 * P * (1 + k) * D * 3
-// flops (logit, center gradient, target gradient). The apply pass moves
-// only the touched rows, so no pass over the whole [V, D] table happens,
-// however large the vocabulary.
+// What bounds it: each pair's chain of dependent reads (its context, its
+// negatives, then the target rows, in L2 when the tables fit there) and the
+// target rows' device atomics, against 2 * P * (1 + k) * D * 3 flops. One
+// warp a position with one target at a time, and a flag it waited on a
+// target, ran a chain of ~62 targets a warp in 1.24 waves; groups of three,
+// two blocks of 16 warps an SM, one wave. The gradient rows land on few
+// distinct rows: without the table a one-token block's 164,040 row adds go
+// to one device row, 8x slower and summed in one float. On blocks of real
+// walks the table pays where a hub is every other token (a star graph's)
+// and costs its probes where the largest row takes a few percent of the
+// adds (PERF.md, section 6, has both on the H100). Any D: the logits
+// and the row adds loop over D in slices of 32 * NV columns, held in
+// registers when one slice covers the row and read again from L1
+// otherwise; the table holds fewer rows at larger D (ops/sgns_exact.py::
+// launch_plan says how many).
 
 #include <cstdint>
 
@@ -40,172 +58,413 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;  // center positions a block
+constexpr int kMaxThreads = 512;
+constexpr int kMinBlocks = 2;      // blocks of kMaxThreads an SM holds
+constexpr int kGroup = 3;          // targets a warp reads and reduces at once
+constexpr int kProbes = 2;         // table slots tried before device memory
+constexpr int kEmpty = -1;         // a free table slot, a row with no slot
+constexpr int kInBit = static_cast<int>(0x80000000u);  // key bit: w_in row
+constexpr uint32_t kHashMult = 2654435761u;
 
-__device__ __forceinline__ void mark(int* flag, int* list, int* count,
-                                     int row) {
-  if (atomicCAS(&flag[row], 0, 1) == 0) list[atomicAdd(count, 1)] = row;
+struct Scratch {
+  float* d[2];     // delta slots [R, D]: 0 = w_in's rows, 1 = w_out's
+  int* cnt[2];     // shares summed into each slot
+  int* map[2];     // row -> slot, kEmpty when none
+  int* list[2];    // slot -> row
+  int* counts;     // slots taken in each
+  // table t's arrays (a select, not an index: a parameter indexed by a
+  // value known only at run time would be copied to local memory)
+  __device__ float* dt(int t) const { return t == 0 ? d[0] : d[1]; }
+  __device__ int* cntt(int t) const { return t == 0 ? cnt[0] : cnt[1]; }
+  __device__ int* mapt(int t) const { return t == 0 ? map[0] : map[1]; }
+  __device__ int* listt(int t) const { return t == 0 ? list[0] : list[1]; }
+};
+
+// The compact slot of `row` in table t, taken at the row's first touch: the
+// first toucher marks the map busy, takes the next slot, lists the row and
+// publishes the slot; a later toucher waits for the slot to appear. A
+// plain read (which may be stale, never wrong once it holds a slot) comes
+// first, so a row's later touches take no atomic.
+__device__ int claim(const Scratch& s, int t, int row) {
+  int* m = s.mapt(t) + row;
+  int slot = *m;
+  if (slot >= 0) return slot;
+  slot = atomicCAS(m, kEmpty, -2);
+  if (slot == kEmpty) {
+    slot = atomicAdd(s.counts + t, 1);
+    s.listt(t)[slot] = row;
+    atomicExch(m, slot);
+    return slot;
+  }
+  while (slot == -2) slot = *static_cast<volatile int*>(m);
+  return slot;
+}
+
+// The table slot of `key` (inserted if absent), or -1 after kProbes slots.
+__device__ __forceinline__ int probe(int* keys, int slots, int key) {
+  if (slots == 0) return -1;
+  int h = static_cast<int>(
+      (static_cast<uint64_t>(static_cast<uint32_t>(key) * kHashMult) *
+       static_cast<uint32_t>(slots)) >> 32);
+  for (int i = 0; i < kProbes; ++i) {
+    const int cur = static_cast<volatile int*>(keys)[h];
+    if (cur == key) return h;
+    if (cur == kEmpty) {
+      const int prev = atomicCAS(keys + h, kEmpty, key);
+      if (prev == kEmpty || prev == key) return h;
+    }
+    if (++h == slots) h = 0;
+  }
+  return -1;
+}
+
+// Where a row's adds go: a table slot (>= 0) or delta slot g as -1 - g.
+__device__ __forceinline__ int dest_of(int* keys, int slots,
+                                      const Scratch& s, int t, int row) {
+  const int h = probe(keys, slots, t == 0 ? (row | kInBit) : row);
+  return h >= 0 ? h : -1 - claim(s, t, row);
 }
 
 template <int NV>
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ void add_row(float* tab, int dpad,
+                                        const Scratch& s, int t, int dest,
+                                        int c0, int D, int lane,
+                                        const float (&v)[NV]) {
+#pragma unroll
+  for (int m = 0; m < NV; ++m) {
+    const int c = c0 + lane + 32 * m;
+    if (c < D) {
+      if (dest >= 0)
+        atomicAdd(tab + static_cast<size_t>(dest) * dpad + c, v[m]);
+      else
+        atomicAdd(s.dt(t) + static_cast<size_t>(-1 - dest) * D + c, v[m]);
+    }
+  }
+}
+
+__device__ __forceinline__ void add_count(int* tcnt, const Scratch& s, int t,
+                                          int dest, int n) {
+  if (dest >= 0)
+    atomicAdd(tcnt + dest, n);
+  else
+    atomicAdd(s.cntt(t) + (-1 - dest), n);
+}
+
+template <int NV>
+__device__ __forceinline__ void load_slice(const float* __restrict__ row,
+                                           int c0, int D, int lane,
+                                           float (&v)[NV]) {
+#pragma unroll
+  for (int m = 0; m < NV; ++m) {
+    const int c = c0 + lane + 32 * m;
+    v[m] = c < D ? __ldg(row + c) : 0.f;
+  }
+}
+
+template <int NV>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     sgns_exact_grads(const float* __restrict__ w_in,
                      const float* __restrict__ w_out,
                      const int* __restrict__ block,
                      const int* __restrict__ cwin,
-                     const int* __restrict__ negs, float* d_in, float* d_out,
-                     int* cnt_in, int* cnt_out, int* flag_in, int* flag_out,
-                     int* list_in, int* list_out, int* counts, int BT, int T,
-                     int window, int k, int D) {
-  const int pos = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (pos >= BT) return;  // a whole warp leaves together
-  const int center = block[pos];
-  if (center < 0) return;
-  const int t = pos % T;
-  const int row0 = pos - t;  // the walk's first position
-  const int win = cwin[pos];
-  float vi[NV], dvi[NV];
-  const float* src = w_in + static_cast<size_t>(center) * D;
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int c = lane + 32 * j;
-    vi[j] = c < D ? src[c] : 0.f;
-    dvi[j] = 0.f;
+                     const int* __restrict__ negs, Scratch s, int BT, int T,
+                     int window, int k, int D, int positions, int slots,
+                     int* stats) {
+  constexpr int kSlice = 32 * NV;
+  extern __shared__ int smem[];
+  const int dpad = (D + 31) & ~31;
+  int* keys = smem;
+  int* tcnt = smem + slots;
+  float* tab = reinterpret_cast<float*>(smem + 2 * slots);
+  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
+    keys[i] = kEmpty;
+    tcnt[i] = 0;
   }
-  int nvalid = 0;
-  for (int o = 0; o < 2 * window; ++o) {
+  for (int i = threadIdx.x; i < slots * dpad; i += blockDim.x) tab[i] = 0.f;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int W2 = 2 * window;
+  const int p0 = blockIdx.x * positions;
+  const int n = max(0, min(BT - p0, positions)) * W2;
+  const int i1 = static_cast<int>(static_cast<long long>(n) * (warp + 1) /
+                                  nwarps);
+  const bool one_slice = D <= kSlice;
+  int pos = -1, center = -1, cdest = 0, nvalid = 0, t = 0, row0 = 0, win = 0;
+  int in_table = 0, in_device = 0, flushed = 0;  // this lane's, for stats
+  float vi[NV], dvi[NV];
+#pragma unroll
+  for (int m = 0; m < NV; ++m) vi[m] = dvi[m] = 0.f;
+
+  // the current center's gradient and pair count into its row's sum
+  auto flush_center = [&]() {
+    if (nvalid == 0) return;
+    if (one_slice) add_row<NV>(tab, dpad, s, 0, cdest, 0, D, lane, dvi);
+    if (lane == 0) add_count(tcnt, s, 0, cdest, nvalid);
+  };
+
+  for (int it = static_cast<int>(static_cast<long long>(n) * warp / nwarps);
+       it < i1; ++it) {
+    const int p = p0 + it / W2;
+    const int o = it - (it / W2) * W2;
+    if (p != pos) {
+      flush_center();
+      pos = p;
+      center = block[p];
+      nvalid = 0;
+      t = p % T;
+      row0 = p - t;
+      win = cwin[p];
+#pragma unroll
+      for (int m = 0; m < NV; ++m) dvi[m] = 0.f;
+      if (center >= 0 && one_slice)
+        load_slice<NV>(w_in + static_cast<size_t>(center) * D, 0, D, lane,
+                       vi);
+    }
+    if (center < 0) continue;
     const int off = o < window ? o - window : o - window + 1;
-    if (abs(off) > win) continue;
     const int tc = t + off;
-    if (tc < 0 || tc >= T) continue;
+    if (abs(off) > win || tc < 0 || tc >= T) continue;
     const int ctx = block[row0 + tc];
     if (ctx < 0) continue;
-    ++nvalid;
-    const int* ng = negs + (static_cast<size_t>(pos) * 2 * window + o) * k;
-    for (int j = 0; j <= k; ++j) {
-      const int tgt = j == 0 ? ctx : ng[j - 1];
-      const float* vrow = w_out + static_cast<size_t>(tgt) * D;
-      float vo[NV];
-      float dot = 0.f;
-#pragma unroll
-      for (int m = 0; m < NV; ++m) {
-        const int c = lane + 32 * m;
-        vo[m] = c < D ? vrow[c] : 0.f;
-        dot = fmaf(vi[m], vo[m], dot);
-      }
-      for (int s = 16; s; s >>= 1) dot += __shfl_xor_sync(kFull, dot, s);
-      const float g = 1.f / (1.f + expf(-dot)) - (j == 0 ? 1.f : 0.f);
-      float* drow = d_out + static_cast<size_t>(tgt) * D;
-#pragma unroll
-      for (int m = 0; m < NV; ++m) {
-        const int c = lane + 32 * m;
-        dvi[m] = fmaf(g, vo[m], dvi[m]);
-        if (c < D) atomicAdd(&drow[c], g * vi[m]);
-      }
+    if (nvalid++ == 0) {  // the center's first valid pair: its destination
+      int d = 0;
       if (lane == 0) {
-        atomicAdd(&cnt_out[tgt], 1);
-        mark(flag_out, list_out, &counts[1], tgt);
+        d = dest_of(keys, slots, s, 0, center);
+        ++(d >= 0 ? in_table : in_device);
+      }
+      cdest = __shfl_sync(kFull, d, 0);
+    }
+    const int* ng = negs + (static_cast<size_t>(p) * W2 + o) * k;
+    for (int gb = 0; gb <= k; gb += kGroup) {
+      const int nt = min(kGroup, k + 1 - gb);
+      int my_tgt = 0;
+      if (lane < nt) my_tgt = gb + lane == 0 ? ctx : ng[gb + lane - 1];
+      int tgt[kGroup];
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) tgt[g] = __shfl_sync(kFull, my_tgt, g);
+      // the group's rows are read first; their destinations are found
+      // while the reads are in flight
+      float vo[kGroup][NV], dot[kGroup];
+      if (one_slice) {
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g)
+          if (g < nt)
+            load_slice<NV>(w_out + static_cast<size_t>(tgt[g]) * D, 0, D,
+                           lane, vo[g]);
+      }
+      int my_dest = 0;
+      if (lane < nt) {
+        my_dest = dest_of(keys, slots, s, 1, my_tgt);
+        add_count(tcnt, s, 1, my_dest, 1);
+        ++(my_dest >= 0 ? in_table : in_device);
+      }
+      int dst[kGroup];
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+        dst[g] = __shfl_sync(kFull, my_dest, g);
+        dot[g] = 0.f;
+      }
+      // the logits, slice by slice
+      for (int c0 = 0; c0 < D; c0 += kSlice) {
+        if (!one_slice)
+          load_slice<NV>(w_in + static_cast<size_t>(center) * D, c0, D,
+                         lane, vi);
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          if (g < nt) {
+            if (!one_slice)
+              load_slice<NV>(w_out + static_cast<size_t>(tgt[g]) * D, c0, D,
+                             lane, vo[g]);
+#pragma unroll
+            for (int m = 0; m < NV; ++m) dot[g] = fmaf(vi[m], vo[g][m], dot[g]);
+          }
+        }
+      }
+#pragma unroll
+      for (int sh = 16; sh; sh >>= 1)
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g)
+          dot[g] += __shfl_xor_sync(kFull, dot[g], sh);
+      float gr[kGroup];
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g)
+        gr[g] = 1.f / (1.f + expf(-dot[g])) - (gb + g == 0 ? 1.f : 0.f);
+      // the gradient rows, slice by slice (one slice: rows still held)
+      for (int c0 = 0; c0 < D; c0 += kSlice) {
+        if (!one_slice)
+          load_slice<NV>(w_in + static_cast<size_t>(center) * D, c0, D,
+                         lane, vi);
+        float acc[NV];
+#pragma unroll
+        for (int m = 0; m < NV; ++m) acc[m] = 0.f;
+#pragma unroll
+        for (int g = 0; g < kGroup; ++g) {
+          if (g < nt) {
+            if (!one_slice)
+              load_slice<NV>(w_out + static_cast<size_t>(tgt[g]) * D, c0, D,
+                             lane, vo[g]);
+            float v[NV];
+#pragma unroll
+            for (int m = 0; m < NV; ++m) {
+              acc[m] = fmaf(gr[g], vo[g][m], acc[m]);
+              v[m] = gr[g] * vi[m];
+            }
+            add_row<NV>(tab, dpad, s, 1, dst[g], c0, D, lane, v);
+          }
+        }
+        if (one_slice) {
+#pragma unroll
+          for (int m = 0; m < NV; ++m) dvi[m] += acc[m];
+        } else {
+          add_row<NV>(tab, dpad, s, 0, cdest, c0, D, lane, acc);
+        }
       }
     }
   }
-  if (nvalid == 0) return;
-  float* drow = d_in + static_cast<size_t>(center) * D;
-#pragma unroll
-  for (int m = 0; m < NV; ++m) {
-    const int c = lane + 32 * m;
-    if (c < D) atomicAdd(&drow[c], dvi[m]);
+  flush_center();
+  __syncthreads();
+
+  // each occupied slot to its row's delta slot: one device row a slot
+  for (int base = warp * 32; base < slots; base += nwarps * 32) {
+    const int h = base + lane;
+    const int key = h < slots ? keys[h] : kEmpty;
+    const int tt = (key & kInBit) ? 0 : 1;
+    int g = 0;
+    if (key != kEmpty) {
+      g = claim(s, tt, key & ~kInBit);
+      atomicAdd(s.cntt(tt) + g, tcnt[h]);
+    }
+    flushed += key != kEmpty;
+    for (unsigned occ = __ballot_sync(kFull, key != kEmpty); occ;
+         occ &= occ - 1) {
+      const int j = __ffs(occ) - 1;
+      const int gj = __shfl_sync(kFull, g, j);
+      const int tj = __shfl_sync(kFull, tt, j);
+      const float* src = tab + static_cast<size_t>(base + j) * dpad;
+      float* dst = s.dt(tj) + static_cast<size_t>(gj) * D;
+      for (int c = lane; c < D; c += 32) atomicAdd(dst + c, src[c]);
+    }
   }
-  if (lane == 0) {
-    atomicAdd(&cnt_in[center], nvalid);
-    mark(flag_in, list_in, &counts[0], center);
+  if (stats) {  // row adds into the table, into device memory; slots flushed
+    for (int sh = 16; sh; sh >>= 1) {
+      in_table += __shfl_xor_sync(kFull, in_table, sh);
+      in_device += __shfl_xor_sync(kFull, in_device, sh);
+      flushed += __shfl_xor_sync(kFull, flushed, sh);
+    }
+    if (lane == 0) {
+      atomicAdd(stats, in_table);
+      atomicAdd(stats + 1, in_device);
+      atomicAdd(stats + 2, flushed);
+    }
   }
 }
 
 __global__ void __launch_bounds__(256)
-    sgns_exact_apply(float* w_in, float* w_out, float* d_in, float* d_out,
-                     int* cnt_in, int* cnt_out, int* flag_in, int* flag_out,
-                     const int* __restrict__ list_in,
-                     const int* __restrict__ list_out,
-                     const int* __restrict__ counts, int D, float lr) {
-  const int n_in = counts[0];
-  const int n = n_in + counts[1];
+    sgns_exact_apply(float* w_in, float* w_out, Scratch s, int D, float lr) {
+  const int n_in = s.counts[0];
+  const int n = n_in + s.counts[1];
   const int lane = threadIdx.x & 31;
   const int warps = gridDim.x * (blockDim.x >> 5);
   for (int item = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
        item < n; item += warps) {
-    const bool in = item < n_in;
-    const int row = in ? list_in[item] : list_out[item - n_in];
-    float* w = (in ? w_in : w_out) + static_cast<size_t>(row) * D;
-    float* d = (in ? d_in : d_out) + static_cast<size_t>(row) * D;
-    int* cnt = in ? cnt_in : cnt_out;
-    const float c = static_cast<float>(max(cnt[row], 1));
+    const int t = item < n_in ? 0 : 1;
+    const int slot = t == 0 ? item : item - n_in;
+    const int row = s.listt(t)[slot];
+    float* w = (t == 0 ? w_in : w_out) + static_cast<size_t>(row) * D;
+    float* d = s.dt(t) + static_cast<size_t>(slot) * D;
+    const float c = static_cast<float>(max(s.cntt(t)[slot], 1));
     for (int i = lane; i < D; i += 32) {
       w[i] += (-lr * d[i]) / c;
       d[i] = 0.f;
     }
     __syncwarp();
     if (lane == 0) {
-      cnt[row] = 0;
-      (in ? flag_in : flag_out)[row] = 0;
+      s.cntt(t)[slot] = 0;
+      s.mapt(t)[row] = kEmpty;
     }
   }
 }
 
+Scratch scratch(void* const* p) {
+  Scratch s;
+  for (int t = 0; t < 2; ++t) {
+    s.d[t] = static_cast<float*>(p[t]);
+    s.cnt[t] = static_cast<int*>(p[2 + t]);
+    s.map[t] = static_cast<int*>(p[4 + t]);
+    s.list[t] = static_cast<int*>(p[6 + t]);
+  }
+  s.counts = static_cast<int*>(p[8]);
+  return s;
+}
+
 template <int NV>
-cudaError_t launch_grads(void* const* p, int BT, int T, int window, int k,
-                         int D, cudaStream_t s) {
-  const unsigned blocks = static_cast<unsigned>((BT + kWarps - 1) / kWarps);
-  sgns_exact_grads<NV><<<blocks, kWarps * 32, 0, s>>>(
-      static_cast<const float*>(p[0]), static_cast<const float*>(p[1]),
-      static_cast<const int*>(p[2]), static_cast<const int*>(p[3]),
-      static_cast<const int*>(p[4]), static_cast<float*>(p[5]),
-      static_cast<float*>(p[6]), static_cast<int*>(p[7]),
-      static_cast<int*>(p[8]), static_cast<int*>(p[9]),
-      static_cast<int*>(p[10]), static_cast<int*>(p[11]),
-      static_cast<int*>(p[12]), static_cast<int*>(p[13]), BT, T, window, k,
-      D);
+cudaError_t launch_grads(const void* w_in, const void* w_out,
+                         const void* block, const void* cwin,
+                         const void* negs, const Scratch& s, int BT, int T,
+                         int window, int k, int D, int blocks, int threads,
+                         int positions, int slots, int* stats,
+                         cudaStream_t stream) {
+  const int dpad = (D + 31) & ~31;
+  const size_t smem = static_cast<size_t>(slots) * (8 + 4 * dpad);
+  cudaError_t err = cudaFuncSetAttribute(
+      sgns_exact_grads<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  sgns_exact_grads<NV><<<blocks, threads, smem, stream>>>(
+      static_cast<const float*>(w_in), static_cast<const float*>(w_out),
+      static_cast<const int*>(block), static_cast<const int*>(cwin),
+      static_cast<const int*>(negs), s, BT, T, window, k, D, positions,
+      slots, stats);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Kernel (a) for one block of B*T center positions: zeroes the two list
-// lengths, then launches. D <= 512. Returns the CUDA error.
+// Kernel (a) for one block of BT = B*T center positions under a launch plan
+// (ops/sgns_exact.py::launch_plan): `blocks` blocks of `threads` threads,
+// `positions` consecutive positions a block, a table of `slots` rows in
+// shared memory. scratch: d_in, d_out, cnt_in, cnt_out, map_in, map_out,
+// list_in, list_out, counts[2]. stats, when not null, gets three sums added:
+// row adds into the tables, row adds into device memory, slots flushed.
+// Zeroes the two slot counts, then launches. Returns the CUDA error.
 extern "C" int srw_sgns_exact_grads_launch(
     const void* w_in, const void* w_out, const void* block, const void* cwin,
-    const void* negs, void* d_in, void* d_out, void* cnt_in, void* cnt_out,
-    void* flag_in, void* flag_out, void* list_in, void* list_out,
-    void* counts, int BT, int T, int window, int k, int D, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(counts, 0, 2 * sizeof(int), s);
+    const void* negs, void* const* scratch_ptrs, int BT, int T, int window,
+    int k, int D, int blocks, int threads, int positions, int slots,
+    void* stats, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Scratch s = scratch(scratch_ptrs);
+  cudaError_t err = cudaMemsetAsync(s.counts, 0, 2 * sizeof(int), st);
   if (err != cudaSuccess || BT <= 0) return static_cast<int>(err);
-  void* const p[] = {const_cast<void*>(w_in), const_cast<void*>(w_out),
-                     const_cast<void*>(block), const_cast<void*>(cwin),
-                     const_cast<void*>(negs), d_in, d_out, cnt_in, cnt_out,
-                     flag_in, flag_out, list_in, list_out, counts};
-  const int nv = (D + 31) / 32;
-  if (nv <= 1) err = launch_grads<1>(p, BT, T, window, k, D, s);
-  else if (nv <= 2) err = launch_grads<2>(p, BT, T, window, k, D, s);
-  else if (nv <= 4) err = launch_grads<4>(p, BT, T, window, k, D, s);
-  else if (nv <= 8) err = launch_grads<8>(p, BT, T, window, k, D, s);
-  else if (nv <= 16) err = launch_grads<16>(p, BT, T, window, k, D, s);
-  else err = cudaErrorInvalidValue;
+  if (D < 1 || k < 0 || window < 1 || threads < 32 || threads % 32 ||
+      threads > kMaxThreads || slots < 0 || blocks < 1 ||
+      static_cast<long long>(blocks) * positions < BT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D <= 32)
+    err = launch_grads<1>(w_in, w_out, block, cwin, negs, s, BT, T, window,
+                          k, D, blocks, threads, positions, slots,
+                          static_cast<int*>(stats), st);
+  else if (D <= 64)
+    err = launch_grads<2>(w_in, w_out, block, cwin, negs, s, BT, T, window,
+                          k, D, blocks, threads, positions, slots,
+                          static_cast<int*>(stats), st);
+  else
+    err = launch_grads<4>(w_in, w_out, block, cwin, negs, s, BT, T, window,
+                          k, D, blocks, threads, positions, slots,
+                          static_cast<int*>(stats), st);
   return static_cast<int>(err);
 }
 
-// Kernel (b): `blocks` blocks of 8 warps stride over the touched rows.
-extern "C" int srw_sgns_exact_apply_launch(
-    void* w_in, void* w_out, void* d_in, void* d_out, void* cnt_in,
-    void* cnt_out, void* flag_in, void* flag_out, const void* list_in,
-    const void* list_out, const void* counts, int D, int blocks, float lr,
-    void* stream) {
+// Kernel (b): `blocks` blocks of 8 warps stride over the listed slots.
+extern "C" int srw_sgns_exact_apply_launch(void* w_in, void* w_out,
+                                           void* const* scratch_ptrs, int D,
+                                           int blocks, float lr,
+                                           void* stream) {
   sgns_exact_apply<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(w_in), static_cast<float*>(w_out),
-      static_cast<float*>(d_in), static_cast<float*>(d_out),
-      static_cast<int*>(cnt_in), static_cast<int*>(cnt_out),
-      static_cast<int*>(flag_in), static_cast<int*>(flag_out),
-      static_cast<const int*>(list_in), static_cast<const int*>(list_out),
-      static_cast<const int*>(counts), D, lr);
+      scratch(scratch_ptrs), D, lr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,10 +27,26 @@ from . import word2vec as w2v
 logger = logging.getLogger("stellar_rw_tpu_torch.node2vec")
 
 
+WALK_DEVICES = 1   # the port's walk engine runs on one device
+
+
+def num_walk_shards(params: Params, devices: int = WALK_DEVICES) -> int:
+    """Resolve --shards as the JAX package does: 0 = auto (one shard, unless
+    --partitioned true, which takes min(devices, rddPartitions)), always
+    capped at the devices the walks run on."""
+    if params.shards > 0:
+        return max(1, min(params.shards, devices))
+    if params.partitioned:
+        return max(1, min(devices, params.rdd_partitions))
+    return 1
+
+
 def _refuse_sharded(params: Params) -> None:
-    if params.shards > 1 or params.partitioned:
-        raise NotPorted("--shards > 1 / --partitioned true: the sharded walk "
-                        "engine is ROADMAP Queue 1 item 12 (K11)")
+    """One shard takes the single-device engine; --partitioned then changes
+    only the loader (the walks do not depend on the routing)."""
+    if num_walk_shards(params) > 1:
+        raise NotPorted("more than one walk shard: the sharded walk engine "
+                        "is ROADMAP Queue 1 item 12 (K11)")
 
 
 def run_walks(graph: CSRGraph, params: Params, device="cuda",

@@ -172,7 +172,7 @@ def _train_epoch(w_in, w_out, corpus, neg_keep, neg_alias, key, lr_start,
                  else B * T * 2 * window * negatives) + B * T
     chunk = max(1, min(n_blocks, _DRAW_BUDGET // per_block))
     # the exact step's kernels' scratch, zero again after every step
-    ws = (Workspace(w_in, w_out)
+    ws = (Workspace(w_in, w_out, B * T, window, negatives)
           if w_in.device.type == "cuda" and not shared_negatives else None)
     for c0 in range(0, n_blocks, chunk):
         ids = torch.arange(c0, min(c0 + chunk, n_blocks), device=key.device)

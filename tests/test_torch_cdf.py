@@ -301,9 +301,20 @@ def test_cdf_kernel_wrapper_raises_without_a_build(karate_path, monkeypatch,
             prng.prng_key(0), 0, 1, 4, 0.5, 2.0, 17, 0)
 
 
+def _ks(v: np.ndarray) -> np.ndarray:
+    """A piece's inclusive Kogge-Stone scan over the lanes (shfl_up by o)."""
+    lanes, o = np.arange(32), 1
+    while o < 32:
+        v = np.where(lanes >= o, v + np.roll(v, o), v).astype(v.dtype)
+        o *= 2
+    return v
+
+
 def _warp_pick(b: np.ndarray, u: np.float32, chunked: bool) -> int:
     """csrc/cdf_walk.cu's pick() for one walker, transcribed lane by lane in
-    f32: the index of the picked entry, or -1 for the row head."""
+    f32: the index of the picked entry, or -1 for the row head. Chunked:
+    the lane sums and their butterfly, then the find loop (each piece's
+    scan added to the sum before it, the ballot's first lane)."""
     d, lanes = len(b), np.arange(32)
     f32 = np.float32
     if chunked:
@@ -316,15 +327,10 @@ def _warp_pick(b: np.ndarray, u: np.float32, chunked: bool) -> int:
             off //= 2
         thresh, cum = f32(u * acc[0]), f32(0)
         for base in range(0, d, 32):
-            n = min(32, d - base)
             v = np.zeros(32, f32)
-            v[:n] = b[base:base + n]
-            o = 1
-            while o < 32:                      # Kogge-Stone, shfl_up by o
-                v = np.where(lanes >= o, v + np.roll(v, o), v).astype(f32)
-                o *= 2
-            c = (cum + v).astype(f32)
-            hit = np.flatnonzero((lanes < n) & (c >= thresh))
+            v[:min(32, d - base)] = b[base:base + 32]
+            c = (cum + _ks(v)).astype(f32)
+            hit = np.flatnonzero((base + lanes < d) & (c >= thresh))
             if len(hit):
                 return base + int(hit[0])
             cum = c[31]
@@ -344,12 +350,12 @@ def _warp_pick(b: np.ndarray, u: np.float32, chunked: bool) -> int:
 @pytest.mark.parametrize("chunked", [False, True])
 def test_kernel_pick_transcription_equals_plain(chunked):
     """The kernel's lane-by-lane order, transcribed, picks what the plain
-    samplers pick, on rows around a warp's width with arbitrary f32
-    weights: the two share one summation order, so they agree bit for bit
-    on any input (the card checks the kernel itself: chip_smoke.py phase
-    9)."""
+    samplers pick, on rows around a warp's width and of many pieces, with
+    arbitrary f32 weights: the two share one summation order, so they agree
+    bit for bit on any input (the card checks the kernel itself:
+    chip_smoke.py phases 9-10)."""
     rng = np.random.default_rng(5)
-    for d in (1, 5, 31, 32, 33, 100, 257):
+    for d in (1, 5, 31, 32, 33, 100, 257, 2000):
         w = (rng.random(d) * 3 + 0.01).astype(np.float32)
         g = tcsr.from_adjacency({0: [(i + 1, float(x)) for i, x in
                                      enumerate(w)],
@@ -369,3 +375,31 @@ def test_kernel_pick_transcription_equals_plain(chunked):
         for i in range(60):
             j = _warp_pick(w_row, u[i], chunked)
             assert got[i].item() == cols[max(j, 0)], (d, i)
+
+
+def test_kernel_pick_finds_a_crossing_inside_a_piece():
+    """A piece's scan need not grow over its lanes: with weights 1, 2^-24,
+    2^-24 and zeros, lane 2 holds 1 + 2^-23 and lane 31 holds 1. A thresh
+    between the two crosses inside the first piece, below the sum after it:
+    a search over the sums after each piece would pass it by; the find loop
+    stops there, as the plain sampler does."""
+    b = np.zeros(96, np.float32)
+    b[:3] = (1.0, 2.0 ** -24, 2.0 ** -24)
+    b[32:] = 1.0
+    x = _ks(b[:32].copy())
+    assert x[2] == np.float32(1 + 2.0 ** -23) and x[31] == np.float32(1)
+    total = np.float32(65)
+    u = np.float32(np.float32(1 + 2.0 ** -23) / total)
+    while np.float32(u * total) > np.float32(1 + 2.0 ** -23):
+        u = np.nextafter(u, np.float32(0))
+    assert np.float32(1) < np.float32(u * total)
+    g = tcsr.from_adjacency({0: [(i + 1, float(x)) for i, x in enumerate(b)],
+                             **{i + 1: [(0, 1.0)] for i in range(96)}})
+    dg = sampling.device_put_graph(g, "cpu", cdf=True)
+    w_row = g.weights[g.offsets[0]:g.offsets[1]].astype(np.float32)
+    np.testing.assert_array_equal(w_row, b)
+    got = sampling.cdf_sample_first_order_chunked(
+        dg, torch.zeros(1, dtype=torch.int32), torch.as_tensor([u]),
+        sampling.CDF_CHUNK)
+    assert _warp_pick(w_row, u, True) == 2
+    assert got.item() == g.cols[g.offsets[0] + 2]

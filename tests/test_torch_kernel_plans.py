@@ -6,8 +6,11 @@
   * the walk kernel's flat (step, trial) loop with the skipped u_acc draw,
     transcribed for one walker at a time in plain Python integers, gives
     walk_corpus_ref's corpus bit for bit;
-  * the wrappers' launch plans stay inside one block's shared memory, and
-    the pieces chip_sgns_parts.py takes out of the kernel are in its source;
+  * the wrappers' launch plans stay inside one block's shared memory (the
+    shared-negative kernel, the exact-negative kernel's table), and the
+    pieces chip_sgns_parts.py,
+    chip_sgns_exact_parts.py and chip_cdf_parts.py change in the kernels
+    are in their sources;
   * every entry point defaults to the card, raises the named error without
     one, and runs with device="cpu".
 """
@@ -18,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_cdf_parts
+import chip_sgns_exact_parts
 import chip_sgns_parts
 from stellar_rw_tpu_torch import cli
 from stellar_rw_tpu_torch.errors import CudaUnavailable
@@ -26,7 +31,7 @@ from stellar_rw_tpu_torch.graph import io as tio
 from stellar_rw_tpu_torch.models import node2vec as n2v
 from stellar_rw_tpu_torch.models import word2vec as w2v
 from stellar_rw_tpu_torch.ops import _build, prng, resident_walk, sampling
-from stellar_rw_tpu_torch.ops import sgns
+from stellar_rw_tpu_torch.ops import cdf_walk, sgns, sgns_exact
 from stellar_rw_tpu_torch.ops import walk_step
 from stellar_rw_tpu_torch.utils.config import Params
 from stellar_rw_tpu_torch.walk import engine
@@ -285,6 +290,67 @@ def test_sgns_parts_variant_edits_the_source_once(name):
     old, new = chip_sgns_parts.VARIANTS[name]
     source = (_build.CSRC / sgns.SGNS_KERNEL.source).read_text()
     assert source.count(old) == 1 and new != old
+
+
+@pytest.mark.parametrize("D", [32, 128, 512, 768, 1024, 3000])
+def test_sgns_exact_launch_plan_fits_one_block(D):
+    """K4 at the main block (B 32, T 82, w 10, k 5) on 132 SMs: one wave of
+    two persistent blocks an SM covering the positions, a table of
+    TABLE_ROWS rows (fewer where half an SM's shared memory holds fewer:
+    at large D); a row is one slice of registers up to D = 32 * nv."""
+    B, T, win, k = 32, 82, 10, 5
+    budget = 233_472 // 2 - 1_024
+    row_bytes = 8 + 4 * (-(-D // 32) * 32)
+    assert sgns_exact.slot_bytes(D) == row_bytes
+    assert sgns_exact.TABLE_BUDGET == budget
+    plan = sgns_exact.launch_plan(D, B, T, win, k)
+    assert plan.slots == min(sgns_exact.TABLE_ROWS, budget // row_bytes) >= 9
+    assert plan.smem_bytes == plan.slots * row_bytes <= budget
+    assert plan.blocks <= 2 * 132 and plan.blocks * plan.positions >= B * T
+    assert (plan.blocks - 1) * plan.positions < B * T
+    assert plan.threads == sgns_exact.THREADS
+    assert plan.nv == (1 if D <= 32 else 4)
+    assert plan.slices == -(-D // (32 * plan.nv))
+
+
+def test_sgns_exact_launch_plan_small_blocks(monkeypatch):
+    """A block of few positions: a block a position, and a table no larger
+    than twice the rows a position can touch."""
+    plan = sgns_exact.launch_plan(16, 7, 30, 3, 2, sm_count=132)
+    assert plan.blocks == 210 and plan.positions == 1
+    assert plan.slots == 16
+    monkeypatch.setattr(sgns_exact, "TABLE_ROWS", 1 << 20)
+    big = sgns_exact.launch_plan(16, 7, 30, 3, 2)
+    assert big.slots == 2 * (2 * 3 * 3 + 1)
+    with pytest.raises(ValueError):
+        sgns_exact.launch_plan(0, 32, 82, 10, 5)
+    source = (_build.CSRC / sgns_exact.SGNS_EXACT_GRADS.source).read_text()
+    assert (f"constexpr int kMinBlocks = {sgns_exact.BLOCKS_PER_SM};"
+            in source)
+
+
+@pytest.mark.parametrize("name", [n for n, edits in
+                                  chip_sgns_exact_parts.VARIANTS.items()
+                                  if edits])
+def test_sgns_exact_parts_variant_edits_the_source_once(name):
+    """chip_sgns_exact_parts.py patches the kernel by text: each piece must
+    occur exactly once in csrc/sgns_exact.cu, and its replacement must
+    differ."""
+    source = (_build.CSRC / sgns_exact.SGNS_EXACT_GRADS.source).read_text()
+    for old, new in chip_sgns_exact_parts.VARIANTS[name]:
+        assert source.count(old) == 1 and new != old
+
+
+@pytest.mark.parametrize("name", [n for n, edits in
+                                  chip_cdf_parts.VARIANTS.items() if edits])
+def test_cdf_parts_variant_edits_the_source_once(name):
+    """chip_cdf_parts.py patches csrc/cdf_walk.cu by text, one piece after
+    the other: each piece must occur exactly once in the text as the pieces
+    before it left it, and its replacement must differ."""
+    text = (_build.CSRC / cdf_walk.CDF_WALK_KERNEL.source).read_text()
+    for old, new in chip_cdf_parts.VARIANTS[name]:
+        assert text.count(old) == 1 and new != old
+        text = text.replace(old, new)
 
 
 # --- 4. default devices ----------------------------------------------------

@@ -56,56 +56,112 @@ def _jax_step(w_in, w_out, block, key, negs, win, lr):
     return np.asarray(a_in), np.asarray(a_out)
 
 
-def _kernel_arithmetic(w_in, w_out, block, cwin, negs, win, lr):
-    """csrc/sgns_exact.cu in NumPy: kernel (a) per center position, reading
-    only the old tables, then kernel (b) over the touched rows."""
+GROUP, PROBES, IN_BIT = 3, 2, 1 << 31     # csrc/sgns_exact.cu's constants
+
+
+def _kernel_arithmetic(w_in, w_out, block, cwin, negs, win, lr, plan):
+    """csrc/sgns_exact.cu in NumPy under a launch plan: kernel (a) block by
+    block, each block's warps over contiguous runs of its (position,
+    offset) pairs, a pair's targets in groups of GROUP; every gradient row
+    added into the block's open-addressing table (key: the row, IN_BIT
+    for w_in's; at most PROBES probes from the kernel's multiplicative
+    hash) or, on a miss, into the row's compact delta slot (a row-to-slot
+    map, -1 when free, and a list of slot rows); the occupied slots
+    flushed into the delta slots at the block's end. Then kernel (b) over
+    the listed slots, emptying them. Only the old tables are read."""
     B, T = block.shape
     V, D = w_in.shape
     k = negs.shape[1]
-    d_in = np.zeros_like(w_in)
-    d_out = np.zeros_like(w_out)
-    cnt_in = np.zeros(V, np.int64)
-    cnt_out = np.zeros(V, np.int64)
-    touched_in, touched_out = [], []
-    offs = list(range(-win, 0)) + list(range(1, win + 1))
-    for pos in range(B * T):
-        b, t = divmod(pos, T)
-        center = block[b, t]
-        if center < 0:
-            continue
-        vi = w_in[center]
-        dvi = np.zeros(D, np.float32)
-        nvalid = 0
-        for o, off in enumerate(offs):
-            tc = t + off
-            if abs(off) > cwin[b, t] or not 0 <= tc < T or block[b, tc] < 0:
-                continue
-            nvalid += 1
-            targets = [block[b, tc]] + list(negs[pos * 2 * win + o])
-            for j, tgt in enumerate(targets):
-                vo = w_out[tgt]
-                g = np.float32(1 / (1 + np.exp(-np.dot(vi, vo)))
-                               - (j == 0))
-                dvi += g * vo
-                d_out[tgt] += g * vi
-                cnt_out[tgt] += 1
-                if tgt not in touched_out:
-                    touched_out.append(tgt)
-        if nvalid:
-            d_in[center] += dvi
-            cnt_in[center] += nvalid
-            if center not in touched_in:
-                touched_in.append(center)
-    w_in, w_out = w_in.copy(), w_out.copy()
-    for w, d, cnt, rows in ((w_in, d_in, cnt_in, touched_in),
-                            (w_out, d_out, cnt_out, touched_out)):
-        for r in rows:
-            w[r] += (np.float32(-lr) * d[r]) / np.float32(max(cnt[r], 1))
-    return w_in, w_out, touched_in, touched_out
+    BT, W2 = B * T, 2 * win
+    tables = (w_in, w_out)
+    d = [np.zeros((V * (1 + W2 * (1 + k)), D), np.float32) for _ in (0, 1)]
+    cnt = [np.zeros(len(x), np.int64) for x in d]
+    rowmap = [np.full(V, -1, np.int64) for _ in (0, 1)]
+    rows = [[], []]
+    stats = dict(hits=0, misses=0, flushed=0)
+
+    def claim(t, row):
+        if rowmap[t][row] < 0:
+            rowmap[t][row] = len(rows[t])
+            rows[t].append(row)
+        return rowmap[t][row]
+
+    for b0 in range(plan.blocks):
+        C = plan.slots
+        keys = np.full(C, -1, np.int64)
+        tcnt = np.zeros(C, np.int64)
+        tab = np.zeros((C, D), np.float32)
+
+        def add(t, row, vec, n):
+            row = int(row)
+            key = row | IN_BIT if t == 0 else row
+            h = ((key * 2654435761) % 2**32 * C) >> 32 if C else 0
+            for _ in range(PROBES if C else 0):
+                if keys[h] in (-1, key):
+                    keys[h] = key
+                    tab[h] += vec
+                    tcnt[h] += n
+                    stats["hits"] += 1
+                    return
+                h = (h + 1) % C
+            stats["misses"] += 1
+            g = claim(t, row)
+            d[t][g] += vec
+            cnt[t][g] += n
+
+        p0 = b0 * plan.positions
+        n = max(0, min(BT - p0, plan.positions)) * W2
+        nw = plan.threads // 32
+        for warp in range(nw):
+            pos, nvalid, dvi = -1, 0, None
+            for it in range(n * warp // nw, n * (warp + 1) // nw):
+                p, o = p0 + it // W2, it % W2
+                if p != pos:
+                    if nvalid:
+                        add(0, center, dvi, nvalid)
+                    pos, nvalid = p, 0
+                    bb, t = divmod(p, T)
+                    center = block[bb, t]
+                    dvi = np.zeros(D, np.float32)
+                off = o - win if o < win else o - win + 1
+                tc = t + off
+                if (center < 0 or abs(off) > cwin[bb, t] or not 0 <= tc < T
+                        or block[bb, tc] < 0):
+                    continue
+                nvalid += 1
+                vi = w_in[center]
+                targets = [block[bb, tc]] + list(negs[p * W2 + o])
+                for gb in range(0, k + 1, GROUP):
+                    grp = targets[gb:gb + GROUP]
+                    vo = w_out[grp]
+                    g = (np.float32(1) / (np.float32(1) + np.exp(
+                        -(vo @ vi)))).astype(np.float32)
+                    if gb == 0:
+                        g[0] -= np.float32(1)
+                    dvi += (g[:, None] * vo).sum(0, dtype=np.float32)
+                    for tgt, gj in zip(grp, g):
+                        add(1, tgt, gj * vi, 1)
+            if nvalid:
+                add(0, center, dvi, nvalid)
+        for h in np.flatnonzero(keys >= 0) if C else []:
+            t = 0 if keys[h] & IN_BIT else 1
+            g = claim(t, int(keys[h] & ~IN_BIT))
+            d[t][g] += tab[h]
+            cnt[t][g] += tcnt[h]
+            stats["flushed"] += 1
+    out = [w.copy() for w in tables]
+    for t in (0, 1):
+        for g, r in enumerate(rows[t]):
+            out[t][r] += (np.float32(-lr) * d[t][g]) / np.float32(
+                max(cnt[t][g], 1))
+            rowmap[t][r] = -1
+        assert (rowmap[t] == -1).all()
+    return out[0], out[1], rows[0], rows[1], stats
 
 
 @pytest.mark.parametrize("V,D,B,T,win,k", [(40, 16, 3, 14, 3, 4),
-                                           (12, 24, 4, 20, 5, 5)])
+                                           (12, 24, 4, 20, 5, 5),
+                                           (20, 768, 2, 10, 3, 3)])
 def test_step_matches_jax(V, D, B, T, win, k):
     w_in, w_out, block, cwin, negs, key = _case(V, D, B, T, win, k, V)
     # collisions: some vertex is a center and a target of another pair
@@ -121,20 +177,58 @@ def test_step_matches_jax(V, D, B, T, win, k):
     assert np.abs(a_in - w_in).max() > 1e-3          # the step moved them
 
 
-def test_kernel_arithmetic_matches_jax():
-    """The kernels' order of work (old tables only, sum then divide, the
-    touched rows alone) gives the JAX step to rounding; untouched rows stay
-    bit for bit."""
-    win, lr = 3, 0.1
-    w_in, w_out, block, cwin, negs, key = _case(30, 8, 3, 12, win, 3, 7)
+@pytest.mark.parametrize("slots", [None, 64, 6, 0])
+def test_kernel_arithmetic_matches_jax(slots):
+    """The kernels' order of work (old tables only, per-block tables of
+    partial sums flushed into compact slots, sum then divide, the touched
+    rows alone) gives the JAX step to rounding; untouched rows stay bit for
+    bit. slots: the plan's own table, one that holds every row a block
+    touches, one so small that adds miss it and go to device memory, and
+    none at all."""
+    win, lr, k = 3, 0.1, 7
+    w_in, w_out, block, cwin, negs, key = _case(30, 8, 3, 12, win, k, 7)
+    plan = sgns_exact.launch_plan(8, 3, 12, win, k, sm_count=4)
+    if slots is not None:
+        plan = plan._replace(slots=slots)
     a_in, a_out = _jax_step(w_in, w_out, block, key, negs, win, lr)
-    b_in, b_out, rows_in, rows_out = _kernel_arithmetic(
-        w_in, w_out, block, cwin, negs, win, lr)
+    b_in, b_out, rows_in, rows_out, stats = _kernel_arithmetic(
+        w_in, w_out, block, cwin, negs, win, lr, plan)
     np.testing.assert_allclose(b_in, a_in, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(b_out, a_out, rtol=1e-5, atol=1e-6)
     rest = np.setdiff1d(np.arange(30), rows_in)
     np.testing.assert_array_equal(b_in[rest], w_in[rest])
+    rest = np.setdiff1d(np.arange(30), rows_out)
+    np.testing.assert_array_equal(b_out[rest], w_out[rest])
     assert set(rows_in) & set(rows_out)       # a row in both lists
+    # compact slots: each touched row listed once
+    assert len(set(rows_in)) == len(rows_in) and len(rows_out) == len(
+        set(rows_out))
+    assert plan.blocks == 8 and plan.positions == 5
+    if slots == 0:
+        assert stats["hits"] == stats["flushed"] == 0
+    elif slots == 64:
+        assert stats["misses"] == 0 and stats["hits"] > stats["flushed"]
+    else:
+        assert stats["misses"] > 0 and stats["hits"] > stats["flushed"] > 0
+
+
+@pytest.mark.parametrize("V", [10_000, 1_000_000])
+def test_workspace_is_bounded_by_the_block(V):
+    """At karate's block (B 32, T 22, w 5, k 5) the delta slots are the
+    rows the block can touch, whatever the vocabulary; a vocabulary row
+    costs its map entry alone (an old [V, D] delta table pair: 1 GB at
+    V = 10^6, D = 128)."""
+    D, BT, win, k = 128, 32 * 22, 5, 5
+    w = torch.empty((V, D), dtype=torch.float32, device="meta")
+    ws = sgns_exact.Workspace(w, w, BT, win, k)
+    assert ws.rows == (min(V, BT), min(V, BT * 2 * win * (1 + k)))
+    block_bytes = sum(r * (D * 4 + 4 + 4) for r in ws.rows)
+    assert ws.nbytes == block_bytes + 2 * V * 4 + 8
+    assert ws.serves(w, w, BT, win, k)
+    if V == 1_000_000:
+        assert ws.rows == (BT, BT * 60)
+        assert ws.nbytes < 0.05 * 2 * V * D * 4
+        assert not ws.serves(w, w, BT, win + 1, k)
 
 
 def test_karate_gate_with_exact_negatives(karate_path):
