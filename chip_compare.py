@@ -29,7 +29,16 @@ events around launches queued behind a long product):
     with a workspace and tables allocated for it;
   * the exact-CDF walk kernel on phase 10's corpus (the walk_10k graph,
     10 rounds, L = 80, p = 1/16, q = 4, chunked): other, this, this,
-    other, after checking the two corpora equal.
+    other, after checking the two corpora equal;
+  * the trainer's per-block draws as each checkout's epoch makes them, on
+    the main path's chunks (the conv trainer's 1,524 blocks of kB 128, the
+    exact trainer's 15 blocks of 5 negatives a pair): other, this, this,
+    other, after checking the draws equal;
+  * one trainer epoch of each checkout on the walk_10k corpus (100,000
+    walks of 81 tokens, dim 128, window 10, 5 negatives), the conv trainer
+    (--sharedNegatives 128) and the exact one, host wall time synchronized:
+    other, this, this, other, with the largest difference of the two
+    checkouts' tables after the epoch.
 
 One JSON object a line, the card's name and power limit in each. Needs a
 CUDA device; imports nothing of JAX.
@@ -65,6 +74,16 @@ def load_package(root: str, name: str):
 def on_card(walk_step) -> bool:
     """Whether a checkout's trial_keys builds the table on a given device."""
     return "device" in inspect.signature(walk_step.trial_keys).parameters
+
+
+def has_draws_kernel(pkg) -> bool:
+    """Whether a checkout draws the trainer's windows and negatives by a
+    kernel (ops/trainer_draws.py)."""
+    try:
+        pkg("ops.trainer_draws")
+    except ImportError:
+        return False
+    return True
 
 
 def wall_ms(torch, fn, iters: int) -> float:
@@ -254,6 +273,68 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"kernel": "cdf_walk", "walkers": R * V,
                       "walk_length": L, "p": p, "q": q,
                       "ms_in_turns": runs, "card": smi}))
+
+    # the trainer's draws, as each checkout's _train_epoch makes them
+    from chip_smoke import draw_tables
+
+    keep, alias = draw_tables(torch, 10_000, 0)
+    key = this("ops.prng").fold_in(this("ops.prng").prng_key(1), 0).cuda()
+    B, T, win, k = 32, 82, 10, 5
+
+    def draws(pkg, n, shape):
+        if has_draws_kernel(pkg):
+            td = pkg("ops.trainer_draws")
+            return lambda: td.trainer_draws(key, 0, n, B, T, win, shape,
+                                            keep, alias)
+        prng, w2v = pkg("ops.prng"), pkg("models.word2vec")
+
+        def plain():       # the parent's chunk, as its _train_epoch drew it
+            kb = prng.fold_in(key, torch.arange(n, device="cuda"))
+            cwin = prng.randint(kb, (B, T), 1, win + 1)
+            negs = w2v._draw_negatives(prng.fold_in(kb, 2), shape, keep,
+                                       alias.long())
+            return cwin, negs.to(torch.int32)
+        return plain
+
+    for name_, shape, n in (("conv", (128,), 1524),
+                            ("exact", (B * T * 2 * win, k), 15)):
+        fns = {name: draws(pkg, n, shape) for name, pkg in
+               (("other", other), ("this", this))}
+        check(all(torch.equal(a, b) for a, b in
+                  zip(fns["this"](), fns["other"]())),
+              f"the two checkouts' {name_} draws differ")
+        runs = [(name, cuda_ms(fns[name], 3)) for name in order]
+        print(json.dumps({"step": f"trainer draws, a {name_} chunk",
+                          "blocks": n, "shape": list(shape),
+                          "ms_in_turns": runs, "card": smi}))
+
+    # one trainer epoch of each checkout on the walk_10k corpus
+    walks = this("walk.engine").random_walks(
+        graph, 80, 10, 0.25, 0.25, seed=0, as_numpy=False, device="cuda")
+    for kB in (128, 0):
+        tables, fns = {}, {}
+        for name, pkg in (("other", other), ("this", this)):
+            w2v = pkg("models.word2vec")
+            cfg = w2v.SGNSConfig(dim=128, window=10, negatives=5, iters=1,
+                                 seed=1, shared_negatives=kB)
+            fns[name] = (lambda w2v=w2v, cfg=cfg, corpus=walks:
+                         w2v.train_skipgram(corpus, graph.num_vertices, cfg,
+                                            device="cuda"))
+            fns[name](corpus=walks[:64])     # builds the kernels first
+        runs = []
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tables[name] = fns[name]()
+            torch.cuda.synchronize()
+            runs.append((name, time.perf_counter() - t0))
+        diff = max(float(np.abs(a - b).max()) for a, b in
+                   zip(tables["this"], tables["other"]))
+        print(json.dumps({"step": "trainer epoch, host wall s",
+                          "trainer": f"conv kB {kB}" if kB else "exact",
+                          "walks": int(walks.shape[0]),
+                          "s_in_turns": runs, "max_abs_table_diff": diff,
+                          "card": smi}))
     return 0
 
 

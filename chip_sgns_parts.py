@@ -8,10 +8,14 @@ A variant is csrc/sgns_shared.cu with one piece of text replaced (the pieces
 are listed in VARIANTS; a piece that is no longer in the source stops the
 script, so the list is kept beside the kernel). A variant's result is wrong
 by design; only its time is read. The difference between `base` and a
-variant is what the part costs where nothing else hides it. Times are
-chip_smoke's cuda_ms (CUDA events around 100 launches queued behind a long
-product), every variant twice, in turns. Variants are written and built
-under build/ of the checkout. Needs a CUDA device; imports nothing of JAX.
+variant is what the part costs where nothing else hides it. Then the
+kernel above D = 512 (column slices) under other slice widths and
+negatives a chunk (SLICED: each a variant of the dispatch, held to the
+plain version at rtol 1e-5 atol 1e-5) at (2624, 768, 128) and (2624, 1536,
+128). Times are chip_smoke's cuda_ms (CUDA events around 100 launches, 20
+for the sliced shapes, queued behind a long product), every variant twice,
+in turns. Variants are written and built under build/ of the checkout.
+Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -60,6 +64,15 @@ VARIANTS = {
         "        if (kb < kB && d < D && acc3[i][2 * h] == 123.f) {\n"
         "          float* dst = my_part"),
 }
+# the sliced kernel's (slice width, negatives a chunk): name -> edit
+SLICED = {
+    "256 columns, 64 negatives a chunk (base)": None,
+    "512 columns, 32 negatives a chunk": (
+        "launch_sliced<256, 64>(", "launch_sliced<512, 32>("),
+    "256 columns, 32 negatives a chunk": (
+        "launch_sliced<256, 64>(", "launch_sliced<256, 32>("),
+}
+SLICED_SHAPES = [(2624, 768, 128), (2624, 1536, 128)]
 
 
 def main() -> int:
@@ -94,8 +107,11 @@ def main() -> int:
 
     kernels = {name: Variant(i, edit)
                for i, (name, edit) in enumerate(VARIANTS.items())}
+    sliced = {name: Variant(len(VARIANTS) + i, edit)
+              for i, (name, edit) in enumerate(SLICED.items())}
     with ThreadPoolExecutor(8) as pool:
-        list(pool.map(lambda k: k.fn(), kernels.values()))
+        list(pool.map(lambda k: k.fn(), [*kernels.values(),
+                                         *sliced.values()]))
 
     P, D, kB = SGNS_SHAPES[0]
     rng = np.random.default_rng(0)
@@ -124,6 +140,32 @@ def main() -> int:
     print(json.dumps({"shape": [P, D, kB], "us_in_turns": runs,
                       "two_tiny_torch_launches_us": floor, "card": smi},
                      indent=1))
+
+    for P, D, kB in SLICED_SHAPES:
+        vi, vo, wn = t(P, D), t(P, D), t(kB, D)
+        valid = torch.as_tensor(rng.random(P) > 0.3).cuda().float()
+        g_pos, mask = t(P) * valid, valid * 0.125
+        plan = sgns.launch_plan(P, D, kB)
+        d_vi, d_vo, d_wn = (torch.empty_like(x) for x in (vi, vo, wn))
+        part = torch.empty(plan.part_floats, device="cuda")
+        want = sgns.sgns_shared_grads_ref(vi, vo, wn, g_pos, mask)
+        plain = lambda: sgns.sgns_shared_grads_ref(vi, vo, wn, g_pos, mask)
+        runs = {"plain": []}
+        for name, k in sliced.items():
+            launch(k)()
+            torch.cuda.synchronize()
+            for got, ref in zip((d_vi, d_vo, d_wn), want):
+                if not torch.allclose(got, ref, rtol=1e-5, atol=1e-5):
+                    raise RuntimeError(
+                        f"sliced variant {name!r} differs at {(P, D, kB)}: "
+                        f"{float((got - ref).abs().max()):.3g}")
+            runs[name] = []
+        names = list(runs)
+        for name in names + names[::-1]:
+            fn = plain if name == "plain" else launch(sliced[name])
+            runs[name].append(cuda_ms(fn, 20) * 1e3)
+        print(json.dumps({"shape": [P, D, kB], "sliced_us_in_turns": runs,
+                          "card": smi}, indent=1))
     return 0
 
 

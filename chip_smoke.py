@@ -4,15 +4,22 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process for
-each of the five sources, in parallel; walk.cu and sgns_exact.cu hold two
-kernels each), holds each against its plain PyTorch version on the card,
-and drives the port's paths once each through the entry points a user calls:
+each of the seven sources, in parallel; walk.cu, sgns_exact.cu and
+sgns_conv.cu hold two kernels each), holds each against its plain PyTorch
+version on the card, and drives the port's paths once each through the
+entry points a user calls:
 
   phases 2-5  `node2vec --sharedNegatives 128` through the CLI on a
               BlogCatalog-shaped graph (10,000 vertices, 334,000 sampled
               edges; the node2vec paper's BlogCatalog has 10,312 vertices
-              and 333,983 edges) with walkLength 80, numWalks 10, dim 128,
-              and the karate quality gate;
+              and 333,983 edges) with walkLength 80, numWalks 10, dim 128:
+              the conv trainer's epoch with its launches a block (the
+              trainer's draws, the conv step's accumulate and scatter
+              kernels, sgns_shared_grads, the apply kernel); then the
+              karate quality gate, `--sharedNegatives 128 --dim 768` on
+              karate through the CLI and the same gate, and the labeled
+              synthetic graph (1,500 vertices, 6 communities) held to
+              micro-F1 > 0.55 with kB = 64;
   phases 6-7  the resident-row walks (`resident_walks`): kernel against
               plain version bit for bit with rows in shared memory and in
               device memory, then 16-regular graphs of 4,096 and 1,024
@@ -31,7 +38,16 @@ and drives the port's paths once each through the entry points a user calls:
               tables' hit rate and flushes, then `node2vec` through the CLI
               with the default trainer (no --sharedNegatives), the karate
               gate with exact negatives, and a `--dim 768` karate run
-              through the CLI held to the same gate.
+              through the CLI held to the same gate;
+  phase 13    the trainer's draws kernel bit for bit against
+              trainer_draws_ref: exact and shared shapes, ragged chunks,
+              window 1 and 10, a one-row vocabulary, more blocks than a
+              grid's y extent; timed on the main path's chunks;
+  phase 14    the conv step's kernels (accumulate, sgns_shared_grads,
+              scatter, apply) against the plain step in float32 (rtol 1e-5
+              atol 1e-6) and in float64 at D = 64, 128 and 768 (and ragged
+              and sliced shapes) on Zipf, one-token and padded blocks;
+              each kernel timed at the main shape.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every failure raises and the script exits non-zero. It
@@ -57,7 +73,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # (P, D, kB): the main path's shape; ragged D and kB; wn in two chunks;
 # several tiles a block; the widest D; five chunks at the third width
 SGNS_SHAPES = [(2624, 128, 128), (300, 50, 37), (7, 128, 256),
-               (20000, 128, 128), (1000, 512, 64), (100, 200, 300)]
+               (20000, 128, 128), (1000, 512, 64), (100, 200, 300),
+               # above D = 512, in column slices: the conv step at D 768, a
+               # ragged odd D, three slices
+               (2624, 768, 128), (257, 1025, 70), (40, 1536, 256)]
 # every trial mode of csrc/walk.cu: general, p == q == 1, q == 1
 WALK_PQ = [(0.25, 0.25), (1.0, 1.0), (1.0, 4.0), (4.0, 0.25), (0.5, 1.0)]
 # phase 7's 16-regular graphs: (vertices, numWalks). Rows in device memory;
@@ -95,6 +114,28 @@ CDF_FLAGS = ["--cmd", "randomwalk", "--walkLength", "80", "--numWalks", "10",
 OPS_PER_ENTRY = 12
 EMBED_FLAGS = ["--cmd", "embedding", "--dim", "128", "--window", "10",
                "--negatives", "5", "--sharedNegatives", "128", "--iter", "1"]
+# phase 5's karate run of shared negatives above the old 512 limit
+SHARED768_FLAGS = DIM768_FLAGS + ["--sharedNegatives", "128"]
+# phase 13: (B, T, window, k or None, kB or None, V, c0, n). The main
+# path's exact chunk and a ragged conv chunk; window 1 at the epoch's end;
+# one-row vocabularies; more blocks than a grid's y extent (65,535)
+DRAW_CASES = [(32, 82, 10, 5, None, 10_000, 0, 15),
+              (32, 82, 10, None, 128, 10_000, 1524, 77),
+              (32, 82, 1, 5, None, 10_000, 3120, 5),
+              (4, 23, 10, 5, None, 1, 0, 3),
+              (6, 23, 5, None, 64, 1, 7, 2),
+              (1, 5, 2, None, 3, 50, 11, 70_000)]
+# phase 14: (V, B, T, window, kB, D, tokens). The main shape; D 64 and 768;
+# one token alone; walks padded with -1; small ragged blocks, one whose D
+# takes row slices in both kernels
+CONV_SHAPES = [(10_000, 32, 82, 10, 128, 128, "zipf"),
+               (10_000, 32, 82, 10, 128, 64, "zipf"),
+               (10_000, 32, 82, 10, 128, 768, "zipf"),
+               (10_000, 32, 82, 10, 128, 128, "hub"),
+               (10_000, 32, 81, 10, 128, 128, "padded"),
+               (10_000, 32, 82, 10, 128, 768, "padded"),
+               (300, 7, 30, 3, 37, 100, "zipf"),
+               (50, 3, 11, 5, 16, 1536, "hub")]
 
 
 def check(ok: bool, what: str) -> None:
@@ -337,10 +378,13 @@ def phase_sgns(torch) -> dict:
         for a, b in zip(got, again):
             check(torch.equal(a, b), f"sgns_shared_grads gave two results "
                   f"for one input at {(P, D, kB)}")
+        kern = lambda: sgns.sgns_shared_grads(vi, vo, wn, g_pos, mask)
+        plain = lambda: sgns.sgns_shared_grads_ref(vi, vo, wn, g_pos, mask)
+        if (P, D, kB) == (2624, 768, 128):     # the conv step at D 768
+            runs = [cuda_ms(f, 20) for f in (plain, kern, kern, plain)]
+            sliced = {"d768_ms": (runs[1] + runs[2]) / 2,
+                      "d768_plain_ms": (runs[0] + runs[3]) / 2}
         if (P, D, kB) == SGNS_SHAPES[0]:
-            kern = lambda: sgns.sgns_shared_grads(vi, vo, wn, g_pos, mask)
-            plain = lambda: sgns.sgns_shared_grads_ref(vi, vo, wn, g_pos,
-                                                       mask)
             runs = [cuda_ms(f, 50) for f in (plain, kern, kern, plain)]
             timing = {"ms": (runs[1] + runs[2]) / 2,
                       "plain_ms": (runs[0] + runs[3]) / 2,
@@ -355,8 +399,10 @@ def phase_sgns(torch) -> dict:
           f"{sgns.launch_plan(*SGNS_SHAPES[0])._asdict()}; at "
           f"{SGNS_SHAPES[0]} kernel {timing['ms']:.4f} ms, plain "
           f"{timing['plain_ms']:.4f} ms (CUDA events, mean of 2x50), bound "
-          f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}")
-    return {"max_abs_err": err, **timing}
+          f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}; at (2624, "
+          f"768, 128), two column slices: kernel {sliced['d768_ms']:.4f} ms, "
+          f"plain {sliced['d768_plain_ms']:.4f} ms (mean of 2x20)")
+    return {"max_abs_err": err, **timing, **sliced}
 
 
 def phase_walk_main_shape(torch, graph, keys_kernel) -> tuple[dict, dict]:
@@ -447,10 +493,34 @@ def phase_walk_main_shape(torch, graph, keys_kernel) -> tuple[dict, dict]:
     return walk_row, keys_row
 
 
-def phase_main(torch, walk_kernel, keys_kernel, sgns_kernel, smi,
-               tmp) -> dict:
-    """The node2vec path through the CLI. Returns the three kernels' launch
-    counts in this run and the output directory."""
+def trainer_kernels() -> dict:
+    """The kernels a trainer epoch launches, by name."""
+    from stellar_rw_tpu_torch.ops.sgns import SGNS_KERNEL
+    from stellar_rw_tpu_torch.ops.sgns_conv import (SGNS_CONV_ACCUMULATE,
+                                                    SGNS_CONV_SCATTER)
+    from stellar_rw_tpu_torch.ops.sgns_exact import (SGNS_EXACT_APPLY,
+                                                     SGNS_EXACT_GRADS)
+    from stellar_rw_tpu_torch.ops.trainer_draws import TRAINER_DRAWS_KERNEL
+
+    return {"trainer_draws": TRAINER_DRAWS_KERNEL,
+            "sgns_conv_accumulate": SGNS_CONV_ACCUMULATE,
+            "sgns_shared_grads": SGNS_KERNEL,
+            "sgns_conv_scatter": SGNS_CONV_SCATTER,
+            "sgns_exact_grads": SGNS_EXACT_GRADS,
+            "sgns_exact_apply": SGNS_EXACT_APPLY}
+
+
+def trainer_launches(report: dict) -> tuple[dict, int, float]:
+    """Each trainer kernel's launches since the counts were set to 0, the
+    epoch's blocks and the launches a block."""
+    counts = {name: k.launches for name, k in trainer_kernels().items()}
+    blocks = -(-report["paths"] // 32)
+    return counts, blocks, sum(counts.values()) / blocks
+
+
+def phase_main(torch, walk_kernel, keys_kernel, smi, tmp) -> dict:
+    """The node2vec path through the CLI. Returns the kernels' launch counts
+    in this run and the output directory."""
     from stellar_rw_tpu_torch import cli
     from stellar_rw_tpu_torch.models import node2vec as n2v
 
@@ -461,7 +531,8 @@ def phase_main(torch, walk_kernel, keys_kernel, sgns_kernel, smi,
     report = {}
     walk_kernel.launches = 0
     keys_kernel.launches = 0
-    sgns_kernel.launches = 0
+    for k in trainer_kernels().values():
+        k.launches = 0
     t0 = time.perf_counter()
     rc = cli.main(["--input", edges, "--output", out] + MAIN_FLAGS,
                   report=report)
@@ -469,7 +540,15 @@ def phase_main(torch, walk_kernel, keys_kernel, sgns_kernel, smi,
     check(rc == 0, f"cli.main returned {rc}")
     check(walk_kernel.launches > 0, "the walk kernel was not launched")
     check(keys_kernel.launches > 0, "the key-table kernel was not launched")
-    check(sgns_kernel.launches > 0, "sgns_shared_grads was not launched")
+    trainer, blocks, per_block = trainer_launches(report)
+    for name in ("trainer_draws", "sgns_conv_accumulate",
+                 "sgns_shared_grads", "sgns_conv_scatter",
+                 "sgns_exact_apply"):
+        check(trainer[name] > 0, f"{name} was not launched by the conv "
+              f"trainer: {trainer}")
+    check(trainer["sgns_exact_grads"] == 0,
+          f"the exact step ran in the conv trainer: {trainer}")
+    check(per_block <= 8, f"{per_block:.2f} launches a block: {trainer}")
     for sub in ("path/part-00000", "vec/part-00000", "bin/model.npz"):
         check(os.path.exists(os.path.join(out, sub)), f"missing /{sub}")
     check(not any(report["invariants"].values()),
@@ -482,21 +561,44 @@ def phase_main(torch, walk_kernel, keys_kernel, sgns_kernel, smi,
           f"arcs, {report['paths']} walks, {report['steps']} steps; walk "
           f"{report['walk_seconds']:.3f} s = "
           f"{report['steps'] / report['walk_seconds']:,.0f} steps/s; "
-          f"trainer epoch {report['train_seconds']:.2f} s; CLI wall "
-          f"{wall:.1f} s; launches walk={walk_kernel.launches} "
-          f"trial_keys={keys_kernel.launches} "
-          f"sgns={sgns_kernel.launches}; invariants {report['invariants']} "
-          f"[{smi}]")
+          f"trainer epoch (conv, kB 128) {report['train_seconds']:.3f} s = "
+          f"{report['train_seconds'] / blocks * 1e3:.4f} ms a block over "
+          f"{blocks} blocks; CLI wall {wall:.1f} s; launches "
+          f"walk={walk_kernel.launches} trial_keys={keys_kernel.launches} "
+          f"{trainer} = {per_block:.4f} kernel calls a block (<= 8; "
+          f"sgns_shared_grads is two kernels); invariants "
+          f"{report['invariants']} [{smi}]")
     return {"walk": walk_kernel.launches,
-            "trial_keys": keys_kernel.launches,
-            "sgns_shared_grads": sgns_kernel.launches, "out": out,
-            "edges": edges}
+            "trial_keys": keys_kernel.launches, **trainer,
+            "train_seconds": report["train_seconds"], "blocks": blocks,
+            "launches_a_block": per_block, "out": out, "edges": edges}
 
 
-def phase_quality(torch) -> None:
+def karate_gate(w_in, g) -> tuple[float, float]:
+    """Karate link-prediction AUC and faction accuracy of embeddings."""
+    from stellar_rw_tpu_torch.models import eval as ev
+
+    edges = [(v, int(d)) for v in range(g.num_vertices)
+             for d in g.neighbors(v)[0] if v < int(d)]
+    return (ev.link_prediction_auc(w_in, np.asarray(edges), g.num_vertices,
+                                   seed=0),
+            ev.node_classification_accuracy(w_in, ev.karate_labels(g.ids),
+                                            seed=0))
+
+
+def phase_quality(torch, tmp) -> dict:
+    """Phase 5: the karate gate with shared negatives; `--sharedNegatives
+    128 --dim 768` on karate through the CLI (the shared-negative kernel in
+    column slices) and the same gate; the labeled synthetic graph's micro-F1
+    gate (the JAX package's tests/test_datasets.py::
+    test_quality_pipeline_small, on the card)."""
+    from stellar_rw_tpu_torch import cli
+    from stellar_rw_tpu_torch.graph import datasets
     from stellar_rw_tpu_torch.graph import io as gio
     from stellar_rw_tpu_torch.models import eval as ev
+    from stellar_rw_tpu_torch.models import node2vec as n2v
     from stellar_rw_tpu_torch.models import word2vec as w2v
+    from stellar_rw_tpu_torch.ops.sgns import SGNS_KERNEL, launch_plan
     from stellar_rw_tpu_torch.walk import engine
 
     g = gio.load_edge_list(os.path.join(ROOT, "tests", "data", "karate.txt"),
@@ -506,15 +608,44 @@ def phase_quality(torch) -> None:
     cfg = w2v.SGNSConfig(dim=32, window=5, negatives=5, lr=0.2, iters=20,
                          seed=1, shared_negatives=32)
     w_in, _ = w2v.train_skipgram(walks, g.num_vertices, cfg, device="cuda")
-    edges = [(v, int(d)) for v in range(g.num_vertices)
-             for d in g.neighbors(v)[0] if v < int(d)]
-    auc = ev.link_prediction_auc(w_in, np.asarray(edges), g.num_vertices,
-                                 seed=0)
-    acc = ev.node_classification_accuracy(w_in, ev.karate_labels(g.ids),
-                                          seed=0)
+    auc, acc = karate_gate(w_in, g)
     check(auc > 0.7 and acc >= 0.85, f"karate gate: auc {auc} acc {acc}")
-    print(f"phase 5 karate quality on the card: link AUC {auc:.4f} (> 0.7), "
-          f"faction accuracy {acc:.4f} (>= 0.85)")
+    # shared negatives at --dim 768 through the CLI
+    out = os.path.join(tmp, "out_shared768")
+    SGNS_KERNEL.launches = 0
+    check(cli.main(["--cmd", "node2vec", "--input", os.path.join(
+        ROOT, "tests", "data", "karate.txt"), "--output", out]
+        + SHARED768_FLAGS) == 0, "--sharedNegatives 128 --dim 768 failed")
+    launches768 = SGNS_KERNEL.launches
+    check(launches768 > 0, "sgns_shared_grads was not launched at D 768")
+    _, w768, _ = n2v.load_model(out)
+    check(w768.shape == (g.num_vertices, 768) and np.isfinite(w768).all(),
+          "--dim 768 shared-negative embeddings not finite or misshapen")
+    auc768, acc768 = karate_gate(w768, g)
+    check(auc768 > 0.7 and acc768 >= 0.85,
+          f"karate gate at --sharedNegatives 128 --dim 768: auc {auc768} "
+          f"acc {acc768}")
+    # the labeled synthetic graph, kB 64
+    sg, labels = datasets.synth_labeled_graph(1500, 15_000, communities=6,
+                                              seed=7)
+    swalks = engine.random_walks(sg, walk_length=20, num_walks=3, p=0.25,
+                                 q=0.25, seed=1, as_numpy=False,
+                                 device="cuda")
+    scfg = w2v.SGNSConfig(dim=32, window=5, negatives=5, lr=0.1, iters=3,
+                          seed=1, shared_negatives=64)
+    s_in, _ = w2v.train_skipgram(swalks, sg.num_vertices, scfg,
+                                 device="cuda")
+    f1 = ev.multilabel_micro_f1(s_in, labels, train_frac=0.5, seed=0)
+    check(f1 > 0.55, f"labeled synthetic gate: micro-F1 {f1}")
+    print(f"phase 5 quality on the card: karate (kB 32) link AUC {auc:.4f} "
+          f"(> 0.7), faction accuracy {acc:.4f} (>= 0.85); "
+          f"--sharedNegatives 128 --dim 768 through the CLI "
+          f"({launches768} sgns_shared_grads launches, plan "
+          f"{launch_plan(32 * 21, 768, 128)._asdict()} at a full block): "
+          f"AUC {auc768:.4f}, faction accuracy {acc768:.4f}; labeled "
+          f"synthetic (1,500 V, 15,000 edges, 6 communities, kB 64, 3 "
+          f"epochs) micro-F1 {f1:.4f} (> 0.55)")
+    return {"auc768": auc768, "acc768": acc768, "micro_f1": f1}
 
 
 def phase_resident_check(torch) -> int:
@@ -1072,28 +1203,30 @@ def phase_exact_check(torch) -> tuple[dict, dict]:
             {"ms": a_ms, **apply_b, **common})
 
 
-def phase_exact_main(torch, grads_kernel, apply_kernel, smi, tmp,
-                     edges) -> dict:
+def phase_exact_main(torch, smi, tmp, edges) -> dict:
     """Phase 12: `node2vec` through the CLI with its default trainer (exact
     negatives), one epoch; then the karate gate with exact negatives, and a
     `--dim 768` CLI run on karate held to the same gate."""
     from stellar_rw_tpu_torch import cli
     from stellar_rw_tpu_torch.graph import io as gio
-    from stellar_rw_tpu_torch.models import eval as ev
     from stellar_rw_tpu_torch.models import node2vec as n2v
     from stellar_rw_tpu_torch.models import word2vec as w2v
     from stellar_rw_tpu_torch.walk import engine
 
     out = os.path.join(tmp, "out_exact")
     report = {}
-    grads_kernel.launches = 0
-    apply_kernel.launches = 0
+    for k in trainer_kernels().values():
+        k.launches = 0
     rc = cli.main(["--input", edges, "--output", out] + EXACT_FLAGS,
                   report=report)
     torch.cuda.synchronize()
-    launches = (grads_kernel.launches, apply_kernel.launches)
+    trainer, blocks, per_block = trainer_launches(report)
     check(rc == 0, f"cli.main returned {rc}")
-    check(min(launches) > 0, f"sgns_exact kernels launched {launches}")
+    for name in ("trainer_draws", "sgns_exact_grads", "sgns_exact_apply"):
+        check(trainer[name] > 0, f"{name} was not launched by the exact "
+              f"trainer: {trainer}")
+    check(trainer["sgns_conv_accumulate"] == 0,
+          f"the conv step ran in the exact trainer: {trainer}")
     tokens, w_in, w_out = n2v.load_model(out)
     check(w_in.shape == (report["vertices"], 128)
           and np.isfinite(w_in).all() and np.isfinite(w_out).all(),
@@ -1105,12 +1238,7 @@ def phase_exact_main(torch, grads_kernel, apply_kernel, smi, tmp,
     cfg = w2v.SGNSConfig(dim=32, window=5, negatives=5, lr=0.2, iters=20,
                          seed=1)
     kw_in, _ = w2v.train_skipgram(walks, g.num_vertices, cfg, device="cuda")
-    edges_k = [(v, int(d)) for v in range(g.num_vertices)
-               for d in g.neighbors(v)[0] if v < int(d)]
-    auc = ev.link_prediction_auc(kw_in, np.asarray(edges_k), g.num_vertices,
-                                 seed=0)
-    acc = ev.node_classification_accuracy(kw_in, ev.karate_labels(g.ids),
-                                          seed=0)
+    auc, acc = karate_gate(kw_in, g)
     check(auc > 0.7 and acc >= 0.85,
           f"karate gate with exact negatives: auc {auc} acc {acc}")
     # --dim 768 through the CLI (wider than one register slice of the
@@ -1122,46 +1250,260 @@ def phase_exact_main(torch, grads_kernel, apply_kernel, smi, tmp,
     _, w768, _ = n2v.load_model(out768)
     check(w768.shape == (g.num_vertices, 768) and np.isfinite(w768).all(),
           "--dim 768 embeddings not finite or of the wrong shape")
-    auc768 = ev.link_prediction_auc(w768, np.asarray(edges_k),
-                                    g.num_vertices, seed=0)
-    acc768 = ev.node_classification_accuracy(w768, ev.karate_labels(g.ids),
-                                             seed=0)
+    auc768, acc768 = karate_gate(w768, g)
     check(auc768 > 0.7 and acc768 >= 0.85,
           f"karate gate at --dim 768: auc {auc768} acc {acc768}")
-    blocks = -(-report["paths"] // 32)
-    # the epoch's other device work: a chunk of blocks' window and negative
-    # draws (int64 torch threefry), as _train_epoch makes them
-    from stellar_rw_tpu_torch.ops import prng
-    from stellar_rw_tpu_torch.ops.alias import build_alias
-
-    B, T, win, k = 32, 82, 10, 5
-    chunk = w2v._DRAW_BUDGET // (B * T * 2 * win * k + B * T)
-    keep, alias = (torch.as_tensor(a).cuda()
-                   for a in build_alias(np.ones(report["vertices"])))
-    kb = prng.fold_in(prng.fold_in(prng.prng_key(1), 0).cuda(),
-                      torch.arange(chunk, device="cuda"))
-    draws = lambda: (prng.randint(kb, (B, T), 1, win + 1),
-                     w2v._draw_negatives(prng.fold_in(kb, 2),
-                                         (B * T * 2 * win, k), keep.float(),
-                                         alias.long()).to(torch.int32))
-    draws()
-    _, draw_ms = cuda_ms_once(draws)
     print(f"phase 12 node2vec with the default trainer (exact negatives): "
           f"{report['paths']} walks, trainer epoch "
-          f"{report['train_seconds']:.2f} s = "
-          f"{report['train_seconds'] / blocks * 1e3:.3f} ms a block over "
-          f"{blocks} blocks, of which the draws {draw_ms / chunk:.3f} ms a "
-          f"block on the card (a chunk of {chunk} blocks, CUDA events); "
-          f"launches sgns_exact_grads={launches[0]} "
-          f"sgns_exact_apply={launches[1]} = "
-          f"{sum(launches) / blocks:.2f} kernels a block (and a memset of "
-          f"two slot counts); karate gate with exact negatives on the card: "
-          f"AUC {auc:.4f} (> 0.7), faction accuracy {acc:.4f} (>= 0.85); "
-          f"--dim 768 through the CLI: AUC {auc768:.4f}, faction accuracy "
+          f"{report['train_seconds']:.3f} s = "
+          f"{report['train_seconds'] / blocks * 1e3:.4f} ms a block over "
+          f"{blocks} blocks; launches {trainer} = {per_block:.4f} kernel "
+          f"calls a block (each sgns_exact_grads call also clears two slot "
+          f"counts); karate gate with exact negatives on the card: AUC "
+          f"{auc:.4f} (> 0.7), faction accuracy {acc:.4f} (>= 0.85); --dim "
+          f"768 through the CLI: AUC {auc768:.4f}, faction accuracy "
           f"{acc768:.4f} [{smi}]")
-    return {"grads": launches[0], "apply": launches[1],
-            "train_seconds": report["train_seconds"], "blocks": blocks,
-            "draw_ms_a_block": draw_ms / chunk}
+    return {**trainer, "train_seconds": report["train_seconds"],
+            "blocks": blocks, "launches_a_block": per_block}
+
+
+def draw_tables(torch, V: int, seed: int):
+    """A skewed unigram alias table on the card (keep f32, alias i32)."""
+    from stellar_rw_tpu_torch.ops.alias import build_alias
+
+    rng = np.random.default_rng(seed)
+    keep, alias = build_alias(rng.random(V) ** 4 * 100 + 1e-3)
+    return (torch.as_tensor(keep, dtype=torch.float32).cuda(),
+            torch.as_tensor(alias, dtype=torch.int32).cuda())
+
+
+def phase_draws_check(torch, smi) -> dict:
+    """Phase 13: the trainer's draws kernel bit for bit against
+    trainer_draws_ref on the card (DRAW_CASES), then timed on the main
+    path's chunks: the conv trainer's (1,524 blocks of 128 negatives and
+    2,624 windows) and the exact trainer's (15 blocks of 262,400 negatives
+    and 2,624 windows)."""
+    from stellar_rw_tpu_torch.models.word2vec import _DRAW_BUDGET
+    from stellar_rw_tpu_torch.ops import prng
+    from stellar_rw_tpu_torch.ops import trainer_draws as td
+
+    key = prng.fold_in(prng.prng_key(1), 0).cuda()
+    elements = 0
+    for i, (B, T, w, k, kB, V, c0, n) in enumerate(DRAW_CASES):
+        keep, alias = draw_tables(torch, V, i)
+        shape = (kB,) if kB else (B * T * 2 * w, k)
+        got = td.trainer_draws(key, c0, n, B, T, w, shape, keep, alias)
+        want = td.trainer_draws_ref(key, c0, n, B, T, w, shape, keep, alias)
+        torch.cuda.synchronize()
+        for a, b, what in zip(got, want, ("cwin", "negs")):
+            check(a.dtype == b.dtype == torch.int32 and torch.equal(a, b),
+                  f"trainer_draws' {what} differ from trainer_draws_ref at "
+                  f"{DRAW_CASES[i]}")
+        elements += got[0].numel() + got[1].numel()
+    rows = {}
+    keep, alias = draw_tables(torch, 10_000, 0)
+    for name, k, kB in (("conv", None, 128), ("exact", 5, None)):
+        B, T, w = 32, 82, 10
+        shape = (kB,) if kB else (B * T * 2 * w, k)
+        M = int(np.prod(shape))
+        n = min(3125, _DRAW_BUDGET // (M + B * T))
+        kern = lambda: td.trainer_draws(key, 0, n, B, T, w, shape, keep,
+                                        alias)
+        plain = lambda: td.trainer_draws_ref(key, 0, n, B, T, w, shape,
+                                             keep, alias)
+        runs = [cuda_ms(f, 3) for f in (plain, kern, kern, plain)]
+        # two threefry blocks an element (and four key blocks a block);
+        # each element written once, the alias table read once
+        draws = n * (2 * (B * T + M) + 5)
+        b = bound(n * (B * T + M) * 4 + tensor_bytes(keep, alias, key),
+                  draws * OPS_PER_DRAW, INT_OPS_PER_S)
+        rows[name] = {"blocks": n, "ms": (runs[1] + runs[2]) / 2,
+                      "plain_ms": (runs[0] + runs[3]) / 2, **b,
+                      "draws": draws}
+    c, e = rows["conv"], rows["exact"]
+    print(f"phase 13 trainer_draws: bitwise equal to trainer_draws_ref on "
+          f"the card in {len(DRAW_CASES)} cases ({elements:,} elements; "
+          f"(B, T, w, k, kB, V, first block, blocks) in {DRAW_CASES}); the "
+          f"conv chunk ({c['blocks']} blocks) kernel {c['ms']:.4f} ms, plain "
+          f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.5f} ms by "
+          f"{c['bound_by']}; the exact chunk ({e['blocks']} blocks) kernel "
+          f"{e['ms']:.4f} ms = {e['ms'] / e['blocks']:.5f} ms a block, plain "
+          f"{e['plain_ms']:.3f} ms = {e['plain_ms'] / e['blocks']:.4f} ms a "
+          f"block, bound {e['bound_ms']:.5f} ms by {e['bound_by']} (CUDA "
+          f"events, mean of 2x3) [{smi}]")
+    return {"max_abs_err": 0, **{k: c[k] for k in ("ms", "plain_ms",
+                                                    "bound_ms", "bound_by")},
+            "library_ms": None, "chunk_blocks": c["blocks"],
+            "exact_chunk": e}
+
+
+def conv_block(torch, V, B, T, window, kB, D, seed, tokens):
+    """One conv block: Zipf tokens (rows collide), one token alone ("hub"),
+    or Zipf walks that end early ("padded": ragged ends, one walk all
+    padding, a gap inside a walk); the trainer's window and negative draws
+    (the block's unigram table); random tables."""
+    from stellar_rw_tpu_torch.ops import prng
+    from stellar_rw_tpu_torch.ops import trainer_draws as td
+    from stellar_rw_tpu_torch.ops.alias import build_alias
+
+    rng = np.random.default_rng(seed)
+    u = (np.zeros((B, T)) if tokens == "hub"
+         else rng.random((B, T)) ** (1 / 0.3))
+    block = np.minimum((V * u).astype(np.int32), V - 1)
+    block[-1, T - 7:] = -1
+    if tokens == "padded":
+        ends = rng.integers(1, T + 1, B)
+        block[np.arange(T)[None, :] >= ends[:, None]] = -1
+        block[0] = -1
+        block[1, 5:9] = -1
+    keep, alias = build_alias(np.bincount(block[block >= 0], minlength=V)
+                              ** 0.75 + 1e-12)
+    key = prng.fold_in(prng.prng_key(seed), 3).cuda()
+    cwin, negs = td.trainer_draws_ref(
+        key, 0, 1, B, T, window, (kB,),
+        torch.as_tensor(keep, dtype=torch.float32).cuda(),
+        torch.as_tensor(alias, dtype=torch.int32).cuda())
+    w = lambda: torch.as_tensor((rng.standard_normal((V, D)) * 0.3)
+                                .astype(np.float32)).cuda()
+    return w(), w(), torch.as_tensor(block).cuda(), cwin[0], negs[0]
+
+
+def phase_conv_check(torch, smi) -> tuple[dict, dict]:
+    """Phase 14: the conv step's kernels against the plain step in float32
+    and in float64 (CONV_SHAPES), two steps on one workspace against two
+    plain steps, and each kernel's time at the main shape."""
+    from stellar_rw_tpu_torch.ops import sgns_conv as sc
+    from stellar_rw_tpu_torch.ops.sgns import sgns_shared_grads
+    from stellar_rw_tpu_torch.ops.sgns_exact import launch_apply
+
+    lr = 0.025
+    err = k64_err = f32_err = 0.0
+    loose = []   # (shape, table, error) where the plain f32 step is off
+    for i, (V, B, T, win, kB, D, tokens) in enumerate(CONV_SHAPES):
+        w_in, w_out, block, cwin, negs = conv_block(torch, V, B, T, win, kB,
+                                                    D, i, tokens)
+        nw = 5 / kB
+        a_in, a_out = w_in.double(), w_out.double()
+        sc.sgns_conv_step_ref(a_in, a_out, block, cwin, negs, lr, nw, win)
+        p_in, p_out = w_in.clone(), w_out.clone()
+        sc.sgns_conv_step_ref(p_in, p_out, block, cwin, negs, lr, nw, win)
+        b_in, b_out = w_in.clone(), w_out.clone()
+        sc.sgns_conv_step(b_in, b_out, block, cwin, negs, lr, nw, win)
+        torch.cuda.synchronize()
+        for table, got, want, plain, old in (
+                ("w_in", b_in, a_in, p_in, w_in),
+                ("w_out", b_out, a_out, p_out, w_out)):
+            k_err = float((got.double() - want).abs().max())
+            p_err = float((plain.double() - want).abs().max())
+            check(torch.allclose(got.double(), want, rtol=1e-5, atol=1e-6),
+                  f"the conv step differs from the float64 step at "
+                  f"{CONV_SHAPES[i]} ({table}): max abs err {k_err:.3g}")
+            check(k_err <= p_err, f"the conv step is {k_err:.3g} off the "
+                  f"float64 step at {CONV_SHAPES[i]} ({table}), the plain "
+                  f"f32 step {p_err:.3g}")
+            # the plain f32 step is the reference at that tolerance where it
+            # is itself within it of the float64 step: on one token alone
+            # its atomics add 2,624 equal per-position shares into one row
+            if torch.allclose(plain.double(), want, rtol=1e-5, atol=1e-6):
+                check(torch.allclose(got, plain, rtol=1e-5, atol=1e-6),
+                      f"the conv step differs from the plain f32 step at "
+                      f"{CONV_SHAPES[i]} ({table}): max abs err "
+                      f"{float((got - plain).abs().max()):.3g}")
+                err = max(err, float((got - plain).abs().max()))
+            else:
+                loose.append((CONV_SHAPES[i], table, p_err))
+            check(bool((got != old).any()), "the step moved nothing")
+            k64_err = max(k64_err, k_err)
+            f32_err = max(f32_err, p_err)
+    # the main shape: two steps on one workspace, then each kernel timed
+    V, B, T, win, kB, D, _ = CONV_SHAPES[0]
+    nw = 5 / kB
+    w_in, w_out, block, cwin, negs = conv_block(torch, V, B, T, win, kB, D,
+                                                0, "zipf")
+    ws = sc.ConvWorkspace(w_in, w_out, B, T, win, kB)
+    p_in, p_out = w_in.clone(), w_out.clone()
+    b_in, b_out = w_in.clone(), w_out.clone()
+    for _ in range(2):
+        sc.sgns_conv_step_ref(p_in, p_out, block, cwin, negs, lr, nw, win)
+        sc.sgns_conv_step(b_in, b_out, block, cwin, negs, lr, nw, win, ws)
+    torch.cuda.synchronize()
+    check(torch.allclose(b_in, p_in, rtol=1e-5, atol=1e-6)
+          and torch.allclose(b_out, p_out, rtol=1e-5, atol=1e-6),
+          "two conv steps on one workspace differ from two plain steps")
+    check(int((ws.slots.map[0] >= 0).sum() + (ws.slots.map[1] >= 0).sum())
+          == 0, "the workspace's row-to-slot maps were not emptied")
+    hold = {}
+    acc = lambda: sc.launch_accumulate(ws, b_in, b_out, block, cwin, negs,
+                                       win, nw)
+    k6 = lambda: hold.update(d=sgns_shared_grads(ws.ein, ws.acc_in, ws.wn,
+                                                 ws.ones, ws.mask))
+    scat = lambda: sc.launch_scatter(ws, b_out, block, hold["d"][0],
+                                     hold["d"][2], negs, nw, lr)
+    app = lambda: launch_apply(ws.slots, b_in, b_out, lr)
+    iters = 20
+    a_ms, k_ms, s_ms, p_ms = cuda_ms_split((acc, k6, scat, app), iters)
+    step = lambda: sc.sgns_conv_step(b_in, b_out, block, cwin, negs, lr, nw,
+                                     win, ws)
+    plain = lambda: sc.sgns_conv_step_ref(p_in, p_out, block, cwin, negs,
+                                          lr, nw, win)
+    runs = [cuda_ms(f, 5) for f in (plain, step, step, plain)]
+    # the accumulate kernel under each tile launch_plan could take
+    by_tile = {}
+    for t in sc.TILES + (4,):
+        wt = sc.ConvWorkspace(w_in, w_out, B, T, win, kB, tiles=(t,))
+        by_tile[t] = cuda_ms(lambda: sc.launch_accumulate(
+            wt, w_in, w_out, block, cwin, negs, win, nw), 20)
+    # what this block needs: its valid pairs, its distinct rows
+    N = B * T
+    P = int(ws.cnt[0].sum())
+    tok = block[block >= 0]
+    U_in = int(torch.unique(tok[ws.cnt[0].reshape(B, T)[block >= 0] > 0])
+               .numel())
+    U_out = int(torch.unique(tok[ws.cnt[1].reshape(B, T)[block >= 0] > 0])
+                .numel())
+    U = int(torch.unique(tok).numel())
+    row = D * 4
+    # accumulate: the block's rows of both tables and the negatives' rows
+    # read, ein / acc_in / acc_out / mask / counts / wn written; a dot of 2D
+    # flops a valid pair, a multiply-add an element on each side
+    acc_b = bound(tensor_bytes(block, cwin, negs) + 2 * U * row
+                  + kB * row * 2 + 3 * N * row + 3 * N * 4,
+                  P * 6 * D, F32_FLOPS)
+    # scatter: d_in, acc_out and the counts read, the slots written, the
+    # negatives' rows read, added and written
+    scat_b = bound(2 * N * row + 3 * N * 4 + (U_in + U_out) * row
+                   + kB * row * 3, (2 * N + kB) * D, F32_FLOPS)
+    app_b = bound((U_in + U_out) * row * 4, (U_in + U_out) * D * 3,
+                  F32_FLOPS)
+    plan = ws.plan
+    print(f"phase 14 the conv step: within rtol 1e-5 atol 1e-6 of the "
+          f"float64 step and no farther from it than the plain f32 step at "
+          f"{CONV_SHAPES} (V, B, T, w, kB, D, tokens): max abs err against "
+          f"the float64 step {k64_err:.3g}, the plain f32 step's "
+          f"{f32_err:.3g}; within rtol 1e-5 atol 1e-6 of the plain f32 step "
+          f"(max abs err {err:.3g}) wherever that step is within it of the "
+          f"float64 step, which it is not at {loose}; two steps on one "
+          f"workspace held, its maps "
+          f"emptied; at the main shape ({P} valid pairs, {U} distinct rows, "
+          f"{U_in} + {U_out} touched; plan {plan._asdict()}) accumulate "
+          f"{a_ms:.4f} ms, sgns_shared_grads {k_ms:.4f} ms, scatter "
+          f"{s_ms:.4f} ms, apply {p_ms:.4f} ms (CUDA events around each "
+          f"launch, mean of {iters}); accumulate by tile {by_tile} (mean of "
+          f"20 back to back); the step through its wrapper "
+          f"{(runs[1] + runs[2]) / 2:.4f} ms, the plain step "
+          f"{(runs[0] + runs[3]) / 2:.3f} ms (mean of 2x5); bounds "
+          f"{acc_b['bound_ms']:.5f} ms by {acc_b['bound_by']} / "
+          f"{scat_b['bound_ms']:.5f} ms by {scat_b['bound_by']} / "
+          f"{app_b['bound_ms']:.5f} ms by {app_b['bound_by']} [{smi}]")
+    common = {"max_abs_err": err, "max_abs_err_f64": k64_err,
+              "plain_f32_off_f64": f32_err,
+              "plain_ms": (runs[0] + runs[3]) / 2, "library_ms": None,
+              "step_ms": (runs[1] + runs[2]) / 2,
+              "sgns_shared_grads_ms": k_ms, "apply_ms": p_ms,
+              "apply_bound_ms": app_b["bound_ms"], "valid_pairs": P,
+              "accumulate_ms_by_tile": by_tile}
+    return ({"ms": a_ms, **acc_b, **common},
+            {"ms": s_ms, **scat_b, **common})
 
 
 def main() -> int:
@@ -1173,21 +1515,17 @@ def main() -> int:
     from stellar_rw_tpu_torch.ops.cdf_walk import CDF_WALK_KERNEL
     from stellar_rw_tpu_torch.ops.resident_walk import RESIDENT_WALK_KERNEL
     from stellar_rw_tpu_torch.ops.sgns import SGNS_KERNEL
-    from stellar_rw_tpu_torch.ops.sgns_exact import (SGNS_EXACT_APPLY,
-                                                     SGNS_EXACT_GRADS)
     from stellar_rw_tpu_torch.ops.walk_step import KEYS_KERNEL, WALK_KERNEL
 
-    smi = phase_env(torch, (WALK_KERNEL, KEYS_KERNEL, SGNS_KERNEL,
-                            RESIDENT_WALK_KERNEL, CDF_WALK_KERNEL,
-                            SGNS_EXACT_GRADS, SGNS_EXACT_APPLY))
+    smi = phase_env(torch, (WALK_KERNEL, KEYS_KERNEL, RESIDENT_WALK_KERNEL,
+                            CDF_WALK_KERNEL, *trainer_kernels().values()))
     phase_walk(torch)
     sgns_row = phase_sgns(torch)
     walk_row, keys_row = phase_walk_main_shape(
         torch, synth_power_law_graph(10_000, 334_000, seed=0), KEYS_KERNEL)
     with tempfile.TemporaryDirectory() as tmp:
-        main_run = phase_main(torch, WALK_KERNEL, KEYS_KERNEL, SGNS_KERNEL,
-                              smi, tmp)
-        phase_quality(torch)
+        main_run = phase_main(torch, WALK_KERNEL, KEYS_KERNEL, smi, tmp)
+        quality = phase_quality(torch, tmp)
         phase_resident_check(torch)
         resident_row = phase_resident_main(torch, RESIDENT_WALK_KERNEL, smi)
         phase_embedding(torch, SGNS_KERNEL,
@@ -1197,9 +1535,13 @@ def main() -> int:
         cdf_row = phase_cdf_main(torch, CDF_WALK_KERNEL, smi, tmp,
                                  main_run["edges"])
         grads_row, apply_row = phase_exact_check(torch)
-        exact_run = phase_exact_main(torch, SGNS_EXACT_GRADS,
-                                     SGNS_EXACT_APPLY, smi, tmp,
-                                     main_run["edges"])
+        exact_run = phase_exact_main(torch, smi, tmp, main_run["edges"])
+    draws_row = phase_draws_check(torch, smi)
+    accumulate_row, scatter_row = phase_conv_check(torch, smi)
+    epochs = {"conv_epoch_s": main_run["train_seconds"],
+              "conv_launches_a_block": main_run["launches_a_block"],
+              "exact_epoch_s": exact_run["train_seconds"],
+              "exact_launches_a_block": exact_run["launches_a_block"]}
     kernels = [
         {"name": "walk", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/walk.cu",
@@ -1223,12 +1565,27 @@ def main() -> int:
         {"name": "sgns_exact_grads", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/sgns_exact.cu",
          "replaces": "stellar_rw_tpu/models/word2vec.py:154",
-         "launches": exact_run["grads"], **grads_row},
+         "launches": exact_run["sgns_exact_grads"], **grads_row},
         {"name": "sgns_exact_apply", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/sgns_exact.cu",
          "replaces": "stellar_rw_tpu/models/word2vec.py:154",
-         "launches": exact_run["apply"], **apply_row},
+         "launches": exact_run["sgns_exact_apply"],
+         "launches_conv_path": main_run["sgns_exact_apply"], **apply_row},
+        {"name": "trainer_draws", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/trainer_draws.cu",
+         "replaces": "stellar_rw_tpu/models/word2vec.py:116",
+         "launches": main_run["trainer_draws"],
+         "launches_exact_path": exact_run["trainer_draws"], **draws_row},
+        {"name": "sgns_conv_accumulate", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/sgns_conv.cu",
+         "replaces": "stellar_rw_tpu/models/word2vec.py:364",
+         "launches": main_run["sgns_conv_accumulate"], **accumulate_row},
+        {"name": "sgns_conv_scatter", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/sgns_conv.cu",
+         "replaces": "stellar_rw_tpu/models/word2vec.py:488",
+         "launches": main_run["sgns_conv_scatter"], **scatter_row},
     ]
+    print(json.dumps({"epochs": epochs, "quality": quality}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,7 @@ import torch
 from .errors import CudaUnavailable, NotPorted, resolve_device
 from .graph import io as gio
 from .models import node2vec as n2v
-from .ops import sampling, sgns
+from .ops import sampling
 from .utils.config import Params, TaskName, parse
 from .utils.logging import configure
 from .utils.stats import validate_walks, walk_stats
@@ -32,14 +32,10 @@ from .walk import engine
 logger = logging.getLogger("stellar_rw_tpu_torch")
 
 
-def check_flags(params: Params, device: torch.device) -> None:
-    """Raise NotPorted for each flag value this port does not serve on
-    `device`, before anything is loaded or written."""
+def check_flags(params: Params) -> None:
+    """Raise NotPorted for each flag value this port does not serve, before
+    anything is loaded or written."""
     refused = [
-        (device.type == "cuda" and params.cmd != TaskName.randomwalk
-         and params.shared_negatives > 0 and params.w2v_dim > sgns.MAX_DIM,
-         f"--sharedNegatives > 0 with --dim > {sgns.MAX_DIM} (ROADMAP "
-         "Queue 3 F2b)"),
         (params.w2v_partitions > 1,
          "--w2vPartitions > 1 (ROADMAP Queue 1 item 11)"),
         (params.w2v_model_shards > 1,
@@ -112,7 +108,7 @@ def do_random_walk(params: Params, device: torch.device, report: dict):
 
 
 def run_job(params: Params, device: torch.device, report: dict) -> str:
-    check_flags(params, device)
+    check_flags(params)
     if params.cmd == TaskName.embedding:
         # the walks file read back as ragged arrays (no per-token loop)
         values, offsets = gio.load_walks_ragged(params.input)

@@ -55,7 +55,13 @@
 
 #include <cuda_runtime.h>
 
+#include "delta_slots.cuh"
+
 namespace {
+
+using srw::Scratch;
+using srw::claim;
+using srw::scratch;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxThreads = 512;
@@ -65,40 +71,6 @@ constexpr int kProbes = 2;         // table slots tried before device memory
 constexpr int kEmpty = -1;         // a free table slot, a row with no slot
 constexpr int kInBit = static_cast<int>(0x80000000u);  // key bit: w_in row
 constexpr uint32_t kHashMult = 2654435761u;
-
-struct Scratch {
-  float* d[2];     // delta slots [R, D]: 0 = w_in's rows, 1 = w_out's
-  int* cnt[2];     // shares summed into each slot
-  int* map[2];     // row -> slot, kEmpty when none
-  int* list[2];    // slot -> row
-  int* counts;     // slots taken in each
-  // table t's arrays (a select, not an index: a parameter indexed by a
-  // value known only at run time would be copied to local memory)
-  __device__ float* dt(int t) const { return t == 0 ? d[0] : d[1]; }
-  __device__ int* cntt(int t) const { return t == 0 ? cnt[0] : cnt[1]; }
-  __device__ int* mapt(int t) const { return t == 0 ? map[0] : map[1]; }
-  __device__ int* listt(int t) const { return t == 0 ? list[0] : list[1]; }
-};
-
-// The compact slot of `row` in table t, taken at the row's first touch: the
-// first toucher marks the map busy, takes the next slot, lists the row and
-// publishes the slot; a later toucher waits for the slot to appear. A
-// plain read (which may be stale, never wrong once it holds a slot) comes
-// first, so a row's later touches take no atomic.
-__device__ int claim(const Scratch& s, int t, int row) {
-  int* m = s.mapt(t) + row;
-  int slot = *m;
-  if (slot >= 0) return slot;
-  slot = atomicCAS(m, kEmpty, -2);
-  if (slot == kEmpty) {
-    slot = atomicAdd(s.counts + t, 1);
-    s.listt(t)[slot] = row;
-    atomicExch(m, slot);
-    return slot;
-  }
-  while (slot == -2) slot = *static_cast<volatile int*>(m);
-  return slot;
-}
 
 // The table slot of `key` (inserted if absent), or -1 after kProbes slots.
 __device__ __forceinline__ int probe(int* keys, int slots, int key) {
@@ -386,18 +358,6 @@ __global__ void __launch_bounds__(256)
       s.mapt(t)[row] = kEmpty;
     }
   }
-}
-
-Scratch scratch(void* const* p) {
-  Scratch s;
-  for (int t = 0; t < 2; ++t) {
-    s.d[t] = static_cast<float*>(p[t]);
-    s.cnt[t] = static_cast<int*>(p[2 + t]);
-    s.map[t] = static_cast<int*>(p[4 + t]);
-    s.list[t] = static_cast<int*>(p[6 + t]);
-  }
-  s.counts = static_cast<int*>(p[8]);
-  return s;
 }
 
 template <int NV>

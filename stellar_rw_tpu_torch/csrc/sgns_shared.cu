@@ -52,6 +52,11 @@
 //   * with more than one chunk (kB > KC) d_vi accumulates through device
 //     memory between chunks: each thread adds to the elements it wrote
 //     itself, so the order is fixed.
+//   * any D: above D = 512 a second kernel runs the three products over
+//     column slices of 256 with 64 negatives a chunk (sgns_shared_sliced
+//     below; at D 768 and 1536 that took three quarters of the time of
+//     slices of 512 with 32 negatives a chunk, chip_sgns_parts.py), the
+//     logits summed over every slice before the sigmoid.
 // wgmma, TMA, a prefetch of the next tile and a cluster's sum of its
 // partials through distributed shared memory are later work.
 
@@ -127,8 +132,9 @@ __device__ __forceinline__ void store4(typename Elem<PRE>::type* dst,
   }
 }
 
-// rows [0, total) of a [*, DP + 4] shared tile from src [valid, D]; rows
-// beyond `valid` and columns beyond D are zero. Loads go out LOAD_BATCH at a
+// rows [0, total) of a [*, DP + 4] shared tile from the first D columns of
+// src [valid, *] (rows ld floats apart); rows beyond `valid` and columns
+// beyond D are zero. Loads go out LOAD_BATCH at a
 // time for each thread, all before the first of them is used. With DVO the
 // rows are vi's and the loaded values also give d_vo = g_pos * vi (scale
 // and out point at the tile's first row).
@@ -136,7 +142,7 @@ constexpr int LOAD_BATCH = 8;
 template <int DP, bool PRE, bool DVO>
 __device__ __forceinline__ void load_rows(typename Elem<PRE>::type* dst,
                                           const float* __restrict__ src,
-                                          int valid, int total, int D,
+                                          int valid, int total, int D, int ld,
                                           bool vec,
                                           const float* __restrict__ scale,
                                           float* __restrict__ out) {
@@ -150,7 +156,7 @@ __device__ __forceinline__ void load_rows(typename Elem<PRE>::type* dst,
       const int r = e / G4, c = (e - r * G4) * 4;
       v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (e < n && r < valid && c < D) {
-        const float* s = src + (size_t)r * D + c;
+        const float* s = src + (size_t)r * ld + c;
         if (vec) {                     // D % 4 == 0: the group is whole
           v[u] = __ldg(reinterpret_cast<const float4*>(s));
         } else {
@@ -168,7 +174,7 @@ __device__ __forceinline__ void load_rows(typename Elem<PRE>::type* dst,
       if (e < n) store4<PRE>(dst + r * SV + c, v[u]);
       if (DVO && e < n && r < valid && c < D) {
         const float gp = scale[r];
-        float* o = out + (size_t)r * D + c;
+        float* o = out + (size_t)r * ld + c;
         if (vec) {                     // out's rows are aligned like src's
           *reinterpret_cast<float4*>(o) = make_float4(
               gp * v[u].x, gp * v[u].y, gp * v[u].z, gp * v[u].w);
@@ -232,7 +238,7 @@ sgns_shared_kernel(const float* __restrict__ vi, const float* __restrict__ vo,
     const int kc_valid = min(KC, kB - k0);
     const int kc_lim = (kc_valid + 15) & ~15;   // columns of the chunk run
     load_rows<DP, PRE, false>(s_wn, wn + (size_t)k0 * D, kc_valid, kc_lim, D,
-                              vec_wn, nullptr, nullptr);
+                              D, vec_wn, nullptr, nullptr);
     float acc3[N3][4];
 #pragma unroll
     for (int i = 0; i < N3; ++i)
@@ -242,11 +248,11 @@ sgns_shared_kernel(const float* __restrict__ vi, const float* __restrict__ vo,
       const int r0 = tile * TM;
       if (k0 == 0)   // the first pass over the tiles also writes d_vo
         load_rows<DP, PRE, true>(s_vi, vi + (size_t)r0 * D, min(TM, P - r0),
-                                 TM, D, vec_vi, g_pos + r0,
+                                 TM, D, D, vec_vi, g_pos + r0,
                                  d_vo + (size_t)r0 * D);
       else
         load_rows<DP, PRE, false>(s_vi, vi + (size_t)r0 * D, min(TM, P - r0),
-                                  TM, D, vec_vi, nullptr, nullptr);
+                                  TM, D, D, vec_vi, nullptr, nullptr);
       __syncthreads();
 
       // product 1: logits [TM, KC] = vi . wn^T over D, then g_neg -> s_g
@@ -406,6 +412,222 @@ sgns_shared_kernel(const float* __restrict__ vi, const float* __restrict__ vo,
   }
 }
 
+// D above the widest instantiation (any D): the same three products over
+// column slices of SW. A tile's logits must be complete over all of D before
+// the sigmoid, so each tile passes over its slices twice: first the logits,
+// summed slice after slice in the same accumulators; then, slice by slice,
+// d_vi and the tile's share of d_wn. The block's d_wn partial [kB, D] is too
+// wide for registers, so each tile's share is added to it in device memory,
+// every element by the one thread that owns it (a fixed order, no atomics).
+// Both passes load the wn chunk's slice again for each tile.
+template <int SW, int KC>
+__global__ void __launch_bounds__(NTHR, 1)
+sgns_shared_sliced(const float* __restrict__ vi, const float* __restrict__ vo,
+                   const float* __restrict__ wn,
+                   const float* __restrict__ g_pos,
+                   const float* __restrict__ mask, float* __restrict__ d_vi,
+                   float* __restrict__ d_vo, float* __restrict__ part, int P,
+                   int D, int kB) {
+  constexpr int SV = SW + 4, SG = KC + 4, NT = SW / 8;
+  constexpr int N1 = KC / 32, N2 = NT / 4;
+  constexpr int WM3 = KC / 16 < 8 ? KC / 16 : 8, WN3 = 8 / WM3;
+  constexpr int N3 = NT / WN3;
+  static_assert(KC % 32 == 0 && SW % 64 == 0 && KC / 16 <= 8, "tile shape");
+  extern __shared__ __align__(16) unsigned char sm_raw[];
+  float* s_vi = reinterpret_cast<float*>(sm_raw);   // [TM, SV]
+  float* s_wn = s_vi + TM * SV;                     // [KC, SV]
+  float* s_g = s_wn + KC * SV;                      // [TM, SG]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int mt = warp & 1, wq = warp >> 1;
+  const int m3 = (warp % WM3) * 16, wn3 = warp / WM3;
+  const int ntiles = (P + TM - 1) / TM;
+  const bool vec_vi = D % 4 == 0 && (uintptr_t)vi % 16 == 0 &&
+                      (uintptr_t)d_vo % 16 == 0;
+  const bool vec_wn = D % 4 == 0 && (uintptr_t)wn % 16 == 0;
+  const bool two = D % 2 == 0 && (uintptr_t)vo % 8 == 0 &&
+                   (uintptr_t)d_vi % 8 == 0 && (uintptr_t)part % 8 == 0;
+  float* my_part = part + (size_t)blockIdx.x * kB * D;
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+
+  for (int k0 = 0; k0 < kB; k0 += KC) {
+    const int kc_valid = min(KC, kB - k0);
+    const int kc_lim = (kc_valid + 15) & ~15;
+    const float* wn_k = wn + (size_t)k0 * D;
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int r0 = tile * TM, rows = min(TM, P - r0);
+      const float* vi_t = vi + (size_t)r0 * D;
+      float lg[N1][4];
+#pragma unroll
+      for (int i = 0; i < N1; ++i) lg[i][0] = lg[i][1] = lg[i][2] = lg[i][3] = 0.f;
+      for (int c0 = 0; c0 < D; c0 += SW) {          // pass 1: the logits
+        const int w = min(SW, D - c0);
+        load_rows<SW, false, false>(s_wn, wn_k + c0, kc_valid, kc_lim, w, D,
+                                    vec_wn, nullptr, nullptr);
+        if (k0 == 0)   // d_vo = g_pos * vi with the first pass's loads
+          load_rows<SW, false, true>(s_vi, vi_t + c0, rows, TM, w, D, vec_vi,
+                                     g_pos + r0, d_vo + (size_t)r0 * D + c0);
+        else
+          load_rows<SW, false, false>(s_vi, vi_t + c0, rows, TM, w, D,
+                                      vec_vi, nullptr, nullptr);
+        __syncthreads();
+        // the logits over D = 768 and more: each 64 columns in accumulators
+        // of their own, added into lg in f32 (the tensor cores' f32
+        // accumulation loses bits over long sums)
+        const float* a = s_vi + (mt * 16 + g) * SV + tig;
+        for (int q0 = 0; q0 < w; q0 += 64) {
+          float part[N1][4];
+#pragma unroll
+          for (int i = 0; i < N1; ++i)
+            part[i][0] = part[i][1] = part[i][2] = part[i][3] = 0.f;
+#pragma unroll 2
+          for (int q = q0; q < q0 + 64; q += 8) {
+            uint32_t ah[4], al[4];
+            split_tf32(a[q], ah[0], al[0]);
+            split_tf32(a[q + 8 * SV], ah[1], al[1]);
+            split_tf32(a[q + 4], ah[2], al[2]);
+            split_tf32(a[q + 8 * SV + 4], ah[3], al[3]);
+#pragma unroll
+            for (int i = 0; i < N1; ++i) {
+              const int n0 = (wq + 4 * i) * 8;
+              if (n0 < kc_lim) {
+                const float* b = s_wn + (n0 + g) * SV + q + tig;
+                uint32_t bh[2], bl[2];
+                split_tf32(b[0], bh[0], bl[0]);
+                split_tf32(b[4], bh[1], bl[1]);
+                mma_3xtf32(part[i], ah, al, bh, bl);
+              }
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < N1; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) lg[i][j] += part[i][j];
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < N1; ++i) {                // g_neg -> s_g
+        const int n0 = (wq + 4 * i) * 8;
+        if (n0 < kc_lim) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = mt * 16 + g + 8 * h, p = r0 + row;
+            const float mk = p < P ? mask[p] : 0.f;
+            const int col = n0 + 2 * tig;
+            const float g0 = (p < P && k0 + col < kB)
+                ? (1.f / (1.f + expf(-lg[i][2 * h]))) * mk : 0.f;
+            const float g1 = (p < P && k0 + col + 1 < kB)
+                ? (1.f / (1.f + expf(-lg[i][2 * h + 1]))) * mk : 0.f;
+            *reinterpret_cast<float2*>(s_g + row * SG + col) =
+                make_float2(g0, g1);
+          }
+        }
+      }
+      for (int c0 = 0; c0 < D; c0 += SW) {          // pass 2: d_vi, d_wn
+        const int w = min(SW, D - c0);
+        load_rows<SW, false, false>(s_wn, wn_k + c0, kc_valid, kc_lim, w, D,
+                                    vec_wn, nullptr, nullptr);
+        load_rows<SW, false, false>(s_vi, vi_t + c0, rows, TM, w, D, vec_vi,
+                                    nullptr, nullptr);
+        __syncthreads();
+        {
+          float acc[N2][4];
+#pragma unroll
+          for (int i = 0; i < N2; ++i)
+            acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+          const float* a = s_g + (mt * 16 + g) * SG + tig;
+          for (int q = 0; q < kc_lim; q += 8) {
+            uint32_t ah[4], al[4];
+            split_tf32(a[q], ah[0], al[0]);
+            split_tf32(a[q + 8 * SG], ah[1], al[1]);
+            split_tf32(a[q + 4], ah[2], al[2]);
+            split_tf32(a[q + 8 * SG + 4], ah[3], al[3]);
+            const float* b = s_wn + (q + tig) * SV + g;
+#pragma unroll
+            for (int i = 0; i < N2; ++i) {
+              const int n0 = (wq + 4 * i) * 8;
+              uint32_t bh[2], bl[2];
+              split_tf32(b[n0], bh[0], bl[0]);
+              split_tf32(b[n0 + 4 * SV], bh[1], bl[1]);
+              mma_3xtf32(acc[i], ah, al, bh, bl);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < N2; ++i) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int p = r0 + mt * 16 + g + 8 * h;
+              const int d = (wq + 4 * i) * 8 + 2 * tig;
+              if (p >= P || d >= w) continue;
+              const size_t o = (size_t)p * D + c0 + d;
+              const float gp = k0 == 0 ? g_pos[p] : 0.f;
+              if (two) {               // D even: d + 1 < w too
+                const float2 base =
+                    k0 == 0 ? *reinterpret_cast<const float2*>(vo + o)
+                            : *reinterpret_cast<const float2*>(d_vi + o);
+                const float s = k0 == 0 ? gp : 1.f;
+                *reinterpret_cast<float2*>(d_vi + o) =
+                    make_float2(s * base.x + acc[i][2 * h],
+                                s * base.y + acc[i][2 * h + 1]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  if (d + e < w) {
+                    const float base = k0 == 0 ? gp * vo[o + e] : d_vi[o + e];
+                    d_vi[o + e] = base + acc[i][2 * h + e];
+                  }
+                }
+              }
+            }
+          }
+        }
+        if (m3 < kc_lim) {      // the tile's d_wn share of this slice
+          float acc[N3][4];
+#pragma unroll
+          for (int i = 0; i < N3; ++i)
+            acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+          for (int q = 0; q < TM; q += 8) {
+            const float* a = s_g + (q + tig) * SG + m3 + g;
+            uint32_t ah[4], al[4];
+            split_tf32(a[0], ah[0], al[0]);
+            split_tf32(a[8], ah[1], al[1]);
+            split_tf32(a[4 * SG], ah[2], al[2]);
+            split_tf32(a[4 * SG + 8], ah[3], al[3]);
+            const float* b = s_vi + (q + tig) * SV + g;
+#pragma unroll
+            for (int i = 0; i < N3; ++i) {
+              const int n0 = (wn3 + WN3 * i) * 8;
+              uint32_t bh[2], bl[2];
+              split_tf32(b[n0], bh[0], bl[0]);
+              split_tf32(b[n0 + 4 * SV], bh[1], bl[1]);
+              mma_3xtf32(acc[i], ah, al, bh, bl);
+            }
+          }
+          const bool first = tile == (int)blockIdx.x;
+#pragma unroll
+          for (int i = 0; i < N3; ++i) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int kb = k0 + m3 + g + 8 * h;
+              const int d = (wn3 + WN3 * i) * 8 + 2 * tig;
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                if (kb < kB && d + e < w) {
+                  float* dst = my_part + (size_t)kb * D + c0 + d + e;
+                  *dst = (first ? 0.f : *dst) + acc[i][2 * h + e];
+                }
+              }
+            }
+          }
+        }
+        __syncthreads();  // s_vi, s_wn (and after the last slice s_g) reused
+      }
+    }
+  }
+}
+
 // d_wn[i] = sum over blocks of part[b][i] in a fixed order: thread row y
 // adds blocks y, y + RS, ... in order, then the RS sums are added in order.
 __global__ void __launch_bounds__(32 * RS)
@@ -449,9 +671,30 @@ cudaError_t launch_tiles(const float* vi, const float* vo, const float* wn,
   return cudaSuccess;
 }
 
+template <int SW, int KC>
+cudaError_t launch_sliced(const float* vi, const float* vo, const float* wn,
+                          const float* g_pos, const float* mask, float* d_vi,
+                          float* d_vo, float* part, int P, int D, int kB,
+                          int nblk, cudaStream_t s) {
+  constexpr size_t smem =
+      sizeof(float) * ((size_t)(TM + KC) * (SW + 4) + TM * (KC + 4));
+  static bool raised = false;
+  if (!raised) {
+    cudaError_t err = cudaFuncSetAttribute(
+        sgns_shared_sliced<SW, KC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  sgns_shared_sliced<SW, KC><<<nblk, NTHR, smem, s>>>(
+      vi, vo, wn, g_pos, mask, d_vi, d_vo, part, P, D, kB);
+  return cudaSuccess;
+}
+
 }  // namespace
 
-// The widths (DP, KC, PRE) mirror ops/sgns.py::launch_plan.
+// The widths (DP, KC, PRE) and the slices above D = 512 mirror
+// ops/sgns.py::launch_plan (WIDTHS, SLICED).
 extern "C" int srw_sgns_shared_launch(const float* vi, const float* vo,
                                       const float* wn, const float* g_pos,
                                       const float* mask, float* d_vi,
@@ -459,10 +702,12 @@ extern "C" int srw_sgns_shared_launch(const float* vi, const float* vo,
                                       int P, int D, int kB, int nblk,
                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (D > 512) return (int)cudaErrorInvalidValue;
   if (nblk > 0 && kB > 0 && D > 0) {
     cudaError_t err;
-    if (D <= 64)
+    if (D > 512)
+      err = launch_sliced<256, 64>(
+          vi, vo, wn, g_pos, mask, d_vi, d_vo, part, P, D, kB, nblk, s);
+    else if (D <= 64)
       err = launch_tiles<64, 128, true>(
           vi, vo, wn, g_pos, mask, d_vi, d_vo, part, P, D, kB, nblk, s);
     else if (D <= 128)

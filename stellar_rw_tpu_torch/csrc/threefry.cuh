@@ -1,6 +1,6 @@
 // jax.random's threefry-2x32 streams as __device__ code, shared by the walk
-// kernels (walk.cu, resident_walk.cu). Bit for bit the host version in
-// ops/prng.py.
+// kernels (walk.cu, resident_walk.cu, cdf_walk.cu) and the trainer's draws
+// (trainer_draws.cu). Bit for bit the host version in ops/prng.py.
 
 #pragma once
 

@@ -6,16 +6,20 @@ Single device. The JAX package's streams are reproduced exactly
 PRNGKey(seed) -> fold_in(., epoch) -> fold_in(., block), so a run from the
 same init differs from the JAX run only by floating-point summation order.
 
-Two update forms, as in the JAX package:
+Each block runs on the card as the JAX package's epoch scan runs it on its
+device: a chunk of blocks' windows and negatives is drawn by one kernel
+(ops/trainer_draws.py, csrc/trainer_draws.cu), then each block takes one of
+two update forms, as in the JAX package:
   * exact per-pair negatives (shared_negatives = 0, the CLI's default):
-    each block goes through ops/sgns_exact.py::sgns_exact_step, the two
-    CUDA kernels of csrc/sgns_exact.cu on the card and the plain
-    `_sgns_apply` over the block's pairs on the CPU;
+    ops/sgns_exact.py::sgns_exact_step, the two kernels of
+    csrc/sgns_exact.cu;
   * block-shared negatives in the dense shifted-window form
-    (`_sgns_apply_shared_conv`, shared_negatives = kB > 0). Its negative half
-    is exactly sgns_shared_grads with vi = ein, g_pos = 0 and
-    mask = neg_weight * vcnt, and goes through the CUDA kernel
-    (ops/sgns.py); the shift passes stay plain torch (ROADMAP K5).
+    (shared_negatives = kB > 0): ops/sgns_conv.py::sgns_conv_step, whose
+    positive half and scatter-mean are csrc/sgns_conv.cu and whose negative
+    half is sgns_shared_grads (csrc/sgns_shared.cu).
+On the CPU (device="cpu") the same steps run their plain versions:
+trainer_draws_ref, `_sgns_apply` over the block's pairs and
+`_sgns_apply_shared_conv`.
 
 The tables are updated in place (JAX returns new arrays); each row moves by
 lr times the mean of its gradients in the block (scatter-mean).
@@ -31,11 +35,14 @@ import torch
 from ..errors import NotPorted, resolve_device
 from ..ops import prng
 from ..ops.alias import build_alias
-from ..ops.sgns import sgns_shared_grads
-# the exact step's plain pieces live beside its kernels; _sgns_apply stays
-# importable here, the trainer's name for it
-from ..ops.sgns_exact import (_offsets, _pairs_from_valid, _sgns_apply,  # noqa: F401
+# the steps' and the draws' plain pieces live beside their kernels;
+# _sgns_apply, _sgns_apply_shared_conv, _shift and _draw_negatives stay
+# importable here, the trainer's names for them
+from ..ops.sgns_conv import (ConvWorkspace, _sgns_apply_shared_conv,  # noqa: F401
+                             _shift, sgns_conv_step)
+from ..ops.sgns_exact import (_pairs_from_valid, _sgns_apply,  # noqa: F401
                               _valid_from_cwin, Workspace, sgns_exact_step)
+from ..ops.trainer_draws import _draw_negatives, trainer_draws  # noqa: F401
 
 # elements of per-block random draws generated in one batch
 _DRAW_BUDGET = 1 << 22
@@ -90,71 +97,6 @@ def _pairs_for_block(block: torch.Tensor, key: torch.Tensor, window: int):
     return _pairs_from_valid(block, valid, ctx_pos_c)
 
 
-def _draw_negatives(key: torch.Tensor, shape, neg_keep: torch.Tensor,
-                    neg_alias: torch.Tensor) -> torch.Tensor:
-    """Unigram^power negatives by alias table; key may carry batch dims."""
-    n = neg_keep.shape[0]
-    u1 = prng.uniform(key, shape)
-    u2 = prng.uniform(prng.fold_in(key, 1), shape)
-    j = torch.clamp_max((u1 * n).to(torch.int32), n - 1).long()
-    return torch.where(u2 < neg_keep[j], j, neg_alias[j].long())
-
-
-def _shift(x: torch.Tensor, d: int) -> torch.Tensor:
-    """y[:, t] = x[:, t + d] along axis 1, zero beyond the bounds."""
-    if d == 0:
-        return x
-    y = torch.zeros_like(x)
-    if d > 0:
-        y[:, :-d] = x[:, d:]
-    else:
-        y[:, -d:] = x[:, :d]
-    return y
-
-
-def _sgns_apply_shared_conv(w_in, w_out, block, valid, negs, lr: float,
-                            neg_weight: float, window: int):
-    """Shared-negative SGNS step in the dense shifted-window form (single
-    replica, band=False), in place. block i32 [B, T], valid bool [B, T, 2w],
-    negs [kB]."""
-    B, T = block.shape
-    N = B * T
-    D = w_in.shape[1]
-    offs = _offsets(window)
-    tok = block.reshape(-1).clamp_min(0).long()
-    negs = negs.long()
-    vf = valid.to(torch.float32)                        # [B, T, 2w]
-    ein = w_in[tok].reshape(B, T, D)
-    eout = w_out[tok].reshape(B, T, D)
-    wn = w_out[negs]                                    # [kB, D]
-    logits = torch.stack([(ein * _shift(eout, d)).sum(-1) for d in offs], -1)
-    g_pos = (torch.sigmoid(logits) - 1.0) * vf          # [B, T, 2w]
-    vcnt = vf.sum(-1)                                   # [B, T]
-    # negative half: sgns_shared_grads with vi = ein, g_pos = 0 and
-    # mask = neg_weight * vcnt (every valid pair of a center shares
-    # sigmoid(ein . wn)); d_vo is g_pos * ein = 0 and unused
-    e2 = ein.reshape(N, D)
-    d_neg, _, d_wn = sgns_shared_grads(
-        e2, e2, wn, torch.zeros(N, device=e2.device),
-        (neg_weight * vcnt).reshape(N))
-    acc_in = sum(g_pos[..., i, None] * _shift(eout, d)
-                 for i, d in enumerate(offs)) + d_neg.reshape(B, T, D)
-    acc_out = sum(_shift(g_pos[..., i, None] * ein, -d)
-                  for i, d in enumerate(offs))
-    cnt_out_pos = sum(_shift(vf[..., i], -d) for i, d in enumerate(offs))
-    cnt_in = torch.zeros(w_in.shape[0], device=e2.device).index_add_(
-        0, tok, vcnt.reshape(N))
-    cnt_out = torch.zeros(w_out.shape[0], device=e2.device).index_add_(
-        0, tok, cnt_out_pos.reshape(N))
-    cnt_n = (vf.sum() * neg_weight).clamp_min(1.0)
-    w_in.index_add_(0, tok, -lr * acc_in.reshape(N, D)
-                    / cnt_in.clamp_min(1.0)[tok][:, None])
-    w_out.index_add_(0, tok, -lr * acc_out.reshape(N, D)
-                     / cnt_out.clamp_min(1.0)[tok][:, None])
-    w_out.index_add_(0, negs, -lr * d_wn / cnt_n)
-    return w_in, w_out
-
-
 def _block_lr(i: int, n_blocks: int, lr_start: np.float32,
               lr_end: np.float32) -> float:
     """The JAX epoch's f32 linear decay within an epoch."""
@@ -166,34 +108,32 @@ def _train_epoch(w_in, w_out, corpus, neg_keep, neg_alias, key, lr_start,
                  lr_end, window: int, negatives: int,
                  shared_negatives: int = 0):
     """One epoch over corpus [n_blocks, B, T] (-1 padded), block by block.
-    Each block's random draws are made in batches of blocks."""
+    Each block's random draws are made a chunk of blocks at a time (one
+    kernel launch on the card)."""
     n_blocks, B, T = corpus.shape
     per_block = (shared_negatives if shared_negatives
                  else B * T * 2 * window * negatives) + B * T
     chunk = max(1, min(n_blocks, _DRAW_BUDGET // per_block))
-    # the exact step's kernels' scratch, zero again after every step
-    ws = (Workspace(w_in, w_out, B * T, window, negatives)
-          if w_in.device.type == "cuda" and not shared_negatives else None)
+    nshape = ((shared_negatives,) if shared_negatives
+              else (B * T * 2 * window, negatives))
+    # the steps' scratch, empty again after every step
+    ws = None
+    if w_in.device.type == "cuda":
+        ws = (ConvWorkspace(w_in, w_out, B, T, window, shared_negatives)
+              if shared_negatives
+              else Workspace(w_in, w_out, B * T, window, negatives))
     for c0 in range(0, n_blocks, chunk):
-        ids = torch.arange(c0, min(c0 + chunk, n_blocks), device=key.device)
-        kb = prng.fold_in(key, ids)                          # [n, 2]
-        cwin = prng.randint(kb, (B, T), 1, window + 1)       # [n, B, T]
-        nshape = ((shared_negatives,) if shared_negatives
-                  else (B * T * 2 * window, negatives))
-        negs = _draw_negatives(prng.fold_in(kb, 2), nshape, neg_keep,
-                               neg_alias)
-        if not shared_negatives:
-            negs = negs.to(torch.int32)   # the kernel's index type
-        for n, i in enumerate(range(c0, c0 + len(ids))):
-            block = corpus[i]
+        n = min(chunk, n_blocks - c0)
+        cwin, negs = trainer_draws(key, c0, n, B, T, window, nshape,
+                                   neg_keep, neg_alias)
+        for j in range(n):
+            i = c0 + j
             lr = _block_lr(i, n_blocks, lr_start, lr_end)
             if shared_negatives:
-                valid, _ = _valid_from_cwin(block, cwin[n], window)
-                _sgns_apply_shared_conv(
-                    w_in, w_out, block, valid, negs[n], lr,
-                    neg_weight=negatives / shared_negatives, window=window)
+                sgns_conv_step(w_in, w_out, corpus[i], cwin[j], negs[j], lr,
+                               negatives / shared_negatives, window, ws)
             else:
-                sgns_exact_step(w_in, w_out, block, cwin[n], negs[n], lr,
+                sgns_exact_step(w_in, w_out, corpus[i], cwin[j], negs[j], lr,
                                 window, ws)
     return w_in, w_out
 
@@ -235,7 +175,7 @@ def train_skipgram(
                                 ).cpu().numpy().astype(np.float64)
     keep, alias = build_alias(np.maximum(counts, 1e-12) ** cfg.power)
     neg_keep = torch.as_tensor(keep, dtype=torch.float32).to(device)
-    neg_alias = torch.as_tensor(alias, dtype=torch.int64).to(device)
+    neg_alias = torch.as_tensor(alias, dtype=torch.int32).to(device)
 
     B = max(1, min(cfg.row_block, max(N, 1)))
     n_blocks = -(-N // B)

@@ -21,7 +21,6 @@ SGNS_KERNEL = Kernel(
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 TILE_ROWS = 32       # rows of P per block tile (TM in csrc/sgns_shared.cu)
-MAX_DIM = 512        # widest instantiation of the kernel
 H100_SMS = 132       # launch_plan's default; the wrapper asks the device
 SMEM_LIMIT = 232_448  # dynamic shared memory one block can have on sm_90
 # (padded D, negatives a chunk, tiles pre-split) of the kernel's
@@ -30,6 +29,9 @@ SMEM_LIMIT = 232_448  # dynamic shared memory one block can have on sm_90
 # (8 bytes an element), which the widest D has no room for
 WIDTHS = ((64, 128, True), (128, 128, True), (256, 64, True),
           (512, 32, False))
+# D above the widest width: (slice width, negatives a chunk, pre-split) of
+# sgns_shared_sliced, which runs the tiles over column slices: any D
+SLICED = (256, 64, False)
 
 
 class LaunchPlan(NamedTuple):
@@ -44,15 +46,16 @@ class LaunchPlan(NamedTuple):
     smem_bytes: int    # dynamic shared memory a block
     wn_placement: str  # "whole" (one chunk) or "chunks"
     part_floats: int   # floats of the partials' scratch
+    slices: int = 1    # column slices of dp a row takes (D above 512)
 
 
 def launch_plan(P: int, D: int, kB: int, sms: int = H100_SMS) -> LaunchPlan:
     """The kernel's tiling for vi [P, D] and wn [kB, D] on a card of `sms`
     SMs (mirrors the dispatch in csrc/sgns_shared.cu)."""
-    if not 1 <= D <= MAX_DIM or kB < 1 or P < 0:
-        raise ValueError(f"sgns_shared_grads: need 1 <= D <= {MAX_DIM}, "
-                         f"kB >= 1, P >= 0; got P={P} D={D} kB={kB}")
-    dp, kc, pre = next(w for w in WIDTHS if D <= w[0])
+    if D < 1 or kB < 1 or P < 0:
+        raise ValueError(f"sgns_shared_grads: need D >= 1, kB >= 1, P >= 0; "
+                         f"got P={P} D={D} kB={kB}")
+    dp, kc, pre = next((w for w in WIDTHS if D <= w[0]), SLICED)
     tiles = -(-P // TILE_ROWS)
     blocks = min(tiles, sms)
     chunks = -(-kB // kc)
@@ -60,7 +63,7 @@ def launch_plan(P: int, D: int, kB: int, sms: int = H100_SMS) -> LaunchPlan:
                                 + TILE_ROWS * (kc + 4))
     return LaunchPlan(dp, kc, pre, chunks, tiles, blocks, smem,
                       "whole" if chunks == 1 else "chunks",
-                      max(blocks, 1) * kB * D)
+                      max(blocks, 1) * kB * D, -(-D // dp))
 
 
 def tf32_round(x: np.ndarray) -> np.ndarray:

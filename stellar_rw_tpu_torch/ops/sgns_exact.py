@@ -149,15 +149,18 @@ class Workspace:
     slots are bounded by the block, not by the vocabulary; the map is one
     int a row. The update kernel leaves every slot and map entry empty
     again, so one workspace serves every step; the trainer makes one an
-    epoch."""
+    epoch. `targets` overrides the w_out rows a position can touch (the
+    conv step, ops/sgns_conv.py, touches its own token's row alone: 1)."""
 
     def __init__(self, w_in: torch.Tensor, w_out: torch.Tensor,
-                 positions: int, window: int, k: int):
+                 positions: int, window: int = 1, k: int = 0,
+                 targets: int | None = None):
         dev = w_in.device
         v_in, v_out, dim = w_in.shape[0], w_out.shape[0], w_in.shape[1]
         self.shape = (v_in, v_out, dim)
-        self.rows = (min(v_in, positions),
-                     min(v_out, positions * 2 * window * (1 + k)))
+        if targets is None:
+            targets = 2 * window * (1 + k)
+        self.rows = (min(v_in, positions), min(v_out, positions * targets))
         z = lambda n, w=None, dt=torch.int32: torch.zeros(
             (n,) if w is None else (n, w), dtype=dt, device=dev)
         self.d = [z(r, dim, torch.float32) for r in self.rows]

@@ -1,8 +1,8 @@
 """The port's CLI on what the JAX package's CLI resolves before it walks:
 --shards and --partitioned (one walk shard on the port's one device, /path
-byte-equal to the JAX CLI's sharded and vertex-cut runs), the dims the
-shared-negative kernel does not serve (refused before anything is written),
-the span of walk_seconds and the path-count warning. JAX runs with x64 off
+byte-equal to the JAX CLI's sharded and vertex-cut runs), shared negatives
+above D = 512 (served on the card, matching the JAX CLI on the CPU), the
+span of walk_seconds and the path-count warning. JAX runs with x64 off
 on conftest's CPU devices."""
 
 import filecmp
@@ -18,7 +18,6 @@ from stellar_rw_tpu import cli as jcli
 from stellar_rw_tpu.models import node2vec as jn2v
 from stellar_rw_tpu.utils import config as jconfig
 from stellar_rw_tpu_torch import cli
-from stellar_rw_tpu_torch.errors import NotPorted
 from stellar_rw_tpu_torch.models import node2vec as n2v
 from stellar_rw_tpu_torch.utils.config import parse
 
@@ -83,36 +82,41 @@ def test_num_walk_shards_resolves_like_jax(flags):
     n2v._refuse_sharded(params)            # one shard: nothing refused
 
 
-def test_shared_negatives_above_512_refused_before_writing(karate_path,
-                                                           tmp_path):
-    """The shared-negative kernel stops at D = 512: on the card the CLI
-    refuses the pair of flags before the walks, so no /path is left behind;
-    walks alone, or exact negatives, at the same dim are served. The CPU
-    trainer serves any D: there the pair runs and matches the JAX CLI."""
-    out = tmp_path / "o"
-    base = ["--input", karate_path, "--output", str(out), "--walkLength",
-            "4", "--numWalks", "1", "--dim", "768", "--iter", "1",
-            "--window", "2"]
-    shared = base + ["--cmd", "node2vec", "--sharedNegatives", "128"]
-    cuda = torch.device("cuda")
-    with pytest.raises(NotPorted, match="F2b"):
-        cli.run_job(parse(shared), cuda, {})
-    assert not out.exists()
-    cli.check_flags(parse(base + ["--cmd", "randomwalk", "--sharedNegatives",
-                                  "128"]), cuda)
-    cli.check_flags(parse(base + ["--cmd", "node2vec"]), cuda)
-    assert cli.main(base + ["--cmd", "node2vec"], device="cpu") == 0
-    assert n2v.load_model(str(out))[1].shape == (34, 768)
-    # the pair on the CPU, against the JAX CLI
+def _dim768(karate_path, out, *extra):
+    return (["--input", karate_path, "--output", str(out), "--walkLength",
+             "4", "--numWalks", "1", "--dim", "768", "--iter", "1",
+             "--window", "2", "--cmd", "node2vec"] + list(extra))
+
+
+def test_shared_negatives_above_512_served_on_the_card(karate_path,
+                                                       tmp_path):
+    """The shared-negative kernel serves any D (column slices above 512), so
+    check_flags, which refuses before anything is loaded or written on the
+    card as on the CPU, lets the pair of flags through, with exact
+    negatives and for walks alone as before."""
+    shared = _dim768(karate_path, tmp_path / "o", "--sharedNegatives", "128")
+    cli.check_flags(parse(shared))
+    cli.check_flags(parse(_dim768(karate_path, tmp_path / "o")))
+    cli.check_flags(parse(shared[:-4] + ["--cmd", "randomwalk",
+                                         "--sharedNegatives", "128"]))
+    assert not (tmp_path / "o").exists()
+
+
+def test_shared_negatives_above_512_match_the_jax_cli(karate_path, tmp_path):
+    """--sharedNegatives 128 at --dim 768 through the CPU CLI: /path
+    byte-equal to the JAX CLI's and the model within the trainers' rtol."""
     jout, tout = tmp_path / "jax", tmp_path / "port"
     with jax.enable_x64(False):
-        assert jcli.main(shared[:3] + [str(jout)] + shared[4:]) == 0
-    assert cli.main(shared[:3] + [str(tout)] + shared[4:], device="cpu") == 0
+        assert jcli.main(_dim768(karate_path, jout, "--sharedNegatives",
+                                 "128")) == 0
+    assert cli.main(_dim768(karate_path, tout, "--sharedNegatives", "128"),
+                    device="cpu") == 0
     assert filecmp.cmp(jout / "path" / "part-00000",
                        tout / "path" / "part-00000", shallow=False)
     for a, b in zip(jn2v.load_model(str(jout)), n2v.load_model(str(tout))):
         assert b.shape == a.shape
         np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-6)
+    assert n2v.load_model(str(tout))[1].shape == (34, 768)
 
 
 def test_walk_seconds_cover_the_graph_load(karate_path, tmp_path,

@@ -1,5 +1,5 @@
 """The port's own copies of the host modules (graph/csr.py, graph/io.py,
-native/, utils/, ops/alias.py, models/eval.py) against the JAX package's
+graph/datasets.py, native/, utils/, ops/alias.py, models/eval.py) against the JAX package's
 originals on the same inputs. Everything here is NumPy on the host, so the
 tolerance is exact: arrays equal, files byte for byte. The CSR tables are
 held with the port's C++ builder and with its NumPy builders."""
@@ -14,6 +14,7 @@ import pytest
 
 from stellar_rw_tpu import native as jnative
 from stellar_rw_tpu.graph import csr as jcsr
+from stellar_rw_tpu.graph import datasets as jdatasets
 from stellar_rw_tpu.graph import io as jio
 from stellar_rw_tpu.models import eval as jev
 from stellar_rw_tpu.models import word2vec as jw2v
@@ -22,7 +23,7 @@ from stellar_rw_tpu.utils import config as jconfig
 from stellar_rw_tpu.utils import logging as jlogging
 from stellar_rw_tpu.utils import stats as jstats
 from stellar_rw_tpu_torch import native
-from stellar_rw_tpu_torch.graph import csr, io
+from stellar_rw_tpu_torch.graph import csr, datasets, io
 from stellar_rw_tpu_torch.models import eval as ev
 from stellar_rw_tpu_torch.models import word2vec as w2v
 from stellar_rw_tpu_torch.ops import alias
@@ -413,3 +414,46 @@ def test_logging_configure(tmp_path):
             if h not in before:
                 root.removeHandler(h)
                 h.close()
+
+
+def _graphs_equal(a, b):
+    for f in CSR_FIELDS + ("num_vertices",):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+@pytest.mark.parametrize("args", [(1500, 15_000, 6, 7), (400, 3_000, 4, 2)])
+def test_synth_labeled_graph_equal(args):
+    V, E, k, seed = args
+    g, labels = datasets.synth_labeled_graph(V, E, communities=k, seed=seed)
+    jg, jlabels = jdatasets.synth_labeled_graph(V, E, communities=k,
+                                                seed=seed)
+    _graphs_equal(g, jg)
+    np.testing.assert_array_equal(labels, jlabels)
+
+
+def test_blogcatalog_loader_equal(tmp_path):
+    (tmp_path / "edges.csv").write_text("1,2\n2,3\n3,1\n4,2\n")
+    (tmp_path / "group-edges.csv").write_text("1,1\n2,1\n2,2\n3,2\n4,2\n")
+    (tmp_path / "nodes.csv").write_text("1\n2\n3\n4\n5\n")
+    g, labels = datasets.load_blogcatalog(str(tmp_path))
+    jg, jlabels = jdatasets.load_blogcatalog(str(tmp_path))
+    _graphs_equal(g, jg)
+    np.testing.assert_array_equal(labels, jlabels)
+
+
+def test_mat_loader_equal(tmp_path):
+    pytest.importorskip("scipy")
+    from scipy import sparse
+    from scipy.io import savemat
+
+    rng = np.random.default_rng(0)
+    V = 40
+    a = sparse.random(V, V, density=0.1, random_state=1, format="coo")
+    grp = sparse.coo_matrix(
+        (np.ones(V), (np.arange(V), rng.integers(0, 3, V))), shape=(V, 3))
+    path = tmp_path / "toy.mat"
+    savemat(path, {"network": (a + a.T).tocoo(), "group": grp})
+    g, labels = datasets.load_mat_graph(str(path))
+    jg, jlabels = jdatasets.load_mat_graph(str(path))
+    _graphs_equal(g, jg)
+    np.testing.assert_array_equal(labels, jlabels)

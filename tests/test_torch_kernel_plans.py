@@ -276,18 +276,41 @@ def test_sgns_launch_plan_at_the_main_shape():
         512, 32, False, 2, 32, 32, 136_704, "chunks", 32 * 64 * 512)
 
 
-@pytest.mark.parametrize("shape", [(8, 0, 4), (8, 513, 4), (8, 4, 0)])
+@pytest.mark.parametrize("shape", [(8, 0, 4), (-1, 513, 4), (8, 4, 0)])
 def test_sgns_launch_plan_refuses(shape):
     with pytest.raises(ValueError):
         sgns.launch_plan(*shape)
 
 
-@pytest.mark.parametrize("name", [n for n, edit in
-                                  chip_sgns_parts.VARIANTS.items() if edit])
+@pytest.mark.parametrize("D,slices", [(513, 3), (768, 3), (1024, 4),
+                                      (1536, 6), (3000, 12)])
+def test_sgns_launch_plan_slices_any_dim(D, slices):
+    """Above D = 512 the kernel runs its tiles over column slices of 256
+    with 64 negatives a chunk (sgns_shared_sliced): f32 tiles, a d_wn
+    partial of 64 floats a thread, any D."""
+    for P, kB in ((2624, 128), (7, 256), (1, 1)):
+        plan = sgns.launch_plan(P, D, kB)
+        assert (plan.dp, plan.kc, plan.presplit) == sgns.SLICED
+        assert plan.slices == slices and plan.slices * plan.dp >= D
+        assert plan.smem_bytes == 4 * ((32 + 64) * 260 + 32 * 68)
+        assert plan.smem_bytes <= sgns.SMEM_LIMIT
+        assert plan.dp * plan.kc <= 64 * 256
+        assert plan.chunks == -(-kB // 64)
+        assert plan.part_floats == plan.blocks * kB * D
+    assert sgns.launch_plan(2624, 768, 128) == sgns.LaunchPlan(
+        256, 64, False, 2, 82, 82, 108_544, "chunks", 82 * 128 * 768, 3)
+    assert all(sgns.launch_plan(100, D, 64).slices == 1 for D in (1, 64, 512))
+
+
+SGNS_EDITS = {**chip_sgns_parts.VARIANTS, **chip_sgns_parts.SLICED}
+
+
+@pytest.mark.parametrize("name", [n for n, edit in SGNS_EDITS.items()
+                                  if edit])
 def test_sgns_parts_variant_edits_the_source_once(name):
     """chip_sgns_parts.py patches the kernel by text: each piece must occur
     exactly once in csrc/sgns_shared.cu, and its replacement must differ."""
-    old, new = chip_sgns_parts.VARIANTS[name]
+    old, new = SGNS_EDITS[name]
     source = (_build.CSRC / sgns.SGNS_KERNEL.source).read_text()
     assert source.count(old) == 1 and new != old
 
