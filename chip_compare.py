@@ -27,6 +27,10 @@ events around launches queued behind a long product):
     at D = 128 and D = 768, each launch timed between CUDA events, after checking the two checkouts'
     tables agree (rtol 1e-5): other, this, this, other, twice, each turn
     with a workspace and tables allocated for it;
+  * the conv step's kernels on chip_smoke's phase-14 block (B 32, T 82,
+    w 10, kB 128, D 128, Zipf), each launch timed between CUDA events,
+    after checking the two checkouts' tables agree (rtol 1e-5, atol 1e-6):
+    other, this, this, other, twice;
   * the exact-CDF walk kernel on phase 10's corpus (the walk_10k graph,
     10 rounds, L = 80, p = 1/16, q = 4, chunked): other, this, this,
     other, after checking the two corpora equal;
@@ -84,6 +88,39 @@ def has_draws_kernel(pkg) -> bool:
     except ImportError:
         return False
     return True
+
+
+def conv_step_fns(pkg, tables, window: int, lr: float, nw: float,
+                  hub=None, workspace=None):
+    """One checkout's conv step on a block as its kernels' launches, on a
+    workspace and tables of its own: this design's three (accumulate, the
+    negative half, the scatter-update over the block's token groups, cut at
+    `hub` if given) or the delta-slot design's four (accumulate,
+    sgns_shared_grads, scatter into delta slots, apply). `workspace(a_in,
+    a_out, B, T, window, kB)` makes the workspace if given.
+    Returns (the launches, in step order; the tables they move)."""
+    sc = pkg("ops.sgns_conv")
+    w_in, w_out, block, cwin, negs = tables
+    B, T = block.shape
+    kB = negs.shape[0]
+    a_in, a_out = w_in.clone(), w_out.clone()
+    ws = (workspace or sc.ConvWorkspace)(a_in, a_out, B, T, window, kB)
+    acc = lambda: sc.launch_accumulate(ws, a_in, a_out, block, cwin, negs,
+                                       window, nw)
+    if hasattr(sc, "group_blocks"):
+        g = sc.group_blocks(block[None], *(() if hub is None else (hub,)))
+        return [acc, lambda: sc.launch_negative_half(ws),
+                lambda: sc.launch_scatter(ws, a_in, a_out, block, g.order[0],
+                                          g.units[0], negs, nw, lr)
+                ], (a_in, a_out)
+    sgns, se = pkg("ops.sgns"), pkg("ops.sgns_exact")
+    hold = {}
+    return [acc,
+            lambda: hold.update(d=sgns.sgns_shared_grads(
+                ws.ein, ws.acc_in, ws.wn, ws.ones, ws.mask)),
+            lambda: sc.launch_scatter(ws, a_out, block, hold["d"][0],
+                                      hold["d"][2], negs, nw, lr),
+            lambda: se.launch_apply(ws.slots, a_in, a_out, lr)], (a_in, a_out)
 
 
 def wall_ms(torch, fn, iters: int) -> float:
@@ -253,6 +290,33 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"kernel": "sgns_exact_grads, sgns_exact_apply",
                           "block": [B, T, win, k, D],
                           "ms_grads_apply_in_turns": runs, "card": smi}))
+
+    # the conv step's kernels at phase 14's main block: this checkout's
+    # three launches against the delta-slot design's four, each between
+    # CUDA events
+    from chip_smoke import CONV_SHAPES, conv_block
+
+    V, B, T, win, kB, D, tokens = CONV_SHAPES[0]
+    tables = conv_block(torch, V, B, T, win, kB, D, 0, tokens)
+    nw, lr = 5 / kB, 0.025
+    results = {}
+    for name, pkg in (("other", other), ("this", this)):
+        fns, moved = conv_step_fns(pkg, tables, win, lr, nw)
+        for fn in fns:
+            fn()
+        results[name] = moved
+    check(all(torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in
+              zip(results["this"], results["other"])),
+          "the two checkouts' conv steps disagree")
+    runs = [(name, cuda_ms_split(conv_step_fns(
+        {"other": other, "this": this}[name], tables, win, lr, nw)[0], 20))
+        for name in order + order]
+    print(json.dumps({"kernel": "the conv step's launches (this: "
+                      "accumulate, sgns_shared_grads, scatter-update; the "
+                      "delta-slot design: accumulate, sgns_shared_grads, "
+                      "scatter, apply)",
+                      "block": [B, T, win, kB, D],
+                      "ms_each_launch_in_turns": runs, "card": smi}))
 
     # the exact-CDF walk kernel at phase 10's corpus
     V, R, L, p, q = graph.num_vertices, 10, 80, 0.0625, 4.0

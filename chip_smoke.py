@@ -13,9 +13,10 @@ entry points a user calls:
               BlogCatalog-shaped graph (10,000 vertices, 334,000 sampled
               edges; the node2vec paper's BlogCatalog has 10,312 vertices
               and 333,983 edges) with walkLength 80, numWalks 10, dim 128:
-              the conv trainer's epoch with its launches a block (the
-              trainer's draws, the conv step's accumulate and scatter
-              kernels, sgns_shared_grads, the apply kernel); then the
+              the conv trainer's epoch with its calls a block (the
+              trainer's draws, then three a block: the conv step's
+              accumulate kernel, sgns_shared_grads and its scatter-update
+              kernel; no apply kernel); then the
               karate quality gate, `--sharedNegatives 128 --dim 768` on
               karate through the CLI and the same gate, and the labeled
               synthetic graph (1,500 vertices, 6 communities) held to
@@ -43,11 +44,15 @@ entry points a user calls:
               trainer_draws_ref: exact and shared shapes, ragged chunks,
               window 1 and 10, a one-row vocabulary, more blocks than a
               grid's y extent; timed on the main path's chunks;
-  phase 14    the conv step's kernels (accumulate, sgns_shared_grads,
-              scatter, apply) against the plain step in float32 (rtol 1e-5
-              atol 1e-6) and in float64 at D = 64, 128 and 768 (and ragged
-              and sliced shapes) on Zipf, one-token and padded blocks;
-              each kernel timed at the main shape.
+  phase 14    the conv step's kernels (the accumulate kernel's halo
+              tiles, sgns_shared_grads, the scatter-update by token
+              groups) against the plain step in float32 (rtol 1e-5 atol
+              1e-6) and in float64 at D = 64, 128 and 768 (and ragged and
+              sliced shapes, T 201, window 20) on Zipf, one-token (also
+              with every negative that token, also at T 201), a token at
+              every other position and padded blocks; each kernel timed
+              at the main shape, the accumulate kernel by tile, and the
+              corpus's grouping once.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every failure raises and the script exits non-zero. It
@@ -126,8 +131,10 @@ DRAW_CASES = [(32, 82, 10, 5, None, 10_000, 0, 15),
               (6, 23, 5, None, 64, 1, 7, 2),
               (1, 5, 2, None, 3, 50, 11, 70_000)]
 # phase 14: (V, B, T, window, kB, D, tokens). The main shape; D 64 and 768;
-# one token alone; walks padded with -1; small ragged blocks, one whose D
-# takes row slices in both kernels
+# one token alone, also with every negative that token; walks padded with
+# -1; small ragged blocks, one whose D takes row slices in both kernels;
+# longer walks (T 201: Zipf, one token alone, a token at every other
+# position); a window wider than a tile's positions (20)
 CONV_SHAPES = [(10_000, 32, 82, 10, 128, 128, "zipf"),
                (10_000, 32, 82, 10, 128, 64, "zipf"),
                (10_000, 32, 82, 10, 128, 768, "zipf"),
@@ -135,7 +142,12 @@ CONV_SHAPES = [(10_000, 32, 82, 10, 128, 128, "zipf"),
                (10_000, 32, 81, 10, 128, 128, "padded"),
                (10_000, 32, 82, 10, 128, 768, "padded"),
                (300, 7, 30, 3, 37, 100, "zipf"),
-               (50, 3, 11, 5, 16, 1536, "hub")]
+               (50, 3, 11, 5, 16, 1536, "hub"),
+               (10_000, 32, 201, 10, 128, 128, "zipf"),
+               (10_000, 32, 201, 10, 128, 128, "hub"),
+               (10_000, 32, 201, 10, 128, 128, "every other"),
+               (10_000, 32, 82, 20, 128, 128, "zipf"),
+               (10_000, 32, 82, 10, 128, 128, "hub negatives")]
 
 
 def check(ok: bool, what: str) -> None:
@@ -382,8 +394,12 @@ def phase_sgns(torch) -> dict:
         plain = lambda: sgns.sgns_shared_grads_ref(vi, vo, wn, g_pos, mask)
         if (P, D, kB) == (2624, 768, 128):     # the conv step at D 768
             runs = [cuda_ms(f, 20) for f in (plain, kern, kern, plain)]
+            b768 = bound(tensor_bytes(vi, vo, wn, g_pos, mask, *got),
+                         3 * 2 * P * kB * D, F32_FLOPS)
             sliced = {"d768_ms": (runs[1] + runs[2]) / 2,
-                      "d768_plain_ms": (runs[0] + runs[3]) / 2}
+                      "d768_plain_ms": (runs[0] + runs[3]) / 2,
+                      "d768_bound_ms": b768["bound_ms"],
+                      "d768_bound_by": b768["bound_by"]}
         if (P, D, kB) == SGNS_SHAPES[0]:
             runs = [cuda_ms(f, 50) for f in (plain, kern, kern, plain)]
             timing = {"ms": (runs[1] + runs[2]) / 2,
@@ -400,8 +416,9 @@ def phase_sgns(torch) -> dict:
           f"{SGNS_SHAPES[0]} kernel {timing['ms']:.4f} ms, plain "
           f"{timing['plain_ms']:.4f} ms (CUDA events, mean of 2x50), bound "
           f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}; at (2624, "
-          f"768, 128), two column slices: kernel {sliced['d768_ms']:.4f} ms, "
-          f"plain {sliced['d768_plain_ms']:.4f} ms (mean of 2x20)")
+          f"768, 128), three column slices: kernel {sliced['d768_ms']:.4f} "
+          f"ms, plain {sliced['d768_plain_ms']:.4f} ms (mean of 2x20), bound "
+          f"{sliced['d768_bound_ms']:.5f} ms by {sliced['d768_bound_by']}")
     return {"max_abs_err": err, **timing, **sliced}
 
 
@@ -542,13 +559,13 @@ def phase_main(torch, walk_kernel, keys_kernel, smi, tmp) -> dict:
     check(keys_kernel.launches > 0, "the key-table kernel was not launched")
     trainer, blocks, per_block = trainer_launches(report)
     for name in ("trainer_draws", "sgns_conv_accumulate",
-                 "sgns_shared_grads", "sgns_conv_scatter",
-                 "sgns_exact_apply"):
+                 "sgns_shared_grads", "sgns_conv_scatter"):
         check(trainer[name] > 0, f"{name} was not launched by the conv "
               f"trainer: {trainer}")
-    check(trainer["sgns_exact_grads"] == 0,
-          f"the exact step ran in the conv trainer: {trainer}")
-    check(per_block <= 8, f"{per_block:.2f} launches a block: {trainer}")
+    check(trainer["sgns_exact_grads"] == 0
+          and trainer["sgns_exact_apply"] == 0,
+          f"the exact step's kernels ran in the conv trainer: {trainer}")
+    check(per_block <= 3.01, f"{per_block:.4f} calls a block: {trainer}")
     for sub in ("path/part-00000", "vec/part-00000", "bin/model.npz"):
         check(os.path.exists(os.path.join(out, sub)), f"missing /{sub}")
     check(not any(report["invariants"].values()),
@@ -565,7 +582,7 @@ def phase_main(torch, walk_kernel, keys_kernel, smi, tmp) -> dict:
           f"{report['train_seconds'] / blocks * 1e3:.4f} ms a block over "
           f"{blocks} blocks; CLI wall {wall:.1f} s; launches "
           f"walk={walk_kernel.launches} trial_keys={keys_kernel.launches} "
-          f"{trainer} = {per_block:.4f} kernel calls a block (<= 8; "
+          f"{trainer} = {per_block:.4f} kernel calls a block (<= 3.01; "
           f"sgns_shared_grads is two kernels); invariants "
           f"{report['invariants']} [{smi}]")
     return {"walk": walk_kernel.launches,
@@ -1338,18 +1355,22 @@ def phase_draws_check(torch, smi) -> dict:
 
 
 def conv_block(torch, V, B, T, window, kB, D, seed, tokens):
-    """One conv block: Zipf tokens (rows collide), one token alone ("hub"),
-    or Zipf walks that end early ("padded": ragged ends, one walk all
-    padding, a gap inside a walk); the trainer's window and negative draws
-    (the block's unigram table); random tables."""
+    """One conv block: Zipf tokens (rows collide), one token alone ("hub";
+    "hub negatives": every negative that token too), one token at every
+    other position between Zipf tokens ("every other"), or Zipf walks that
+    end early ("padded": ragged ends, one walk all padding, a gap inside a
+    walk); the trainer's window and negative draws (the block's unigram
+    table); random tables."""
     from stellar_rw_tpu_torch.ops import prng
     from stellar_rw_tpu_torch.ops import trainer_draws as td
     from stellar_rw_tpu_torch.ops.alias import build_alias
 
     rng = np.random.default_rng(seed)
-    u = (np.zeros((B, T)) if tokens == "hub"
+    u = (np.zeros((B, T)) if tokens.startswith("hub")
          else rng.random((B, T)) ** (1 / 0.3))
     block = np.minimum((V * u).astype(np.int32), V - 1)
+    if tokens == "every other":
+        block[:, ::2] = 0
     block[-1, T - 7:] = -1
     if tokens == "padded":
         ends = rng.integers(1, T + 1, B)
@@ -1363,6 +1384,8 @@ def conv_block(torch, V, B, T, window, kB, D, seed, tokens):
         key, 0, 1, B, T, window, (kB,),
         torch.as_tensor(keep, dtype=torch.float32).cuda(),
         torch.as_tensor(alias, dtype=torch.int32).cuda())
+    if tokens == "hub negatives":
+        negs[0].fill_(int(block[0, 0]))
     w = lambda: torch.as_tensor((rng.standard_normal((V, D)) * 0.3)
                                 .astype(np.float32)).cuda()
     return w(), w(), torch.as_tensor(block).cuda(), cwin[0], negs[0]
@@ -1371,14 +1394,15 @@ def conv_block(torch, V, B, T, window, kB, D, seed, tokens):
 def phase_conv_check(torch, smi) -> tuple[dict, dict]:
     """Phase 14: the conv step's kernels against the plain step in float32
     and in float64 (CONV_SHAPES), two steps on one workspace against two
-    plain steps, and each kernel's time at the main shape."""
+    plain steps, each kernel's time at the main shape (the accumulate kernel
+    by tile), and the grouping of a corpus of the main path's size."""
     from stellar_rw_tpu_torch.ops import sgns_conv as sc
-    from stellar_rw_tpu_torch.ops.sgns import sgns_shared_grads
-    from stellar_rw_tpu_torch.ops.sgns_exact import launch_apply
 
     lr = 0.025
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     err = k64_err = f32_err = 0.0
     loose = []   # (shape, table, error) where the plain f32 step is off
+    plans = {}   # block shape -> (tile, tiles, cols, slices)
     for i, (V, B, T, win, kB, D, tokens) in enumerate(CONV_SHAPES):
         w_in, w_out, block, cwin, negs = conv_block(torch, V, B, T, win, kB,
                                                     D, i, tokens)
@@ -1387,27 +1411,31 @@ def phase_conv_check(torch, smi) -> tuple[dict, dict]:
         sc.sgns_conv_step_ref(a_in, a_out, block, cwin, negs, lr, nw, win)
         p_in, p_out = w_in.clone(), w_out.clone()
         sc.sgns_conv_step_ref(p_in, p_out, block, cwin, negs, lr, nw, win)
+        plan = sc.launch_plan(B, T, D, win, sms)
+        plans[str(CONV_SHAPES[i])] = [plan.tile, plan.tiles, plan.cols,
+                                      plan.slices]
         b_in, b_out = w_in.clone(), w_out.clone()
         sc.sgns_conv_step(b_in, b_out, block, cwin, negs, lr, nw, win)
         torch.cuda.synchronize()
+        at = str(CONV_SHAPES[i])
         for table, got, want, plain, old in (
                 ("w_in", b_in, a_in, p_in, w_in),
                 ("w_out", b_out, a_out, p_out, w_out)):
             k_err = float((got.double() - want).abs().max())
             p_err = float((plain.double() - want).abs().max())
             check(torch.allclose(got.double(), want, rtol=1e-5, atol=1e-6),
-                  f"the conv step differs from the float64 step at "
-                  f"{CONV_SHAPES[i]} ({table}): max abs err {k_err:.3g}")
+                  f"the conv step differs from the float64 step at {at} "
+                  f"({table}): max abs err {k_err:.3g}")
             check(k_err <= p_err, f"the conv step is {k_err:.3g} off the "
-                  f"float64 step at {CONV_SHAPES[i]} ({table}), the plain "
-                  f"f32 step {p_err:.3g}")
+                  f"float64 step at {at} ({table}), the plain f32 step "
+                  f"{p_err:.3g}")
             # the plain f32 step is the reference at that tolerance where it
             # is itself within it of the float64 step: on one token alone
             # its atomics add 2,624 equal per-position shares into one row
             if torch.allclose(plain.double(), want, rtol=1e-5, atol=1e-6):
                 check(torch.allclose(got, plain, rtol=1e-5, atol=1e-6),
                       f"the conv step differs from the plain f32 step at "
-                      f"{CONV_SHAPES[i]} ({table}): max abs err "
+                      f"{at} ({table}): max abs err "
                       f"{float((got - plain).abs().max()):.3g}")
                 err = max(err, float((got - plain).abs().max()))
             else:
@@ -1415,35 +1443,37 @@ def phase_conv_check(torch, smi) -> tuple[dict, dict]:
             check(bool((got != old).any()), "the step moved nothing")
             k64_err = max(k64_err, k_err)
             f32_err = max(f32_err, p_err)
-    # the main shape: two steps on one workspace, then each kernel timed
+    # the main shape: two steps on one workspace with the corpus grouping
+    # the trainer makes, then each kernel timed
     V, B, T, win, kB, D, _ = CONV_SHAPES[0]
     nw = 5 / kB
     w_in, w_out, block, cwin, negs = conv_block(torch, V, B, T, win, kB, D,
                                                 0, "zipf")
     ws = sc.ConvWorkspace(w_in, w_out, B, T, win, kB)
+    g = sc.group_blocks(block[None])
+    groups = (g.order[0], g.units[0])
     p_in, p_out = w_in.clone(), w_out.clone()
     b_in, b_out = w_in.clone(), w_out.clone()
     for _ in range(2):
         sc.sgns_conv_step_ref(p_in, p_out, block, cwin, negs, lr, nw, win)
-        sc.sgns_conv_step(b_in, b_out, block, cwin, negs, lr, nw, win, ws)
+        sc.sgns_conv_step(b_in, b_out, block, cwin, negs, lr, nw, win, ws,
+                          groups)
     torch.cuda.synchronize()
     check(torch.allclose(b_in, p_in, rtol=1e-5, atol=1e-6)
           and torch.allclose(b_out, p_out, rtol=1e-5, atol=1e-6),
           "two conv steps on one workspace differ from two plain steps")
-    check(int((ws.slots.map[0] >= 0).sum() + (ws.slots.map[1] >= 0).sum())
-          == 0, "the workspace's row-to-slot maps were not emptied")
-    hold = {}
     acc = lambda: sc.launch_accumulate(ws, b_in, b_out, block, cwin, negs,
                                        win, nw)
-    k6 = lambda: hold.update(d=sgns_shared_grads(ws.ein, ws.acc_in, ws.wn,
-                                                 ws.ones, ws.mask))
-    scat = lambda: sc.launch_scatter(ws, b_out, block, hold["d"][0],
-                                     hold["d"][2], negs, nw, lr)
-    app = lambda: launch_apply(ws.slots, b_in, b_out, lr)
+    k6 = lambda: sc.launch_negative_half(ws)
+    scat = lambda: sc.launch_scatter(ws, b_in, b_out, block, *groups, negs,
+                                     nw, lr)
     iters = 20
-    a_ms, k_ms, s_ms, p_ms = cuda_ms_split((acc, k6, scat, app), iters)
+    a_ms, k_ms, s_ms = cuda_ms_split((acc, k6, scat), iters)
+    back = {"accumulate": cuda_ms(acc, iters),
+            "sgns_shared_grads": cuda_ms(k6, iters),
+            "scatter": cuda_ms(scat, iters)}
     step = lambda: sc.sgns_conv_step(b_in, b_out, block, cwin, negs, lr, nw,
-                                     win, ws)
+                                     win, ws, groups)
     plain = lambda: sc.sgns_conv_step_ref(p_in, p_out, block, cwin, negs,
                                           lr, nw, win)
     runs = [cuda_ms(f, 5) for f in (plain, step, step, plain)]
@@ -1453,6 +1483,15 @@ def phase_conv_check(torch, smi) -> tuple[dict, dict]:
         wt = sc.ConvWorkspace(w_in, w_out, B, T, win, kB, tiles=(t,))
         by_tile[t] = cuda_ms(lambda: sc.launch_accumulate(
             wt, w_in, w_out, block, cwin, negs, win, nw), 20)
+    # the grouping, once a run: a corpus of the main path's blocks
+    n_blocks = 3125
+    rng = np.random.default_rng(1)
+    corpus = torch.as_tensor(np.minimum(
+        (V * rng.random((n_blocks, B, T)) ** (1 / 0.3)).astype(np.int32),
+        V - 1)).cuda()
+    group_ms = [cuda_ms_once(lambda: sc.group_blocks(corpus))[1]
+                for _ in range(2)]
+    del corpus
     # what this block needs: its valid pairs, its distinct rows
     N = B * T
     P = int(ws.cnt[0].sum())
@@ -1464,17 +1503,17 @@ def phase_conv_check(torch, smi) -> tuple[dict, dict]:
     U = int(torch.unique(tok).numel())
     row = D * 4
     # accumulate: the block's rows of both tables and the negatives' rows
-    # read, ein / acc_in / acc_out / mask / counts / wn written; a dot of 2D
-    # flops a valid pair, a multiply-add an element on each side
+    # read once (the least the function needs; the kernel reads a halo), ein /
+    # acc_in / acc_out / mask / counts / wn written; a dot of 2D flops a
+    # valid pair, a multiply-add an element on each side
     acc_b = bound(tensor_bytes(block, cwin, negs) + 2 * U * row
                   + kB * row * 2 + 3 * N * row + 3 * N * 4,
                   P * 6 * D, F32_FLOPS)
-    # scatter: d_in, acc_out and the counts read, the slots written, the
+    # scatter-update: d_in, acc_out, the counts, the grouping and the block
+    # read; the touched rows of both tables read and written; the
     # negatives' rows read, added and written
-    scat_b = bound(2 * N * row + 3 * N * 4 + (U_in + U_out) * row
+    scat_b = bound(2 * N * row + 5 * N * 4 + (U_in + U_out) * row * 2
                    + kB * row * 3, (2 * N + kB) * D, F32_FLOPS)
-    app_b = bound((U_in + U_out) * row * 4, (U_in + U_out) * D * 3,
-                  F32_FLOPS)
     plan = ws.plan
     print(f"phase 14 the conv step: within rtol 1e-5 atol 1e-6 of the "
           f"float64 step and no farther from it than the plain f32 step at "
@@ -1482,28 +1521,33 @@ def phase_conv_check(torch, smi) -> tuple[dict, dict]:
           f"the float64 step {k64_err:.3g}, the plain f32 step's "
           f"{f32_err:.3g}; within rtol 1e-5 atol 1e-6 of the plain f32 step "
           f"(max abs err {err:.3g}) wherever that step is within it of the "
-          f"float64 step, which it is not at {loose}; two steps on one "
-          f"workspace held, its maps "
-          f"emptied; at the main shape ({P} valid pairs, {U} distinct rows, "
-          f"{U_in} + {U_out} touched; plan {plan._asdict()}) accumulate "
-          f"{a_ms:.4f} ms, sgns_shared_grads {k_ms:.4f} ms, scatter "
-          f"{s_ms:.4f} ms, apply {p_ms:.4f} ms (CUDA events around each "
-          f"launch, mean of {iters}); accumulate by tile {by_tile} (mean of "
-          f"20 back to back); the step through its wrapper "
-          f"{(runs[1] + runs[2]) / 2:.4f} ms, the plain step "
+          f"float64 step, which it is not at {loose}; plans (tile, tiles, "
+          f"cols, slices) {plans}; two "
+          f"steps on one workspace held; at the main shape "
+          f"({P} valid pairs, {U} distinct rows, {U_in} + {U_out} touched; "
+          f"plan {plan._asdict()}) accumulate {a_ms:.4f} ms, "
+          f"sgns_shared_grads {k_ms:.4f} ms, scatter-update {s_ms:.4f} ms "
+          f"(CUDA events around each launch, mean of {iters}); back to back "
+          f"{back} (mean of {iters}); accumulate by tile {by_tile} (mean "
+          f"of 20 back to back); the step through its "
+          f"wrapper {(runs[1] + runs[2]) / 2:.4f} ms, the plain step "
           f"{(runs[0] + runs[3]) / 2:.3f} ms (mean of 2x5); bounds "
           f"{acc_b['bound_ms']:.5f} ms by {acc_b['bound_by']} / "
-          f"{scat_b['bound_ms']:.5f} ms by {scat_b['bound_by']} / "
-          f"{app_b['bound_ms']:.5f} ms by {app_b['bound_by']} [{smi}]")
+          f"{scat_b['bound_ms']:.5f} ms by {scat_b['bound_by']}; the "
+          f"grouping of {n_blocks} blocks {group_ms[0]:.3f} ms once a run "
+          f"(again: {group_ms[1]:.3f} ms) "
+          f"[{smi}]")
     common = {"max_abs_err": err, "max_abs_err_f64": k64_err,
               "plain_f32_off_f64": f32_err,
               "plain_ms": (runs[0] + runs[3]) / 2, "library_ms": None,
               "step_ms": (runs[1] + runs[2]) / 2,
-              "sgns_shared_grads_ms": k_ms, "apply_ms": p_ms,
-              "apply_bound_ms": app_b["bound_ms"], "valid_pairs": P,
-              "accumulate_ms_by_tile": by_tile}
-    return ({"ms": a_ms, **acc_b, **common},
-            {"ms": s_ms, **scat_b, **common})
+              "sgns_shared_grads_ms": k_ms, "valid_pairs": P}
+    return ({"ms": a_ms, "ms_back_to_back": back["accumulate"], **acc_b,
+             **common, "accumulate_ms_by_tile": by_tile,
+             "plan": plan._asdict()},
+            {"ms": s_ms, "ms_back_to_back": back["scatter"], **scat_b,
+             **common, "includes": "the update (no sgns_exact_apply)",
+             "grouping_ms_once_a_run": group_ms[0]})
 
 
 def main() -> int:

@@ -14,9 +14,11 @@ two update forms, as in the JAX package:
     ops/sgns_exact.py::sgns_exact_step, the two kernels of
     csrc/sgns_exact.cu;
   * block-shared negatives in the dense shifted-window form
-    (shared_negatives = kB > 0): ops/sgns_conv.py::sgns_conv_step, whose
-    positive half and scatter-mean are csrc/sgns_conv.cu and whose negative
-    half is sgns_shared_grads (csrc/sgns_shared.cu).
+    (shared_negatives = kB > 0): ops/sgns_conv.py::sgns_conv_step, three
+    calls a block: its positive half and its scatter-mean with the update
+    are csrc/sgns_conv.cu, its negative half is sgns_shared_grads
+    (csrc/sgns_shared.cu); the corpus blocks' positions are grouped by token
+    once a run (ops/sgns_conv.py::group_blocks) for the scatter.
 On the CPU (device="cpu") the same steps run their plain versions:
 trainer_draws_ref, `_sgns_apply` over the block's pairs and
 `_sgns_apply_shared_conv`.
@@ -39,7 +41,7 @@ from ..ops.alias import build_alias
 # _sgns_apply, _sgns_apply_shared_conv, _shift and _draw_negatives stay
 # importable here, the trainer's names for them
 from ..ops.sgns_conv import (ConvWorkspace, _sgns_apply_shared_conv,  # noqa: F401
-                             _shift, sgns_conv_step)
+                             _shift, group_blocks, sgns_conv_step)
 from ..ops.sgns_exact import (_pairs_from_valid, _sgns_apply,  # noqa: F401
                               _valid_from_cwin, Workspace, sgns_exact_step)
 from ..ops.trainer_draws import _draw_negatives, trainer_draws  # noqa: F401
@@ -106,10 +108,11 @@ def _block_lr(i: int, n_blocks: int, lr_start: np.float32,
 
 def _train_epoch(w_in, w_out, corpus, neg_keep, neg_alias, key, lr_start,
                  lr_end, window: int, negatives: int,
-                 shared_negatives: int = 0):
+                 shared_negatives: int = 0, groups=None):
     """One epoch over corpus [n_blocks, B, T] (-1 padded), block by block.
     Each block's random draws are made a chunk of blocks at a time (one
-    kernel launch on the card)."""
+    kernel launch on the card). groups: group_blocks(corpus) for the conv
+    step on the card (made here if none is given)."""
     n_blocks, B, T = corpus.shape
     per_block = (shared_negatives if shared_negatives
                  else B * T * 2 * window * negatives) + B * T
@@ -122,6 +125,8 @@ def _train_epoch(w_in, w_out, corpus, neg_keep, neg_alias, key, lr_start,
         ws = (ConvWorkspace(w_in, w_out, B, T, window, shared_negatives)
               if shared_negatives
               else Workspace(w_in, w_out, B * T, window, negatives))
+        if shared_negatives and groups is None:
+            groups = group_blocks(corpus)
     for c0 in range(0, n_blocks, chunk):
         n = min(chunk, n_blocks - c0)
         cwin, negs = trainer_draws(key, c0, n, B, T, window, nshape,
@@ -131,7 +136,9 @@ def _train_epoch(w_in, w_out, corpus, neg_keep, neg_alias, key, lr_start,
             lr = _block_lr(i, n_blocks, lr_start, lr_end)
             if shared_negatives:
                 sgns_conv_step(w_in, w_out, corpus[i], cwin[j], negs[j], lr,
-                               negatives / shared_negatives, window, ws)
+                               negatives / shared_negatives, window, ws,
+                               None if groups is None
+                               else (groups.order[i], groups.units[i]))
             else:
                 sgns_exact_step(w_in, w_out, corpus[i], cwin[j], negs[j], lr,
                                 window, ws)
@@ -184,6 +191,10 @@ def train_skipgram(
     padded[:N] = corpus
     blocks = padded.reshape(n_blocks, B, T)
 
+    # the conv step's token groups: one sort of the blocks a run, the same
+    # blocks for every epoch and a resumed start_epoch
+    groups = (group_blocks(blocks)
+              if cfg.shared_negatives and device.type == "cuda" else None)
     key = prng.prng_key(cfg.seed, device)
     if init is not None:
         w_in, w_out = params_from_numpy(init[0], init[1], device)
@@ -197,7 +208,7 @@ def train_skipgram(
         _train_epoch(w_in, w_out, blocks, neg_keep, neg_alias,
                      prng.fold_in(key, ep), np.float32(lr_s),
                      np.float32(lr_e), cfg.window, cfg.negatives,
-                     shared_negatives=cfg.shared_negatives)
+                     shared_negatives=cfg.shared_negatives, groups=groups)
         if on_epoch is not None:
             on_epoch(ep, w_in.cpu().numpy(), w_out.cpu().numpy())
     return w_in.cpu().numpy(), w_out.cpu().numpy()

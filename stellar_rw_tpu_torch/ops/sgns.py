@@ -136,7 +136,17 @@ def sgns_shared_grads(vi: torch.Tensor, vo: torch.Tensor, wn: torch.Tensor,
     d_wn = torch.empty_like(wn)
     part = torch.empty(plan.part_floats, dtype=torch.float32,
                        device=vi.device)
-    SGNS_KERNEL.launch(ptr(vi), ptr(vo), ptr(wn), ptr(g_pos), ptr(neg_mask),
-                       ptr(d_vi), ptr(d_vo), ptr(d_wn), ptr(part), P, D, kB,
-                       plan.blocks, stream(vi.device))
+    launch_shared(plan, vi, vo, wn, g_pos, neg_mask, d_vi, d_vo, d_wn, part)
     return d_vi, d_vo, d_wn
+
+
+def launch_shared(plan: LaunchPlan, vi, vo, wn, g_pos, neg_mask, d_vi, d_vo,
+                  d_wn, part) -> None:
+    """The kernel on checked tensors under `plan` (launch_plan of these
+    shapes), into the given outputs and partials' scratch (part_floats
+    floats): a caller that keeps them, as the conv step's workspace does,
+    allocates nothing and asks the device nothing a call."""
+    P, D = vi.shape
+    SGNS_KERNEL.launch(ptr(vi), ptr(vo), ptr(wn), ptr(g_pos), ptr(neg_mask),
+                       ptr(d_vi), ptr(d_vo), ptr(d_wn), ptr(part), P, D,
+                       wn.shape[0], plan.blocks, stream(vi.device))

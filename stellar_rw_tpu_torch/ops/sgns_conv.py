@@ -9,16 +9,20 @@ gradients, all computed from the tables as they were before the step (the
 JAX package's stellar_rw_tpu/models/word2vec.py::_sgns_apply_shared_conv,
 non-band and single replica, which it matches to rounding).
 
-CUDA tensors launch, per step: csrc/sgns_conv.cu's accumulate kernel (the
-positive half for all 2w offsets at once, the counts, ein and the negatives'
-rows), sgns_shared_grads (the negative half, csrc/sgns_shared.cu, with the
-accumulated acc_in as its vo and g_pos = 1, so its d_vi is acc_in + d_neg),
-csrc/sgns_conv.cu's scatter kernel (every position's rows into compact delta
-slots; the negatives' rows updated) and csrc/sgns_exact.cu's apply kernel
-(the touched rows updated, the slots emptied). CPU tensors run
-sgns_conv_step_ref: _valid_from_cwin and _sgns_apply_shared_conv, the
-trainer's own plain step. The kernels sum in another order (atomics,
-sum-then-divide), so they agree with the plain version to rounding.
+CUDA tensors make three calls a step: csrc/sgns_conv.cu's accumulate kernel
+(the positive half for all 2w offsets at once, the counts, ein and the
+negatives' rows; a block of threads a tile of a walk with its halo of rows:
+launch_plan), sgns_shared_grads (the negative half, csrc/sgns_shared.cu,
+with the accumulated acc_in as its vo and g_pos = 1, so its d_vi is acc_in +
+d_neg) and csrc/sgns_conv.cu's scatter kernel (a warp 128 columns of a unit
+of a token group: its rows' sum; a group split over several units summed in
+unit order by the last of them; each group's sum over its count added into
+the tables once; the negatives' rows). The token groups come from
+group_blocks, once a run for the whole corpus (the trainer) or once a call.
+CPU tensors run sgns_conv_step_ref: _valid_from_cwin and
+_sgns_apply_shared_conv, the trainer's own plain step. The kernels sum in
+another order (sum-then-divide, atomics between a row's group and its
+negatives), so they agree with the plain version to rounding.
 """
 
 from __future__ import annotations
@@ -29,19 +33,20 @@ from typing import NamedTuple
 import torch
 
 from ._build import Kernel, ptr, require_cuda, stream
-from .sgns import sgns_shared_grads, sgns_shared_grads_ref
-from .sgns_exact import (APPLY_BLOCKS, TABLE_BUDGET, Workspace, _offsets,
-                         _sms, _valid_from_cwin, launch_apply)
+from . import sgns
+from .sgns import sgns_shared_grads_ref
+from .sgns_exact import APPLY_BLOCKS, TABLE_BUDGET, _offsets, _sms, \
+    _valid_from_cwin
 
 SGNS_CONV_ACCUMULATE = Kernel(
     "sgns_conv.cu", "srw_sgns_conv_accumulate_launch",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p]
     + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_void_p])
-# the scatter kernel of the same source (and the same library)
+# the scatter-update kernel of the same source (and the same library)
 SGNS_CONV_SCATTER = Kernel(
     "sgns_conv.cu", "srw_sgns_conv_scatter_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p]
-    + [ctypes.c_int] + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p]
+    + [ctypes.c_int] + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 THREADS = 256           # kThreads in the source
@@ -50,6 +55,11 @@ TILES = (32, 16, 8)     # positions a block of the accumulate kernel, widest fir
 # dynamic shared memory a block of the accumulate kernel may take: two an
 # SM, as sgns_exact.cu's kernel (a) (the halo tables are the bulk)
 SMEM_BUDGET = TABLE_BUDGET
+# positions of a token group a warp of the scatter kernel sums; longer
+# groups are split into units of HUB, summed in unit order and added once
+HUB = 16
+_PAD = torch.iinfo(torch.int32).max   # padding's sort key: last
+_CONT = 1 << 31                       # a unit that continues its group
 
 
 class LaunchPlan(NamedTuple):
@@ -82,7 +92,8 @@ def launch_plan(B: int, T: int, D: int, window: int,
     walk_10k's blocks tiles of 8 beat 16 and 32, PERF.md), and the widest
     row slice, a multiple of 32 columns, that keeps the block within
     SMEM_BUDGET."""
-    if B < 1 or T < 1 or D < 1 or window < 1 or sm_count < 1:
+    if B < 1 or T < 1 or D < 1 or window < 1 or sm_count < 1 \
+            or B > 65535:
         raise ValueError(f"sgns_conv launch_plan: B={B} T={T} D={D} "
                          f"window={window} sm_count={sm_count}")
     tile = next((t for t in tiles if B * -(-T // t) >= 2 * sm_count),
@@ -97,6 +108,49 @@ def launch_plan(B: int, T: int, D: int, window: int,
     n = -(-T // tile)
     return LaunchPlan(tile, n, n * B, tile + 2 * window, cols,
                       -(-D // cols), smem_bytes(tile, window, cols))
+
+
+class Groups(NamedTuple):
+    """Each block's positions grouped by token (group_blocks): two int32 a
+    corpus position."""
+
+    order: torch.Tensor  # [n, B*T] positions sorted by token, stably; padding last
+    units: torch.Tensor  # [n, B*T] units' first sorted index (| 1 << 31 where
+    #                      a unit continues its group); unused: the valid count
+
+
+def group_blocks(blocks: torch.Tensor, hub: int = HUB,
+                 chunk: int = 4096) -> Groups:
+    """The scatter kernel's view of blocks i32 [n, B, T] (-1 padded): each
+    block's positions stably sorted by token (padding last), and the token
+    groups cut into units of at most `hub` positions. Made once a run (the
+    corpus blocks do not change between epochs), on the blocks' device,
+    `chunk` blocks a sort."""
+    n = blocks.shape[0]
+    flat = blocks.reshape(n, -1)
+    N = flat.shape[1]
+    order = torch.empty((n, N), dtype=torch.int32, device=blocks.device)
+    units = torch.empty_like(order)
+    j = torch.arange(N, device=blocks.device)
+    for c0 in range(0, n, chunk):
+        x = flat[c0:c0 + chunk]
+        m = x.shape[0]
+        key, idx = torch.sort(torch.where(x < 0, _PAD, x), dim=1,
+                              stable=True)
+        order[c0:c0 + m] = idx
+        valid = key != _PAD
+        new = torch.ones_like(valid)
+        new[:, 1:] = key[:, 1:] != key[:, :-1]
+        start = torch.cummax(torch.where(new, j, 0), dim=1).values
+        rel = j - start
+        first = valid & (rel % hub == 0)
+        uid = torch.cumsum(first, dim=1) - 1
+        u = valid.sum(1, keepdim=True).expand(m, N).clone()
+        rows, cols = first.nonzero(as_tuple=True)
+        u[rows, uid[rows, cols]] = torch.where(rel[rows, cols] > 0,
+                                               cols - _CONT, cols)
+        units[c0:c0 + m] = u
+    return Groups(order, units)
 
 
 def _shift(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -168,10 +222,12 @@ class ConvWorkspace:
     """The conv step's scratch for tables w_in, w_out and blocks [B, T]
     with kB negatives: the accumulate kernel's outputs (ein, acc_in,
     acc_out [B*T, D], the negative half's mask and ones, the two counts,
-    each block's valid pairs, wn [kB, D]) and the delta slots (a Workspace
-    whose w_out rows are bounded by the positions: a position touches its
-    own token's rows alone). One serves every step of an epoch. `tiles`
-    are the accumulate kernel's candidate tiles (launch_plan)."""
+    each block's valid pairs, wn [kB, D]), sgns_shared_grads' outputs (d_in
+    = its d_vi, d_vo [B*T, D], d_wn [kB, D]), partials' scratch and plan, so
+    that its call allocates nothing and asks the device nothing, and the
+    scatter kernel's unit sums and counters of split groups. One serves
+    every step of an epoch. `tiles` are the accumulate kernel's candidate
+    tiles (launch_plan)."""
 
     def __init__(self, w_in: torch.Tensor, w_out: torch.Tensor, B: int,
                  T: int, window: int, kB: int, tiles=TILES):
@@ -179,7 +235,6 @@ class ConvWorkspace:
         N = B * T
         self.key = (tuple(w_in.shape), tuple(w_out.shape), B, T, window, kB)
         self.plan = launch_plan(B, T, D, window, _sms(dev), tiles)
-        self.slots = Workspace(w_in, w_out, N, targets=1)
         f = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
         self.ein, self.acc_in, self.acc_out = f(N, D), f(N, D), f(N, D)
         self.mask = f(N)
@@ -188,6 +243,18 @@ class ConvWorkspace:
         self.valid = torch.empty(self.plan.blocks, dtype=torch.int32,
                                  device=dev)
         self.wn = f(kB, D)
+        self.shared_plan = sgns.launch_plan(N, D, kB, _sms(dev))
+        self.d_in, self.d_vo, self.d_wn = f(N, D), f(N, D), f(kB, D)
+        self.part = f(self.shared_plan.part_floats)
+        # a unit's sum a (table, unit) in 128-column chunks, its count; a
+        # counter a (table, group's first unit, chunk), left at zero by each
+        # step
+        chunks = -(-D // 128)
+        self.unit_sums = f(2, N, chunks * 128)
+        self.unit_counts = torch.empty((2, N), dtype=torch.int32,
+                                       device=dev)
+        self.arrive = torch.zeros((2, N, chunks), dtype=torch.int32,
+                                  device=dev)
         self._outs = (ctypes.c_void_p * 7)(*(
             t.data_ptr() for t in (self.ein, self.acc_in, self.acc_out,
                                    self.mask, self.cnt, self.valid,
@@ -201,10 +268,13 @@ class ConvWorkspace:
 
 def sgns_conv_step(w_in, w_out, block, cwin, negs, lr: float,
                    neg_weight: float, window: int,
-                   ws: ConvWorkspace | None = None):
+                   ws: ConvWorkspace | None = None,
+                   groups: tuple[torch.Tensor, torch.Tensor] | None = None):
     """One conv step in place (see the module). CUDA tensors launch the
-    kernels with the scratch `ws` (a new ConvWorkspace if none is given);
-    CPU tensors run sgns_conv_step_ref. Any D."""
+    kernels with the scratch `ws` (a new ConvWorkspace if none is given)
+    and the block's grouping `groups` = (order, units), rows of
+    group_blocks (made here if none is given); CPU tensors run
+    sgns_conv_step_ref. Any D."""
     if w_in.device.type == "cpu":
         return sgns_conv_step_ref(w_in, w_out, block, cwin, negs, lr,
                                   neg_weight, window)
@@ -221,16 +291,22 @@ def sgns_conv_step(w_in, w_out, block, cwin, negs, lr: float,
         if t.dtype != torch.int32:
             raise ValueError(f"sgns_conv_step: {name} must be int32, got "
                              f"{t.dtype}")
-    require_cuda("sgns_conv_step", w_in, w_out, block, cwin, negs)
+    if groups is None:
+        g = group_blocks(block[None])
+        groups = (g.order[0], g.units[0])
+    order, units = groups
+    if order.shape != (B * T,) or units.shape != (B * T,):
+        raise ValueError(f"sgns_conv_step: groups of {tuple(order.shape)} "
+                         f"and {tuple(units.shape)} for a block {(B, T)}")
+    require_cuda("sgns_conv_step", w_in, w_out, block, cwin, negs, order,
+                 units)
     if ws is None:
         ws = ConvWorkspace(w_in, w_out, B, T, window, kB)
     elif not ws.serves(w_in, w_out, B, T, window, kB):
         raise ValueError(f"sgns_conv_step: workspace for {ws.key}")
     launch_accumulate(ws, w_in, w_out, block, cwin, negs, window, neg_weight)
-    d_in, _, d_wn = sgns_shared_grads(ws.ein, ws.acc_in, ws.wn, ws.ones,
-                                      ws.mask)
-    launch_scatter(ws, w_out, block, d_in, d_wn, negs, neg_weight, lr)
-    launch_apply(ws.slots, w_in, w_out, lr)
+    launch_negative_half(ws)
+    launch_scatter(ws, w_in, w_out, block, order, units, negs, neg_weight, lr)
     return w_in, w_out
 
 
@@ -241,20 +317,30 @@ def launch_accumulate(ws: ConvWorkspace, w_in, w_out, block, cwin, negs,
     p = ws.plan
     SGNS_CONV_ACCUMULATE.launch(
         ptr(w_in), ptr(w_out), ptr(block), ptr(cwin), ptr(negs),
-        negs.shape[0], ws._outs, ptr(ws.slots.counts), B, T, w_in.shape[1],
-        window, p.tile, p.tiles, p.cols, p.smem_bytes, float(neg_weight),
+        negs.shape[0], ws._outs, B, T, w_in.shape[1], window, p.tile,
+        p.tiles, p.cols, p.smem_bytes, float(neg_weight),
         stream(w_in.device))
 
 
-def launch_scatter(ws: ConvWorkspace, w_out, block, d_in, d_wn, negs,
-                   neg_weight: float, lr: float) -> None:
-    """The scatter kernel: each position's acc_in + d_neg (d_in) and acc_out
-    into ws's delta slots, the negatives' rows of w_out updated."""
-    N, D = d_in.shape
+def launch_negative_half(ws: ConvWorkspace) -> None:
+    """sgns_shared_grads on ws's accumulations, into ws: d_in = acc_in +
+    d_neg and d_wn."""
+    sgns.launch_shared(ws.shared_plan, ws.ein, ws.acc_in, ws.wn, ws.ones,
+                       ws.mask, ws.d_in, ws.d_vo, ws.d_wn, ws.part)
+
+
+def launch_scatter(ws: ConvWorkspace, w_in, w_out, block, order, units,
+                   negs, neg_weight: float, lr: float) -> None:
+    """The scatter-update kernel: each token group's d_in (acc_in + d_neg)
+    and acc_out summed over its count and added into w_in and w_out, the
+    negatives' rows of w_out updated."""
+    N, D = ws.d_in.shape
     kB = negs.shape[0]
-    blocks = max(1, min(APPLY_BLOCKS, -(-(N + kB) // (THREADS // 32))))
+    items = 2 * N * -(-D // 128) + kB   # a warp 128 columns of a unit, table
+    blocks = max(1, min(APPLY_BLOCKS, -(-items // (THREADS // 32))))
     SGNS_CONV_SCATTER.launch(
-        ptr(block), ptr(d_in), ptr(ws.acc_out), ptr(ws.cnt), ptr(d_wn),
-        ptr(negs), kB, ptr(ws.valid), ws.valid.numel(), float(neg_weight),
-        float(lr), ptr(w_out), ws.slots._ptrs, N, D, blocks,
-        stream(w_out.device))
+        ptr(block), ptr(order), ptr(units), ptr(ws.d_in), ptr(ws.acc_out),
+        ptr(ws.cnt), ptr(ws.d_wn), ptr(negs), kB, ptr(ws.valid),
+        ws.valid.numel(), float(neg_weight), float(lr), ptr(w_in),
+        ptr(w_out), ptr(ws.unit_sums), ptr(ws.unit_counts), ptr(ws.arrive),
+        N, D, blocks, stream(w_out.device))

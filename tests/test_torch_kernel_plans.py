@@ -8,20 +8,21 @@
     walk_corpus_ref's corpus bit for bit;
   * the wrappers' launch plans stay inside one block's shared memory (the
     shared-negative kernel, the exact-negative kernel's table), and the
-    pieces chip_sgns_parts.py,
-    chip_sgns_exact_parts.py and chip_cdf_parts.py change in the kernels
-    are in their sources;
+    pieces chip_sgns_parts.py, chip_sgns_exact_parts.py, chip_cdf_parts.py
+    and chip_conv_parts.py change in the kernels are in their sources;
   * every entry point defaults to the card, raises the named error without
     one, and runs with device="cpu".
 """
 
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 import chip_cdf_parts
+import chip_conv_parts
 import chip_sgns_exact_parts
 import chip_sgns_parts
 from stellar_rw_tpu_torch import cli
@@ -31,7 +32,7 @@ from stellar_rw_tpu_torch.graph import io as tio
 from stellar_rw_tpu_torch.models import node2vec as n2v
 from stellar_rw_tpu_torch.models import word2vec as w2v
 from stellar_rw_tpu_torch.ops import _build, prng, resident_walk, sampling
-from stellar_rw_tpu_torch.ops import cdf_walk, sgns, sgns_exact
+from stellar_rw_tpu_torch.ops import cdf_walk, sgns, sgns_conv, sgns_exact
 from stellar_rw_tpu_torch.ops import walk_step
 from stellar_rw_tpu_torch.utils.config import Params
 from stellar_rw_tpu_torch.walk import engine
@@ -374,6 +375,30 @@ def test_cdf_parts_variant_edits_the_source_once(name):
     for old, new in chip_cdf_parts.VARIANTS[name]:
         assert text.count(old) == 1 and new != old
         text = text.replace(old, new)
+
+
+@pytest.mark.parametrize("name", [
+    n for n, edits in [*chip_conv_parts.VARIANTS.items(),
+                       *chip_conv_parts.CLUSTER_VARIANTS.items()] if edits])
+def test_conv_parts_variant_edits_the_source_once(name):
+    """chip_conv_parts.py patches csrc/sgns_conv.cu, or the cluster design
+    it appends to it (chip_conv_cluster.cu), by text: each piece must occur
+    exactly once in its source, and its replacement must differ; the
+    cluster design's entry points are in its file and not in the kernel
+    source."""
+    source = (_build.CSRC / sgns_conv.SGNS_CONV_ACCUMULATE.source
+              ).read_text()
+    cluster = (Path(chip_conv_parts.__file__).parent
+               / chip_conv_parts.CLUSTER_SOURCE).read_text()
+    edits = chip_conv_parts.VARIANTS.get(name)
+    text = source if edits is not None else cluster
+    for old, new in edits or chip_conv_parts.CLUSTER_VARIANTS[name]:
+        assert text.count(old) == 1 and new != old
+        text = text.replace(old, new)
+    for symbol in ("srw_sgns_conv_accumulate_cluster_launch",
+                   "srw_sgns_conv_max_clusters"):
+        assert f"extern \"C\" int {symbol}(" in cluster
+        assert symbol not in source
 
 
 # --- 4. default devices ----------------------------------------------------
