@@ -23,10 +23,12 @@ events around launches queued behind a long product):
     external uniforms (no threefry, but reads that miss the cache), and the
     time torch takes to transpose a [walk_length + 2, walkers] corpus (a
     checkout whose kernel stores by columns pays it inside its wrapper);
-  * the exact-negative step's two kernels on chip_smoke's phase-11 block
-    at D = 128 and D = 768, each launch timed between CUDA events, after checking the two checkouts'
-    tables agree (rtol 1e-5): other, this, this, other, twice, each turn
-    with a workspace and tables allocated for it;
+  * the exact-negative step's launches on chip_smoke's phase-11 block at
+    D = 128 and D = 768 (one cooperative kernel, or a checkout's gradient
+    and update kernels), each launch timed between CUDA events, after
+    checking the two checkouts' tables agree (rtol 1e-5): other, this,
+    this, other, twice, each turn with a workspace and tables allocated for
+    it;
   * the conv step's kernels on chip_smoke's phase-14 block (B 32, T 82,
     w 10, kB 128, D 128, Zipf), each launch timed between CUDA events,
     after checking the two checkouts' tables agree (rtol 1e-5, atol 1e-6):
@@ -259,8 +261,18 @@ def main(argv: list[str]) -> int:
             "card": smi}))
         del ext
 
-    # the exact-negative step's two kernels at phase 11's block
+    # the exact-negative step's launches at phase 11's block
     from chip_smoke import cuda_ms_split, exact_block
+
+    def exact_launches(se, ws, t_in, t_out, block, cwin, negs, win, lr):
+        """A checkout's step as its launches: one kernel, or a gradient
+        kernel then an update kernel."""
+        if hasattr(se, "launch_step"):
+            return (lambda: se.launch_step(ws, t_in, t_out, block, cwin,
+                                           negs, win, lr),)
+        return (lambda: se.launch_grads(ws, t_in, t_out, block, cwin, negs,
+                                        win),
+                lambda: se.launch_apply(ws, t_in, t_out, lr))
 
     B, T, win, k, lr = 32, 82, 10, 5, 0.025
     for D in (128, 768):
@@ -278,18 +290,21 @@ def main(argv: list[str]) -> int:
                 # a turn's own workspace and tables (moved by the steps)
                 ws = se.Workspace(w_in, w_out, B * T, win, k)
                 t_in, t_out = w_in.clone(), w_out.clone()
-                return (lambda: se.launch_grads(ws, t_in, t_out, block, cwin,
-                                                negs, win),
-                        lambda: se.launch_apply(ws, t_in, t_out, lr))
+                return exact_launches(se, ws, t_in, t_out, block, cwin, negs,
+                                      win, lr)
             steps[name] = turn
         check(all(torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in
                   zip(results["this"], results["other"])),
               f"the two checkouts' exact steps disagree at D={D}")
         runs = [(name, cuda_ms_split(steps[name](), 20))
                 for name in order + order]
-        print(json.dumps({"kernel": "sgns_exact_grads, sgns_exact_apply",
+        print(json.dumps({"kernel": "the exact step's launches (this: "
+                          "sgns_exact_step; a two-kernel checkout: "
+                          "sgns_exact_grads, sgns_exact_apply)",
                           "block": [B, T, win, k, D],
-                          "ms_grads_apply_in_turns": runs, "card": smi}))
+                          "ms_each_launch_in_turns": runs,
+                          "ms_a_step_in_turns": [(n, sum(t)) for n, t in runs],
+                          "card": smi}))
 
     # the conv step's kernels at phase 14's main block: this checkout's
     # three launches against the delta-slot design's four, each between

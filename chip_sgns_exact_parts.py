@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the exact-negative gradient kernel's time goes on one GPU: the
-kernel source with one part changed at a time, and other launch plans, on
-blocks that differ in one input at a time.
+"""Where the exact-negative step's time goes on one GPU: the kernel source
+with one part changed at a time, and other launch plans, on blocks that
+differ in one input at a time.
 
     python3 chip_sgns_exact_parts.py
 
@@ -13,16 +13,19 @@ in float64 (rtol 1e-5, atol 1e-6, as chip_smoke's phase 11 holds the
 kernels) before it is timed; one with a part taken out gives wrong tables
 by design, and only its time is read. Each other launch plan's tables are
 held likewise, and whether they keep the tolerance, with their largest
-error, is printed beside its time.
+error, is printed beside its time; a plan the card refuses as a
+cooperative launch (more blocks than can be resident) is printed as
+refused, with its CUDA error.
 
 Each variant is timed on chip_smoke's phase-11 block (B 32, T 82, w 10, k 5,
 V 10,000, Zipf tokens) at D = 128, 32 and 768, on blocks of uniform tokens
 and of one token alone at D = 128, and on trainer blocks cut from real walk
 corpora at D = 128 (CORPORA: the main path's walk_10k walks and a star
 graph's, whose hub is every other token; the block's draws as the trainer
-makes them from the corpus's unigram table): the gradient kernel alone (CUDA
-events between it and the update kernel, which each step needs to empty the
-scratch; chip_smoke's cuda_ms_split), every variant twice, in turns. A
+makes them from the corpus's unigram table): the step's one launch between
+CUDA events (chip_smoke's cuda_ms_split), each followed by torch ops that
+empty the workspace (not counted: a variant without the update leaves it
+full), every variant twice, in turns. A
 corpus block's line also gives its most frequent row's share of the
 block's center and target row adds. One JSON object a line, the card's name
 and power limit in each, and ptxas' registers of every variant. Needs a
@@ -32,14 +35,34 @@ CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import json
-import os
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-from chip_smoke import (check, cuda_ms_split, exact_block, star_graph,
-                        synth_power_law_graph)
+from chip_smoke import (check, cuda_ms_split, edited, exact_block,
+                        source_kernel, star_graph, synth_power_law_graph,
+                        workspace_empty)
 
+# the slot counts zeroed by the block that finishes last: an arrival
+# counter of the variant's own, left at zero
+ARRIVAL = [
+    ("constexpr int kProbes = 2;",
+     "constexpr int kProbes = 2;\n__device__ int arrived = 0;"),
+    ("  cg::this_grid().sync();\n"
+     "  if (blockIdx.x == 0 && threadIdx.x == 0) {\n"
+     "    s.counts[0] = 0;\n"
+     "    s.counts[1] = 0;\n"
+     "  }",
+     "  __syncthreads();\n"
+     "  if (threadIdx.x == 0) {\n"
+     "    __threadfence();\n"
+     "    if (atomicAdd(&arrived, 1) == static_cast<int>(gridDim.x) - 1) {\n"
+     "      __threadfence();\n"
+     "      s.counts[0] = 0;\n"
+     "      s.counts[1] = 0;\n"
+     "      arrived = 0;\n"
+     "    }\n"
+     "  }")]
 # name -> [(text in the source, its replacement), ...]
 VARIANTS = {
     "base": [],
@@ -61,10 +84,30 @@ VARIANTS = {
     "taken out: the target adds": [
         ("            add_row<NV>(tab, dpad, s, 1, dst[g], c0, D, lane, v);",
          "")],
+    "the gradient phase alone (no update; the counts' barrier kept)": [
+        ("  cg::this_grid().sync();\n  apply_slots(w_in, w_out, s, D, lr);",
+         "")],
+    "__ldg kept (the tables through the read-only path)": [
+        ("    v[m] = c < D ? row[c] : 0.f;",
+         "    v[m] = c < D ? __ldg(row + c) : 0.f;")],
+    "tables as __restrict__ pointers (writable)": [
+        ("    sgns_exact_step(float* w_in, float* w_out, const int* "
+         "__restrict__ block,",
+         "    sgns_exact_step(float* __restrict__ w_in, "
+         "float* __restrict__ w_out, const int* __restrict__ block,")],
+    "counts zeroed by the last block to finish (an arrival counter), not "
+    "after a second grid barrier": ARRIVAL,
+    "the arrival counter without its fences (unordered: time only)": [
+        (old, new.replace("      __threadfence();\n", "")
+         .replace("    __threadfence();\n", ""))
+        for old, new in ARRIVAL],
 }
 # variants whose tables are wrong by design (their time alone is read)
 WRONG_BY_DESIGN = {"taken out: the table's atomics (racy plain adds)",
-                   "taken out: the flush", "taken out: the target adds"}
+                   "taken out: the flush", "taken out: the target adds",
+                   "the gradient phase alone (no update; the counts' barrier kept)",
+                   "the arrival counter without its fences (unordered: time "
+                   "only)"}
 # walk corpora at the main path's walk (walkLength 80, p = q = 0.25):
 # name -> (graph maker, numWalks, trainer blocks cut from it)
 CORPORA = {
@@ -138,32 +181,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     say = lambda **kw: print(json.dumps({**kw, "card": smi}), flush=True)
-    source = (build.CSRC / se.SGNS_EXACT_GRADS.source).read_text()
-    root = os.path.dirname(os.path.realpath(__file__))
-    out_dir = os.path.join(root, "build", "sgns_exact_parts")
-    os.makedirs(out_dir, exist_ok=True)
-    for header in build.CSRC.glob("*.cuh"):
-        with open(os.path.join(out_dir, header.name), "w") as f:
-            f.write(header.read_text())
-
-    class Variant(build.Kernel):
-        def __init__(self, index: int, edits):
-            super().__init__(f"variant_{index}.cu",
-                             se.SGNS_EXACT_GRADS.symbol,
-                             se.SGNS_EXACT_GRADS.argtypes)
-            text = source
-            for old, new in edits:
-                if text.count(old) != 1:
-                    raise RuntimeError(f"not once in the source: {old!r}")
-                text = text.replace(old, new)
-            self._path = build.Path(out_dir) / self.source
-            self._path.write_text(text)
-
-        @property
-        def path(self):
-            return self._path
-
-    kernels = {name: Variant(i, edits)
+    source = (build.CSRC / se.SGNS_EXACT_STEP.source).read_text()
+    kernels = {name: source_kernel(f"variant_{i}", edited(source, edits),
+                                   se.SGNS_EXACT_STEP.symbol,
+                                   se.SGNS_EXACT_STEP.argtypes,
+                                   "sgns_exact_parts")
                for i, (name, edits) in enumerate(VARIANTS.items())}
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(lambda k: k.fn(), kernels.values()))
@@ -172,7 +194,7 @@ def main() -> int:
             line.split(":", 1)[-1].strip()
             for line in k.build_log.splitlines()
             if "registers" in line or "spill" in line])
-    normal = se.SGNS_EXACT_GRADS
+    normal = se.SGNS_EXACT_STEP
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     for tokens, D in CASES:
@@ -186,23 +208,27 @@ def main() -> int:
         ws = se.Workspace(w_in, w_out, B * T, WIN, K)
         case = dict(tokens=tokens, D=D, most_frequent_row_share=shares)
 
+        def reset():
+            for t in (*ws.d, *ws.cnt, ws.counts):
+                t.zero_()
+            for m in ws.map:
+                m.fill_(-1)
+
         def step_fns(kernel, plan=None):
             a_in, a_out = w_in.clone(), w_out.clone()
 
-            def grads():
-                se.SGNS_EXACT_GRADS = kernel
+            def step():
+                se.SGNS_EXACT_STEP = kernel
                 try:
-                    se.launch_grads(ws, a_in, a_out, block, cwin, negs, WIN,
-                                    plan=plan)
+                    se.launch_step(ws, a_in, a_out, block, cwin, negs, WIN,
+                                   LR, plan=plan)
                 finally:
-                    se.SGNS_EXACT_GRADS = normal
-            return grads, lambda: se.launch_apply(ws, a_in, a_out, LR), \
-                (a_in, a_out)
+                    se.SGNS_EXACT_STEP = normal
+            return step, reset, (a_in, a_out)
 
         def one_step(kernel, plan=None):
-            grads, apply, tables = step_fns(kernel, plan)
-            grads()
-            apply()
+            step, _, tables = step_fns(kernel, plan)
+            step()
             torch.cuda.synchronize()
             return tables
 
@@ -227,14 +253,15 @@ def main() -> int:
             errors[name] = [held(got), err(got)]
             check(errors[name][0], f"variant {name!r} misses the float64 "
                   f"step ({tokens}, D {D})")
+            check(workspace_empty(torch, ws), f"variant {name!r} left the "
+                  f"workspace dirty ({tokens}, D {D})")
         names = list(kernels)
         turns = {name: [] for name in names}
         for name in names + names[::-1]:
-            grads, apply, _ = step_fns(kernels[name])
-            g_ms, a_ms = cuda_ms_split((grads, apply), 20)
-            turns[name].append([g_ms, a_ms])
-        say(**case, held_and_max_abs_err=errors,
-            grads_and_apply_ms_in_turns=turns)
+            step, empty, _ = step_fns(kernels[name])
+            turns[name].append(cuda_ms_split((step, empty), 20)[0])
+            empty()
+        say(**case, held_and_max_abs_err=errors, step_ms_in_turns=turns)
         # other plans: the table's size, none, one block an SM
         base = se.launch_plan(D, B, T, WIN, K, sms)
         table = lambda n: base._replace(slots=n,
@@ -250,14 +277,20 @@ def main() -> int:
                 "one block an SM": base._replace(
                     blocks=-(-B * T // one_sm), positions=one_sm)}.items():
             # a plan may miss the tolerance where a hub row's adds pile up
-            # in one float sum: recorded, not raised
-            got = one_step(kernels["base"], plan)
+            # in one float sum: recorded, not raised; a plan the card
+            # refuses as a cooperative launch, likewise
+            try:
+                got = one_step(kernels["base"], plan)
+            except build.KernelLaunchError as e:
+                check(label != "launch_plan", f"launch_plan refused: {e}")
+                plans[label] = [plan._asdict(), f"refused: {e}"]
+                continue
             check(held(got) or label != "launch_plan",
                   f"launch_plan misses the float64 step ({tokens}, D {D})")
-            grads, apply, _ = step_fns(kernels["base"], plan)
+            step, empty, _ = step_fns(kernels["base"], plan)
             plans[label] = [plan._asdict(), held(got), err(got),
-                            cuda_ms_split((grads, apply), 20)]
-        say(**case, grads_and_apply_ms_by_plan=plans)
+                            cuda_ms_split((step, empty), 20)[0]]
+        say(**case, step_ms_by_plan=plans)
     return 0
 
 

@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process for
-each of the seven sources, in parallel; walk.cu, sgns_exact.cu and
-sgns_conv.cu hold two kernels each), holds each against its plain PyTorch
+each of the seven sources, in parallel; walk.cu and sgns_conv.cu hold two
+kernels each; beside them the threefry probe, chip_draws_probe.cu appended
+to a copy of trainer_draws.cu), holds each against its plain PyTorch
 version on the card, and drives the port's paths once each through the
 entry points a user calls:
 
@@ -33,17 +34,21 @@ entry points a user calls:
               `--cmd randomwalk --p 0.0625 --q 4` through the CLI on phase
               4's graph (a bias ratio of 64: the chunked exact CDF), with
               walk-round checkpoints cut and resumed;
-  phases 11-12 the exact-negative SGNS step: its two kernels against the
+  phases 11-12 the exact-negative SGNS step, one cooperative kernel
+              launch (gradients, a grid barrier, the update): against the
               plain step in float64 on blocks of the main shape (D = 128,
-              100 and 768; Zipf, uniform and one-token blocks), with the
-              tables' hit rate and flushes, then `node2vec` through the CLI
-              with the default trainer (no --sharedNegatives), the karate
-              gate with exact negatives, and a `--dim 768` karate run
-              through the CLI held to the same gate;
+              100 and 768; Zipf, uniform and one-token blocks), its
+              workspace empty after every step, with the tables' hit rate
+              and flushes, then `node2vec` through the CLI with the default
+              trainer (no --sharedNegatives; one launch a block and one a
+              chunk of draws), the karate gate with exact negatives, and a
+              `--dim 768` karate run through the CLI held to the same gate;
   phase 13    the trainer's draws kernel bit for bit against
               trainer_draws_ref: exact and shared shapes, ragged chunks,
-              window 1 and 10, a one-row vocabulary, more blocks than a
-              grid's y extent; timed on the main path's chunks;
+              windows 1, 7, 10 and 1,000, a one-row vocabulary, 70,000
+              thread blocks in one grid dimension; timed on the main
+              path's chunks beside the card's threefry rate with no memory
+              traffic (the probe);
   phase 14    the conv step's kernels (the accumulate kernel's halo
               tiles, sgns_shared_grads, the scatter-update by token
               groups) against the plain step in float32 (rtol 1e-5 atol
@@ -64,6 +69,7 @@ against its plain version, its times and its bound.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -123,13 +129,27 @@ EMBED_FLAGS = ["--cmd", "embedding", "--dim", "128", "--window", "10",
 SHARED768_FLAGS = DIM768_FLAGS + ["--sharedNegatives", "128"]
 # phase 13: (B, T, window, k or None, kB or None, V, c0, n). The main
 # path's exact chunk and a ragged conv chunk; window 1 at the epoch's end;
-# one-row vocabularies; more blocks than a grid's y extent (65,535)
+# window 7 (a span that is not a power of two, as 10) in both trainers'
+# shapes and 1,000 (a multiplier of 536); one-row vocabularies; 70,000
+# thread blocks, more than a grid's y extent (65,535) holds
 DRAW_CASES = [(32, 82, 10, 5, None, 10_000, 0, 15),
               (32, 82, 10, None, 128, 10_000, 1524, 77),
               (32, 82, 1, 5, None, 10_000, 3120, 5),
+              (32, 82, 7, 5, None, 10_000, 40, 4),
+              (32, 82, 7, None, 128, 10_000, 0, 300),
+              (2, 11, 1000, None, 16, 50, 5, 3),
               (4, 23, 10, 5, None, 1, 0, 3),
               (6, 23, 5, None, 64, 1, 7, 2),
               (1, 5, 2, None, 3, 50, 11, 70_000)]
+# the threefry probe (chip_draws_probe.cu): rounds of its chains a thread,
+# chains a thread (kChains there), waves of blocks; the draws kernel's
+# blocks of 256 threads an SM holds (32 registers a thread)
+PROBE_SOURCE = "chip_draws_probe.cu"
+PROBE_SYMBOL = "srw_threefry_probe_launch"
+PROBE_ARGTYPES = ([ctypes.c_uint] * 2 + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p] * 2)
+PROBE_ROUNDS, PROBE_CHAINS, PROBE_WAVES = 64, 8, 4
+DRAWS_BLOCKS_PER_SM = 8
 # phase 14: (V, B, T, window, kB, D, tokens). The main shape; D 64 and 768;
 # one token alone, also with every negative that token; walks padded with
 # -1; small ragged blocks, one whose D takes row slices in both kernels;
@@ -282,6 +302,74 @@ def cuda_ms_once(fn):
     t1.record()
     torch.cuda.synchronize()
     return out, t0.elapsed_time(t1)
+
+
+def edited(text: str, edits) -> str:
+    """A kernel source with each (piece, replacement) of `edits` applied; a
+    piece that is not exactly once in the text stops the caller."""
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise RuntimeError(f"not once in the source: {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def source_kernel(name: str, text: str, symbol: str, argtypes,
+                  subdir: str):
+    """A kernel of the port's build machinery (ops/_build.py::Kernel) built
+    from `text`, a kernel source edited or with a chip_*.cu file appended,
+    written to build/<subdir>/<name>.cu beside copies of csrc's headers."""
+    from stellar_rw_tpu_torch.ops import _build as build
+
+    out_dir = build.Path(ROOT) / "build" / subdir
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for header in build.CSRC.glob("*.cuh"):
+        (out_dir / header.name).write_text(header.read_text())
+    path = out_dir / f"{name}.cu"
+    path.write_text(text)
+
+    class Source(build.Kernel):
+        @property
+        def path(self):
+            return path
+    return Source(f"{name}.cu", symbol, argtypes)
+
+
+def with_probe(text: str) -> str:
+    """A draws kernel source with chip_draws_probe.cu appended."""
+    with open(os.path.join(ROOT, PROBE_SOURCE)) as f:
+        return text + "\n" + f.read()
+
+
+def draws_probe():
+    """The threefry probe's entry point, built from csrc/trainer_draws.cu
+    as it stands with chip_draws_probe.cu appended."""
+    from stellar_rw_tpu_torch.ops import _build as build
+    from stellar_rw_tpu_torch.ops.trainer_draws import TRAINER_DRAWS_KERNEL
+
+    text = (build.CSRC / TRAINER_DRAWS_KERNEL.source).read_text()
+    return source_kernel("draws_probe", with_probe(text), PROBE_SYMBOL,
+                         PROBE_ARGTYPES, "draws_probe")
+
+
+def probe_rates(torch, kernel) -> dict:
+    """Threefry blocks a second on this card with no memory traffic, by
+    cuda_ms: threefry.cuh's block as the walk kernels compile it, and the
+    draws kernel's block_fn."""
+    from stellar_rw_tpu_torch.ops._build import ptr, stream
+    from stellar_rw_tpu_torch.ops.trainer_draws import THREADS
+
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    blocks = (PROBE_WAVES * DRAWS_BLOCKS_PER_SM
+              * torch.cuda.get_device_properties(0).multi_processor_count)
+    rates = {}
+    for form, label in ((0, "threefry.cuh"), (1, "block_fn")):
+        ms = cuda_ms(lambda: kernel.launch(
+            0x12345678, 0x9ABCDEF0, form, blocks, PROBE_ROUNDS, ptr(out),
+            stream(out.device)), 5)
+        rates[label] = blocks * THREADS * PROBE_CHAINS * PROBE_ROUNDS / (
+            ms * 1e-3)
+    return rates
 
 
 def phase_env(torch, kernels) -> str:
@@ -515,16 +603,14 @@ def trainer_kernels() -> dict:
     from stellar_rw_tpu_torch.ops.sgns import SGNS_KERNEL
     from stellar_rw_tpu_torch.ops.sgns_conv import (SGNS_CONV_ACCUMULATE,
                                                     SGNS_CONV_SCATTER)
-    from stellar_rw_tpu_torch.ops.sgns_exact import (SGNS_EXACT_APPLY,
-                                                     SGNS_EXACT_GRADS)
+    from stellar_rw_tpu_torch.ops.sgns_exact import SGNS_EXACT_STEP
     from stellar_rw_tpu_torch.ops.trainer_draws import TRAINER_DRAWS_KERNEL
 
     return {"trainer_draws": TRAINER_DRAWS_KERNEL,
             "sgns_conv_accumulate": SGNS_CONV_ACCUMULATE,
             "sgns_shared_grads": SGNS_KERNEL,
             "sgns_conv_scatter": SGNS_CONV_SCATTER,
-            "sgns_exact_grads": SGNS_EXACT_GRADS,
-            "sgns_exact_apply": SGNS_EXACT_APPLY}
+            "sgns_exact_step": SGNS_EXACT_STEP}
 
 
 def trainer_launches(report: dict) -> tuple[dict, int, float]:
@@ -562,9 +648,8 @@ def phase_main(torch, walk_kernel, keys_kernel, smi, tmp) -> dict:
                  "sgns_shared_grads", "sgns_conv_scatter"):
         check(trainer[name] > 0, f"{name} was not launched by the conv "
               f"trainer: {trainer}")
-    check(trainer["sgns_exact_grads"] == 0
-          and trainer["sgns_exact_apply"] == 0,
-          f"the exact step's kernels ran in the conv trainer: {trainer}")
+    check(trainer["sgns_exact_step"] == 0,
+          f"the exact step's kernel ran in the conv trainer: {trainer}")
     check(per_block <= 3.01, f"{per_block:.4f} calls a block: {trainer}")
     for sub in ("path/part-00000", "vec/part-00000", "bin/model.npz"):
         check(os.path.exists(os.path.join(out, sub)), f"missing /{sub}")
@@ -1118,12 +1203,21 @@ def exact_block(torch, V=10_000, B=32, T=82, window=10, k=5, D=128, seed=0,
     return w(), w(), torch.as_tensor(block).cuda(), cwin, negs
 
 
-def phase_exact_check(torch) -> tuple[dict, dict]:
-    """Phase 11: sgns_exact_step's two kernels against the plain step (in
+def workspace_empty(torch, ws) -> bool:
+    """Whether an exact-step Workspace is as a step must leave it: delta
+    slots and their counts 0, every map entry -1, the counts 0."""
+    torch.cuda.synchronize()
+    return (all(not bool(t.any()) for t in (*ws.d, *ws.cnt, ws.counts))
+            and all(bool((m == -1).all()) for m in ws.map))
+
+
+def phase_exact_check(torch) -> dict:
+    """Phase 11: sgns_exact_step's kernel against the plain step (in
     float64) on blocks of the main shape (Zipf tokens at D = 128, ragged
     D = 100, D = 768 above one register slice, one token alone), and on
-    small ragged ones; the kernels' times, the tables' hit rate and flushes
-    at the main shape."""
+    small ragged ones, its workspace empty after every step; the kernel's
+    time against the plain step, the tables' hit rate and flushes at the
+    main shape."""
     from stellar_rw_tpu_torch.ops import sgns_exact as se
 
     lr = 0.025
@@ -1146,8 +1240,10 @@ def phase_exact_check(torch) -> tuple[dict, dict]:
         p_in, p_out = w_in.clone(), w_out.clone()
         se.sgns_exact_step_ref(p_in, p_out, block, cwin, negs, lr, win)
         b_in, b_out = w_in.clone(), w_out.clone()
-        se.sgns_exact_step(b_in, b_out, block, cwin, negs, lr, win)
-        torch.cuda.synchronize()
+        ws = se.Workspace(b_in, b_out, B * T, win, k)
+        se.sgns_exact_step(b_in, b_out, block, cwin, negs, lr, win, ws)
+        check(workspace_empty(torch, ws),
+              f"sgns_exact_step left its workspace dirty at {shapes[i]}")
         for got, want, plain, old in ((b_in, a_in, p_in, w_in),
                                       (b_out, a_out, p_out, w_out)):
             check(torch.allclose(got.double(), want, rtol=1e-5, atol=1e-6),
@@ -1157,24 +1253,25 @@ def phase_exact_check(torch) -> tuple[dict, dict]:
             check(bool((got != old).any()), "the step moved nothing")
             err = max(err, float((got.double() - want).abs().max()))
             f32_err = max(f32_err, float((plain.double() - want).abs().max()))
-    # the main shape: each kernel timed by events around its own launches
+    # the main shape: the kernel timed by events around its own launches
     V, B, T, win, k, D, _ = main
     w_in, w_out, block, cwin, negs = exact_block(torch, V, B, T, win, k, D)
     ws = se.Workspace(w_in, w_out, B * T, win, k)
     plan = se.launch_plan(D, B, T, win, k, torch.cuda.get_device_properties(
         0).multi_processor_count)
-    grads = lambda: se.launch_grads(ws, w_in, w_out, block, cwin, negs, win)
-    apply = lambda: se.launch_apply(ws, w_in, w_out, lr)
+    launch = lambda: se.launch_step(ws, w_in, w_out, block, cwin, negs, win,
+                                    lr)
     step = lambda: se.sgns_exact_step(w_in, w_out, block, cwin, negs, lr, win,
                                       ws)
     plain = lambda: se.sgns_exact_step_ref(w_in, w_out, block, cwin, negs,
                                            lr, win)
     iters = 20
-    g_ms, a_ms = cuda_ms_split((grads, apply), iters)
+    (k_ms,) = cuda_ms_split((launch,), iters)
     runs = [cuda_ms(f, 5) for f in (plain, step, step, plain)]
     stats = torch.zeros(3, dtype=torch.int32, device="cuda")
-    se.launch_grads(ws, w_in, w_out, block, cwin, negs, win, stats=stats)
-    apply()
+    se.launch_step(ws, w_in, w_out, block, cwin, negs, win, lr, stats=stats)
+    check(workspace_empty(torch, ws), "sgns_exact_step left its workspace "
+          "dirty after the timed steps")
     in_table, in_device, flushed = stats.tolist()
     # what this block needs: its valid pairs and the rows they touch
     from stellar_rw_tpu_torch.ops.sgns_exact import (_pairs_from_valid,
@@ -1185,39 +1282,37 @@ def phase_exact_check(torch) -> tuple[dict, dict]:
     rows_in = int(torch.unique(c[v]).numel())
     rows_out = int(torch.unique(torch.cat(
         [x[v], negs.reshape(-1, k)[v].reshape(-1)])).numel())
-    # kernel (a): reads the touched rows of both tables and the block's
-    # draws, writes a delta row for each touched row; 2*D flops a logit, a
-    # center-gradient and a target-gradient row for each of P*(1+k) targets
+    # the step reads the block's draws and the touched rows of both tables
+    # and writes those rows; 2*D flops a logit, a center-gradient and a
+    # target-gradient row for each of P*(1+k) targets, 3 a touched row's
+    # column to update it
     in_bytes = tensor_bytes(block, cwin, negs)
-    grads_b = bound(in_bytes + (rows_in + rows_out) * D * 4 * 2,
-                    2 * P * (1 + k) * D * 3, F32_FLOPS)
-    # kernel (b): each touched row read, its delta read, both written
-    apply_b = bound((rows_in + rows_out) * D * 4 * 4,
-                    (rows_in + rows_out) * D * 3, F32_FLOPS)
+    step_b = bound(in_bytes + (rows_in + rows_out) * D * 4 * 2,
+                   2 * P * (1 + k) * D * 3 + (rows_in + rows_out) * D * 3,
+                   F32_FLOPS)
     plain_ms = (runs[0] + runs[3]) / 2
     print(f"phase 11 sgns_exact_step: within rtol 1e-5 atol 1e-6 of the "
           f"plain step computed in float64 at {shapes} (V, B, T, w, k, D, "
           f"tokens), max abs err {err:.3g} (the plain step in float32: "
-          f"{f32_err:.3g}); at the main shape (B {B}, T {T}, w {win}, k {k}, "
-          f"D {D}, V {V}: {P} valid pairs, {rows_in} + {rows_out} rows "
-          f"touched; plan {plan._asdict()}) grads {g_ms:.4f} ms, apply "
-          f"{a_ms:.4f} ms (CUDA events around each launch, mean of {iters}), "
-          f"both through the wrapper {(runs[1] + runs[2]) / 2:.4f} ms, plain "
-          f"step {plain_ms:.3f} ms (mean of 2x5); row adds into the blocks' "
+          f"{f32_err:.3g}), the workspace empty after every step; at the "
+          f"main shape (B {B}, T {T}, w {win}, k {k}, D {D}, V {V}: {P} "
+          f"valid pairs, {rows_in} + {rows_out} rows touched; plan "
+          f"{plan._asdict()}, one cooperative launch) the kernel {k_ms:.4f} "
+          f"ms (CUDA events around each launch, mean of {iters}), through "
+          f"the wrapper {(runs[1] + runs[2]) / 2:.4f} ms, plain step "
+          f"{plain_ms:.3f} ms (mean of 2x5); row adds into the blocks' "
           f"tables {in_table} of {in_table + in_device} "
           f"({in_table / max(in_table + in_device, 1):.4f}), slots flushed "
           f"{flushed} = {flushed / plan.blocks:.1f} a block; scratch "
-          f"{ws.nbytes:,} B; bounds {grads_b['bound_ms']:.5f} ms by "
-          f"{grads_b['bound_by']} / {apply_b['bound_ms']:.5f} ms by "
-          f"{apply_b['bound_by']}")
-    common = {"max_abs_err": err, "plain_f32_max_abs_err": f32_err,
-              "plain_ms": plain_ms, "library_ms": None,
-              "valid_pairs": P, "rows_touched": rows_in + rows_out,
-              "step_ms": (runs[1] + runs[2]) / 2}
-    return ({"ms": g_ms, **grads_b, **common, "table_adds": in_table,
-             "device_adds": in_device, "flushes_a_block":
-                 flushed / plan.blocks},
-            {"ms": a_ms, **apply_b, **common})
+          f"{ws.nbytes:,} B; bound {step_b['bound_ms']:.5f} ms by "
+          f"{step_b['bound_by']}")
+    return {"ms": k_ms, **step_b, "max_abs_err": err,
+            "plain_f32_max_abs_err": f32_err, "plain_ms": plain_ms,
+            "library_ms": None, "valid_pairs": P,
+            "rows_touched": rows_in + rows_out,
+            "wrapper_ms": (runs[1] + runs[2]) / 2, "table_adds": in_table,
+            "device_adds": in_device,
+            "flushes_a_block": flushed / plan.blocks}
 
 
 def phase_exact_main(torch, smi, tmp, edges) -> dict:
@@ -1239,11 +1334,13 @@ def phase_exact_main(torch, smi, tmp, edges) -> dict:
     torch.cuda.synchronize()
     trainer, blocks, per_block = trainer_launches(report)
     check(rc == 0, f"cli.main returned {rc}")
-    for name in ("trainer_draws", "sgns_exact_grads", "sgns_exact_apply"):
-        check(trainer[name] > 0, f"{name} was not launched by the exact "
-              f"trainer: {trainer}")
+    check(trainer["trainer_draws"] > 0 and trainer["sgns_exact_step"] ==
+          blocks, f"the exact trainer's launches over {blocks} blocks: "
+          f"{trainer}")
     check(trainer["sgns_conv_accumulate"] == 0,
           f"the conv step ran in the exact trainer: {trainer}")
+    check(per_block <= 1.07, f"{per_block:.4f} stream operations a block: "
+          f"{trainer}")
     tokens, w_in, w_out = n2v.load_model(out)
     check(w_in.shape == (report["vertices"], 128)
           and np.isfinite(w_in).all() and np.isfinite(w_out).all(),
@@ -1274,9 +1371,10 @@ def phase_exact_main(torch, smi, tmp, edges) -> dict:
           f"{report['paths']} walks, trainer epoch "
           f"{report['train_seconds']:.3f} s = "
           f"{report['train_seconds'] / blocks * 1e3:.4f} ms a block over "
-          f"{blocks} blocks; launches {trainer} = {per_block:.4f} kernel "
-          f"calls a block (each sgns_exact_grads call also clears two slot "
-          f"counts); karate gate with exact negatives on the card: AUC "
+          f"{blocks} blocks; launches {trainer} = {per_block:.4f} stream "
+          f"operations a block (one sgns_exact_step launch a block, no "
+          f"memset, no apply kernel; one draws launch a chunk); karate gate "
+          f"with exact negatives on the card: AUC "
           f"{auc:.4f} (> 0.7), faction accuracy {acc:.4f} (>= 0.85); --dim "
           f"768 through the CLI: AUC {auc768:.4f}, faction accuracy "
           f"{acc768:.4f} [{smi}]")
@@ -1294,12 +1392,13 @@ def draw_tables(torch, V: int, seed: int):
             torch.as_tensor(alias, dtype=torch.int32).cuda())
 
 
-def phase_draws_check(torch, smi) -> dict:
+def phase_draws_check(torch, smi, probe) -> dict:
     """Phase 13: the trainer's draws kernel bit for bit against
     trainer_draws_ref on the card (DRAW_CASES), then timed on the main
     path's chunks: the conv trainer's (1,524 blocks of 128 negatives and
     2,624 windows) and the exact trainer's (15 blocks of 262,400 negatives
-    and 2,624 windows)."""
+    and 2,624 windows), beside the time the probe's rate gives the same
+    threefry blocks."""
     from stellar_rw_tpu_torch.models.word2vec import _DRAW_BUDGET
     from stellar_rw_tpu_torch.ops import prng
     from stellar_rw_tpu_torch.ops import trainer_draws as td
@@ -1317,6 +1416,7 @@ def phase_draws_check(torch, smi) -> dict:
                   f"trainer_draws' {what} differ from trainer_draws_ref at "
                   f"{DRAW_CASES[i]}")
         elements += got[0].numel() + got[1].numel()
+    rates = probe_rates(torch, probe)
     rows = {}
     keep, alias = draw_tables(torch, 10_000, 0)
     for name, k, kB in (("conv", None, 128), ("exact", 5, None)):
@@ -1336,7 +1436,9 @@ def phase_draws_check(torch, smi) -> dict:
                   draws * OPS_PER_DRAW, INT_OPS_PER_S)
         rows[name] = {"blocks": n, "ms": (runs[1] + runs[2]) / 2,
                       "plain_ms": (runs[0] + runs[3]) / 2, **b,
-                      "draws": draws}
+                      "draws": draws, "probe_ms": {
+                          label: draws / rate * 1e3
+                          for label, rate in rates.items()}}
     c, e = rows["conv"], rows["exact"]
     print(f"phase 13 trainer_draws: bitwise equal to trainer_draws_ref on "
           f"the card in {len(DRAW_CASES)} cases ({elements:,} elements; "
@@ -1347,10 +1449,15 @@ def phase_draws_check(torch, smi) -> dict:
           f"{e['ms']:.4f} ms = {e['ms'] / e['blocks']:.5f} ms a block, plain "
           f"{e['plain_ms']:.3f} ms = {e['plain_ms'] / e['blocks']:.4f} ms a "
           f"block, bound {e['bound_ms']:.5f} ms by {e['bound_by']} (CUDA "
-          f"events, mean of 2x3) [{smi}]")
+          f"events, mean of 2x3); the probe (threefry blocks with no memory "
+          f"traffic) {', '.join(f'{l} {r:.4g}/s' for l, r in rates.items())}"
+          f": the chunks' blocks at the block_fn rate "
+          f"{c['probe_ms']['block_fn']:.4f} / "
+          f"{e['probe_ms']['block_fn']:.4f} ms [{smi}]")
     return {"max_abs_err": 0, **{k: c[k] for k in ("ms", "plain_ms",
                                                     "bound_ms", "bound_by")},
             "library_ms": None, "chunk_blocks": c["blocks"],
+            "probe_blocks_per_s": rates, "probe_ms": c["probe_ms"],
             "exact_chunk": e}
 
 
@@ -1546,7 +1653,7 @@ def phase_conv_check(torch, smi) -> tuple[dict, dict]:
              **common, "accumulate_ms_by_tile": by_tile,
              "plan": plan._asdict()},
             {"ms": s_ms, "ms_back_to_back": back["scatter"], **scat_b,
-             **common, "includes": "the update (no sgns_exact_apply)",
+             **common, "includes": "the update (no apply kernel)",
              "grouping_ms_once_a_run": group_ms[0]})
 
 
@@ -1561,8 +1668,10 @@ def main() -> int:
     from stellar_rw_tpu_torch.ops.sgns import SGNS_KERNEL
     from stellar_rw_tpu_torch.ops.walk_step import KEYS_KERNEL, WALK_KERNEL
 
+    probe = draws_probe()
     smi = phase_env(torch, (WALK_KERNEL, KEYS_KERNEL, RESIDENT_WALK_KERNEL,
-                            CDF_WALK_KERNEL, *trainer_kernels().values()))
+                            CDF_WALK_KERNEL, *trainer_kernels().values(),
+                            probe))
     phase_walk(torch)
     sgns_row = phase_sgns(torch)
     walk_row, keys_row = phase_walk_main_shape(
@@ -1578,9 +1687,9 @@ def main() -> int:
         phase_cdf_check(torch)
         cdf_row = phase_cdf_main(torch, CDF_WALK_KERNEL, smi, tmp,
                                  main_run["edges"])
-        grads_row, apply_row = phase_exact_check(torch)
+        step_row = phase_exact_check(torch)
         exact_run = phase_exact_main(torch, smi, tmp, main_run["edges"])
-    draws_row = phase_draws_check(torch, smi)
+    draws_row = phase_draws_check(torch, smi, probe)
     accumulate_row, scatter_row = phase_conv_check(torch, smi)
     epochs = {"conv_epoch_s": main_run["train_seconds"],
               "conv_launches_a_block": main_run["launches_a_block"],
@@ -1606,15 +1715,11 @@ def main() -> int:
         {"name": "cdf_walk", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/cdf_walk.cu",
          "replaces": "stellar_rw_tpu/walk/engine.py:226", **cdf_row},
-        {"name": "sgns_exact_grads", "route": "cuda",
+        {"name": "sgns_exact_step", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/sgns_exact.cu",
          "replaces": "stellar_rw_tpu/models/word2vec.py:154",
-         "launches": exact_run["sgns_exact_grads"], **grads_row},
-        {"name": "sgns_exact_apply", "route": "cuda",
-         "source": "stellar_rw_tpu_torch/csrc/sgns_exact.cu",
-         "replaces": "stellar_rw_tpu/models/word2vec.py:154",
-         "launches": exact_run["sgns_exact_apply"],
-         "launches_conv_path": main_run["sgns_exact_apply"], **apply_row},
+         "launches": exact_run["sgns_exact_step"],
+         "launches_conv_path": main_run["sgns_exact_step"], **step_row},
         {"name": "trainer_draws", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/trainer_draws.cu",
          "replaces": "stellar_rw_tpu/models/word2vec.py:116",

@@ -1,10 +1,10 @@
-// Compact delta slots for the rows a trainer step touches, shared by the
-// exact-negative step (sgns_exact.cu) and the conv step (sgns_conv.cu).
+// Compact delta slots for the rows the exact-negative step (sgns_exact.cu)
+// touches.
 //
 // A step adds its gradient rows into slots [R, D] of a workspace instead of
 // a vocabulary-sized buffer: a row's slot is taken at its first touch
 // through a row-to-slot map (one int a vocabulary row, -1 when free) and
-// the row is listed beside it, so the update (sgns_exact.cu's apply kernel)
+// the row is listed beside it, so the update (sgns_exact.cu's phase (b))
 // visits the touched rows alone and leaves every slot and map entry empty
 // again. The workspace is ops/sgns_exact.py::Workspace.
 

@@ -1,5 +1,5 @@
-// One exact-negative SGNS step (skip-gram, k negatives a pair), in two
-// kernels.
+// One exact-negative SGNS step (skip-gram, k negatives a pair) as one
+// cooperative kernel launch.
 //
 // Replaces the JAX package's _sgns_apply over _pairs_for_block
 // (stellar_rw_tpu/models/word2vec.py:154-210, 60-94), which XLA lowers to
@@ -7,27 +7,39 @@
 // two scatter-adds: at B = 32, T = 82, w = 10, k = 5, D = 128 a step builds
 // a [52,480, 6, 128] f32 target tensor (161 MB) and its gradient.
 //
-//   (a) sgns_exact_grads: persistent blocks, two an SM, each over a
-//       contiguous range of center positions; a block's warps split its
-//       (position, offset) pairs into contiguous runs, so a warp keeps a
-//       center's row and its gradient in registers while the center stays.
-//       A pair's 1 + k targets go in groups of kGroup: their rows are read
-//       together, the logits reduced together, g = sigmoid - label. Every
-//       gradient row (g * vi for a target, the summed g * vo for a center)
-//       goes into a small open-addressing table in shared memory keyed by
-//       (table, row), holding the row's partial sum and count, when it
-//       finds a slot in kProbes probes; the hub rows, which come first and
-//       most often, take the table, and the rest go straight to device
-//       memory. At the end each occupied slot is flushed as one row of
-//       device atomics. Device rows are compact delta slots: a row-to-slot
-//       map (one int a vocabulary row, -1 when free) gives a row its slot
-//       at its first touch and lists it. The tables are only read: every
-//       gradient comes from the tables as they were before the step, as in
-//       the functional JAX step.
-//   (b) sgns_exact_apply: over the listed slots only (their number is read
-//       on the device: no host sync), w[row] += (-lr * delta) / max(cnt, 1),
-//       then the slot's delta and count and the row's map entry go back to
-//       their empty values for the next step.
+// sgns_exact_step runs in three phases, all of its blocks resident at once
+// (a cooperative launch: the grid is two blocks an SM at most):
+//   (a) gradients: persistent blocks, each over a contiguous range of
+//       center positions; a block's warps split its (position, offset)
+//       pairs into contiguous runs, so a warp keeps a center's row and its
+//       gradient in registers while the center stays. A pair's 1 + k
+//       targets go in groups of kGroup: their rows are read together, the
+//       logits reduced together, g = sigmoid - label. Every gradient row
+//       (g * vi for a target, the summed g * vo for a center) goes into a
+//       small open-addressing table in shared memory keyed by (table, row),
+//       holding the row's partial sum and count, when it finds a slot in
+//       kProbes probes; the hub rows, which come first and most often, take
+//       the table, and the rest go straight to device memory. At the end
+//       each occupied slot is flushed as one row of device atomics. Device
+//       rows are compact delta slots: a row-to-slot map (one int a
+//       vocabulary row, -1 when free) gives a row its slot at its first
+//       touch and lists it. Every gradient comes from the tables as they
+//       were before the step, as in the functional JAX step.
+//   (b) a grid barrier (cooperative_groups::this_grid().sync()), then the
+//       update: the grid's warps stride over the listed slots, a row a
+//       warp, w[row] += (-lr * delta) / max(cnt, 1), and put the slot's
+//       delta and count and the row's map entry back to their empty values.
+//   (c) a second grid barrier, once every block has read the two slot
+//       counts, then block 0 zeroes them: the next step finds the
+//       workspace empty, with no memset between. The block that finishes
+//       last, found by an arrival counter between two __threadfence()
+//       calls, measured a third slower, and as fast as the barrier without
+//       the fences: after a step's flood of device atomics the fences are
+//       the cost (chip_sgns_exact_parts.py keeps both forms as variants).
+// The tables are read and written by the one kernel, so they come in as
+// plain pointers and phase (a) reads them with plain loads (cached in L1 on
+// sm_90), not through the read-only path, which the programming guide
+// allows only for data that no thread writes during the kernel.
 //
 // The pair enumeration, dynamic window and negatives are the JAX package's
 // (the block, its window draws cwin and the negative draws come in). Sums
@@ -49,16 +61,22 @@
 // and the row adds loop over D in slices of 32 * NV columns, held in
 // registers when one slice covers the row and read again from L1
 // otherwise; the table holds fewer rows at larger D (ops/sgns_exact.py::
-// launch_plan says how many).
+// launch_plan says how many). The update moves each touched row four times
+// (3,456 rows x 512 B at walk_10k's block: 1.8 MB); as a kernel of its own
+// it also cost a launch, a memset of the slot counts, and each warp's chain
+// of dependent reads (counts, then list, then the rows); here it costs one
+// grid barrier.
 
 #include <cstdint>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "delta_slots.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using srw::Scratch;
 using srw::claim;
 using srw::scratch;
@@ -122,26 +140,53 @@ __device__ __forceinline__ void add_count(int* tcnt, const Scratch& s, int t,
     atomicAdd(s.cntt(t) + (-1 - dest), n);
 }
 
+// a row slice by plain loads: the tables are written in phase (b)
 template <int NV>
-__device__ __forceinline__ void load_slice(const float* __restrict__ row,
-                                           int c0, int D, int lane,
-                                           float (&v)[NV]) {
+__device__ __forceinline__ void load_slice(const float* row, int c0, int D,
+                                           int lane, float (&v)[NV]) {
 #pragma unroll
   for (int m = 0; m < NV; ++m) {
     const int c = c0 + lane + 32 * m;
-    v[m] = c < D ? __ldg(row + c) : 0.f;
+    v[m] = c < D ? row[c] : 0.f;
+  }
+}
+
+// Phase (b): the listed slots of both tables, a row a warp of the grid. The
+// workspace was written by other blocks' atomics and stores: read at L2.
+__device__ __forceinline__ void apply_slots(float* w_in, float* w_out,
+                                            const Scratch& s, int D,
+                                            float lr) {
+  const int n_in = __ldcg(s.counts);
+  const int n = n_in + __ldcg(s.counts + 1);
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (blockDim.x >> 5);
+  for (int item = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       item < n; item += warps) {
+    const int t = item < n_in ? 0 : 1;
+    const int slot = t == 0 ? item : item - n_in;
+    const int row = __ldcg(s.listt(t) + slot);
+    float* w = (t == 0 ? w_in : w_out) + static_cast<size_t>(row) * D;
+    float* d = s.dt(t) + static_cast<size_t>(slot) * D;
+    const float c = static_cast<float>(max(__ldcg(s.cntt(t) + slot), 1));
+    for (int i = lane; i < D; i += 32) {
+      w[i] += (-lr * __ldcg(d + i)) / c;
+      d[i] = 0.f;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      s.cntt(t)[slot] = 0;
+      s.mapt(t)[row] = kEmpty;
+    }
   }
 }
 
 template <int NV>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
-    sgns_exact_grads(const float* __restrict__ w_in,
-                     const float* __restrict__ w_out,
-                     const int* __restrict__ block,
-                     const int* __restrict__ cwin,
-                     const int* __restrict__ negs, Scratch s, int BT, int T,
-                     int window, int k, int D, int positions, int slots,
-                     int* stats) {
+    sgns_exact_step(float* w_in, float* w_out, const int* __restrict__ block,
+                    const int* __restrict__ cwin,
+                    const int* __restrict__ negs, Scratch s, int BT, int T,
+                    int window, int k, int D, int positions, int slots,
+                    float lr, int* stats) {
   constexpr int kSlice = 32 * NV;
   extern __shared__ int smem[];
   const int dpad = (D + 31) & ~31;
@@ -332,99 +377,79 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
       atomicAdd(stats + 2, flushed);
     }
   }
-}
 
-__global__ void __launch_bounds__(256)
-    sgns_exact_apply(float* w_in, float* w_out, Scratch s, int D, float lr) {
-  const int n_in = s.counts[0];
-  const int n = n_in + s.counts[1];
-  const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * (blockDim.x >> 5);
-  for (int item = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-       item < n; item += warps) {
-    const int t = item < n_in ? 0 : 1;
-    const int slot = t == 0 ? item : item - n_in;
-    const int row = s.listt(t)[slot];
-    float* w = (t == 0 ? w_in : w_out) + static_cast<size_t>(row) * D;
-    float* d = s.dt(t) + static_cast<size_t>(slot) * D;
-    const float c = static_cast<float>(max(s.cntt(t)[slot], 1));
-    for (int i = lane; i < D; i += 32) {
-      w[i] += (-lr * d[i]) / c;
-      d[i] = 0.f;
-    }
-    __syncwarp();
-    if (lane == 0) {
-      s.cntt(t)[slot] = 0;
-      s.mapt(t)[row] = kEmpty;
-    }
+  // (b) every block's rows are in the delta slots: the update
+  cg::this_grid().sync();
+  apply_slots(w_in, w_out, s, D, lr);
+  // (c) every block has read the slot counts: zero them for the next step
+  cg::this_grid().sync();
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    s.counts[0] = 0;
+    s.counts[1] = 0;
   }
 }
 
 template <int NV>
-cudaError_t launch_grads(const void* w_in, const void* w_out,
-                         const void* block, const void* cwin,
-                         const void* negs, const Scratch& s, int BT, int T,
-                         int window, int k, int D, int blocks, int threads,
-                         int positions, int slots, int* stats,
-                         cudaStream_t stream) {
+cudaError_t launch_step(float* w_in, float* w_out, const int* block,
+                        const int* cwin, const int* negs, Scratch s, int BT,
+                        int T, int window, int k, int D, int blocks,
+                        int threads, int positions, int slots, float lr,
+                        int* stats, cudaStream_t stream) {
   const int dpad = (D + 31) & ~31;
   const size_t smem = static_cast<size_t>(slots) * (8 + 4 * dpad);
   cudaError_t err = cudaFuncSetAttribute(
-      sgns_exact_grads<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      sgns_exact_step<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  sgns_exact_grads<NV><<<blocks, threads, smem, stream>>>(
-      static_cast<const float*>(w_in), static_cast<const float*>(w_out),
-      static_cast<const int*>(block), static_cast<const int*>(cwin),
-      static_cast<const int*>(negs), s, BT, T, window, k, D, positions,
-      slots, stats);
-  return cudaGetLastError();
+  void* args[] = {&w_in, &w_out,  &block,     &cwin,  &negs,
+                  &s,    &BT,     &T,         &window, &k,
+                  &D,    &positions, &slots,  &lr,    &stats};
+  // refused (cudaErrorCooperativeLaunchTooLarge) if the blocks cannot all
+  // be resident at once: never run as an ordinary launch
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(sgns_exact_step<NV>), dim3(blocks),
+      dim3(threads), args, smem, stream);
 }
 
 }  // namespace
 
-// Kernel (a) for one block of BT = B*T center positions under a launch plan
-// (ops/sgns_exact.py::launch_plan): `blocks` blocks of `threads` threads,
-// `positions` consecutive positions a block, a table of `slots` rows in
-// shared memory. scratch: d_in, d_out, cnt_in, cnt_out, map_in, map_out,
-// list_in, list_out, counts[2]. stats, when not null, gets three sums added:
-// row adds into the tables, row adds into device memory, slots flushed.
-// Zeroes the two slot counts, then launches. Returns the CUDA error.
-extern "C" int srw_sgns_exact_grads_launch(
-    const void* w_in, const void* w_out, const void* block, const void* cwin,
+// One step for a block of BT = B*T center positions under a launch plan
+// (ops/sgns_exact.py::launch_plan): `blocks` blocks of `threads` threads
+// (all resident: at most two an SM), `positions` consecutive positions a
+// block, a table of `slots` rows in shared memory; the tables move in
+// place by lr. scratch: d_in, d_out, cnt_in, cnt_out, map_in, map_out,
+// list_in, list_out, counts[2], all empty (zero, map -1) before the step
+// and again after it. stats, when not null, gets three sums added: row adds
+// into the tables, row adds into device memory, slots flushed. Returns the
+// CUDA error of the launch (a refused cooperative launch included).
+extern "C" int srw_sgns_exact_step_launch(
+    void* w_in, void* w_out, const void* block, const void* cwin,
     const void* negs, void* const* scratch_ptrs, int BT, int T, int window,
     int k, int D, int blocks, int threads, int positions, int slots,
-    void* stats, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Scratch s = scratch(scratch_ptrs);
-  cudaError_t err = cudaMemsetAsync(s.counts, 0, 2 * sizeof(int), st);
-  if (err != cudaSuccess || BT <= 0) return static_cast<int>(err);
+    float lr, void* stats, void* stream) {
+  if (BT <= 0) return 0;
   if (D < 1 || k < 0 || window < 1 || threads < 32 || threads % 32 ||
       threads > kMaxThreads || slots < 0 || blocks < 1 ||
       static_cast<long long>(blocks) * positions < BT)
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Scratch s = scratch(scratch_ptrs);
+  float* a = static_cast<float*>(w_in);
+  float* b = static_cast<float*>(w_out);
+  const int* blk = static_cast<const int*>(block);
+  const int* cw = static_cast<const int*>(cwin);
+  const int* ng = static_cast<const int*>(negs);
+  int* st_out = static_cast<int*>(stats);
+  cudaError_t err;
   if (D <= 32)
-    err = launch_grads<1>(w_in, w_out, block, cwin, negs, s, BT, T, window,
-                          k, D, blocks, threads, positions, slots,
-                          static_cast<int*>(stats), st);
+    err = launch_step<1>(a, b, blk, cw, ng, s, BT, T, window, k, D, blocks,
+                         threads, positions, slots, lr, st_out, st);
   else if (D <= 64)
-    err = launch_grads<2>(w_in, w_out, block, cwin, negs, s, BT, T, window,
-                          k, D, blocks, threads, positions, slots,
-                          static_cast<int*>(stats), st);
+    err = launch_step<2>(a, b, blk, cw, ng, s, BT, T, window, k, D, blocks,
+                         threads, positions, slots, lr, st_out, st);
   else
-    err = launch_grads<4>(w_in, w_out, block, cwin, negs, s, BT, T, window,
-                          k, D, blocks, threads, positions, slots,
-                          static_cast<int*>(stats), st);
+    err = launch_step<4>(a, b, blk, cw, ng, s, BT, T, window, k, D, blocks,
+                         threads, positions, slots, lr, st_out, st);
+  cudaGetLastError();  // a refused launch leaves no error for later calls
   return static_cast<int>(err);
-}
-
-// Kernel (b): `blocks` blocks of 8 warps stride over the listed slots.
-extern "C" int srw_sgns_exact_apply_launch(void* w_in, void* w_out,
-                                           void* const* scratch_ptrs, int D,
-                                           int blocks, float lr,
-                                           void* stream) {
-  sgns_exact_apply<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(w_in), static_cast<float*>(w_out),
-      scratch(scratch_ptrs), D, lr);
-  return static_cast<int>(cudaGetLastError());
 }

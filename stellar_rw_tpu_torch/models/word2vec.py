@@ -11,8 +11,7 @@ device: a chunk of blocks' windows and negatives is drawn by one kernel
 (ops/trainer_draws.py, csrc/trainer_draws.cu), then each block takes one of
 two update forms, as in the JAX package:
   * exact per-pair negatives (shared_negatives = 0, the CLI's default):
-    ops/sgns_exact.py::sgns_exact_step, the two kernels of
-    csrc/sgns_exact.cu;
+    ops/sgns_exact.py::sgns_exact_step, one launch of csrc/sgns_exact.cu;
   * block-shared negatives in the dense shifted-window form
     (shared_negatives = kB > 0): ops/sgns_conv.py::sgns_conv_step, three
     calls a block: its positive half and its scatter-mean with the update

@@ -123,6 +123,17 @@ def stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+_SMS: dict = {}
+
+
+def sm_count(device) -> int:
+    """The SM count of a CUDA device, asked once."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
 def require_cuda(name: str, *tensors) -> None:
     """A kernel wrapper's check: every tensor lies on one CUDA device and is
     contiguous."""

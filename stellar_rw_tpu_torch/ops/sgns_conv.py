@@ -53,7 +53,7 @@ THREADS = 256           # kThreads in the source
 H100_SMS = 132          # launch_plan's default; the wrapper asks the device
 TILES = (32, 16, 8)     # positions a block of the accumulate kernel, widest first
 # dynamic shared memory a block of the accumulate kernel may take: two an
-# SM, as sgns_exact.cu's kernel (a) (the halo tables are the bulk)
+# SM, as sgns_exact.cu's step (the halo tables are the bulk)
 SMEM_BUDGET = TABLE_BUDGET
 # positions of a token group a warp of the scatter kernel sums; longer
 # groups are split into units of HUB, summed in unit order and added once

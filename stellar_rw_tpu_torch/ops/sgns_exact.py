@@ -8,10 +8,12 @@ of its gradients, all computed from the tables as they were before the step
 (the JAX package's stellar_rw_tpu/models/word2vec.py::_sgns_apply over
 _pairs_for_block, which it matches to rounding).
 
-CUDA tensors launch the two kernels of csrc/sgns_exact.cu under launch_plan
-(gradients into compact delta slots with a list of the touched rows, the
-hub rows' summed a block at a time in a small shared-memory table first;
-then the update of those rows alone); CPU tensors run the plain version:
+CUDA tensors launch csrc/sgns_exact.cu's one kernel a step under
+launch_plan, a cooperative launch (gradients into compact delta slots with
+a list of the touched rows, the hub rows' summed a block at a time in a
+small shared-memory table first; a grid barrier; then the update of those
+rows alone, which empties the slots again); CPU tensors run the plain
+version:
 _valid_from_cwin, _pairs_from_valid and _sgns_apply, the trainer's own
 step. The kernels sum in another order (atomics), so they agree with the
 plain version to rounding: rtol 1e-5 on the tables after a step.
@@ -25,20 +27,20 @@ from typing import NamedTuple
 import torch
 
 from ._build import Kernel, ptr, require_cuda, stream
+from ._build import sm_count as _sms
 
-SGNS_EXACT_GRADS = Kernel(
-    "sgns_exact.cu", "srw_sgns_exact_grads_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2)
-# the update kernel of the same source (and the same library)
-SGNS_EXACT_APPLY = Kernel(
-    "sgns_exact.cu", "srw_sgns_exact_apply_launch",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float]
-    + [ctypes.c_void_p])
+SGNS_EXACT_STEP = Kernel(
+    "sgns_exact.cu", "srw_sgns_exact_step_launch",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
+    + [ctypes.c_void_p] * 2)
 
-APPLY_BLOCKS = 1056     # 8 blocks of 8 warps an SM of the H100's 132
+APPLY_BLOCKS = 1056     # the conv scatter's grid cap: 8 blocks of 8 warps
+                        # an SM of the H100's 132
 H100_SMS = 132          # launch_plan's default; the wrapper asks the device
-THREADS = 512           # kernel (a)'s block (kMaxThreads in the source)
-BLOCKS_PER_SM = 2       # ... two an SM (kMinBlocks: 64 registers a thread)
+THREADS = 512           # the step's block (kMaxThreads in the source)
+# ... two an SM (kMinBlocks: 64 registers a thread); a cooperative launch
+# needs every block resident, so a plan never asks for more
+BLOCKS_PER_SM = 2
 # shared memory one of those blocks can have: half an SM's 233,472 bytes on
 # sm_90, less the 1,024 reserved a block
 TABLE_BUDGET = 233_472 // BLOCKS_PER_SM - 1_024
@@ -46,7 +48,7 @@ TABLE_ROWS = 16         # a block's table: room for its hub rows
 
 
 class LaunchPlan(NamedTuple):
-    """How csrc/sgns_exact.cu's kernel (a) cuts one block of positions."""
+    """How csrc/sgns_exact.cu's step cuts one block of positions."""
 
     nv: int            # floats a lane holds of a row slice (32 * nv columns)
     slices: int        # slices a row takes: 1 keeps the rows in registers
@@ -65,9 +67,10 @@ def slot_bytes(D: int) -> int:
 
 def launch_plan(D: int, B: int, T: int, window: int, k: int,
                 sm_count: int = H100_SMS) -> LaunchPlan:
-    """Kernel (a)'s plan for a block [B, T] at dim D, window w and k
+    """The step's plan for a block [B, T] at dim D, window w and k
     negatives on a card of `sm_count` SMs (the .cu dispatch picks nv from D
-    alike): BLOCKS_PER_SM persistent blocks an SM, each over `positions`
+    alike): at most BLOCKS_PER_SM persistent blocks an SM (all resident, as
+    the cooperative launch needs), each over `positions`
     consecutive centers, with a table of TABLE_ROWS rows where TABLE_BUDGET
     holds them, never more than twice the rows its positions can touch. The
     table is for the hub rows, which come first and most often: rows that
@@ -147,9 +150,9 @@ class Workspace:
     (-1 when free). A block touches at most min(V_in, positions) rows of
     w_in and min(V_out, positions * 2w * (1 + k)) of w_out, so the delta
     slots are bounded by the block, not by the vocabulary; the map is one
-    int a row. The update kernel leaves every slot and map entry empty
-    again, so one workspace serves every step; the trainer makes one an
-    epoch."""
+    int a row, and `counts` the slots taken in each table. The kernel
+    leaves every slot, map entry and count empty again, so one workspace
+    serves every step; the trainer makes one an epoch."""
 
     def __init__(self, w_in: torch.Tensor, w_out: torch.Tensor,
                  positions: int, window: int = 1, k: int = 0):
@@ -198,12 +201,11 @@ def sgns_exact_step_ref(w_in, w_out, block, cwin, negs, lr: float,
 def sgns_exact_step(w_in, w_out, block, cwin, negs, lr: float, window: int,
                     ws: Workspace | None = None):
     """One exact-negative step in place (see the module). CUDA tensors
-    launch csrc/sgns_exact.cu, with the scratch `ws` (a new Workspace if
-    none is given); CPU tensors run sgns_exact_step_ref. Any D."""
+    launch csrc/sgns_exact.cu once, with the scratch `ws` (a new Workspace
+    if none is given); CPU tensors run sgns_exact_step_ref. Any D."""
     if w_in.device.type == "cpu":
         return sgns_exact_step_ref(w_in, w_out, block, cwin, negs, lr, window)
-    SGNS_EXACT_GRADS.fn()
-    SGNS_EXACT_APPLY.fn()
+    SGNS_EXACT_STEP.fn()
     B, T = block.shape
     D = w_in.shape[1]
     if (w_out.shape[1] != D or cwin.shape != (B, T)
@@ -226,40 +228,25 @@ def sgns_exact_step(w_in, w_out, block, cwin, negs, lr: float, window: int,
     elif not ws.serves(w_in, w_out, B * T, window, k):
         raise ValueError(f"sgns_exact_step: workspace for {ws.shape} with "
                          f"{ws.rows} delta rows")
-    launch_grads(ws, w_in, w_out, block, cwin, negs, window)
-    launch_apply(ws, w_in, w_out, lr)
+    launch_step(ws, w_in, w_out, block, cwin, negs, window, lr)
     return w_in, w_out
 
 
-def launch_grads(ws: Workspace, w_in, w_out, block, cwin, negs, window: int,
-                 plan: LaunchPlan | None = None, stats=None) -> None:
-    """Kernel (a) on checked tensors: gradients into ws, under `plan`
-    (launch_plan for this card if none is given). stats, an int32 [3]
-    tensor, gets added the row adds into the blocks' tables, the row adds
-    into device memory and the table slots flushed."""
+def launch_step(ws: Workspace, w_in, w_out, block, cwin, negs, window: int,
+                lr: float, plan: LaunchPlan | None = None,
+                stats=None) -> None:
+    """The step's kernel on checked tensors under `plan` (launch_plan for
+    this card if none is given): gradients into ws, the update, ws emptied.
+    stats, an int32 [3] tensor, gets added the row adds into the blocks'
+    tables, the row adds into device memory and the table slots flushed.
+    A cooperative launch the card refuses raises KernelLaunchError."""
     B, T = block.shape
     k = negs.shape[1]
     if plan is None:
         plan = launch_plan(w_in.shape[1], B, T, window, k, _sms(w_in.device))
-    SGNS_EXACT_GRADS.launch(
+    SGNS_EXACT_STEP.launch(
         ptr(w_in), ptr(w_out), ptr(block), ptr(cwin), ptr(negs), ws._ptrs,
         B * T, T, window, k, w_in.shape[1], plan.blocks, plan.threads,
-        plan.positions, plan.slots,
+        plan.positions, plan.slots, float(lr),
         None if stats is None else ptr(stats), stream(w_in.device))
 
-
-def launch_apply(ws: Workspace, w_in, w_out, lr: float) -> None:
-    """Kernel (b): the touched rows of both tables updated, ws emptied."""
-    SGNS_EXACT_APPLY.launch(ptr(w_in), ptr(w_out), ws._ptrs, w_in.shape[1],
-                            APPLY_BLOCKS, float(lr), stream(w_in.device))
-
-
-_SMS: dict = {}
-
-
-def _sms(device) -> int:
-    """The SM count of a CUDA device, asked once."""
-    if device not in _SMS:
-        _SMS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SMS[device]

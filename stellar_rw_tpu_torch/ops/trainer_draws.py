@@ -8,15 +8,17 @@ _draw_negatives(fold_in(kb, 2), neg_shape, keep, alias), the streams of the
 JAX package's epoch scan (stellar_rw_tpu/models/word2vec.py:116, 146-151)
 bit for bit. Returns (cwin i32 [n, B, T], negs i32 [n, *neg_shape]).
 
-CUDA tensors launch csrc/trainer_draws.cu, one launch for the n blocks;
-CPU tensors run trainer_draws_ref, the same streams in int64 torch
-threefry (ops/prng.py).
+CUDA tensors launch csrc/trainer_draws.cu, one launch for the n blocks
+under launch_plan, with the window's reciprocal from span_magic; CPU
+tensors run trainer_draws_ref, the same streams in int64 torch threefry
+(ops/prng.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -25,11 +27,48 @@ from ._build import Kernel, ptr, require_cuda, stream
 
 TRAINER_DRAWS_KERNEL = Kernel(
     "trainer_draws.cu", "srw_trainer_draws_launch",
-    [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+    [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_uint]
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    + [ctypes.c_void_p] * 3)
 
 THREADS = 256        # kThreads in the source
-PER_THREAD = 8       # elements a thread draws (kPerThread)
+PER_THREAD = 8       # most elements a thread draws (kPerThread)
+
+
+def span_magic(span: int) -> tuple[int, int, int]:
+    """(magic, sh1, sh2) with which csrc/trainer_draws.cu's mod_span takes
+    v mod span for every uint32 v (Granlund and Montgomery's division by an
+    invariant integer): t = umulhi(magic, v), q = (t + ((v - t) >> sh1)) >>
+    sh2, v - q * span. span in [1, 2^32)."""
+    if not 1 <= span < 1 << 32:
+        raise ValueError(f"span_magic: span {span}")
+    lg = (span - 1).bit_length()                  # ceil(log2(span))
+    magic = ((1 << 32) * ((1 << lg) - span)) // span + 1
+    return magic, min(lg, 1), max(lg - 1, 0)
+
+
+class DrawPlan(NamedTuple):
+    """How csrc/trainer_draws.cu cuts a chunk of n blocks of BT + M
+    elements."""
+
+    runs: int      # thread blocks a block's elements take, one run each
+    per: int       # strides of THREADS elements a run (<= PER_THREAD)
+
+
+def launch_plan(n: int, BT: int, M: int) -> DrawPlan:
+    """Runs of the same number of strides (the fewest runs of at most
+    PER_THREAD strides of THREADS elements that cover BT + M), one thread
+    block a run: n * runs thread blocks in one grid dimension."""
+    total = BT + M
+    if n < 0 or BT < 0 or M < 0:
+        raise ValueError(f"trainer_draws launch_plan: n={n} BT={BT} M={M}")
+    runs = max(1, -(-total // (THREADS * PER_THREAD)))
+    per = max(1, -(-total // (runs * THREADS)))
+    runs = max(1, -(-total // (per * THREADS)))
+    if n * runs >= 1 << 31:
+        raise ValueError(f"trainer_draws: {n * runs} thread blocks in one "
+                         "launch")
+    return DrawPlan(runs, per)
 
 
 def _draw_negatives(key: torch.Tensor, shape, neg_keep: torch.Tensor,
@@ -79,7 +118,10 @@ def trainer_draws(key, c0: int, n: int, B: int, T: int, window: int,
     cwin = torch.empty((n, B, T), dtype=torch.int32, device=key.device)
     negs = torch.empty((n,) + neg_shape, dtype=torch.int32,
                        device=key.device)
+    plan = launch_plan(n, B * T, M)
     TRAINER_DRAWS_KERNEL.launch(ptr(key), c0, n, B * T, M, window,
-                                ptr(neg_keep), ptr(neg_alias), V, ptr(cwin),
-                                ptr(negs), stream(key.device))
+                                *span_magic(window), plan.runs, plan.per,
+                                ptr(neg_keep), ptr(neg_alias), V,
+                                ptr(cwin), ptr(negs), stream(key.device))
     return cwin, negs
+

@@ -8,8 +8,9 @@
     walk_corpus_ref's corpus bit for bit;
   * the wrappers' launch plans stay inside one block's shared memory (the
     shared-negative kernel, the exact-negative kernel's table), and the
-    pieces chip_sgns_parts.py, chip_sgns_exact_parts.py, chip_cdf_parts.py
-    and chip_conv_parts.py change in the kernels are in their sources;
+    pieces chip_sgns_parts.py, chip_sgns_exact_parts.py, chip_cdf_parts.py,
+    chip_conv_parts.py and chip_draws_parts.py change in the kernels are in
+    their sources;
   * every entry point defaults to the card, raises the named error without
     one, and runs with device="cpu".
 """
@@ -23,6 +24,7 @@ import torch
 
 import chip_cdf_parts
 import chip_conv_parts
+import chip_draws_parts
 import chip_sgns_exact_parts
 import chip_sgns_parts
 from stellar_rw_tpu_torch import cli
@@ -33,7 +35,7 @@ from stellar_rw_tpu_torch.models import node2vec as n2v
 from stellar_rw_tpu_torch.models import word2vec as w2v
 from stellar_rw_tpu_torch.ops import _build, prng, resident_walk, sampling
 from stellar_rw_tpu_torch.ops import cdf_walk, sgns, sgns_conv, sgns_exact
-from stellar_rw_tpu_torch.ops import walk_step
+from stellar_rw_tpu_torch.ops import trainer_draws, walk_step
 from stellar_rw_tpu_torch.utils.config import Params
 from stellar_rw_tpu_torch.walk import engine
 
@@ -348,7 +350,7 @@ def test_sgns_exact_launch_plan_small_blocks(monkeypatch):
     assert big.slots == 2 * (2 * 3 * 3 + 1)
     with pytest.raises(ValueError):
         sgns_exact.launch_plan(0, 32, 82, 10, 5)
-    source = (_build.CSRC / sgns_exact.SGNS_EXACT_GRADS.source).read_text()
+    source = (_build.CSRC / sgns_exact.SGNS_EXACT_STEP.source).read_text()
     assert (f"constexpr int kMinBlocks = {sgns_exact.BLOCKS_PER_SM};"
             in source)
 
@@ -360,8 +362,21 @@ def test_sgns_exact_parts_variant_edits_the_source_once(name):
     """chip_sgns_exact_parts.py patches the kernel by text: each piece must
     occur exactly once in csrc/sgns_exact.cu, and its replacement must
     differ."""
-    source = (_build.CSRC / sgns_exact.SGNS_EXACT_GRADS.source).read_text()
+    source = (_build.CSRC / sgns_exact.SGNS_EXACT_STEP.source).read_text()
     for old, new in chip_sgns_exact_parts.VARIANTS[name]:
+        assert source.count(old) == 1 and new != old
+
+
+@pytest.mark.parametrize("name", [n for n, edits in
+                                  chip_draws_parts.VARIANTS.items()
+                                  if edits])
+def test_draws_parts_variant_edits_the_source_once(name):
+    """chip_draws_parts.py patches csrc/trainer_draws.cu by text: each piece
+    must occur exactly once in the source, and its replacement must
+    differ."""
+    source = (_build.CSRC / trainer_draws.TRAINER_DRAWS_KERNEL.source
+              ).read_text()
+    for old, new in chip_draws_parts.VARIANTS[name]:
         assert source.count(old) == 1 and new != old
 
 

@@ -1,10 +1,11 @@
 """The exact-negative SGNS step (ops/sgns_exact.py) against the JAX
 package's _sgns_apply: the plain version on a block where rows collide (a
 vertex is a center and a target of other pairs, targets repeat), a NumPy
-transcription of the two kernels' arithmetic (gradients from the old
-tables into a delta table, then the touched rows updated by
-sum-then-divide), the karate gates with exact negatives, and the kernel
-wrapper without a build.
+transcription of the kernel's arithmetic (gradients from the old tables
+into compact delta slots, a grid barrier, then the touched rows updated by
+sum-then-divide and the workspace emptied), the karate gates with exact
+negatives, the kernel wrapper without a build, and the launch plan within
+what a cooperative launch admits.
 
 Tolerance rtol 1e-5 / atol 1e-6 on the tables after a step: the same pairs,
 windows and negatives bit for bit; only the order of the sums differs
@@ -60,31 +61,39 @@ GROUP, PROBES, IN_BIT = 3, 2, 1 << 31     # csrc/sgns_exact.cu's constants
 
 
 def _kernel_arithmetic(w_in, w_out, block, cwin, negs, win, lr, plan):
-    """csrc/sgns_exact.cu in NumPy under a launch plan: kernel (a) block by
-    block, each block's warps over contiguous runs of its (position,
+    """csrc/sgns_exact.cu's one kernel in NumPy under a launch plan, on a
+    workspace laid out as ops/sgns_exact.py::Workspace. Phase (a) block by
+    block: each block's warps over contiguous runs of its (position,
     offset) pairs, a pair's targets in groups of GROUP; every gradient row
-    added into the block's open-addressing table (key: the row, IN_BIT
-    for w_in's; at most PROBES probes from the kernel's multiplicative
-    hash) or, on a miss, into the row's compact delta slot (a row-to-slot
-    map, -1 when free, and a list of slot rows); the occupied slots
-    flushed into the delta slots at the block's end. Then kernel (b) over
-    the listed slots, emptying them. Only the old tables are read."""
+    added into the block's open-addressing table (key: the row, IN_BIT for
+    w_in's; at most PROBES probes from the kernel's multiplicative hash)
+    or, on a miss, into the row's compact delta slot (a row-to-slot map, -1
+    when free, a list of slot rows and a count of slots taken); the
+    occupied slots flushed into the delta slots at the block's end. Only
+    the old tables are read. Then the grid barrier, and phase (b): the
+    grid's warps stride over the listed slots (w_in's first), a row a warp,
+    each row updated and its slot, count and map entry emptied. Phase (c):
+    a second grid barrier, then block 0 zeroes the slot counts. Returns
+    the tables, the listed rows, the table's stats and the workspace."""
     B, T = block.shape
     V, D = w_in.shape
     k = negs.shape[1]
     BT, W2 = B * T, 2 * win
-    tables = (w_in, w_out)
-    d = [np.zeros((V * (1 + W2 * (1 + k)), D), np.float32) for _ in (0, 1)]
-    cnt = [np.zeros(len(x), np.int64) for x in d]
-    rowmap = [np.full(V, -1, np.int64) for _ in (0, 1)]
-    rows = [[], []]
+    rows = (min(V, BT), min(V, BT * W2 * (1 + k)))
+    ws = dict(d=[np.zeros((r, D), np.float32) for r in rows],
+              cnt=[np.zeros(r, np.int64) for r in rows],
+              map=[np.full(V, -1, np.int64) for _ in rows],
+              list=[np.zeros(r, np.int64) for r in rows],
+              counts=np.zeros(2, np.int64))
     stats = dict(hits=0, misses=0, flushed=0)
 
     def claim(t, row):
-        if rowmap[t][row] < 0:
-            rowmap[t][row] = len(rows[t])
-            rows[t].append(row)
-        return rowmap[t][row]
+        if ws["map"][t][row] < 0:
+            slot = ws["counts"][t]
+            ws["counts"][t] += 1
+            ws["map"][t][row] = slot
+            ws["list"][t][slot] = row
+        return ws["map"][t][row]
 
     for b0 in range(plan.blocks):
         C = plan.slots
@@ -106,8 +115,8 @@ def _kernel_arithmetic(w_in, w_out, block, cwin, negs, win, lr, plan):
                 h = (h + 1) % C
             stats["misses"] += 1
             g = claim(t, row)
-            d[t][g] += vec
-            cnt[t][g] += n
+            ws["d"][t][g] += vec
+            ws["cnt"][t][g] += n
 
         p0 = b0 * plan.positions
         n = max(0, min(BT - p0, plan.positions)) * W2
@@ -146,17 +155,28 @@ def _kernel_arithmetic(w_in, w_out, block, cwin, negs, win, lr, plan):
         for h in np.flatnonzero(keys >= 0) if C else []:
             t = 0 if keys[h] & IN_BIT else 1
             g = claim(t, int(keys[h] & ~IN_BIT))
-            d[t][g] += tab[h]
-            cnt[t][g] += tcnt[h]
+            ws["d"][t][g] += tab[h]
+            ws["cnt"][t][g] += tcnt[h]
             stats["flushed"] += 1
-    out = [w.copy() for w in tables]
-    for t in (0, 1):
-        for g, r in enumerate(rows[t]):
-            out[t][r] += (np.float32(-lr) * d[t][g]) / np.float32(
-                max(cnt[t][g], 1))
-            rowmap[t][r] = -1
-        assert (rowmap[t] == -1).all()
-    return out[0], out[1], rows[0], rows[1], stats
+    # (b) after the grid barrier
+    listed = [ws["list"][t][:ws["counts"][t]].tolist() for t in (0, 1)]
+    out = [w.copy() for w in (w_in, w_out)]
+    n_in = ws["counts"][0]
+    n = n_in + ws["counts"][1]
+    warps = plan.blocks * (plan.threads // 32)
+    for warp in range(warps):
+        for item in range(warp, n, warps):
+            t = 0 if item < n_in else 1
+            slot = item if t == 0 else item - n_in
+            r = ws["list"][t][slot]
+            out[t][r] += (np.float32(-lr) * ws["d"][t][slot]) / np.float32(
+                max(ws["cnt"][t][slot], 1))
+            ws["d"][t][slot] = 0
+            ws["cnt"][t][slot] = 0
+            ws["map"][t][r] = -1
+    # (c) every count read, after the second barrier: block 0 zeroes them
+    ws["counts"][:] = 0
+    return out[0], out[1], listed[0], listed[1], stats, ws
 
 
 @pytest.mark.parametrize("V,D,B,T,win,k", [(40, 16, 3, 14, 3, 4),
@@ -179,19 +199,20 @@ def test_step_matches_jax(V, D, B, T, win, k):
 
 @pytest.mark.parametrize("slots", [None, 64, 6, 0])
 def test_kernel_arithmetic_matches_jax(slots):
-    """The kernels' order of work (old tables only, per-block tables of
-    partial sums flushed into compact slots, sum then divide, the touched
-    rows alone) gives the JAX step to rounding; untouched rows stay bit for
-    bit. slots: the plan's own table, one that holds every row a block
-    touches, one so small that adds miss it and go to device memory, and
-    none at all."""
+    """The kernel's order of work (old tables only, per-block tables of
+    partial sums flushed into compact slots, the grid barrier, sum then
+    divide, the touched rows alone, the counts zeroed after a second one)
+    gives the JAX step to rounding; untouched rows stay bit for bit, and
+    the workspace is empty again. slots: the plan's own table, one that
+    holds every row a block touches, one so small that adds miss it and go
+    to device memory, and none at all."""
     win, lr, k = 3, 0.1, 7
     w_in, w_out, block, cwin, negs, key = _case(30, 8, 3, 12, win, k, 7)
     plan = sgns_exact.launch_plan(8, 3, 12, win, k, sm_count=4)
     if slots is not None:
         plan = plan._replace(slots=slots)
     a_in, a_out = _jax_step(w_in, w_out, block, key, negs, win, lr)
-    b_in, b_out, rows_in, rows_out, stats = _kernel_arithmetic(
+    b_in, b_out, rows_in, rows_out, stats, ws = _kernel_arithmetic(
         w_in, w_out, block, cwin, negs, win, lr, plan)
     np.testing.assert_allclose(b_in, a_in, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(b_out, a_out, rtol=1e-5, atol=1e-6)
@@ -204,6 +225,9 @@ def test_kernel_arithmetic_matches_jax(slots):
     assert len(set(rows_in)) == len(rows_in) and len(rows_out) == len(
         set(rows_out))
     assert plan.blocks == 8 and plan.positions == 5
+    # the next step finds the workspace empty: no memset between steps
+    assert not any(x.any() for x in (*ws["d"], *ws["cnt"], ws["counts"]))
+    assert all((m == -1).all() for m in ws["map"])
     if slots == 0:
         assert stats["hits"] == stats["flushed"] == 0
     elif slots == 64:
@@ -250,22 +274,42 @@ def test_karate_gate_with_exact_negatives(karate_path):
 
 
 def test_exact_kernel_wrapper_raises_without_a_build(monkeypatch, tmp_path):
-    """A tensor off the CPU goes to the kernels or raises: with no compiler
-    the build fails loudly, and nothing falls back to the plain version."""
+    """A tensor off the CPU goes to the kernel or raises: with no compiler
+    the build fails loudly, nothing falls back to the plain version, and
+    the step's launch count stays as it was."""
     def no_nvcc():
         raise _build.KernelBuildError("nvcc not found")
 
     monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(sgns_exact.SGNS_EXACT_GRADS, "_fn", None)
+    monkeypatch.setattr(sgns_exact.SGNS_EXACT_STEP, "_fn", None)
     meta = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt,
                                                     device="meta")
-    before = (sgns_exact.SGNS_EXACT_GRADS.launches,
-              sgns_exact.SGNS_EXACT_APPLY.launches)
+    before = sgns_exact.SGNS_EXACT_STEP.launches
     with pytest.raises(_build.KernelBuildError):
         sgns_exact.sgns_exact_step(
             meta(10, 8), meta(10, 8), meta(2, 5, dt=torch.int32),
             meta(2, 5, dt=torch.int32), meta(40, 3, dt=torch.int32), 0.1, 2)
-    assert (sgns_exact.SGNS_EXACT_GRADS.launches,
-            sgns_exact.SGNS_EXACT_APPLY.launches) == before
+    assert sgns_exact.SGNS_EXACT_STEP.launches == before
+
+
+@pytest.mark.parametrize("sm_count", [1, 4, 132])
+def test_launch_plan_fits_a_cooperative_launch(sm_count):
+    """A cooperative launch runs only when every block can be resident at
+    once: for every D from 1 to 1,024 and small blocks the plan asks for at
+    most BLOCKS_PER_SM blocks an SM (the kernel's kMinBlocks), of the
+    THREADS it is bounded to (kMaxThreads), each within its share of
+    shared memory, and covers the block's positions."""
+    source = (_build.CSRC / sgns_exact.SGNS_EXACT_STEP.source).read_text()
+    assert (f"constexpr int kMinBlocks = {sgns_exact.BLOCKS_PER_SM};"
+            in source)
+    assert f"constexpr int kMaxThreads = {sgns_exact.THREADS};" in source
+    for D in range(1, 1025):
+        for B, T, win, k in ((1, 1, 1, 0), (2, 5, 2, 3), (3, 14, 3, 4),
+                             (7, 30, 5, 5)):
+            plan = sgns_exact.launch_plan(D, B, T, win, k, sm_count)
+            assert 1 <= plan.blocks <= sgns_exact.BLOCKS_PER_SM * sm_count
+            assert plan.threads == sgns_exact.THREADS
+            assert plan.smem_bytes <= sgns_exact.TABLE_BUDGET
+            assert plan.blocks * plan.positions >= B * T
 

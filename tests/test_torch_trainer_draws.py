@@ -3,9 +3,11 @@ package's epoch scan: for each block id of a chunk, kb = fold_in(key, i),
 the dynamic windows jax.random.randint(kb, (B, T), 1, w + 1) and the
 negatives _draw_negatives(fold_in(kb, 2), shape, keep, alias), bit for bit,
 for both trainers' shapes and chunks that do not divide the epoch. Then a
-NumPy transcription of csrc/trainer_draws.cu (its grid, its split of a
-block's elements into cwin then negs, its uint32 randint and f32 pick)
-against the plain version. JAX runs with x64 off."""
+NumPy transcription of csrc/trainer_draws.cu (one thread block a run of a
+block's elements, its keys made at the thread block's start, its split of a
+block's elements into cwin then negs, its uint32 randint by the span's
+reciprocal and f32 pick) against the plain version, and the reciprocal
+against NumPy's %. JAX runs with x64 off."""
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +43,8 @@ def _jax_draws(seed, ep, ids, B, T, window, shape, keep, alias):
 
 # (B, T, window, k or None, kB or None, V, c0, n): exact and shared shapes,
 # chunks that start inside the epoch and do not divide it, window 1 (a span
-# of 1) and a one-row vocabulary
+# of 1), a one-row vocabulary, and window 7 (a span that is not a power of
+# two, reduced by its reciprocal in the kernel) in both shapes
 CASES = [
     (3, 14, 3, 4, None, 50, 0, 3),
     (4, 23, 5, 5, None, 34, 7, 2),
@@ -50,6 +53,8 @@ CASES = [
     (3, 9, 1, 2, None, 20, 11, 4),
     (2, 11, 10, None, 16, 1, 3, 2),
     (2, 7, 2, 3, None, 1, 0, 2),
+    (3, 19, 7, 3, None, 30, 2, 3),
+    (5, 17, 7, None, 32, 40, 1, 2),
 ]
 
 
@@ -112,56 +117,66 @@ def _threefry(k0, k1, c0, c1):
     return x0, x1
 
 
-def _grid(n, BT, M):
-    """srw_trainer_draws_launch's (x, y) grid: runs of THREADS * PER_THREAD
-    elements of a block's cwin then negs along x, blocks along y (at most
-    65,535; the kernel strides over more)."""
-    return -(-(BT + M) // (td.THREADS * td.PER_THREAD)), min(n, 65_535)
+def _mod_span(v, span):
+    """csrc/trainer_draws.cu's mod_span on uint64 arrays holding uint32
+    values, with ops/trainer_draws.py::span_magic's reciprocal."""
+    magic, sh1, sh2 = (np.uint64(x) for x in td.span_magic(int(span)))
+    v = np.asarray(v, np.uint64)
+    t = (magic * v) >> np.uint64(32)                  # __umulhi
+    q = (t + ((v - t) >> sh1)) >> sh2
+    return (v - q * np.uint64(span)) & M32
 
 
 def _kernel_draws(key, c0, n, BT, M, window, keep, alias):
-    """The kernel's grid walked in Python: blocks along y (striding past
-    65,535), runs of THREADS * PER_THREAD elements along x, element e of a
-    block cwin's when e < BT, else negs' e - BT; keys made a block at a
-    time; uint32 randint, f32 u1 * n truncated, the alias pick."""
-    gx, gy = _grid(n, BT, M)
+    """The kernel's launch walked in Python: launch_plan's n * runs thread
+    blocks (thread block q: block c0 + q // runs of the epoch, elements
+    (q % runs) * per * THREADS + u * THREADS + thread, u < per, cwin's when
+    below BT, else negs'); a thread block's four stream keys made at its
+    start (kb once, its three fold_ins, then fold_in(kn, 1)); randint's three reductions by the reciprocal of the span; f32
+    u1 * n truncated; the alias pick."""
+    plan = td.launch_plan(n, BT, M)
     cwin = np.full((n, BT), -7, np.int64)
     negs = np.full((n, M), -7, np.int64)
     span = np.uint64(window)
     m16 = np.uint64(65536) % span
     mult = (m16 * m16) % span
     fn = np.float32(len(keep))
-    for by in range(gy):
-        for y in range(by, n, gy):
-            kb = _threefry(key[0], key[1], 0, c0 + y)
-            ks = [_threefry(kb[0], kb[1], 0, t) for t in range(3)]
-            ks.append(_threefry(ks[2][0], ks[2][1], 0, 1))
-            for bx in range(gx):
-                base = bx * td.THREADS * td.PER_THREAD
-                e = (base + np.arange(td.PER_THREAD)[:, None] * td.THREADS
-                     + np.arange(td.THREADS)[None, :]).reshape(-1)
-                e = e[e < BT + M]
-                ec, en = e[e < BT], e[e >= BT] - BT
-                bits = lambda k, i: np.bitwise_xor(*_threefry(k[0], k[1], 0,
-                                                              i))
-                hi, lo = bits(ks[0], ec), bits(ks[1], ec)
-                off = (((hi % span) * mult) & M32) + (lo % span)
-                assert (cwin[y, ec] == -7).all()
-                cwin[y, ec] = 1 + ((off & M32) % span).astype(np.int64)
-                f = lambda b: ((b >> np.uint64(9)) | np.uint64(0x3F800000)
-                               ).astype(np.uint32).view(np.float32) - \
-                    np.float32(1)
-                u1, u2 = f(bits(ks[2], en)), f(bits(ks[3], en))
-                j = np.minimum((u1 * fn).astype(np.int32), len(keep) - 1)
-                assert (negs[y, en] == -7).all()
-                negs[y, en] = np.where(u2 < keep[j], j, alias[j])
+    bits = lambda k, i: np.bitwise_xor(*_threefry(k[0], k[1], 0, i))
+
+    def stream_keys(q):
+        kb = _threefry(key[0], key[1], 0, c0 + q // plan.runs)
+        ks = [_threefry(kb[0], kb[1], 0, t) for t in range(3)]
+        return ks + [_threefry(ks[2][0], ks[2][1], 0, 1)]
+
+    for q in range(n * plan.runs):
+        ks = stream_keys(q)
+        y = q // plan.runs
+        base = (q - y * plan.runs) * plan.per * td.THREADS
+        e = (base + np.arange(plan.per)[:, None] * td.THREADS
+             + np.arange(td.THREADS)[None, :]).reshape(-1)
+        e = e[e < BT + M]
+        ec, en = e[e < BT], e[e >= BT] - BT
+        hi, lo = bits(ks[0], ec), bits(ks[1], ec)
+        off = _mod_span((((_mod_span(hi, span) * mult) & M32)
+                         + _mod_span(lo, span)) & M32, span)
+        assert (cwin[y, ec] == -7).all()
+        cwin[y, ec] = 1 + off.astype(np.int64)
+        f = lambda b: ((b >> np.uint64(9)) | np.uint64(0x3F800000)
+                       ).astype(np.uint32).view(np.float32) - np.float32(1)
+        u1, u2 = f(bits(ks[2], en)), f(bits(ks[3], en))
+        j = np.minimum((u1 * fn).astype(np.int32), len(keep) - 1)
+        assert (negs[y, en] == -7).all()
+        negs[y, en] = np.where(u2 < keep[j], j, alias[j])
     assert (cwin != -7).all() and (negs != -7).all()   # each element once
     return cwin, negs
 
 
-@pytest.mark.parametrize("B,T,window,k,kB,V,c0,n", CASES[:2] + CASES[4:6])
+@pytest.mark.parametrize("B,T,window,k,kB,V,c0,n",
+                         CASES[:2] + CASES[4:6] + CASES[7:])
 def test_kernel_transcription_equals_the_plain_version(B, T, window, k, kB,
                                                        V, c0, n):
+    """The kernel's grid (one thread block a run, as launch_plan gives it)
+    against the plain version."""
     keep, alias = _alias(V, B)
     shape = (kB,) if kB else (B * T * 2 * window, k)
     key = prng.fold_in(prng.prng_key(13), 0)
@@ -178,14 +193,40 @@ def test_kernel_transcription_equals_the_plain_version(B, T, window, k, kB,
 
 
 def test_grid_strides_past_the_y_limit():
-    """More blocks than a grid's y extent: the kernel's y loop visits every
-    block once, and x covers a block's elements (phase 13 of chip_smoke.py
-    draws 70,000 blocks in one launch on the card)."""
-    n = 70_000
-    gx, gy = _grid(n, 10, 3)
-    assert (gx, gy) == (1, 65_535)
-    visits = [y for by in range(gy) for y in range(by, n, gy)]
-    assert sorted(visits) == list(range(n))
-    gx, _ = _grid(2, 2624, 262_400)
-    assert (gx - 1) * td.THREADS * td.PER_THREAD < 2624 + 262_400 <= \
-        gx * td.THREADS * td.PER_THREAD
+    """One thread block a run in one grid dimension, past the 65,535 a
+    grid's y extent allows (phase 13 of chip_smoke.py draws 70,000 blocks
+    in one launch on the card); a block's elements are cut into runs of the
+    same number of strides that cover them; 2^31 thread blocks are
+    refused."""
+    plan = td.launch_plan(70_000, 10, 3)
+    assert tuple(plan) == (1, 1)
+    assert 70_000 * plan.runs > 65_535
+    for total, runs, per in ((2624 + 128, 2, 6), (2624 + 262_400, 130, 8),
+                             (1, 1, 1), (2048, 1, 8), (2049, 2, 5)):
+        plan = td.launch_plan(3, total, 0)
+        assert (plan.runs, plan.per) == (runs, per)
+        run = plan.per * td.THREADS
+        assert (plan.runs - 1) * run < total <= plan.runs * run
+        assert plan.per <= td.PER_THREAD
+    assert tuple(td.launch_plan(5, 0, 3)) == (1, 1)
+    with pytest.raises(ValueError):
+        td.launch_plan(1 << 21, 1 << 21, 0)      # 2^31 thread blocks
+
+
+def test_reciprocal_modulo_matches_numpy():
+    """mod_span with span_magic's reciprocal is v % span for every span
+    1-64 and 2^k - 1, 2^k, 2^k + 1 up to 2^31, at the edges (0, 1,
+    span - 1, span, 2^32 - 1) and 10^5 random uint32 numerators."""
+    rng = np.random.default_rng(5)
+    rand = rng.integers(0, 1 << 32, 100_000, dtype=np.uint64)
+    spans = sorted(set(range(1, 65)) | {
+        (1 << e) + d for e in range(1, 32) for d in (-1, 0, 1)
+        if (1 << e) + d <= 1 << 31})
+    assert spans[-1] == 1 << 31
+    for span in spans:
+        v = np.concatenate([rand, np.array(
+            [0, 1, span - 1, span, (1 << 32) - 1], np.uint64)])
+        np.testing.assert_array_equal(_mod_span(v, span),
+                                      v % np.uint64(span), err_msg=str(span))
+        magic, sh1, sh2 = td.span_magic(span)
+        assert 0 < magic < 1 << 32 and sh1 in (0, 1) and 0 <= sh2 <= 30
