@@ -57,7 +57,21 @@ entry points a user calls:
               with every negative that token, also at T 201), a token at
               every other position and padded blocks; each kernel timed
               at the main shape, the accumulate kernel by tile, and the
-              corpus's grouping once.
+              corpus's grouping once;
+  phase 15    `node2vec --streaming true` through the CLI on phase 4's
+              graph, conv (kB 128) and exact, one epoch each (one walk
+              round on the device at a time): /path byte for byte phase
+              4's, each round walked once in the pre-pass and once in the
+              epoch, each trainer kernel's launches and calls a block, the
+              token grouping's ms a round, the job's peak device memory
+              above the graph and embedding tables against the stored
+              run's, and the labeled synthetic gate on a streamed run;
+  phase 16    phase 4's argv with `--profile DIR`: the torch.profiler trace
+              names each of the path's kernels by its CUDA symbol as often
+              as its wrapper counted launches;
+  phase 17    the job server (`serve.JobServer` on port 0): a karate
+              node2vec job over REST in a worker process on the card, its
+              /path byte for byte the CLI's; a failing job; the next job.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every failure raises and the script exits non-zero. It
@@ -70,8 +84,11 @@ against its plain version, its times and its bound.
 from __future__ import annotations
 
 import ctypes
+import filecmp
+import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -112,6 +129,18 @@ MAIN_FLAGS = ["--cmd", "node2vec", "--walkLength", "80", "--numWalks", "10",
 # phase 12: the CLI's default trainer, exact negatives
 EXACT_FLAGS = (MAIN_FLAGS[:MAIN_FLAGS.index("--sharedNegatives")]
                + MAIN_FLAGS[MAIN_FLAGS.index("--sharedNegatives") + 2:])
+# phase 15: phase 4's and phase 12's runs without --validate (the streamed
+# path has none), streamed and stored; the labeled synthetic graph streamed
+# at phase 5's settings
+STREAM_FLAGS = MAIN_FLAGS[:MAIN_FLAGS.index("--validate")]
+STREAM_EXACT_FLAGS = EXACT_FLAGS[:EXACT_FLAGS.index("--validate")]
+SYNTH_FLAGS = ["--walkLength", "20", "--numWalks", "3", "--p", "0.25", "--q",
+               "0.25", "--seed", "1", "--dim", "32", "--window", "5",
+               "--negatives", "5", "--lr", "0.1", "--iter", "3",
+               "--sharedNegatives", "64"]
+# phase 17: the job served over REST, on karate
+SERVE_FLAGS = ["--cmd", "node2vec", "--walkLength", "20", "--numWalks", "10",
+               "--dim", "32", "--window", "5", "--iter", "2", "--seed", "2"]
 # phase 12's karate run above the old 512 limit of the exact kernel: the
 # gate's trainer settings (dim aside) and walks
 DIM768_FLAGS = ["--dim", "768", "--window", "5", "--negatives", "5", "--lr",
@@ -1657,6 +1686,358 @@ def phase_conv_check(torch, smi) -> tuple[dict, dict]:
              "grouping_ms_once_a_run": group_ms[0]})
 
 
+def reset_counts(*kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def same_path(a: str, b: str) -> bool:
+    return filecmp.cmp(os.path.join(a, "path", "part-00000"),
+                       os.path.join(b, "path", "part-00000"), shallow=False)
+
+
+def peak_bytes(torch, fn) -> int:
+    """The device bytes fn() holds at its peak above what was allocated
+    before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - held
+
+
+def phase_streaming(torch, path_kernels: dict, smi, tmp, main_run) -> dict:
+    """Phase 15: `node2vec --streaming true` through the CLI on phase 4's
+    graph, conv (kB 128) and exact, one epoch each: /path byte for byte
+    phase 4's, every round walked once in the pre-pass and once an epoch,
+    the launches of every kernel in path_kernels (name -> wrapper: all nine,
+    so the kernels line reads each one's count from these runs), the
+    trainer's calls a block, the grouping's ms a round, and the job's peak
+    device memory against the stored run's (both without --validate), at
+    most a quarter of it for each trainer; then the labeled-synthetic
+    micro-F1 gate on a streamed run."""
+    from stellar_rw_tpu_torch import cli
+    from stellar_rw_tpu_torch.graph import datasets
+    from stellar_rw_tpu_torch.models import eval as ev
+    from stellar_rw_tpu_torch.models import node2vec as n2v
+    from stellar_rw_tpu_torch.models import word2vec as w2v
+    from stellar_rw_tpu_torch.ops import prng
+    from stellar_rw_tpu_torch.ops.sgns import SGNS_KERNEL
+    from stellar_rw_tpu_torch.ops.sgns_conv import ConvWorkspace, group_blocks
+    from stellar_rw_tpu_torch.ops.sgns_exact import Workspace
+    from stellar_rw_tpu_torch.utils.config import parse
+
+    edges = main_run["edges"]
+    params = parse(["--input", edges, "--output", tmp] + STREAM_FLAGS)
+    graph = cli._load_graph(params)
+    V, R, D = graph.num_vertices, params.num_walks, params.w2v_dim
+    dg = cli._device_graph(graph, params, torch.device("cuda"))
+    # what a run holds whatever its corpus, taken off both runs' peaks: the
+    # graph's tables (the stored run frees them before it trains), the two
+    # embedding tables, the trainer's step workspace, and the draws of as
+    # many blocks as both runs draw at once (_train_epoch's chunk, at most
+    # _DRAW_BUDGET elements: 15 exact blocks in either run; 313 conv blocks,
+    # a round, streamed, so the stored run's larger chunk stays counted)
+    cfg = n2v.sgns_config(params)
+    B, T = cfg.row_block, params.walk_length + 2
+    w_in = torch.zeros((V, D), device="cuda")
+    w_out = torch.zeros_like(w_in)
+    fixed = {}
+    for name, kB in (("conv", cfg.shared_negatives), ("exact", 0)):
+        ws = peak_bytes(torch, lambda: ConvWorkspace(
+            w_in, w_out, B, T, cfg.window, kB) if kB else Workspace(
+            w_in, w_out, B * T, cfg.window, cfg.negatives))
+        per_block = (kB or B * T * 2 * cfg.window * cfg.negatives) + B * T
+        chunk = min(max(1, min(n, w2v._DRAW_BUDGET // per_block))
+                    for n in (-(-R * V // B), -(-V // B)))
+        fixed[name] = (tensor_bytes(*[t for t in dg if t is not None])
+                       + 2 * V * D * 4 + ws + 4 * per_block * chunk)
+    del w_in, w_out
+    # the conv trainer groups each round's blocks when it trains the round
+    make_round, _ = n2v._round_maker(graph, params, "cuda", dg)
+
+    def as_blocks(rows):   # the trainer's blocks of 32 rows, -1 padded
+        n = -(-rows.shape[0] // 32)
+        out = torch.full((n * 32, rows.shape[1]), -1, dtype=torch.int32,
+                         device="cuda")
+        out[:rows.shape[0]] = rows
+        return out.view(n, 32, -1)
+
+    blocks = as_blocks(make_round(0))
+    n_blocks = blocks.shape[0]
+    group_ms = cuda_ms(lambda: group_blocks(blocks), 20)
+    init_key = prng.fold_in(prng.prng_key(0, "cuda"), 0x1A17)
+    w2v._init_embeddings(V, D, init_key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):   # host wall: the init is issued a run at a time
+        w2v._init_embeddings(V, D, init_key)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3 / 5
+    # the two paths' transients, each alone: the grouping of a round and of
+    # the whole corpus (3,125 blocks, _GROUP_POSITIONS positions a sort), and
+    # the seeded init of the input table (a run of rows at a time)
+    corpus = as_blocks(torch.cat([make_round(r) for r in range(R)]))
+    transient = {
+        "group_round": peak_bytes(torch, lambda: group_blocks(blocks)),
+        "group_corpus": peak_bytes(torch, lambda: group_blocks(corpus)),
+        "init": peak_bytes(torch, lambda: w2v._init_embeddings(
+            V, D, init_key))}
+    del dg, make_round, blocks, corpus
+    trainer = trainer_kernels()
+    runs = {}
+    for name, flags in (("conv", STREAM_FLAGS), ("exact", STREAM_EXACT_FLAGS)):
+        for mode in ("stored", "streamed"):
+            out = os.path.join(tmp, f"out_{mode}_{name}")
+            report = {}
+            reset_counts(*path_kernels.values())
+            rc = cli.main(["--input", edges, "--output", out] + flags
+                          + (["--streaming", "true"] if mode == "streamed"
+                             else []), report=report)
+            torch.cuda.synchronize()
+            check(rc == 0, f"{mode} {name} run: cli.main returned {rc}")
+            check(same_path(main_run["out"], out),
+                  f"{mode} {name} /path differs from phase 4's")
+            _, w_in, w_out = n2v.load_model(out)
+            check(w_in.shape == (V, D) and np.isfinite(w_in).all()
+                  and np.isfinite(w_out).all(),
+                  f"{mode} {name} embeddings not finite or misshapen")
+            runs[name, mode] = {
+                **{k: t.launches for k, t in path_kernels.items()},
+                "walk_seconds": report["walk_seconds"],
+                "train_seconds": report["train_seconds"],
+                "peak_bytes": report["peak_device_bytes"],
+                "corpus_bytes": report["peak_device_bytes"] - fixed[name]}
+    blocks = R * n_blocks
+    for name, most in (("conv", 3.01), ("exact", 1.07)):
+        run = runs[name, "streamed"]
+        check(run["walk"] == 2 * R and run["trial_keys"] == 2 * R,
+              f"streamed {name}: each round walked once in the pre-pass and "
+              f"once in the epoch, not {run['walk']} / {run['trial_keys']}")
+        check(run["cdf_walk"] == 0 and run["resident_walk"] == 0,
+              f"streamed {name}: phase 4's sampler is the alias walk: {run}")
+        calls = sum(run[k] for k in trainer)
+        run["launches_a_block"] = calls / blocks
+        check(calls / blocks <= most, f"streamed {name}: "
+              f"{calls / blocks:.4f} kernel calls a block: {run}")
+    conv, exact = runs["conv", "streamed"], runs["exact", "streamed"]
+    for k in ("trainer_draws", "sgns_conv_accumulate", "sgns_shared_grads",
+              "sgns_conv_scatter"):
+        check(conv[k] > 0, f"{k} was not launched by the streamed conv "
+              f"trainer: {conv}")
+    check(conv["sgns_conv_accumulate"] == blocks
+          and conv["sgns_exact_step"] == 0, f"streamed conv: {conv}")
+    check(exact["sgns_exact_step"] == blocks
+          and exact["sgns_conv_accumulate"] == 0, f"streamed exact: {exact}")
+    ratio = {name: runs[name, "streamed"]["corpus_bytes"]
+             / runs[name, "stored"]["corpus_bytes"]
+             for name in ("conv", "exact")}
+    mb = lambda b: f"{b / 1e6:.1f} MB"
+    for name in ("conv", "exact"):
+        check(ratio[name] <= 0.25, f"streamed {name}: corpus-dependent peak "
+              f"{ratio[name]:.3f} of the stored run's (peaks "
+              f"{mb(runs[name, 'streamed']['peak_bytes'])} and "
+              f"{mb(runs[name, 'stored']['peak_bytes'])}, less "
+              f"{mb(fixed[name])} each)")
+    # the labeled synthetic graph's gate (phase 5's settings), streamed
+    sg, labels = datasets.synth_labeled_graph(1500, 15_000, communities=6,
+                                              seed=7)
+    SGNS_KERNEL.launches = 0
+    _, s_in, _, _ = n2v.run_node2vec_streaming(
+        sg, parse(["--cmd", "node2vec", "--input", "-", "--output",
+                   os.path.join(tmp, "out_streamed_synth")] + SYNTH_FLAGS),
+        "cuda")
+    check(SGNS_KERNEL.launches > 0, "the streamed synthetic run launched no "
+          "sgns_shared_grads")
+    f1 = ev.multilabel_micro_f1(s_in, labels, train_frac=0.5, seed=0)
+    check(f1 > 0.55, f"labeled synthetic gate, streamed: micro-F1 {f1}")
+    print(f"phase 15 node2vec --streaming true ({V} V, {R} rounds of {V} "
+          f"walks, {blocks} blocks an epoch): /path byte-equal to phase 4's; "
+          + "; ".join(
+              f"{name}: pre-pass {runs[name, 'streamed']['walk_seconds']:.3f}"
+              f" s, epoch {runs[name, 'streamed']['train_seconds']:.3f} s "
+              f"(stored {runs[name, 'stored']['train_seconds']:.3f} s), "
+              f"{runs[name, 'streamed']['launches_a_block']:.4f} kernel calls "
+              f"a block, launches "
+              f"{ {k: runs[name, 'streamed'][k] for k in path_kernels} }"
+              f", corpus-dependent peak "
+              f"{mb(runs[name, 'streamed']['corpus_bytes'])} against stored "
+              f"{mb(runs[name, 'stored']['corpus_bytes'])} "
+              f"({ratio[name]:.3f}x)" for name in ("conv", "exact"))
+          + f"; grouping {group_ms:.4f} ms a round ({n_blocks} blocks); "
+          f"the input table's init {init_ms:.4f} ms (host wall); "
+          f"fixed { {k: mb(v) for k, v in fixed.items()} } (graph and "
+          f"embedding tables, step workspace, shared draw chunk); transient "
+          f"peaks "
+          f"{ {k: mb(v) for k, v in transient.items()} }; labeled "
+          f"synthetic streamed micro-F1 {f1:.4f} (> 0.55) [{smi}]")
+    return {"conv": conv, "exact": exact, "group_ms_a_round": group_ms,
+            "init_ms": init_ms,
+            "memory_ratio": ratio, "micro_f1": f1,
+            "transient_bytes": transient, "fixed_bytes": fixed,
+            "stored": {n: runs[n, "stored"] for n in ("conv", "exact")}}
+
+
+# the CUDA symbols of phase 4's kernels and the counter of each one's
+# launches (sgns_shared_grads is two kernels: the tiles and their sum)
+def profiled_symbols(walk_kernel, keys_kernel) -> dict:
+    t = trainer_kernels()
+    return {"walk_kernel": walk_kernel, "trial_keys_kernel": keys_kernel,
+            "trainer_draws": t["trainer_draws"],
+            "sgns_conv_accumulate": t["sgns_conv_accumulate"],
+            "sgns_shared_kernel": t["sgns_shared_grads"],
+            "reduce_partials": t["sgns_shared_grads"],
+            "sgns_conv_scatter": t["sgns_conv_scatter"]}
+
+
+EPOCH_SYMBOLS = ("trainer_draws", "sgns_conv_accumulate", "sgns_shared_kernel",
+                 "reduce_partials", "sgns_conv_scatter")
+
+
+def symbol_pattern(sym: str):
+    """A demangled kernel name's match for a CUDA symbol (in a namespace or
+    not, a template or not)."""
+    return re.compile(rf"(?:^|[\s:]){sym}[<(]")
+
+
+def phase_profile(torch, walk_kernel, keys_kernel, smi, tmp,
+                  main_run) -> dict:
+    """Phase 16: phase 4's argv with --profile DIR: one torch.profiler trace
+    in DIR that names each of the path's kernels by its CUDA symbol as
+    often as its wrapper counted launches; /path unchanged. From the trace,
+    each kernel's summed duration and the card's idle share in the epoch."""
+    from stellar_rw_tpu_torch import cli
+
+    prof = os.path.join(tmp, "profile")
+    out = os.path.join(tmp, "out_profile")
+    symbols = profiled_symbols(walk_kernel, keys_kernel)
+    reset_counts(*symbols.values())
+    report = {}
+    t0 = time.perf_counter()
+    rc = cli.main(["--input", main_run["edges"], "--output", out]
+                  + MAIN_FLAGS + ["--profile", prof], report=report)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"profiled run: cli.main returned {rc}")
+    check(same_path(main_run["out"], out), "profiled /path differs")
+    traces = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+    check(len(traces) == 1, f"trace files in {prof}: {os.listdir(prof)}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(len(kernels) > 0, "no kernel events in the trace")
+    found, busy_ms = {}, {}
+    for sym, counter in symbols.items():
+        pat = symbol_pattern(sym)
+        mine = [e for e in kernels if pat.search(e["name"])]
+        found[sym] = len(mine)
+        busy_ms[sym] = sum(e.get("dur", 0) for e in mine) / 1e3
+        check(counter.launches > 0 and len(mine) == counter.launches,
+              f"trace: {len(mine)} {sym} events, {counter.launches} "
+              f"launches counted")
+    # the epoch's window: its first trainer kernel's start to its last
+    # one's end. The card is busy where any kernel runs: a union of
+    # intervals, since reduce_partials starts early under programmatic
+    # dependent launch and waits inside
+    pats = [symbol_pattern(sym) for sym in EPOCH_SYMBOLS]
+    epoch = [e for e in kernels if any(p.search(e["name"]) for p in pats)]
+    lo = min(e["ts"] for e in epoch)
+    hi = max(e["ts"] + e.get("dur", 0) for e in epoch)
+    busy, end = 0.0, lo
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        a, b = max(e["ts"], end), min(e["ts"] + e.get("dur", 0), hi)
+        if b > a:
+            busy += b - a
+            end = b
+    idle = 1 - busy / (hi - lo)
+    print(f"phase 16 --profile on phase 4's argv: {len(traces)} trace "
+          f"({os.path.getsize(traces[0]) / 1e6:.1f} MB, {len(events)} "
+          f"events, {len(kernels)} kernel events); each symbol's events = "
+          f"its launches {found}; summed durations ms "
+          f"{ {k: round(v, 3) for k, v in busy_ms.items()} }; the epoch's "
+          f"window (its first trainer kernel to its last) "
+          f"{(hi - lo) / 1e3:.3f} ms, a kernel running in "
+          f"{busy / 1e3:.3f} ms of it: idle share {idle:.4f}; walk "
+          f"{report['walk_seconds']:.3f} s, epoch "
+          f"{report['train_seconds']:.3f} s under the profiler, CLI wall "
+          f"{wall:.1f} s [{smi}]")
+    return {"events": found, "busy_ms": busy_ms,
+            "epoch_window_ms": (hi - lo) / 1e3, "epoch_idle_share": idle,
+            "train_seconds": report["train_seconds"]}
+
+
+def http(method: str, url: str, payload=None):
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def phase_server(torch, smi, tmp) -> dict:
+    """Phase 17: a JobServer on port 0. A karate node2vec job over REST
+    runs in a worker process on the card to FINISHED, its /path byte for
+    byte the same argv's through the CLI; a job with an unreadable input
+    ends ERROR with its worker's exit code; the server runs the next job
+    after it."""
+    from stellar_rw_tpu_torch import cli, serve
+
+    karate = os.path.join(ROOT, "tests", "data", "karate.txt")
+    job = lambda out, extra="": {serve.CONFIG_KEY: " ".join(
+        ["--input", karate, "--output", out] + SERVE_FLAGS) + extra}
+    srv = serve.JobServer(port=0, job_timeout=600)
+    srv.start()
+    base = "http://%s:%d" % srv.address
+    try:
+        out = os.path.join(tmp, "serve_rest")
+        t0 = time.perf_counter()
+        code, posted = http("POST", f"{base}/jobs", job(out))
+        check(code == 202, f"POST /jobs: {code} {posted}")
+        srv.wait(posted["jobId"], timeout=900)
+        rest_s = time.perf_counter() - t0
+        code, done = http("GET", f"{base}/jobs/{posted['jobId']}")
+        check(code == 200 and done["status"] == "FINISHED"
+              and done["result"] == out, f"REST job: {done}")
+        ref = os.path.join(tmp, "serve_cli")
+        check(cli.main(job(ref)[serve.CONFIG_KEY].split()) == 0,
+              "the CLI run of the served argv failed")
+        check(same_path(ref, out), "the served /path differs from the CLI's")
+        code, bad = http("POST", f"{base}/jobs", {
+            serve.CONFIG_KEY: f"--cmd randomwalk --input "
+                              f"{os.path.join(tmp, 'no_such_graph.txt')} "
+                              f"--output {os.path.join(tmp, 'serve_bad')}"})
+        check(code == 202, f"POST /jobs (bad input): {code} {bad}")
+        srv.wait(bad["jobId"], timeout=900)
+        code, bad_done = http("GET", f"{base}/jobs/{bad['jobId']}")
+        check(bad_done["status"] == "ERROR" and "rc=" in bad_done["error"],
+              f"bad-input job: {bad_done}")
+        nxt = os.path.join(tmp, "serve_next")
+        code, posted = http("POST", f"{base}/jobs", job(
+            nxt, " --cmd randomwalk"))
+        srv.wait(posted["jobId"], timeout=900)
+        code, next_done = http("GET", f"{base}/jobs/{posted['jobId']}")
+        check(next_done["status"] == "FINISHED"
+              and os.path.exists(os.path.join(nxt, "path", "part-00000")),
+              f"the job after the failed one: {next_done}")
+        code, listing = http("GET", f"{base}/jobs")
+        check(code == 200 and len(listing["jobs"]) == 3,
+              f"GET /jobs: {listing}")
+    finally:
+        srv.stop()
+    print(f"phase 17 job server: karate node2vec over REST FINISHED in "
+          f"{rest_s:.1f} s (a worker process on the card), /path byte-equal "
+          f"to the CLI's; unreadable input ERROR "
+          f"({bad_done['error'].strip().splitlines()[-1][:100]!r}); the next "
+          f"job FINISHED [{smi}]")
+    return {"rest_seconds": rest_s}
+
+
 def main() -> int:
     import torch
 
@@ -1689,12 +2070,34 @@ def main() -> int:
                                  main_run["edges"])
         step_row = phase_exact_check(torch)
         exact_run = phase_exact_main(torch, smi, tmp, main_run["edges"])
-    draws_row = phase_draws_check(torch, smi, probe)
-    accumulate_row, scatter_row = phase_conv_check(torch, smi)
+        draws_row = phase_draws_check(torch, smi, probe)
+        accumulate_row, scatter_row = phase_conv_check(torch, smi)
+        stream = phase_streaming(torch, {
+            "walk": WALK_KERNEL, "trial_keys": KEYS_KERNEL,
+            "resident_walk": RESIDENT_WALK_KERNEL,
+            "cdf_walk": CDF_WALK_KERNEL, **trainer_kernels()},
+            smi, tmp, main_run)
+        profile = phase_profile(torch, WALK_KERNEL, KEYS_KERNEL, smi, tmp,
+                                main_run)
+        server = phase_server(torch, smi, tmp)
     epochs = {"conv_epoch_s": main_run["train_seconds"],
               "conv_launches_a_block": main_run["launches_a_block"],
               "exact_epoch_s": exact_run["train_seconds"],
-              "exact_launches_a_block": exact_run["launches_a_block"]}
+              "exact_launches_a_block": exact_run["launches_a_block"],
+              "streamed": {name: {k: stream[name][k] for k in (
+                  "walk_seconds", "train_seconds", "launches_a_block",
+                  "corpus_bytes")} for name in ("conv", "exact")},
+              "stored_corpus_bytes": {
+                  name: stream["stored"][name]["corpus_bytes"]
+                  for name in ("conv", "exact")},
+              "group_ms_a_round": stream["group_ms_a_round"],
+              "init_ms": stream["init_ms"],
+              "profiled_conv_epoch_s": profile["train_seconds"],
+              "profiled_epoch_idle_share": profile["epoch_idle_share"],
+              "transient_bytes": stream["transient_bytes"],
+              "fixed_bytes": stream["fixed_bytes"],
+              "served_job_s": server["rest_seconds"]}
+    quality["streamed_micro_f1"] = stream["micro_f1"]
     kernels = [
         {"name": "walk", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/walk.cu",
@@ -1734,6 +2137,9 @@ def main() -> int:
          "replaces": "stellar_rw_tpu/models/word2vec.py:488",
          "launches": main_run["sgns_conv_scatter"], **scatter_row},
     ]
+    for row in kernels:   # the launches of the streamed runs (phase 15)
+        for name in ("conv", "exact"):
+            row[f"launches_streamed_{name}"] = stream[name][row["name"]]
     print(json.dumps({"epochs": epochs, "quality": quality}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -12,15 +12,18 @@ from __future__ import annotations
 import json
 import logging
 import os
+import time
 
 import numpy as np
 import torch
 
 from ..errors import NotPorted, resolve_device
+from ..graph import io as gio
 from ..graph.csr import CSRGraph
 from ..ops import prng, sampling
 from ..ops.sampling import DeviceGraph
 from ..utils.config import MODEL_SUFFIX, Params
+from ..utils.stats import WalkStats
 from ..walk import engine
 from . import word2vec as w2v
 
@@ -182,6 +185,69 @@ def checkpointed_random_walks(graph: CSRGraph, params: Params,
         if done % every == 0 or done == R:
             write_marker(done)
     return out, start
+
+
+def run_node2vec_streaming(graph: CSRGraph, params: Params, device="cuda",
+                           device_graph: DeviceGraph | None = None,
+                           report: dict | None = None):
+    """Node2vec with one walk round on the device at a time (port of the
+    JAX package's run_node2vec_streaming).
+
+    The stored path holds the whole corpus on the device before training.
+    Here the counter-based streams make every round exactly regenerable:
+      pre-pass (once): walk each round on the device, write it to /path
+        (graph/io.py::save_walks_stream), count its tokens and row lengths;
+      training: in every epoch walk each round again and train on it
+        (word2vec.py::train_skipgram_streaming); the realized corpus is
+        bitwise the stored path's.
+    Each walk dispatch walks only its own round. The graph is uploaded once
+    (device_graph, when given, is used as it is). As in the JAX package
+    there are no walk-round or trainer checkpoints and no --validate.
+
+    Returns (tokens, w_in, w_out, stats); report, when given, receives
+    walk_seconds (the pre-pass) and train_seconds (the epochs)."""
+    t0 = time.perf_counter()
+    V = graph.num_vertices
+    R = params.num_walks
+    make_round, _ = _round_maker(graph, params, device, device_graph)
+    counts = None
+    lengths = []
+
+    def rounds_for_save():
+        nonlocal counts
+        for r in range(R):
+            block = make_round(r)
+            # -1 pads land in bin 0. The JAX package sums the counts in f32,
+            # which is exact while every count is below 2**24; the integer
+            # counts equal it there and stay exact beyond
+            c = torch.bincount(block.reshape(-1) + 1, minlength=V + 1)[1:]
+            counts = c if counts is None else counts + c
+            block_np = block.cpu().numpy()
+            lengths.append((block_np >= 0).sum(axis=1))
+            yield block_np
+
+    gio.save_walks_stream(rounds_for_save(), R * V, graph, params.output,
+                          output_partitions(params))
+    counts = (counts.cpu().numpy().astype(np.float64) if counts is not None
+              else np.zeros(V))
+    lengths = np.concatenate(lengths) if lengths else np.zeros(0, np.int64)
+    full = params.walk_length + 2
+    stats = WalkStats(
+        num_paths=int(len(lengths)),
+        num_steps=int(lengths.sum() - len(lengths)),
+        full_paths=int((lengths == full).sum()),
+        dead_ends=int(((lengths < full) & (lengths > 1)).sum()),
+        isolated_starts=int((lengths == 1).sum()),
+        mean_length=float(lengths.mean()) if len(lengths) else 0.0,
+    )
+    t1 = time.perf_counter()
+    w_in, w_out = w2v.train_skipgram_streaming(
+        make_round, R, (V, full), V, sgns_config(params), counts,
+        device=device)
+    if report is not None:
+        report.update(walk_seconds=t1 - t0,
+                      train_seconds=time.perf_counter() - t1)
+    return [int(i) for i in graph.ids], w_in, w_out, stats
 
 
 def sgns_config(params: Params) -> w2v.SGNSConfig:

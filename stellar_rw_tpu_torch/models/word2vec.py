@@ -17,7 +17,9 @@ two update forms, as in the JAX package:
     calls a block: its positive half and its scatter-mean with the update
     are csrc/sgns_conv.cu, its negative half is sgns_shared_grads
     (csrc/sgns_shared.cu); the corpus blocks' positions are grouped by token
-    once a run (ops/sgns_conv.py::group_blocks) for the scatter.
+    once a run (ops/sgns_conv.py::group_blocks) for the scatter, once a
+    round in every epoch when the corpus is streamed
+    (train_skipgram_streaming: one walk round on the device at a time).
 On the CPU (device="cpu") the same steps run their plain versions:
 trainer_draws_ref, `_sgns_apply` over the block's pairs and
 `_sgns_apply_shared_conv`.
@@ -47,6 +49,8 @@ from ..ops.trainer_draws import _draw_negatives, trainer_draws  # noqa: F401
 
 # elements of per-block random draws generated in one batch
 _DRAW_BUDGET = 1 << 22
+# elements of the input table's init drawn in one batch (its least run)
+_INIT_CHUNK = 1 << 18
 
 
 @dataclass(frozen=True)
@@ -78,10 +82,23 @@ def params_from_numpy(w_in: np.ndarray, w_out: np.ndarray, device
     return as_t(w_in), as_t(w_out)
 
 
-def _init_embeddings(vocab: int, dim: int, key: torch.Tensor
+def _init_embeddings(vocab: int, dim: int, key: torch.Tensor,
+                     chunk: int = _INIT_CHUNK
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """word2vec init: input uniform in [-0.5/dim, 0.5/dim), output zeros."""
-    w_in = (prng.uniform(key, (vocab, dim)) - 0.5) / dim
+    """word2vec init: input uniform in [-0.5/dim, 0.5/dim), output zeros.
+
+    jax.random.uniform(key, (vocab, dim)) drawn a run of whole rows at a
+    time: element i is a function of (key, i) alone, so the table is the
+    same bit for bit, and the int64 threefry temporaries (about 56 bytes an
+    element) stay those of one run of at least `chunk` elements and at
+    most 256 runs, not of the table."""
+    w_in = torch.empty((vocab, dim), dtype=torch.float32, device=key.device)
+    rows = max(1, max(chunk, -(-vocab * dim // 256)) // max(dim, 1))
+    for r0 in range(0, vocab, rows):
+        r1 = min(vocab, r0 + rows)
+        idx = torch.arange(r0 * dim, r1 * dim, device=key.device)
+        w_in[r0:r1] = ((prng.uniform_at(key, idx) - 0.5) / dim
+                       ).view(r1 - r0, dim)
     return w_in, torch.zeros_like(w_in)
 
 
@@ -141,7 +158,28 @@ def _train_epoch(w_in, w_out, corpus, neg_keep, neg_alias, key, lr_start,
             else:
                 sgns_exact_step(w_in, w_out, corpus[i], cwin[j], negs[j], lr,
                                 window, ws)
+        # freed before the next chunk is drawn: one chunk's draws are held
+        del cwin, negs
     return w_in, w_out
+
+
+def _refuse_unported(cfg: SGNSConfig, num_partitions: int = 1) -> None:
+    if num_partitions != 1:
+        raise NotPorted("num_partitions > 1 (--w2vPartitions): data-parallel "
+                        "training is ROADMAP Queue 1 item 11b")
+    if cfg.model_shards != 1:
+        raise NotPorted("model_shards > 1 (--w2vModelShards): dim-sharded "
+                        "tables are ROADMAP Queue 1 item 11b")
+    if cfg.shared_negatives and cfg.shared_impl != "conv":
+        raise NotPorted(f"shared_impl {cfg.shared_impl!r}: only 'conv' is "
+                        "ported (ROADMAP Queue 1, not to port)")
+
+
+def _negative_tables(counts: np.ndarray, power: float, device):
+    """The unigram^power alias table of the negatives, on the device."""
+    keep, alias = build_alias(np.maximum(counts, 1e-12) ** power)
+    return (torch.as_tensor(keep, dtype=torch.float32).to(device),
+            torch.as_tensor(alias, dtype=torch.int32).to(device))
 
 
 def train_skipgram(
@@ -163,25 +201,17 @@ def train_skipgram(
     corpus may be a device tensor (the walk engine's handoff). init resumes
     from given tables (numpy, e.g. the JAX package's) at start_epoch;
     on_epoch(ep, w_in, w_out) receives numpy copies after each epoch."""
-    if num_partitions != 1:
-        raise NotPorted("num_partitions > 1 (--w2vPartitions): data-parallel "
-                        "training is ROADMAP Queue 1 item 11")
-    if cfg.model_shards != 1:
-        raise NotPorted("model_shards > 1 (--w2vModelShards): dim-sharded "
-                        "tables are ROADMAP Queue 1 item 11")
-    if cfg.shared_negatives and cfg.shared_impl != "conv":
-        raise NotPorted(f"shared_impl {cfg.shared_impl!r}: only 'conv' is "
-                        "ported (ROADMAP Queue 1, not to port)")
+    _refuse_unported(cfg, num_partitions)
     device = resolve_device("train_skipgram", device)
     corpus = torch.as_tensor(corpus).to(device=device, dtype=torch.int32)
     N, T = corpus.shape
     if counts is None:
-        flat = corpus.reshape(-1)
-        counts = torch.bincount(flat[flat >= 0].long(), minlength=vocab_size
-                                ).cpu().numpy().astype(np.float64)
-    keep, alias = build_alias(np.maximum(counts, 1e-12) ** cfg.power)
-    neg_keep = torch.as_tensor(keep, dtype=torch.float32).to(device)
-    neg_alias = torch.as_tensor(alias, dtype=torch.int32).to(device)
+        # the -1 pads shifted into bin 0, in int32: no masked or int64 copy
+        # of the corpus
+        counts = torch.bincount(corpus.reshape(-1) + 1,
+                                minlength=vocab_size + 1)[1:]
+        counts = counts.cpu().numpy().astype(np.float64)
+    neg_keep, neg_alias = _negative_tables(counts, cfg.power, device)
 
     B = max(1, min(cfg.row_block, max(N, 1)))
     n_blocks = -(-N // B)
@@ -210,6 +240,64 @@ def train_skipgram(
                      shared_negatives=cfg.shared_negatives, groups=groups)
         if on_epoch is not None:
             on_epoch(ep, w_in.cpu().numpy(), w_out.cpu().numpy())
+    return w_in.cpu().numpy(), w_out.cpu().numpy()
+
+
+def train_skipgram_streaming(
+    make_round,
+    num_rounds: int,
+    round_shape: tuple[int, int],
+    vocab_size: int,
+    cfg: SGNSConfig,
+    counts: np.ndarray,
+    *,
+    device="cuda",
+) -> tuple[np.ndarray, np.ndarray]:
+    """SGNS over a corpus that is never whole on the device: one walk round
+    at a time (port of the JAX package's train_skipgram_streaming).
+
+    make_round(r) -> the round's [W, T] i32 corpus on `device` (-1 padded),
+    the same for the same r in every epoch; it is called num_rounds times an
+    epoch. counts: the whole corpus's token counts (the pipeline's
+    pre-pass).
+
+    Each round is one `_train_epoch` slice: its blocks padded with -1 rows
+    to n_blocks * B, its key fold_in(fold_in(key, epoch), r), its learning
+    rate falling linearly over the iters * num_rounds slices. The conv
+    step's token groups are made for each round in each epoch and dropped
+    with it (`_train_epoch` groups the round it is given): keeping them for
+    every round would hold two int32 a corpus position. Device memory for
+    the corpus is one round, its padded copy and that round's groups and
+    draws. Returns (w_in, w_out) as numpy f32 [vocab, dim]."""
+    _refuse_unported(cfg)
+    device = resolve_device("train_skipgram_streaming", device)
+    W, T = round_shape
+    neg_keep, neg_alias = _negative_tables(counts, cfg.power, device)
+    key = prng.prng_key(cfg.seed, device)
+    w_in, w_out = _init_embeddings(vocab_size, cfg.dim,
+                                   prng.fold_in(key, 0x1A17))
+    B = max(1, min(cfg.row_block, W))
+    n_blocks = -(-W // B)
+    # one padded buffer for every round; its pad rows stay -1
+    padded = torch.full((n_blocks * B, T), -1, dtype=torch.int32,
+                        device=device)
+    blocks = padded.view(n_blocks, B, T)
+    lr_lo = cfg.lr * cfg.min_lr_frac
+    total_slices = max(cfg.iters * num_rounds, 1)
+
+    def lr_at(slice_idx: int) -> float:
+        frac = slice_idx / total_slices
+        return cfg.lr + (lr_lo - cfg.lr) * frac
+
+    for ep in range(cfg.iters):
+        kep = prng.fold_in(key, ep)
+        for r in range(num_rounds):
+            padded[:W] = make_round(r)
+            s = ep * num_rounds + r
+            _train_epoch(w_in, w_out, blocks, neg_keep, neg_alias,
+                         prng.fold_in(kep, r), np.float32(lr_at(s)),
+                         np.float32(lr_at(s + 1)), cfg.window, cfg.negatives,
+                         shared_negatives=cfg.shared_negatives)
     return w_in.cpu().numpy(), w_out.cpu().numpy()
 
 

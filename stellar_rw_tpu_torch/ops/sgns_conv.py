@@ -60,6 +60,7 @@ SMEM_BUDGET = TABLE_BUDGET
 HUB = 16
 _PAD = torch.iinfo(torch.int32).max   # padding's sort key: last
 _CONT = 1 << 31                       # a unit that continues its group
+_GROUP_POSITIONS = 1 << 18             # positions group_blocks sorts at once
 
 
 class LaunchPlan(NamedTuple):
@@ -120,36 +121,45 @@ class Groups(NamedTuple):
 
 
 def group_blocks(blocks: torch.Tensor, hub: int = HUB,
-                 chunk: int = 4096) -> Groups:
+                 chunk: int | None = None) -> Groups:
     """The scatter kernel's view of blocks i32 [n, B, T] (-1 padded): each
     block's positions stably sorted by token (padding last), and the token
     groups cut into units of at most `hub` positions. Made once a run (the
     corpus blocks do not change between epochs), on the blocks' device,
-    `chunk` blocks a sort."""
+    `chunk` blocks a sort; by default as many as hold _GROUP_POSITIONS
+    positions, so the sort's temporaries (about 40 bytes a position) do
+    not grow with the corpus. Issues no host synchronization."""
     n = blocks.shape[0]
     flat = blocks.reshape(n, -1)
     N = flat.shape[1]
+    if chunk is None:
+        chunk = max(1, _GROUP_POSITIONS // max(N, 1))
     order = torch.empty((n, N), dtype=torch.int32, device=blocks.device)
     units = torch.empty_like(order)
-    j = torch.arange(N, device=blocks.device)
+    j = torch.arange(N, dtype=torch.int32, device=blocks.device)
+    # a unit's entry is its first position, less 2**31 where it continues
+    # its group (int32: cols - _CONT wraps to cols + INT32_MIN)
+    cont = j + torch.iinfo(torch.int32).min
     for c0 in range(0, n, chunk):
         x = flat[c0:c0 + chunk]
         m = x.shape[0]
         key, idx = torch.sort(torch.where(x < 0, _PAD, x), dim=1,
                               stable=True)
         order[c0:c0 + m] = idx
+        del idx
         valid = key != _PAD
-        new = torch.ones_like(valid)
-        new[:, 1:] = key[:, 1:] != key[:, :-1]
-        start = torch.cummax(torch.where(new, j, 0), dim=1).values
-        rel = j - start
-        first = valid & (rel % hub == 0)
-        uid = torch.cumsum(first, dim=1) - 1
-        u = valid.sum(1, keepdim=True).expand(m, N).clone()
-        rows, cols = first.nonzero(as_tuple=True)
-        u[rows, uid[rows, cols]] = torch.where(rel[rows, cols] > 0,
-                                               cols - _CONT, cols)
-        units[c0:c0 + m] = u
+        # each position's offset in its token group, from the group's
+        # first position in the sorted keys
+        rel = j - torch.searchsorted(key, key, out_int32=True)
+        del key
+        first = valid & (rel % hub == 0)           # a unit starts here
+        # unit u's entry in column u; the other positions write column N,
+        # which is dropped; entries past the last unit keep the valid count
+        uid = torch.where(first, torch.cumsum(first, 1) - 1, N)
+        u = torch.empty((m, N + 1), dtype=torch.int32, device=x.device)
+        u[:, :N] = valid.sum(1, keepdim=True, dtype=torch.int32)
+        u.scatter_(1, uid, torch.where(rel > 0, cont, j))
+        units[c0:c0 + m] = u[:, :N]
     return Groups(order, units)
 
 

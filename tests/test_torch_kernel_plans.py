@@ -435,6 +435,10 @@ ENTRY_POINTS = {
     "train_skipgram": lambda g, kw: w2v.train_skipgram(
         np.arange(12, dtype=np.int32).reshape(3, 4) % g.num_vertices,
         g.num_vertices, w2v.SGNSConfig(dim=8, window=2, iters=1), **kw),
+    "train_skipgram_streaming": lambda g, kw: w2v.train_skipgram_streaming(
+        lambda r: torch.arange(12, dtype=torch.int32).reshape(3, 4) % (r + 2),
+        2, (3, 4), g.num_vertices, w2v.SGNSConfig(dim=8, window=2, iters=1),
+        np.ones(g.num_vertices), **kw),
     "run_walks": lambda g, kw: n2v.run_walks(
         g, Params(walk_length=4, num_walks=1), **kw),
     "embed_walks": lambda g, kw: n2v.embed_walks(

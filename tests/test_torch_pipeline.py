@@ -180,23 +180,27 @@ def test_device_corpus_handoff(karate, jkarate):
     ["--cmd", "randomwalk", "--checkpointEvery", "1"],
     ["--cmd", "randomwalk", "--resume", "true"],
     ["--cmd", "embedding", "--w2vPartitions", "2"],
-    ["--profile", "/nonexistent/profile"],
+    ["--profile", "{tmp}/profile"],
 ])
 def test_unserved_flags_raise(karate_path, tmp_path, flags):
     """Each flag value the port does not serve raises NotPorted before
     anything is written. The exact-CDF sampler (--sampler cdf, a p/q ratio
-    above 32), the walk-round checkpoints (--checkpointEvery, --resume) and
-    --shards / --partitioned (one walk shard on one device) are served:
-    those cases run both CLIs and compare /path byte for byte and the
-    trained tables to the trainer's tolerance (rtol 1e-4 / atol 1e-6, the
-    scatter-adds' summation order)."""
+    above 32), the walk-round checkpoints (--checkpointEvery, --resume),
+    --shards / --partitioned (one walk shard on one device), --streaming
+    true (one walk round on the device at a time) and --profile (a
+    torch.profiler trace; the JAX CLI writes a jax.profiler one) are
+    served: those cases run both CLIs and compare /path byte for byte and
+    the trained tables to the trainer's tolerance (rtol 1e-4 / atol 1e-6,
+    the scatter-adds' summation order)."""
     small = ["--walkLength", "6", "--numWalks", "2", "--dim", "8", "--iter",
              "1", "--window", "3", "--seed", "2"]
+    flags = [f.format(tmp=tmp_path) for f in flags]
     argv = lambda out: ["--input", karate_path, "--output", str(out),
                         "--cmd", "node2vec"] + small + flags
     served = any(f in flags for f in ("--sampler", "--p", "--resume",
                                       "--checkpointEvery", "--shards",
-                                      "--partitioned"))
+                                      "--partitioned", "--streaming",
+                                      "--profile"))
     if not served:
         with pytest.raises(NotPorted):
             cli.main(argv(tmp_path / "o"), device="cpu")
@@ -213,6 +217,9 @@ def test_unserved_flags_raise(karate_path, tmp_path, flags):
         for a, b in zip(jn2v.load_model(str(jout)),
                         n2v.load_model(str(tout))):
             np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-6)
+    if "--profile" in flags:
+        assert any(f.endswith(".pt.trace.json")
+                   for f in os.listdir(tmp_path / "profile"))
 
 
 @pytest.mark.parametrize("kw", [dict(shared_impl="pos", shared_negatives=8),

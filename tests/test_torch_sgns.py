@@ -165,6 +165,20 @@ def test_init_embeddings_bitwise():
     np.testing.assert_array_equal(b_out.numpy(), np.asarray(a_out))
 
 
+@pytest.mark.parametrize("vocab,dim,chunk", [
+    (34, 16, 1), (34, 16, 100), (1000, 3, 1), (7, 5, 1 << 16)])
+def test_init_embeddings_by_runs_bitwise(vocab, dim, chunk):
+    """The input table drawn a run of rows at a time (one row a run, a
+    ragged last run, the 256-run cap, one run) is jax.random.uniform's."""
+    with jax.enable_x64(False):
+        a_in, _ = jw2v._init_embeddings(
+            vocab, dim, jax.random.fold_in(jax.random.PRNGKey(3), 0x1A17))
+    b_in, b_out = w2v._init_embeddings(
+        vocab, dim, prng.fold_in(prng.prng_key(3), 0x1A17), chunk)
+    np.testing.assert_array_equal(b_in.numpy(), np.asarray(a_in))
+    assert b_out.shape == (vocab, dim) and not b_out.any()
+
+
 @pytest.mark.parametrize("d", [-3, -1, 0, 2, 7])
 def test_shift_matches_jax(d):
     x = np.arange(2 * 7 * 3, dtype=np.float32).reshape(2, 7, 3)

@@ -384,11 +384,12 @@ def _grouping_ref(blocks, hub):
 @pytest.mark.parametrize("tokens,hub,chunk", [
     ("zipf", 32, 4096), ("zipf", 3, 2), ("uniform", 1, 4096),
     ("one", 4, 3), ("one", 1000, 4096), ("padded", 2, 1),
-    ("all padding", 32, 4096), ("zipf", 7, 1)])
-def test_grouping_equals_a_stable_argsort(tokens, hub, chunk):
+    ("all padding", 32, 4096), ("zipf", 7, 1), ("padded", 5, None)])
+def test_grouping_equals_a_stable_argsort(tokens, hub, chunk, monkeypatch):
     """group_blocks (sorted positions, group starts, units) against NumPy's
     argsort(kind="stable") on a small corpus of five blocks, sorted a chunk
-    of blocks at a time."""
+    of blocks at a time (None: the default, as many blocks as hold
+    _GROUP_POSITIONS positions, here forced to two blocks)."""
     rng = np.random.default_rng(hub)
     blocks = np.stack([_block(3, 11, 20, "one" if tokens == "one" else
                               "uniform" if tokens == "uniform" else "zipf",
@@ -397,6 +398,8 @@ def test_grouping_equals_a_stable_argsort(tokens, hub, chunk):
         blocks[rng.random(blocks.shape) < 0.3] = -1
     if tokens == "all padding":
         blocks[2] = -1
+    if chunk is None:
+        monkeypatch.setattr(sgns_conv, "_GROUP_POSITIONS", 2 * 33)
     got = sgns_conv.group_blocks(torch.as_tensor(blocks), hub, chunk)
     assert got.order.dtype == got.units.dtype == torch.int32
     assert got.order.shape == got.units.shape == (5, 33)
