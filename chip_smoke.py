@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process for
-each of the seven sources, in parallel; walk.cu and sgns_conv.cu hold two
-kernels each; beside them the threefry probe, chip_draws_probe.cu appended
+each of the nine sources, in parallel; walk.cu and sgns_conv.cu hold two
+kernels each, spmm.cu three; beside them the threefry probe, chip_draws_probe.cu appended
 to a copy of trainer_draws.cu), holds each against its plain PyTorch
 version on the card, and drives the port's paths once each through the
 entry points a user calls:
@@ -71,7 +71,26 @@ entry points a user calls:
               as its wrapper counted launches;
   phase 17    the job server (`serve.JobServer` on port 0): a karate
               node2vec job over REST in a worker process on the card, its
-              /path byte for byte the CLI's; a failing job; the next job.
+              /path byte for byte the CLI's; a failing job; the next job;
+  phase 18    the hierarchical-softmax step's kernel (csrc/hsoftmax.cu, one
+              cooperative launch) against the plain step in float64 on
+              blocks of phase 19's corpus under its Huffman tree (D 128,
+              64 and 768, window 1), padded Zipf walks (D 128 and 200), one
+              token alone and a two-token tree, its workspace empty after
+              every step, each step timed;
+  phase 19    train_skipgram_hs at bench.py::hs_ablation's reference
+              protocol (the 100,000-vertex labeled synthetic graph walked
+              on the card at walkLength 80, numWalks 10; dim 128, window
+              10, row_block 256), one epoch: K9 once a block, the draws
+              once a chunk, the job's peak device memory, the conv
+              trainer's epoch on the same corpus beside it; the karate HS
+              gate on the card;
+  phase 20    the GNN-feed ops (csrc/spmm.cu: segment sums, SDDMM, the row
+              softmax) forward and backward against their plain versions
+              in float64 at bench.py::measure_spmm's graph (D 128 and 64)
+              and the directed test graph, a GAT-style layer through the
+              public ops, each kernel timed beside its plain version and
+              its library call (torch.sparse, timed only).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every failure raises and the script exits non-zero. It
@@ -94,6 +113,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -160,7 +180,8 @@ SHARED768_FLAGS = DIM768_FLAGS + ["--sharedNegatives", "128"]
 # path's exact chunk and a ragged conv chunk; window 1 at the epoch's end;
 # window 7 (a span that is not a power of two, as 10) in both trainers'
 # shapes and 1,000 (a multiplier of 536); one-row vocabularies; 70,000
-# thread blocks, more than a grid's y extent (65,535) holds
+# thread blocks, more than a grid's y extent (65,535) holds; the HS
+# trainer's chunk at phase 19's shape (kB 0: no negatives, no table)
 DRAW_CASES = [(32, 82, 10, 5, None, 10_000, 0, 15),
               (32, 82, 10, None, 128, 10_000, 1524, 77),
               (32, 82, 1, 5, None, 10_000, 3120, 5),
@@ -169,7 +190,8 @@ DRAW_CASES = [(32, 82, 10, 5, None, 10_000, 0, 15),
               (2, 11, 1000, None, 16, 50, 5, 3),
               (4, 23, 10, 5, None, 1, 0, 3),
               (6, 23, 5, None, 64, 1, 7, 2),
-              (1, 5, 2, None, 3, 50, 11, 70_000)]
+              (1, 5, 2, None, 3, 50, 11, 70_000),
+              (256, 82, 10, None, 0, 0, 0, 199)]
 # the threefry probe (chip_draws_probe.cu): rounds of its chains a thread,
 # chains a thread (kChains there), waves of blocks; the draws kernel's
 # blocks of 256 threads an SM holds (32 registers a thread)
@@ -1435,8 +1457,9 @@ def phase_draws_check(torch, smi, probe) -> dict:
     key = prng.fold_in(prng.prng_key(1), 0).cuda()
     elements = 0
     for i, (B, T, w, k, kB, V, c0, n) in enumerate(DRAW_CASES):
-        keep, alias = draw_tables(torch, V, i)
-        shape = (kB,) if kB else (B * T * 2 * w, k)
+        # kB 0: the HS trainer's draws, windows alone and no alias table
+        keep, alias = draw_tables(torch, V, i) if V else (None, None)
+        shape = (kB,) if kB is not None else (B * T * 2 * w, k)
         got = td.trainer_draws(key, c0, n, B, T, w, shape, keep, alias)
         want = td.trainer_draws_ref(key, c0, n, B, T, w, shape, keep, alias)
         torch.cuda.synchronize()
@@ -2038,6 +2061,540 @@ def phase_server(torch, smi, tmp) -> dict:
     return {"rest_seconds": rest_s}
 
 
+# phase 19: bench.py::hs_ablation's reference protocol (the graph, its
+# walks at p = q = 0.25 and the trainer's settings), one epoch
+HS_GRAPH = (100_000, 1_000_000, 50, 3)     # V, E, communities, seed
+HS_WALKS = {"walk_length": 80, "num_walks": 10, "p": 0.25, "q": 0.25,
+            "seed": 1}
+HS_TRAIN = {"dim": 128, "window": 10, "lr": 0.025, "iters": 1, "seed": 1,
+            "row_block": 256}
+# phase 18: (tokens, B, T, window, D). Blocks of phase 19's corpus under
+# its Huffman tree (the main shape, D 64, window 1, D 768); Zipf walks
+# padded with -1 on a 10,000-token tree (also at D 200); one token alone,
+# the deepest (every center on one path: the hub); two tokens (a one-level
+# tree)
+HS_SHAPES = [("corpus", 256, 82, 10, 128), ("corpus", 256, 82, 10, 64),
+             ("corpus", 256, 82, 1, 128), ("padded", 64, 82, 10, 128),
+             ("hub", 32, 82, 10, 128), ("two tokens", 32, 82, 10, 128),
+             ("padded", 32, 82, 10, 200), ("corpus", 32, 82, 10, 768)]
+
+
+def hs_kernels() -> dict:
+    from stellar_rw_tpu_torch.ops.hsoftmax import HS_STEP
+
+    return {"hs_step": HS_STEP}
+
+
+def spmm_kernels() -> dict:
+    from stellar_rw_tpu_torch.ops.spmm import (SPMM_ROW_SOFTMAX, SPMM_SDDMM,
+                                               SPMM_SEGMENT_SUM)
+
+    return {"spmm_segment_sum": SPMM_SEGMENT_SUM, "spmm_sddmm": SPMM_SDDMM,
+            "spmm_row_softmax": SPMM_ROW_SOFTMAX}
+
+
+def hs_corpus(torch) -> dict:
+    """Phase 19's corpus: bench.py::hs_ablation's labeled synthetic graph
+    walked on the card (the device tensor) and its token counts."""
+    from stellar_rw_tpu_torch.graph import datasets
+    from stellar_rw_tpu_torch.walk import engine
+
+    V, E, k, seed = HS_GRAPH
+    t0 = time.perf_counter()
+    graph, _ = datasets.synth_labeled_graph(V, E, communities=k, seed=seed)
+    t1 = time.perf_counter()
+    walks = engine.random_walks(graph, as_numpy=False, **HS_WALKS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = torch.bincount(walks.reshape(-1) + 1, minlength=V + 1)[1:]
+    return {"graph": graph, "walks": walks, "build_s": t1 - t0,
+            "walk_s": t2 - t1,
+            "counts": counts.cpu().numpy().astype(np.float64)}
+
+
+def hs_block(torch, tokens, B, T, window, D, seed, corpus):
+    """One HS block: rows of phase 19's corpus with its Huffman tree, or
+    Zipf walks that end early on a 10,000-token tree ("padded"), the
+    deepest token of that tree alone ("hub"), two tokens ("two tokens");
+    the trainer's window draws; random tables (syn1 too)."""
+    from stellar_rw_tpu_torch.models import hsoftmax as hs
+    from stellar_rw_tpu_torch.ops import prng
+    from stellar_rw_tpu_torch.ops import trainer_draws as td
+
+    rng = np.random.default_rng(seed)
+    if tokens == "corpus":
+        block = corpus["walks"][:B, :T].cpu().numpy()
+        counts = corpus["counts"]
+    else:
+        V = 2 if tokens == "two tokens" else 10_000
+        block = np.minimum((V * rng.random((B, T)) ** (1 / 0.3))
+                           .astype(np.int32), V - 1)
+        counts = np.bincount(block.reshape(-1), minlength=V) + 1.0
+        if tokens == "hub":
+            block[:] = int(np.argmax(hs.build_huffman(counts)[2].sum(1)))
+        if tokens == "padded":
+            ends = rng.integers(1, T + 1, B)
+            block[np.arange(T)[None, :] >= ends[:, None]] = -1
+            block[0] = -1
+            block[1, 5:9] = -1
+    V = len(counts)
+    points, labels, pmask = (torch.as_tensor(a).cuda()
+                             for a in hs.build_huffman(counts))
+    key = prng.fold_in(prng.prng_key(seed), 3).cuda()
+    cwin = td.trainer_draws_ref(key, 0, 1, B, T, window, (0,), None,
+                                None)[0][0]
+    w = lambda n: torch.as_tensor((rng.standard_normal((n, D)) * 0.3)
+                                  .astype(np.float32)).cuda()
+    return (w(V), w(max(V - 1, 1)), torch.as_tensor(block).cuda(), cwin,
+            points, labels, pmask)
+
+
+def phase_hs_check(torch, smi, corpus) -> dict:
+    """Phase 18: the HS step's kernel (one cooperative launch) against the
+    plain step in float64 (and in float32 wherever that step is itself
+    within rtol 1e-5 atol 1e-6 of float64) at HS_SHAPES, its workspace
+    empty after every step, each step timed back to back; at the main
+    shape the kernel timed by events around each launch against the plain
+    step, with its bound."""
+    from stellar_rw_tpu_torch.ops import hsoftmax as ho
+    from stellar_rw_tpu_torch.ops.sgns_exact import _valid_from_cwin
+
+    lr = 0.025
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err = f32_err = 0.0
+    loose, per_shape = [], {}
+    for i, shape in enumerate(HS_SHAPES):
+        _, B, T, win, D = shape
+        syn0, syn1, block, cwin, pts, lbl, pmk = hs_block(torch, *shape, i,
+                                                          corpus)
+        a0, a1 = syn0.double(), syn1.double()
+        ho.hs_step_ref(a0, a1, block, cwin, pts, lbl, pmk, lr, win)
+        p0, p1 = syn0.clone(), syn1.clone()
+        ho.hs_step_ref(p0, p1, block, cwin, pts, lbl, pmk, lr, win)
+        b0, b1 = syn0.clone(), syn1.clone()
+        ws = ho.HSWorkspace(b0, b1, B * T, pts.shape[1])
+        ho.hs_step(b0, b1, block, cwin, pts, lbl, pmk, lr, win, ws)
+        check(workspace_empty(torch, ws),
+              f"hs_step left its workspace dirty at {shape}")
+        for table, got, want, plain, old in (("syn0", b0, a0, p0, syn0),
+                                             ("syn1", b1, a1, p1, syn1)):
+            k_err = float((got.double() - want).abs().max())
+            p_err = float((plain.double() - want).abs().max())
+            check(torch.allclose(got.double(), want, rtol=1e-5, atol=1e-6),
+                  f"hs_step differs from the float64 step at {shape} "
+                  f"({table}): max abs err {k_err:.3g}")
+            if torch.allclose(plain.double(), want, rtol=1e-5, atol=1e-6):
+                check(torch.allclose(got, plain, rtol=1e-5, atol=1e-6),
+                      f"hs_step differs from the plain f32 step at {shape} "
+                      f"({table}): max abs err "
+                      f"{float((got - plain).abs().max()):.3g}")
+            else:
+                loose.append((shape, table, p_err))
+            if shape[0] != "two tokens" or table == "syn1":
+                check(bool((got != old).any()), f"the step moved nothing "
+                      f"in {table} at {shape}")
+            err = max(err, k_err)
+            f32_err = max(f32_err, p_err)
+        plan = ho.launch_plan(D, B, T, win, sms)
+        ms = cuda_ms(lambda: ho.launch_step(ws, b0, b1, block, cwin, pts,
+                                            lbl, pmk, win, lr), 10)
+        check(workspace_empty(torch, ws),
+              f"hs_step left its workspace dirty after timed steps at {shape}")
+        per_shape[str(shape)] = {"ms_back_to_back": ms, "L": pts.shape[1],
+                                 "plan": plan._asdict()}
+        del a0, a1, p0, p1, b0, b1, ws
+    # the main shape: the kernel by events around each launch, the plain
+    # step in turns with the wrapper
+    shape = HS_SHAPES[0]
+    _, B, T, win, D = shape
+    syn0, syn1, block, cwin, pts, lbl, pmk = hs_block(torch, *shape, 0,
+                                                      corpus)
+    L = pts.shape[1]
+    ws = ho.HSWorkspace(syn0, syn1, B * T, L)
+    iters = 20
+    (k_ms,) = cuda_ms_split((lambda: ho.launch_step(
+        ws, syn0, syn1, block, cwin, pts, lbl, pmk, win, lr),), iters)
+    step = lambda: ho.hs_step(syn0, syn1, block, cwin, pts, lbl, pmk, lr,
+                              win, ws)
+    plain = lambda: ho.hs_step_ref(syn0, syn1, block, cwin, pts, lbl, pmk,
+                                   lr, win)
+    runs = [cuda_ms(f, 3) for f in (plain, step, step, plain)]
+    # the same launch under other plans: tiles
+    base = ho.launch_plan(D, B, T, win, sms)
+    by_plan = {}
+    for tile in (8, 16, 32):
+        plan = base._replace(
+            tile=tile, tiles=B * -(-T // tile), halo_rows=tile + 2 * win,
+            blocks=min(B * -(-T // tile), 2 * sms),
+            smem_bytes=ho.smem_bytes(tile, win, D))
+        by_plan[f"tile {tile}"] = cuda_ms(
+            lambda: ho.launch_step(ws, syn0, syn1, block, cwin, pts, lbl,
+                                   pmk, win, lr, plan), 10)
+    check(workspace_empty(torch, ws), "hs_step left its workspace dirty "
+          "under another plan")
+    # what this block needs: each valid pair's live levels; the distinct
+    # syn0 rows that are a context, the distinct path nodes of the centers
+    # with a pair, and those centers' path rows
+    valid, ctx = _valid_from_cwin(block, cwin, win)
+    vcnt = valid.sum(-1)
+    tok = block.clamp_min(0).long()
+    codelen = pmk.sum(1)
+    pair_levels = int((vcnt * codelen[tok]).sum())
+    U0 = int(torch.unique(block[:, ctx][valid]).numel())
+    centers = torch.unique(tok[vcnt > 0])
+    U1 = int(torch.unique(pts[centers][pmk[centers] > 0]).numel())
+    step_b = bound(tensor_bytes(block, cwin) + centers.numel() * L * 12
+                   + (U0 + U1) * D * 4 * 2, pair_levels * 6 * D, F32_FLOPS)
+    plain_ms = (runs[0] + runs[3]) / 2
+    jax_block = B * T * L * D * 4
+    print(f"phase 18 hs_step: within rtol 1e-5 atol 1e-6 of the plain step "
+          f"in float64 at {HS_SHAPES} (tokens, B, T, w, D): max abs err "
+          f"{err:.3g} (the plain f32 step's {f32_err:.3g}); within it of "
+          f"the plain f32 step wherever that step is within it of float64, "
+          f"which it is not at {loose}; the workspace empty after every "
+          f"step; back to back ms by shape {per_shape}; at the main shape "
+          f"(phase 19's block: B {B}, T {T}, w {win}, D {D}, L {L}; "
+          f"{int(vcnt.sum())} valid pairs, {pair_levels} pair-levels, "
+          f"{U0} syn0 + {U1} syn1 rows) the kernel {k_ms:.4f} ms (CUDA "
+          f"events around each launch, mean of {iters}), through the "
+          f"wrapper {(runs[1] + runs[2]) / 2:.4f} ms, plain step "
+          f"{plain_ms:.3f} ms (mean of 2x3); bound {step_b['bound_ms']:.5f} "
+          f"ms by {step_b['bound_by']}; back to back under other plans "
+          f"(ms, mean of 10) {by_plan}; the JAX body's [B, T, L, D] f32 "
+          f"tensor at this block: {jax_block / 1e6:.0f} MB, none on this "
+          f"path [{smi}]")
+    return {"ms": k_ms, **step_b, "max_abs_err": err,
+            "plain_f32_off_f64": f32_err, "plain_ms": plain_ms,
+            "library_ms": None, "wrapper_ms": (runs[1] + runs[2]) / 2,
+            "pair_levels": pair_levels, "per_shape": per_shape,
+            "ms_by_plan": by_plan}
+
+
+def phase_hs_main(torch, smi, corpus) -> dict:
+    """Phase 19: train_skipgram_hs at bench.py::hs_ablation's reference
+    protocol on phase 19's corpus, one epoch, with the kernels' launches
+    (K9 once a block, K12 once a chunk, no SGNS kernel), the job's peak
+    device memory, and the conv trainer's epoch on the same corpus beside
+    it (kB 128, the same row_block), the link AUC of both on 20,000 of the
+    graph's arcs; then the karate HS gate on the card."""
+    from stellar_rw_tpu_torch.graph import io as gio
+    from stellar_rw_tpu_torch.models import eval as ev
+    from stellar_rw_tpu_torch.models import hsoftmax as hs
+    from stellar_rw_tpu_torch.models import word2vec as w2v
+    from stellar_rw_tpu_torch.walk import engine
+
+    graph, walks = corpus["graph"], corpus["walks"]
+    V = graph.num_vertices
+    cfg = w2v.SGNSConfig(**HS_TRAIN)
+    path = {**hs_kernels(), **trainer_kernels()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts(*path.values())
+    t0 = time.perf_counter()
+    syn0 = hs.train_skipgram_hs(walks, V, cfg)
+    hs_s = time.perf_counter() - t0
+    launches = {k: t.launches for k, t in path.items()}
+    peak = torch.cuda.max_memory_allocated() - held
+    B, T = cfg.row_block, walks.shape[1]
+    n_blocks = -(-walks.shape[0] // B)
+    chunks = -(-n_blocks // max(1, w2v._DRAW_BUDGET // (B * T)))
+    check(launches["hs_step"] == n_blocks and launches["trainer_draws"]
+          == chunks, f"HS epoch launches {launches}: {n_blocks} blocks, "
+          f"{chunks} draw chunks")
+    check(all(launches[k] == 0 for k in ("sgns_conv_accumulate",
+                                         "sgns_shared_grads",
+                                         "sgns_conv_scatter",
+                                         "sgns_exact_step")),
+          f"an SGNS kernel ran in the HS trainer: {launches}")
+    check(syn0.shape == (V, cfg.dim) and np.isfinite(syn0).all(),
+          "HS embeddings not finite or of the wrong shape")
+    # where the epoch's time goes: the Huffman tree on the host, and the
+    # step's device time and host time a call over the epoch's first blocks
+    t0 = time.perf_counter()
+    L = int(hs.build_huffman(corpus["counts"])[0].shape[1])
+    tree_s = time.perf_counter() - t0
+    step_ms, host_ms = hs_epoch_blocks(torch, corpus, cfg, 200)
+    cfg_ns = w2v.SGNSConfig(negatives=5, shared_negatives=128, **HS_TRAIN)
+    t0 = time.perf_counter()
+    w_ns, _ = w2v.train_skipgram(walks, V, cfg_ns)
+    conv_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    ei = rng.choice(graph.num_edges, min(graph.num_edges, 20_000),
+                    replace=False)
+    src_of = np.repeat(np.arange(V), graph.degrees)
+    arcs = np.stack([src_of[ei], graph.cols[ei]], 1)
+    auc_hs = ev.link_prediction_auc(syn0, arcs, V, seed=0)
+    auc_ns = ev.link_prediction_auc(w_ns, arcs, V, seed=0)
+    # the karate gate of tests/test_hsoftmax.py on the card
+    kg = gio.load_edge_list(os.path.join(ROOT, "tests", "data",
+                                         "karate.txt"),
+                            weighted=False, directed=False)
+    kwalks = engine.random_walks(kg, walk_length=20, num_walks=10, p=0.25,
+                                 q=0.25, seed=2, as_numpy=False)
+    ks = hs.train_skipgram_hs(kwalks, kg.num_vertices, w2v.SGNSConfig(
+        dim=32, window=5, lr=0.2, iters=20, seed=2))
+    k_auc, k_acc = karate_gate(ks, kg)
+    check(k_auc > 0.7 and k_acc >= 0.85,
+          f"karate HS gate: auc {k_auc} acc {k_acc}")
+    print(f"phase 19 train_skipgram_hs at hs_ablation's reference protocol "
+          f"(one epoch of 10; synth_labeled_graph{HS_GRAPH[:2]}, "
+          f"communities {HS_GRAPH[2]}, seed {HS_GRAPH[3]}: {V} V, "
+          f"{graph.num_edges} arcs; {walks.shape[0]} walks x {T} tokens "
+          f"walked on the card in {corpus['walk_s']:.2f} s, the graph built "
+          f"in {corpus['build_s']:.2f} s; {HS_TRAIN}; tree depth {L}): HS "
+          f"epoch {hs_s:.3f} s = {hs_s / n_blocks * 1e3:.4f} ms a block "
+          f"over {n_blocks} blocks, of which the Huffman tree on the host "
+          f"{tree_s:.3f} s; over the epoch's first 200 blocks K9 "
+          f"{step_ms:.4f} ms a block on the card (CUDA events between the "
+          f"steps), hs_step's host side {host_ms:.4f} ms a call; "
+          f"launches {launches} = "
+          f"{launches['hs_step'] / n_blocks:.4f} K9 and "
+          f"{launches['trainer_draws'] / n_blocks:.4f} K12 a block; the "
+          f"job's peak device memory {peak / 1e6:.1f} MB above the "
+          f"{held / 1e6:.1f} MB held before it (the corpus alone "
+          f"{tensor_bytes(walks) / 1e6:.1f} MB); the conv trainer's epoch "
+          f"(kB 128) on the same corpus {conv_s:.3f} s; link AUC on 20,000 "
+          f"arcs HS {auc_hs:.4f}, conv {auc_ns:.4f} (one epoch); karate HS "
+          f"gate on the card: AUC {k_auc:.4f} accuracy {k_acc:.4f} [{smi}]")
+    return {"launches": launches, "hs_epoch_s": hs_s,
+            "conv_epoch_s": conv_s, "blocks": n_blocks, "peak_bytes": peak,
+            "held_bytes": held, "auc_hs": auc_hs, "auc_conv": auc_ns,
+            "karate_auc": k_auc, "karate_acc": k_acc, "tree_depth": L,
+            "walk_s": corpus["walk_s"], "tree_s": tree_s,
+            "step_ms_in_epoch": step_ms, "step_host_ms": host_ms}
+
+
+def hs_epoch_blocks(torch, corpus, cfg, n: int) -> tuple[float, float]:
+    """The first n blocks of an HS epoch on phase 19's corpus from the
+    trainer's init, one hs_step a block as _hs_epoch makes them: the mean
+    device ms a step (CUDA events between the steps) and the mean host ms
+    of an hs_step call."""
+    from stellar_rw_tpu_torch.models import hsoftmax as hs
+    from stellar_rw_tpu_torch.models import word2vec as w2v
+    from stellar_rw_tpu_torch.ops import hsoftmax as ho
+    from stellar_rw_tpu_torch.ops import prng
+    from stellar_rw_tpu_torch.ops.trainer_draws import trainer_draws
+
+    walks, V = corpus["walks"], corpus["graph"].num_vertices
+    B, T = cfg.row_block, walks.shape[1]
+    pts, lbl, pmk = (torch.as_tensor(a).cuda()
+                     for a in hs.build_huffman(corpus["counts"]))
+    key = prng.prng_key(cfg.seed, "cuda")
+    syn0, _ = w2v._init_embeddings(V, cfg.dim, prng.fold_in(key, 0x1A17))
+    syn1 = torch.zeros((V - 1, cfg.dim), device="cuda")
+    ws = ho.HSWorkspace(syn0, syn1, B * T, pts.shape[1])
+    blocks = walks[:n * B].reshape(n, B, T)
+    cwin, _ = trainer_draws(prng.fold_in(key, 0), 0, n, B, T, cfg.window,
+                            (0,), None, None)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    host = 0.0
+    torch.cuda.synchronize()
+    ev[0].record()
+    for i in range(n):
+        t0 = time.perf_counter()
+        ho.hs_step(syn0, syn1, blocks[i], cwin[i], pts, lbl, pmk, cfg.lr,
+                   cfg.window, ws)
+        host += time.perf_counter() - t0
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return (sum(ev[i].elapsed_time(ev[i + 1]) for i in range(n)) / n,
+            host / n * 1e3)
+
+
+def phase_spmm(torch, smi) -> tuple[dict, dict]:
+    """Phase 20: the GNN-feed ops' kernels against their plain versions in
+    float64 (forward rtol 1e-5 atol 1e-5; the gradients of spmm, spmm_mean,
+    sddmm and sddmm_softmax against the plain autograd at the same
+    tolerance) at bench.py::measure_spmm's graph (D 128 and 64) and the
+    directed test graph (an isolate); a GAT-style layer and its gradient
+    through the public ops, every kernel counted; each kernel timed at D
+    128 beside its plain version and its library call (timed only)."""
+    from stellar_rw_tpu_torch.graph import io as gio
+    from stellar_rw_tpu_torch.ops import spmm as sp
+
+    g = synth_power_law_graph(10_000, 334_000, seed=0)
+    tg = gio.load_edge_list(os.path.join(ROOT, "tests", "data",
+                                         "testgraph.txt"),
+                            weighted=False, directed=True)
+    # the plain versions under the public ops' names: the reference autograd
+    plain_ops = SimpleNamespace(spmm=sp.spmm_ref, spmm_mean=sp.spmm_mean_ref,
+                                sddmm=sp.sddmm_ref,
+                                sddmm_softmax=sp.sddmm_softmax_ref)
+    # each kernel's largest error: its forward ops, and the gradients its
+    # backward modes compute (sddmm's gradient is two segment sums; gather
+    # rows is an index_select and no kernel's)
+    fwd_kernel = {"spmm": "spmm", "spmm unweighted": "spmm",
+                  "spmm_mean": "spmm", "sddmm": "sddmm",
+                  "sddmm_softmax": "softmax", "scatter_add_rows row": "spmm",
+                  "scatter_add_rows col": "spmm"}
+    grad_kernel = {"spmm": "spmm", "spmm_mean": "spmm", "sddmm": "spmm",
+                   "sddmm_softmax": "softmax"}
+    err = {"spmm": 0.0, "sddmm": 0.0, "softmax": 0.0}
+    grad_err = {"spmm": 0.0, "sddmm": None, "softmax": 0.0}
+    for gi, (name, graph, D) in enumerate((("power law", g, 128),
+                                           ("power law", g, 64),
+                                           ("testgraph", tg, 2))):
+        es = sp.EdgeStructure.from_csr(graph)
+        rng = np.random.default_rng(gi)
+        V, E = graph.num_vertices, graph.num_edges
+        f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(
+            np.float32)).cuda()
+        x, y, s, msgs = f(V, D), f(V, D), f(E) * 3, f(E, D)
+        d = lambda t: t.double()
+        pairs = {
+            "spmm": (sp.spmm(es, x), sp.spmm_ref(es, d(x))),
+            "spmm unweighted": (sp.spmm(es, x, weighted=False),
+                                sp.spmm_ref(es, d(x), weighted=False)),
+            "spmm_mean": (sp.spmm_mean(es, x), sp.spmm_mean_ref(es, d(x))),
+            "sddmm": (sp.sddmm(es, x, y), sp.sddmm_ref(es, d(x), d(y))),
+            "sddmm_softmax": (sp.sddmm_softmax(es, s),
+                              sp.sddmm_softmax_ref(es, d(s))),
+            **{f"scatter_add_rows {w}": (
+                sp.scatter_add_rows(es, msgs, w),
+                sp.scatter_add_rows_ref(es, d(msgs), w))
+               for w in ("row", "col")},
+            **{f"gather_rows {w}": (sp.gather_rows(es, x, w),
+                                    sp.gather_rows_ref(es, d(x), w))
+               for w in ("row", "col")}}
+        for op, (got, want) in pairs.items():
+            check(torch.allclose(got.double(), want, rtol=1e-5, atol=1e-5),
+                  f"{op} differs from its plain version in float64 on "
+                  f"{name} D {D}: max abs err "
+                  f"{float((got.double() - want).abs().max()):.3g}")
+            if op in fwd_kernel:
+                k = fwd_kernel[op]
+                err[k] = max(err[k], float((got.double() - want).abs().max()))
+        r_v, r_e = f(V, D), f(E)
+        fwd = {"spmm": (lambda m, a, b: m.spmm(es, a), r_v),
+               "spmm_mean": (lambda m, a, b: m.spmm_mean(es, a), r_v),
+               "sddmm": (lambda m, a, b: m.sddmm(es, a, b), r_e),
+               "sddmm_softmax": (lambda m, a, b: m.sddmm_softmax(es, a),
+                                 r_e)}
+        for op, (fn, r) in fwd.items():
+            a0 = s if op == "sddmm_softmax" else x
+            grads = []
+            for dt, mod in ((torch.float32, sp), (torch.float64, plain_ops)):
+                a = a0.to(dt).clone().requires_grad_()
+                b = y.to(dt).clone().requires_grad_()
+                (fn(mod, a, b) * r.to(dt)).sum().backward()
+                grads.append((a.grad, b.grad))
+            for got, want in zip(grads[0], grads[1]):
+                if want is None:
+                    continue
+                check(torch.allclose(got.double(), want, rtol=1e-5,
+                                     atol=1e-5),
+                      f"the gradient of {op} differs from the plain "
+                      f"autograd in float64 on {name} D {D}: max abs err "
+                      f"{float((got.double() - want).abs().max()):.3g}")
+                k = grad_kernel[op]
+                grad_err[k] = max(grad_err[k],
+                                  float((got.double() - want).abs().max()))
+    # the path: a GAT-style layer and its gradient through the public ops
+    es = sp.EdgeStructure.from_csr(g)
+    V, E, D = g.num_vertices, g.num_edges, 128
+    rng = np.random.default_rng(7)
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(
+        np.float32)).cuda()
+    x, y = f(V, D).requires_grad_(), f(V, D).requires_grad_()
+    kernels = spmm_kernels()
+    reset_counts(*kernels.values())
+    h = sp.spmm_mean(es, x)
+    a = sp.sddmm_softmax(es, sp.sddmm(es, h, y))
+    out = sp.scatter_add_rows(es, sp.gather_rows(es, x) * a[:, None])
+    (out ** 2).sum().backward()
+    torch.cuda.synchronize()
+    launches = {k: t.launches for k, t in kernels.items()}
+    check(all(n > 0 for n in launches.values()),
+          f"a K8 kernel was not launched by the layer: {launches}")
+    check(bool(torch.isfinite(x.grad).all() and torch.isfinite(y.grad).all()),
+          "the layer's gradients are not finite")
+    # each kernel at D 128: by events around each launch, back to back,
+    # beside its plain version and its library call
+    x, y = x.detach(), y.detach()
+    s = f(E)
+    a = sp.row_softmax(es, s)
+    da = f(E)
+    by_row = sp.Order.build(g.offsets, "cuda", chunk=1 << 30)
+    fns = {
+        "spmm": lambda: sp.segment_sum(es.csr, x, idx=es.col, w=es.weight),
+        "spmm transposed": lambda: sp.segment_sum(
+            es.trans, x, idx=es.t_row, w=es.weight, widx=es.t_order),
+        "spmm a warp a row": lambda: sp.segment_sum(by_row, x, idx=es.col,
+                                                    w=es.weight),
+        "sddmm": lambda: sp.sddmm_rows(es, x, y),
+        "softmax": lambda: sp.row_softmax(es, s),
+        "softmax backward": lambda: sp.row_softmax(es, a, da)}
+    iters = 20
+    ms = dict(zip(fns, cuda_ms_split(list(fns.values()), iters)))
+    back = {k: cuda_ms(fn, iters) for k, fn in fns.items()}
+    # the same launches under other plans: arcs an item
+    by_chunk = {}
+    for chunk in (32, 64, 128, 256, 512, 1024):
+        ec = sp.EdgeStructure.from_csr(g, chunk=chunk)
+        by_chunk[chunk] = {
+            "spmm": cuda_ms(lambda: sp.segment_sum(ec.csr, x, idx=ec.col,
+                                                   w=ec.weight), iters),
+            "sddmm": cuda_ms(lambda: sp.sddmm_rows(ec, x, y), iters)}
+    plain = {"spmm": cuda_ms(lambda: sp.spmm_ref(es, x), 5),
+             "sddmm": cuda_ms(lambda: sp.sddmm_ref(es, x, y), 5),
+             "softmax": cuda_ms(lambda: sp.sddmm_softmax_ref(es, s), 5)}
+    csr = torch.sparse_csr_tensor(es.csr.offsets, es.col, es.weight,
+                                  size=(V, V))
+    ones = torch.sparse_csr_tensor(es.csr.offsets, es.col,
+                                   torch.ones_like(es.weight), size=(V, V))
+    coo = torch.sparse_coo_tensor(torch.stack([es.row, es.col]).long(), s,
+                                  (V, V)).coalesce()
+    yt = y.t().contiguous()
+    library = {"spmm": cuda_ms(lambda: torch.sparse.mm(csr, x), iters),
+               "sddmm": cuda_ms(lambda: torch.sparse.sampled_addmm(
+                   ones, x, yt, beta=0.0), iters),
+               "softmax": cuda_ms(lambda: torch.sparse.softmax(coo, 1),
+                                  iters)}
+    items = es.csr.item_seg.numel()
+    idx_bytes = (V + 1) * 4 + items * 8
+    rows = V * D * 4
+    bounds = {"spmm": bound(2 * rows + E * 8 + idx_bytes, 2 * E * D,
+                            F32_FLOPS),
+              "sddmm": bound(2 * rows + E * 8 + idx_bytes, 2 * E * D,
+                             F32_FLOPS),
+              # a score read and a weight written an arc; a max, an exp, a
+              # sum and a divide
+              "softmax": bound(E * 8 + (V + 1) * 4, 4 * E, F32_FLOPS)}
+    rate = {k: {"edges_per_s": E / (ms[k] / 1e3),
+                "gathered_gb_per_s": E * D * 4 / (ms[k] / 1e3) / 1e9}
+            for k in ("spmm", "spmm transposed", "spmm a warp a row",
+                      "sddmm")}
+    hubs = int((np.diff(g.offsets) > sp.CHUNK).sum())
+    print(f"phase 20 the GNN-feed ops (K8): forward within rtol 1e-5 atol "
+          f"1e-5 of the plain versions in float64 (max abs err by kernel "
+          f"{err}), the gradients of spmm, spmm_mean, sddmm and "
+          f"sddmm_softmax within it of the plain autograd in float64 (max "
+          f"abs err by the kernel whose backward mode computes them "
+          f"{grad_err}), on measure_spmm's graph ({V} V, {E} arcs, "
+          f"{hubs} rows above {sp.CHUNK} arcs split; D 128 and 64) and the "
+          f"directed test graph; a GAT-style layer and its gradient "
+          f"launched {launches}; at D 128 ms by events around each launch "
+          f"(mean of {iters}) {ms}, back to back {back}, back to back by "
+          f"arcs an item {by_chunk}; plain {plain}; "
+          f"library calls (timed only: torch.sparse.mm on CSR, "
+          f"sampled_addmm, sparse softmax on COO) {library}; rates {rate}; "
+          f"bounds {bounds} [{smi}]")
+    row = lambda k, lib: {"ms": ms[k], "ms_back_to_back": back[k],
+                          "plain_ms": plain[k], "library_ms": library[lib],
+                          **bounds[k], "max_abs_err": err[k],
+                          "grad_max_abs_err": grad_err[k],
+                          "launches": launches}
+    return ({**row("spmm", "spmm"), **rate["spmm"],
+             "transposed_ms": ms["spmm transposed"],
+             "warp_a_row_ms": ms["spmm a warp a row"],
+             "ms_by_chunk": {c: v["spmm"] for c, v in by_chunk.items()}},
+            {**row("sddmm", "sddmm"), **rate["sddmm"],
+             "ms_by_chunk": {c: v["sddmm"] for c, v in by_chunk.items()}},
+            {**row("softmax", "softmax"),
+             "backward_ms": ms["softmax backward"]})
+
+
 def main() -> int:
     import torch
 
@@ -2052,7 +2609,8 @@ def main() -> int:
     probe = draws_probe()
     smi = phase_env(torch, (WALK_KERNEL, KEYS_KERNEL, RESIDENT_WALK_KERNEL,
                             CDF_WALK_KERNEL, *trainer_kernels().values(),
-                            probe))
+                            *hs_kernels().values(),
+                            *spmm_kernels().values(), probe))
     phase_walk(torch)
     sgns_row = phase_sgns(torch)
     walk_row, keys_row = phase_walk_main_shape(
@@ -2075,11 +2633,17 @@ def main() -> int:
         stream = phase_streaming(torch, {
             "walk": WALK_KERNEL, "trial_keys": KEYS_KERNEL,
             "resident_walk": RESIDENT_WALK_KERNEL,
-            "cdf_walk": CDF_WALK_KERNEL, **trainer_kernels()},
+            "cdf_walk": CDF_WALK_KERNEL, **trainer_kernels(),
+            **hs_kernels(), **spmm_kernels()},
             smi, tmp, main_run)
         profile = phase_profile(torch, WALK_KERNEL, KEYS_KERNEL, smi, tmp,
                                 main_run)
         server = phase_server(torch, smi, tmp)
+    corpus = hs_corpus(torch)
+    hs_row = phase_hs_check(torch, smi, corpus)
+    hs_run = phase_hs_main(torch, smi, corpus)
+    del corpus
+    segsum_row, sddmm_row, softmax_row = phase_spmm(torch, smi)
     epochs = {"conv_epoch_s": main_run["train_seconds"],
               "conv_launches_a_block": main_run["launches_a_block"],
               "exact_epoch_s": exact_run["train_seconds"],
@@ -2096,8 +2660,15 @@ def main() -> int:
               "profiled_epoch_idle_share": profile["epoch_idle_share"],
               "transient_bytes": stream["transient_bytes"],
               "fixed_bytes": stream["fixed_bytes"],
-              "served_job_s": server["rest_seconds"]}
+              "served_job_s": server["rest_seconds"],
+              "hs_epoch_s": hs_run["hs_epoch_s"],
+              "hs_beside_conv_epoch_s": hs_run["conv_epoch_s"],
+              "hs_peak_bytes": hs_run["peak_bytes"]}
     quality["streamed_micro_f1"] = stream["micro_f1"]
+    quality.update(hs_karate_auc=hs_run["karate_auc"],
+                   hs_karate_acc=hs_run["karate_acc"],
+                   hs_link_auc_100k=hs_run["auc_hs"],
+                   conv_link_auc_100k=hs_run["auc_conv"])
     kernels = [
         {"name": "walk", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/walk.cu",
@@ -2136,6 +2707,22 @@ def main() -> int:
          "source": "stellar_rw_tpu_torch/csrc/sgns_conv.cu",
          "replaces": "stellar_rw_tpu/models/word2vec.py:488",
          "launches": main_run["sgns_conv_scatter"], **scatter_row},
+        {"name": "hs_step", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/hsoftmax.cu",
+         "replaces": "stellar_rw_tpu/models/hsoftmax.py:95",
+         "launches": hs_run["launches"]["hs_step"], **hs_row},
+        {"name": "spmm_segment_sum", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/spmm.cu",
+         "replaces": "stellar_rw_tpu/ops/spmm.py:44", **segsum_row,
+         "launches": segsum_row["launches"]["spmm_segment_sum"]},
+        {"name": "spmm_sddmm", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/spmm.cu",
+         "replaces": "stellar_rw_tpu/ops/spmm.py:65", **sddmm_row,
+         "launches": sddmm_row["launches"]["spmm_sddmm"]},
+        {"name": "spmm_row_softmax", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/spmm.cu",
+         "replaces": "stellar_rw_tpu/ops/spmm.py:71", **softmax_row,
+         "launches": softmax_row["launches"]["spmm_row_softmax"]},
     ]
     for row in kernels:   # the launches of the streamed runs (phase 15)
         for name in ("conv", "exact"):

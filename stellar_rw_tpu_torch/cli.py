@@ -11,12 +11,16 @@ vertex-cut file format). `node2vec --streaming true` keeps one walk round on
 the device at a time (the flag is ignored by the other commands, as in the
 JAX package); --profile DIR writes a torch.profiler trace of the job into
 DIR. Each flag value the port does not serve yet exits with NotPorted
-naming its ROADMAP item.
+naming its ROADMAP item, and so does a multi-host environment
+(SRW_NUM_PROCESSES above 1, or SRW_COORDINATOR with no count), where the
+JAX CLI would join a process group: refused before anything is read or
+written.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import sys
 import time
 
@@ -33,6 +37,22 @@ from .utils.stats import validate_walks, walk_stats
 from .walk import engine
 
 logger = logging.getLogger("stellar_rw_tpu_torch")
+
+# the JAX package's process-group variables (its parallel/multihost.py)
+ENV_COORD = "SRW_COORDINATOR"
+ENV_NPROC = "SRW_NUM_PROCESSES"
+
+
+def check_single_process(environ=os.environ) -> None:
+    """Raise NotPorted where the JAX CLI would join a multi-process group:
+    SRW_NUM_PROCESSES above 1, or SRW_COORDINATOR with no count (it reads
+    an unset or zero count as none). SRW_NUM_PROCESSES=1 is one process."""
+    nproc = int(environ.get(ENV_NPROC) or 0)
+    if nproc > 1 or (ENV_COORD in environ and nproc == 0):
+        raise NotPorted(
+            f"{ENV_NPROC}={environ.get(ENV_NPROC)!r} {ENV_COORD}="
+            f"{environ.get(ENV_COORD)!r}: multi-host walks are ROADMAP "
+            "Queue 1 item 12, not served by stellar_rw_tpu_torch")
 
 
 def check_flags(params: Params) -> None:
@@ -192,6 +212,7 @@ def main(argv: list[str] | None = None, device=None,
     report, when given, receives the run's counts and timings and, on the
     card, peak_device_bytes: the job's peak above what was allocated when
     it started."""
+    check_single_process()
     params = parse(sys.argv[1:] if argv is None else argv)
     if params is None:
         return 1

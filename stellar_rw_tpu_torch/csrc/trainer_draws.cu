@@ -167,7 +167,7 @@ __global__ void __launch_bounds__(kThreads)
 // Draws of blocks c0 .. c0 + n - 1 of the epoch key `key` (two int64 words
 // on the device, each a uint32): cwin i32 [n, BT] in [1, window] and negs
 // i32 [n, M] from the alias table (keep f32 [n_vocab], alias i32
-// [n_vocab]). The plan (ops/trainer_draws.py::launch_plan): `runs` runs of
+// [n_vocab]; with M = 0 no table is read, and it may be empty and null). The plan (ops/trainer_draws.py::launch_plan): `runs` runs of
 // `per` * kThreads elements a block, one thread block a run; (magic, sh1,
 // sh2) the window's reciprocal (span_magic). Returns the CUDA error of the
 // launch.
@@ -177,7 +177,8 @@ extern "C" int srw_trainer_draws_launch(
     const void* alias, int n_vocab, void* cwin, void* negs, void* stream) {
   const long long total = static_cast<long long>(BT) + M;
   if (n <= 0 || total <= 0) return 0;
-  if (window < 1 || n_vocab < 1 || BT < 0 || M < 0 || runs < 1 || per < 1 ||
+  if (window < 1 || (M > 0 && n_vocab < 1) || BT < 0 || M < 0 || runs < 1 ||
+      per < 1 ||
       per > kPerThread || sh1 < 0 || sh1 > 1 || sh2 < 0 || sh2 > 31 ||
       static_cast<long long>(runs) * per * kThreads < total ||
       static_cast<long long>(n) * runs > 0x7fffffffLL)

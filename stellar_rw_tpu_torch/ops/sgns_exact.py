@@ -152,15 +152,18 @@ class Workspace:
     slots are bounded by the block, not by the vocabulary; the map is one
     int a row, and `counts` the slots taken in each table. The kernel
     leaves every slot, map entry and count empty again, so one workspace
-    serves every step; the trainer makes one an epoch."""
+    serves every step; the trainer makes one an epoch. `rows`, when
+    given, are the delta rows of each table (another step's bounds: the
+    hierarchical-softmax step's, ops/hsoftmax.py::HSWorkspace)."""
 
     def __init__(self, w_in: torch.Tensor, w_out: torch.Tensor,
-                 positions: int, window: int = 1, k: int = 0):
+                 positions: int, window: int = 1, k: int = 0,
+                 rows: tuple[int, int] | None = None):
         dev = w_in.device
         v_in, v_out, dim = w_in.shape[0], w_out.shape[0], w_in.shape[1]
         self.shape = (v_in, v_out, dim)
-        self.rows = (min(v_in, positions),
-                     min(v_out, positions * 2 * window * (1 + k)))
+        self.rows = rows or (min(v_in, positions),
+                             min(v_out, positions * 2 * window * (1 + k)))
         z = lambda n, w=None, dt=torch.int32: torch.zeros(
             (n,) if w is None else (n, w), dtype=dt, device=dev)
         self.d = [z(r, dim, torch.float32) for r in self.rows]

@@ -7,6 +7,9 @@ cwin = randint(kb, (B, T), 1, window + 1) and its negatives
 _draw_negatives(fold_in(kb, 2), neg_shape, keep, alias), the streams of the
 JAX package's epoch scan (stellar_rw_tpu/models/word2vec.py:116, 146-151)
 bit for bit. Returns (cwin i32 [n, B, T], negs i32 [n, *neg_shape]).
+A negative shape of no elements (the hierarchical-softmax trainer's (0,))
+draws the windows alone and takes no alias table (neg_keep and neg_alias
+may be None).
 
 CUDA tensors launch csrc/trainer_draws.cu, one launch for the n blocks
 under launch_plan, with the window's reciprocal from span_magic; CPU
@@ -88,6 +91,9 @@ def trainer_draws_ref(key, c0: int, n: int, B: int, T: int, window: int,
     ids = torch.arange(c0, c0 + n, device=key.device)
     kb = prng.fold_in(key, ids)                               # [n, 2]
     cwin = prng.randint(kb, (B, T), 1, window + 1)            # [n, B, T]
+    if math.prod(neg_shape) == 0:
+        return cwin, torch.empty((n,) + tuple(neg_shape), dtype=torch.int32,
+                                 device=key.device)
     negs = _draw_negatives(prng.fold_in(kb, 2), tuple(neg_shape), neg_keep,
                            neg_alias)
     return cwin, negs.to(torch.int32)
@@ -97,15 +103,19 @@ def trainer_draws(key, c0: int, n: int, B: int, T: int, window: int,
                   neg_shape, neg_keep, neg_alias):
     """Draws of blocks c0 .. c0 + n - 1 (see the module). key: int64 [2]
     (uint32 words); neg_keep f32 [V]; neg_alias int [V] (int32 on the
-    card)."""
+    card); both unused, and may be None, when neg_shape has no element."""
     if key.device.type == "cpu":
         return trainer_draws_ref(key, c0, n, B, T, window, neg_shape,
                                  neg_keep, neg_alias)
     TRAINER_DRAWS_KERNEL.fn()
     neg_shape = tuple(neg_shape)
+    M = math.prod(neg_shape)
+    if M == 0:    # no negatives: the kernel reads no table
+        neg_keep = torch.empty(0, dtype=torch.float32, device=key.device)
+        neg_alias = torch.empty(0, dtype=torch.int32, device=key.device)
     V = neg_keep.shape[0]
     if (key.shape != (2,) or key.dtype != torch.int64 or window < 1 or n < 0
-            or V < 1 or neg_alias.shape != (V,)):
+            or (M and V < 1) or neg_alias.shape != (V,)):
         raise ValueError(f"trainer_draws: key {tuple(key.shape)} "
                          f"{key.dtype}, window {window}, n {n}, keep "
                          f"{tuple(neg_keep.shape)}, alias "
@@ -114,7 +124,6 @@ def trainer_draws(key, c0: int, n: int, B: int, T: int, window: int,
         raise ValueError("trainer_draws: keep must be float32 and alias "
                          "int32")
     require_cuda("trainer_draws", key, neg_keep, neg_alias)
-    M = math.prod(neg_shape)
     cwin = torch.empty((n, B, T), dtype=torch.int32, device=key.device)
     negs = torch.empty((n,) + neg_shape, dtype=torch.int32,
                        device=key.device)

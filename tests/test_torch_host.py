@@ -1,5 +1,6 @@
 """The port's own copies of the host modules (graph/csr.py, graph/io.py,
-graph/datasets.py, native/, utils/, ops/alias.py, models/eval.py) against the JAX package's
+graph/datasets.py, native/, utils/, ops/alias.py, models/eval.py,
+models/hsoftmax.py's build_huffman) against the JAX package's
 originals on the same inputs. Everything here is NumPy on the host, so the
 tolerance is exact: arrays equal, files byte for byte. The CSR tables are
 held with the port's C++ builder and with its NumPy builders."""
@@ -17,6 +18,7 @@ from stellar_rw_tpu.graph import csr as jcsr
 from stellar_rw_tpu.graph import datasets as jdatasets
 from stellar_rw_tpu.graph import io as jio
 from stellar_rw_tpu.models import eval as jev
+from stellar_rw_tpu.models import hsoftmax as jhs
 from stellar_rw_tpu.models import word2vec as jw2v
 from stellar_rw_tpu.ops import alias as jalias
 from stellar_rw_tpu.utils import config as jconfig
@@ -25,6 +27,7 @@ from stellar_rw_tpu.utils import stats as jstats
 from stellar_rw_tpu_torch import native
 from stellar_rw_tpu_torch.graph import csr, datasets, io
 from stellar_rw_tpu_torch.models import eval as ev
+from stellar_rw_tpu_torch.models import hsoftmax as hs
 from stellar_rw_tpu_torch.models import word2vec as w2v
 from stellar_rw_tpu_torch.ops import alias
 from stellar_rw_tpu_torch.utils import config, stats
@@ -457,3 +460,17 @@ def test_mat_loader_equal(tmp_path):
     jg, jlabels = jdatasets.load_mat_graph(str(path))
     _graphs_equal(g, jg)
     np.testing.assert_array_equal(labels, jlabels)
+
+
+@pytest.mark.parametrize("counts", [
+    np.random.default_rng(0).zipf(1.5, 200).astype(np.float64),
+    np.ones(37),                          # every tie broken by index
+    np.asarray([5.0]), np.asarray([3.0, 1.0]), np.zeros(0)])
+def test_build_huffman_equal(counts):
+    """Points, labels and mask array-equal (heapq's order on (count,
+    index) ties included) at a Zipf(1.5) vocabulary of 200, all ties, and
+    V 1, 2 and 0."""
+    for got, want in zip(hs.build_huffman(counts),
+                         jhs.build_huffman(counts)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
