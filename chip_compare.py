@@ -44,7 +44,16 @@ events around launches queued behind a long product):
     walks of 81 tokens, dim 128, window 10, 5 negatives), the conv trainer
     (--sharedNegatives 128) and the exact one, host wall time synchronized:
     other, this, this, other, with the largest difference of the two
-    checkouts' tables after the epoch.
+    checkouts' tables after the epoch;
+  * the GNN-feed segment sum (K8, ops/spmm.py::segment_sum) on
+    bench.py::measure_spmm's graph at D 128, on the CSR order (spmm) and
+    the transposed order (its backward), after checking the two checkouts
+    agree (rtol 1e-5, atol 1e-5): other, this, this, other;
+  * the hierarchical-softmax step (K9, ops/hsoftmax.py::launch_step) on
+    chip_smoke's phase-19 block (B 256, T 82, w 10, D 128 on the
+    100,000-vertex corpus's tree) and its one-token block, after checking
+    the two checkouts' tables agree (rtol 1e-5, atol 1e-6): other, this,
+    this, other, each turn on tables and a workspace of its own.
 
 One JSON object a line, the card's name and power limit in each. Needs a
 CUDA device; imports nothing of JAX.
@@ -61,8 +70,9 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import (RESIDENT_SHAPES, SGNS_SHAPES, check, cuda_ms,
-                        regular_graph, synth_power_law_graph)
+from chip_smoke import (HS_SHAPES, RESIDENT_SHAPES, SGNS_SHAPES, check,
+                        cuda_ms, hs_block, hs_corpus, regular_graph,
+                        synth_power_law_graph)
 
 
 def load_package(root: str, name: str):
@@ -414,7 +424,67 @@ def main(argv: list[str]) -> int:
                           "walks": int(walks.shape[0]),
                           "s_in_turns": runs, "max_abs_table_diff": diff,
                           "card": smi}))
+    compare_spmm(torch, np, this, other, graph, order, smi)
+    compare_hs(torch, this, other, order, smi)
     return 0
+
+
+def compare_spmm(torch, np, this, other, graph, order, smi) -> None:
+    """K8's segment sum of each checkout on measure_spmm's graph at D 128,
+    on the CSR order and the transposed order."""
+    V = graph.num_vertices
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (V, 128)).astype(np.float32)).cuda()
+    fns = {}
+    for name, pkg in (("other", other), ("this", this)):
+        sp = pkg("ops.spmm")
+        es = sp.EdgeStructure.from_csr(graph, device="cuda")
+        fns[name] = {
+            "csr": lambda sp=sp, es=es: sp.segment_sum(
+                es.csr, x, idx=es.col, w=es.weight),
+            "transposed": lambda sp=sp, es=es: sp.segment_sum(
+                es.trans, x, idx=es.t_row, w=es.weight, widx=es.t_order)}
+    for which in ("csr", "transposed"):
+        a, b = fns["this"][which](), fns["other"][which]()
+        check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
+              f"the two checkouts' segment sums disagree ({which})")
+        runs = [(name, cuda_ms(fns[name][which], 20)) for name in order]
+        print(json.dumps({"kernel": "spmm segment_sum", "order": which,
+                          "vertices": V, "arcs": graph.num_edges, "D": 128,
+                          "ms_in_turns": runs, "card": smi}))
+
+
+def compare_hs(torch, this, other, order, smi) -> None:
+    """K9 of each checkout on phase 19's block and the one-token block
+    (chip_smoke's HS_SHAPES[0] and its "hub" shape)."""
+    corpus = hs_corpus(torch)
+    lr = 0.025
+    for shape in (HS_SHAPES[0], next(s for s in HS_SHAPES if s[0] == "hub")):
+        _, B, T, win, D = shape
+        syn0, syn1, block, cwin, pts, lbl, pmk = hs_block(torch, *shape, 0,
+                                                          corpus)
+        L = pts.shape[1]
+        results, steps = {}, {}
+        for name, pkg in (("other", other), ("this", this)):
+            ho = pkg("ops.hsoftmax")
+            b0, b1 = syn0.clone(), syn1.clone()
+            ho.launch_step(ho.HSWorkspace(b0, b1, B * T, L), b0, b1, block,
+                           cwin, pts, lbl, pmk, win, lr)
+            results[name] = (b0, b1)
+
+            def turn(ho=ho):
+                # a turn's own tables and workspace (moved by the steps)
+                b0, b1 = syn0.clone(), syn1.clone()
+                ws = ho.HSWorkspace(b0, b1, B * T, L)
+                return lambda: ho.launch_step(ws, b0, b1, block, cwin, pts,
+                                              lbl, pmk, win, lr)
+            steps[name] = turn
+        check(all(torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in
+                  zip(results["this"], results["other"])),
+              f"the two checkouts' HS steps disagree at {shape}")
+        runs = [(name, cuda_ms(steps[name](), 10)) for name in order]
+        print(json.dumps({"kernel": "hs_step", "block": list(shape),
+                          "levels": L, "ms_in_turns": runs, "card": smi}))
 
 
 if __name__ == "__main__":

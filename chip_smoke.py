@@ -2195,7 +2195,7 @@ def phase_hs_check(torch, smi, corpus) -> dict:
                       f"in {table} at {shape}")
             err = max(err, k_err)
             f32_err = max(f32_err, p_err)
-        plan = ho.launch_plan(D, B, T, win, sms)
+        plan = ho.launch_plan(D, B, T, win, sms, levels=pts.shape[1])
         ms = cuda_ms(lambda: ho.launch_step(ws, b0, b1, block, cwin, pts,
                                             lbl, pmk, win, lr), 10)
         check(workspace_empty(torch, ws),
@@ -2220,31 +2220,44 @@ def phase_hs_check(torch, smi, corpus) -> dict:
                                    lr, win)
     runs = [cuda_ms(f, 3) for f in (plain, step, step, plain)]
     # the same launch under other plans: tiles
-    base = ho.launch_plan(D, B, T, win, sms)
+    base = ho.launch_plan(D, B, T, win, sms, levels=L)
     by_plan = {}
     for tile in (8, 16, 32):
+        need = ho.smem_bytes(tile, win, D, L)
+        bps = next(n for n, budget in ho.SMEM_BUDGETS if need <= budget)
         plan = base._replace(
             tile=tile, tiles=B * -(-T // tile), halo_rows=tile + 2 * win,
-            blocks=min(B * -(-T // tile), 2 * sms),
-            smem_bytes=ho.smem_bytes(tile, win, D))
+            blocks=min(B * -(-T // tile), bps * sms), blocks_per_sm=bps,
+            smem_bytes=need)
         by_plan[f"tile {tile}"] = cuda_ms(
             lambda: ho.launch_step(ws, syn0, syn1, block, cwin, pts, lbl,
                                    pmk, win, lr, plan), 10)
     check(workspace_empty(torch, ws), "hs_step left its workspace dirty "
           "under another plan")
-    # what this block needs: each valid pair's live levels; the distinct
-    # syn0 rows that are a context, the distinct path nodes of the centers
-    # with a pair, and those centers' path rows
+    # what this block needs: the distinct syn0 rows that are a context, the
+    # distinct path nodes of the centers with a pair, and those centers'
+    # path rows; 6 D flops (the dot, d_vo and the context's gradient) a
+    # distinct (context token, path node) pair, since all reads are of the
+    # tables before the step: every pair of a context token with a center
+    # holding the node sums the same sigmoid and rows (pair_levels: the
+    # (pair, live level) terms that adds up)
     valid, ctx = _valid_from_cwin(block, cwin, win)
     vcnt = valid.sum(-1)
     tok = block.clamp_min(0).long()
     codelen = pmk.sum(1)
     pair_levels = int((vcnt * codelen[tok]).sum())
-    U0 = int(torch.unique(block[:, ctx][valid]).numel())
+    ctx_tok = block[:, ctx].long()
+    U0 = int(torch.unique(ctx_tok[valid]).numel())
     centers = torch.unique(tok[vcnt > 0])
     U1 = int(torch.unique(pts[centers][pmk[centers] > 0]).numel())
+    V0, V1 = syn0.shape[0], syn1.shape[0]
+    cc = torch.unique(ctx_tok[valid] * V0 + tok[..., None].expand_as(
+        ctx_tok)[valid])               # distinct (context, center) tokens
+    live = pmk[cc % V0] > 0
+    ctx_nodes = int(torch.unique(((cc // V0)[:, None] * V1
+                                  + pts[cc % V0].long())[live]).numel())
     step_b = bound(tensor_bytes(block, cwin) + centers.numel() * L * 12
-                   + (U0 + U1) * D * 4 * 2, pair_levels * 6 * D, F32_FLOPS)
+                   + (U0 + U1) * D * 4 * 2, ctx_nodes * 6 * D, F32_FLOPS)
     plain_ms = (runs[0] + runs[3]) / 2
     jax_block = B * T * L * D * 4
     print(f"phase 18 hs_step: within rtol 1e-5 atol 1e-6 of the plain step "
@@ -2255,6 +2268,7 @@ def phase_hs_check(torch, smi, corpus) -> dict:
           f"step; back to back ms by shape {per_shape}; at the main shape "
           f"(phase 19's block: B {B}, T {T}, w {win}, D {D}, L {L}; "
           f"{int(vcnt.sum())} valid pairs, {pair_levels} pair-levels, "
+          f"{ctx_nodes} distinct (context token, node) pairs, "
           f"{U0} syn0 + {U1} syn1 rows) the kernel {k_ms:.4f} ms (CUDA "
           f"events around each launch, mean of {iters}), through the "
           f"wrapper {(runs[1] + runs[2]) / 2:.4f} ms, plain step "
@@ -2266,7 +2280,8 @@ def phase_hs_check(torch, smi, corpus) -> dict:
     return {"ms": k_ms, **step_b, "max_abs_err": err,
             "plain_f32_off_f64": f32_err, "plain_ms": plain_ms,
             "library_ms": None, "wrapper_ms": (runs[1] + runs[2]) / 2,
-            "pair_levels": pair_levels, "per_shape": per_shape,
+            "pair_levels": pair_levels, "ctx_node_pairs": ctx_nodes,
+            "per_shape": per_shape,
             "ms_by_plan": by_plan}
 
 

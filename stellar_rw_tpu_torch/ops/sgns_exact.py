@@ -153,12 +153,13 @@ class Workspace:
     int a row, and `counts` the slots taken in each table. The kernel
     leaves every slot, map entry and count empty again, so one workspace
     serves every step; the trainer makes one an epoch. `rows`, when
-    given, are the delta rows of each table (another step's bounds: the
-    hierarchical-softmax step's, ops/hsoftmax.py::HSWorkspace)."""
+    given, are the delta rows of each table, and `counts` the length of
+    the counts (another step's bounds and counts: the hierarchical-softmax
+    step's, ops/hsoftmax.py::HSWorkspace)."""
 
     def __init__(self, w_in: torch.Tensor, w_out: torch.Tensor,
                  positions: int, window: int = 1, k: int = 0,
-                 rows: tuple[int, int] | None = None):
+                 rows: tuple[int, int] | None = None, counts: int = 2):
         dev = w_in.device
         v_in, v_out, dim = w_in.shape[0], w_out.shape[0], w_in.shape[1]
         self.shape = (v_in, v_out, dim)
@@ -171,7 +172,7 @@ class Workspace:
         self.list = [z(r) for r in self.rows]
         self.map = [torch.full((v,), -1, dtype=torch.int32, device=dev)
                     for v in (v_in, v_out)]
-        self.counts = z(2)
+        self.counts = z(counts)
         self._ptrs = (ctypes.c_void_p * 9)(*(
             t.data_ptr() for t in (*self.d, *self.cnt, *self.map,
                                    *self.list, self.counts)))

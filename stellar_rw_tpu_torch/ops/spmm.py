@@ -14,12 +14,16 @@ whose forward and backward launch csrc/spmm.cu's three kernels:
   * row_softmax: a row's max, exps, sum and quotient in one pass over its
     arcs, or its backward dS = a * (dA - sum_row a * dA).
 A segment longer than `chunk` arcs is split into items of `chunk` arcs, a
-warp an item (segment_items); the last of them to finish sums their
-partial sums in item order, so a result is the same in every run. The
-segment sums and the SDDMM's dots are taken in double. gather_rows' forward is index_select,
-a copy with no arithmetic, as the JAX package's x[idx]. On the CPU each op
-runs its plain version (index_select, index_add_, scatter_reduce), whose
-gradients torch's autograd takes.
+warp an item (segment_items); their partial sums are summed in item order
+by a tree of two levels (groups of FAN items, then the groups), each
+level by whichever warp finishes last, so a result is the same in every
+run. The segment sum gathers rows by 16-byte loads, runs of RUN arcs'
+indices and weights staged in shared memory; its grid is the blocks the
+card holds at once (segment_grid). The segment sums and the SDDMM's dots
+are taken in double. gather_rows' forward is index_select, a copy with no
+arithmetic, as the JAX package's x[idx]. On the CPU each op runs its plain
+version (index_select, index_add_, scatter_reduce), whose gradients
+torch's autograd takes.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from ..errors import resolve_device
-from ._build import Kernel, ptr, require_cuda, stream
+from ._build import Kernel, ptr, require_cuda, sm_count, stream
 
 SPMM_SEGMENT_SUM = Kernel(
     "spmm.cu", "srw_segment_sum_launch",
@@ -50,27 +54,36 @@ SPMM_ROW_SOFTMAX = Kernel(
 
 THREADS = 256           # kThreads in the source: 8 warps, a warp an item
 # arcs of an item: longer segments are split. At bench.py::measure_spmm's
-# graph (D 128), on an H100, items of 128 arcs took the segment sum 0.0844
-# ms and SDDMM 0.138; of 256, 0.0864 and 0.250; of 64, 0.0926 and 0.121
+# graph (D 128), on an H100, items of 128 arcs took the segment sum 0.0511
+# ms and SDDMM 0.137; of 256, 0.0570 and 0.249; of 64, 0.0583 and 0.120
 # (chip_smoke.py phase 20)
 CHUNK = 128
-MAX_BLOCKS = 132 * 16   # the grid's cap; warps stride over the items
+MAX_BLOCKS = 132 * 16   # SDDMM's and the softmax's cap; warps stride
+# the segment sum: blocks an SM (kSegBlocks, its __launch_bounds__), the
+# arcs whose indices and weights a warp stages at once (kRun), and the
+# partials of a split segment's group (kFan: a group's partials are summed
+# first, then the groups' sums)
+SEGMENT_BLOCKS_PER_SM = 3
+RUN = 32
+FAN = 16
 
 
 def segment_items(offsets: np.ndarray, chunk: int = CHUNK
                   ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The kernels' work items over segments [offsets[s], offsets[s+1]):
     (segment, first arc, partial) of each run of at most `chunk` arcs, in
-    segment order; an empty segment has none. A segment of more than
+    segment order; an empty segment has one of no arcs (the segment sum
+    writes its zero row, so its output needs no zero fill). A segment of
+    more than
     `chunk` arcs (a hub row) is split into several items, numbered in
     order by `partial` (their rows of the partial sums; -1 for an item
-    that is its whole segment), and the last of them to finish sums the
-    segment's partials in that order."""
+    that is its whole segment), whose partials the kernel sums in that
+    order (groups of FAN, then the groups)."""
     if chunk < 1:
         raise ValueError(f"segment_items: chunk {chunk}")
     offsets = np.asarray(offsets, dtype=np.int64)
     deg = np.diff(offsets)
-    n = -(-deg // chunk)                                  # items a segment
+    n = np.maximum(-(-deg // chunk), 1)                   # items a segment
     seg = np.repeat(np.arange(len(deg), dtype=np.int64), n)
     first = np.repeat(np.cumsum(n) - n, n)
     start = offsets[:-1][seg] + (np.arange(len(seg)) - first) * chunk
@@ -218,12 +231,13 @@ def segment_sum(order: Order, x: torch.Tensor, idx=None, w=None, widx=None,
         raise ValueError("segment_sum: idx/widx int32, w float32")
     S = order.offsets.shape[0] - 1
     D = x.shape[1]
-    out = torch.zeros((S, D), dtype=torch.float32, device=x.device)
+    out = torch.empty((S, D), dtype=torch.float32, device=x.device)
     n = order.item_seg.shape[0]
     if n and D:
         opt_ptr = lambda t: None if t is None else ptr(t)
-        # a split segment's partial rows and its arrival counter (at its
-        # first partial row): this launch's own, from the caching allocator
+        # a split segment's partial rows and its arrival counters (a
+        # group's at its first partial row, the segment's at its second):
+        # this launch's own, from the caching allocator
         partials = arrive = None
         if order.parts:
             partials = torch.empty((order.parts, D), dtype=torch.float64,
@@ -234,8 +248,8 @@ def segment_sum(order: Order, x: torch.Tensor, idx=None, w=None, widx=None,
             ptr(out), ptr(x), D, ptr(order.offsets), n, ptr(order.item_seg),
             ptr(order.item_start), ptr(order.item_part), order.chunk,
             opt_ptr(idx), opt_ptr(w), opt_ptr(widx), int(mean),
-            opt_ptr(partials), opt_ptr(arrive), _blocks(n),
-            stream(x.device))
+            opt_ptr(partials), opt_ptr(arrive),
+            segment_grid(n, sm_count(x.device)), stream(x.device))
     return out
 
 
@@ -277,6 +291,15 @@ def row_softmax(es: EdgeStructure, a: torch.Tensor,
 
 def _blocks(items: int) -> int:
     return max(1, min(MAX_BLOCKS, -(-items // (THREADS // 32))))
+
+
+def segment_grid(items: int, sms: int) -> int:
+    """The segment sum's persistent grid: a warp an item while the items
+    fill fewer blocks than the card holds at once, else every resident
+    block (SEGMENT_BLOCKS_PER_SM an SM), whose warps stride over the
+    items, so no partial second wave is left."""
+    return max(1, min(SEGMENT_BLOCKS_PER_SM * sms,
+                      -(-items // (THREADS // 32))))
 
 
 def _check_rows(name, es, *xs):

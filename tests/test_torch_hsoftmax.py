@@ -8,10 +8,13 @@ atol 1e-6: the sums run in another order); train_skipgram_hs on the CPU
 against the JAX trainer after 2 epochs (rtol 1e-4, atol 1e-6); the karate
 quality gate of tests/test_hsoftmax.py. The transcription walks the
 kernel's grid under launch_plan: persistent blocks striding over halo tiles
-of a walk, each tile's syn0 rows and their gradient sums by halo position,
-a center's live levels KGROUP at a time against its valid contexts, each
-level group's node rows into their delta slots, the halo sums flushed
-after each tile, then the update as sum over count. JAX runs with x64 off."""
+of a walk, each tile's syn0 rows, its pairs as a mask of centers a halo
+row, its centers' path nodes de-duplicated (in (center, level) order, each
+claimed and counted once a tile), then over the nodes in chunks of CHUNK:
+G = the sigmoids of S = X VO^T less the labels, summed over the centers
+that pair with a halo row and hold the node; d_VO = G^T X into the nodes'
+delta slots; d_X = G VO into the halo's gradient rows, flushed after each
+tile; then the update as sum over count. JAX runs with x64 off."""
 
 import jax
 import jax.numpy as jnp
@@ -202,8 +205,10 @@ def test_hs_trainer_karate_quality(karate_path):
 # ------------------------------------------------ the kernel's design
 
 
-def _kernel_transcription(syn0, syn1, block, cwin, huff, lr, window, plan):
-    """csrc/hsoftmax.cu's order in float32 (see the module)."""
+def _kernel_transcription(syn0, syn1, block, cwin, huff, lr, window, plan,
+                          stats=None):
+    """csrc/hsoftmax.cu's order in float32 (see the module). `stats`, if
+    given, collects each tile's count of distinct nodes."""
     f32 = np.float32
     syn0, syn1 = syn0.copy(), syn1.copy()
     points, labels, pmask = huff
@@ -211,7 +216,8 @@ def _kernel_transcription(syn0, syn1, block, cwin, huff, lr, window, plan):
     D = syn0.shape[1]
     L = points.shape[1]
     tile, H = plan.tile, plan.halo_rows
-    per_walk = -(-T // tile)
+    per_walk = -(-T // tile)    # a walk's tiles, of near equal sizes
+    base, extra = divmod(T, per_walk)
     d0, d1 = {}, {}             # delta slots: row -> [sum, count]
 
     def add(d, row, v, n):
@@ -221,42 +227,72 @@ def _kernel_transcription(syn0, syn1, block, cwin, huff, lr, window, plan):
 
     for blk in range(plan.blocks):
         for ti in range(blk, B * per_walk, plan.blocks):
-            b, t0 = divmod(ti, per_walk)
-            t0 *= tile
-            tokh = [int(block[b, t]) if 0 <= t < T else -1
-                    for t in range(t0 - window, t0 - window + H)]
-            xh = np.stack([syn0[max(k, 0)] * f32(k >= 0) for k in tokh])
-            dxh = np.zeros((H, D), f32)
-            cnth = [0] * H
-            for ci in range(min(tile, T - t0)):
+            b, j = divmod(ti, per_walk)
+            t0 = j * base + min(j, extra)
+            tc = base + (j < extra)          # the tile's centers
+            tokh = [int(block[b, t]) if 0 <= t < min(T, t0 + tc + window)
+                    else -1 for t in range(t0 - window, t0 - window + H)]
+            X = np.stack([syn0[max(k, 0)] * f32(k >= 0) for k in tokh])
+            dX = np.zeros((H, D), f32)
+            pairm, cnth, vcnt = [0] * H, [0] * H, [0] * tile
+            for ci in range(tc):
                 hc = ci + window
-                center = tokh[hc]
-                if center < 0:
+                if tokh[hc] < 0:
                     continue
                 win = min(int(cwin[b, t0 + ci]), window)
-                ctx = [hc + d for d in range(-win, win + 1)
-                       if d != 0 and tokh[hc + d] >= 0]
-                for h in ctx:
-                    cnth[h] += 1
-                if not ctx:
+                for d in range(-win, win + 1):
+                    if d != 0 and tokh[hc + d] >= 0:
+                        pairm[hc + d] |= 1 << ci
+                        cnth[hc + d] += 1
+                        vcnt[ci] += 1
+            # the tile's distinct path nodes, by first entry in (center,
+            # level) order, each with the masks of its centers and of those
+            # whose label there is 1
+            nodes, mask, lab1, index = [], [], [], {}
+            for ci in range(tile):
+                if not vcnt[ci]:
                     continue
-                live = [l for l in range(L) if pmask[center, l] != 0]
-                for g0 in range(0, len(live), ops_hs.KGROUP):
-                    lev = live[g0:g0 + ops_hs.KGROUP]
-                    nodes = [int(points[center, l]) for l in lev]
-                    lab = labels[center, lev].astype(f32)
-                    vo = syn1[nodes]
-                    dvo = np.zeros((len(lev), D), f32)
-                    for h in ctx:
-                        dots = (vo * xh[h]).sum(1, dtype=f32)
-                        gr = (f32(1) / (f32(1) + np.exp(-dots))) - lab
-                        dvo += gr[:, None] * xh[h][None]
-                        dxh[h] += (gr[:, None] * vo).sum(0, dtype=f32)
-                    for node, row in zip(nodes, dvo):
-                        add(d1, node, row, len(ctx))
+                c = tokh[ci + window]
+                for l in range(L):
+                    if pmask[c, l] == 0:
+                        continue
+                    node = int(points[c, l])
+                    if node not in index:
+                        index[node] = len(nodes)
+                        nodes.append(node)
+                        mask.append(0)
+                        lab1.append(0)
+                    mask[index[node]] |= 1 << ci
+                    if labels[c, l] == 1:
+                        lab1[index[node]] |= 1 << ci
+            bits = lambda m: [i for i in range(tile) if m >> i & 1]
+            for u, node in enumerate(nodes):
+                add(d1, node, np.zeros(D, f32),
+                    sum(vcnt[ci] for ci in bits(mask[u])))
+            if stats is not None:
+                stats.append(len(nodes))
+            for u0 in range(0, len(nodes), ops_hs.CHUNK):
+                us = range(u0, min(u0 + ops_hs.CHUNK, len(nodes)))
+                Gc = np.zeros((H, ops_hs.CHUNK), f32)
+                for u in us:               # S, G and d_VO of a node
+                    vo = syn1[nodes[u]]
+                    dvo = np.zeros(D, f32)
+                    for h in range(H):
+                        m = pairm[h] & mask[u]
+                        if not m:
+                            continue
+                        dot = (vo * X[h]).sum(dtype=f32)
+                        sig = f32(1) / (f32(1) + np.exp(-dot))
+                        Gc[h, u - u0] = (f32(len(bits(m))) * sig
+                                         - f32(len(bits(m & lab1[u]))))
+                        dvo += Gc[h, u - u0] * X[h]
+                    add(d1, nodes[u], dvo, 0)
+                for h in range(H):         # d_X over the chunk's nonzero G
+                    for j in np.flatnonzero(Gc[h]):
+                        dX[h] += Gc[h, j] * syn1[nodes[u0 + j]]
             for h in range(H):
                 if cnth[h]:
-                    add(d0, tokh[h], dxh[h], cnth[h])
+                    add(d0, tokh[h], dX[h], cnth[h])
     for w, d in ((syn0, d0), (syn1, d1)):
         for row, (s, n) in d.items():
             w[row] += (f32(-lr) * s) / f32(max(n, 1))
@@ -277,7 +313,8 @@ def test_kernel_transcription_matches_float64(karate_path, name, D, sms,
     syn0, syn1 = _tables(V, D, seed=D)
     _, cwin = _cwin(B, T, window, seed=D + 1)
     lr = 0.05
-    plan = ops_hs.launch_plan(D, B, T, window, sms)
+    plan = ops_hs.launch_plan(D, B, T, window, sms,
+                              levels=huff[0].shape[1])
     if tile is not None:
         plan = plan._replace(tile=tile, halo_rows=tile + 2 * window,
                              tiles=B * -(-T // tile))
@@ -300,7 +337,8 @@ def test_kernel_transcription_one_token_block():
         huff = hs.build_huffman(counts)
         syn0, syn1 = _tables(V, 8, seed=V)
         _, cwin = _cwin(3, 30, 3, seed=V)
-        plan = ops_hs.launch_plan(8, 3, 30, 3, 2)
+        plan = ops_hs.launch_plan(8, 3, 30, 3, 2,
+                                  levels=huff[0].shape[1])
         k0, k1 = _kernel_transcription(syn0, syn1, block, cwin.numpy(), huff,
                                        0.1, 3, plan)
         w0, w1 = _plain(syn0, syn1, block, cwin, huff, 0.1, 3, torch.float64)
@@ -308,30 +346,76 @@ def test_kernel_transcription_one_token_block():
         np.testing.assert_allclose(k1, w1, rtol=1e-5, atol=1e-6)
 
 
+def test_kernel_transcription_nodes_beyond_one_chunk():
+    """Tiles whose centers' paths hold more distinct nodes than one chunk
+    of CHUNK (deep paths of a 2,000-token tree, tiles of 16 and 32 centers),
+    and a tile where every center shares the top levels: within rtol 1e-5
+    atol 1e-6 of the float64 step."""
+    rng = np.random.default_rng(11)
+    V, B, T, window = 2000, 4, 40, 5
+    block = rng.integers(0, V, (B, T)).astype(np.int32)
+    block[1, :] = block[1, 0]                 # one walk of one token
+    counts = rng.random(V) + 0.5
+    huff = hs.build_huffman(counts)
+    syn0, syn1 = _tables(V, 24, seed=5)
+    _, cwin = _cwin(B, T, window, seed=12)
+    for tile in (16, 32):
+        plan = ops_hs.launch_plan(24, B, T, window, 1,
+                                  levels=huff[0].shape[1])
+        plan = plan._replace(tile=tile, halo_rows=tile + 2 * window,
+                             tiles=B * -(-T // tile))
+        nodes = []
+        k0, k1 = _kernel_transcription(syn0, syn1, block, cwin.numpy(), huff,
+                                       0.05, window, plan, nodes)
+        assert max(nodes) > 3 * ops_hs.CHUNK
+        w0, w1 = _plain(syn0, syn1, block, cwin, huff, 0.05, window,
+                        torch.float64)
+        np.testing.assert_allclose(k0, w0, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(k1, w1, rtol=1e-5, atol=1e-6)
+
+
 def test_launch_plan():
     """Tiles, residency and shared memory of the plan."""
-    # the main path's block: tiles of 32 give the card two blocks an SM
-    p = ops_hs.launch_plan(128, 256, 82, 10)
+    # the main path's block (phase 19's tree: 20 levels): tiles of 32 give
+    # the card two blocks an SM
+    p = ops_hs.launch_plan(128, 256, 82, 10, levels=20)
     assert (p.tile, p.tiles, p.halo_rows) == (32, 256 * 3, 52)
     assert (p.blocks_per_sm, p.blocks) == (2, 264)
-    assert p.smem_bytes == ops_hs.smem_bytes(32, 10, 128) \
+    assert p.smem_bytes == ops_hs.smem_bytes(32, 10, 128, 20) \
         <= ops_hs.SMEM_BUDGETS[0][1]
+    # deeper trees hold more path entries: narrower tiles
+    assert ops_hs.launch_plan(128, 256, 82, 10, levels=40).tile == 16
     # few walks: narrower tiles for more of them
-    assert ops_hs.launch_plan(128, 32, 82, 10).tile == 8
-    assert ops_hs.launch_plan(64, 4, 3, 2, 2).tile == 3       # never above T
+    assert ops_hs.launch_plan(128, 32, 82, 10, levels=20).tile == 8
+    assert ops_hs.launch_plan(64, 4, 3, 2, 2, levels=5).tile == 3  # <= T
     # wide rows: narrower tiles, then one block an SM before refusing
-    p = ops_hs.launch_plan(768, 256, 82, 10)
-    assert (p.tile, p.blocks_per_sm) == (16, 1)
+    p = ops_hs.launch_plan(768, 256, 82, 10, levels=20)
+    assert (p.tile, p.blocks_per_sm) == (8, 1)
     assert p.smem_bytes <= ops_hs.SMEM_BUDGETS[1][1]
-    p = ops_hs.launch_plan(384, 256, 82, 10)
-    assert (p.tile, p.blocks_per_sm) == (16, 2)
+    p = ops_hs.launch_plan(384, 256, 82, 10, levels=20)
+    assert (p.tile, p.blocks_per_sm) == (8, 2)
     with pytest.raises(ValueError):
-        ops_hs.launch_plan(4096, 2, 82, 10)
+        ops_hs.launch_plan(4096, 2, 82, 10, levels=20)
     with pytest.raises(ValueError):
-        ops_hs.launch_plan(128, 0, 82, 10)
-    # the tile's halo: two window's rows beside its centers
-    assert ops_hs.smem_bytes(8, 10, 100) == 4 * (
-        2 * 28 * 128 + 2 * 28 + 8 * 2 * 10 * ops_hs.KGROUP)
+        ops_hs.launch_plan(128, 0, 82, 10, levels=20)
+    with pytest.raises(ValueError):
+        ops_hs.launch_plan(128, 2, 82, 10, levels=0)
+    with pytest.raises(TypeError):             # the tree's depth is asked
+        ops_hs.launch_plan(128, 2, 82, 10, 132)
+
+
+@pytest.mark.parametrize("D", [1, 8, 100, 128, 129, 200])
+def test_smem_bytes(D):
+    """The kernel's shared memory, word for word: the halo's two rows of D
+    padded to 32 floats, a chunk's node rows at most 128 columns wide, its
+    G, three words a halo row, two a center, eight a path entry (four for
+    the entry, four for the node it may be), and one."""
+    tile, window, L = 8, 10, 7
+    H = tile + 2 * window
+    dpad = -(-D // 32) * 32
+    assert ops_hs.smem_bytes(tile, window, D, L) == 4 * (
+        2 * H * dpad + ops_hs.CHUNK * min(dpad, 128) + H * ops_hs.CHUNK
+        + 3 * H + 2 * tile + 8 * tile * L + 1)
 
 
 def test_workspace_bounded_by_the_block():
@@ -344,3 +428,24 @@ def test_workspace_bounded_by_the_block():
     ws = ops_hs.HSWorkspace(syn0, syn1, 5000, 12)
     assert ws.rows == (1000, 999)
     assert ws.map[0].shape == (1000,) and ws.map[1].shape == (999,)
+    # the slots taken in each table and the tiles taken, passed to the
+    # kernel as its counts
+    assert ws.counts.shape == (3,) and not ws.counts.any()
+    assert ws._ptrs[8] == ws.counts.data_ptr()
+
+
+def test_workspace_checks_binary_labels():
+    """The kernel counts a node's label-1 centers by bit masks, so hs_step
+    on the card takes labels of 0 or 1 only: the workspace reads a labels
+    tensor once, and again after it is written."""
+    syn0, syn1 = torch.zeros((50, 8)), torch.zeros((49, 8))
+    ws = ops_hs.HSWorkspace(syn0, syn1, 60, 12)
+    labels = torch.as_tensor(hs.build_huffman(np.arange(50, 0, -1.0))[1])
+    assert ((labels == 0) | (labels == 1)).all() and (labels == 0).any()
+    assert ws.binary_labels(labels) and ws.binary_labels(labels)
+    labels[3, 0] = 0.5                       # written: read again
+    assert not ws.binary_labels(labels)
+    assert not ws.binary_labels(labels.clone())
+    labels[3, 0] = 1.0
+    assert ws.binary_labels(labels)
+    assert not ws.binary_labels(torch.full((50, 12), 2.0))

@@ -9,8 +9,8 @@
   * the wrappers' launch plans stay inside one block's shared memory (the
     shared-negative kernel, the exact-negative kernel's table), and the
     pieces chip_sgns_parts.py, chip_sgns_exact_parts.py, chip_cdf_parts.py,
-    chip_conv_parts.py and chip_draws_parts.py change in the kernels are in
-    their sources;
+    chip_conv_parts.py, chip_draws_parts.py, chip_spmm_parts.py and
+    chip_hsoftmax_parts.py change in the kernels are in their sources;
   * every entry point defaults to the card, raises the named error without
     one, and runs with device="cpu".
 """
@@ -25,8 +25,10 @@ import torch
 import chip_cdf_parts
 import chip_conv_parts
 import chip_draws_parts
+import chip_hsoftmax_parts
 import chip_sgns_exact_parts
 import chip_sgns_parts
+import chip_spmm_parts
 from stellar_rw_tpu_torch import cli
 from stellar_rw_tpu_torch.errors import CudaUnavailable
 from stellar_rw_tpu_torch.graph import csr as tcsr
@@ -34,7 +36,8 @@ from stellar_rw_tpu_torch.graph import io as tio
 from stellar_rw_tpu_torch.models import node2vec as n2v
 from stellar_rw_tpu_torch.models import word2vec as w2v
 from stellar_rw_tpu_torch.ops import _build, prng, resident_walk, sampling
-from stellar_rw_tpu_torch.ops import cdf_walk, sgns, sgns_conv, sgns_exact
+from stellar_rw_tpu_torch.ops import cdf_walk, hsoftmax, sgns, sgns_conv
+from stellar_rw_tpu_torch.ops import sgns_exact, spmm
 from stellar_rw_tpu_torch.ops import trainer_draws, walk_step
 from stellar_rw_tpu_torch.utils.config import Params
 from stellar_rw_tpu_torch.walk import engine
@@ -414,6 +417,62 @@ def test_conv_parts_variant_edits_the_source_once(name):
                    "srw_sgns_conv_max_clusters"):
         assert f"extern \"C\" int {symbol}(" in cluster
         assert symbol not in source
+
+
+PARTS_OF = {"spmm": (chip_spmm_parts, spmm.SPMM_SEGMENT_SUM),
+            "hsoftmax": (chip_hsoftmax_parts, hsoftmax.HS_STEP)}
+
+
+@pytest.mark.parametrize("script,name", [
+    (s, n) for s, (mod, _) in PARTS_OF.items()
+    for n, edits in mod.VARIANTS.items() if edits])
+def test_spmm_and_hs_parts_variant_edits_the_source_once(script, name):
+    """chip_spmm_parts.py and chip_hsoftmax_parts.py patch csrc/spmm.cu and
+    csrc/hsoftmax.cu by text: each piece must occur exactly once in the
+    source, and its replacement must differ. A part taken out is named
+    so (its tables are wrong by design and are not held to float64)."""
+    mod, kernel = PARTS_OF[script]
+    source = (_build.CSRC / kernel.source).read_text()
+    for old, new in mod.VARIANTS[name]:
+        assert source.count(old) == 1 and new != old
+    assert (name in mod.WRONG_BY_DESIGN) == name.startswith("taken out")
+
+
+def test_hs_parts_tensor_core_variant_plan():
+    """chip_hsoftmax_mma.cu (the products on the tensor cores) runs under
+    the base plan's tile and blocks: at phase 19's block (tiles of 32, two
+    blocks an SM, 20 levels) its layout fits the same budget; it takes no
+    D over 128, and its chunk is the base kernel's."""
+    mod = chip_hsoftmax_parts
+    source = (Path(mod.__file__).parent / mod.MMA_SOURCE).read_text()
+    assert f"constexpr int kChunk = {mod.CHUNK};" in source
+    assert mod.CHUNK == hsoftmax.CHUNK
+    assert "D > 128" in source and "8 * E + 1" in source
+    base = hsoftmax.launch_plan(128, 256, 82, 10, levels=20)
+    plan = mod.mma_plan(base, 10, 128, 20)
+    assert plan._replace(smem_bytes=base.smem_bytes) == base
+    assert plan.smem_bytes == mod.mma_smem_bytes(32, 10, 128, 20) == 4 * (
+        2 * 64 * 132 + 32 * 132 + 64 * 36 + 3 * 52 + 64 + 8 * 640 + 1)
+    assert plan.smem_bytes <= hsoftmax.SMEM_BUDGETS[0][1]
+    assert mod.mma_plan(base, 10, 200, 20) is None
+    assert mod.mma_plan(base._replace(tile=32), 10, 128, 200) is None
+
+
+def test_spmm_parts_blocks_an_sm_follow_the_source():
+    """A variant that changes the segment sum's blocks an SM is launched on
+    the grid of that many: the base source's count is the wrapper's."""
+    source = (_build.CSRC / spmm.SPMM_SEGMENT_SUM.source).read_text()
+    assert (f"constexpr int kSegBlocks = {spmm.SEGMENT_BLOCKS_PER_SM};"
+            in source)
+    assert f"constexpr int kRun = {spmm.RUN};" in source
+    assert f"constexpr int kFan = {spmm.FAN};" in source
+    for name, edits in chip_spmm_parts.VARIANTS.items():
+        n = chip_spmm_parts.blocks_per_sm(edits)
+        assert (n is None) == (not name.endswith("blocks an SM"))
+    hs_source = (_build.CSRC / hsoftmax.HS_STEP.source).read_text()
+    assert f"constexpr int kGroup = {hsoftmax.KGROUP};" in hs_source
+    assert "constexpr int kChunk = kWarps * kGroup;" in hs_source
+    assert hsoftmax.CHUNK == hsoftmax.THREADS // 32 * hsoftmax.KGROUP
 
 
 # --- 4. default devices ----------------------------------------------------

@@ -5,11 +5,15 @@ Each case of tests/test_spmm.py has a twin here held against the JAX
 function (and the dense NumPy reference where that test has one), on two
 paths: the plain versions the CPU runs, and the card's autograd Functions
 with csrc/spmm.cu's three kernels replaced by NumPy transcriptions of their
-order (a warp an item of at most `chunk` arcs of a segment, summed in
-float64, a split hub segment's partial sums summed in item order by its
-last item, the segment sum's optional index, weight and weight index; the
-SDDMM's dot an arc in float64; the row softmax's running max and sum), so the backward passes' wiring (which order, index and
-weights each gradient takes) is checked without the card. Gradients of
+order (a warp an item of at most `chunk` arcs of a segment, its lane
+groups' sums in float64 combined by a butterfly, a split hub segment's
+partial sums summed in item order by a tree of groups of FAN,
+the segment sum's optional index, weight and weight index; the SDDMM's dot
+an arc in float64; the row softmax's running max and sum), so the backward
+passes' wiring (which order, index and weights each gradient takes) is
+checked without the card. The segment sum's transcription is also held to
+float64 on its own at the widths that pick each lane layout, on a hub row
+split into many items of many runs. Gradients of
 spmm, spmm_mean, sddmm and sddmm_softmax against jax.grad at rtol 1e-5
 (atol 1e-6: sums in another order). JAX runs with x64 off."""
 
@@ -43,32 +47,56 @@ def _es(g, chunk=sp.CHUNK):
 # ------------------------------------------- the kernels' order in NumPy
 
 
+def _lanes_a_row(D):
+    """csrc/spmm.cu's G: the lanes a gathered row takes (16-byte loads where
+    D % 4 == 0: 8, 16 or 32 lanes; else one float a lane, 32 lanes)."""
+    if D % 4:
+        return 32
+    return 8 if D <= 32 else 16 if D <= 64 else 32
+
+
 def _segment_sum_np(order, x, idx=None, w=None, widx=None, mean=False):
-    """Each item's sum in float64; a split segment's partials summed in
-    item order; the row rounded to f32 once."""
+    """csrc/spmm.cu's segment_sum order: an item's arcs RUN at a time; in a
+    run each of the warp's 32 / G lane groups sums its arcs (the group's
+    index, then every 32 / G-th) in float64; the groups summed by the
+    butterfly (xor 16, then 8, down to G lanes); a split segment's
+    partials summed in item order, each group of FAN, then the groups'
+    sums in group order; the row rounded to float32 once."""
     off = order.offsets.numpy()
     X = x.detach().numpy().astype(np.float64)
-    out = np.zeros((len(off) - 1, X.shape[1]), np.float32)
-    partials = np.zeros((order.parts, X.shape[1]))
+    D = X.shape[1]
+    P = 32 // _lanes_a_row(D)          # arcs gathered at once
+    W = None if w is None else w.detach().numpy().astype(np.float64)
+    out = np.zeros((len(off) - 1, D), np.float32)
+    partials = np.zeros((order.parts, D))
     for s, e0, part in zip(order.item_seg.numpy(), order.item_start.numpy(),
                            order.item_part.numpy()):
         e1 = min(e0 + order.chunk, off[s + 1])
-        acc = np.zeros(X.shape[1])
-        for e in range(e0, e1):
-            r = e if idx is None else int(idx[e])
-            wj = (1.0 if w is None else
-                  float(w.detach().numpy()[e if widx is None
-                                           else int(widx[e])]))
-            acc += wj * X[r]
+        acc = np.zeros((P, D))
+        for b in range(e0, e1, sp.RUN):
+            for j in range(min(sp.RUN, e1 - b)):
+                e = b + j
+                r = e if idx is None else int(idx[e])
+                wj = 1.0 if W is None else W[e if widx is None
+                                             else int(widx[e])]
+                acc[j % P] += wj * X[r]
+        sh = P // 2
+        while sh:                          # lanes xor 16, 8, ...: groups
+            acc = acc + acc[np.arange(P) ^ sh]
+            sh //= 2
+        acc = acc[0]
         if part >= 0:
             partials[part] = acc
             n_seg = -(-(off[s + 1] - off[s]) // order.chunk)
             p0 = part - (e0 - off[s]) // order.chunk
             if part != p0 + n_seg - 1:
-                continue       # the segment's last item sums the partials
-            acc = np.zeros(X.shape[1])
-            for p in range(p0, p0 + n_seg):
-                acc += partials[p]
+                continue       # once every partial is written:
+            acc = np.zeros(D)  # each group of FAN in item order, then the
+            for g0 in range(p0, p0 + n_seg, sp.FAN):   # groups in order
+                grp = np.zeros(D)
+                for p in range(g0, min(g0 + sp.FAN, p0 + n_seg)):
+                    grp += partials[p]
+                acc += grp
         deg = max(off[s + 1] - off[s], 1)
         out[s] = (acc / deg if mean else acc).astype(np.float32)
     return torch.from_numpy(out)
@@ -334,27 +362,77 @@ def test_edge_structure_and_transposed_order(karate_path, testgraph_path):
 
 def test_segment_items_split_hub_rows():
     """The launch plan in plain Python: a run of at most `chunk` arcs an
-    item, hub segments split, empty segments none."""
+    item, hub segments split, an empty segment one item of no arcs."""
     offsets = np.array([0, 3, 3, 13, 14, 14, 30])
     seg, start, part = sp.segment_items(offsets, chunk=4)
-    assert seg.tolist() == [0, 2, 2, 2, 3, 5, 5, 5, 5]
-    assert start.tolist() == [0, 3, 7, 11, 13, 14, 18, 22, 26]
-    assert part.tolist() == [-1, 0, 1, 2, -1, 3, 4, 5, 6]
+    assert seg.tolist() == [0, 1, 2, 2, 2, 3, 4, 5, 5, 5, 5]
+    assert start.tolist() == [0, 3, 3, 7, 11, 13, 14, 14, 18, 22, 26]
+    assert part.tolist() == [-1, -1, 0, 1, 2, -1, -1, 3, 4, 5, 6]
     covered = []
     for s, e0 in zip(seg, start):
         e1 = min(e0 + 4, offsets[s + 1])
-        assert offsets[s] <= e0 < e1 <= offsets[s + 1]
+        assert offsets[s] <= e0 <= e1 <= offsets[s + 1]
+        assert (e0 == e1) == (offsets[s] == offsets[s + 1])
         covered.extend(range(e0, e1))
     assert covered == list(range(30))
     seg, start, part = sp.segment_items(offsets, chunk=1 << 30)  # a row a
-    assert seg.tolist() == [0, 2, 3, 5]                          # warp
-    assert start.tolist() == [0, 3, 13, 14] and (part == -1).all()
+    assert seg.tolist() == [0, 1, 2, 3, 4, 5]                    # warp
+    assert start.tolist() == [0, 3, 3, 13, 14, 14] and (part == -1).all()
     order = sp.Order.build(offsets, "cpu", chunk=4)
     assert order.parts == 7 and order.item_part.tolist() == [
-        -1, 0, 1, 2, -1, 3, 4, 5, 6]
+        -1, -1, 0, 1, 2, -1, -1, 3, 4, 5, 6]
     assert sp.segment_items(np.array([0]), 4)[0].shape == (0,)
     with pytest.raises(ValueError):
         sp.segment_items(offsets, chunk=0)
+
+
+@pytest.mark.parametrize("D", [2, 32, 33, 64, 128])
+def test_segment_sum_transcription_hub_rows(D):
+    """The segment sum's order on a hub row of 3,000 arcs (24 items of
+    four runs, two groups of partials), rows of one arc and of a few, and
+    empty segments (isolates), at widths that pick each lane layout (D 2
+    and 33: a float a lane; 32, 64 and 128: a 16-byte load a lane, 8, 16
+    and 32 lanes a row): within rtol 1e-5 atol 1e-5 of float64, weighted,
+    unweighted, the mean, and through a weight index."""
+    rng = np.random.default_rng(D)
+    deg = np.array([3000, 0, 1, 5, 129, 0, 40])
+    offsets = np.concatenate([[0], np.cumsum(deg)])
+    E, N = int(offsets[-1]), 500
+    order = sp.Order.build(offsets, "cpu", chunk=128)
+    assert order.parts == 24 + 2
+    x = rng.standard_normal((N, D)).astype(np.float32) + 0.5
+    idx = rng.integers(0, N, E).astype(np.int32)
+    w = rng.random(E).astype(np.float32) * 2
+    widx = rng.permutation(E).astype(np.int32)
+    X = x.astype(np.float64)
+    for wt, wi, mean in ((w, None, False), (None, None, False),
+                         (None, None, True), (w, widx, False)):
+        got = _segment_sum_np(
+            order, torch.as_tensor(x), torch.as_tensor(idx),
+            None if wt is None else torch.as_tensor(wt),
+            None if wi is None else torch.as_tensor(wi), mean).numpy()
+        arc_w = (np.ones(E) if wt is None else
+                 wt[np.arange(E) if wi is None else wi].astype(np.float64))
+        want = np.zeros((len(deg), D))
+        np.add.at(want, np.repeat(np.arange(len(deg)), deg),
+                  arc_w[:, None] * X[idx])
+        if mean:
+            want /= np.maximum(deg, 1)[:, None]
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        assert (got[[1, 5]] == 0).all()
+
+
+def test_segment_grid():
+    """The segment sum's persistent grid: a warp an item while the items
+    fill fewer blocks than the card holds, then every resident block."""
+    per_block = sp.THREADS // 32
+    cap = sp.SEGMENT_BLOCKS_PER_SM * 132
+    assert sp.segment_grid(1, 132) == 1
+    assert sp.segment_grid(per_block * 10 + 1, 132) == 11
+    assert sp.segment_grid(per_block * cap, 132) == cap
+    assert sp.segment_grid(per_block * cap * 3 + 5, 132) == cap
+    assert sp.segment_grid(10 ** 6, 2) == sp.SEGMENT_BLOCKS_PER_SM * 2
+    assert sp.segment_grid(0, 132) == 1
 
 
 def test_edge_structure_default_device_is_cuda(karate_path):
