@@ -45,10 +45,14 @@ events around launches queued behind a long product):
     (--sharedNegatives 128) and the exact one, host wall time synchronized:
     other, this, this, other, with the largest difference of the two
     checkouts' tables after the epoch;
-  * the GNN-feed segment sum (K8, ops/spmm.py::segment_sum) on
-    bench.py::measure_spmm's graph at D 128, on the CSR order (spmm) and
-    the transposed order (its backward), after checking the two checkouts
-    agree (rtol 1e-5, atol 1e-5): other, this, this, other;
+  * the GNN-feed kernels (K8, ops/spmm.py) on bench.py::measure_spmm's
+    graph at D 128: the segment sum on the CSR order (spmm) and the
+    transposed order (its backward), the SDDMM, and the row softmax's
+    forward (scores N(0, 1) x3) and backward modes, after checking the two
+    checkouts agree (rtol 1e-5; atol 1e-5, the softmax's 1e-6): other,
+    this, this, other; then chip_smoke phase 20's GAT-style layer and its
+    gradient through each checkout's public ops (its kernels and the torch
+    ops between them);
   * the hierarchical-softmax step (K9, ops/hsoftmax.py::launch_step) on
     chip_smoke's phase-19 block (B 256, T 82, w 10, D 128 on the
     100,000-vertex corpus's tree) and its one-token block, after checking
@@ -430,28 +434,60 @@ def main(argv: list[str]) -> int:
 
 
 def compare_spmm(torch, np, this, other, graph, order, smi) -> None:
-    """K8's segment sum of each checkout on measure_spmm's graph at D 128,
-    on the CSR order and the transposed order."""
-    V = graph.num_vertices
-    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
-        (V, 128)).astype(np.float32)).cuda()
+    """K8's kernels of each checkout on measure_spmm's graph at D 128: the
+    segment sum on the CSR order and the transposed order, the SDDMM, the
+    row softmax forward and backward."""
+    V, E = graph.num_vertices, graph.num_edges
+    rng = np.random.default_rng(0)
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(
+        np.float32)).cuda()
+    x, y, s, da = f(V, 128), f(V, 128), f(E) * 3, f(E)
     fns = {}
     for name, pkg in (("other", other), ("this", this)):
         sp = pkg("ops.spmm")
         es = sp.EdgeStructure.from_csr(graph, device="cuda")
+        a = sp.row_softmax(es, s)
         fns[name] = {
-            "csr": lambda sp=sp, es=es: sp.segment_sum(
+            "segment_sum csr": lambda sp=sp, es=es: sp.segment_sum(
                 es.csr, x, idx=es.col, w=es.weight),
-            "transposed": lambda sp=sp, es=es: sp.segment_sum(
-                es.trans, x, idx=es.t_row, w=es.weight, widx=es.t_order)}
-    for which in ("csr", "transposed"):
+            "segment_sum transposed": lambda sp=sp, es=es: sp.segment_sum(
+                es.trans, x, idx=es.t_row, w=es.weight, widx=es.t_order),
+            "sddmm_rows": lambda sp=sp, es=es: sp.sddmm_rows(es, x, y),
+            "row_softmax": lambda sp=sp, es=es: sp.row_softmax(es, s),
+            # each checkout's backward on the same softmax (this one's)
+            "row_softmax backward": lambda sp=sp, es=es: sp.row_softmax(
+                es, fns["this"]["a"], da),
+            "a": a}
+    for which in ("segment_sum csr", "segment_sum transposed", "sddmm_rows",
+                  "row_softmax", "row_softmax backward"):
         a, b = fns["this"][which](), fns["other"][which]()
-        check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
-              f"the two checkouts' segment sums disagree ({which})")
+        atol = 1e-6 if which.startswith("row_softmax") else 1e-5
+        check(torch.allclose(a, b, rtol=1e-5, atol=atol),
+              f"the two checkouts' {which} disagree: max abs diff "
+              f"{float((a - b).abs().max()):.3g}")
         runs = [(name, cuda_ms(fns[name][which], 20)) for name in order]
-        print(json.dumps({"kernel": "spmm segment_sum", "order": which,
-                          "vertices": V, "arcs": graph.num_edges, "D": 128,
-                          "ms_in_turns": runs, "card": smi}))
+        print(json.dumps({"kernel": f"spmm {which}", "vertices": V,
+                          "arcs": E, "D": 128, "ms_in_turns": runs,
+                          "card": smi}))
+    # chip_smoke phase 20's GAT-style layer and its gradient through each
+    # checkout's public ops: every kernel launch and the torch ops between
+    xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+
+    def layer(sp, es):
+        h = sp.spmm_mean(es, xg)
+        a = sp.sddmm_softmax(es, sp.sddmm(es, h, yg))
+        out = sp.scatter_add_rows(es, sp.gather_rows(es, xg) * a[:, None])
+        (out ** 2).sum().backward()
+
+    layers = {}
+    for name, pkg in (("other", other), ("this", this)):
+        sp = pkg("ops.spmm")
+        layers[name] = (lambda sp=sp, es=sp.EdgeStructure.from_csr(
+            graph, device="cuda"): layer(sp, es))
+    runs = [(name, cuda_ms(layers[name], 5)) for name in order]
+    print(json.dumps({"step": "GAT-style layer, forward and backward",
+                      "vertices": V, "arcs": E, "D": 128,
+                      "ms_in_turns": runs, "card": smi}))
 
 
 def compare_hs(torch, this, other, order, smi) -> None:

@@ -88,9 +88,15 @@ entry points a user calls:
   phase 20    the GNN-feed ops (csrc/spmm.cu: segment sums, SDDMM, the row
               softmax) forward and backward against their plain versions
               in float64 at bench.py::measure_spmm's graph (D 128 and 64)
-              and the directed test graph, a GAT-style layer through the
-              public ops, each kernel timed beside its plain version and
-              its library call (torch.sparse, timed only).
+              and the directed test graph; the split rows' extremes (a hub
+              row of 24 items, rows of one arc, isolates; the softmax's
+              max in a hub row's last arc, scores x30, all equal); a
+              GAT-style layer through the public ops, its gradients held
+              against the plain layer's in float64; the SDDMM and both
+              softmax modes run twice, bit for bit; each kernel timed
+              beside its plain version, its bound and its library call
+              (torch.sparse, and the sparse softmax's backward: timed
+              only).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every failure raises and the script exits non-zero. It
@@ -103,6 +109,7 @@ against its plain version, its times and its bound.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import filecmp
 import glob
 import json
@@ -2417,14 +2424,79 @@ def hs_epoch_blocks(torch, corpus, cfg, n: int) -> tuple[float, float]:
             host / n * 1e3)
 
 
+# the split rows of phase 20's extremes: a hub row of 3,000 arcs (24 items
+# of 128), an isolate, a row of one arc, short rows, a row of 129 arcs (two
+# items), another isolate; columns among SPLIT_COLS vertices
+SPLIT_DEGREES = (3000, 0, 1, 5, 129, 0, 40)
+SPLIT_COLS = 500
+
+
+def spmm_split_rows(torch, sp, g) -> dict:
+    """Phase 20's split rows against float64 on the card: the SDDMM at D 2,
+    32, 33, 64 and 128 (rtol 1e-5 atol 1e-5), the row softmax forward and
+    backward (rtol 1e-5 atol 1e-6: the hub row's weights are ~1e-4) with
+    scores N(0, 1) x3 and x30, all equal, and the hub row's max in its
+    last item; then that last case on measure_spmm's graph `g`, whose
+    largest row (39,303 arcs) has its max moved to its last arc. The
+    largest error of each."""
+    deg = np.asarray(SPLIT_DEGREES)
+    rng = np.random.default_rng(13)
+    offsets = np.concatenate([[0], np.cumsum(deg), np.full(
+        SPLIT_COLS - len(deg), deg.sum())])
+    graph = SimpleNamespace(
+        num_vertices=SPLIT_COLS, offsets=offsets,
+        cols=rng.integers(0, SPLIT_COLS, int(deg.sum())).astype(np.int32),
+        weights=np.ones(int(deg.sum()), np.float32))
+    err = {"sddmm": 0.0, "softmax": 0.0, "softmax backward": 0.0}
+    for name, gr in (("split rows", graph), ("power law", g)):
+        es = sp.EdgeStructure.from_csr(gr)
+        V, E = gr.num_vertices, es.col.numel()
+        f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(
+            np.float32)).cuda()
+
+        def held(kernel, got, want, atol, what):
+            e = float((got.double() - want).abs().max())
+            check(torch.allclose(got.double(), want, rtol=1e-5, atol=atol),
+                  f"{kernel} differs from float64 on {name}, {what}: max "
+                  f"abs err {e:.3g}")
+            err[kernel] = max(err[kernel], e)
+
+        for D in ((2, 32, 33, 64, 128) if gr is graph else ()):
+            x, y = f(V, D), f(V, D)
+            held("sddmm", sp.sddmm_rows(es, x, y),
+                 sp.sddmm_ref(es, x.double(), y.double()), 1e-5, f"D {D}")
+        hub = int(np.argmax(np.diff(gr.offsets)))
+        first, last = int(gr.offsets[hub]), int(gr.offsets[hub + 1]) - 1
+        cases = {"hub max last": f(E) * 3}
+        cases["hub max last"][last] = cases["hub max last"][
+            first:last + 1].max() + 12
+        if gr is graph:
+            cases.update({"x3": f(E) * 3, "x30": f(E) * 30, "all equal":
+                          torch.full((E,), 0.75, device="cuda")})
+        for what, s in cases.items():
+            a = sp.row_softmax(es, s)
+            held("softmax", a, sp.sddmm_softmax_ref(es, s.double()), 1e-6,
+                 what)
+            da = f(E)
+            ad, dad = a.double(), da.double()
+            dot = torch.zeros(V, dtype=torch.float64, device="cuda"
+                              ).index_add_(0, es.row, ad * dad)
+            held("softmax backward", sp.row_softmax(es, a, da),
+                 ad * (dad - dot[es.row]), 1e-6, what)
+    return err
+
+
 def phase_spmm(torch, smi) -> tuple[dict, dict]:
     """Phase 20: the GNN-feed ops' kernels against their plain versions in
     float64 (forward rtol 1e-5 atol 1e-5; the gradients of spmm, spmm_mean,
     sddmm and sddmm_softmax against the plain autograd at the same
     tolerance) at bench.py::measure_spmm's graph (D 128 and 64) and the
-    directed test graph (an isolate); a GAT-style layer and its gradient
-    through the public ops, every kernel counted; each kernel timed at D
-    128 beside its plain version and its library call (timed only)."""
+    directed test graph (an isolate); the split rows' extremes
+    (spmm_split_rows); a GAT-style layer and its gradient through the
+    public ops, every kernel counted, its gradients against the plain
+    layer's in float64; the SDDMM and both softmax modes run twice, bit
+    for bit; each kernel timed at D 128 beside its plain version and its
+    library call (timed only)."""
     from stellar_rw_tpu_torch.graph import io as gio
     from stellar_rw_tpu_torch.ops import spmm as sp
 
@@ -2505,31 +2577,58 @@ def phase_spmm(torch, smi) -> tuple[dict, dict]:
                 k = grad_kernel[op]
                 grad_err[k] = max(grad_err[k],
                                   float((got.double() - want).abs().max()))
+    split_err = spmm_split_rows(torch, sp, g)
     # the path: a GAT-style layer and its gradient through the public ops
     es = sp.EdgeStructure.from_csr(g)
     V, E, D = g.num_vertices, g.num_edges, 128
     rng = np.random.default_rng(7)
     f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(
         np.float32)).cuda()
-    x, y = f(V, D).requires_grad_(), f(V, D).requires_grad_()
+    x0, y0 = f(V, D), f(V, D)
+
+    def layer(ops, dt):
+        x = x0.to(dt).clone().requires_grad_()
+        y = y0.to(dt).clone().requires_grad_()
+        h = ops.spmm_mean(es, x)
+        a = ops.sddmm_softmax(es, ops.sddmm(es, h, y))
+        out = ops.scatter_add_rows(es, ops.gather_rows(es, x) * a[:, None])
+        (out ** 2).sum().backward()
+        return x.grad, y.grad
+
     kernels = spmm_kernels()
     reset_counts(*kernels.values())
-    h = sp.spmm_mean(es, x)
-    a = sp.sddmm_softmax(es, sp.sddmm(es, h, y))
-    out = sp.scatter_add_rows(es, sp.gather_rows(es, x) * a[:, None])
-    (out ** 2).sum().backward()
+    grads = layer(sp, torch.float32)
     torch.cuda.synchronize()
     launches = {k: t.launches for k, t in kernels.items()}
     check(all(n > 0 for n in launches.values()),
           f"a K8 kernel was not launched by the layer: {launches}")
-    check(bool(torch.isfinite(x.grad).all() and torch.isfinite(y.grad).all()),
+    check(all(bool(torch.isfinite(gr).all()) for gr in grads),
           "the layer's gradients are not finite")
+    # the layer's gradients against the plain layer's in float64, beside
+    # the plain layer's own in float32: no more than twice its error
+    plain_layer = SimpleNamespace(
+        spmm_mean=sp.spmm_mean_ref, sddmm=sp.sddmm_ref,
+        sddmm_softmax=sp.sddmm_softmax_ref, gather_rows=sp.gather_rows_ref,
+        scatter_add_rows=sp.scatter_add_rows_ref)
+    want = layer(plain_layer, torch.float64)
+    off = lambda gs: max(float(((a.double() - b).abs() / (b.abs() + 1)).max())
+                         for a, b in zip(gs, want))
+    layer_err = {"kernels": off(grads),
+                 "plain float32": off(layer(plain_layer, torch.float32))}
+    check(layer_err["kernels"] <= 2 * layer_err["plain float32"] + 1e-6,
+          f"the layer's gradients are further from float64 than the plain "
+          f"layer's in float32 (|err| / (|g| + 1)): {layer_err}")
+    x, y = x0, y0
     # each kernel at D 128: by events around each launch, back to back,
     # beside its plain version and its library call
-    x, y = x.detach(), y.detach()
     s = f(E)
     a = sp.row_softmax(es, s)
     da = f(E)
+    for what, fn in (("sddmm_rows", lambda: sp.sddmm_rows(es, x, y)),
+                     ("row_softmax", lambda: sp.row_softmax(es, s)),
+                     ("row_softmax backward",
+                      lambda: sp.row_softmax(es, a, da))):
+        check(torch.equal(fn(), fn()), f"two runs of {what} differ")
     by_row = sp.Order.build(g.offsets, "cuda", chunk=1 << 30)
     fns = {
         "spmm": lambda: sp.segment_sum(es.csr, x, idx=es.col, w=es.weight),
@@ -2543,17 +2642,24 @@ def phase_spmm(torch, smi) -> tuple[dict, dict]:
     iters = 20
     ms = dict(zip(fns, cuda_ms_split(list(fns.values()), iters)))
     back = {k: cuda_ms(fn, iters) for k, fn in fns.items()}
-    # the same launches under other plans: arcs an item
+    # the same launches under other plans: arcs an item (the SDDMM's own
+    # items too)
     by_chunk = {}
     for chunk in (32, 64, 128, 256, 512, 1024):
         ec = sp.EdgeStructure.from_csr(g, chunk=chunk)
+        ed = dataclasses.replace(ec, dots=ec.csr)
         by_chunk[chunk] = {
             "spmm": cuda_ms(lambda: sp.segment_sum(ec.csr, x, idx=ec.col,
                                                    w=ec.weight), iters),
-            "sddmm": cuda_ms(lambda: sp.sddmm_rows(ec, x, y), iters)}
+            "sddmm": cuda_ms(lambda: sp.sddmm_rows(ed, x, y), iters)}
+    def softmax_backward_ref():
+        dot = torch.zeros(V, device="cuda").index_add_(0, es.row, a * da)
+        return a * (da - dot[es.row])
+
     plain = {"spmm": cuda_ms(lambda: sp.spmm_ref(es, x), 5),
              "sddmm": cuda_ms(lambda: sp.sddmm_ref(es, x, y), 5),
-             "softmax": cuda_ms(lambda: sp.sddmm_softmax_ref(es, s), 5)}
+             "softmax": cuda_ms(lambda: sp.sddmm_softmax_ref(es, s), 5),
+             "softmax backward": cuda_ms(softmax_backward_ref, 5)}
     csr = torch.sparse_csr_tensor(es.csr.offsets, es.col, es.weight,
                                   size=(V, V))
     ones = torch.sparse_csr_tensor(es.csr.offsets, es.col,
@@ -2566,6 +2672,20 @@ def phase_spmm(torch, smi) -> tuple[dict, dict]:
                    ones, x, yt, beta=0.0), iters),
                "softmax": cuda_ms(lambda: torch.sparse.softmax(coo, 1),
                                   iters)}
+    # the backward's library call, on the forward's COO output and a COO
+    # gradient of the same pattern, where it runs on the card (coalesce
+    # sums the graph's multi-arcs: fewer entries than arcs)
+    out_coo = torch.sparse.softmax(coo, 1)
+    grad_coo = torch.sparse_coo_tensor(
+        coo.indices(), da[:coo.values().numel()], (V, V)).coalesce()
+    try:
+        library["softmax backward"] = cuda_ms(
+            lambda: torch.ops.aten._sparse_softmax_backward_data(
+                grad_coo, out_coo, 1, coo), iters)
+        library_note = None
+    except (RuntimeError, NotImplementedError) as e:
+        library["softmax backward"] = None
+        library_note = f"{type(e).__name__}: {str(e).splitlines()[0]}"
     items = es.csr.item_seg.numel()
     idx_bytes = (V + 1) * 4 + items * 8
     rows = V * D * 4
@@ -2575,7 +2695,11 @@ def phase_spmm(torch, smi) -> tuple[dict, dict]:
                              F32_FLOPS),
               # a score read and a weight written an arc; a max, an exp, a
               # sum and a divide
-              "softmax": bound(E * 8 + (V + 1) * 4, 4 * E, F32_FLOPS)}
+              "softmax": bound(E * 8 + (V + 1) * 4, 4 * E, F32_FLOPS),
+              # a and dA read and the result written an arc; a product and
+              # its sum, a difference and a product
+              "softmax backward": bound(E * 12 + (V + 1) * 4, 4 * E,
+                                        F32_FLOPS)}
     rate = {k: {"edges_per_s": E / (ms[k] / 1e3),
                 "gathered_gb_per_s": E * D * 4 / (ms[k] / 1e3) / 1e9}
             for k in ("spmm", "spmm transposed", "spmm a warp a row",
@@ -2588,12 +2712,18 @@ def phase_spmm(torch, smi) -> tuple[dict, dict]:
           f"abs err by the kernel whose backward mode computes them "
           f"{grad_err}), on measure_spmm's graph ({V} V, {E} arcs, "
           f"{hubs} rows above {sp.CHUNK} arcs split; D 128 and 64) and the "
-          f"directed test graph; a GAT-style layer and its gradient "
-          f"launched {launches}; at D 128 ms by events around each launch "
+          f"directed test graph; the split rows' extremes and the hub row's "
+          f"max in its last arc within it of float64 (max abs err "
+          f"{split_err}); a GAT-style layer and its gradient launched "
+          f"{launches}, its gradients' largest |err| / (|g| + 1) against the "
+          f"plain layer in float64 {layer_err}; the SDDMM and both softmax "
+          f"modes bit for bit in two runs; at D 128 ms by events around "
+          f"each launch "
           f"(mean of {iters}) {ms}, back to back {back}, back to back by "
           f"arcs an item {by_chunk}; plain {plain}; "
           f"library calls (timed only: torch.sparse.mm on CSR, "
-          f"sampled_addmm, sparse softmax on COO) {library}; rates {rate}; "
+          f"sampled_addmm, sparse softmax on COO and its backward) "
+          f"{library} ({library_note or 'each ran'}); rates {rate}; "
           f"bounds {bounds} [{smi}]")
     row = lambda k, lib: {"ms": ms[k], "ms_back_to_back": back[k],
                           "plain_ms": plain[k], "library_ms": library[lib],
@@ -2605,9 +2735,19 @@ def phase_spmm(torch, smi) -> tuple[dict, dict]:
              "warp_a_row_ms": ms["spmm a warp a row"],
              "ms_by_chunk": {c: v["spmm"] for c, v in by_chunk.items()}},
             {**row("sddmm", "sddmm"), **rate["sddmm"],
+             "split_rows_max_abs_err": split_err["sddmm"],
              "ms_by_chunk": {c: v["sddmm"] for c, v in by_chunk.items()}},
             {**row("softmax", "softmax"),
-             "backward_ms": ms["softmax backward"]})
+             "split_rows_max_abs_err": split_err["softmax"],
+             "backward_ms": ms["softmax backward"],
+             "backward_ms_back_to_back": back["softmax backward"],
+             "backward_plain_ms": plain["softmax backward"],
+             "backward_library_ms": library["softmax backward"],
+             "backward_library_note": library_note,
+             "backward_bound_ms": bounds["softmax backward"]["bound_ms"],
+             "backward_bound_by": bounds["softmax backward"]["bound_by"],
+             "backward_max_abs_err": split_err["softmax backward"],
+             "layer_grad_err": layer_err})
 
 
 def main() -> int:

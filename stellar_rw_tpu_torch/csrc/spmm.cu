@@ -32,13 +32,33 @@
 //       on a chain longer than kFan + ceil(items / kFan) (the bench graph's
 //       hub row: 307 items, 16 + 20), where one warp summing all 307 in
 //       turn was the kernel's tail.
-//   sddmm_rows: s_e = <x[row_e], y[col_e]> over the CSR order's items: the
-//       warp holds its row's x in registers (one slice) while the arcs'
-//       y rows stream, a warp reduction (in double) a dot.
-//   row_softmax: a warp a source row: its scores read once for the running
-//       max and the sum of exps (rescaled when the max grows), then each
-//       a_e = exp(s_e - max) / max(sum, 1e-30) written; in backward mode
-//       sum_row a * dA, then dS_e = a_e * (dA_e - that sum).
+//   sddmm_rows: s_e = <x[row_e], y[col_e]> over the CSR order's items of
+//       at most 64 arcs (ops/spmm.py::SDDMM_CHUNK), on the same kind of
+//       persistent grid (kDotBlocks an SM). A warp takes an item's arcs a
+//       run of 32 at a time, their columns one load and then a shuffle an
+//       arc, and gathers the y rows as segment_sum gathers (G lanes a row,
+//       16-byte loads, kDotRows rows in flight a lane) against the item's
+//       x row held in registers. A lane sums its columns' products of an
+//       arc in float; the G lanes' shares of the run's arcs are summed in
+//       double by one transposed butterfly, which leaves each lane one
+//       finished dot (31 shuffles a run at G = 32, where a butterfly an
+//       arc took 160), stored by one coalesced write. The first design
+//       took the arcs one at a time: a row's scalar loads, conversions and
+//       a five-level butterfly of a double before the next row was asked
+//       for, 31x its bound.
+//   row_softmax: a warp an item of at most 32 * kPer = 128 arcs of a row
+//       (the CSR order's items), its scores (and, backward, da) read once
+//       into registers. A row of one item: its max and sum of exps (or,
+//       backward, sum a * dA) by butterflies, then its quotients: one read
+//       and one write an arc. A split row: each item stores (its max, its
+//       sum of exps) or its dot in a partial row; a second pass over the
+//       split items, launched programmatically (griddepcontrol: its blocks
+//       start as the first pass's leave, read their arcs, then wait for
+//       the first grid), has each combine its row's partials in one fixed
+//       order (the sum in double), so every item of the row and every run
+//       get the same bits, and write its own quotients. The first design
+//       was a warp a row: the bench graph's hub row of 39,303 arcs was one
+//       warp's serial walk of 2,458 strides, 213x the bound.
 //
 // What bounds them: the bytes. At the bench's shape (10,000 vertices,
 // ~668K arcs, D = 128) the unique bytes are ~16 MB (x read, Y written, the
@@ -52,7 +72,10 @@
 // float, the bench graph's largest row (39,303 rows) came out 6.6e-3 off;
 // float runs of 32 arcs folded into double, 1.1e-3; float pairs of pairs
 // of 8 rows folded into double, 3.8e-5 on a sum of N(0, 1) messages near
-// zero (H100). The SDDMM's dots are taken in double too.
+// zero (H100). The SDDMM gathers the same rows; its dots: a lane's few
+// products in float, the lanes' shares in double (products in double made
+// it 1.5x slower). The softmax moves 5.3 MB; its time is two launches and
+// its chains of dependent loads (PERF.md).
 
 #include <cmath>
 #include <cstdint>
@@ -68,6 +91,13 @@ constexpr int kRows = 8;   // segment_sum: rows a lane has in flight
 constexpr int kRun = 32;   // segment_sum: arcs whose indices a warp stages
 constexpr int kSegBlocks = 3;  // segment_sum: blocks an SM (ops/spmm.py)
 constexpr int kFan = 16;   // segment_sum: partials a split segment's group
+constexpr int kDotRows = 4;    // sddmm_rows: rows a lane has in flight
+constexpr int kDotBlocks = 3;  // sddmm_rows: blocks an SM (ops/spmm.py)
+using Part = float;            // sddmm_rows: a lane's share of a dot
+using Sum = double;            // sddmm_rows: the shares summed across lanes
+constexpr int kPer = 4;        // row_softmax: arcs a lane holds
+constexpr int kSoftBlocks = 6;  // row_softmax: blocks an SM (ops/spmm.py)
+constexpr int kLoads = 4;      // row_softmax: partials a lane has in flight
 
 // an arc of a staged run: the row it gathers and its weight
 struct Arc {
@@ -233,95 +263,266 @@ __global__ void __launch_bounds__(kThreads, kSegBlocks)
   }
 }
 
-template <int NV>
-__global__ void __launch_bounds__(kThreads)
+// The transposed butterfly's later steps over lane groups of 2H lanes: each
+// lane holds H sums s[k], the share of its group's arc k (or k + H); after
+// the steps H, H / 2, ..., 1, s[0] of the group's lane r is the sum of arc
+// r over the group's lanes, each pair of lanes added as a full butterfly
+// would add them.
+template <int H, int N>
+__device__ __forceinline__ void fold(Sum (&s)[N], int r) {
+  const bool up = r & H;
+#pragma unroll
+  for (int k = 0; k < H; ++k) {
+    const Sum send = up ? s[k] : s[k + H];
+    const Sum keep = up ? s[k + H] : s[k];
+    s[k] = keep + __shfl_xor_sync(kFull, send, H);
+  }
+  if constexpr (H > 1) fold<H / 2>(s, r);
+}
+
+// G lanes a row, W floats a lane, as segment_sum gathers: a run of 32 arcs,
+// the arc j of the run in lane group j % P (P = 32 / G arcs at once), so a
+// lane takes G of the run's arcs, kDotRows rows in flight. Each lane sums
+// its columns' products of an arc in Part (float), the G lanes' shares are
+// summed in Sum (double) by the transposed butterfly, which leaves arc
+// sub + P * r finished in lane r of group sub: 31 shuffles a run at G = 32
+// where a butterfly an arc took 160, and one coalesced store of 32 dots.
+template <int G, int W>
+__global__ void __launch_bounds__(kThreads, kDotBlocks)
     sddmm_rows(float* __restrict__ out, const float* __restrict__ x,
-               const float* __restrict__ y, int D,
-               const int* __restrict__ offsets, int n_items,
+               const float* __restrict__ y, int D, int n_items,
                const int* __restrict__ item_seg,
-               const int* __restrict__ item_start, int chunk,
+               const int* __restrict__ item_start,
                const int* __restrict__ col) {
-  constexpr int kSlice = 32 * NV;
+  constexpr int P = 32 / G;
+  constexpr int kSlice = G * W;
+  constexpr int R = G < kDotRows ? G : kDotRows;
+  constexpr int H = G / 2;
   const int lane = threadIdx.x & 31;
+  const int sub = lane / G;
+  const int r = lane % G;
   const int warps = gridDim.x * kWarps;
-  const bool one_slice = D <= kSlice;
   for (int it = blockIdx.x * kWarps + (threadIdx.x >> 5); it < n_items;
        it += warps) {
     const int u = item_seg[it];
     const int e0 = item_start[it];
-    const int e1 = min(e0 + chunk, offsets[u + 1]);
+    const int e1 = item_start[it + 1];  // an item ends where the next begins
     const float* xu = x + static_cast<size_t>(u) * D;
-    float xv[NV];
-#pragma unroll
-    for (int m = 0; m < NV; ++m) {
-      const int c = lane + 32 * m;
-      xv[m] = c < D ? __ldg(xu + c) : 0.f;
-    }
     for (int b = e0; b < e1; b += 32) {
-      const int my_v = b + lane < e1 ? col[b + lane] : 0;
       const int n = min(32, e1 - b);
-      float mine = 0.f;  // lane j keeps arc b + j's dot
-      for (int j = 0; j < n; ++j) {
-        const float* yv =
-            y + static_cast<size_t>(__shfl_sync(kFull, my_v, j)) * D;
-        double dot = 0.0;
-        for (int c0 = 0; c0 < D; c0 += kSlice) {
+      const int my_col = lane < n ? col[b + lane] : 0;
+      Part p[G];  // p[k]: this lane's share of the run's arc sub + P * k
 #pragma unroll
-          for (int m = 0; m < NV; ++m) {
-            const int c = c0 + lane + 32 * m;
-            if (c < D)
-              dot = fma(static_cast<double>(one_slice ? xv[m] : __ldg(xu + c)),
-                        static_cast<double>(__ldg(yv + c)), dot);
+      for (int k = 0; k < G; ++k) p[k] = 0;
+      for (int c0 = 0; c0 < D; c0 += kSlice) {
+        const int c = c0 + W * r;
+        const bool on_col = c < D;
+        float xv[W];  // the item's row slice
+#pragma unroll
+        for (int w = 0; w < W; ++w) xv[w] = 0.f;
+        if (on_col) load_row<W>(xu + c, xv);
+#pragma unroll
+        for (int k0 = 0; k0 < G; k0 += R) {
+          if (P * k0 >= n) break;  // the run's arcs are all taken
+          float v[R][W];
+#pragma unroll
+          for (int q = 0; q < R; ++q) {
+            const int j = sub + P * (k0 + q);
+            const int row = __shfl_sync(kFull, my_col, j);
+#pragma unroll
+            for (int w = 0; w < W; ++w) v[q][w] = 0.f;
+            if (j < n && on_col)
+              load_row<W>(y + static_cast<size_t>(row) * D + c, v[q]);
           }
-        }
 #pragma unroll
-        for (int sh = 16; sh; sh >>= 1) dot += __shfl_xor_sync(kFull, dot, sh);
-        if (lane == j) mine = static_cast<float>(dot);
+          for (int q = 0; q < R; ++q)
+#pragma unroll
+            for (int w = 0; w < W; ++w)
+              p[k0 + q] += static_cast<Part>(xv[w]) *
+                           static_cast<Part>(v[q][w]);
+        }
       }
-      if (lane < n) out[b + lane] = mine;
+      // the first step in Part's shuffles, the rest in Sum
+      Sum s[H];
+      const bool up = r & H;
+#pragma unroll
+      for (int k = 0; k < H; ++k) {
+        const Part send = up ? p[k] : p[k + H];
+        const Part keep = up ? p[k + H] : p[k];
+        s[k] = static_cast<Sum>(keep) +
+               static_cast<Sum>(__shfl_xor_sync(kFull, send, H));
+      }
+      if constexpr (H > 1) fold<H / 2>(s, r);
+      const int j = sub + P * r;
+      if (j < n) out[b + j] = static_cast<float>(s[0]);
     }
   }
 }
 
-// mode 0: out = the row softmax of a (scores); mode 1: out = a * (da -
-// sum_row a * da) for the softmax a
-__global__ void __launch_bounds__(kThreads)
+// a row's arcs of one item, kPer a lane (arc e0 + lane + 32 k): the scores
+// (-inf past the item's end) and, for the backward mode, da (0 there)
+__device__ __forceinline__ void load_arcs(const float* a, const float* da,
+                                          int e0, int e1, int lane, int mode,
+                                          float (&v)[kPer], float (&w)[kPer]) {
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = e0 + lane + 32 * k;
+    const bool in = e < e1;
+    v[k] = in ? __ldg(a + e) : (mode == 0 ? -INFINITY : 0.f);
+    w[k] = in && mode ? __ldg(da + e) : 0.f;
+  }
+}
+
+// exp of a score less a max (__expf gained 0-6% in chip_spmm_parts.py's
+// turns, within their spread)
+__device__ __forceinline__ float exp_of(float v) { return expf(v); }
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int sh = 16; sh; sh >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, sh));
+  return v;
+}
+
+// a split row's partials i0, i0 + 32, ... (kLoads of them; -inf past the
+// row's last), read at L2
+__device__ __forceinline__ void load_partials(const float2* row, int i0,
+                                              int n, float2 (&q)[kLoads]) {
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int i = i0 + 32 * j;
+    q[j] = i < n ? __ldcg(row + i) : make_float2(-INFINITY, 0.f);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int sh = 16; sh; sh >>= 1) v += __shfl_xor_sync(kFull, v, sh);
+  return v;
+}
+
+// mode 0: out = the row softmax of the scores a; mode 1: out = a * (da -
+// sum_row a * da) for the softmax a. A warp an item of at most 32 * kPer
+// arcs of a row (the CSR order's items, each ending where the next begins),
+// its arcs read once into registers.
+// An item that is its whole row: its max and sum of exps (mode 1: its dot)
+// by butterflies, then its quotients. A split row's items: pass 1 stores
+// each item's (max, sum of exps) or dot in its partial row; pass 2, once
+// every partial is stored, has each split item combine its row's partials
+// (lane l takes the partials l, l + 32, ... in turn, then a butterfly; the
+// sum in double), the same order in every item, so the row's max and sum
+// are the same bits in each; then the item writes its own quotients.
+// pass: bit 1 the items, bit 2 the split items (two launches: 1, then 2).
+__global__ void __launch_bounds__(kThreads, kSoftBlocks)
     row_softmax(float* __restrict__ out, const float* __restrict__ a,
-                const float* __restrict__ da,
-                const int* __restrict__ offsets, int V, int mode) {
+                const float* __restrict__ da, int n_items,
+                const int* __restrict__ item_start,
+                const int* __restrict__ item_part,
+                const int4* __restrict__ part_desc, int parts,
+                float* __restrict__ partials, int mode, int pass) {
   const int lane = threadIdx.x & 31;
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int warps = gridDim.x * kWarps;
-  for (int u = blockIdx.x * kWarps + (threadIdx.x >> 5); u < V; u += warps) {
-    const int e0 = offsets[u], e1 = offsets[u + 1];
-    if (e0 == e1) continue;
-    if (mode == 0) {
-      float mx = -INFINITY, sum = 0.f;
-      for (int e = e0 + lane; e < e1; e += 32) {
-        const float v = a[e];
-        if (v > mx) {
-          sum = sum * expf(mx - v) + 1.f;
-          mx = v;
-        } else {
-          sum += expf(v - mx);
+  float v[kPer], w[kPer];
+  // a second launch may start now: its blocks take the SMs as this one's
+  // leave, read their arcs and wait for this grid (griddepcontrol.wait)
+  if (pass == 1) asm volatile("griddepcontrol.launch_dependents;");
+  if (pass & 1) {
+    for (int it = warp; it < n_items; it += warps) {
+      const int e0 = item_start[it];
+      const int e1 = item_start[it + 1];
+      if (e0 == e1) continue;  // an isolate: no arcs
+      const int part = item_part[it];
+      load_arcs(a, da, e0, e1, lane, mode, v, w);
+      if (mode == 0) {
+        float m = v[0];
+#pragma unroll
+        for (int k = 1; k < kPer; ++k) m = fmaxf(m, v[k]);
+        m = warp_max(m);
+        float sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          v[k] = exp_of(v[k] - m);
+          sum += v[k];
+        }
+        sum = warp_sum(sum);
+        if (part < 0) {
+          const float denom = fmaxf(sum, 1e-30f);
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) {
+            const int e = e0 + lane + 32 * k;
+            if (e < e1) out[e] = v[k] / denom;
+          }
+        } else if (lane == 0) {
+          partials[2 * part] = m;
+          partials[2 * part + 1] = sum;
+        }
+      } else {
+        float dot = 0.f;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) dot = fmaf(v[k], w[k], dot);
+        dot = warp_sum(dot);
+        if (part < 0) {
+#pragma unroll
+          for (int k = 0; k < kPer; ++k) {
+            const int e = e0 + lane + 32 * k;
+            if (e < e1) out[e] = v[k] * (w[k] - dot);
+          }
+        } else if (lane == 0) {
+          partials[2 * part] = dot;
         }
       }
+    }
+  }
+  if (!(pass & 2)) return;
+  for (int p = warp; p < parts; p += warps) {
+    // the split item's arcs, its row's first partial and its row's items
+    const int4 d = part_desc[p];
+    const int e0 = d.x, e1 = d.y, n_seg = d.w;
+    const float2* row = reinterpret_cast<const float2*>(partials) + d.z;
+    load_arcs(a, da, e0, e1, lane, mode, v, w);
+    // the partials: written by the last launch once it has ended (a no-op
+    // after an ordinary launch), read at L2, kLoads a lane in flight; lane
+    // l takes the partials l, l + 32, ...
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    float2 q[kLoads];
+    if (mode == 0) {
+      float m = -INFINITY;
+      for (int i0 = lane; i0 < n_seg; i0 += 32 * kLoads) {
+        load_partials(row, i0, n_seg, q);
 #pragma unroll
-      for (int sh = 16; sh; sh >>= 1) {
-        const float om = __shfl_xor_sync(kFull, mx, sh);
-        const float os = __shfl_xor_sync(kFull, sum, sh);
-        const float nm = fmaxf(mx, om);
-        sum = (mx == -INFINITY ? 0.f : sum * expf(mx - nm)) +
-              (om == -INFINITY ? 0.f : os * expf(om - nm));
-        mx = nm;
+        for (int j = 0; j < kLoads; ++j) m = fmaxf(m, q[j].x);
       }
-      const float denom = fmaxf(sum, 1e-30f);
-      for (int e = e0 + lane; e < e1; e += 32) out[e] = expf(a[e] - mx) / denom;
-    } else {
-      float dot = 0.f;
-      for (int e = e0 + lane; e < e1; e += 32) dot = fmaf(a[e], da[e], dot);
+      m = warp_max(m);
+      double tot = 0.0;
+      for (int i0 = lane; i0 < n_seg; i0 += 32 * kLoads) {
+        load_partials(row, i0, n_seg, q);
 #pragma unroll
-      for (int sh = 16; sh; sh >>= 1) dot += __shfl_xor_sync(kFull, dot, sh);
-      for (int e = e0 + lane; e < e1; e += 32) out[e] = a[e] * (da[e] - dot);
+        for (int j = 0; j < kLoads; ++j)
+          if (i0 + 32 * j < n_seg)
+            tot += static_cast<double>(q[j].y) *
+                   static_cast<double>(exp_of(q[j].x - m));
+      }
+      const float denom = fmaxf(static_cast<float>(warp_sum(tot)), 1e-30f);
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int e = e0 + lane + 32 * k;
+        if (e < e1) out[e] = exp_of(v[k] - m) / denom;
+      }
+    } else {
+      double tot = 0.0;
+      for (int i0 = lane; i0 < n_seg; i0 += 32 * kLoads) {
+        load_partials(row, i0, n_seg, q);
+#pragma unroll
+        for (int j = 0; j < kLoads; ++j)
+          if (i0 + 32 * j < n_seg) tot += static_cast<double>(q[j].x);
+      }
+      const float dot = static_cast<float>(warp_sum(tot));
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int e = e0 + lane + 32 * k;
+        if (e < e1) out[e] = v[k] * (w[k] - dot);
+      }
     }
   }
 }
@@ -373,48 +574,90 @@ extern "C" int srw_segment_sum_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// s [E] = <x[row_e], y[col_e]> over the CSR order's items (the item's
-// segment is the row). Returns the CUDA error of the launch.
+// s [E] = <x[row_e], y[col_e]> over the CSR order's items (item_seg: the
+// item's row; item_start [n_items + 1]: its first arc, then E: an item ends
+// where the next begins), `blocks` blocks of kThreads (at most kDotBlocks
+// an SM are resident: ops/spmm.py::segment_grid). Returns the CUDA error
+// of the launch.
 extern "C" int srw_sddmm_launch(void* out, const void* x, const void* y,
-                                int D, const void* offsets, int n_items,
-                                const void* item_seg, const void* item_start,
-                                int chunk, const void* col, int blocks,
-                                void* stream) {
+                                int D, int n_items, const void* item_seg,
+                                const void* item_start, const void* col,
+                                int blocks, void* stream) {
   if (n_items <= 0) return 0;
-  if (D < 1 || chunk < 1 || blocks < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   const float* xx = static_cast<const float*>(x);
   const float* yy = static_cast<const float*>(y);
-  const int* off = static_cast<const int*>(offsets);
   const int* sg = static_cast<const int*>(item_seg);
   const int* sa = static_cast<const int*>(item_start);
   const int* cl = static_cast<const int*>(col);
-  if (D <= 32)
-    sddmm_rows<1><<<blocks, kThreads, 0, st>>>(o, xx, yy, D, off, n_items, sg,
-                                               sa, chunk, cl);
+  // 16-byte row loads where every row of x and y starts 16-byte aligned
+  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(xx) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(yy) % 16 == 0;
+#define SRW_SDDMM(G, W)                                                  \
+  sddmm_rows<G, W><<<blocks, kThreads, 0, st>>>(o, xx, yy, D, n_items, sg, \
+                                                 sa, cl)
+  if (!vec)
+    SRW_SDDMM(32, 1);
+  else if (D <= 32)
+    SRW_SDDMM(8, 4);
   else if (D <= 64)
-    sddmm_rows<2><<<blocks, kThreads, 0, st>>>(o, xx, yy, D, off, n_items, sg,
-                                               sa, chunk, cl);
+    SRW_SDDMM(16, 4);
   else
-    sddmm_rows<4><<<blocks, kThreads, 0, st>>>(o, xx, yy, D, off, n_items, sg,
-                                               sa, chunk, cl);
+    SRW_SDDMM(32, 4);
+#undef SRW_SDDMM
   return static_cast<int>(cudaGetLastError());
 }
 
-// The row softmax over the CSR order's rows (mode 0: out = softmax(a);
-// mode 1: out = a * (da - sum_row a * da)). Returns the CUDA error.
+// The row softmax over the CSR order's items of at most `chunk` <= 32 *
+// kPer arcs (mode 0: out = softmax(a); mode 1: out = a * (da - sum_row a *
+// da)). item_start [n_items + 1] as for srw_sddmm_launch; item_part: the
+// item's partial row, -1 for a whole row; part_desc int4 [parts]: a split
+// item's first arc, its end, its row's first partial row and its row's
+// items, in the order of their partial rows; partials: float [2 * parts];
+// both null when no row is split. `blocks` blocks of kThreads (at most
+// kSoftBlocks an SM are resident: ops/spmm.py::segment_grid): pass 1
+// over the items, then, where a row is split, pass 2 over the split items
+// in a second, programmatic launch. Returns the CUDA error.
 extern "C" int srw_row_softmax_launch(void* out, const void* a,
-                                      const void* da, const void* offsets,
-                                      int V, int mode, int blocks,
+                                      const void* da, int n_items,
+                                      const void* item_start,
+                                      const void* item_part, int chunk,
+                                      const void* part_desc, int parts,
+                                      void* partials, int mode, int blocks,
                                       void* stream) {
-  if (V <= 0) return 0;
-  if (blocks < 1 || (mode != 0 && mode != 1) || (mode == 1 && !da))
+  if (n_items <= 0) return 0;
+  if (blocks < 1 || chunk < 1 || chunk > 32 * kPer || parts < 0 ||
+      (mode != 0 && mode != 1) || (mode == 1 && !da) ||
+      (parts > 0 && (!part_desc || !partials)))
     return static_cast<int>(cudaErrorInvalidValue);
-  row_softmax<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(out), static_cast<const float*>(a),
-      static_cast<const float*>(da), static_cast<const int*>(offsets), V,
-      mode);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  const float* aa = static_cast<const float*>(a);
+  const float* dd = static_cast<const float*>(da);
+  const int* sa = static_cast<const int*>(item_start);
+  const int* pt = static_cast<const int*>(item_part);
+  const int4* pd = static_cast<const int4*>(part_desc);
+  float* pa = static_cast<float*>(partials);
+  row_softmax<<<blocks, kThreads, 0, st>>>(o, aa, dd, n_items, sa, pt, pd,
+                                           parts, pa, mode, 1);
+  if (parts == 0) return static_cast<int>(cudaGetLastError());
+  // pass 2 as a programmatic dependent launch: it starts before pass 1
+  // ends and waits in the kernel, so the launch's latency and its arcs'
+  // loads overlap pass 1's last items
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(min(blocks, (parts + kWarps - 1) / kWarps));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute early;
+  early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  early.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &early;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, row_softmax, o, aa, dd,
+                                             n_items, sa, pt, pd, parts, pa,
+                                             mode, 2));
 }

@@ -9,18 +9,20 @@ whose forward and backward launch csrc/spmm.cu's three kernels:
     (segments = source rows) or the transposed order (arcs stably sorted by
     destination): spmm, spmm_mean and scatter_add_rows forward, and every
     backward pass (gather_rows' too);
-  * sddmm_rows: s_e = <x[row_e], y[col_e]>, a row's x held while its arcs
-    stream;
-  * row_softmax: a row's max, exps, sum and quotient in one pass over its
-    arcs, or its backward dS = a * (dA - sum_row a * dA).
+  * sddmm_rows: s_e = <x[row_e], y[col_e]>, a row's x held while its arcs'
+    y rows stream, the dots of a run of 32 arcs finished together;
+  * row_softmax: an item's max, exps, sum and quotients from its arcs read
+    once, or its backward dS = a * (dA - sum_row a * dA); a split row's
+    items combine their partials in a second pass.
 A segment longer than `chunk` arcs is split into items of `chunk` arcs, a
-warp an item (segment_items); their partial sums are summed in item order
-by a tree of two levels (groups of FAN items, then the groups), each
-level by whichever warp finishes last, so a result is the same in every
-run. The segment sum gathers rows by 16-byte loads, runs of RUN arcs'
-indices and weights staged in shared memory; its grid is the blocks the
-card holds at once (segment_grid). The segment sums and the SDDMM's dots
-are taken in double. gather_rows' forward is index_select, a copy with no
+warp an item (segment_items); the segment sum's partial sums are summed in
+item order by a tree of two levels (groups of FAN items, then the groups),
+each level by whichever warp finishes last, and the softmax's by every
+item of the row in one fixed order, so a result is the same in every run.
+The segment sum and the SDDMM gather rows by 16-byte loads; each kernel's
+grid is the blocks the card holds at once (segment_grid). The segment
+sums are taken in double, the SDDMM's dots in float within a lane and in
+double across lanes. gather_rows' forward is index_select, a copy with no
 arithmetic, as the JAX package's x[idx]. On the CPU each op runs its plain
 version (index_select, index_add_, scatter_reduce), whose gradients
 torch's autograd takes.
@@ -45,20 +47,19 @@ SPMM_SEGMENT_SUM = Kernel(
 # the SDDMM and row-softmax kernels of the same source (and library)
 SPMM_SDDMM = Kernel(
     "spmm.cu", "srw_sddmm_launch",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                               ctypes.c_void_p])
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    + [ctypes.c_int, ctypes.c_void_p])
 SPMM_ROW_SOFTMAX = Kernel(
     "spmm.cu", "srw_row_softmax_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 THREADS = 256           # kThreads in the source: 8 warps, a warp an item
 # arcs of an item: longer segments are split. At bench.py::measure_spmm's
 # graph (D 128), on an H100, items of 128 arcs took the segment sum 0.0511
-# ms and SDDMM 0.137; of 256, 0.0570 and 0.249; of 64, 0.0583 and 0.120
-# (chip_smoke.py phase 20)
+# ms; of 256, 0.0570; of 64, 0.0583 (chip_smoke.py phase 20)
 CHUNK = 128
-MAX_BLOCKS = 132 * 16   # SDDMM's and the softmax's cap; warps stride
 # the segment sum: blocks an SM (kSegBlocks, its __launch_bounds__), the
 # arcs whose indices and weights a warp stages at once (kRun), and the
 # partials of a split segment's group (kFan: a group's partials are summed
@@ -66,6 +67,15 @@ MAX_BLOCKS = 132 * 16   # SDDMM's and the softmax's cap; warps stride
 SEGMENT_BLOCKS_PER_SM = 3
 RUN = 32
 FAN = 16
+# the SDDMM's and the softmax's blocks an SM (kDotBlocks, kSoftBlocks); the
+# SDDMM's items (at measure_spmm's graph, D 128, on an H100, items of 32 /
+# 64 / 128 arcs took 0.0430-0.0432 / 0.0435-0.0443 / 0.0449-0.0452 ms:
+# chip_spmm_parts.py) and the longest item the softmax holds in registers
+# (32 * kPer arcs; items of 64 took it 0.0139 ms, of 128 0.0097)
+SDDMM_BLOCKS_PER_SM = 3
+SOFTMAX_BLOCKS_PER_SM = 6
+SDDMM_CHUNK = 64
+SOFTMAX_CHUNK = 128
 
 
 def segment_items(offsets: np.ndarray, chunk: int = CHUNK
@@ -96,25 +106,38 @@ def segment_items(offsets: np.ndarray, chunk: int = CHUNK
 @dataclass(frozen=True)
 class Order:
     """One order of the arcs for segment sums: its segments' offsets
-    [S + 1], the work items (segment_items), `chunk` and the number of
-    partial rows. It holds no state a launch writes: each segment_sum
-    takes its own partial rows and arrival counters, so launches on one
-    Order may run on several streams at once."""
+    [S + 1], the work items (segment_items; `item_start` has one more
+    entry, the arcs' count, so an item ends where the next begins),
+    `chunk`, the number of partial rows and, for each in turn, its split
+    item's (first arc, end, its segment's first partial row, its
+    segment's items) (`part_desc`, the softmax's second pass). It holds
+    no state a launch writes: each launch takes its own partial rows and
+    arrival counters, so launches on one Order may run on several streams
+    at once."""
 
     offsets: torch.Tensor
     item_seg: torch.Tensor
     item_start: torch.Tensor
     item_part: torch.Tensor
+    part_desc: torch.Tensor
     parts: int
     chunk: int
 
     @classmethod
     def build(cls, offsets: np.ndarray, device, chunk: int = CHUNK):
         seg, start, part = segment_items(offsets, chunk)
+        offsets = np.asarray(offsets, dtype=np.int64)
+        bounds = np.append(start, offsets[-1])
+        split = np.flatnonzero(part >= 0)
+        s = seg[split]
+        desc = np.stack([
+            bounds[split], bounds[split + 1],
+            part[split] - (start[split] - offsets[s]) // chunk,
+            -(-(offsets[s + 1] - offsets[s]) // chunk)], axis=1)
         put = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32)
                                         ).to(device)
-        return cls(put(offsets), put(seg), put(start), put(part),
-                   int((part >= 0).sum()), chunk)
+        return cls(put(offsets), put(seg), put(bounds), put(part),
+                   put(desc.reshape(-1, 4)), len(split), chunk)
 
 
 @dataclass(frozen=True)
@@ -123,10 +146,12 @@ class EdgeStructure:
 
     row, col, weight: each stored arc's source, destination and weight in
     CSR order (the JAX package's fields); for the kernels also the CSR
-    order's segments (`csr`), the transposed order (`t_order`: the arcs
-    stably sorted by col, `t_row` = row[t_order], `trans`: its segments by
-    destination) and 1 / max(out-degree, 1) a vertex (`inv_deg`), built
-    once on the host."""
+    order's segments (`csr`; `dots` and `soft`, the same in the SDDMM's
+    items of at most SDDMM_CHUNK arcs and the softmax's of at most
+    SOFTMAX_CHUNK: `csr` itself where its chunk is no longer), the
+    transposed order (`t_order`: the arcs stably sorted by col, `t_row` =
+    row[t_order], `trans`: its segments by destination) and 1 / max(
+    out-degree, 1) a vertex (`inv_deg`), built once on the host."""
 
     row: torch.Tensor        # i32[E]
     col: torch.Tensor        # i32[E]
@@ -137,6 +162,8 @@ class EdgeStructure:
     t_row: torch.Tensor      # i32[E]
     trans: Order
     inv_deg: torch.Tensor    # f32[V]
+    dots: Order
+    soft: Order
 
     @classmethod
     def from_csr(cls, graph, device="cuda", chunk: int = CHUNK
@@ -152,13 +179,16 @@ class EdgeStructure:
         np.cumsum(np.bincount(col, minlength=V), out=t_offsets[1:])
         put = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a, dt)
                                             ).to(device)
+        csr = Order.build(offsets, device, chunk)
+        at_most = lambda n: csr if chunk <= n else Order.build(offsets,
+                                                                device, n)
         return cls(row=put(row, np.int32), col=put(col, np.int32),
                    weight=put(graph.weights, np.float32), num_vertices=V,
-                   csr=Order.build(offsets, device, chunk),
-                   t_order=put(t_order, np.int32),
+                   csr=csr, t_order=put(t_order, np.int32),
                    t_row=put(row[t_order], np.int32),
                    trans=Order.build(t_offsets, device, chunk),
-                   inv_deg=put(1.0 / np.maximum(deg, 1), np.float32))
+                   inv_deg=put(1.0 / np.maximum(deg, 1), np.float32),
+                   dots=at_most(SDDMM_CHUNK), soft=at_most(SOFTMAX_CHUNK))
 
 
 # ------------------------------------------------------------- plain versions
@@ -253,53 +283,62 @@ def segment_sum(order: Order, x: torch.Tensor, idx=None, w=None, widx=None,
     return out
 
 
-def sddmm_rows(es: EdgeStructure, x: torch.Tensor, y: torch.Tensor
-               ) -> torch.Tensor:
-    """s_e = <x[row_e], y[col_e]> over the CSR order's items: one launch of
-    csrc/spmm.cu's sddmm_rows."""
+def sddmm_rows(es: EdgeStructure, x: torch.Tensor, y: torch.Tensor,
+               kernel: Kernel = SPMM_SDDMM) -> torch.Tensor:
+    """s_e = <x[row_e], y[col_e]> over `es.dots`' items: one launch of
+    csrc/spmm.cu's sddmm_rows (`kernel`: or a variant of its source built
+    with the same entry point)."""
     _check_rows("sddmm", es, x, y)
     out = torch.empty(es.col.shape[0], dtype=torch.float32, device=x.device)
-    n = es.csr.item_seg.shape[0]
+    n = es.dots.item_seg.shape[0]
     if n:
-        SPMM_SDDMM.launch(ptr(out), ptr(x), ptr(y), x.shape[1],
-                          ptr(es.csr.offsets), n, ptr(es.csr.item_seg),
-                          ptr(es.csr.item_start), es.csr.chunk, ptr(es.col),
-                          _blocks(n), stream(x.device))
+        kernel.launch(ptr(out), ptr(x), ptr(y), x.shape[1], n,
+                      ptr(es.dots.item_seg), ptr(es.dots.item_start),
+                      ptr(es.col), segment_grid(n, sm_count(x.device),
+                                                SDDMM_BLOCKS_PER_SM),
+                      stream(x.device))
     return out
 
 
 def row_softmax(es: EdgeStructure, a: torch.Tensor,
-                da: torch.Tensor | None = None) -> torch.Tensor:
+                da: torch.Tensor | None = None,
+                kernel: Kernel = SPMM_ROW_SOFTMAX) -> torch.Tensor:
     """The row softmax of scores `a` [E] by source row (da None), or its
-    backward a * (da - sum_row a * da) for the softmax `a`: one launch of
-    csrc/spmm.cu's row_softmax, a warp a row."""
+    backward a * (da - sum_row a * da) for the softmax `a`: csrc/spmm.cu's
+    row_softmax over `es.soft`'s items, a second pass over the split rows'
+    items where a row is split (`kernel`: or a variant of its source built
+    with the same entry point)."""
     for t in (a,) if da is None else (a, da):
         if t.shape != es.col.shape or t.dtype != torch.float32:
             raise ValueError(f"row_softmax: expected float32 [E], got "
                              f"{t.dtype} {tuple(t.shape)}")
-    require_cuda("row_softmax", a, es.csr.offsets,
+    order = es.soft
+    require_cuda("row_softmax", a, order.offsets,
                  *(() if da is None else (da,)))
     out = torch.empty_like(a)
-    V = es.num_vertices
-    if V and a.numel():
-        SPMM_ROW_SOFTMAX.launch(ptr(out), ptr(a),
-                                None if da is None else ptr(da),
-                                ptr(es.csr.offsets), V, int(da is not None),
-                                _blocks(V), stream(a.device))
+    n = order.item_seg.shape[0]
+    if n and a.numel():
+        # a split row's items' (max, sum of exps) or dots: this call's own
+        partials = (torch.empty(2 * order.parts, dtype=torch.float32,
+                                device=a.device) if order.parts else None)
+        kernel.launch(
+            ptr(out), ptr(a), None if da is None else ptr(da), n,
+            ptr(order.item_start), ptr(order.item_part), order.chunk,
+            ptr(order.part_desc) if order.parts else None, order.parts,
+            None if partials is None else ptr(partials), int(da is not None),
+            segment_grid(n, sm_count(a.device), SOFTMAX_BLOCKS_PER_SM),
+            stream(a.device))
     return out
 
 
-def _blocks(items: int) -> int:
-    return max(1, min(MAX_BLOCKS, -(-items // (THREADS // 32))))
-
-
-def segment_grid(items: int, sms: int) -> int:
-    """The segment sum's persistent grid: a warp an item while the items
-    fill fewer blocks than the card holds at once, else every resident
-    block (SEGMENT_BLOCKS_PER_SM an SM), whose warps stride over the
-    items, so no partial second wave is left."""
-    return max(1, min(SEGMENT_BLOCKS_PER_SM * sms,
-                      -(-items // (THREADS // 32))))
+def segment_grid(items: int, sms: int,
+                 per_sm: int = SEGMENT_BLOCKS_PER_SM) -> int:
+    """A kernel's persistent grid (the segment sum's by default): a warp an
+    item while the items fill fewer blocks than the card holds at once,
+    else every resident block (`per_sm` an SM, the kernel's
+    __launch_bounds__), whose warps stride over the items, so no partial
+    second wave is left."""
+    return max(1, min(per_sm * sms, -(-items // (THREADS // 32))))
 
 
 def _check_rows(name, es, *xs):

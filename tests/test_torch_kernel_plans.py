@@ -419,21 +419,29 @@ def test_conv_parts_variant_edits_the_source_once(name):
         assert symbol not in source
 
 
-PARTS_OF = {"spmm": (chip_spmm_parts, spmm.SPMM_SEGMENT_SUM),
-            "hsoftmax": (chip_hsoftmax_parts, hsoftmax.HS_STEP)}
+PARTS_OF = {
+    "spmm": (chip_spmm_parts, chip_spmm_parts.VARIANTS,
+             spmm.SPMM_SEGMENT_SUM),
+    "sddmm": (chip_spmm_parts, chip_spmm_parts.SDDMM_VARIANTS,
+              spmm.SPMM_SDDMM),
+    "softmax": (chip_spmm_parts, chip_spmm_parts.SOFTMAX_VARIANTS,
+                spmm.SPMM_ROW_SOFTMAX),
+    "hsoftmax": (chip_hsoftmax_parts, chip_hsoftmax_parts.VARIANTS,
+                 hsoftmax.HS_STEP)}
 
 
 @pytest.mark.parametrize("script,name", [
-    (s, n) for s, (mod, _) in PARTS_OF.items()
-    for n, edits in mod.VARIANTS.items() if edits])
+    (s, n) for s, (_, table, _) in PARTS_OF.items()
+    for n, edits in table.items() if edits])
 def test_spmm_and_hs_parts_variant_edits_the_source_once(script, name):
-    """chip_spmm_parts.py and chip_hsoftmax_parts.py patch csrc/spmm.cu and
+    """chip_spmm_parts.py (the segment sum's, the SDDMM's and the row
+    softmax's variants) and chip_hsoftmax_parts.py patch csrc/spmm.cu and
     csrc/hsoftmax.cu by text: each piece must occur exactly once in the
     source, and its replacement must differ. A part taken out is named
     so (its tables are wrong by design and are not held to float64)."""
-    mod, kernel = PARTS_OF[script]
+    mod, table, kernel = PARTS_OF[script]
     source = (_build.CSRC / kernel.source).read_text()
-    for old, new in mod.VARIANTS[name]:
+    for old, new in table[name]:
         assert source.count(old) == 1 and new != old
     assert (name in mod.WRONG_BY_DESIGN) == name.startswith("taken out")
 

@@ -8,17 +8,23 @@ with csrc/spmm.cu's three kernels replaced by NumPy transcriptions of their
 order (a warp an item of at most `chunk` arcs of a segment, its lane
 groups' sums in float64 combined by a butterfly, a split hub segment's
 partial sums summed in item order by a tree of groups of FAN,
-the segment sum's optional index, weight and weight index; the SDDMM's dot
-an arc in float64; the row softmax's running max and sum), so the backward
-passes' wiring (which order, index and weights each gradient takes) is
-checked without the card. The segment sum's transcription is also held to
-float64 on its own at the widths that pick each lane layout, on a hub row
-split into many items of many runs. Gradients of
+the segment sum's optional index, weight and weight index; the SDDMM's
+runs of 32 arcs, a lane's products in float32 and the lanes' shares
+summed in float64 by the transposed butterfly; the row softmax's items
+held in registers, a split row's partials combined by each of its items
+in one order), so the backward passes' wiring (which order, index and
+weights each gradient takes) is checked without the card. Each
+transcription is also held to float64 on its own on a hub row split into
+many items, short rows and isolates: the segment sum and the SDDMM at the
+widths that pick each lane layout, the softmax forward and backward at
+its extremes. Gradients of
 spmm, spmm_mean, sddmm and sddmm_softmax against jax.grad at rtol 1e-5
 (atol 1e-6: sums in another order). JAX runs with x64 off."""
 
 import jax
 import jax.numpy as jnp
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -102,37 +108,126 @@ def _segment_sum_np(order, x, idx=None, w=None, widx=None, mean=False):
     return torch.from_numpy(out)
 
 
+def _fold(q):
+    """A butterfly's sum over the last axis (a power of two of lanes), as
+    both csrc/spmm.cu's transposed and full butterflies add: lanes r and r
+    xor h for h = n / 2, n / 4, ..., 1, in q's dtype."""
+    while q.shape[-1] > 1:
+        h = q.shape[-1] // 2
+        q = q[..., :h] + q[..., h:]
+    return q[..., 0]
+
+
+def _fma32(acc, a, b):
+    """acc + a * b in float32 with one rounding, as the card's FMA (the
+    float32 product is exact in float64)."""
+    f64 = lambda v: np.asarray(v, np.float64)
+    return (f64(acc) + f64(a) * f64(b)).astype(np.float32)
+
+
 def _sddmm_np(es, x, y):
+    """csrc/spmm.cu's sddmm_rows order: an item's arcs a run of 32 at a
+    time; lane r of a row's G lanes takes the columns c with (c // W) % G
+    == r (W = 4 where D % 4 == 0, else 1: slice by slice) and sums their
+    products of an arc in float32 (FMA, in column order); the G lanes'
+    shares summed in float64 by the transposed butterfly (lane pairs r, r
+    xor G / 2 first); the dot rounded to float32 once."""
     X, Y = x.detach().numpy(), y.detach().numpy()
+    D = X.shape[1]
+    G = _lanes_a_row(D)
+    W = 1 if D % 4 else 4
     col = es.col.numpy()
-    out = np.zeros(len(col), np.float32)
-    off = es.csr.offsets.numpy()
-    for u, e0 in zip(es.csr.item_seg.numpy(), es.csr.item_start.numpy()):
-        for e in range(e0, min(e0 + es.csr.chunk, off[u + 1])):
-            out[e] = np.float32((X[u].astype(np.float64)
-                                 * Y[col[e]].astype(np.float64)).sum())
+    bounds = es.dots.item_start.numpy()    # an item ends where the next
+    out = np.zeros(len(col), np.float32)   # begins
+    for u, e0, e1 in zip(es.dots.item_seg.numpy(), bounds, bounds[1:]):
+        for b in range(e0, e1, 32):
+            cols = col[b:min(b + 32, e1)]
+            share = np.zeros((len(cols), G), np.float32)
+            for c in range(D):
+                r = (c // W) % G
+                share[:, r] = _fma32(share[:, r], X[u, c], Y[cols, c])
+            out[b:b + len(cols)] = _fold(share.astype(np.float64))
     return torch.from_numpy(out)
 
 
 def _row_softmax_np(es, a, da=None):
+    """csrc/spmm.cu's row_softmax order over es.soft's items: lane l holds
+    the item's arcs l, l + 32, ... (at most SOFTMAX_CHUNK); forward, the
+    item's max, exps in float32, a lane's sum in arc order and the lanes'
+    by the butterfly, in float32; backward, a lane's dot by FMA and the
+    lanes' by the butterfly. A row of one item writes exp / max(sum,
+    1e-30) or a (dA - dot); a split row's items store (max, sum) or dot,
+    and each combines them alike: lane l takes the partials l, l + 32, ...
+    in turn (max; sum_i s_i exp(m_i - M) in float64; or the dots in
+    float64), then a butterfly; the sum rounded to float32."""
     A = a.detach().numpy()
-    off = es.csr.offsets.numpy()
+    dA = None if da is None else da.detach().numpy()
+    order = es.soft
+    bounds = order.item_start.numpy()
     out = np.zeros_like(A)
-    for u in range(es.num_vertices):
-        s = slice(off[u], off[u + 1])
-        if off[u] == off[u + 1]:
-            continue
-        if da is None:
-            mx, tot = -np.inf, np.float32(0)
-            for v in A[s]:         # the running max and sum of exps
-                if v > mx:
-                    tot, mx = tot * np.exp(np.float32(mx - v)) + 1, v
-                else:
-                    tot += np.exp(v - mx)
-            out[s] = np.exp(A[s] - mx) / max(tot, np.float32(1e-30))
+    lanes = np.arange(32)
+    partials = np.zeros((order.parts, 2), np.float32)
+
+    def arcs(e0, e1):
+        e = e0 + lanes[:, None] + 32 * np.arange(sp.SOFTMAX_CHUNK // 32)
+        return e, e < e1
+
+    def write(e, live, v, w, m, tot):
+        if dA is None:
+            q = np.exp(v - m) / np.maximum(tot, np.float32(1e-30))
         else:
-            dA = da.detach().numpy()[s]
-            out[s] = A[s] * (dA - (A[s] * dA).sum(dtype=np.float32))
+            q = v * (w - tot)
+        out[e[live]] = q[live]
+
+    for e0, e1, part in zip(bounds, bounds[1:],
+                            order.item_part.numpy()):   # pass 1
+        e, live = arcs(e0, e1)
+        if not live.any():
+            continue
+        v = np.where(live, A[np.where(live, e, 0)], np.float32(
+            -np.inf if dA is None else 0))
+        if dA is None:
+            m = v.max()
+            ex = np.exp(v - m)
+            lane_sum = np.zeros(32, np.float32)
+            for k in range(ex.shape[1]):
+                lane_sum += ex[:, k]
+            tot = _fold(lane_sum)
+            if part < 0:
+                out[e[live]] = (ex / np.maximum(tot, np.float32(1e-30))
+                                )[live]
+            else:
+                partials[part] = m, tot
+        else:
+            w = np.where(live, dA[np.where(live, e, 0)], np.float32(0))
+            dot = np.zeros(32, np.float32)
+            for k in range(v.shape[1]):
+                dot = _fma32(dot, v[:, k], w[:, k])
+            tot = _fold(dot)
+            if part < 0:
+                write(e, live, v, w, None, tot)
+            else:
+                partials[part, 0] = tot
+    for e0, e1, p0, n_seg in order.part_desc.numpy():   # pass 2
+        row = partials[p0:p0 + n_seg]
+        by_lane = [row[i::32] for i in range(32)]
+        e, live = arcs(e0, e1)
+        v = np.where(live, A[np.where(live, e, 0)], np.float32(0))
+        if dA is None:
+            m = max(r[:, 0].max() for r in by_lane if len(r))
+            tot = np.zeros(32)
+            for i, r in enumerate(by_lane):
+                for mi, si in r:
+                    tot[i] += np.float64(si) * np.float64(
+                        np.exp(np.float32(mi - m)))
+            write(e, live, v, None, m, np.float32(_fold(tot)))
+        else:
+            w = np.where(live, dA[np.where(live, e, 0)], np.float32(0))
+            tot = np.zeros(32)
+            for i, r in enumerate(by_lane):
+                for di in r[:, 0]:
+                    tot[i] += np.float64(di)
+            write(e, live, v, w, None, np.float32(_fold(tot)))
     return torch.from_numpy(out)
 
 
@@ -421,6 +516,115 @@ def test_segment_sum_transcription_hub_rows(D):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
         assert (got[[1, 5]] == 0).all()
 
+
+# rows of the transcription tests: a hub row of 3,000 arcs (24 items of
+# 128), an isolate, a row of one arc, short rows, a row of 129 arcs (two
+# items), another isolate
+HUB_DEGREES = np.array([3000, 0, 1, 5, 129, 0, 40])
+
+
+def _hub_structure(N, rng):
+    """An EdgeStructure's fields the transcriptions read, on HUB_DEGREES'
+    rows with columns drawn from N vertices."""
+    offsets = np.concatenate([[0], np.cumsum(HUB_DEGREES)])
+    col = rng.integers(0, N, int(offsets[-1])).astype(np.int32)
+    csr = sp.Order.build(offsets, "cpu", chunk=128)
+    assert csr.parts == 24 + 2
+    return SimpleNamespace(col=torch.as_tensor(col), dots=csr, soft=csr,
+                           row=np.repeat(np.arange(len(HUB_DEGREES)),
+                                         HUB_DEGREES))
+
+
+@pytest.mark.parametrize("D", [2, 32, 33, 64, 128])
+def test_sddmm_transcription_hub_rows(D):
+    """The SDDMM's order (a run of 32 arcs, a lane's products in float32,
+    the lanes' shares by the transposed butterfly in float64) on the hub
+    row's 24 items, short rows and isolates, at widths that pick each lane
+    layout (D 2 and 33: a float a lane; 32, 64 and 128: a 16-byte load a
+    lane, 8, 16 and 32 lanes a row): within rtol 1e-5 atol 1e-5 of
+    float64."""
+    rng = np.random.default_rng(D)
+    N = 500
+    es = _hub_structure(N, rng)
+    x = rng.standard_normal((len(HUB_DEGREES), D)).astype(np.float32) + 0.5
+    y = rng.standard_normal((N, D)).astype(np.float32)
+    got = _sddmm_np(es, torch.as_tensor(x), torch.as_tensor(y)).numpy()
+    want = (x.astype(np.float64)[es.row]
+            * y.astype(np.float64)[es.col.numpy()]).sum(1)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["scores x3", "hub max in its last item",
+                                  "all equal", "scores x30"])
+def test_row_softmax_transcription_hub_rows(case):
+    """The row softmax's order, forward and backward, on the hub row split
+    into 24 items whose partials each item combines, a row of 129 arcs (two
+    items), a row of one arc, short rows and isolates (no arcs, nothing
+    written): N(0, 1) scores x3 (phase 20's), the hub row's max in its last
+    item (the combine rescales every earlier item's sum), all scores equal,
+    and x30 (exps spanning float32's range): within rtol 1e-5 atol 1e-6
+    of float64 (the weights of the hub row are ~1e-4), the softmax's rows
+    summing to 1."""
+    rng = np.random.default_rng(len(case))
+    es = _hub_structure(500, rng)
+    E = es.col.shape[0]
+    s = rng.standard_normal(E).astype(np.float32) * (30 if "30" in case
+                                                     else 3)
+    if case == "all equal":
+        s[:] = 0.75
+    if case == "hub max in its last item":
+        s[2999] = s[:3000].max() + 12
+    a = _row_softmax_np(es, torch.as_tensor(s)).numpy()
+    S, row = s.astype(np.float64), es.row
+    smax = np.full(len(HUB_DEGREES), -np.inf)
+    np.maximum.at(smax, row, S)
+    want = np.exp(S - smax[row])
+    want /= np.bincount(row, want)[row]
+    np.testing.assert_allclose(a, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.bincount(row, a)[HUB_DEGREES > 0], 1.0,
+                               rtol=1e-5)
+    da = rng.standard_normal(E).astype(np.float32)
+    got = _row_softmax_np(es, torch.as_tensor(a), torch.as_tensor(da)
+                          ).numpy()
+    A, dA = a.astype(np.float64), da.astype(np.float64)
+    want = A * (dA - np.bincount(row, A * dA)[row])
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_kernel_grids_and_softmax_order(karate_path):
+    """Each kernel's persistent grid (its blocks an SM) and the SDDMM's and
+    the softmax's orders: the CSR order itself at chunks up to SDDMM_CHUNK
+    / SOFTMAX_CHUNK, else their own items of that many arcs; an item ends
+    where the next begins (the last at E); `part_desc` gives each partial
+    row's item (first arc, end), its row's first partial row and its row's
+    items."""
+    per_block = sp.THREADS // 32
+    for per_sm in (sp.SDDMM_BLOCKS_PER_SM, sp.SOFTMAX_BLOCKS_PER_SM):
+        assert sp.segment_grid(10 ** 6, 132, per_sm) == per_sm * 132
+        assert sp.segment_grid(per_block * 5 + 1, 132, per_sm) == 6
+    g = io.load_edge_list(karate_path, weighted=False, directed=False)
+    for chunk in (4, sp.SDDMM_CHUNK, sp.SOFTMAX_CHUNK, 256):
+        es = _es(g, chunk=chunk)
+        assert (es.dots is es.csr) == (chunk <= sp.SDDMM_CHUNK)
+        assert es.dots.chunk == min(chunk, sp.SDDMM_CHUNK)
+        soft = es.soft
+        assert (soft is es.csr) == (chunk <= sp.SOFTMAX_CHUNK)
+        assert soft.chunk == min(chunk, sp.SOFTMAX_CHUNK)
+        off, seg = soft.offsets.numpy(), soft.item_seg.numpy()
+        start, part = soft.item_start.numpy(), soft.item_part.numpy()
+        assert len(start) == len(seg) + 1 and start[-1] == off[-1]
+        ends = np.minimum(start[:-1] + soft.chunk, off[seg + 1])
+        np.testing.assert_array_equal(start[1:], ends)
+        desc = soft.part_desc.numpy()
+        assert desc.shape == (soft.parts, 4)
+        for p, (e0, e1, p0, n) in enumerate(desc):
+            it = int(np.flatnonzero(part == p)[0])
+            s = seg[it]
+            assert (e0, e1) == (start[it], ends[it])
+            row = np.flatnonzero(seg == s)      # the row's items
+            assert n == len(row) > 1 and p0 == part[row[0]]
+            assert (part[row] == p0 + np.arange(n)).all()
+    assert _es(g, chunk=4).soft.parts > 0 and soft.parts == 0
 
 def test_segment_grid():
     """The segment sum's persistent grid: a warp an item while the items
