@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process for
-each of the nine sources, in parallel; walk.cu and sgns_conv.cu hold two
-kernels each, spmm.cu three; beside them the threefry probe, chip_draws_probe.cu appended
+each of the ten sources, in parallel; walk.cu holds two kernels,
+sgns_conv.cu two (the scatter with its accumulate mode), sgns_exact.cu one
+with its accumulate mode, spmm.cu three; beside them the threefry probe, chip_draws_probe.cu appended
 to a copy of trainer_draws.cu), holds each against its plain PyTorch
 version on the card, and drives the port's paths once each through the
 entry points a user calls:
@@ -96,7 +97,22 @@ entry points a user calls:
               softmax modes run twice, bit for bit; each kernel timed
               beside its plain version, its bound and its library call
               (torch.sparse, and the sparse softmax's backward: timed
-              only).
+              only);
+  phase 21    the data-parallel trainer (`--w2vPartitions`): K4 and K5's
+              scatter in accumulate mode over two slots of the main shape
+              (D 128 and 768; Zipf blocks, blocks whose negatives are
+              their own tokens, one token alone) and dp_apply (K13,
+              csrc/dp_apply.cu) against the plain merged update in
+              float64, K13 bit for bit against its plain version, the
+              buffer and the workspaces empty after every merged update,
+              each timed beside its bound; `node2vec --w2vPartitions 2`
+              through the CLI on phase 4's graph, conv and exact (/path
+              byte for byte phase 4's, K13 once a merged update, the
+              calls a merged update, the epochs beside phases 4 and 12);
+              the karate gate at four slots; two gloo ranks sharing the
+              card (processes of their own) running
+              train_skipgram_multiproc against the one-process two-slot
+              run, with the labeled synthetic micro-F1 gate.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every failure raises and the script exits non-zero. It
@@ -731,7 +747,8 @@ def phase_main(torch, walk_kernel, keys_kernel, smi, tmp) -> dict:
     return {"walk": walk_kernel.launches,
             "trial_keys": keys_kernel.launches, **trainer,
             "train_seconds": report["train_seconds"], "blocks": blocks,
-            "launches_a_block": per_block, "out": out, "edges": edges}
+            "launches_a_block": per_block, "out": out, "edges": edges,
+            "peak_device_bytes": report["peak_device_bytes"]}
 
 
 def karate_gate(w_in, g) -> tuple[float, float]:
@@ -1437,7 +1454,8 @@ def phase_exact_main(torch, smi, tmp, edges) -> dict:
           f"768 through the CLI: AUC {auc768:.4f}, faction accuracy "
           f"{acc768:.4f} [{smi}]")
     return {**trainer, "train_seconds": report["train_seconds"],
-            "blocks": blocks, "launches_a_block": per_block}
+            "blocks": blocks, "launches_a_block": per_block,
+            "peak_device_bytes": report["peak_device_bytes"]}
 
 
 def draw_tables(torch, V: int, seed: int):
@@ -2750,6 +2768,488 @@ def phase_spmm(torch, smi) -> tuple[dict, dict]:
              "layer_grad_err": layer_err})
 
 
+# phase 21: (form, D, slot 0's tokens, slot 1's tokens) at two slots of the
+# main shape (B 16 a slot at --w2vPartitions 2, T 82, window 10; k 5 or
+# kB 128). "own negatives": the block's negatives are its own tokens
+DP_CASES = [("exact", 128, "zipf", "zipf"),
+            ("exact", 128, "zipf", "own negatives"),
+            ("exact", 768, "zipf", "zipf"),
+            ("conv", 128, "zipf", "zipf"),
+            ("conv", 128, "zipf", "own negatives"),
+            ("conv", 128, "hub negatives", "zipf"),
+            ("conv", 768, "zipf", "own negatives")]
+# K13 alone: (V, D) at the main shape and ragged
+DP_APPLY_SHAPES = [(10_000, 128), (1_001, 37), (3, 1)]
+DP_FLAGS = ["--w2vPartitions", "2"]
+# phase 21 (c): two ranks on the card, each a process of its own
+DP_RANK_WORKER = r"""
+import json, sys, time
+import numpy as np
+import torch
+from stellar_rw_tpu_torch.models import word2vec as w2v
+from stellar_rw_tpu_torch.ops.dp_apply import DP_APPLY
+from stellar_rw_tpu_torch.parallel import dp
+
+rank, port, corpus_path, V, out = (int(sys.argv[1]), sys.argv[2],
+                                   sys.argv[3], int(sys.argv[4]), sys.argv[5])
+backend = dp.init_group(rank, 2, ["cuda:0", "cuda:0"],
+                        f"tcp://localhost:{port}")
+blocks, rows = w2v.full_corpus_blocks(np.load(corpus_path), 2, rank, 2)
+cfg = w2v.SGNSConfig(**json.loads(sys.argv[6]))
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+w_in, w_out = w2v.train_skipgram_multiproc(blocks, rows, V, cfg,
+                                           num_devices=2, device="cuda")
+seconds = time.perf_counter() - t0
+np.save(f"{out}/rank{rank}.npy", np.stack([w_in, w_out]))
+print("RESULT " + json.dumps({
+    "backend": backend, "all_reduces": dp.ALL_REDUCES,
+    "merged_updates": DP_APPLY.launches, "seconds": seconds}), flush=True)
+torch.distributed.destroy_process_group()
+"""
+
+
+def dp_kernels() -> dict:
+    """The data-parallel trainer's kernels (and modes), by name."""
+    from stellar_rw_tpu_torch.ops.dp_apply import DP_APPLY
+    from stellar_rw_tpu_torch.ops.sgns_conv import \
+        SGNS_CONV_SCATTER_ACCUMULATE
+    from stellar_rw_tpu_torch.ops.sgns_exact import SGNS_EXACT_ACCUMULATE
+
+    return {"sgns_exact_accumulate": SGNS_EXACT_ACCUMULATE,
+            "sgns_conv_scatter_accumulate": SGNS_CONV_SCATTER_ACCUMULATE,
+            "dp_apply": DP_APPLY}
+
+
+def dp_slots(torch, form, D, tokens, seed):
+    """Two slots' blocks of the main shape on shared tables: each slot's
+    block, windows and negatives (see DP_CASES)."""
+    V, B, T, win, k, kB = 10_000, 16, 82, 10, 5, 128
+    slots = []
+    for s, tok in enumerate(tokens):
+        if form == "exact":
+            w_in, w_out, block, cwin, negs = exact_block(
+                torch, V, B, T, win, k, D, seed=seed + s,
+                tokens="zipf")
+            if tok == "own negatives":     # each pair's first: its center
+                negs[:, 0] = block.reshape(-1).clamp_min(0).repeat_interleave(
+                    2 * win)
+        else:
+            w_in, w_out, block, cwin, negs = conv_block(
+                torch, V, B, T, win, kB, D, seed + s,
+                "zipf" if tok == "own negatives" else tok)
+            if tok == "own negatives":     # the block's first kB tokens
+                negs.copy_(block.reshape(-1)[:kB].clamp_min(0))
+        if s == 0:
+            tables = (w_in, w_out)
+        slots.append((block, cwin, negs))
+    return tables, slots, (V, B, T, win, k, kB)
+
+
+def dp_buffer_empty(torch, buf, ws) -> bool:
+    """The reduction buffer all zero, and the step's workspace as a step
+    leaves it."""
+    torch.cuda.synchronize()
+    empty = not bool(buf.any())
+    if hasattr(ws, "map"):
+        return empty and workspace_empty(torch, ws)
+    return empty and not bool(ws.arrive.any())
+
+
+def phase_dp_check(torch, smi) -> tuple[dict, dict, dict]:
+    """Phase 21 (a): K4 and K5's scatter in accumulate mode against their
+    plain versions in float64 over two slots of the main shape (DP_CASES),
+    then K13 on the buffer, the tables against the plain merged update in
+    float64; K13 alone bit for bit against dp_apply_ref (DP_APPLY_SHAPES);
+    the buffer and the workspaces empty after every merged update; each
+    kernel timed at the main shape beside its bound."""
+    from stellar_rw_tpu_torch.ops import dp_apply as da
+    from stellar_rw_tpu_torch.ops import sgns_conv as sc
+    from stellar_rw_tpu_torch.ops import sgns_exact as se
+    from stellar_rw_tpu_torch.ops.sgns_exact import (_pairs_from_valid,
+                                                    _valid_from_cwin)
+
+    lr = 0.025
+    err = {"exact": 0.0, "conv": 0.0}
+    mode_err = {"exact": 0.0, "conv": 0.0}
+    for i, (form, D, *tokens) in enumerate(DP_CASES):
+        (w_in, w_out), slots, (V, B, T, win, k, kB) = dp_slots(
+            torch, form, D, tokens, 10 * i)
+        nw = k / kB
+        # the plain merged update in float64
+        a_in, a_out = w_in.double(), w_out.double()
+        buf64 = torch.zeros(da.buffer_numel(V, D), dtype=torch.float64,
+                            device="cuda")
+        for block, cwin, negs in slots:
+            if form == "exact":
+                se.sgns_exact_accumulate_ref(a_in, a_out, block, cwin, negs,
+                                             win, buf64)
+            else:
+                sc.sgns_conv_accumulate_ref(a_in, a_out, block, cwin, negs,
+                                            nw, win, buf64)
+        want_buf = buf64.clone()
+        da.dp_apply_ref(a_in, a_out, buf64, lr)
+        # the kernels: two accumulate steps, then K13
+        b_in, b_out = w_in.clone(), w_out.clone()
+        buf = torch.zeros(da.buffer_numel(V, D), device="cuda")
+        ws = (se.Workspace(b_in, b_out, B * T, win, k) if form == "exact"
+              else sc.ConvWorkspace(b_in, b_out, B, T, win, kB))
+        for block, cwin, negs in slots:
+            if form == "exact":
+                se.sgns_exact_step(b_in, b_out, block, cwin, negs, lr, win,
+                                   ws, buffer=buf)
+            else:
+                sc.sgns_conv_step(b_in, b_out, block, cwin, negs, lr, nw,
+                                  win, ws, buffer=buf)
+        torch.cuda.synchronize()
+        at = str(DP_CASES[i])
+        check(torch.equal(b_in, w_in) and torch.equal(b_out, w_out),
+              f"an accumulate step wrote the tables at {at}")
+        counts = lambda b: torch.cat(da.buffer_views(b, V, D)[2:])
+        check(torch.equal(counts(buf).double(), counts(want_buf)),
+              f"the accumulated counts differ from float64 at {at}")
+        # the accumulate mode alone: its buffer applied in float64
+        m_in, m_out = w_in.double(), w_out.double()
+        da.dp_apply_ref(m_in, m_out, buf.double(), lr)
+        da.dp_apply(b_in, b_out, buf, lr)
+        check(dp_buffer_empty(torch, buf, ws),
+              f"the buffer or the workspace is not empty after the merged "
+              f"update at {at}")
+        for table, got, mode, want, old in (
+                ("w_in", b_in, m_in, a_in, w_in),
+                ("w_out", b_out, m_out, a_out, w_out)):
+            e_mode = float((mode - want).abs().max())
+            check(torch.allclose(mode, want, rtol=1e-5, atol=1e-6),
+                  f"{form}'s accumulate mode differs from the plain one in "
+                  f"float64 at {at} ({table}): max abs err {e_mode:.3g}")
+            e = float((got.double() - want).abs().max())
+            check(torch.allclose(got.double(), want, rtol=1e-5, atol=1e-6),
+                  f"the merged update differs from the plain one in float64 "
+                  f"at {at} ({table}): max abs err {e:.3g}")
+            check(bool((got != old).any()), "the merged update moved nothing")
+            err[form] = max(err[form], e)
+            mode_err[form] = max(mode_err[form], e_mode)
+    # K13 alone, bit for bit, and the buffer zeroed
+    rng = np.random.default_rng(21)
+    for V, D in DP_APPLY_SHAPES:
+        f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(
+            np.float32)).cuda()
+        w_in, w_out = f(V, D), f(V, D)
+        buf = torch.cat([f(2 * V * D), torch.as_tensor(rng.integers(
+            0, 6, 2 * V).astype(np.float32)).cuda()])
+        r_in, r_out, r_buf = w_in.clone(), w_out.clone(), buf.clone()
+        da.dp_apply_ref(r_in, r_out, r_buf, lr)
+        da.dp_apply(w_in, w_out, buf, lr)
+        torch.cuda.synchronize()
+        check(torch.equal(w_in, r_in) and torch.equal(w_out, r_out),
+              f"dp_apply differs from dp_apply_ref at V {V} D {D}: max abs "
+              f"err {float((w_in - r_in).abs().max()):.3g}")
+        check(not bool(buf.any()), f"dp_apply left the buffer at V {V} D {D}")
+    # timed at the main shape (D 128, slot 0 of the Zipf case)
+    iters = 20
+    rows = {}
+    for form in ("exact", "conv"):
+        (w_in, w_out), slots, (V, B, T, win, k, kB) = dp_slots(
+            torch, form, 128, ("zipf", "zipf"), 0)
+        block, cwin, negs = slots[0]
+        D = 128
+        buf = torch.zeros(da.buffer_numel(V, D), device="cuda")
+        N, row = B * T, D * 4
+        if form == "exact":
+            ws = se.Workspace(w_in, w_out, B * T, win, k)
+            launch = lambda: se.launch_step(ws, w_in, w_out, block, cwin,
+                                            negs, win, lr, buffer=buf)
+            plain = lambda: se.sgns_exact_accumulate_ref(
+                w_in, w_out, block, cwin, negs, win, buf)
+            valid, ctx = _valid_from_cwin(block, cwin, win)
+            c, x, v = _pairs_from_valid(block, valid, ctx)
+            P = int(v.sum())
+            touched = int(torch.unique(c[v]).numel()) + int(torch.unique(
+                torch.cat([x[v], negs.reshape(-1, k)[v].reshape(-1)])).numel())
+            # the block's draws and the touched table rows read; the touched
+            # rows of the buffer read and written, their counts too
+            b = bound(tensor_bytes(block, cwin, negs) + touched * row
+                      + touched * (row + 4) * 2,
+                      2 * P * (1 + k) * D * 3 + touched * D, F32_FLOPS)
+        else:
+            ws = sc.ConvWorkspace(w_in, w_out, B, T, win, kB)
+            g = sc.group_blocks(block[None])
+            groups = (g.order[0], g.units[0])
+            sc.launch_accumulate(ws, w_in, w_out, block, cwin, negs, win,
+                                 k / kB)
+            sc.launch_negative_half(ws)
+            launch = lambda: sc.launch_scatter(ws, w_in, w_out, block,
+                                               *groups, negs, k / kB, lr,
+                                               buf)
+            plain = lambda: sc.sgns_conv_accumulate_ref(
+                w_in, w_out, block, cwin, negs, k / kB, win, buf)
+            torch.cuda.synchronize()
+            P = int(ws.cnt[0].sum())
+            tok = block[block >= 0]
+            U_in = int(torch.unique(tok[ws.cnt[0].reshape(B, T)[block >= 0]
+                                        > 0]).numel())
+            U_out = int(torch.unique(tok[ws.cnt[1].reshape(B, T)[
+                block >= 0] > 0]).numel())
+            # d_in, acc_out, the counts, the grouping and the block read;
+            # the touched buffer rows and counts read and written; the
+            # negatives' d_wn read, their buffer rows read and written
+            b = bound(2 * N * row + 5 * N * 4 + (U_in + U_out) * (row + 4) * 2
+                      + kB * row * 3, (2 * N + kB) * D, F32_FLOPS)
+            # the rows' part as one index_add_ into the buffer's [2V, D]
+            # accumulators, its index and rows concatenated beforehand (the
+            # counts and the negatives' weights aside)
+            tok = block.reshape(-1).clamp_min(0).long()
+            idx = torch.cat([tok, V + tok, V + negs.long()])
+            src = torch.cat([ws.d_in, ws.acc_out, ws.d_wn])
+            acc2 = buf[:2 * V * D].view(2 * V, D)
+            library = lambda: acc2.index_add_(0, idx, src)
+        (k_ms,) = cuda_ms_split((launch,), iters)
+        back = cuda_ms(launch, iters)
+        plain_ms = (cuda_ms(plain, 3) + cuda_ms(plain, 3)) / 2
+        lib_ms = None if form == "exact" else cuda_ms(library, iters)
+        buf.zero_()
+        rows[form] = {"ms": k_ms, "ms_back_to_back": back, **b,
+                      "max_abs_err": err[form],
+                      "accumulate_mode_max_abs_err": mode_err[form],
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "valid_pairs": P}
+        if lib_ms is not None:
+            rows[form]["library_call"] = (
+                "index_add_ of the rows into the buffer's [2V, D] "
+                "accumulators, index and rows concatenated beforehand "
+                "(counts and negative weights aside)")
+    # K13 at V 10,000 D 128, beside torch.addcdiv on a pre-clamped count
+    V, D = 10_000, 128
+    f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(
+        np.float32)).cuda()
+    w_in, w_out = f(V, D), f(V, D)
+    buf = torch.zeros(da.buffer_numel(V, D), device="cuda")
+    acc_in, acc_out, cnt_in, cnt_out = da.buffer_views(buf, V, D)
+    k13 = lambda: da.dp_apply(w_in, w_out, buf, lr)
+    (a_ms,) = cuda_ms_split((k13,), iters)
+    a_back = cuda_ms(k13, iters)
+    a_plain = (cuda_ms(lambda: da.dp_apply_ref(w_in, w_out, buf, lr), 5)
+               + cuda_ms(lambda: da.dp_apply_ref(w_in, w_out, buf, lr),
+                         5)) / 2
+    c_in, c_out = cnt_in.clamp_min(1)[:, None], cnt_out.clamp_min(1)[:, None]
+
+    def library():
+        w_in.addcdiv_(acc_in, c_in, value=-lr)
+        w_out.addcdiv_(acc_out, c_out, value=-lr)
+    lib_ms = cuda_ms(library, iters)
+    # acc read, w read and written, acc zeroed; the counts read and zeroed
+    apply_b = bound(2 * V * D * 4 * 4 + 2 * V * 4 * 2, 3 * 2 * V * D,
+                    F32_FLOPS)
+    rows["apply"] = {"ms": a_ms, "ms_back_to_back": a_back, **apply_b,
+                     "max_abs_err": 0.0, "plain_ms": a_plain,
+                     "library_ms": lib_ms,
+                     "library_call": "torch.addcdiv x2 on a pre-clamped "
+                                     "count (not bitwise: one rounding "
+                                     "fewer)"}
+    print(f"phase 21 (a) the data-parallel step: K4 and K5's scatter in "
+          f"accumulate mode, two slots a merged update, then dp_apply (K13), "
+          f"within rtol 1e-5 atol 1e-6 of the plain merged update in float64 "
+          f"at {DP_CASES} (form, D, slots' tokens): max abs err exact "
+          f"{err['exact']:.3g} / conv {err['conv']:.3g} (the accumulate "
+          f"modes' buffers applied in float64: {mode_err['exact']:.3g} / "
+          f"{mode_err['conv']:.3g}), the counts equal, the tables untouched "
+          f"by the accumulate steps, the buffer and the workspaces empty "
+          f"after every merged update; dp_apply bit for bit dp_apply_ref at "
+          f"{DP_APPLY_SHAPES}; at the main shape (B 16, T 82, w 10, D 128): "
+          f"sgns_exact accumulate {rows['exact']['ms']:.4f} ms (back to back "
+          f"{rows['exact']['ms_back_to_back']:.4f}, plain "
+          f"{rows['exact']['plain_ms']:.3f}, bound "
+          f"{rows['exact']['bound_ms']:.5f} by {rows['exact']['bound_by']}); "
+          f"conv scatter accumulate {rows['conv']['ms']:.4f} ms (back to back "
+          f"{rows['conv']['ms_back_to_back']:.4f}, plain "
+          f"{rows['conv']['plain_ms']:.3f} for the whole plain step, "
+          f"index_add_ of its rows {rows['conv']['library_ms']:.4f}, bound "
+          f"{rows['conv']['bound_ms']:.5f} by {rows['conv']['bound_by']}); "
+          f"dp_apply at V {V} D {D} {a_ms:.4f} ms (back to back "
+          f"{a_back:.4f}, plain {a_plain:.4f}, torch.addcdiv x2 {lib_ms:.4f}, "
+          f"bound {apply_b['bound_ms']:.5f} by {apply_b['bound_by']}) "
+          f"[{smi}]")
+    return rows["exact"], rows["conv"], rows["apply"]
+
+
+def phase_dp_main(torch, smi, tmp, main_run, exact_run) -> dict:
+    """Phase 21 (b): `node2vec --w2vPartitions 2` through the CLI on phase
+    4's graph, conv (kB 128) and exact, one epoch each: /path byte for
+    byte phase 4's, dp_apply once a merged update, the calls a merged
+    update, the epoch beside phases 4 and 12, the buffer's bytes and the
+    job's peak; then the karate gate at num_partitions 4, exact and kB
+    128."""
+    from stellar_rw_tpu_torch import cli
+    from stellar_rw_tpu_torch.graph import io as gio
+    from stellar_rw_tpu_torch.models import node2vec as n2v
+    from stellar_rw_tpu_torch.models import word2vec as w2v
+    from stellar_rw_tpu_torch.ops.dp_apply import buffer_numel
+    from stellar_rw_tpu_torch.parallel import dp
+    from stellar_rw_tpu_torch.walk import engine
+
+    P = 2
+    kernels = {**trainer_kernels(), **dp_kernels()}
+    runs = {}
+    for name, flags, beside in (("conv", MAIN_FLAGS, main_run),
+                                ("exact", EXACT_FLAGS, exact_run)):
+        out = os.path.join(tmp, f"out_dp_{name}")
+        report = {}
+        reset_counts(*kernels.values())
+        dp.ALL_REDUCES = 0
+        rc = cli.main(["--input", main_run["edges"], "--output", out]
+                      + flags + DP_FLAGS, report=report)
+        torch.cuda.synchronize()
+        check(rc == 0, f"--w2vPartitions {P} ({name}) returned {rc}")
+        counts = {k: t.launches for k, t in kernels.items()}
+        check(same_path(out, main_run["out"]),
+              f"--w2vPartitions {P} ({name}): /path differs from phase 4's")
+        B = -(-32 // P)
+        merged = -(-report["paths"] // (B * P))
+        check(counts["dp_apply"] == merged,
+              f"{name}: dp_apply launched {counts['dp_apply']} times for "
+              f"{merged} merged updates: {counts}")
+        calls = sum(v for k, v in counts.items() if k != "trainer_draws")
+        per = calls / merged
+        if name == "conv":
+            check(counts["sgns_conv_scatter_accumulate"] == P * merged
+                  and counts["sgns_conv_accumulate"] == P * merged
+                  and counts["sgns_shared_grads"] == P * merged
+                  and counts["sgns_conv_scatter"] == 0
+                  and counts["sgns_exact_step"] == 0,
+                  f"the conv dp trainer's launches: {counts}")
+            check(per <= 3 * P + 1.01, f"{per:.4f} calls a merged update")
+        else:
+            check(counts["sgns_exact_accumulate"] == P * merged
+                  and counts["sgns_exact_step"] == 0
+                  and counts["sgns_conv_accumulate"] == 0,
+                  f"the exact dp trainer's launches: {counts}")
+            check(per <= P + 1.01, f"{per:.4f} calls a merged update")
+        check(dp.ALL_REDUCES == 0, "an all-reduce in one process")
+        _, w_in, w_out = n2v.load_model(out)
+        check(w_in.shape == (report["vertices"], 128)
+              and np.isfinite(w_in).all() and np.isfinite(w_out).all(),
+              f"{name} dp embeddings not finite or of the wrong shape")
+        runs[name] = {"train_seconds": report["train_seconds"],
+                      "single_device_seconds": beside["train_seconds"],
+                      "merged_updates": merged, "calls_a_merged_update": per,
+                      "launches": counts,
+                      "buffer_bytes": buffer_numel(report["vertices"],
+                                                   128) * 4,
+                      "peak_device_bytes": report["peak_device_bytes"]}
+    g = gio.load_edge_list(os.path.join(ROOT, "tests", "data", "karate.txt"),
+                           weighted=False, directed=False)
+    walks = engine.random_walks(g, walk_length=20, num_walks=10, seed=2,
+                                as_numpy=False, device="cuda")
+    gate = {}
+    for name, kB in (("exact", 0), ("kB 128", 128)):
+        cfg = w2v.SGNSConfig(dim=32, window=5, negatives=5, lr=0.2, iters=20,
+                             seed=1, shared_negatives=kB)
+        w_in, _ = w2v.train_skipgram(walks, g.num_vertices, cfg,
+                                     num_partitions=4, device="cuda")
+        gate[name] = karate_gate(w_in, g)
+        check(gate[name][0] > 0.7 and gate[name][1] >= 0.85,
+              f"karate gate at num_partitions 4 ({name}): {gate[name]}")
+    print(f"phase 21 (b) node2vec --w2vPartitions {P} through the CLI on "
+          f"phase 4's graph, /path byte-equal to phase 4's: conv (kB 128) "
+          f"epoch {runs['conv']['train_seconds']:.3f} s (phase 4's single "
+          f"device: {main_run['train_seconds']:.3f} s) over "
+          f"{runs['conv']['merged_updates']} merged updates, "
+          f"{runs['conv']['calls_a_merged_update']:.4f} calls a merged update "
+          f"(<= {3 * P + 1.01}); exact epoch "
+          f"{runs['exact']['train_seconds']:.3f} s (phase 12's: "
+          f"{exact_run['train_seconds']:.3f} s), "
+          f"{runs['exact']['calls_a_merged_update']:.4f} calls a merged "
+          f"update (<= {P + 1.01}); launches conv {runs['conv']['launches']} "
+          f"exact {runs['exact']['launches']}; reduction buffer "
+          f"{runs['conv']['buffer_bytes']:,} B; the job's peak conv "
+          f"{runs['conv']['peak_device_bytes']:,} B / exact "
+          f"{runs['exact']['peak_device_bytes']:,} B (one device: "
+          f"{main_run['peak_device_bytes']:,} / "
+          f"{exact_run['peak_device_bytes']:,} B); karate gate at "
+          f"num_partitions 4 (AUC, faction accuracy): {gate} [{smi}]")
+    return {**runs, "karate_gate_p4": gate}
+
+
+def phase_dp_ranks(torch, smi, tmp) -> dict:
+    """Phase 21 (c): two gloo ranks on the one card, each a process of its
+    own joined through parallel/dp.py::init_group, running
+    train_skipgram_multiproc on the labeled synthetic graph's walks (kB
+    64), against the single-process two-slot run on the card; the
+    all-reduces, the backend, the micro-F1 gate."""
+    import socket
+
+    from stellar_rw_tpu_torch.graph import datasets
+    from stellar_rw_tpu_torch.models import eval as ev
+    from stellar_rw_tpu_torch.models import word2vec as w2v
+    from stellar_rw_tpu_torch.walk import engine
+
+    sg, labels = datasets.synth_labeled_graph(1500, 15_000, communities=6,
+                                              seed=7)
+    walks = engine.random_walks(sg, walk_length=20, num_walks=3, p=0.25,
+                                q=0.25, seed=1, device="cuda")
+    corpus = os.path.join(tmp, "dp_corpus.npy")
+    np.save(corpus, walks)
+    V = sg.num_vertices
+    kw = dict(dim=32, window=5, negatives=5, lr=0.1, iters=3, seed=1,
+              shared_negatives=64)
+    blocks, rows = w2v.full_corpus_blocks(walks, 2)
+    t0 = time.perf_counter()
+    want = w2v.train_skipgram_multiproc(blocks, rows, V,
+                                        w2v.SGNSConfig(**kw), num_devices=2,
+                                        device="cuda")
+    one_s = time.perf_counter() - t0
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DP_RANK_WORKER, str(r), port, corpus, str(V),
+         tmp, json.dumps(kw)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    results = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=300)
+            check(p.returncode == 0, f"a rank failed: {stderr[-3000:]}")
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("RESULT ")]
+            check(bool(line), f"a rank printed no result: {stdout[-2000:]}")
+            results.append(json.loads(line[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    got = [np.load(os.path.join(tmp, f"rank{r}.npy")) for r in range(2)]
+    check(np.array_equal(got[0], got[1]), "the ranks' tables differ")
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got[0], want))
+    for g, w in zip(got[0], want):
+        check(np.allclose(g, w, rtol=2e-4, atol=1e-6),
+              f"two ranks differ from the two-slot run: max abs err {err:.3g}")
+    for r in results:
+        check(r["backend"] == "gloo", f"backend {r['backend']}")
+        check(r["all_reduces"] == r["merged_updates"] + 1,
+              f"{r['all_reduces']} all-reduces for {r['merged_updates']} "
+              f"merged updates")
+    f1 = ev.multilabel_micro_f1(got[0][0], labels, train_frac=0.5, seed=0)
+    check(f1 > 0.55, f"labeled synthetic gate on two ranks: micro-F1 {f1}")
+    print(f"phase 21 (c) train_skipgram_multiproc on two ranks sharing the "
+          f"card (backend {results[0]['backend']}: a device map of cuda:0 "
+          f"twice), labeled synthetic (1,500 V, {rows} rows, kB 64, 3 "
+          f"epochs): the ranks' tables equal, within rtol 2e-4 atol 1e-6 "
+          f"of the single-process two-slot run (max abs err {err:.3g}); "
+          f"{results[0]['all_reduces']} all-reduces = "
+          f"{results[0]['merged_updates']} merged updates + the token "
+          f"counts'; micro-F1 {f1:.4f} (> 0.55); training "
+          f"{max(r['seconds'] for r in results):.3f} s on two ranks, "
+          f"{one_s:.3f} s in one process (not a target: gloo stages the "
+          f"buffer through the host) [{smi}]")
+    return {"max_abs_err": err, "micro_f1": f1,
+            "two_rank_seconds": max(r["seconds"] for r in results),
+            "one_process_seconds": one_s, "backend": results[0]["backend"]}
+
+
 def main() -> int:
     import torch
 
@@ -2765,7 +3265,8 @@ def main() -> int:
     smi = phase_env(torch, (WALK_KERNEL, KEYS_KERNEL, RESIDENT_WALK_KERNEL,
                             CDF_WALK_KERNEL, *trainer_kernels().values(),
                             *hs_kernels().values(),
-                            *spmm_kernels().values(), probe))
+                            *spmm_kernels().values(),
+                            *dp_kernels().values(), probe))
     phase_walk(torch)
     sgns_row = phase_sgns(torch)
     walk_row, keys_row = phase_walk_main_shape(
@@ -2789,11 +3290,14 @@ def main() -> int:
             "walk": WALK_KERNEL, "trial_keys": KEYS_KERNEL,
             "resident_walk": RESIDENT_WALK_KERNEL,
             "cdf_walk": CDF_WALK_KERNEL, **trainer_kernels(),
-            **hs_kernels(), **spmm_kernels()},
+            **hs_kernels(), **spmm_kernels(), **dp_kernels()},
             smi, tmp, main_run)
         profile = phase_profile(torch, WALK_KERNEL, KEYS_KERNEL, smi, tmp,
                                 main_run)
         server = phase_server(torch, smi, tmp)
+        dp_exact_row, dp_conv_row, dp_apply_row = phase_dp_check(torch, smi)
+        dp_run = phase_dp_main(torch, smi, tmp, main_run, exact_run)
+        dp_ranks = phase_dp_ranks(torch, smi, tmp)
     corpus = hs_corpus(torch)
     hs_row = phase_hs_check(torch, smi, corpus)
     hs_run = phase_hs_main(torch, smi, corpus)
@@ -2818,12 +3322,21 @@ def main() -> int:
               "served_job_s": server["rest_seconds"],
               "hs_epoch_s": hs_run["hs_epoch_s"],
               "hs_beside_conv_epoch_s": hs_run["conv_epoch_s"],
-              "hs_peak_bytes": hs_run["peak_bytes"]}
+              "hs_peak_bytes": hs_run["peak_bytes"],
+              "dp": {name: {k: dp_run[name][k] for k in (
+                  "train_seconds", "merged_updates", "calls_a_merged_update",
+                  "buffer_bytes", "peak_device_bytes")}
+                  for name in ("conv", "exact")},
+              "dp_two_rank_seconds": dp_ranks["two_rank_seconds"],
+              "dp_one_process_seconds": dp_ranks["one_process_seconds"]}
     quality["streamed_micro_f1"] = stream["micro_f1"]
     quality.update(hs_karate_auc=hs_run["karate_auc"],
                    hs_karate_acc=hs_run["karate_acc"],
                    hs_link_auc_100k=hs_run["auc_hs"],
-                   conv_link_auc_100k=hs_run["auc_conv"])
+                   conv_link_auc_100k=hs_run["auc_conv"],
+                   dp_karate_gate_p4=dp_run["karate_gate_p4"],
+                   dp_two_rank_micro_f1=dp_ranks["micro_f1"],
+                   dp_two_rank_max_abs_err=dp_ranks["max_abs_err"])
     kernels = [
         {"name": "walk", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/walk.cu",
@@ -2878,6 +3391,22 @@ def main() -> int:
          "source": "stellar_rw_tpu_torch/csrc/spmm.cu",
          "replaces": "stellar_rw_tpu/ops/spmm.py:71", **softmax_row,
          "launches": softmax_row["launches"]["spmm_row_softmax"]},
+        {"name": "sgns_exact_accumulate", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/sgns_exact.cu",
+         "replaces": "stellar_rw_tpu/models/word2vec.py:190",
+         "launches": dp_run["exact"]["launches"]["sgns_exact_accumulate"],
+         **dp_exact_row},
+        {"name": "sgns_conv_scatter_accumulate", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/sgns_conv.cu",
+         "replaces": "stellar_rw_tpu/models/word2vec.py:475",
+         "launches": dp_run["conv"]["launches"][
+             "sgns_conv_scatter_accumulate"], **dp_conv_row},
+        {"name": "dp_apply", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/dp_apply.cu",
+         "replaces": "stellar_rw_tpu/models/word2vec.py:200",
+         "launches": dp_run["conv"]["launches"]["dp_apply"],
+         "launches_exact_path": dp_run["exact"]["launches"]["dp_apply"],
+         **dp_apply_row},
     ]
     for row in kernels:   # the launches of the streamed runs (phase 15)
         for name in ("conv", "exact"):

@@ -10,7 +10,12 @@ to one walk shard on the one device (--partitioned true still reads the
 vertex-cut file format). `node2vec --streaming true` keeps one walk round on
 the device at a time (the flag is ignored by the other commands, as in the
 JAX package); --profile DIR writes a torch.profiler trace of the job into
-DIR. Each flag value the port does not serve yet exits with NotPorted
+DIR. --w2vPartitions P trains data-parallel as the JAX package does on P
+devices: P slots on the one card, their gradients summed into one merged
+update a block (models/word2vec.py, parallel/dp.py); --w2vModelShards is
+served under `node2vec --streaming true` alone, whose trainer ignores it
+as the JAX package's does. Each flag value the port does not serve yet
+exits with NotPorted
 naming its ROADMAP item, and so does a multi-host environment
 (SRW_NUM_PROCESSES above 1, or SRW_COORDINATOR with no count), where the
 JAX CLI would join a process group: refused before anything is read or
@@ -58,11 +63,10 @@ def check_single_process(environ=os.environ) -> None:
 def check_flags(params: Params) -> None:
     """Raise NotPorted for each flag value this port does not serve, before
     anything is loaded or written."""
+    streamed = params.cmd == TaskName.node2vec and params.streaming
     refused = [
-        (params.w2v_partitions > 1,
-         "--w2vPartitions > 1 (ROADMAP Queue 1 item 11b)"),
-        (params.w2v_model_shards > 1,
-         "--w2vModelShards > 1 (ROADMAP Queue 1 item 11b)"),
+        (params.w2v_model_shards > 1 and not streamed,
+         "--w2vModelShards > 1 (ROADMAP Queue 1 item 15)"),
         (params.rng_impl != "threefry",
          "--rngImpl rbg|unsafe_rbg (not to port: XLA-only streams)"),
     ]

@@ -52,6 +52,17 @@
 //       The adds are atomic: the negatives' rows (a warp a negative:
 //       -lr * d_wn[k] / cnt_n) can repeat and can be rows of the block. No
 //       delta slots, no row-to-slot map, no apply kernel.
+//   In accumulate mode (srw_sgns_conv_scatter_accumulate_launch: one slot's
+//   step of the data-parallel trainer's merged update) (b) adds a group's
+//   sum into acc[tok] and its count into cnt[tok] of the merged update's
+//   reduction buffer (its acc_in, acc_out, cnt_in and cnt_out arrays)
+//   in place of -lr * sum / count into the table, and each negative's
+//   d_wn * (valid pairs * neg_weight / cnt_n) into acc_out[negs[n]] with
+//   cnt_n into cnt_out[negs[n]]: the negatives' counts merge with the
+//   context rows' (the JAX package's psum'd step,
+//   stellar_rw_tpu/models/word2vec.py:475-484), where one device divides
+//   them on their own. These adds can meet a group's row, so they stay
+//   atomic; csrc/dp_apply.cu moves the tables.
 // Every gradient comes from the tables as they were before the step: (a)
 // and the negative half only read them, (b) only adds into them. Sums run
 // in another order than XLA's (a thread's dot in four partial sums,
@@ -76,6 +87,18 @@ constexpr int kThreads = 256;
 constexpr int kLow = 0x7fffffff;    // a unit's first sorted index
 constexpr int kBatch = 8;           // rows a warp of (b) reads before adding
 constexpr int kTileReads = 4;       // a thread's row loads in flight, (a)
+
+// In accumulate mode, the merged update's reduction buffer: acc [2] the
+// tables' [V, D] sums, cnt [2] their [V] counts. acc[0] null: the scatter
+// updates the tables.
+struct Merge {
+  float* acc[2];
+  float* cnt[2];
+  // table t's arrays (a select, not an index: a parameter indexed by a
+  // value known only at run time would be copied to local memory)
+  __device__ float* acct(int t) const { return t == 0 ? acc[0] : acc[1]; }
+  __device__ float* cntt(int t) const { return t == 0 ? cnt[0] : cnt[1]; }
+};
 
 struct ConvOut {
   float* ein;      // [N, D]
@@ -374,7 +397,7 @@ __global__ void __launch_bounds__(kThreads)
                       const int* __restrict__ valid, int nvalid,
                       float neg_weight, float lr, float* w_in, float* w_out,
                       float* part, int* unit_cnt, int* arrive, int N,
-                      int D) {
+                      int D, Merge merge) {
   const int lane = threadIdx.x & 31;
   const int nwarps = gridDim.x * (blockDim.x >> 5);
   const bool vec = D % 4 == 0 &&
@@ -433,6 +456,16 @@ __global__ void __launch_bounds__(kThreads)
                              [&](int j) { return u0 + j; }, u1 - u0, lane, c,
                              D, ld, true);
       }
+      if (merge.acc[0]) {  // accumulate mode: the group's sum and count
+        float* acc = merge.acct(tb) + static_cast<size_t>(tok) * D;
+        if (c < D) atomicAdd(acc + c, sum.x);
+        if (c + 1 < D) atomicAdd(acc + c + 1, sum.y);
+        if (c + 2 < D) atomicAdd(acc + c + 2, sum.z);
+        if (c + 3 < D) atomicAdd(acc + c + 3, sum.w);
+        if (ch == 0 && lane == 0)
+          atomicAdd(merge.cntt(tb) + tok, static_cast<float>(total));
+        continue;
+      }
       const float div = static_cast<float>(total);
       float* dst = (tb ? w_out : w_in) + static_cast<size_t>(tok) * D;
       if (c < D) atomicAdd(dst + c, (-lr * sum.x) / div);
@@ -445,8 +478,15 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = lane; i < nvalid; i += 32) total += valid[i];
       total = warp_sum(total);
       const float cnt_n = fmaxf(static_cast<float>(total) * neg_weight, 1.f);
-      float* w = w_out + static_cast<size_t>(negs[n]) * D;
       const float* g = d_wn + static_cast<size_t>(n) * D;
+      if (merge.acc[0]) {  // accumulate mode: into acc_out and cnt_out
+        const float scale = static_cast<float>(total) * neg_weight / cnt_n;
+        float* acc = merge.acc[1] + static_cast<size_t>(negs[n]) * D;
+        for (int j = lane; j < D; j += 32) atomicAdd(acc + j, g[j] * scale);
+        if (lane == 0) atomicAdd(merge.cnt[1] + negs[n], cnt_n);
+        continue;
+      }
+      float* w = w_out + static_cast<size_t>(negs[n]) * D;
       for (int j = lane; j < D; j += 32) atomicAdd(w + j, (-lr * g[j]) / cnt_n);
     }
   }
@@ -494,14 +534,19 @@ extern "C" int srw_sgns_conv_accumulate_launch(
 // [N, D]; cnt [2, N]; d_wn [kB, D]; valid [nvalid] (kernel (a)'s counts);
 // part [2, N, ceil(D / 128) * 128] and unit_cnt [2, N] the split groups'
 // unit sums and counts; arrive [2, N, ceil(D / 128)] their counters, zero
-// before and after. Adds into w_in and w_out. Returns the CUDA error of the
+// before and after. Adds into w_in and w_out, or, through the accumulate
+// entry point, into the reduction buffer's acc_in, acc_out [V, D] and
+// cnt_in, cnt_out [V] (lr is not read). Returns the CUDA error of the
 // launch.
-extern "C" int srw_sgns_conv_scatter_launch(
-    const void* block, const void* order, const void* units,
-    const void* d_in, const void* acc_out, const void* cnt, const void* d_wn,
-    const void* negs, int kB, const void* valid, int nvalid,
-    float neg_weight, float lr, void* w_in, void* w_out, void* part,
-    void* unit_cnt, void* arrive, int N, int D, int blocks, void* stream) {
+namespace {
+
+int run_scatter(const void* block, const void* order, const void* units,
+                const void* d_in, const void* acc_out, const void* cnt,
+                const void* d_wn, const void* negs, int kB,
+                const void* valid, int nvalid, float neg_weight, float lr,
+                void* w_in, void* w_out, void* part, void* unit_cnt,
+                void* arrive, int N, int D, int blocks, Merge merge,
+                void* stream) {
   if (2 * N + kB <= 0) return 0;
   sgns_conv_scatter<<<blocks, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
@@ -512,6 +557,37 @@ extern "C" int srw_sgns_conv_scatter_launch(
       static_cast<const int*>(valid), nvalid, neg_weight, lr,
       static_cast<float*>(w_in), static_cast<float*>(w_out),
       static_cast<float*>(part), static_cast<int*>(unit_cnt),
-      static_cast<int*>(arrive), N, D);
+      static_cast<int*>(arrive), N, D, merge);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int srw_sgns_conv_scatter_launch(
+    const void* block, const void* order, const void* units,
+    const void* d_in, const void* acc_out, const void* cnt, const void* d_wn,
+    const void* negs, int kB, const void* valid, int nvalid,
+    float neg_weight, float lr, void* w_in, void* w_out, void* part,
+    void* unit_cnt, void* arrive, int N, int D, int blocks, void* stream) {
+  return run_scatter(block, order, units, d_in, acc_out, cnt, d_wn, negs, kB,
+                     valid, nvalid, neg_weight, lr, w_in, w_out, part,
+                     unit_cnt, arrive, N, D, blocks, Merge{}, stream);
+}
+
+extern "C" int srw_sgns_conv_scatter_accumulate_launch(
+    const void* block, const void* order, const void* units,
+    const void* d_in, const void* acc_out, const void* cnt, const void* d_wn,
+    const void* negs, int kB, const void* valid, int nvalid,
+    float neg_weight, float lr, void* w_in, void* w_out, void* part,
+    void* unit_cnt, void* arrive, int N, int D, int blocks, void* acc_in,
+    void* acc_out_buf, void* cnt_in, void* cnt_out, void* stream) {
+  if (!acc_in || !acc_out_buf || !cnt_in || !cnt_out)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Merge merge{{static_cast<float*>(acc_in),
+                     static_cast<float*>(acc_out_buf)},
+                    {static_cast<float*>(cnt_in),
+                     static_cast<float*>(cnt_out)}};
+  return run_scatter(block, order, units, d_in, acc_out, cnt, d_wn, negs, kB,
+                     valid, nvalid, neg_weight, lr, w_in, w_out, part,
+                     unit_cnt, arrive, N, D, blocks, merge, stream);
 }

@@ -36,6 +36,16 @@
 //       calls, measured a third slower, and as fast as the barrier without
 //       the fences: after a step's flood of device atomics the fences are
 //       the cost (chip_sgns_exact_parts.py keeps both forms as variants).
+// In accumulate mode (srw_sgns_exact_accumulate_launch: one slot's step of
+// the data-parallel trainer's merged update) phase (b) adds each listed
+// slot's delta row and count into the merged update's reduction buffer
+// (its acc_in, acc_out, cnt_in and cnt_out arrays) in place of the
+// update, and still empties the slots: the JAX package's psum'd step
+// (stellar_rw_tpu/models/word2vec.py:190-199) scatters each replica's
+// gradients into dense accumulators the same way. A row has one slot in a
+// step and the steps of a merged update run in turn on one stream, so the
+// adds are plain. The tables are not written, so every slot of a merged
+// update reads them as they were before it; csrc/dp_apply.cu moves them.
 // The tables are read and written by the one kernel, so they come in as
 // plain pointers and phase (a) reads them with plain loads (cached in L1 on
 // sm_90), not through the read-only path, which the programming guide
@@ -77,9 +87,18 @@
 namespace {
 
 namespace cg = cooperative_groups;
-using srw::Scratch;
 using srw::claim;
-using srw::scratch;
+
+// The delta slots (delta_slots.cuh) and, in accumulate mode, the merged
+// update's buffer: sum [2] the tables' [V, D] sums, num [2] their [V]
+// counts
+struct Scratch : srw::Scratch {
+  float* sum[2] = {nullptr, nullptr};   // null: update the tables
+  float* num[2] = {nullptr, nullptr};
+  // a select, not an index, as in srw::Scratch
+  __device__ float* sumt(int t) const { return t == 0 ? sum[0] : sum[1]; }
+  __device__ float* numt(int t) const { return t == 0 ? num[0] : num[1]; }
+};
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxThreads = 512;
@@ -167,10 +186,20 @@ __device__ __forceinline__ void apply_slots(float* w_in, float* w_out,
     const int row = __ldcg(s.listt(t) + slot);
     float* w = (t == 0 ? w_in : w_out) + static_cast<size_t>(row) * D;
     float* d = s.dt(t) + static_cast<size_t>(slot) * D;
-    const float c = static_cast<float>(max(__ldcg(s.cntt(t) + slot), 1));
-    for (int i = lane; i < D; i += 32) {
-      w[i] += (-lr * __ldcg(d + i)) / c;
-      d[i] = 0.f;
+    if (s.sum[0]) {  // accumulate mode: the delta and its count to the buffer
+      float* a = s.sumt(t) + static_cast<size_t>(row) * D;
+      for (int i = lane; i < D; i += 32) {
+        a[i] += __ldcg(d + i);
+        d[i] = 0.f;
+      }
+      if (lane == 0)
+        s.numt(t)[row] += static_cast<float>(__ldcg(s.cntt(t) + slot));
+    } else {
+      const float c = static_cast<float>(max(__ldcg(s.cntt(t) + slot), 1));
+      for (int i = lane; i < D; i += 32) {
+        w[i] += (-lr * __ldcg(d + i)) / c;
+        d[i] = 0.f;
+      }
     }
     __syncwarp();
     if (lane == 0) {
@@ -411,29 +440,17 @@ cudaError_t launch_step(float* w_in, float* w_out, const int* block,
       dim3(threads), args, smem, stream);
 }
 
-}  // namespace
-
-// One step for a block of BT = B*T center positions under a launch plan
-// (ops/sgns_exact.py::launch_plan): `blocks` blocks of `threads` threads
-// (all resident: at most two an SM), `positions` consecutive positions a
-// block, a table of `slots` rows in shared memory; the tables move in
-// place by lr. scratch: d_in, d_out, cnt_in, cnt_out, map_in, map_out,
-// list_in, list_out, counts[2], all empty (zero, map -1) before the step
-// and again after it. stats, when not null, gets three sums added: row adds
-// into the tables, row adds into device memory, slots flushed. Returns the
-// CUDA error of the launch (a refused cooperative launch included).
-extern "C" int srw_sgns_exact_step_launch(
-    void* w_in, void* w_out, const void* block, const void* cwin,
-    const void* negs, void* const* scratch_ptrs, int BT, int T, int window,
-    int k, int D, int blocks, int threads, int positions, int slots,
-    float lr, void* stats, void* stream) {
+// a launch's arguments checked, then the step for the plan's NV
+int run_step(void* w_in, void* w_out, const void* block, const void* cwin,
+             const void* negs, const Scratch& s, int BT, int T, int window,
+             int k, int D, int blocks, int threads, int positions, int slots,
+             float lr, void* stats, void* stream) {
   if (BT <= 0) return 0;
   if (D < 1 || k < 0 || window < 1 || threads < 32 || threads % 32 ||
       threads > kMaxThreads || slots < 0 || blocks < 1 ||
       static_cast<long long>(blocks) * positions < BT)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Scratch s = scratch(scratch_ptrs);
   float* a = static_cast<float*>(w_in);
   float* b = static_cast<float*>(w_out);
   const int* blk = static_cast<const int*>(block);
@@ -452,4 +469,52 @@ extern "C" int srw_sgns_exact_step_launch(
                          threads, positions, slots, lr, st_out, st);
   cudaGetLastError();  // a refused launch leaves no error for later calls
   return static_cast<int>(err);
+}
+
+// the workspace's arrays from the wrapper's pointer list
+Scratch step_scratch(void* const* scratch_ptrs) {
+  Scratch s;
+  static_cast<srw::Scratch&>(s) = srw::scratch(scratch_ptrs);
+  return s;
+}
+
+}  // namespace
+
+// One step for a block of BT = B*T center positions under a launch plan
+// (ops/sgns_exact.py::launch_plan): `blocks` blocks of `threads` threads
+// (all resident: at most two an SM), `positions` consecutive positions a
+// block, a table of `slots` rows in shared memory; the tables move in
+// place by lr. scratch: d_in, d_out, cnt_in, cnt_out, map_in, map_out,
+// list_in, list_out, counts[2], all empty (zero, map -1) before the step
+// and again after it. stats, when not null, gets three sums added: row adds
+// into the tables, row adds into device memory, slots flushed. Returns the
+// CUDA error of the launch (a refused cooperative launch included).
+extern "C" int srw_sgns_exact_step_launch(
+    void* w_in, void* w_out, const void* block, const void* cwin,
+    const void* negs, void* const* scratch_ptrs, int BT, int T, int window,
+    int k, int D, int blocks, int threads, int positions, int slots,
+    float lr, void* stats, void* stream) {
+  return run_step(w_in, w_out, block, cwin, negs, step_scratch(scratch_ptrs),
+                  BT, T, window, k, D, blocks, threads, positions, slots, lr,
+                  stats, stream);
+}
+
+// The same step in accumulate mode: the gradients' sums added into the
+// reduction buffer's acc_in, acc_out [V, D] and their counts into cnt_in,
+// cnt_out [V], the tables left as they are (lr is not read).
+extern "C" int srw_sgns_exact_accumulate_launch(
+    void* w_in, void* w_out, const void* block, const void* cwin,
+    const void* negs, void* const* scratch_ptrs, int BT, int T, int window,
+    int k, int D, int blocks, int threads, int positions, int slots,
+    float lr, void* stats, void* acc_in, void* acc_out, void* cnt_in,
+    void* cnt_out, void* stream) {
+  if (!acc_in || !acc_out || !cnt_in || !cnt_out)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Scratch s = step_scratch(scratch_ptrs);
+  s.sum[0] = static_cast<float*>(acc_in);
+  s.sum[1] = static_cast<float*>(acc_out);
+  s.num[0] = static_cast<float*>(cnt_in);
+  s.num[1] = static_cast<float*>(cnt_out);
+  return run_step(w_in, w_out, block, cwin, negs, s, BT, T, window, k, D,
+                  blocks, threads, positions, slots, lr, stats, stream);
 }

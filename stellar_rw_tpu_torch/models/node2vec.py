@@ -1,6 +1,8 @@
 """The node2vec pipeline on one device: walks -> skip-gram embeddings.
 
-Port of the single-device path of stellar_rw_tpu/models/node2vec.py. Model
+Port of the single-device path of stellar_rw_tpu/models/node2vec.py, and of
+its multi-process trainer with checkpoints (train_multiproc_with_ckpt,
+over the ranks of a torch.distributed process group). Model
 artifacts go to <output>/bin in the JAX package's format (model.npz +
 metadata.json), and walk-round checkpoints to <output>/bin/walk_rounds in
 its layout (round files, marker JSON and fingerprint), so a model or a
@@ -318,6 +320,59 @@ def _train(corpus, vocab_size: int, params: Params, device="cuda"):
         corpus, vocab_size, sgns_config(params),
         num_partitions=params.w2v_partitions, init=init,
         start_epoch=start_epoch, on_epoch=on_epoch, device=device)
+
+
+def train_multiproc_with_ckpt(blocks, num_rows: int, vocab_size: int,
+                              params: Params,
+                              num_devices: int | None = None,
+                              row_width: int | None = None, *,
+                              device="cuda"):
+    """w2v.train_skipgram_multiproc with epoch checkpoints, over the ranks
+    of the default process group (a world of one without one). Rank 0
+    writes <output>/bin/checkpoint.npz (the JAX package's file); on
+    --resume rank 0 reads it and broadcasts (found, epoch, w_in, w_out) to
+    every rank, whose filesystems need not share <output>, so every rank
+    restarts from the same tables. Returns (w_in, w_out)."""
+    from ..parallel import dp
+
+    device = resolve_device("train_multiproc_with_ckpt", device)
+    cfg = sgns_config(params)
+    rank, world = dp.rank_world()
+    init = None
+    start_epoch = 0
+    ckpt = _checkpoint_path(params.output) if params.output else None
+    if params.resume and ckpt:
+        V, dim = vocab_size, params.w2v_dim
+        # found, epoch + 1, w_in, w_out in one float32 tensor (the JAX
+        # package broadcasts the same payload)
+        payload = torch.zeros(2 + 2 * V * dim, dtype=torch.float32,
+                              device=device)
+        if rank == 0 and os.path.exists(ckpt):
+            z = np.load(ckpt)
+            payload[0] = 1
+            payload[1] = int(z["epoch"]) + 1
+            payload[2:] = torch.as_tensor(np.concatenate(
+                [z["w_in"].astype(np.float32).ravel(),
+                 z["w_out"].astype(np.float32).ravel()]))
+        if world > 1:
+            torch.distributed.broadcast(payload, src=0)
+        if float(payload[0]):
+            tables = payload[2:].cpu().numpy().reshape(2, V, dim)
+            init = (tables[0], tables[1])
+            start_epoch = int(payload[1])
+
+    on_epoch = None
+    if params.checkpoint_every and ckpt and rank == 0:
+        os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+
+        def on_epoch(ep, w_in, w_out):
+            if (ep + 1) % params.checkpoint_every == 0:
+                np.savez(ckpt, w_in=w_in, w_out=w_out, epoch=ep)
+
+    return w2v.train_skipgram_multiproc(
+        blocks, num_rows, vocab_size, cfg, init=init,
+        start_epoch=start_epoch, on_epoch=on_epoch,
+        num_devices=num_devices, row_width=row_width, device=device)
 
 
 def embed_walks(walks, graph: CSRGraph, params: Params, device="cuda"):

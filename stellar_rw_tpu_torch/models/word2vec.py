@@ -1,6 +1,6 @@
 """Skip-gram with negative sampling (port of stellar_rw_tpu/models/word2vec.py).
 
-Single device. The JAX package's streams are reproduced exactly
+The JAX package's streams are reproduced exactly
 (ops/prng.py): the embedding init, each block's dynamic window
 (jax.random.randint) and its negatives come from the same key chain
 PRNGKey(seed) -> fold_in(., epoch) -> fold_in(., block), so a run from the
@@ -26,6 +26,17 @@ trainer_draws_ref, `_sgns_apply` over the block's pairs and
 
 The tables are updated in place (JAX returns new arrays); each row moves by
 lr times the mean of its gradients in the block (scatter-mean).
+
+Data parallelism (train_skipgram with num_partitions = P > 1, and
+train_skipgram_multiproc over torch.distributed ranks) runs the JAX
+package's psum-merged form: P slots (parallel/dp.py), each over its own
+contiguous range of corpus rows with its own key, take a block each; their
+steps run in accumulate mode into one reduction buffer a process (summed
+across ranks by one all-reduce), and one merged update moves the tables
+(ops/dp_apply.py, csrc/dp_apply.cu). Every slot reads the tables as they
+were before the update. In the conv form the negatives' counts merge with
+the context rows' there, as in the JAX package, where one device divides
+them on their own: P = 1 is the single-device path, not a merged update.
 """
 
 from __future__ import annotations
@@ -38,6 +49,8 @@ import torch
 from ..errors import NotPorted, resolve_device
 from ..ops import prng
 from ..ops.alias import build_alias
+from ..ops.dp_apply import buffer_numel
+from ..parallel import dp
 # the steps' and the draws' plain pieces live beside their kernels;
 # _sgns_apply, _sgns_apply_shared_conv, _shift and _draw_negatives stay
 # importable here, the trainer's names for them
@@ -66,7 +79,8 @@ class SGNSConfig:
     power: float = 0.75      # unigram smoothing for the negative table
     shared_negatives: int = 0  # >0: kB block-shared negatives
     shared_impl: str = "conv"  # "conv" is ported; "band" / "pos" are not
-    model_shards: int = 1    # >1: dim-sharded tables (not ported)
+    model_shards: int = 1    # >1: dim-sharded tables (not ported; ignored
+    #                          by the streamed trainer, as in the JAX package)
 
     def __post_init__(self):
         if self.shared_impl not in ("band", "conv", "pos"):
@@ -122,17 +136,24 @@ def _block_lr(i: int, n_blocks: int, lr_start: np.float32,
     return float(lr_start * (np.float32(1.0) - frac) + lr_end * frac)
 
 
-def _train_epoch(w_in, w_out, corpus, neg_keep, neg_alias, key, lr_start,
+def _train_epoch(w_in, w_out, slots, neg_keep, neg_alias, keys, lr_start,
                  lr_end, window: int, negatives: int,
-                 shared_negatives: int = 0, groups=None):
-    """One epoch over corpus [n_blocks, B, T] (-1 padded), block by block.
-    Each block's random draws are made a chunk of blocks at a time (one
-    kernel launch on the card). groups: group_blocks(corpus) for the conv
-    step on the card (made here if none is given)."""
-    n_blocks, B, T = corpus.shape
+                 shared_negatives: int = 0, groups=None, buf=None,
+                 reduce: bool = False):
+    """One epoch over slots [S, n_blocks, B, T] (-1 padded), keys [S] the
+    slots' epoch keys, block index by block index. Without a reduction
+    buffer (S = 1: one device) each block's step moves the tables. With
+    one (data parallel, parallel/dp.py) every slot's step on its block i
+    adds into `buf` in accumulate mode, then one merged update (dp.merge,
+    summed over the ranks when `reduce`) moves them. Each slot's draws are
+    made a chunk of blocks at a time (one kernel launch on the card), all
+    slots' chunks together within _DRAW_BUDGET. groups: group_blocks of
+    the slots' blocks as [S * n_blocks, B, T] for the conv step on the
+    card (made here if none is given)."""
+    S, n_blocks, B, T = slots.shape
     per_block = (shared_negatives if shared_negatives
                  else B * T * 2 * window * negatives) + B * T
-    chunk = max(1, min(n_blocks, _DRAW_BUDGET // per_block))
+    chunk = max(1, min(n_blocks, _DRAW_BUDGET // (per_block * S)))
     nshape = ((shared_negatives,) if shared_negatives
               else (B * T * 2 * window, negatives))
     # the steps' scratch, empty again after every step
@@ -142,34 +163,78 @@ def _train_epoch(w_in, w_out, corpus, neg_keep, neg_alias, key, lr_start,
               if shared_negatives
               else Workspace(w_in, w_out, B * T, window, negatives))
         if shared_negatives and groups is None:
-            groups = group_blocks(corpus)
+            groups = group_blocks(slots.reshape(S * n_blocks, B, T))
     for c0 in range(0, n_blocks, chunk):
         n = min(chunk, n_blocks - c0)
-        cwin, negs = trainer_draws(key, c0, n, B, T, window, nshape,
-                                   neg_keep, neg_alias)
+        draws = [trainer_draws(k, c0, n, B, T, window, nshape, neg_keep,
+                               neg_alias) for k in keys]
         for j in range(n):
             i = c0 + j
             lr = _block_lr(i, n_blocks, lr_start, lr_end)
-            if shared_negatives:
-                sgns_conv_step(w_in, w_out, corpus[i], cwin[j], negs[j], lr,
-                               negatives / shared_negatives, window, ws,
-                               None if groups is None
-                               else (groups.order[i], groups.units[i]))
-            else:
-                sgns_exact_step(w_in, w_out, corpus[i], cwin[j], negs[j], lr,
-                                window, ws)
+            for s, (cwin, negs) in enumerate(draws):
+                if shared_negatives:
+                    g = s * n_blocks + i
+                    sgns_conv_step(w_in, w_out, slots[s, i], cwin[j],
+                                   negs[j], lr, negatives / shared_negatives,
+                                   window, ws,
+                                   None if groups is None
+                                   else (groups.order[g], groups.units[g]),
+                                   buffer=buf)
+                else:
+                    sgns_exact_step(w_in, w_out, slots[s, i], cwin[j],
+                                    negs[j], lr, window, ws, buffer=buf)
+            if buf is not None:
+                dp.merge(w_in, w_out, buf, lr, reduce)
         # freed before the next chunk is drawn: one chunk's draws are held
-        del cwin, negs
+        del draws, cwin, negs
     return w_in, w_out
 
 
-def _refuse_unported(cfg: SGNSConfig, num_partitions: int = 1) -> None:
-    if num_partitions != 1:
-        raise NotPorted("num_partitions > 1 (--w2vPartitions): data-parallel "
-                        "training is ROADMAP Queue 1 item 11b")
-    if cfg.model_shards != 1:
+def _train(slots, vocab_size: int, cfg: SGNSConfig, neg_keep, neg_alias,
+           init, start_epoch: int, on_epoch, first_slot: int | None = None,
+           reduce: bool = False):
+    """The epochs over this process's slots [S, n_blocks, B, T] on their
+    device. first_slot None: the one-device path (S = 1, the epoch key
+    fold_in(key, ep)); else data parallel over global slots first_slot ..
+    first_slot + S - 1 (slot s's key fold_in(fold_in(key, ep), s)), one
+    merged update a block index, all-reduced when `reduce`. Returns
+    (w_in, w_out) as numpy."""
+    device = slots.device
+    S, n_blocks, B, T = slots.shape
+    # the conv step's token groups: one sort of the slots' blocks a run, the
+    # same blocks for every epoch and a resumed start_epoch
+    groups = (group_blocks(slots.reshape(S * n_blocks, B, T))
+              if cfg.shared_negatives and device.type == "cuda" else None)
+    key = prng.prng_key(cfg.seed, device)
+    if init is not None:
+        w_in, w_out = params_from_numpy(init[0], init[1], device)
+    else:
+        w_in, w_out = _init_embeddings(vocab_size, cfg.dim,
+                                       prng.fold_in(key, 0x1A17))
+    buf = (None if first_slot is None else torch.zeros(
+        buffer_numel(vocab_size, cfg.dim), dtype=torch.float32,
+        device=device))
+    lr_lo = cfg.lr * cfg.min_lr_frac
+    for ep in range(start_epoch, cfg.iters):
+        lr_s = cfg.lr + (lr_lo - cfg.lr) * ep / max(cfg.iters, 1)
+        lr_e = cfg.lr + (lr_lo - cfg.lr) * (ep + 1) / max(cfg.iters, 1)
+        kep = prng.fold_in(key, ep)
+        keys = ([kep] if first_slot is None else
+                [dp.slot_key(kep, first_slot + s) for s in range(S)])
+        _train_epoch(w_in, w_out, slots, neg_keep, neg_alias, keys,
+                     np.float32(lr_s), np.float32(lr_e), cfg.window,
+                     cfg.negatives, cfg.shared_negatives, groups, buf, reduce)
+        if on_epoch is not None:
+            on_epoch(ep, w_in.cpu().numpy(), w_out.cpu().numpy())
+    return w_in.cpu().numpy(), w_out.cpu().numpy()
+
+
+def _refuse_unported(cfg: SGNSConfig, streamed: bool = False) -> None:
+    """NotPorted for the trainer forms the port does not serve. The
+    streamed trainer reads no model_shards, as in the JAX package."""
+    if cfg.model_shards != 1 and not streamed:
         raise NotPorted("model_shards > 1 (--w2vModelShards): dim-sharded "
-                        "tables are ROADMAP Queue 1 item 11b")
+                        "tables are ROADMAP Queue 1 item 15")
     if cfg.shared_negatives and cfg.shared_impl != "conv":
         raise NotPorted(f"shared_impl {cfg.shared_impl!r}: only 'conv' is "
                         "ported (ROADMAP Queue 1, not to port)")
@@ -200,8 +265,14 @@ def train_skipgram(
 
     corpus may be a device tensor (the walk engine's handoff). init resumes
     from given tables (numpy, e.g. the JAX package's) at start_epoch;
-    on_epoch(ep, w_in, w_out) receives numpy copies after each epoch."""
-    _refuse_unported(cfg, num_partitions)
+    on_epoch(ep, w_in, w_out) receives numpy copies after each epoch.
+
+    num_partitions = P > 1 trains data-parallel, as the JAX package's
+    num_partitions does on P devices: P slots on this device, each over a
+    contiguous range of the padded corpus (reshape(P, n_blocks, B, T))
+    with B = ceil(row_block / P) (at most ceil(N / P)), one merged update
+    a block index (see the module)."""
+    _refuse_unported(cfg)
     device = resolve_device("train_skipgram", device)
     corpus = torch.as_tensor(corpus).to(device=device, dtype=torch.int32)
     N, T = corpus.shape
@@ -212,35 +283,17 @@ def train_skipgram(
                                 minlength=vocab_size + 1)[1:]
         counts = counts.cpu().numpy().astype(np.float64)
     neg_keep, neg_alias = _negative_tables(counts, cfg.power, device)
-
-    B = max(1, min(cfg.row_block, max(N, 1)))
-    n_blocks = -(-N // B)
-    padded = torch.full((n_blocks * B, T), -1, dtype=torch.int32,
+    P = max(1, num_partitions)
+    # P > 1: the block shrinks with P, so a merged update takes about
+    # row_block rows, as the JAX package's does
+    B = max(1, min(-(-cfg.row_block // P), max(-(-N // P), 1)))
+    n_blocks = -(-N // (B * P))
+    padded = torch.full((P * n_blocks * B, T), -1, dtype=torch.int32,
                         device=device)
     padded[:N] = corpus
-    blocks = padded.reshape(n_blocks, B, T)
-
-    # the conv step's token groups: one sort of the blocks a run, the same
-    # blocks for every epoch and a resumed start_epoch
-    groups = (group_blocks(blocks)
-              if cfg.shared_negatives and device.type == "cuda" else None)
-    key = prng.prng_key(cfg.seed, device)
-    if init is not None:
-        w_in, w_out = params_from_numpy(init[0], init[1], device)
-    else:
-        w_in, w_out = _init_embeddings(vocab_size, cfg.dim,
-                                       prng.fold_in(key, 0x1A17))
-    lr_lo = cfg.lr * cfg.min_lr_frac
-    for ep in range(start_epoch, cfg.iters):
-        lr_s = cfg.lr + (lr_lo - cfg.lr) * ep / max(cfg.iters, 1)
-        lr_e = cfg.lr + (lr_lo - cfg.lr) * (ep + 1) / max(cfg.iters, 1)
-        _train_epoch(w_in, w_out, blocks, neg_keep, neg_alias,
-                     prng.fold_in(key, ep), np.float32(lr_s),
-                     np.float32(lr_e), cfg.window, cfg.negatives,
-                     shared_negatives=cfg.shared_negatives, groups=groups)
-        if on_epoch is not None:
-            on_epoch(ep, w_in.cpu().numpy(), w_out.cpu().numpy())
-    return w_in.cpu().numpy(), w_out.cpu().numpy()
+    return _train(padded.reshape(P, n_blocks, B, T), vocab_size, cfg,
+                  neg_keep, neg_alias, init, start_epoch, on_epoch,
+                  first_slot=0 if P > 1 else None)
 
 
 def train_skipgram_streaming(
@@ -268,8 +321,10 @@ def train_skipgram_streaming(
     with it (`_train_epoch` groups the round it is given): keeping them for
     every round would hold two int32 a corpus position. Device memory for
     the corpus is one round, its padded copy and that round's groups and
-    draws. Returns (w_in, w_out) as numpy f32 [vocab, dim]."""
-    _refuse_unported(cfg)
+    draws. As in the JAX package, cfg.model_shards is not read, and there
+    is no data parallelism. Returns (w_in, w_out) as numpy f32 [vocab,
+    dim]."""
+    _refuse_unported(cfg, streamed=True)
     device = resolve_device("train_skipgram_streaming", device)
     W, T = round_shape
     neg_keep, neg_alias = _negative_tables(counts, cfg.power, device)
@@ -294,11 +349,115 @@ def train_skipgram_streaming(
         for r in range(num_rounds):
             padded[:W] = make_round(r)
             s = ep * num_rounds + r
-            _train_epoch(w_in, w_out, blocks, neg_keep, neg_alias,
-                         prng.fold_in(kep, r), np.float32(lr_at(s)),
+            _train_epoch(w_in, w_out, blocks[None], neg_keep, neg_alias,
+                         [prng.fold_in(kep, r)], np.float32(lr_at(s)),
                          np.float32(lr_at(s + 1)), cfg.window, cfg.negatives,
                          shared_negatives=cfg.shared_negatives)
     return w_in.cpu().numpy(), w_out.cpu().numpy()
+
+
+def _divisor_block(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target (>= 1)."""
+    B = max(1, min(target, n))
+    while n % B:
+        B -= 1
+    return B
+
+
+def full_corpus_blocks(corpus: np.ndarray, num_devices: int | None = None,
+                       rank: int = 0, world: int = 1
+                       ) -> tuple[list[tuple[int, np.ndarray]], int]:
+    """A corpus that every process holds in full (the `embedding` command's
+    walks file, read by each) as this process's (start, rows) blocks: the
+    corpus padded with -1 rows to a multiple of num_devices slots (default:
+    one a rank), n rows a slot, the slots of rank `rank` of `world`
+    (num_devices / world each). Returns (local blocks, padded rows)."""
+    D = num_devices or world
+    if D % world:
+        raise ValueError(f"{D} slots do not split over {world} ranks")
+    N, T = corpus.shape
+    N_pad = -(-max(N, 1) // D) * D
+    padded = corpus
+    if N_pad != N:
+        padded = np.concatenate(
+            [corpus, np.full((N_pad - N, T), -1, dtype=corpus.dtype)])
+    n = N_pad // D
+    local = D // world
+    blocks = [(d * n, padded[d * n:(d + 1) * n])
+              for d in dp.slot_range(rank, local)]
+    return blocks, N_pad
+
+
+def _rows_from_blocks(blocks, lo: int, hi: int, T: int) -> np.ndarray:
+    """Global corpus rows [lo, hi) from this process's (start, rows)
+    blocks; uncovered rows are -1."""
+    out = np.full((hi - lo, T), -1, dtype=np.int32)
+    for start, rows in blocks:
+        s, e = max(lo, start), min(hi, start + len(rows))
+        if e > s:
+            out[s - lo:e - lo] = rows[s - start:e - start]
+    return out
+
+
+def train_skipgram_multiproc(
+    blocks: list[tuple[int, np.ndarray]],
+    num_rows: int,
+    vocab_size: int,
+    cfg: SGNSConfig,
+    counts: np.ndarray | None = None,
+    init: tuple[np.ndarray, np.ndarray] | None = None,
+    start_epoch: int = 0,
+    on_epoch=None,
+    num_devices: int | None = None,
+    row_width: int | None = None,
+    *,
+    device="cuda",
+) -> tuple[np.ndarray, np.ndarray]:
+    """SGNS over a corpus that no process holds in full, data-parallel over
+    the ranks of the default torch.distributed process group (one process
+    and no group: a world of one). Port of the JAX package's
+    train_skipgram_multiproc.
+
+    Every rank calls with identical (num_rows, cfg). `blocks` are this
+    rank's (global row start, rows [n, T]); across the ranks they tile the
+    padded global corpus [num_rows, T] (all -1 rows are inert). There are
+    num_devices slots in all (default: one a rank), num_devices / world on
+    each rank, slot p over rows [p * n, (p + 1) * n), n = num_rows /
+    num_devices, in blocks of B = the largest divisor of n that is at most
+    ceil(row_block / num_devices). The token counts for the negatives'
+    table are one all-reduced integer bincount of the slots' rows. Every
+    merged update is the sum over all slots (one all-reduce of the
+    buffer), so the tables stay equal on every rank. row_width (T) is
+    needed where this rank holds no blocks. Returns (w_in, w_out) as
+    numpy."""
+    _refuse_unported(cfg)
+    device = resolve_device("train_skipgram_multiproc", device)
+    rank, world = dp.rank_world()
+    D = num_devices or world
+    if D % world or num_rows % D:
+        raise ValueError(f"{num_rows} rows and {D} slots over {world} ranks")
+    n = num_rows // D
+    T = row_width if row_width is not None else (
+        blocks[0][1].shape[1] if blocks else 0)
+    if T <= 0:
+        raise ValueError("row_width is needed where a rank holds no blocks")
+    B = _divisor_block(n, max(1, -(-cfg.row_block // D)))
+    n_blocks = n // B
+    local = D // world
+    slots = torch.as_tensor(np.stack(
+        [_rows_from_blocks(blocks, p * n, (p + 1) * n, T)
+         for p in dp.slot_range(rank, local)])).to(device)
+    slots = slots.reshape(local, n_blocks, B, T)
+    if counts is None:
+        c = torch.bincount(slots.reshape(-1) + 1,
+                           minlength=vocab_size + 1)[1:]
+        if world > 1:
+            dp.all_reduce_sum(c)
+        counts = c.cpu().numpy().astype(np.float64)
+    neg_keep, neg_alias = _negative_tables(counts, cfg.power, device)
+    return _train(slots, vocab_size, cfg, neg_keep, neg_alias, init,
+                  start_epoch, on_epoch, first_slot=rank * local,
+                  reduce=world > 1)
 
 
 def corpus_from_token_lists(token_lists) -> tuple[np.ndarray, list]:

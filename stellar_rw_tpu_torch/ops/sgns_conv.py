@@ -23,6 +23,15 @@ CPU tensors run sgns_conv_step_ref: _valid_from_cwin and
 _sgns_apply_shared_conv, the trainer's own plain step. The kernels sum in
 another order (sum-then-divide, atomics between a row's group and its
 negatives), so they agree with the plain version to rounding.
+
+With `buffer` given (a reduction buffer, ops/dp_apply.py) the step runs in
+accumulate mode, one slot of the data-parallel trainer's merged update:
+the accumulate kernel and sgns_shared_grads run unchanged, and the scatter
+kernel, through its accumulate entry point, adds each token group's sum and
+count and each negative's weighted d_wn and cnt_n into the buffer, the
+negatives' counts merged with the context rows' as in the JAX package's
+psum'd step (stellar_rw_tpu/models/word2vec.py:475-484). The tables are not
+written. Its plain version is sgns_conv_accumulate_ref.
 """
 
 from __future__ import annotations
@@ -33,10 +42,11 @@ from typing import NamedTuple
 import torch
 
 from ._build import Kernel, ptr, require_cuda, stream
+from .dp_apply import buffer_ptrs, buffer_views
 from . import sgns
 from .sgns import sgns_shared_grads_ref
 from .sgns_exact import APPLY_BLOCKS, TABLE_BUDGET, _offsets, _sms, \
-    _valid_from_cwin
+    _valid_from_cwin, check_buffer
 
 SGNS_CONV_ACCUMULATE = Kernel(
     "sgns_conv.cu", "srw_sgns_conv_accumulate_launch",
@@ -48,6 +58,13 @@ SGNS_CONV_SCATTER = Kernel(
     [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p]
     + [ctypes.c_int] + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# the scatter in accumulate mode: the same kernel, the merged update's
+# buffer as four more arguments (acc_in, acc_out, cnt_in, cnt_out)
+SGNS_CONV_SCATTER_ACCUMULATE = Kernel(
+    "sgns_conv.cu", "srw_sgns_conv_scatter_accumulate_launch",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p]
+    + [ctypes.c_int] + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
 
 THREADS = 256           # kThreads in the source
 H100_SMS = 132          # launch_plan's default; the wrapper asks the device
@@ -175,11 +192,11 @@ def _shift(x: torch.Tensor, d: int) -> torch.Tensor:
     return y
 
 
-def _sgns_apply_shared_conv(w_in, w_out, block, valid, negs, lr: float,
-                            neg_weight: float, window: int):
-    """Shared-negative SGNS step in the dense shifted-window form (single
-    replica, band=False), in place, in the tables' dtype. block i32 [B, T],
-    valid bool [B, T, 2w], negs [kB]."""
+def _conv_grads(w_in, w_out, block, valid, negs, neg_weight: float,
+                window: int):
+    """The conv step's gradients from the tables as they are, in their
+    dtype: (tok, negs, acc_in, acc_out [N, D] by position, cnt_in,
+    cnt_out [V], d_wn [kB, D], the valid pairs times neg_weight, cnt_n)."""
     B, T = block.shape
     N = B * T
     D = w_in.shape[1]
@@ -210,13 +227,45 @@ def _sgns_apply_shared_conv(w_in, w_out, block, valid, negs, lr: float,
                          ).index_add_(0, tok, vcnt.reshape(N))
     cnt_out = torch.zeros(w_out.shape[0], dtype=dt, device=e2.device
                           ).index_add_(0, tok, cnt_out_pos.reshape(N))
-    cnt_n = (vf.sum() * neg_weight).clamp_min(1.0)
-    w_in.index_add_(0, tok, -lr * acc_in.reshape(N, D)
+    vsum = vf.sum() * neg_weight
+    cnt_n = vsum.clamp_min(1.0)
+    return (tok, negs, acc_in.reshape(N, D), acc_out.reshape(N, D), cnt_in,
+            cnt_out, d_wn, vsum, cnt_n)
+
+
+def _sgns_apply_shared_conv(w_in, w_out, block, valid, negs, lr: float,
+                            neg_weight: float, window: int):
+    """Shared-negative SGNS step in the dense shifted-window form (single
+    replica, band=False), in place, in the tables' dtype. block i32 [B, T],
+    valid bool [B, T, 2w], negs [kB]."""
+    tok, negs, acc_in, acc_out, cnt_in, cnt_out, d_wn, _, cnt_n = \
+        _conv_grads(w_in, w_out, block, valid, negs, neg_weight, window)
+    w_in.index_add_(0, tok, -lr * acc_in
                     / cnt_in.clamp_min(1.0)[tok][:, None])
-    w_out.index_add_(0, tok, -lr * acc_out.reshape(N, D)
+    w_out.index_add_(0, tok, -lr * acc_out
                      / cnt_out.clamp_min(1.0)[tok][:, None])
     w_out.index_add_(0, negs, -lr * d_wn / cnt_n)
     return w_in, w_out
+
+
+def _sgns_accumulate_shared_conv(w_in, w_out, block, valid, negs,
+                                 neg_weight: float, window: int, buffer):
+    """The data-parallel form of the conv step before its psum: each
+    position's sums and counts added into the reduction buffer (in its
+    dtype), the negatives' rows into acc_out weighted by valid pairs *
+    neg_weight / cnt_n and their count cnt_n into cnt_out, beside the
+    context rows'. The tables are untouched."""
+    a_in, a_out, b_in, b_out = buffer_views(buffer, *w_in.shape)
+    tok, negs, acc_in, acc_out, cnt_in, cnt_out, d_wn, vsum, cnt_n = \
+        _conv_grads(w_in, w_out, block, valid, negs, neg_weight, window)
+    dt = buffer.dtype
+    a_in.index_add_(0, tok, acc_in.to(dt))
+    a_out.index_add_(0, tok, acc_out.to(dt))
+    a_out.index_add_(0, negs, (d_wn * (vsum / cnt_n)).to(dt))
+    b_in += cnt_in.to(dt)
+    b_out += cnt_out.to(dt)
+    b_out.index_add_(0, negs, cnt_n.to(dt).expand(negs.shape[0]))
+    return buffer
 
 
 def sgns_conv_step_ref(w_in, w_out, block, cwin, negs, lr: float,
@@ -226,6 +275,15 @@ def sgns_conv_step_ref(w_in, w_out, block, cwin, negs, lr: float,
     valid, _ = _valid_from_cwin(block, cwin, window)
     return _sgns_apply_shared_conv(w_in, w_out, block, valid, negs, lr,
                                    neg_weight, window)
+
+
+def sgns_conv_accumulate_ref(w_in, w_out, block, cwin, negs,
+                             neg_weight: float, window: int, buffer):
+    """Plain torch version of the accumulate mode: the block's pair mask
+    and _sgns_accumulate_shared_conv."""
+    valid, _ = _valid_from_cwin(block, cwin, window)
+    return _sgns_accumulate_shared_conv(w_in, w_out, block, valid, negs,
+                                        neg_weight, window, buffer)
 
 
 class ConvWorkspace:
@@ -279,13 +337,19 @@ class ConvWorkspace:
 def sgns_conv_step(w_in, w_out, block, cwin, negs, lr: float,
                    neg_weight: float, window: int,
                    ws: ConvWorkspace | None = None,
-                   groups: tuple[torch.Tensor, torch.Tensor] | None = None):
+                   groups: tuple[torch.Tensor, torch.Tensor] | None = None,
+                   buffer=None):
     """One conv step in place (see the module). CUDA tensors launch the
     kernels with the scratch `ws` (a new ConvWorkspace if none is given)
     and the block's grouping `groups` = (order, units), rows of
     group_blocks (made here if none is given); CPU tensors run
-    sgns_conv_step_ref. Any D."""
+    sgns_conv_step_ref. Any D. With `buffer` (the reduction buffer of
+    ops/dp_apply.py) the step runs in accumulate mode: the tables stay, lr
+    is not read."""
     if w_in.device.type == "cpu":
+        if buffer is not None:
+            return sgns_conv_accumulate_ref(w_in, w_out, block, cwin, negs,
+                                            neg_weight, window, buffer)
         return sgns_conv_step_ref(w_in, w_out, block, cwin, negs, lr,
                                   neg_weight, window)
     B, T = block.shape
@@ -310,13 +374,16 @@ def sgns_conv_step(w_in, w_out, block, cwin, negs, lr: float,
                          f"and {tuple(units.shape)} for a block {(B, T)}")
     require_cuda("sgns_conv_step", w_in, w_out, block, cwin, negs, order,
                  units)
+    if buffer is not None:
+        check_buffer("sgns_conv_step", w_in, w_out, buffer)
     if ws is None:
         ws = ConvWorkspace(w_in, w_out, B, T, window, kB)
     elif not ws.serves(w_in, w_out, B, T, window, kB):
         raise ValueError(f"sgns_conv_step: workspace for {ws.key}")
     launch_accumulate(ws, w_in, w_out, block, cwin, negs, window, neg_weight)
     launch_negative_half(ws)
-    launch_scatter(ws, w_in, w_out, block, order, units, negs, neg_weight, lr)
+    launch_scatter(ws, w_in, w_out, block, order, units, negs, neg_weight, lr,
+                   buffer)
     return w_in, w_out
 
 
@@ -340,17 +407,23 @@ def launch_negative_half(ws: ConvWorkspace) -> None:
 
 
 def launch_scatter(ws: ConvWorkspace, w_in, w_out, block, order, units,
-                   negs, neg_weight: float, lr: float) -> None:
+                   negs, neg_weight: float, lr: float, buffer=None) -> None:
     """The scatter-update kernel: each token group's d_in (acc_in + d_neg)
     and acc_out summed over its count and added into w_in and w_out, the
-    negatives' rows of w_out updated."""
+    negatives' rows of w_out updated; with a checked `buffer`, its
+    accumulate entry point adds the sums and counts into the buffer."""
     N, D = ws.d_in.shape
     kB = negs.shape[0]
     items = 2 * N * -(-D // 128) + kB   # a warp 128 columns of a unit, table
     blocks = max(1, min(APPLY_BLOCKS, -(-items // (THREADS // 32))))
-    SGNS_CONV_SCATTER.launch(
-        ptr(block), ptr(order), ptr(units), ptr(ws.d_in), ptr(ws.acc_out),
-        ptr(ws.cnt), ptr(ws.d_wn), ptr(negs), kB, ptr(ws.valid),
-        ws.valid.numel(), float(neg_weight), float(lr), ptr(w_in),
-        ptr(w_out), ptr(ws.unit_sums), ptr(ws.unit_counts), ptr(ws.arrive),
-        N, D, blocks, stream(w_out.device))
+    args = (ptr(block), ptr(order), ptr(units), ptr(ws.d_in),
+            ptr(ws.acc_out), ptr(ws.cnt), ptr(ws.d_wn), ptr(negs), kB,
+            ptr(ws.valid), ws.valid.numel(), float(neg_weight), float(lr),
+            ptr(w_in), ptr(w_out), ptr(ws.unit_sums), ptr(ws.unit_counts),
+            ptr(ws.arrive), N, D, blocks)
+    if buffer is None:
+        SGNS_CONV_SCATTER.launch(*args, stream(w_out.device))
+    else:
+        SGNS_CONV_SCATTER_ACCUMULATE.launch(
+            *args, *buffer_ptrs(buffer, *w_in.shape),
+            stream(w_out.device))

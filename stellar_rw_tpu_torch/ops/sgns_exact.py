@@ -17,6 +17,14 @@ version:
 _valid_from_cwin, _pairs_from_valid and _sgns_apply, the trainer's own
 step. The kernels sum in another order (atomics), so they agree with the
 plain version to rounding: rtol 1e-5 on the tables after a step.
+
+With `buffer` given (a reduction buffer, ops/dp_apply.py) the step runs in
+accumulate mode, one slot of the data-parallel trainer's merged update: its
+gradient sums and counts are added into the buffer and the tables are not
+written (the JAX package's _sgns_apply with axis_name, before its psum:
+stellar_rw_tpu/models/word2vec.py:190-199). On the card that is the same
+kernel through its accumulate entry point; its plain version is
+sgns_exact_accumulate_ref.
 """
 
 from __future__ import annotations
@@ -27,12 +35,19 @@ from typing import NamedTuple
 import torch
 
 from ._build import Kernel, ptr, require_cuda, stream
+from .dp_apply import buffer_ptrs, buffer_views
 from ._build import sm_count as _sms
 
 SGNS_EXACT_STEP = Kernel(
     "sgns_exact.cu", "srw_sgns_exact_step_launch",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
     + [ctypes.c_void_p] * 2)
+# the step in accumulate mode: the same kernel (and library), the merged
+# update's buffer as four more arguments (acc_in, acc_out, cnt_in, cnt_out)
+SGNS_EXACT_ACCUMULATE = Kernel(
+    "sgns_exact.cu", "srw_sgns_exact_accumulate_launch",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
+    + [ctypes.c_void_p] * 6)
 
 APPLY_BLOCKS = 1056     # the conv scatter's grid cap: 8 blocks of 8 warps
                         # an SM of the H100's 132
@@ -115,9 +130,10 @@ def _pairs_from_valid(block, valid, ctx_pos_c):
     return centers.reshape(-1), contexts.reshape(-1), valid.reshape(-1)
 
 
-def _sgns_apply(w_in, w_out, centers, contexts, valid, negs, lr: float):
-    """One exact-negative SGNS step with manual gradients and scatter-mean
-    updates (single replica), in place. P pairs, k negatives per pair."""
+def _sgns_grads(w_in, w_out, centers, contexts, valid, negs):
+    """The step's gradients from the tables as they are: (c, d_vi, tflat,
+    d_vo, cnt_in, cnt_out), the center rows and their gradients [P, D],
+    the target rows and theirs [P*(1+k), D], and each table's counts."""
     P = centers.shape[0]
     k = negs.shape[1]
     c = torch.where(valid, centers, 0).long()
@@ -137,6 +153,14 @@ def _sgns_apply(w_in, w_out, centers, contexts, valid, negs, lr: float):
         0, c, valid.to(torch.float32))
     cnt_out = torch.zeros(w_out.shape[0], device=vi.device).index_add_(
         0, tflat, vmask)
+    return c, d_vi, tflat, d_vo, cnt_in, cnt_out
+
+
+def _sgns_apply(w_in, w_out, centers, contexts, valid, negs, lr: float):
+    """One exact-negative SGNS step with manual gradients and scatter-mean
+    updates (single replica), in place. P pairs, k negatives per pair."""
+    c, d_vi, tflat, d_vo, cnt_in, cnt_out = _sgns_grads(
+        w_in, w_out, centers, contexts, valid, negs)
     w_in.index_add_(0, c, -lr * d_vi / cnt_in.clamp_min(1.0)[c][:, None])
     w_out.index_add_(0, tflat,
                      -lr * d_vo / cnt_out.clamp_min(1.0)[tflat][:, None])
@@ -202,12 +226,41 @@ def sgns_exact_step_ref(w_in, w_out, block, cwin, negs, lr: float,
     return _sgns_apply(w_in, w_out, centers, contexts, vflat, negs, lr)
 
 
+def _sgns_accumulate(w_in, w_out, centers, contexts, valid, negs, buffer):
+    """The data-parallel form of _sgns_apply before its psum: the step's
+    gradient sums and counts added into the reduction buffer (in its
+    dtype), the tables untouched."""
+    acc_in, acc_out, b_in, b_out = buffer_views(buffer, *w_in.shape)
+    c, d_vi, tflat, d_vo, cnt_in, cnt_out = _sgns_grads(
+        w_in, w_out, centers, contexts, valid, negs)
+    acc_in.index_add_(0, c, d_vi.to(buffer.dtype))
+    acc_out.index_add_(0, tflat, d_vo.to(buffer.dtype))
+    b_in += cnt_in.to(buffer.dtype)
+    b_out += cnt_out.to(buffer.dtype)
+    return buffer
+
+
+def sgns_exact_accumulate_ref(w_in, w_out, block, cwin, negs, window: int,
+                              buffer):
+    """Plain torch version of the accumulate mode: the trainer's pair
+    enumeration and _sgns_accumulate."""
+    valid, ctx_pos_c = _valid_from_cwin(block, cwin, window)
+    centers, contexts, vflat = _pairs_from_valid(block, valid, ctx_pos_c)
+    return _sgns_accumulate(w_in, w_out, centers, contexts, vflat, negs,
+                            buffer)
+
+
 def sgns_exact_step(w_in, w_out, block, cwin, negs, lr: float, window: int,
-                    ws: Workspace | None = None):
+                    ws: Workspace | None = None, buffer=None):
     """One exact-negative step in place (see the module). CUDA tensors
     launch csrc/sgns_exact.cu once, with the scratch `ws` (a new Workspace
-    if none is given); CPU tensors run sgns_exact_step_ref. Any D."""
+    if none is given); CPU tensors run sgns_exact_step_ref. Any D. With
+    `buffer` (the reduction buffer of ops/dp_apply.py) the step runs in
+    accumulate mode: the tables stay, lr is not read."""
     if w_in.device.type == "cpu":
+        if buffer is not None:
+            return sgns_exact_accumulate_ref(w_in, w_out, block, cwin, negs,
+                                             window, buffer)
         return sgns_exact_step_ref(w_in, w_out, block, cwin, negs, lr, window)
     SGNS_EXACT_STEP.fn()
     B, T = block.shape
@@ -226,31 +279,52 @@ def sgns_exact_step(w_in, w_out, block, cwin, negs, lr: float, window: int,
             raise ValueError(f"sgns_exact_step: {name} must be int32, "
                              f"got {t.dtype}")
     require_cuda("sgns_exact_step", w_in, w_out, block, cwin, negs)
+    if buffer is not None:
+        check_buffer("sgns_exact_step", w_in, w_out, buffer)
     k = negs.shape[1]
     if ws is None:
         ws = Workspace(w_in, w_out, B * T, window, k)
     elif not ws.serves(w_in, w_out, B * T, window, k):
         raise ValueError(f"sgns_exact_step: workspace for {ws.shape} with "
                          f"{ws.rows} delta rows")
-    launch_step(ws, w_in, w_out, block, cwin, negs, window, lr)
+    launch_step(ws, w_in, w_out, block, cwin, negs, window, lr,
+                buffer=buffer)
     return w_in, w_out
+
+
+def check_buffer(name: str, w_in, w_out, buffer) -> None:
+    """A kernel's check of the reduction buffer for the tables: float32,
+    contiguous, on their device (its size is checked where the launch takes
+    its addresses, buffer_ptrs)."""
+    if w_in.shape != w_out.shape or buffer.dtype != torch.float32:
+        raise ValueError(f"{name}: accumulate mode needs tables of one shape "
+                         f"and a float32 buffer, got {tuple(w_in.shape)}, "
+                         f"{tuple(w_out.shape)}, {buffer.dtype}")
+    require_cuda(name, w_in, buffer)
 
 
 def launch_step(ws: Workspace, w_in, w_out, block, cwin, negs, window: int,
                 lr: float, plan: LaunchPlan | None = None,
-                stats=None) -> None:
+                stats=None, buffer=None) -> None:
     """The step's kernel on checked tensors under `plan` (launch_plan for
     this card if none is given): gradients into ws, the update, ws emptied.
     stats, an int32 [3] tensor, gets added the row adds into the blocks'
     tables, the row adds into device memory and the table slots flushed.
-    A cooperative launch the card refuses raises KernelLaunchError."""
+    With a checked `buffer` the accumulate entry point runs in place of the
+    update. A cooperative launch the card refuses raises
+    KernelLaunchError."""
     B, T = block.shape
     k = negs.shape[1]
     if plan is None:
         plan = launch_plan(w_in.shape[1], B, T, window, k, _sms(w_in.device))
-    SGNS_EXACT_STEP.launch(
-        ptr(w_in), ptr(w_out), ptr(block), ptr(cwin), ptr(negs), ws._ptrs,
-        B * T, T, window, k, w_in.shape[1], plan.blocks, plan.threads,
-        plan.positions, plan.slots, float(lr),
-        None if stats is None else ptr(stats), stream(w_in.device))
+    args = (ptr(w_in), ptr(w_out), ptr(block), ptr(cwin), ptr(negs),
+            ws._ptrs, B * T, T, window, k, w_in.shape[1], plan.blocks,
+            plan.threads, plan.positions, plan.slots, float(lr),
+            None if stats is None else ptr(stats))
+    if buffer is None:
+        SGNS_EXACT_STEP.launch(*args, stream(w_in.device))
+    else:
+        SGNS_EXACT_ACCUMULATE.launch(
+            *args, *buffer_ptrs(buffer, *w_in.shape),
+            stream(w_in.device))
 

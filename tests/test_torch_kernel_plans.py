@@ -518,6 +518,17 @@ ENTRY_POINTS = {
         np.array([3, 1, 2, 1, 3], dtype=np.int64),
         np.array([0, 3, 5], dtype=np.int64),
         Params(w2v_dim=8, w2v_window=2, w2v_iter=1), **kw),
+    "train_skipgram_partitions": lambda g, kw: w2v.train_skipgram(
+        np.arange(12, dtype=np.int32).reshape(3, 4) % g.num_vertices,
+        g.num_vertices, w2v.SGNSConfig(dim=8, window=2, iters=1),
+        num_partitions=2, **kw),
+    "train_skipgram_multiproc": lambda g, kw: w2v.train_skipgram_multiproc(
+        [(0, np.arange(16, dtype=np.int32).reshape(4, 4) % g.num_vertices)],
+        4, g.num_vertices, w2v.SGNSConfig(dim=8, window=2, iters=1),
+        num_devices=2, **kw),
+    "train_multiproc_with_ckpt": lambda g, kw: n2v.train_multiproc_with_ckpt(
+        [(0, np.arange(16, dtype=np.int32).reshape(4, 4) % g.num_vertices)],
+        4, g.num_vertices, Params(w2v_dim=8, w2v_window=2, w2v_iter=1), **kw),
 }
 
 

@@ -187,11 +187,13 @@ def test_unserved_flags_raise(karate_path, tmp_path, flags):
     anything is written. The exact-CDF sampler (--sampler cdf, a p/q ratio
     above 32), the walk-round checkpoints (--checkpointEvery, --resume),
     --shards / --partitioned (one walk shard on one device), --streaming
-    true (one walk round on the device at a time) and --profile (a
-    torch.profiler trace; the JAX CLI writes a jax.profiler one) are
-    served: those cases run both CLIs and compare /path byte for byte and
-    the trained tables to the trainer's tolerance (rtol 1e-4 / atol 1e-6,
-    the scatter-adds' summation order)."""
+    true (one walk round on the device at a time), --profile (a
+    torch.profiler trace; the JAX CLI writes a jax.profiler one) and
+    --w2vPartitions 2 (two data-parallel slots on the one device; the JAX
+    CLI runs two of conftest's CPU devices) are served: those cases run
+    both CLIs and compare /path byte for byte and the trained tables to
+    the trainer's tolerance (rtol 1e-4 / atol 1e-6, the scatter-adds'
+    summation order)."""
     small = ["--walkLength", "6", "--numWalks", "2", "--dim", "8", "--iter",
              "1", "--window", "3", "--seed", "2"]
     flags = [f.format(tmp=tmp_path) for f in flags]
@@ -200,7 +202,7 @@ def test_unserved_flags_raise(karate_path, tmp_path, flags):
     served = any(f in flags for f in ("--sampler", "--p", "--resume",
                                       "--checkpointEvery", "--shards",
                                       "--partitioned", "--streaming",
-                                      "--profile"))
+                                      "--profile", "--w2vPartitions"))
     if not served:
         with pytest.raises(NotPorted):
             cli.main(argv(tmp_path / "o"), device="cpu")
@@ -226,12 +228,15 @@ def test_unserved_flags_raise(karate_path, tmp_path, flags):
                                 dict(shared_impl="band", shared_negatives=8),
                                 dict(model_shards=2)])
 def test_unported_trainer_forms_raise(kw):
-    with pytest.raises(NotPorted):
+    """The pos and band forms are not to port; model_shards is ROADMAP
+    item 15, refused with or without data parallelism."""
+    match = "item 15" if "model_shards" in kw else "not to port"
+    with pytest.raises(NotPorted, match=match):
         w2v.train_skipgram(np.zeros((2, 5), np.int32), 3,
                            w2v.SGNSConfig(dim=4, **kw), device="cpu")
-    with pytest.raises(NotPorted):
+    with pytest.raises(NotPorted, match=match):
         w2v.train_skipgram(np.zeros((2, 5), np.int32), 3,
-                           w2v.SGNSConfig(dim=4), num_partitions=2,
+                           w2v.SGNSConfig(dim=4, **kw), num_partitions=2,
                            device="cpu")
 
 

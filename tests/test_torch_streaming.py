@@ -71,6 +71,35 @@ def test_streaming_cli_matches_jax_and_stored(karate_path, tmp_path,
     assert report["walk_seconds"] > 0 and report["train_seconds"] > 0
 
 
+@pytest.mark.parametrize("flags", [["--w2vModelShards", "2"],
+                                   ["--w2vPartitions", "2",
+                                    "--w2vModelShards", "2",
+                                    "--sharedNegatives", "8"]],
+                         ids=["model_shards", "both_shared8"])
+def test_streaming_ignores_the_trainer_mesh_flags(karate_path, tmp_path,
+                                                  flags):
+    """The JAX streamed trainer reads neither model_shards nor
+    num_partitions: `--streaming true` with --w2vModelShards 2 (and
+    --w2vPartitions 2) runs on the port as on the JAX CLI, /path byte for
+    byte and the tables within the trainers' tolerance, and equal to the
+    port's streamed run without the flags."""
+    jout, tout, plain = tmp_path / "jax", tmp_path / "port", tmp_path / "p"
+    trainer = flags[-2:] if "--sharedNegatives" in flags else []
+    with jax.enable_x64(False):
+        assert jcli.main(_argv(karate_path, jout, "--streaming", "true",
+                               *flags)) == 0
+    assert cli.main(_argv(karate_path, tout, "--streaming", "true", *flags),
+                    device="cpu") == 0
+    assert cli.main(_argv(karate_path, plain, "--streaming", "true",
+                          *trainer), device="cpu") == 0
+    assert _same_file(jout, tout) and _same_file(plain, tout)
+    ja, ta = jn2v.load_model(str(jout)), n2v.load_model(str(tout))
+    for a, b in zip(ja[1:], ta[1:]):
+        np.testing.assert_allclose(b, a, rtol=1e-4, atol=1e-6)
+    for a, b in zip(n2v.load_model(str(plain))[1:], ta[1:]):
+        np.testing.assert_array_equal(b, a)
+
+
 def test_run_node2vec_streaming_matches_jax(karate_path, tmp_path):
     """The library entry: tokens, tables and the walk stats of JAX
     run_node2vec_streaming, and the streamed rounds are the stored
