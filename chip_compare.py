@@ -57,7 +57,13 @@ events around launches queued behind a long product):
     chip_smoke's phase-19 block (B 256, T 82, w 10, D 128 on the
     100,000-vertex corpus's tree) and its one-token block, after checking
     the two checkouts' tables agree (rtol 1e-5, atol 1e-6): other, this,
-    this, other, each turn on tables and a workspace of its own.
+    this, other, each turn on tables and a workspace of its own;
+  * the data-parallel merged update's kernels (compare_dp): K5's scatter
+    in accumulate mode on chip_smoke phase 21's slot block (Zipf and one
+    token), each checkout's merged update held to the float64 plain one,
+    and K13 on chip_smoke's fills a-c (V 10,000 and 1,000,000 from two
+    slots' steps, and every count nonzero), the two checkouts' tables bit
+    for bit: other, this, this, other, back to back.
 
 One JSON object a line, the card's name and power limit in each. Needs a
 CUDA device; imports nothing of JAX.
@@ -430,6 +436,7 @@ def main(argv: list[str]) -> int:
                           "card": smi}))
     compare_spmm(torch, np, this, other, graph, order, smi)
     compare_hs(torch, this, other, order, smi)
+    compare_dp(torch, this, other, order, smi)
     return 0
 
 
@@ -521,6 +528,93 @@ def compare_hs(torch, this, other, order, smi) -> None:
         runs = [(name, cuda_ms(steps[name](), 10)) for name in order]
         print(json.dumps({"kernel": "hs_step", "block": list(shape),
                           "levels": L, "ms_in_turns": runs, "card": smi}))
+
+
+def compare_dp(torch, this, other, order, smi) -> None:
+    """The data-parallel merged update's kernels of each checkout: K5's
+    scatter in accumulate mode on chip_smoke phase 21's slot block (B 16, T
+    82, w 10, kB 128, D 128; Zipf, and one token alone), each into a
+    buffer of its own, after checking each buffer's merged update against
+    the float64 plain one (rtol 1e-5, atol 1e-6); then K13 on
+    chip_smoke's fills a, b and c (dp_fill: V 10,000 and 1,000,000 from
+    two slots' steps, and every count nonzero), each launch on a copy of
+    the fill of its own, after checking the two checkouts' tables equal
+    bit for bit. Back to back, in turns."""
+    from chip_smoke import conv_block, dp_fill
+
+    V, B, T, win, kB, D, lr = 10_000, 16, 82, 10, 128, 128, 0.025
+    nw = 5 / kB
+    for tokens in ("zipf", "hub"):
+        w_in, w_out, block, cwin, negs = conv_block(torch, V, B, T, win, kB,
+                                                    D, 0, tokens)
+        fns, bufs = {}, {}
+        for name, pkg in (("other", other), ("this", this)):
+            sc, da = pkg("ops.sgns_conv"), pkg("ops.dp_apply")
+            ws = sc.ConvWorkspace(w_in, w_out, B, T, win, kB)
+            sc.launch_accumulate(ws, w_in, w_out, block, cwin, negs, win, nw)
+            sc.launch_negative_half(ws)
+            buf = torch.zeros(da.buffer_numel(V, D), device="cuda")
+            if hasattr(sc, "launch_scatter_accumulate"):
+                fn = (lambda sc=sc, ws=ws, buf=buf:
+                      sc.launch_scatter_accumulate(ws, block, negs, nw, buf))
+            else:     # the grouped scatter's accumulate entry point
+                g = sc.group_blocks(block[None])
+                fn = (lambda sc=sc, ws=ws, buf=buf, g=g: sc.launch_scatter(
+                    ws, w_in, w_out, block, g.order[0], g.units[0], negs, nw,
+                    lr, buf))
+            fn()
+            fns[name], bufs[name] = fn, buf
+        # each checkout's buffer applied in float64 against the float64
+        # plain merged update of the slot (chip_smoke phase 21's gate)
+        sc, da = this("ops.sgns_conv"), this("ops.dp_apply")
+        want = (w_in.double(), w_out.double())
+        buf64 = torch.zeros(da.buffer_numel(V, D), dtype=torch.float64,
+                            device="cuda")
+        sc.sgns_conv_accumulate_ref(*want, block, cwin, negs, nw, win, buf64)
+        da.dp_apply_ref(*want, buf64, lr)
+        for name, buf in bufs.items():
+            got = (w_in.double(), w_out.double())
+            da.dp_apply_ref(*got, buf.double(), lr)
+            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            check(all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                      for a, b in zip(got, want)),
+                  f"{name}'s accumulate-mode scatter misses the float64 "
+                  f"merged update ({tokens}): max abs err {err:.3g}")
+        runs = [(name, cuda_ms(fns[name], 20)) for name in order]
+        print(json.dumps({"kernel": "sgns_conv scatter, accumulate mode, "
+                          "back to back", "tokens": tokens,
+                          "block": [B, T, win, kB, D], "ms_in_turns": runs,
+                          "card": smi}))
+    for fill_name, V, every in (("a", 10_000, False),
+                                ("b", 1_000_000, False),
+                                ("c", 10_000, True)):
+        w_in, w_out, fill, _ = dp_fill(torch, V, D, 40, every_row=every)
+        got = {}
+        for name, pkg in (("other", other), ("this", this)):
+            t_in, t_out = w_in.clone(), w_out.clone()
+            pkg("ops.dp_apply").dp_apply(t_in, t_out, fill.clone(), lr)
+            got[name] = (t_in, t_out)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got["this"],
+                                                      got["other"])),
+              f"the two checkouts' dp_apply differ on fill {fill_name}")
+        del got
+        iters = 20 if V <= 10_000 else 5
+
+        def on_copies(pkg):
+            bufs = iter([fill.clone() for _ in range(iters + 1)])
+            da = pkg("ops.dp_apply")
+            return lambda: da.dp_apply(w_in, w_out, next(bufs), lr)
+        runs = [(name, cuda_ms(on_copies({"other": other,
+                                          "this": this}[name]), iters))
+                for name in order]
+        touched = int((fill[2 * V * D:] != 0).sum())
+        print(json.dumps({"kernel": "dp_apply, back to back",
+                          "fill": fill_name, "V": V, "D": D,
+                          "touched_rows": touched, "ms_in_turns": runs,
+                          "card": smi}))
+        del w_in, w_out, fill
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -36,14 +36,24 @@ tables by design, and only its time is read. The parts:
     (cudaOccupancyMaxActiveClusters);
   * with OTHER_CHECKOUT (the parent commit unpacked under build/, as for
     chip_compare.py), the earlier step: its halo tiles, its scatter into
-    delta slots and the apply kernel.
+    delta slots and the apply kernel;
+  * the scatter-update's launch bounds (UPDATE_BOUNDS: the blocks an SM
+    that ptxas must fit, 2 in the base);
+  * the scatter in accumulate mode (the data-parallel trainer's, into a
+    reduction buffer) in ACCUMULATE_FORMS: a position a thread (the
+    trainer's kernel), or runs of 8 positions a thread in position order
+    or in group_blocks' token order, consecutive positions of one token
+    summed before their add (chip_conv_runs.cu, appended to the source and
+    launched through srw_sgns_conv_scatter_accumulate_runs_launch); on a
+    slot's block (B 16) of each case, each held to the float64 plain
+    merged update of that slot, back to back, in turns.
 
 Each is timed on chip_smoke's phase-14 block (B 32, T 82, w 10, kB 128,
 V 10,000, D 128, Zipf tokens), and on its one-token block, at D 768, at T
 201 (Zipf and one token) and at window 20 (CASES): each launch of a step
 between CUDA events (chip_smoke's cuda_ms_split), every variant twice, in
 turns. One JSON object a line, the card's name and power limit in each, and
-ptxas' registers of every variant. Needs a CUDA device; imports nothing of
+ptxas' registers, stack frame and spills of every kernel of every variant. Needs a CUDA device; imports nothing of
 JAX.
 """
 
@@ -53,12 +63,17 @@ import ctypes
 import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
 from chip_compare import conv_step_fns, load_package
-from chip_smoke import check, conv_block, cuda_ms_split
+from chip_smoke import check, conv_block, cuda_ms, cuda_ms_split
+
+# blocks an SM the scatter-update's launch bounds ask of ptxas in the
+# variants (the base: kThreads, 2; kThreads alone asks none)
+UPDATE_BOUNDS = ("kThreads", "kThreads, 3", "kThreads, 4")
 
 # name -> [(text in csrc/sgns_conv.cu, its replacement), ...]
 VARIANTS = {
@@ -84,6 +99,11 @@ VARIANTS = {
          "        sum = sum_rows<false>(",
          "        const int mine_cnt = group_count(c_t, order, a, b, lane);\n"
          "        sum = sum_rows<true>(")],
+    **{f"scatter-update: launch bounds ({b})": [
+        ("__global__ void __launch_bounds__(kThreads, 2)\n"
+         "    sgns_conv_scatter(",
+         f"__global__ void __launch_bounds__({b})\n"
+         "    sgns_conv_scatter(")] for b in UPDATE_BOUNDS},
     "taken out: the dots": [
         ("      const int hc = window + tl - side * d, hx = hc + d;\n"
          "      if (!pair_ok(s_tok, s_win, hc, hx)) continue;",
@@ -132,6 +152,93 @@ CASES = [("zipf", 82, 10, 128), ("hub", 82, 10, 128), ("zipf", 82, 10, 768),
          ("zipf", 201, 10, 128), ("hub", 201, 10, 128),
          ("zipf", 82, 20, 128)]
 V, B, KB, LR = 10_000, 32, 128, 0.025
+# the scatter in accumulate mode: (name, in token order, positions a run;
+# None: the trainer's kernel, a position a thread)
+ACCUMULATE_FORMS = [("a position a thread (the trainer's)", False, None),
+                    ("runs of 8, position order", False, 8),
+                    ("runs of 8, token order", True, 8)]
+B_SLOT = 16    # a slot's block at --w2vPartitions 2
+RUNS_SOURCE = "chip_conv_runs.cu"
+RUNS_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p]
+                 + [ctypes.c_int] + [ctypes.c_float] + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p] * 5)
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """ptxas -v's report a kernel ({name: [frame and spills, registers]}):
+    its lines follow the kernel's "Compiling entry function" line."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"\d+([a-z_]+)E", entry.group(1))
+            name = m.group(1) if m else entry.group(1)
+            out[name] = []
+        elif name and ("registers" in line or "stack frame" in line):
+            out[name].append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def accumulate_forms(torch, runs_kernel, tokens: str, T: int, win: int,
+                     D: int, seed: int) -> dict:
+    """The scatter in accumulate mode on a slot's conv block in each of
+    ACCUMULATE_FORMS (`runs_kernel`: chip_conv_runs.cu's entry): each held
+    to the float64 plain merged update of that slot (rtol 1e-5, atol 1e-6),
+    then timed back to back in turns. Returns {"max_abs_err": {form: err},
+    "ms_back_to_back_in_turns": {form: [ms, ms]}}."""
+    from stellar_rw_tpu_torch.ops import _build as build
+    from stellar_rw_tpu_torch.ops import dp_apply as da
+    from stellar_rw_tpu_torch.ops import sgns_conv as sc
+    from stellar_rw_tpu_torch.ops import sgns_exact as se
+
+    w_in, w_out, block, cwin, negs = conv_block(torch, V, B_SLOT, T, win,
+                                                KB, D, seed, tokens)
+    nw = 5 / KB
+    want = (w_in.double(), w_out.double())
+    buf64 = torch.zeros(da.buffer_numel(V, D), dtype=torch.float64,
+                        device="cuda")
+    sc.sgns_conv_accumulate_ref(*want, block, cwin, negs, nw, win, buf64)
+    da.dp_apply_ref(*want, buf64, LR)
+    ws = sc.ConvWorkspace(w_in, w_out, B_SLOT, T, win, KB)
+    sc.launch_accumulate(ws, w_in, w_out, block, cwin, negs, win, nw)
+    sc.launch_negative_half(ws)
+    order = sc.group_blocks(block[None]).order[0]
+    buf = torch.zeros(da.buffer_numel(V, D), device="cuda")
+    forms, errs = {}, {}
+    N, kB = B_SLOT * T, negs.shape[0]
+    g = -(-D // 4)
+
+    def runs(o, run):
+        blocks = max(1, min(se.APPLY_BLOCKS,
+                            -(-(kB + -(-N // run) * 2) * g // sc.THREADS)))
+        runs_kernel.launch(
+            build.ptr(block), None if o is None else build.ptr(o),
+            build.ptr(ws.d_in), build.ptr(ws.acc_out), build.ptr(ws.cnt),
+            build.ptr(ws.d_wn), build.ptr(negs), kB, build.ptr(ws.valid),
+            ws.valid.numel(), float(nw), N, D, run, blocks,
+            *da.buffer_ptrs(buf, V, D), build.stream(block.device))
+
+    for name, by_token, run in ACCUMULATE_FORMS:
+        forms[name] = (
+            (lambda: sc.launch_scatter_accumulate(ws, block, negs, nw, buf))
+            if run is None else
+            (lambda o=order if by_token else None, run=run: runs(o, run)))
+        forms[name]()
+        got = (w_in.double(), w_out.double())
+        da.dp_apply_ref(*got, buf.double(), LR)
+        buf.zero_()
+        errs[name] = max(float((a - b).abs().max())
+                         for a, b in zip(got, want))
+        check(all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                  for a, b in zip(got, want)),
+              f"the accumulate-mode scatter ({name}) misses the float64 "
+              f"merged update at {tokens, T, win, D}: max abs err "
+              f"{errs[name]:.3g}")
+    turns = {name: [] for name in forms}
+    for name in list(forms) + list(forms)[::-1]:
+        turns[name].append(cuda_ms(forms[name], 20))
+    return {"max_abs_err": errs, "ms_back_to_back_in_turns": turns}
+
 
 
 def cluster_smem_bytes(positions: int, window: int, cols: int, T: int,
@@ -194,6 +301,7 @@ def main(argv: list[str]) -> int:
     say = lambda **kw: print(json.dumps({**kw, "card": smi}), flush=True)
     source = (build.CSRC / sc.SGNS_CONV_ACCUMULATE.source).read_text()
     cluster_text = open(os.path.join(root, CLUSTER_SOURCE)).read()
+    runs_text = open(os.path.join(root, RUNS_SOURCE)).read()
     out_dir = os.path.join(root, "build", "conv_parts")
     os.makedirs(out_dir, exist_ok=True)
 
@@ -229,15 +337,17 @@ def main(argv: list[str]) -> int:
             Variant(i, text, scat.symbol, scat.argtypes),
             Variant(i, text, "srw_sgns_conv_max_clusters",
                     [ctypes.c_int] * 2 + [ctypes.c_void_p]))
+    runs_kernel = Variant(len(kernels), source + "\n" + runs_text,
+                          "srw_sgns_conv_scatter_accumulate_runs_launch",
+                          RUNS_ARGTYPES)
     with ThreadPoolExecutor(8) as pool:
-        list(pool.map(lambda k: k[0].fn(), kernels.values()))
+        list(pool.map(lambda k: k.fn(),
+                      [k[0] for k in kernels.values()] + [runs_kernel]))
     for name, (a, *rest) in kernels.items():
         for k in rest:
             k.fn()
-        say(variant=name, ptxas=[
-            line.split(":", 1)[-1].strip()
-            for line in a.build_log.splitlines()
-            if "registers" in line or "spill" in line])
+        say(variant=name, ptxas=ptxas_by_kernel(a.build_log))
+    say(variant=RUNS_SOURCE, ptxas=ptxas_by_kernel(runs_kernel.build_log))
     normal = (acc, scat)
     this = lambda sub: importlib.import_module(f"stellar_rw_tpu_torch.{sub}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -352,6 +462,8 @@ def main(argv: list[str]) -> int:
             result = checked(f"units of {hub}", *step(hub=h))
             hubs[str(hub)] = [result, cuda_ms_split(step(hub=h)[0], 20)[2]]
         say(**case, scatter_ms_by_hub=hubs)
+        say(**{**case, "B": B_SLOT}, accumulate_scatter=accumulate_forms(
+            torch, runs_kernel, tokens, T, win, D, ci))
     return 0
 
 

@@ -105,14 +105,20 @@ entry points a user calls:
               csrc/dp_apply.cu) against the plain merged update in
               float64, K13 bit for bit against its plain version, the
               buffer and the workspaces empty after every merged update,
-              each timed beside its bound; `node2vec --w2vPartitions 2`
+              each timed beside its bound (K13 on buffers that two
+              slots' steps filled at V 10,000 and 1,000,000 and on one
+              with every count nonzero, bit for bit and emptied, beside
+              torch.addcdiv; the scatter at a Zipf and a one-token block
+              beside index_add_); `node2vec --w2vPartitions 2`
               through the CLI on phase 4's graph, conv and exact (/path
               byte for byte phase 4's, K13 once a merged update, the
               calls a merged update, the epochs beside phases 4 and 12);
               the karate gate at four slots; two gloo ranks sharing the
               card (processes of their own) running
               train_skipgram_multiproc against the one-process two-slot
-              run, with the labeled synthetic micro-F1 gate.
+              run, with the labeled synthetic micro-F1 gate, then one
+              merged update of the main shape by hand (the buffers empty
+              after it).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every failure raises and the script exits non-zero. It
@@ -2802,9 +2808,25 @@ w_in, w_out = w2v.train_skipgram_multiproc(blocks, rows, V, cfg,
                                            num_devices=2, device="cuda")
 seconds = time.perf_counter() - t0
 np.save(f"{out}/rank{rank}.npy", np.stack([w_in, w_out]))
-print("RESULT " + json.dumps({
-    "backend": backend, "all_reduces": dp.ALL_REDUCES,
-    "merged_updates": DP_APPLY.launches, "seconds": seconds}), flush=True)
+result = {"backend": backend, "all_reduces": dp.ALL_REDUCES,
+          "merged_updates": DP_APPLY.launches, "seconds": seconds}
+# one merged update of the main shape by hand: this rank's slot of
+# chip_smoke.dp_fill's two into the buffer, the all-reduce, K13
+from chip_smoke import conv_block
+from stellar_rw_tpu_torch.ops import dp_apply as da, sgns_conv as sc
+g = torch.Generator(device="cuda").manual_seed(40)
+tables = [torch.randn((10_000, 128), generator=g, device="cuda") * 0.3
+          for _ in range(2)]
+buf = torch.zeros(da.buffer_numel(10_000, 128), device="cuda")
+_, _, block, cwin, negs = conv_block(torch, 10_000, 16, 82, 10, 128, 1,
+                                     40 + rank, "zipf")
+sc.sgns_conv_step(*tables, block, cwin, negs, 0.025, 5 / 128, 10,
+                  buffer=buf)
+dp.merge(*tables, buf, 0.025, True)
+torch.cuda.synchronize()
+result["merged_buffer_empty"] = not bool(buf.any())
+np.save(f"{out}/merged{rank}.npy", torch.stack(tables).cpu().numpy())
+print("RESULT " + json.dumps(result), flush=True)
 torch.distributed.destroy_process_group()
 """
 
@@ -2856,13 +2878,150 @@ def dp_buffer_empty(torch, buf, ws) -> bool:
     return empty and not bool(ws.arrive.any())
 
 
+def dp_row(torch, launch, plain, b: dict, iters: int) -> dict:
+    """A kernel's times between CUDA events and back to back, its plain
+    version's, beside its bound."""
+    (ms,) = cuda_ms_split((launch,), iters)
+    return {"ms": ms, "ms_back_to_back": cuda_ms(launch, iters), **b,
+            "plain_ms": (cuda_ms(plain, 3) + cuda_ms(plain, 3)) / 2,
+            "library_ms": None}
+
+
+def dp_scatter_row(torch, sc, w_in, w_out, block, cwin, negs, win, nw, buf,
+                   iters: int) -> dict:
+    """K5's scatter in accumulate mode on one conv block (the accumulate
+    kernel and the negative half run first), timed into `buf` beside its
+    bound and an index_add_ of its rows."""
+    B, T = block.shape
+    V, D = w_in.shape
+    kB, N, row = negs.shape[0], B * T, D * 4
+    ws = sc.ConvWorkspace(w_in, w_out, B, T, win, kB)
+    sc.launch_accumulate(ws, w_in, w_out, block, cwin, negs, win, nw)
+    sc.launch_negative_half(ws)
+    launch = lambda: sc.launch_scatter_accumulate(ws, block, negs, nw, buf)
+    plain = lambda: sc.sgns_conv_accumulate_ref(w_in, w_out, block, cwin,
+                                                negs, nw, win, buf)
+    torch.cuda.synchronize()
+    tok = block.reshape(-1)
+    adds = [(tok >= 0) & (ws.cnt[t] > 0) for t in (0, 1)]
+    n_add = int(adds[0].sum()) + int(adds[1].sum())
+    u_in = int(torch.unique(tok[adds[0]]).numel())
+    u_out = int(torch.unique(torch.cat([tok[adds[1]], negs])).numel())
+    # the block and the counts read, the rows of the positions that add,
+    # the negatives' d_wn and the valid counts read; the touched buffer
+    # rows and counts read and written
+    b = bound(3 * N * 4 + (n_add + kB) * row + ws.valid.numel() * 4
+              + (u_in + u_out) * (row + 4) * 2, (n_add + kB) * D, F32_FLOPS)
+    out = dp_row(torch, launch, plain, b, iters)
+    # the rows' part as one index_add_ into the buffer's [2V, D]
+    # accumulators, its index and rows concatenated beforehand (the counts
+    # and the negatives' weights aside)
+    t = tok.clamp_min(0).long()
+    idx = torch.cat([t, V + t, V + negs.long()])
+    src = torch.cat([ws.d_in, ws.acc_out, ws.d_wn])
+    acc2 = buf[:2 * V * D].view(2 * V, D)
+    out.update(library_ms=cuda_ms(lambda: acc2.index_add_(0, idx, src),
+                                  iters),
+               library_call="index_add_ of the rows into the buffer's "
+                            "[2V, D] accumulators, index and rows "
+                            "concatenated beforehand (counts and negative "
+                            "weights aside)",
+               touched_positions=n_add)
+    return out
+
+
+def dp_fill(torch, V: int, D: int, seed: int, every_row: bool = False):
+    """(w_in, w_out, buffer, refill): tables [V, D] drawn from a seed on the
+    card and a reduction buffer as two slots' conv accumulate steps fill it
+    at the main shape (B 16, T 82, w 10, kB 128, Zipf tokens over V);
+    refill() adds the same slots' sums into an empty buffer again by their
+    scatter launches alone, as the trainer's last launches before K13 do.
+    every_row: instead every count 1 to 5 and every acc row drawn (the
+    dense case), refill(buf) a copy of it."""
+    from stellar_rw_tpu_torch.ops import dp_apply as da
+    from stellar_rw_tpu_torch.ops import sgns_conv as sc
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = lambda: torch.randn((V, D), generator=g, device="cuda") * 0.3
+    w_in, w_out = w(), w()
+    buf = torch.zeros(da.buffer_numel(V, D), device="cuda")
+    if every_row:
+        buf[:2 * V * D] = torch.randn(2 * V * D, generator=g, device="cuda")
+        buf[2 * V * D:] = torch.randint(1, 6, (2 * V,), generator=g,
+                                        device="cuda").float()
+        fill = buf.clone()
+        return w_in, w_out, buf, lambda into: into.copy_(fill)
+    B, T, win, kB = 16, 82, 10, 128
+    slots = []
+    for s in range(2):      # the blocks' tables of width 1 are not used
+        _, _, block, cwin, negs = conv_block(torch, V, B, T, win, kB, 1,
+                                             seed + s, "zipf")
+        ws = sc.ConvWorkspace(w_in, w_out, B, T, win, kB)
+        sc.sgns_conv_step(w_in, w_out, block, cwin, negs, 0.025, 5 / kB,
+                          win, ws, buffer=buf)
+        slots.append((ws, block, negs))
+
+    def refill(into):
+        for ws, block, negs in slots:
+            sc.launch_scatter_accumulate(ws, block, negs, 5 / kB, into)
+    return w_in, w_out, buf, refill
+
+
+def dp_apply_row(torch, da, w_in, w_out, fill, refill, lr: float,
+                 iters: int) -> dict:
+    """K13 on a filled buffer: bit for bit dp_apply_ref and the buffer
+    empty after it; then timed between CUDA events with the buffer
+    refilled before each launch (refill(buf)), back to back on a copy of
+    the fill a launch (each copy cold in the L2), beside its bound, its
+    plain version and torch.addcdiv x2."""
+    V, D = w_in.shape
+    acc_in, acc_out, cnt_in, cnt_out = da.buffer_views(fill, V, D)
+    touched = int((cnt_in != 0).sum()) + int((cnt_out != 0).sum())
+    r_in, r_out = w_in.clone(), w_out.clone()
+    da.dp_apply_ref(r_in, r_out, fill.clone(), lr)
+    k_in, k_out, k_buf = w_in.clone(), w_out.clone(), fill.clone()
+    da.dp_apply(k_in, k_out, k_buf, lr)
+    torch.cuda.synchronize()
+    check(torch.equal(k_in, r_in) and torch.equal(k_out, r_out),
+          f"dp_apply differs from dp_apply_ref on a fill at V {V}: max abs "
+          f"err {float((k_in - r_in).abs().max()):.3g} / "
+          f"{float((k_out - r_out).abs().max()):.3g}")
+    check(not bool(k_buf.any()),
+          f"dp_apply left the buffer of a fill at V {V} not empty")
+    del r_in, r_out, k_in, k_out
+    (_, ms) = cuda_ms_split((lambda: refill(k_buf),
+                             lambda: da.dp_apply(w_in, w_out, k_buf, lr)),
+                            iters)
+    del k_buf
+    bufs = iter([fill.clone() for _ in range(iters + 1)])
+    back = cuda_ms(lambda: da.dp_apply(w_in, w_out, next(bufs), lr), iters)
+    del bufs
+    copy = fill.clone()
+    plain_ms = cuda_ms(lambda: da.dp_apply_ref(w_in, w_out, copy, lr), 3)
+    del copy
+    c_in, c_out = cnt_in.clamp_min(1)[:, None], cnt_out.clamp_min(1)[:, None]
+
+    def library():
+        w_in.addcdiv_(acc_in, c_in, value=-lr)
+        w_out.addcdiv_(acc_out, c_out, value=-lr)
+    lib_ms = cuda_ms(library, iters)
+    # the counts read; a touched row's acc and w read, w and acc's zeros
+    # written, its count zeroed
+    b = bound(8 * V + touched * (16 * D + 4), 3 * touched * D, F32_FLOPS)
+    return {"ms": ms, "ms_back_to_back": back, **b, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "touched_rows": touched}
+
+
 def phase_dp_check(torch, smi) -> tuple[dict, dict, dict]:
     """Phase 21 (a): K4 and K5's scatter in accumulate mode against their
     plain versions in float64 over two slots of the main shape (DP_CASES),
     then K13 on the buffer, the tables against the plain merged update in
-    float64; K13 alone bit for bit against dp_apply_ref (DP_APPLY_SHAPES);
-    the buffer and the workspaces empty after every merged update; each
-    kernel timed at the main shape beside its bound."""
+    float64; K13 alone bit for bit against dp_apply_ref (DP_APPLY_SHAPES,
+    acc 0 where the count is 0, as the steps leave it); the buffer and the
+    workspaces empty after every merged update; each kernel timed at the
+    main shape beside its bound: the scatter also on the one-token block,
+    K13 on dp_fill's buffers a-c, each bit for bit dp_apply_ref and
+    emptied first."""
     from stellar_rw_tpu_torch.ops import dp_apply as da
     from stellar_rw_tpu_torch.ops import sgns_conv as sc
     from stellar_rw_tpu_torch.ops import sgns_exact as se
@@ -2935,8 +3094,11 @@ def phase_dp_check(torch, smi) -> tuple[dict, dict, dict]:
         f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(
             np.float32)).cuda()
         w_in, w_out = f(V, D), f(V, D)
-        buf = torch.cat([f(2 * V * D), torch.as_tensor(rng.integers(
-            0, 6, 2 * V).astype(np.float32)).cuda()])
+        cnt = torch.as_tensor(rng.integers(0, 6, 2 * V).astype(
+            np.float32)).cuda()
+        # acc 0 where the count is 0, as every accumulate step leaves it
+        acc = f(2 * V, D) * (cnt != 0)[:, None]
+        buf = torch.cat([acc.reshape(-1), cnt])
         r_in, r_out, r_buf = w_in.clone(), w_out.clone(), buf.clone()
         da.dp_apply_ref(r_in, r_out, r_buf, lr)
         da.dp_apply(w_in, w_out, buf, lr)
@@ -2971,81 +3133,43 @@ def phase_dp_check(torch, smi) -> tuple[dict, dict, dict]:
             b = bound(tensor_bytes(block, cwin, negs) + touched * row
                       + touched * (row + 4) * 2,
                       2 * P * (1 + k) * D * 3 + touched * D, F32_FLOPS)
+            rows[form] = dp_row(torch, launch, plain, b, iters)
+            rows[form]["valid_pairs"] = P
         else:
-            ws = sc.ConvWorkspace(w_in, w_out, B, T, win, kB)
-            g = sc.group_blocks(block[None])
-            groups = (g.order[0], g.units[0])
-            sc.launch_accumulate(ws, w_in, w_out, block, cwin, negs, win,
-                                 k / kB)
-            sc.launch_negative_half(ws)
-            launch = lambda: sc.launch_scatter(ws, w_in, w_out, block,
-                                               *groups, negs, k / kB, lr,
-                                               buf)
-            plain = lambda: sc.sgns_conv_accumulate_ref(
-                w_in, w_out, block, cwin, negs, k / kB, win, buf)
-            torch.cuda.synchronize()
-            P = int(ws.cnt[0].sum())
-            tok = block[block >= 0]
-            U_in = int(torch.unique(tok[ws.cnt[0].reshape(B, T)[block >= 0]
-                                        > 0]).numel())
-            U_out = int(torch.unique(tok[ws.cnt[1].reshape(B, T)[
-                block >= 0] > 0]).numel())
-            # d_in, acc_out, the counts, the grouping and the block read;
-            # the touched buffer rows and counts read and written; the
-            # negatives' d_wn read, their buffer rows read and written
-            b = bound(2 * N * row + 5 * N * 4 + (U_in + U_out) * (row + 4) * 2
-                      + kB * row * 3, (2 * N + kB) * D, F32_FLOPS)
-            # the rows' part as one index_add_ into the buffer's [2V, D]
-            # accumulators, its index and rows concatenated beforehand (the
-            # counts and the negatives' weights aside)
-            tok = block.reshape(-1).clamp_min(0).long()
-            idx = torch.cat([tok, V + tok, V + negs.long()])
-            src = torch.cat([ws.d_in, ws.acc_out, ws.d_wn])
-            acc2 = buf[:2 * V * D].view(2 * V, D)
-            library = lambda: acc2.index_add_(0, idx, src)
-        (k_ms,) = cuda_ms_split((launch,), iters)
-        back = cuda_ms(launch, iters)
-        plain_ms = (cuda_ms(plain, 3) + cuda_ms(plain, 3)) / 2
-        lib_ms = None if form == "exact" else cuda_ms(library, iters)
-        buf.zero_()
-        rows[form] = {"ms": k_ms, "ms_back_to_back": back, **b,
-                      "max_abs_err": err[form],
-                      "accumulate_mode_max_abs_err": mode_err[form],
-                      "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "valid_pairs": P}
-        if lib_ms is not None:
-            rows[form]["library_call"] = (
-                "index_add_ of the rows into the buffer's [2V, D] "
-                "accumulators, index and rows concatenated beforehand "
-                "(counts and negative weights aside)")
-    # K13 at V 10,000 D 128, beside torch.addcdiv on a pre-clamped count
-    V, D = 10_000, 128
-    f = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(
-        np.float32)).cuda()
-    w_in, w_out = f(V, D), f(V, D)
-    buf = torch.zeros(da.buffer_numel(V, D), device="cuda")
-    acc_in, acc_out, cnt_in, cnt_out = da.buffer_views(buf, V, D)
-    k13 = lambda: da.dp_apply(w_in, w_out, buf, lr)
-    (a_ms,) = cuda_ms_split((k13,), iters)
-    a_back = cuda_ms(k13, iters)
-    a_plain = (cuda_ms(lambda: da.dp_apply_ref(w_in, w_out, buf, lr), 5)
-               + cuda_ms(lambda: da.dp_apply_ref(w_in, w_out, buf, lr),
-                         5)) / 2
-    c_in, c_out = cnt_in.clamp_min(1)[:, None], cnt_out.clamp_min(1)[:, None]
-
-    def library():
-        w_in.addcdiv_(acc_in, c_in, value=-lr)
-        w_out.addcdiv_(acc_out, c_out, value=-lr)
-    lib_ms = cuda_ms(library, iters)
-    # acc read, w read and written, acc zeroed; the counts read and zeroed
-    apply_b = bound(2 * V * D * 4 * 4 + 2 * V * 4 * 2, 3 * 2 * V * D,
-                    F32_FLOPS)
-    rows["apply"] = {"ms": a_ms, "ms_back_to_back": a_back, **apply_b,
-                     "max_abs_err": 0.0, "plain_ms": a_plain,
-                     "library_ms": lib_ms,
+            rows[form] = dp_scatter_row(torch, sc, w_in, w_out, block, cwin,
+                                        negs, win, k / kB, buf, iters)
+            # the one-token block (a slot of B 16 whose every position is
+            # one token), beside the same library call
+            hub = conv_block(torch, V, B, T, win, kB, D, 7, "hub")
+            one = dp_scatter_row(torch, sc, *hub, win, k / kB, buf, iters)
+            rows[form].update({f"one_token_{key}": one[key] for key in (
+                "ms", "ms_back_to_back", "library_ms", "bound_ms",
+                "bound_by", "touched_positions")})
+        rows[form].update(max_abs_err=err[form],
+                          accumulate_mode_max_abs_err=mode_err[form])
+    # K13 on buffers that two slots' accumulate steps filled at the main
+    # shape (fill a: V 10,000; fill b: V 1,000,000, Zipf tokens over it) and
+    # on one with every count nonzero (fill c): bit for bit dp_apply_ref,
+    # the buffer empty after it, timed beside its bound and torch.addcdiv
+    fills = {}
+    for name, V in (("a", 10_000), ("b", 1_000_000), ("c", 10_000)):
+        D = 128
+        w_in, w_out, fill, refill = dp_fill(torch, V, D, 40,
+                                            every_row=name == "c")
+        fills[name] = dp_apply_row(torch, da, w_in, w_out, fill, refill, lr,
+                                   iters if V <= 10_000 else 5)
+        fills[name]["V"] = V
+        del w_in, w_out, fill, refill
+        torch.cuda.empty_cache()
+    rows["apply"] = {**fills["a"], "max_abs_err": 0.0,
+                     **{f"fill_{name}_{key}": fills[name][key]
+                        for name in ("b", "c") for key in (
+                            "ms", "ms_back_to_back", "bound_ms", "bound_by",
+                            "library_ms", "touched_rows", "V")},
                      "library_call": "torch.addcdiv x2 on a pre-clamped "
                                      "count (not bitwise: one rounding "
-                                     "fewer)"}
+                                     "fewer; a dense pass)"}
+    conv, ap = rows["conv"], rows["apply"]
     print(f"phase 21 (a) the data-parallel step: K4 and K5's scatter in "
           f"accumulate mode, two slots a merged update, then dp_apply (K13), "
           f"within rtol 1e-5 atol 1e-6 of the plain merged update in float64 "
@@ -3055,20 +3179,35 @@ def phase_dp_check(torch, smi) -> tuple[dict, dict, dict]:
           f"{mode_err['conv']:.3g}), the counts equal, the tables untouched "
           f"by the accumulate steps, the buffer and the workspaces empty "
           f"after every merged update; dp_apply bit for bit dp_apply_ref at "
-          f"{DP_APPLY_SHAPES}; at the main shape (B 16, T 82, w 10, D 128): "
-          f"sgns_exact accumulate {rows['exact']['ms']:.4f} ms (back to back "
+          f"{DP_APPLY_SHAPES} and on fills a-c; at the main shape (B 16, T "
+          f"82, w 10, D 128): sgns_exact accumulate "
+          f"{rows['exact']['ms']:.4f} ms (back to back "
           f"{rows['exact']['ms_back_to_back']:.4f}, plain "
           f"{rows['exact']['plain_ms']:.3f}, bound "
           f"{rows['exact']['bound_ms']:.5f} by {rows['exact']['bound_by']}); "
-          f"conv scatter accumulate {rows['conv']['ms']:.4f} ms (back to back "
-          f"{rows['conv']['ms_back_to_back']:.4f}, plain "
-          f"{rows['conv']['plain_ms']:.3f} for the whole plain step, "
-          f"index_add_ of its rows {rows['conv']['library_ms']:.4f}, bound "
-          f"{rows['conv']['bound_ms']:.5f} by {rows['conv']['bound_by']}); "
-          f"dp_apply at V {V} D {D} {a_ms:.4f} ms (back to back "
-          f"{a_back:.4f}, plain {a_plain:.4f}, torch.addcdiv x2 {lib_ms:.4f}, "
-          f"bound {apply_b['bound_ms']:.5f} by {apply_b['bound_by']}) "
-          f"[{smi}]")
+          f"conv scatter accumulate {conv['ms']:.4f} ms (back to back "
+          f"{conv['ms_back_to_back']:.4f}, plain {conv['plain_ms']:.3f} for "
+          f"the whole plain step, index_add_ of its rows "
+          f"{conv['library_ms']:.4f}, bound {conv['bound_ms']:.5f} by "
+          f"{conv['bound_by']}, {conv['touched_positions']} position-tables "
+          f"that add), one token {conv['one_token_ms']:.4f} (back to back "
+          f"{conv['one_token_ms_back_to_back']:.4f}, index_add_ "
+          f"{conv['one_token_library_ms']:.4f}, bound "
+          f"{conv['one_token_bound_ms']:.5f}); dp_apply on fill a (V "
+          f"10,000, {ap['touched_rows']:,} of 20,000 rows touched) "
+          f"{ap['ms']:.4f} ms (back to back {ap['ms_back_to_back']:.4f}, "
+          f"plain {ap['plain_ms']:.4f}, torch.addcdiv x2 "
+          f"{ap['library_ms']:.4f}, bound {ap['bound_ms']:.5f} by "
+          f"{ap['bound_by']}); fill b (V 1,000,000, "
+          f"{ap['fill_b_touched_rows']:,} of 2,000,000 touched) "
+          f"{ap['fill_b_ms']:.4f} (back to back "
+          f"{ap['fill_b_ms_back_to_back']:.4f}, addcdiv "
+          f"{ap['fill_b_library_ms']:.4f}, bound "
+          f"{ap['fill_b_bound_ms']:.5f}); fill c (every row) "
+          f"{ap['fill_c_ms']:.4f} (back to back "
+          f"{ap['fill_c_ms_back_to_back']:.4f}, addcdiv "
+          f"{ap['fill_c_library_ms']:.4f}, bound "
+          f"{ap['fill_c_bound_ms']:.5f}) [{smi}]")
     return rows["exact"], rows["conv"], rows["apply"]
 
 
@@ -3232,6 +3371,22 @@ def phase_dp_ranks(torch, smi, tmp) -> dict:
         check(r["all_reduces"] == r["merged_updates"] + 1,
               f"{r['all_reduces']} all-reduces for {r['merged_updates']} "
               f"merged updates")
+    # the merged update by hand on both ranks: the buffer empty after it,
+    # the ranks' tables equal, and both within rtol 1e-5 atol 1e-6 of the
+    # same two slots in one process
+    from stellar_rw_tpu_torch.ops import dp_apply as da
+    merged = [np.load(os.path.join(tmp, f"merged{r}.npy")) for r in range(2)]
+    check(all(r["merged_buffer_empty"] for r in results),
+          "a rank's reduction buffer is not empty after its merged update")
+    check(np.array_equal(merged[0], merged[1]),
+          "the ranks' tables differ after the merged update by hand")
+    w_in, w_out, buf, _ = dp_fill(torch, 10_000, 128, 40)
+    da.dp_apply(w_in, w_out, buf, 0.025)
+    one = np.stack([w_in.cpu().numpy(), w_out.cpu().numpy()])
+    merged_err = float(np.abs(merged[0] - one).max())
+    check(np.allclose(merged[0], one, rtol=1e-5, atol=1e-6),
+          f"two ranks' merged update differs from one process's: max abs "
+          f"err {merged_err:.3g}")
     f1 = ev.multilabel_micro_f1(got[0][0], labels, train_frac=0.5, seed=0)
     check(f1 > 0.55, f"labeled synthetic gate on two ranks: micro-F1 {f1}")
     print(f"phase 21 (c) train_skipgram_multiproc on two ranks sharing the "
@@ -3239,6 +3394,9 @@ def phase_dp_ranks(torch, smi, tmp) -> dict:
           f"twice), labeled synthetic (1,500 V, {rows} rows, kB 64, 3 "
           f"epochs): the ranks' tables equal, within rtol 2e-4 atol 1e-6 "
           f"of the single-process two-slot run (max abs err {err:.3g}); "
+          f"one merged update of the main shape by hand on both ranks: "
+          f"buffers empty, tables equal, {merged_err:.3g} from one "
+          f"process's; "
           f"{results[0]['all_reduces']} all-reduces = "
           f"{results[0]['merged_updates']} merged updates + the token "
           f"counts'; micro-F1 {f1:.4f} (> 0.55); training "
@@ -3246,6 +3404,7 @@ def phase_dp_ranks(torch, smi, tmp) -> dict:
           f"{one_s:.3f} s in one process (not a target: gloo stages the "
           f"buffer through the host) [{smi}]")
     return {"max_abs_err": err, "micro_f1": f1,
+            "merged_max_abs_err": merged_err,
             "two_rank_seconds": max(r["seconds"] for r in results),
             "one_process_seconds": one_s, "backend": results[0]["backend"]}
 

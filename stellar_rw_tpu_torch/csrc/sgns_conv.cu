@@ -52,17 +52,28 @@
 //       The adds are atomic: the negatives' rows (a warp a negative:
 //       -lr * d_wn[k] / cnt_n) can repeat and can be rows of the block. No
 //       delta slots, no row-to-slot map, no apply kernel.
-//   In accumulate mode (srw_sgns_conv_scatter_accumulate_launch: one slot's
-//   step of the data-parallel trainer's merged update) (b) adds a group's
-//   sum into acc[tok] and its count into cnt[tok] of the merged update's
-//   reduction buffer (its acc_in, acc_out, cnt_in and cnt_out arrays)
-//   in place of -lr * sum / count into the table, and each negative's
-//   d_wn * (valid pairs * neg_weight / cnt_n) into acc_out[negs[n]] with
-//   cnt_n into cnt_out[negs[n]]: the negatives' counts merge with the
-//   context rows' (the JAX package's psum'd step,
-//   stellar_rw_tpu/models/word2vec.py:475-484), where one device divides
-//   them on their own. These adds can meet a group's row, so they stay
-//   atomic; csrc/dp_apply.cu moves the tables.
+//   (c) sgns_conv_scatter_accumulate (srw_sgns_conv_scatter_accumulate_launch:
+//       one slot's step of the data-parallel trainer's merged update) adds
+//       into the merged update's reduction buffer (acc_in, acc_out [V, D],
+//       cnt_in, cnt_out [V]) in place of (b)'s update of the tables, with no
+//       token groups: nothing is divided by a row's count here
+//       (csrc/dp_apply.cu divides the summed buffer), so each position adds
+//       its d_in row into acc_in[tok] and its acc_out row into acc_out[tok]
+//       and its two counts into cnt_in[tok] and cnt_out[tok]; a thread takes
+//       four columns of a (position, table) item and adds them by one
+//       16-byte vector reduction (atomicAdd on float4, sm_90). A position
+//       whose count in a table is 0 adds nothing there: its row is exactly 0
+//       (g_pos masked, the negative term weighted by neg_weight * vcnt), so a
+//       row with count 0 keeps acc 0, which csrc/dp_apply.cu relies on to
+//       skip it. (Runs of positions summed in registers before their add
+//       measured slower at walk_10k's block: chip_conv_runs.cu, a variant
+//       of chip_conv_parts.py.) Each negative adds d_wn * (valid pairs * neg_weight /
+//       cnt_n) into acc_out[negs[n]] and cnt_n into cnt_out[negs[n]], beside
+//       the context rows' (the JAX package's psum'd step,
+//       stellar_rw_tpu/models/word2vec.py:475-484), where one device divides
+//       them on their own; the valid pairs are summed once a thread block that
+//       holds a negative, and the negatives come first in the thread order,
+//       so those are the grid's first blocks.
 // Every gradient comes from the tables as they were before the step: (a)
 // and the negative half only read them, (b) only adds into them. Sums run
 // in another order than XLA's (a thread's dot in four partial sums,
@@ -76,6 +87,7 @@
 // launch and two dependent reads from device memory. The tile is cut so
 // that the grid fills the SMs (ops/sgns_conv.py::launch_plan mirrors it).
 
+#include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -87,18 +99,6 @@ constexpr int kThreads = 256;
 constexpr int kLow = 0x7fffffff;    // a unit's first sorted index
 constexpr int kBatch = 8;           // rows a warp of (b) reads before adding
 constexpr int kTileReads = 4;       // a thread's row loads in flight, (a)
-
-// In accumulate mode, the merged update's reduction buffer: acc [2] the
-// tables' [V, D] sums, cnt [2] their [V] counts. acc[0] null: the scatter
-// updates the tables.
-struct Merge {
-  float* acc[2];
-  float* cnt[2];
-  // table t's arrays (a select, not an index: a parameter indexed by a
-  // value known only at run time would be copied to local memory)
-  __device__ float* acct(int t) const { return t == 0 ? acc[0] : acc[1]; }
-  __device__ float* cntt(int t) const { return t == 0 ? cnt[0] : cnt[1]; }
-};
 
 struct ConvOut {
   float* ein;      // [N, D]
@@ -385,7 +385,10 @@ __device__ __forceinline__ int group_count(const int* c_t, const int* order,
   return warp_sum(total);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Two resident blocks an SM asked of ptxas: with the block size alone it
+// builds this kernel in 64 registers and an 8-byte stack frame, 2% slower
+// at walk_10k's block (chip_conv_parts.py); with two, 76 and none.
+__global__ void __launch_bounds__(kThreads, 2)
     sgns_conv_scatter(const int* __restrict__ block,
                       const int* __restrict__ order,
                       const int* __restrict__ units_of,
@@ -397,7 +400,7 @@ __global__ void __launch_bounds__(kThreads)
                       const int* __restrict__ valid, int nvalid,
                       float neg_weight, float lr, float* w_in, float* w_out,
                       float* part, int* unit_cnt, int* arrive, int N,
-                      int D, Merge merge) {
+                      int D) {
   const int lane = threadIdx.x & 31;
   const int nwarps = gridDim.x * (blockDim.x >> 5);
   const bool vec = D % 4 == 0 &&
@@ -456,16 +459,6 @@ __global__ void __launch_bounds__(kThreads)
                              [&](int j) { return u0 + j; }, u1 - u0, lane, c,
                              D, ld, true);
       }
-      if (merge.acc[0]) {  // accumulate mode: the group's sum and count
-        float* acc = merge.acct(tb) + static_cast<size_t>(tok) * D;
-        if (c < D) atomicAdd(acc + c, sum.x);
-        if (c + 1 < D) atomicAdd(acc + c + 1, sum.y);
-        if (c + 2 < D) atomicAdd(acc + c + 2, sum.z);
-        if (c + 3 < D) atomicAdd(acc + c + 3, sum.w);
-        if (ch == 0 && lane == 0)
-          atomicAdd(merge.cntt(tb) + tok, static_cast<float>(total));
-        continue;
-      }
       const float div = static_cast<float>(total);
       float* dst = (tb ? w_out : w_in) + static_cast<size_t>(tok) * D;
       if (c < D) atomicAdd(dst + c, (-lr * sum.x) / div);
@@ -478,17 +471,91 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = lane; i < nvalid; i += 32) total += valid[i];
       total = warp_sum(total);
       const float cnt_n = fmaxf(static_cast<float>(total) * neg_weight, 1.f);
-      const float* g = d_wn + static_cast<size_t>(n) * D;
-      if (merge.acc[0]) {  // accumulate mode: into acc_out and cnt_out
-        const float scale = static_cast<float>(total) * neg_weight / cnt_n;
-        float* acc = merge.acc[1] + static_cast<size_t>(negs[n]) * D;
-        for (int j = lane; j < D; j += 32) atomicAdd(acc + j, g[j] * scale);
-        if (lane == 0) atomicAdd(merge.cnt[1] + negs[n], cnt_n);
-        continue;
-      }
       float* w = w_out + static_cast<size_t>(negs[n]) * D;
+      const float* g = d_wn + static_cast<size_t>(n) * D;
       for (int j = lane; j < D; j += 32) atomicAdd(w + j, (-lr * g[j]) / cnt_n);
     }
+  }
+}
+
+
+// a 16-byte vector reduction: four floats added at p (p 16-byte aligned)
+__device__ __forceinline__ void red4(float* p, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(p), v);
+}
+
+// four floats of a row added at column c of `row` (none beyond D): one
+// vector reduction where the row allows it, else one add a float
+__device__ __forceinline__ void add4(float* row, int c, int D, float4 v,
+                                     bool vec) {
+  if (vec) {
+    red4(row + c, v);
+    return;
+  }
+  if (c < D) atomicAdd(row + c, v.x);
+  if (c + 1 < D) atomicAdd(row + c + 1, v.y);
+  if (c + 2 < D) atomicAdd(row + c + 2, v.z);
+  if (c + 3 < D) atomicAdd(row + c + 3, v.w);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    sgns_conv_scatter_accumulate(const int* __restrict__ block,
+                                 const float* __restrict__ d_in,
+                                 const float* __restrict__ acc_out,
+                                 const int* __restrict__ cnt,
+                                 const float* __restrict__ d_wn,
+                                 const int* __restrict__ negs, int kB,
+                                 const int* __restrict__ valid, int nvalid,
+                                 float neg_weight, int N, int D,
+                                 float* acc_in_buf, float* acc_out_buf,
+                                 float* cnt_in_buf, float* cnt_out_buf) {
+  __shared__ int s_total;
+  const int G = (D + 3) / 4;              // a thread's four columns
+  const int neg_items = kB * G;   // the launch checks that items fit an int
+  const int items = neg_items + N * 2 * G;
+  const bool vec = D % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(d_in) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(acc_out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(d_wn) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(acc_in_buf) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(acc_out_buf) % 16 == 0;
+  const int first = blockIdx.x * blockDim.x;
+  const int stride = gridDim.x * blockDim.x;
+  float cnt_n = 1.f, scale = 0.f;
+  if (first < neg_items) {   // uniform in the block: it holds a negative
+    int v = 0;
+    for (int i = threadIdx.x; i < nvalid; i += blockDim.x) v += valid[i];
+    v = warp_sum(v);
+    if (threadIdx.x == 0) s_total = 0;
+    __syncthreads();
+    if ((threadIdx.x & 31) == 0 && v) atomicAdd(&s_total, v);
+    __syncthreads();
+    const float vsum = static_cast<float>(s_total) * neg_weight;
+    cnt_n = fmaxf(vsum, 1.f);
+    scale = vsum / cnt_n;
+  }
+  for (int i = first + threadIdx.x; i < items; i += stride) {
+    if (i < neg_items) {
+      const int n = i / G, c = 4 * (i - n * G);
+      float4 g = load4<false>(d_wn + static_cast<size_t>(n) * D, c, D, vec);
+      g.x *= scale, g.y *= scale, g.z *= scale, g.w *= scale;
+      const int row = negs[n];
+      add4(acc_out_buf + static_cast<size_t>(row) * D, c, D, g, vec);
+      if (c == 0) atomicAdd(cnt_out_buf + row, cnt_n);
+      continue;
+    }
+    const int r = i - neg_items, rest = r / G, c = 4 * (r - rest * G);
+    const int t = rest & 1, p = rest >> 1;
+    const int tok = block[p];
+    if (tok < 0) continue;   // padding
+    const int num = cnt[static_cast<size_t>(t) * N + p];
+    if (num == 0) continue;  // its row is exactly 0
+    const float4 v = load4<false>((t ? acc_out : d_in) +
+                                      static_cast<size_t>(p) * D, c, D, vec);
+    add4((t ? acc_out_buf : acc_in_buf) + static_cast<size_t>(tok) * D, c, D,
+         v, vec);
+    if (c == 0)
+      atomicAdd((t ? cnt_out_buf : cnt_in_buf) + tok, static_cast<float>(num));
   }
 }
 
@@ -534,19 +601,14 @@ extern "C" int srw_sgns_conv_accumulate_launch(
 // [N, D]; cnt [2, N]; d_wn [kB, D]; valid [nvalid] (kernel (a)'s counts);
 // part [2, N, ceil(D / 128) * 128] and unit_cnt [2, N] the split groups'
 // unit sums and counts; arrive [2, N, ceil(D / 128)] their counters, zero
-// before and after. Adds into w_in and w_out, or, through the accumulate
-// entry point, into the reduction buffer's acc_in, acc_out [V, D] and
-// cnt_in, cnt_out [V] (lr is not read). Returns the CUDA error of the
+// before and after. Adds into w_in and w_out. Returns the CUDA error of the
 // launch.
-namespace {
-
-int run_scatter(const void* block, const void* order, const void* units,
-                const void* d_in, const void* acc_out, const void* cnt,
-                const void* d_wn, const void* negs, int kB,
-                const void* valid, int nvalid, float neg_weight, float lr,
-                void* w_in, void* w_out, void* part, void* unit_cnt,
-                void* arrive, int N, int D, int blocks, Merge merge,
-                void* stream) {
+extern "C" int srw_sgns_conv_scatter_launch(
+    const void* block, const void* order, const void* units,
+    const void* d_in, const void* acc_out, const void* cnt, const void* d_wn,
+    const void* negs, int kB, const void* valid, int nvalid,
+    float neg_weight, float lr, void* w_in, void* w_out, void* part,
+    void* unit_cnt, void* arrive, int N, int D, int blocks, void* stream) {
   if (2 * N + kB <= 0) return 0;
   sgns_conv_scatter<<<blocks, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
@@ -557,37 +619,36 @@ int run_scatter(const void* block, const void* order, const void* units,
       static_cast<const int*>(valid), nvalid, neg_weight, lr,
       static_cast<float*>(w_in), static_cast<float*>(w_out),
       static_cast<float*>(part), static_cast<int*>(unit_cnt),
-      static_cast<int*>(arrive), N, D, merge);
+      static_cast<int*>(arrive), N, D);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int srw_sgns_conv_scatter_launch(
-    const void* block, const void* order, const void* units,
-    const void* d_in, const void* acc_out, const void* cnt, const void* d_wn,
-    const void* negs, int kB, const void* valid, int nvalid,
-    float neg_weight, float lr, void* w_in, void* w_out, void* part,
-    void* unit_cnt, void* arrive, int N, int D, int blocks, void* stream) {
-  return run_scatter(block, order, units, d_in, acc_out, cnt, d_wn, negs, kB,
-                     valid, nvalid, neg_weight, lr, w_in, w_out, part,
-                     unit_cnt, arrive, N, D, blocks, Merge{}, stream);
-}
-
+// Kernel (c): `blocks` blocks of kThreads over the kB * ceil(D / 4)
+// negatives' threads and the N * 2 * ceil(D / 4) positions' threads.
+// d_in = acc_in + d_neg [N, D]; acc_out [N, D]; cnt [2, N]; d_wn [kB, D];
+// valid [nvalid] (kernel (a)'s counts). Adds into
+// the reduction buffer's acc_in, acc_out [V, D] and cnt_in, cnt_out [V].
+// Returns the CUDA error of the launch.
 extern "C" int srw_sgns_conv_scatter_accumulate_launch(
-    const void* block, const void* order, const void* units,
-    const void* d_in, const void* acc_out, const void* cnt, const void* d_wn,
-    const void* negs, int kB, const void* valid, int nvalid,
-    float neg_weight, float lr, void* w_in, void* w_out, void* part,
-    void* unit_cnt, void* arrive, int N, int D, int blocks, void* acc_in,
-    void* acc_out_buf, void* cnt_in, void* cnt_out, void* stream) {
-  if (!acc_in || !acc_out_buf || !cnt_in || !cnt_out)
+    const void* block, const void* d_in, const void* acc_out,
+    const void* cnt, const void* d_wn, const void* negs, int kB,
+    const void* valid, int nvalid, float neg_weight, int N, int D,
+    int blocks, void* acc_in_buf, void* acc_out_buf, void* cnt_in_buf,
+    void* cnt_out_buf, void* stream) {
+  if (N + kB <= 0 || D <= 0) return 0;
+  const long long G = (D + 3) / 4;
+  if (blocks < 1 || kB < 0 || N < 0 ||
+      (kB + 2LL * N) * G +
+          static_cast<long long>(blocks) * kThreads > INT_MAX ||
+      !acc_in_buf || !acc_out_buf || !cnt_in_buf || !cnt_out_buf)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Merge merge{{static_cast<float*>(acc_in),
-                     static_cast<float*>(acc_out_buf)},
-                    {static_cast<float*>(cnt_in),
-                     static_cast<float*>(cnt_out)}};
-  return run_scatter(block, order, units, d_in, acc_out, cnt, d_wn, negs, kB,
-                     valid, nvalid, neg_weight, lr, w_in, w_out, part,
-                     unit_cnt, arrive, N, D, blocks, merge, stream);
+  sgns_conv_scatter_accumulate<<<blocks, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(block), static_cast<const float*>(d_in),
+      static_cast<const float*>(acc_out), static_cast<const int*>(cnt),
+      static_cast<const float*>(d_wn), static_cast<const int*>(negs), kB,
+      static_cast<const int*>(valid), nvalid, neg_weight, N, D,
+      static_cast<float*>(acc_in_buf), static_cast<float*>(acc_out_buf),
+      static_cast<float*>(cnt_in_buf), static_cast<float*>(cnt_out_buf));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,8 @@ two update forms, as in the JAX package:
     calls a block: its positive half and its scatter-mean with the update
     are csrc/sgns_conv.cu, its negative half is sgns_shared_grads
     (csrc/sgns_shared.cu); the corpus blocks' positions are grouped by token
-    once a run (ops/sgns_conv.py::group_blocks) for the scatter, once a
+    once a run (ops/sgns_conv.py::group_blocks) for the scatter (one device;
+    the data-parallel slots' accumulate mode needs no groups), once a
     round in every epoch when the corpus is streamed
     (train_skipgram_streaming: one walk round on the device at a time).
 On the CPU (device="cpu") the same steps run their plain versions:
@@ -148,8 +149,9 @@ def _train_epoch(w_in, w_out, slots, neg_keep, neg_alias, keys, lr_start,
     summed over the ranks when `reduce`) moves them. Each slot's draws are
     made a chunk of blocks at a time (one kernel launch on the card), all
     slots' chunks together within _DRAW_BUDGET. groups: group_blocks of
-    the slots' blocks as [S * n_blocks, B, T] for the conv step on the
-    card (made here if none is given)."""
+    the slots' blocks as [S * n_blocks, B, T] for the one-device conv step
+    on the card (made here if none is given; the accumulate mode reads
+    none)."""
     S, n_blocks, B, T = slots.shape
     per_block = (shared_negatives if shared_negatives
                  else B * T * 2 * window * negatives) + B * T
@@ -162,7 +164,7 @@ def _train_epoch(w_in, w_out, slots, neg_keep, neg_alias, keys, lr_start,
         ws = (ConvWorkspace(w_in, w_out, B, T, window, shared_negatives)
               if shared_negatives
               else Workspace(w_in, w_out, B * T, window, negatives))
-        if shared_negatives and groups is None:
+        if shared_negatives and groups is None and buf is None:
             groups = group_blocks(slots.reshape(S * n_blocks, B, T))
     for c0 in range(0, n_blocks, chunk):
         n = min(chunk, n_blocks - c0)
@@ -201,10 +203,12 @@ def _train(slots, vocab_size: int, cfg: SGNSConfig, neg_keep, neg_alias,
     (w_in, w_out) as numpy."""
     device = slots.device
     S, n_blocks, B, T = slots.shape
-    # the conv step's token groups: one sort of the slots' blocks a run, the
-    # same blocks for every epoch and a resumed start_epoch
+    # the one-device conv step's token groups: one sort of the blocks a
+    # run, the same blocks for every epoch and a resumed start_epoch (the
+    # data-parallel slots' accumulate mode reads none)
     groups = (group_blocks(slots.reshape(S * n_blocks, B, T))
-              if cfg.shared_negatives and device.type == "cuda" else None)
+              if cfg.shared_negatives and device.type == "cuda"
+              and first_slot is None else None)
     key = prng.prng_key(cfg.seed, device)
     if init is not None:
         w_in, w_out = params_from_numpy(init[0], init[1], device)

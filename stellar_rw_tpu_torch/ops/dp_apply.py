@@ -15,10 +15,15 @@ one all-reduce sums it across ranks: acc_in [V, D] | acc_out [V, D] |
 cnt_in [V] | cnt_out [V]. This module alone knows that layout: the
 kernels get the four arrays (buffer_ptrs) as pointers of their own.
 
-CUDA tensors launch csrc/dp_apply.cu (a warp a row, one pass that also
-zeroes the buffer); CPU tensors run dp_apply_ref, in the tables' dtype.
-Both round each operation once in the same order, so they agree bit for bit
-in float32.
+CUDA tensors launch csrc/dp_apply.cu, which reads the 2·V counts and
+moves, and zeroes, only the rows whose count is not 0 (sectors of 4 rows
+dealt to the warps in turn, launch_plan); CPU tensors run dp_apply_ref, the
+dense expression, in the tables' dtype. A row whose count is 0 has acc
+exactly 0 in every buffer the steps' accumulate modes fill (each gradient
+comes with a count), so the dense expression leaves it as it is too. Both
+round each operation once in the same order, so they agree bit for bit in
+float32 on such a buffer; on a buffer with acc not 0 at a count of 0 they
+differ (the kernel leaves that row and its acc).
 """
 
 from __future__ import annotations
@@ -32,11 +37,23 @@ from ._build import Kernel, ptr, require_cuda, stream
 from ._build import sm_count as _sms
 
 DP_APPLY = Kernel("dp_apply.cu", "srw_dp_apply_launch",
-                  [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                   + [ctypes.c_float] + [ctypes.c_int] + [ctypes.c_void_p])
 
-THREADS = 256            # kThreads in the source: 8 warps, a row each
-BLOCKS_PER_SM = 16       # the grid-stride loop's blocks an SM
+THREADS = 128            # kThreads in the source: 4 warps
+SECTOR = 4               # kSector: the rows of a lane's count load
+BLOCKS_PER_SM = 5        # kBlocksPerSm: the launch bounds' resident blocks
+H100_SMS = 132           # launch_plan's default; the wrapper asks the device
+
+
+def launch_plan(V: int, sm_count: int = H100_SMS) -> int:
+    """The blocks of csrc/dp_apply.cu for tables of V rows: a warp a
+    sector of SECTOR of the 2·V rows where one wave of resident blocks
+    (BLOCKS_PER_SM an SM) holds that many warps, else one wave, its warps
+    taking the sectors in turn."""
+    sectors = -(-2 * V // SECTOR)
+    return max(1, min(-(-sectors // (THREADS // 32)),
+                      BLOCKS_PER_SM * sm_count))
 
 
 def buffer_numel(V: int, D: int) -> int:
@@ -87,7 +104,8 @@ def dp_apply_ref(w_in, w_out, buffer, lr: float):
 
 def dp_apply(w_in, w_out, buffer, lr: float):
     """The merged update in place (see the module). CUDA tensors launch
-    csrc/dp_apply.cu; CPU tensors run dp_apply_ref."""
+    csrc/dp_apply.cu, which reads no row whose count is 0 (its acc must be
+    0, as every accumulate step leaves it); CPU tensors run dp_apply_ref."""
     if w_in.device.type == "cpu":
         return dp_apply_ref(w_in, w_out, buffer, lr)
     DP_APPLY.fn()
@@ -100,8 +118,9 @@ def dp_apply(w_in, w_out, buffer, lr: float):
             raise ValueError(f"dp_apply: {name} must be float32, got "
                              f"{t.dtype}")
     require_cuda("dp_apply", w_in, w_out, buffer)
-    blocks = max(1, min(-(-2 * V // (THREADS // 32)),
-                        BLOCKS_PER_SM * _sms(w_in.device)))
-    DP_APPLY.launch(ptr(w_in), ptr(w_out), *buffer_ptrs(buffer, V, D), V, D,
-                    f32_lr(lr), blocks, stream(w_in.device))
+    # the counts as one [2V] array: cnt_in, then cnt_out
+    acc_in, acc_out, cnt, _ = buffer_ptrs(buffer, V, D)
+    DP_APPLY.launch(ptr(w_in), ptr(w_out), acc_in, acc_out, cnt, V, D,
+                    f32_lr(lr), launch_plan(V, _sms(w_in.device)),
+                    stream(w_in.device))
     return w_in, w_out

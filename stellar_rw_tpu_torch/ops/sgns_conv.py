@@ -26,12 +26,15 @@ negatives), so they agree with the plain version to rounding.
 
 With `buffer` given (a reduction buffer, ops/dp_apply.py) the step runs in
 accumulate mode, one slot of the data-parallel trainer's merged update:
-the accumulate kernel and sgns_shared_grads run unchanged, and the scatter
-kernel, through its accumulate entry point, adds each token group's sum and
-count and each negative's weighted d_wn and cnt_n into the buffer, the
-negatives' counts merged with the context rows' as in the JAX package's
-psum'd step (stellar_rw_tpu/models/word2vec.py:475-484). The tables are not
-written. Its plain version is sgns_conv_accumulate_ref.
+the accumulate kernel and sgns_shared_grads run unchanged, and in place of
+the scatter-update csrc/sgns_conv.cu's scatter in accumulate mode adds each
+position's d_in and acc_out rows and counts into the buffer (no token
+groups: nothing is divided by a count here; a thread four columns of a
+position and table, one 16-byte vector reduction; a position whose count
+in a table is 0 adds nothing there), and each negative's weighted d_wn and
+cnt_n, the negatives' counts merged with the context rows' as in the JAX
+package's psum'd step (stellar_rw_tpu/models/word2vec.py:475-484). The
+tables are not written. Its plain version is sgns_conv_accumulate_ref.
 """
 
 from __future__ import annotations
@@ -58,13 +61,13 @@ SGNS_CONV_SCATTER = Kernel(
     [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p]
     + [ctypes.c_int] + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-# the scatter in accumulate mode: the same kernel, the merged update's
-# buffer as four more arguments (acc_in, acc_out, cnt_in, cnt_out)
+# the scatter in accumulate mode, a kernel of its own: into the merged
+# update's buffer (acc_in, acc_out, cnt_in, cnt_out), with no token groups
 SGNS_CONV_SCATTER_ACCUMULATE = Kernel(
     "sgns_conv.cu", "srw_sgns_conv_scatter_accumulate_launch",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p]
-    + [ctypes.c_int] + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 5
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p]
+    + [ctypes.c_int] + [ctypes.c_float] + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 5)
 
 THREADS = 256           # kThreads in the source
 H100_SMS = 132          # launch_plan's default; the wrapper asks the device
@@ -345,7 +348,7 @@ def sgns_conv_step(w_in, w_out, block, cwin, negs, lr: float,
     group_blocks (made here if none is given); CPU tensors run
     sgns_conv_step_ref. Any D. With `buffer` (the reduction buffer of
     ops/dp_apply.py) the step runs in accumulate mode: the tables stay, lr
-    is not read."""
+    and `groups` are not read."""
     if w_in.device.type == "cpu":
         if buffer is not None:
             return sgns_conv_accumulate_ref(w_in, w_out, block, cwin, negs,
@@ -365,16 +368,19 @@ def sgns_conv_step(w_in, w_out, block, cwin, negs, lr: float,
         if t.dtype != torch.int32:
             raise ValueError(f"sgns_conv_step: {name} must be int32, got "
                              f"{t.dtype}")
-    if groups is None:
-        g = group_blocks(block[None])
-        groups = (g.order[0], g.units[0])
-    order, units = groups
-    if order.shape != (B * T,) or units.shape != (B * T,):
-        raise ValueError(f"sgns_conv_step: groups of {tuple(order.shape)} "
-                         f"and {tuple(units.shape)} for a block {(B, T)}")
-    require_cuda("sgns_conv_step", w_in, w_out, block, cwin, negs, order,
-                 units)
-    if buffer is not None:
+    if buffer is None:
+        if groups is None:
+            g = group_blocks(block[None])
+            groups = (g.order[0], g.units[0])
+        order, units = groups
+        if order.shape != (B * T,) or units.shape != (B * T,):
+            raise ValueError(f"sgns_conv_step: groups of "
+                             f"{tuple(order.shape)} and "
+                             f"{tuple(units.shape)} for a block {(B, T)}")
+        require_cuda("sgns_conv_step", w_in, w_out, block, cwin, negs,
+                     order, units)
+    else:
+        require_cuda("sgns_conv_step", w_in, w_out, block, cwin, negs)
         check_buffer("sgns_conv_step", w_in, w_out, buffer)
     if ws is None:
         ws = ConvWorkspace(w_in, w_out, B, T, window, kB)
@@ -382,8 +388,11 @@ def sgns_conv_step(w_in, w_out, block, cwin, negs, lr: float,
         raise ValueError(f"sgns_conv_step: workspace for {ws.key}")
     launch_accumulate(ws, w_in, w_out, block, cwin, negs, window, neg_weight)
     launch_negative_half(ws)
-    launch_scatter(ws, w_in, w_out, block, order, units, negs, neg_weight, lr,
-                   buffer)
+    if buffer is None:
+        launch_scatter(ws, w_in, w_out, block, order, units, negs,
+                       neg_weight, lr)
+    else:
+        launch_scatter_accumulate(ws, block, negs, neg_weight, buffer)
     return w_in, w_out
 
 
@@ -407,23 +416,37 @@ def launch_negative_half(ws: ConvWorkspace) -> None:
 
 
 def launch_scatter(ws: ConvWorkspace, w_in, w_out, block, order, units,
-                   negs, neg_weight: float, lr: float, buffer=None) -> None:
+                   negs, neg_weight: float, lr: float) -> None:
     """The scatter-update kernel: each token group's d_in (acc_in + d_neg)
     and acc_out summed over its count and added into w_in and w_out, the
-    negatives' rows of w_out updated; with a checked `buffer`, its
-    accumulate entry point adds the sums and counts into the buffer."""
+    negatives' rows of w_out updated."""
     N, D = ws.d_in.shape
     kB = negs.shape[0]
     items = 2 * N * -(-D // 128) + kB   # a warp 128 columns of a unit, table
     blocks = max(1, min(APPLY_BLOCKS, -(-items // (THREADS // 32))))
-    args = (ptr(block), ptr(order), ptr(units), ptr(ws.d_in),
-            ptr(ws.acc_out), ptr(ws.cnt), ptr(ws.d_wn), ptr(negs), kB,
-            ptr(ws.valid), ws.valid.numel(), float(neg_weight), float(lr),
-            ptr(w_in), ptr(w_out), ptr(ws.unit_sums), ptr(ws.unit_counts),
-            ptr(ws.arrive), N, D, blocks)
-    if buffer is None:
-        SGNS_CONV_SCATTER.launch(*args, stream(w_out.device))
-    else:
-        SGNS_CONV_SCATTER_ACCUMULATE.launch(
-            *args, *buffer_ptrs(buffer, *w_in.shape),
-            stream(w_out.device))
+    SGNS_CONV_SCATTER.launch(
+        ptr(block), ptr(order), ptr(units), ptr(ws.d_in), ptr(ws.acc_out),
+        ptr(ws.cnt), ptr(ws.d_wn), ptr(negs), kB, ptr(ws.valid),
+        ws.valid.numel(), float(neg_weight), float(lr), ptr(w_in),
+        ptr(w_out), ptr(ws.unit_sums), ptr(ws.unit_counts), ptr(ws.arrive),
+        N, D, blocks, stream(w_out.device))
+
+
+def launch_scatter_accumulate(ws: ConvWorkspace, block, negs,
+                              neg_weight: float, buffer) -> None:
+    """The scatter in accumulate mode on a checked `buffer`: each
+    position's d_in (acc_in + d_neg) and acc_out rows and counts into the
+    buffer's acc_in, acc_out, cnt_in and cnt_out rows of its token, the
+    negatives' weighted d_wn and cnt_n into acc_out and cnt_out; a thread
+    four columns of a (position, table)."""
+    N, D = ws.d_in.shape
+    kB = negs.shape[0]
+    g = -(-D // 4)                      # a thread four columns
+    items = kB * g + N * 2 * g
+    blocks = max(1, min(APPLY_BLOCKS, -(-items // THREADS)))
+    V = ws.key[0][0]                    # the tables' rows
+    SGNS_CONV_SCATTER_ACCUMULATE.launch(
+        ptr(block), ptr(ws.d_in), ptr(ws.acc_out), ptr(ws.cnt),
+        ptr(ws.d_wn), ptr(negs), kB, ptr(ws.valid), ws.valid.numel(),
+        float(neg_weight), N, D, blocks, *buffer_ptrs(buffer, V, D),
+        stream(block.device))

@@ -342,46 +342,45 @@ def _exact_accumulate_np(w_in, w_out, block, cwin, negs, window, acc, cnt):
 
 
 def _conv_scatter_accumulate_np(block, d_in, acc_out, cnt_pos, d_wn, negs,
-                                nvalid, nw, acc, cnt, hub):
-    """csrc/sgns_conv.cu's scatter kernel in accumulate mode: each token
-    group's rows summed by units of `hub` positions in group order, the
-    unit sums in unit order, the sum added into acc[tok] and the count into
-    cnt[tok]; each negative's d_wn * (valid pairs * nw / cnt_n) into
-    acc_out and cnt_n into cnt_out."""
-    g = sgns_conv.group_blocks(torch.as_tensor(block)[None], hub)
-    order = g.order[0].numpy()
-    flat = block.reshape(-1)
-    tokens = flat[order]
-    for tok in np.unique(tokens[tokens >= 0]):
-        pos = order[tokens == tok]                # the group, in order
-        for t, src in ((0, d_in), (1, acc_out)):
-            row = np.zeros(src.shape[1], np.float32)
-            for u0 in range(0, len(pos), hub):
-                part = np.zeros(src.shape[1], np.float32)
-                for j in pos[u0:u0 + hub]:
-                    part = part + src[j]
-                row = row + part
-            total = int(cnt_pos[t][pos].sum())
-            if total == 0:
-                continue
-            acc[t][tok] += row
-            cnt[t][tok] += np.float32(total)
-    cnt_n = max(np.float32(nvalid) * np.float32(nw), np.float32(1))
-    scale = np.float32(nvalid) * np.float32(nw) / cnt_n
+                                nvalid, nw, acc, cnt):
+    """csrc/sgns_conv.cu's scatter in accumulate mode: each negative's
+    d_wn * (valid pairs * nw / cnt_n) into acc_out and cnt_n into cnt_out;
+    then each (position, table): a position at padding or with count 0 in
+    the table adds nothing, any other adds its row into acc[tok] and its
+    count into cnt[tok], each add rounded in float32."""
+    vsum = np.float32(nvalid) * np.float32(nw)
+    cnt_n = max(vsum, np.float32(1))
+    scale = np.float32(vsum / cnt_n)
     for n, row in enumerate(negs):
         acc[1][row] += d_wn[n] * scale
         cnt[1][row] += cnt_n
+    for p, tok in enumerate(block.reshape(-1)):
+        for t, src in ((0, d_in), (1, acc_out)):
+            if tok < 0 or cnt_pos[t][p] == 0:
+                continue
+            acc[t][tok] += src[p]
+            cnt[t][tok] += np.float32(cnt_pos[t][p])
 
 
-def _dp_apply_np(w_in, w_out, acc, cnt, lr):
-    """csrc/dp_apply.cu: (lr * acc) / max(cnt, 1), then the difference,
-    each rounded once in float32; the buffer zeroed."""
-    out = []
-    for w, a, c in zip((w_in, w_out), acc, cnt):
-        q = (np.float32(lr) * a) / np.maximum(c, np.float32(1))[:, None]
-        out.append((w - q).astype(np.float32))
-        a[:] = 0
-        c[:] = 0
+def _dp_apply_np(w_in, w_out, acc, cnt, lr, warps=3):
+    """csrc/dp_apply.cu on a grid of `warps` warps: the 2·V rows (acc_in's,
+    then acc_out's) in sectors of 4 dealt to the warps in turn; each row
+    whose count is not 0 moves by (lr * acc) / max(cnt, 1), then the
+    difference, each rounded once in float32, and its acc row and count are
+    zeroed. A row whose count is 0 is not read."""
+    out = [w_in.copy(), w_out.copy()]
+    rows = [(t, r) for t in (0, 1) for r in range(len(cnt[t]))]
+    sectors = -(-len(rows) // 4)
+    dealt = [s for w in range(warps) for s in range(w, sectors, warps)]
+    assert sorted(dealt) == list(range(sectors))
+    for sec in dealt:
+        for t, r in rows[4 * sec:4 * sec + 4]:
+            if cnt[t][r] == 0:
+                continue
+            q = (np.float32(lr) * acc[t][r]) / max(cnt[t][r], np.float32(1))
+            out[t][r] = (out[t][r] - q).astype(np.float32)
+            acc[t][r] = 0
+            cnt[t][r] = 0
     return out
 
 
@@ -420,7 +419,7 @@ def test_kernel_changes_transcribed_match_the_float64_step(form, own):
             _conv_scatter_accumulate_np(
                 blocks[s], d_in.numpy(), a_out.numpy(),
                 (vcnt, cnt_out_pos), d_wn.numpy(), negs[s], int(vf.sum()),
-                np.float32(k / kB), acc, cnt, hub=4)
+                np.float32(k / kB), acc, cnt)
         else:
             _exact_accumulate_np(w_in, w_out, blocks[s], cwin[s], negs[s],
                                  window, acc, cnt)
@@ -434,6 +433,211 @@ def test_kernel_changes_transcribed_match_the_float64_step(form, own):
     assert not any(a.any() for a in acc) and not any(c.any() for c in cnt)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+
+
+def _one_slot(tokens, form, V, B, T, window, kB, k, seed):
+    """One slot's block, windows and negatives: Zipf tokens, Zipf with the
+    block's own tokens among its negatives, or one token alone."""
+    blocks, cwin, negs = _slot_blocks(1, B, T, V, seed,
+                                      tokens == "own negatives", kB, k,
+                                      window)
+    if tokens == "one token":
+        blocks[blocks >= 0] = 3
+    return blocks[0], cwin[0], negs[0]
+
+
+def _jax_accumulators(form, w_in, w_out, block, valid, negs, window, kB, k,
+                      monkeypatch):
+    """The JAX package's psum'd step's dense accumulators (acc_in, cnt_in,
+    acc_out, cnt_out) for one slot: its psum taken as the identity and
+    recorded, the step run eagerly."""
+    seen = []
+
+    def psum(x, axis_name):
+        seen.append(np.asarray(x))
+        return x
+    monkeypatch.setattr(jax.lax, "psum", psum)
+    with jax.enable_x64(False):
+        if form == "conv":
+            jw2v._sgns_apply_shared_conv(
+                jnp.asarray(w_in), jnp.asarray(w_out), jnp.asarray(block),
+                jnp.asarray(valid), jnp.asarray(negs), LR,
+                neg_weight=k / kB, window=window, axis_name="dp")
+        else:
+            T = block.shape[1]
+            offs = np.concatenate([np.arange(-window, 0),
+                                   np.arange(1, window + 1)])
+            ctx = np.clip(np.arange(T)[:, None] + offs[None, :], 0, T - 1)
+            centers = np.broadcast_to(block[:, :, None], valid.shape)
+            jw2v._sgns_apply(jnp.asarray(w_in), jnp.asarray(w_out),
+                             jnp.asarray(centers.reshape(-1)),
+                             jnp.asarray(block[:, ctx].reshape(-1)),
+                             jnp.asarray(valid.reshape(-1)),
+                             jnp.asarray(negs), LR, axis_name="dp")
+    assert len(seen) == 4
+    return seen
+
+
+@pytest.mark.parametrize("form", ["exact", "conv"])
+@pytest.mark.parametrize("tokens", ["zipf", "own negatives", "one token"])
+def test_rows_with_count_zero_have_acc_zero(form, tokens, monkeypatch):
+    """What csrc/dp_apply.cu relies on to skip a row: in the JAX package's
+    psum'd step (its dense accumulators, x64 off) and in the port's
+    accumulate modes alike, every row whose count is 0 has acc exactly 0;
+    padding and windows leave such rows among the block's own tokens."""
+    V, D, B, T, window = 400, 8, 3, 14, 3
+    kB, k = (16, 5) if form == "conv" else (None, 3)
+    block, cwin, negs = _one_slot(tokens, form, V, B, T, window, kB, k, 5)
+    w_in, w_out = _tables(V, D, 5)
+    valid = sgns_exact._valid_from_cwin(torch.as_tensor(block),
+                                        torch.as_tensor(cwin), window)[0]
+    a_in, c_in, a_out, c_out = _jax_accumulators(
+        form, w_in, w_out, block, valid.numpy(), negs, window, kB, k,
+        monkeypatch)
+    buf = torch.zeros(da.buffer_numel(V, D))
+    args = (torch.tensor(w_in), torch.tensor(w_out), torch.as_tensor(block),
+            torch.as_tensor(cwin), torch.as_tensor(negs))
+    if kB:
+        sgns_conv.sgns_conv_accumulate_ref(*args, k / kB, window, buf)
+    else:
+        sgns_exact.sgns_exact_accumulate_ref(*args, window, buf)
+    p_in, p_out, q_in, q_out = (x.numpy() for x in da.buffer_views(buf, V, D))
+    for acc, cnt in ((a_in, c_in), (a_out, c_out), (p_in, q_in),
+                     (p_out, q_out)):
+        zero = cnt == 0
+        assert zero.any() and not zero.all()
+        assert (acc[zero] == 0).all()
+    np.testing.assert_array_equal(q_in, c_in)
+    np.testing.assert_array_equal(q_out, c_out)
+
+
+@pytest.mark.parametrize("form,V,D", [("exact", 300, 12), ("conv", 30, 12),
+                                      ("conv", 200, 5), ("exact", 650, 3)])
+def test_touched_rows_apply_is_dp_apply_ref(form, V, D):
+    """K13's transcription, which moves only the rows whose count is not 0
+    and never reads the others (their acc poisoned with NaN stays as it
+    was), bit for bit dp_apply_ref on buffers that two slots' plain
+    accumulate steps filled, and the buffer empty after it."""
+    B, T, window = 3, 16, 3
+    kB, k = (24, 5) if form == "conv" else (None, 2)
+    blocks, cwin, negs = _slot_blocks(2, B, T, V, V, True, kB, k, window)
+    w_in, w_out = _tables(V, D, V)
+    buf = torch.zeros(da.buffer_numel(V, D))
+    for s in range(2):
+        args = (torch.tensor(w_in), torch.tensor(w_out),
+                torch.as_tensor(blocks[s]), torch.as_tensor(cwin[s]),
+                torch.as_tensor(negs[s]))
+        if kB:
+            sgns_conv.sgns_conv_accumulate_ref(*args, k / kB, window, buf)
+        else:
+            sgns_exact.sgns_exact_accumulate_ref(*args, window, buf)
+    acc = [a.numpy().copy() for a in da.buffer_views(buf, V, D)[:2]]
+    cnt = [c.numpy().copy() for c in da.buffer_views(buf, V, D)[2:]]
+    untouched = [c == 0 for c in cnt]
+    assert all(u.any() and not u.all() for u in untouched)
+    for a, u in zip(acc, untouched):
+        a[u] = np.nan
+    ref_in, ref_out = torch.tensor(w_in), torch.tensor(w_out)
+    da.dp_apply_ref(ref_in, ref_out, buf, float(LR))
+    got = _dp_apply_np(w_in, w_out, acc, cnt, LR)
+    np.testing.assert_array_equal(got[0], ref_in.numpy())
+    np.testing.assert_array_equal(got[1], ref_out.numpy())
+    for a, c, u in zip(acc, cnt, untouched):
+        assert np.isnan(a[u]).all() and not a[~u].any() and not c.any()
+
+
+@pytest.mark.parametrize("where", ["acc_in", "acc_out"])
+def test_touched_rows_apply_needs_acc_zero_at_count_zero(where):
+    """K13's precondition pinned: on a buffer with acc not 0 at a row whose
+    count is 0 (which no accumulate step makes), dp_apply_ref moves that
+    row by lr * acc while the kernel's transcription leaves it, and its acc,
+    as they were; every other row agrees bit for bit."""
+    rng = np.random.default_rng(17)
+    V, D = 23, 6
+    w_in, w_out = _tables(V, D, 17)
+    acc = [rng.standard_normal((V, D)).astype(np.float32) for _ in range(2)]
+    cnt = [rng.integers(0, 3, V).astype(np.float32) for _ in range(2)]
+    for a, c in zip(acc, cnt):
+        a[c == 0] = 0
+    t = ("acc_in", "acc_out").index(where)
+    row = int(np.flatnonzero(cnt[t] == 0)[0])
+    acc[t][row] = 0.5
+    buf = torch.as_tensor(np.concatenate(
+        [acc[0].ravel(), acc[1].ravel(), cnt[0], cnt[1]]))
+    ref = (torch.tensor(w_in), torch.tensor(w_out))
+    da.dp_apply_ref(*ref, buf, float(LR))
+    got = _dp_apply_np(w_in, w_out, acc, cnt, LR)
+    differ = [np.flatnonzero((g != r.numpy()).any(-1))
+              for g, r in zip(got, ref)]
+    assert [list(d) for d in differ] == [[row] if s == t else []
+                                         for s in (0, 1)]
+    np.testing.assert_array_equal(got[t][row], (w_in, w_out)[t][row])
+    assert (acc[t][row] == 0.5).all() and not acc[1 - t].any()
+
+
+@pytest.mark.parametrize("D", [12, 13])
+@pytest.mark.parametrize("window", [1, 3])
+@pytest.mark.parametrize("tokens", ["zipf", "own negatives", "one token"])
+def test_scatter_accumulate_transcribed(tokens, window, D):
+    """The scatter in accumulate mode transcribed (a position and table at
+    a time, count-0 positions skipped) against the plain accumulate mode
+    in float64: counts equal, the merged update of its buffer within rtol
+    1e-5 atol 1e-6 of the float64 one (a float32 sum of a hub row's many
+    positions is further from float64 than that before it is divided by
+    its count), and acc exactly 0 where the count is 0."""
+    V, B, T, kB, k = 40, 3, 16, 24, 5
+    block, cwin, negs = _one_slot(tokens, "conv", V, B, T, window, kB, k, 9)
+    w_in, w_out = _tables(V, D, 9)
+    want = torch.zeros(da.buffer_numel(V, D), dtype=torch.float64)
+    sgns_conv.sgns_conv_accumulate_ref(
+        torch.tensor(w_in, dtype=torch.float64),
+        torch.tensor(w_out, dtype=torch.float64), torch.as_tensor(block),
+        torch.as_tensor(cwin), torch.as_tensor(negs), k / kB, window, want)
+    valid, _ = sgns_exact._valid_from_cwin(torch.as_tensor(block),
+                                           torch.as_tensor(cwin), window)
+    (_, _, d_in, a_out, _, _, d_wn, _, _) = sgns_conv._conv_grads(
+        torch.tensor(w_in), torch.tensor(w_out), torch.as_tensor(block),
+        valid, torch.as_tensor(negs), k / kB, window)
+    vf = valid.numpy()
+    vcnt = vf.sum(-1).reshape(-1)
+    cnt_out_pos = sum(sgns_conv._shift(torch.as_tensor(
+        vf[..., i].astype(np.int64)), -d).numpy()
+        for i, d in enumerate(sgns_exact._offsets(window))).reshape(-1)
+    acc = [np.zeros((V, D), np.float32) for _ in range(2)]
+    cnt = [np.zeros(V, np.float32) for _ in range(2)]
+    _conv_scatter_accumulate_np(block, d_in.numpy(), a_out.numpy(),
+                                (vcnt, cnt_out_pos), d_wn.numpy(), negs,
+                                int(vf.sum()), np.float32(k / kB), acc, cnt)
+    w = [x.numpy() for x in da.buffer_views(want, V, D)]
+    # the in-table counts are whole; cnt_out holds the negatives' fractional
+    # cnt_n, summed in float32
+    np.testing.assert_array_equal(cnt[0], w[2])
+    np.testing.assert_allclose(cnt[1], w[3], rtol=1e-6)
+    assert ((cnt[1] == 0) == (w[3] == 0)).all()
+    for t in (0, 1):
+        assert not acc[t][cnt[t] == 0].any()
+    moved = [torch.tensor(w, dtype=torch.float64) for w in (w_in, w_out)]
+    da.dp_apply_ref(*moved, torch.as_tensor(np.concatenate(
+        [acc[0].ravel(), acc[1].ravel(), cnt[0], cnt[1]])).double(),
+        float(LR))
+    ref = [torch.tensor(w, dtype=torch.float64) for w in (w_in, w_out)]
+    da.dp_apply_ref(*ref, want, float(LR))
+    for a, b in zip(moved, ref):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("V", [1, 3, 1001, 10_000, 1_000_000, 5_000_000])
+@pytest.mark.parametrize("sms", [132, 8])
+def test_dp_apply_launch_plan(V, sms):
+    """K13's grid: a warp a sector of SECTOR rows while one wave of
+    resident blocks holds that many warps, else that one wave; no block
+    without a sector."""
+    blocks = da.launch_plan(V, sms)
+    sectors = -(-2 * V // da.SECTOR)
+    warps = blocks * da.THREADS // 32
+    assert 1 <= blocks <= da.BLOCKS_PER_SM * sms
+    assert warps >= sectors or blocks == da.BLOCKS_PER_SM * sms
+    assert warps - da.THREADS // 32 < sectors
 
 
 def test_dp_apply_ref_is_the_jax_expression():
