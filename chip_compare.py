@@ -10,8 +10,9 @@ builds its own kernels into its own build/kernels/. At the main path's
 shapes of chip_smoke.py the script times, with chip_smoke's cuda_ms (CUDA
 events around launches queued behind a long product):
 
-  * sgns_shared_grads at (2624, 128, 128): plain, other, this, this, other,
-    plain;
+  * sgns_shared_grads at (2624, 128, 128) and at chip_smoke's SGNS_WIDE
+    (P 2624, kB 128, D 384, 512, 768, 1,025, 1,536): plain (f32, TF32
+    off), other, this, this, other, plain;
   * the walk kernel on the walk_10k graph (10 rounds, L = 80, p = q = 0.25):
     other, this, this, other, after checking the two corpora equal;
   * the trial-key table as each checkout's walk_corpus gets it: host wall
@@ -30,7 +31,8 @@ events around launches queued behind a long product):
     this, other, twice, each turn with a workspace and tables allocated for
     it;
   * the conv step's kernels on chip_smoke's phase-14 block (B 32, T 82,
-    w 10, kB 128, D 128, Zipf), each launch timed between CUDA events,
+    w 10, kB 128, Zipf) at D 128 and 768, each launch timed between CUDA
+    events,
     after checking the two checkouts' tables agree (rtol 1e-5, atol 1e-6):
     other, this, this, other, twice;
   * the exact-CDF walk kernel on phase 10's corpus (the walk_10k graph,
@@ -80,8 +82,8 @@ import subprocess
 import sys
 import time
 
-from chip_smoke import (HS_SHAPES, RESIDENT_SHAPES, SGNS_SHAPES, check,
-                        cuda_ms, hs_block, hs_corpus, regular_graph,
+from chip_smoke import (HS_SHAPES, RESIDENT_SHAPES, SGNS_SHAPES, SGNS_WIDE,
+                        check, cuda_ms, hs_block, hs_corpus, regular_graph,
                         synth_power_law_graph)
 
 
@@ -180,24 +182,27 @@ def main(argv: list[str]) -> int:
     this = load_package(root, "srw_this")
     other = load_package(other_root, "srw_other")
 
-    # sgns_shared_grads
-    P, D, kB = SGNS_SHAPES[0]
-    rng = np.random.default_rng(0)
-    t = lambda *s: torch.as_tensor(
-        (rng.standard_normal(s) * 0.3).astype(np.float32)).cuda()
-    vi, vo, wn = t(P, D), t(P, D), t(kB, D)
-    valid = torch.as_tensor(rng.random(P) > 0.3).cuda().float()
-    args = (vi, vo, wn, t(P) * valid, valid * 0.125)
-    fns = {"plain": lambda: this("ops.sgns").sgns_shared_grads_ref(*args),
-           "other": lambda: other("ops.sgns").sgns_shared_grads(*args),
-           "this": lambda: this("ops.sgns").sgns_shared_grads(*args)}
-    for a, b in zip(fns["this"](), fns["other"]()):
-        check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
-              "the two checkouts' sgns_shared_grads disagree")
+    # sgns_shared_grads at the main shape and at each D of the split form
     order = ("plain", "other", "this", "this", "other", "plain")
-    runs = [(name, cuda_ms(fns[name], 50)) for name in order]
-    print(json.dumps({"kernel": "sgns_shared_grads", "shape": [P, D, kB],
-                      "ms_in_turns": runs, "card": smi}))
+    for P, D, kB in [SGNS_SHAPES[0], *SGNS_WIDE]:
+        rng = np.random.default_rng(0)
+        t = lambda *s: torch.as_tensor(
+            (rng.standard_normal(s) * 0.3).astype(np.float32)).cuda()
+        vi, vo, wn = t(P, D), t(P, D), t(kB, D)
+        valid = torch.as_tensor(rng.random(P) > 0.3).cuda().float()
+        args = (vi, vo, wn, t(P) * valid, valid * 0.125)
+        fns = {"plain": lambda: this("ops.sgns").sgns_shared_grads_ref(*args),
+               "other": lambda: other("ops.sgns").sgns_shared_grads(*args),
+               "this": lambda: this("ops.sgns").sgns_shared_grads(*args)}
+        for a, b in zip(fns["this"](), fns["other"]()):
+            check(torch.allclose(a, b, rtol=1e-5, atol=1e-5),
+                  f"the two checkouts' sgns_shared_grads disagree at "
+                  f"{(P, D, kB)}")
+        runs = [(name, cuda_ms(fns[name], 50 if D == 128 else 20))
+                for name in order]
+        print(json.dumps({"kernel": "sgns_shared_grads",
+                          "shape": [P, D, kB], "ms_in_turns": runs,
+                          "card": smi}))
 
     # the walk kernel and its key table
     graph = synth_power_law_graph(10_000, 334_000, seed=0)
@@ -331,27 +336,27 @@ def main(argv: list[str]) -> int:
     # CUDA events
     from chip_smoke import CONV_SHAPES, conv_block
 
-    V, B, T, win, kB, D, tokens = CONV_SHAPES[0]
-    tables = conv_block(torch, V, B, T, win, kB, D, 0, tokens)
-    nw, lr = 5 / kB, 0.025
-    results = {}
-    for name, pkg in (("other", other), ("this", this)):
-        fns, moved = conv_step_fns(pkg, tables, win, lr, nw)
-        for fn in fns:
-            fn()
-        results[name] = moved
-    check(all(torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in
-              zip(results["this"], results["other"])),
-          "the two checkouts' conv steps disagree")
-    runs = [(name, cuda_ms_split(conv_step_fns(
-        {"other": other, "this": this}[name], tables, win, lr, nw)[0], 20))
-        for name in order + order]
-    print(json.dumps({"kernel": "the conv step's launches (this: "
-                      "accumulate, sgns_shared_grads, scatter-update; the "
-                      "delta-slot design: accumulate, sgns_shared_grads, "
-                      "scatter, apply)",
-                      "block": [B, T, win, kB, D],
-                      "ms_each_launch_in_turns": runs, "card": smi}))
+    for V, B, T, win, kB, D, tokens in (CONV_SHAPES[0], CONV_SHAPES[2]):
+        tables = conv_block(torch, V, B, T, win, kB, D, 0, tokens)
+        nw, lr = 5 / kB, 0.025
+        results = {}
+        for name, pkg in (("other", other), ("this", this)):
+            fns, moved = conv_step_fns(pkg, tables, win, lr, nw)
+            for fn in fns:
+                fn()
+            results[name] = moved
+        check(all(torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in
+                  zip(results["this"], results["other"])),
+              f"the two checkouts' conv steps disagree at D {D}")
+        runs = [(name, cuda_ms_split(conv_step_fns(
+            {"other": other, "this": this}[name], tables, win, lr, nw)[0],
+            20)) for name in order + order]
+        print(json.dumps({"kernel": "the conv step's launches (this: "
+                          "accumulate, sgns_shared_grads, scatter-update; "
+                          "the delta-slot design: accumulate, "
+                          "sgns_shared_grads, scatter, apply)",
+                          "block": [B, T, win, kB, D],
+                          "ms_each_launch_in_turns": runs, "card": smi}))
 
     # the exact-CDF walk kernel at phase 10's corpus
     V, R, L, p, q = graph.num_vertices, 10, 80, 0.0625, 4.0

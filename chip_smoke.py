@@ -151,9 +151,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # several tiles a block; the widest D; five chunks at the third width
 SGNS_SHAPES = [(2624, 128, 128), (300, 50, 37), (7, 128, 256),
                (20000, 128, 128), (1000, 512, 64), (100, 200, 300),
-               # above D = 512, in column slices: the conv step at D 768, a
-               # ragged odd D, three slices
-               (2624, 768, 128), (257, 1025, 70), (40, 1536, 256)]
+               # above D = 256, the split form: the conv step at D 768, a
+               # ragged odd D, two passes over the tiles
+               (2624, 768, 128), (257, 1025, 70), (40, 1536, 256),
+               # the conv step's call at D 384, 512, 1,025 and 1,536
+               (2624, 384, 128), (2624, 512, 128), (2624, 1025, 128),
+               (2624, 1536, 128)]
+# the split form's shapes phase 3 times (the conv step's block at each D)
+SGNS_WIDE = [(2624, 384, 128), (2624, 512, 128), (2624, 768, 128),
+             (2624, 1025, 128), (2624, 1536, 128)]
 # every trial mode of csrc/walk.cu: general, p == q == 1, q == 1
 WALK_PQ = [(0.25, 0.25), (1.0, 1.0), (1.0, 4.0), (4.0, 0.25), (0.5, 1.0)]
 # phase 7's 16-regular graphs: (vertices, numWalks). Rows in device memory;
@@ -539,7 +545,7 @@ def phase_sgns(torch) -> dict:
 
     rng = np.random.default_rng(0)
     err = 0.0
-    timing = {}
+    timing, wide = {}, {}
     for P, D, kB in SGNS_SHAPES:
         t = lambda *s: torch.as_tensor(
             (rng.standard_normal(s) * 0.3).astype(np.float32)).cuda()
@@ -560,34 +566,38 @@ def phase_sgns(torch) -> dict:
                   f"for one input at {(P, D, kB)}")
         kern = lambda: sgns.sgns_shared_grads(vi, vo, wn, g_pos, mask)
         plain = lambda: sgns.sgns_shared_grads_ref(vi, vo, wn, g_pos, mask)
-        if (P, D, kB) == (2624, 768, 128):     # the conv step at D 768
+        # three products of 2*P*kB*D flops in f32; each input read once,
+        # each output written once
+        nbytes = tensor_bytes(vi, vo, wn, g_pos, mask, *got)
+        flops = 3 * 2 * P * kB * D
+        if (P, D, kB) in SGNS_WIDE:
             runs = [cuda_ms(f, 20) for f in (plain, kern, kern, plain)]
-            b768 = bound(tensor_bytes(vi, vo, wn, g_pos, mask, *got),
-                         3 * 2 * P * kB * D, F32_FLOPS)
-            sliced = {"d768_ms": (runs[1] + runs[2]) / 2,
-                      "d768_plain_ms": (runs[0] + runs[3]) / 2,
-                      "d768_bound_ms": b768["bound_ms"],
-                      "d768_bound_by": b768["bound_by"]}
+            wide[D] = {"ms": (runs[1] + runs[2]) / 2,
+                       "plain_ms": (runs[0] + runs[3]) / 2,
+                       **bound(nbytes, flops, F32_FLOPS)}
         if (P, D, kB) == SGNS_SHAPES[0]:
             runs = [cuda_ms(f, 50) for f in (plain, kern, kern, plain)]
             timing = {"ms": (runs[1] + runs[2]) / 2,
                       "plain_ms": (runs[0] + runs[3]) / 2,
-                      # three products of 2*P*kB*D flops in f32; each input
-                      # read once, each output written once
-                      **bound(tensor_bytes(vi, vo, wn, g_pos, mask, *got),
-                              3 * 2 * P * kB * D, F32_FLOPS),
+                      **bound(nbytes, flops, F32_FLOPS),
                       "library_ms": None}
+    d768 = wide[768]
     print(f"phase 3 sgns_shared_grads: within rtol 1e-5 atol 1e-5 of the "
           f"plain f32 version at {SGNS_SHAPES}, max abs err {err:.3g}, two "
           f"calls bit-identical at each; plan at the main shape "
           f"{sgns.launch_plan(*SGNS_SHAPES[0])._asdict()}; at "
           f"{SGNS_SHAPES[0]} kernel {timing['ms']:.4f} ms, plain "
           f"{timing['plain_ms']:.4f} ms (CUDA events, mean of 2x50), bound "
-          f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}; at (2624, "
-          f"768, 128), three column slices: kernel {sliced['d768_ms']:.4f} "
-          f"ms, plain {sliced['d768_plain_ms']:.4f} ms (mean of 2x20), bound "
-          f"{sliced['d768_bound_ms']:.5f} ms by {sliced['d768_bound_by']}")
-    return {"max_abs_err": err, **timing, **sliced}
+          f"{timing['bound_ms']:.5f} ms by {timing['bound_by']}; the split "
+          f"form at (2624, D, 128) (mean of 2x20): " + "; ".join(
+              f"D {D} kernel {w['ms']:.4f} ms, plain {w['plain_ms']:.4f}, "
+              f"bound {w['bound_ms']:.5f} by {w['bound_by']}"
+              for D, w in wide.items()))
+    return {"max_abs_err": err, **timing, "d768_ms": d768["ms"],
+            "d768_plain_ms": d768["plain_ms"],
+            "d768_bound_ms": d768["bound_ms"],
+            "d768_bound_by": d768["bound_by"],
+            "wide_d": {str(D): w for D, w in wide.items()}}
 
 
 def phase_walk_main_shape(torch, graph, keys_kernel) -> tuple[dict, dict]:
@@ -771,8 +781,8 @@ def karate_gate(w_in, g) -> tuple[float, float]:
 
 def phase_quality(torch, tmp) -> dict:
     """Phase 5: the karate gate with shared negatives; `--sharedNegatives
-    128 --dim 768` on karate through the CLI (the shared-negative kernel in
-    column slices) and the same gate; the labeled synthetic graph's micro-F1
+    128 --dim 768` on karate through the CLI (the shared-negative kernel's
+    split form) and the same gate; the labeled synthetic graph's micro-F1
     gate (the JAX package's tests/test_datasets.py::
     test_quality_pipeline_small, on the card)."""
     from stellar_rw_tpu_torch import cli

@@ -294,7 +294,8 @@ class ConvWorkspace:
     with kB negatives: the accumulate kernel's outputs (ein, acc_in,
     acc_out [B*T, D], the negative half's mask and ones, the two counts,
     each block's valid pairs, wn [kB, D]), sgns_shared_grads' outputs (d_in
-    = its d_vi, d_vo [B*T, D], d_wn [kB, D]), partials' scratch and plan, so
+    = its d_vi [B*T, D], d_wn [kB, D]; its d_vo, which the step never
+    reads, is not written), partials' and g's scratch and plan, so
     that its call allocates nothing and asks the device nothing, and the
     scatter kernel's unit sums and counters of split groups. One serves
     every step of an epoch. `tiles` are the accumulate kernel's candidate
@@ -315,8 +316,10 @@ class ConvWorkspace:
                                  device=dev)
         self.wn = f(kB, D)
         self.shared_plan = sgns.launch_plan(N, D, kB, _sms(dev))
-        self.d_in, self.d_vo, self.d_wn = f(N, D), f(N, D), f(kB, D)
+        self.d_in, self.d_wn = f(N, D), f(kB, D)
         self.part = f(self.shared_plan.part_floats)
+        self.g = (f(self.shared_plan.g_floats) if self.shared_plan.g_floats
+                  else None)
         # a unit's sum a (table, unit) in 128-column chunks, its count; a
         # counter a (table, group's first unit, chunk), left at zero by each
         # step
@@ -412,7 +415,7 @@ def launch_negative_half(ws: ConvWorkspace) -> None:
     """sgns_shared_grads on ws's accumulations, into ws: d_in = acc_in +
     d_neg and d_wn."""
     sgns.launch_shared(ws.shared_plan, ws.ein, ws.acc_in, ws.wn, ws.ones,
-                       ws.mask, ws.d_in, ws.d_vo, ws.d_wn, ws.part)
+                       ws.mask, ws.d_in, None, ws.d_wn, ws.part, ws.g)
 
 
 def launch_scatter(ws: ConvWorkspace, w_in, w_out, block, order, units,

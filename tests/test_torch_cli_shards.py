@@ -90,7 +90,7 @@ def _dim768(karate_path, out, *extra):
 
 def test_shared_negatives_above_512_served_on_the_card(karate_path,
                                                        tmp_path):
-    """The shared-negative kernel serves any D (column slices above 512), so
+    """The shared-negative kernel serves any D (its split form above 256), so
     check_flags, which refuses before anything is loaded or written on the
     card as on the CPU, lets the pair of flags through, with exact
     negatives and for walks alone as before."""

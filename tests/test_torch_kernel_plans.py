@@ -87,6 +87,86 @@ def test_three_tf32_passes_meet_the_tolerance_one_does_not(shape):
     assert not np.allclose(one[2], want[2].numpy(), rtol=1e-5, atol=1e-5)
 
 
+def _split_form(vi, vo, wn, g_pos, mask):
+    """NumPy transcription of csrc/sgns_shared.cu's split form (D above
+    SPLIT_D) under launch_plan, each product through matmul_tf32 with the
+    kernel's split by cleared bits (tf32_trunc):
+    sgns_logits' grid of (tile, chunk of LOGIT_KC negatives) with each 64
+    columns' logits summed on their own and added in f32, g into a scratch
+    of whole tiles; sgns_grads over passes of GRAD_KB negatives: d_vi with
+    each 64 negatives summed on their own, a row group's d_wn partial as its
+    tiles' shares added in f32; reduce_partials' fixed order (strided parts
+    of RS = 8 groups, then the 8 sums in order)."""
+    P, D = vi.shape
+    kB = wn.shape[0]
+    plan = sgns.launch_plan(P, D, kB)
+    f32, tm, lt, kc = np.float32, sgns.GRAD_ROWS, sgns.LOGIT_ROWS, \
+        sgns.LOGIT_KC
+    mm = lambda a, b: sgns.matmul_tf32(a, b, split=sgns.tf32_trunc)
+    pad = lambda x, r, c: np.pad(x, ((0, r - x.shape[0]),
+                                     (0, c - x.shape[1])))
+    ldg = -(-kB // kc) * kc
+    rows = -(-P // lt) * lt
+    assert plan.g_floats == rows * ldg
+    # sgns_logits: the blocks of a chunk as a batch over tiles
+    vt = pad(vi, rows, D).reshape(-1, lt, D)
+    wp = pad(wn, ldg, D)
+    g = np.zeros((rows // lt, lt, ldg), f32)
+    for k0 in range(0, kB, kc):
+        lg = np.zeros((rows // lt, lt, kc), f32)
+        for c in range(0, D, 64):
+            lg += mm(vt[:, :, c:c + 64], wp[k0:k0 + kc, c:c + 64].T)
+        g[:, :, k0:k0 + kc] = 1 / (1 + np.exp(-lg))
+    g = g.reshape(rows, ldg) * pad(mask[:, None], rows, 1)
+    g[:, kB:] = 0
+    # sgns_grads: the row groups as a batch, their tiles in order
+    kb, groups = sgns.GRAD_KB, plan.groups
+    chunks = -(-kB // kb)
+    tpg = -(-plan.tiles // groups)
+    gr = groups * tpg * tm
+    gk = pad(g[:P], gr, chunks * kb)
+    wk = pad(wn, chunks * kb, D)
+    vg = pad(vi, gr, D).reshape(groups, tpg, tm, D)
+    part = np.zeros((groups, kB, D), f32)
+    d_vi = g_pos[:, None] * vo
+    for k0 in range(0, kB, kb):
+        acc = np.zeros((gr, D), f32)
+        for s in range(k0, k0 + kb, 64):
+            acc += mm(gk[:, s:s + 64], wk[s:s + 64])
+        d_vi = d_vi + acc[:P]
+        gt = gk[:, k0:k0 + kb].reshape(groups, tpg, tm, kb)
+        acc3 = np.zeros((groups, kb, D), f32)
+        for t in range(tpg):
+            acc3 += mm(gt[:, t].transpose(0, 2, 1), vg[:, t])
+        part[:, k0:k0 + kb] = acc3[:, :kB - k0]
+    # reduce_partials
+    strided = [np.zeros((kB, D), f32) for _ in range(8)]
+    for b in range(groups):
+        strided[b % 8] += part[b]
+    d_wn = strided[0]
+    for s in strided[1:]:
+        d_wn = d_wn + s
+    return d_vi, g_pos[:, None] * vi, d_wn
+
+
+@pytest.mark.parametrize("shape", [(2624, 768, 128), (257, 1025, 70),
+                                   (40, 1536, 256)])
+def test_split_form_transcription_meets_the_tolerance(shape):
+    """The split form's grid and arithmetic hold the plain f32 version and
+    float64 at the kernel's tolerance (rtol 1e-5, atol 1e-5) at the conv
+    step's call at D 768, a ragged odd D with kB no multiple of 16, and
+    two passes of the gradient kernel over a few rows."""
+    args = _sgns_inputs(*shape)
+    got = _split_form(*args)
+    want = sgns.sgns_shared_grads_ref(*(torch.as_tensor(a) for a in args))
+    exact = sgns.sgns_shared_grads_ref(
+        *(torch.as_tensor(a).double() for a in args))
+    for g, w, e in zip(got, want, exact):
+        assert g.dtype == np.float32
+        np.testing.assert_allclose(g, w.numpy(), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(g, e.numpy(), rtol=1e-5, atol=1e-5)
+
+
 # --- 2. the flat (step, trial) loop ---------------------------------------
 
 def _rotl(v, d):
@@ -255,31 +335,55 @@ def test_key_table_is_int32_bits_of_the_chain():
 
 # --- 3. launch plans -------------------------------------------------------
 
-@pytest.mark.parametrize("shape", SGNS_SHAPES + [(1, 1, 1), (5000, 512, 512),
-                                                 (31, 37, 129), (0, 128, 128)])
+@pytest.mark.parametrize("shape", SGNS_SHAPES + [
+    (1, 1, 1), (5000, 512, 512), (31, 37, 129), (0, 128, 128),
+    (2624, 768, 128), (257, 1025, 70), (40, 1536, 256), (0, 768, 4)])
 def test_sgns_launch_plan_fits_one_block(shape):
     P, D, kB = shape
     plan = sgns.launch_plan(P, D, kB)
-    assert plan.smem_bytes <= sgns.SMEM_LIMIT
-    assert plan.dp >= D and plan.dp % 32 == 0 and plan.kc % 32 == 0
-    assert plan.dp * plan.kc <= 64 * 256      # the partial's registers
-    assert plan.tiles * sgns.TILE_ROWS >= P > (plan.tiles - 1) * \
-        sgns.TILE_ROWS or P == 0
-    assert plan.blocks == min(plan.tiles, sgns.H100_SMS)
-    assert plan.chunks * plan.kc >= kB > (plan.chunks - 1) * plan.kc
-    assert plan.wn_placement == ("whole" if kB <= plan.kc else "chunks")
-    assert plan.part_floats == max(plan.blocks, 1) * kB * D
+    if D > sgns.SPLIT_D:
+        # the split form: sgns_grads in one wave of GRAD_BLOCKS_PER_SM
+        # blocks an SM, row groups of equal tiles, g's scratch whole tiles
+        # of every logits block
+        assert isinstance(plan, sgns.SplitPlan)
+        rows = sgns.GRAD_ROWS
+        assert plan.tiles * rows >= P > (plan.tiles - 1) * rows or P == 0
+        assert plan.slices == -(-D // sgns.SPLIT_SW)
+        assert plan.slices * plan.groups <= sgns.H100_SMS * \
+            sgns.GRAD_BLOCKS_PER_SM or plan.groups == 1
+        assert plan.groups <= plan.tiles and plan.partials == plan.groups
+        if plan.groups:
+            tpg = -(-plan.tiles // plan.groups)
+            assert (plan.groups - 1) * tpg < plan.tiles <= plan.groups * tpg
+        assert plan.part_floats == max(plan.groups, 1) * kB * D
+        lrows = -(-P // sgns.LOGIT_ROWS) * sgns.LOGIT_ROWS
+        assert plan.g_floats == lrows * -(-kB // sgns.LOGIT_KC) * \
+            sgns.LOGIT_KC
+    else:
+        assert isinstance(plan, sgns.LaunchPlan)
+        assert plan.smem_bytes <= sgns.SMEM_LIMIT
+        assert plan.chunks * plan.kc >= kB > (plan.chunks - 1) * plan.kc
+        assert plan.wn_placement == ("whole" if kB <= plan.kc else "chunks")
+        assert plan.dp >= D and plan.dp % 32 == 0 and plan.kc % 32 == 0
+        assert plan.dp * plan.kc <= 64 * 256  # the partial's registers
+        assert plan.tiles * sgns.TILE_ROWS >= P > (plan.tiles - 1) * \
+            sgns.TILE_ROWS or P == 0
+        assert plan.blocks == min(plan.tiles, sgns.H100_SMS) == plan.partials
+        assert plan.part_floats == max(plan.blocks, 1) * kB * D
+        assert plan.g_floats == 0
 
 
 def test_sgns_launch_plan_at_the_main_shape():
     plan = sgns.launch_plan(2624, 128, 128)
-    assert plan == sgns.LaunchPlan(dp=128, kc=128, presplit=True, chunks=1,
-                                   tiles=82, blocks=82, smem_bytes=202_752,
+    assert plan == sgns.LaunchPlan(dp=128, kc=128, chunks=1, tiles=82,
+                                   blocks=82, smem_bytes=202_752,
                                    wn_placement="whole",
                                    part_floats=82 * 128 * 128)
     assert sgns.launch_plan(20000, 128, 128).blocks == 132
-    assert sgns.launch_plan(1000, 512, 64) == sgns.LaunchPlan(
-        512, 32, False, 2, 32, 32, 136_704, "chunks", 32 * 64 * 512)
+    # D 512 runs the split form: 8 slices x 32 groups of one tile
+    assert sgns.launch_plan(1000, 512, 64) == sgns.SplitPlan(
+        tiles=32, slices=8, groups=32, part_floats=32 * 64 * 512,
+        g_floats=1024 * 64)
 
 
 @pytest.mark.parametrize("shape", [(8, 0, 4), (-1, 513, 4), (8, 4, 0)])
@@ -288,37 +392,66 @@ def test_sgns_launch_plan_refuses(shape):
         sgns.launch_plan(*shape)
 
 
-@pytest.mark.parametrize("D,slices", [(513, 3), (768, 3), (1024, 4),
-                                      (1536, 6), (3000, 12)])
+@pytest.mark.parametrize("D,slices", [(257, 5), (384, 6), (512, 8), (513, 9),
+                                      (768, 12), (1024, 16), (1536, 24),
+                                      (3000, 47)])
 def test_sgns_launch_plan_slices_any_dim(D, slices):
-    """Above D = 512 the kernel runs its tiles over column slices of 256
-    with 64 negatives a chunk (sgns_shared_sliced): f32 tiles, a d_wn
-    partial of 64 floats a thread, any D."""
+    """Above D = 256 the split form serves any D: sgns_grads cuts D into
+    slices of 64 columns and the rows into groups so that its grid is one
+    wave of two blocks an SM (the conv step's call at D 768: 12 slices x
+    21 groups of 4 tiles)."""
     for P, kB in ((2624, 128), (7, 256), (1, 1)):
         plan = sgns.launch_plan(P, D, kB)
-        assert (plan.dp, plan.kc, plan.presplit) == sgns.SLICED
-        assert plan.slices == slices and plan.slices * plan.dp >= D
-        assert plan.smem_bytes == 4 * ((32 + 64) * 260 + 32 * 68)
-        assert plan.smem_bytes <= sgns.SMEM_LIMIT
-        assert plan.dp * plan.kc <= 64 * 256
-        assert plan.chunks == -(-kB // 64)
-        assert plan.part_floats == plan.blocks * kB * D
-    assert sgns.launch_plan(2624, 768, 128) == sgns.LaunchPlan(
-        256, 64, False, 2, 82, 82, 108_544, "chunks", 82 * 128 * 768, 3)
-    assert all(sgns.launch_plan(100, D, 64).slices == 1 for D in (1, 64, 512))
+        assert isinstance(plan, sgns.SplitPlan)
+        assert plan.slices == slices and plan.slices * 64 >= D
+        assert plan.part_floats == plan.partials * kB * D
+        assert plan.slices * plan.groups <= 264 or plan.groups == 1
+    assert sgns.launch_plan(2624, 768, 128) == sgns.SplitPlan(
+        82, 12, 21, 21 * 128 * 768, 2624 * 128)
+    assert all(isinstance(sgns.launch_plan(100, D, 64), sgns.LaunchPlan)
+               for D in (1, 64, 256))
 
 
-SGNS_EDITS = {**chip_sgns_parts.VARIANTS, **chip_sgns_parts.SLICED}
+# csrc/sgns_shared.cu's constexpr -> ops/sgns.py's mirror of it: launch_plan
+# sizes g's scratch and the row groups by these, and the C entry trusts them
+SGNS_MIRRORED = {"TM": "TILE_ROWS", "SPLIT_D": "SPLIT_D", "LTM": "LOGIT_ROWS",
+                 "LKC": "LOGIT_KC", "GTM": "GRAD_ROWS", "GSW": "SPLIT_SW",
+                 "GKB": "GRAD_KB", "GMINB": "GRAD_BLOCKS_PER_SM"}
 
 
-@pytest.mark.parametrize("name", [n for n, edit in SGNS_EDITS.items()
-                                  if edit])
+@pytest.mark.parametrize("name", list(chip_sgns_parts.SPLIT))
+def test_sgns_constants_mirror_the_source(name):
+    """Each constant ops/sgns.py mirrors is the source's, in the base and
+    in every design of the split form that chip_sgns_parts.py builds (its
+    edits of the source beside its changes of the plan's constants)."""
+    source = (_build.CSRC / sgns.SGNS_KERNEL.source).read_text()
+    edits, changes = chip_sgns_parts.SPLIT[name]
+    for old, new in edits:
+        source = source.replace(old, new)
+    assert set(changes) - {"sms"} <= set(SGNS_MIRRORED.values())
+    for c, py in SGNS_MIRRORED.items():
+        value = changes.get(py, getattr(sgns, py))
+        assert source.count(f"constexpr int {c} = ") == 1
+        assert f"constexpr int {c} = {value};" in source, (c, py)
+
+
+# each variant's (piece, replacement) pairs: a part taken out of the tile
+# kernel or of the split form, or a design of the split form
+SGNS_EDITS = {
+    **{name: [edit] for name, edit in chip_sgns_parts.VARIANTS.items()
+       if edit},
+    **{name: list(edits) for name, (edits, _) in
+       chip_sgns_parts.SPLIT.items() if edits},
+    **{name: [edit] for name, edit in chip_sgns_parts.SPLIT_PARTS.items()}}
+
+
+@pytest.mark.parametrize("name", list(SGNS_EDITS))
 def test_sgns_parts_variant_edits_the_source_once(name):
     """chip_sgns_parts.py patches the kernel by text: each piece must occur
     exactly once in csrc/sgns_shared.cu, and its replacement must differ."""
-    old, new = SGNS_EDITS[name]
     source = (_build.CSRC / sgns.SGNS_KERNEL.source).read_text()
-    assert source.count(old) == 1 and new != old
+    for old, new in SGNS_EDITS[name]:
+        assert source.count(old) == 1 and new != old
 
 
 @pytest.mark.parametrize("D", [32, 128, 512, 768, 1024, 3000])

@@ -34,6 +34,8 @@ def _inputs(P, D, kB, seed=0):
     (300, 50, 37, 256),
     (7, 128, 256, 512),
     (2624, 128, 128, 512),   # the slice's conv block: 32 walks x 82
+    (70, 768, 40, 128),      # above D 256, where the split form serves
+    (33, 1025, 70, 64),      # an odd D, kB no multiple of 16
 ])
 def test_sgns_ref_matches_pallas_kernel(P, D, kB, tile):
     args = _inputs(P, D, kB)
