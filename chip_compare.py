@@ -65,7 +65,12 @@ events around launches queued behind a long product):
     token), each checkout's merged update held to the float64 plain one,
     and K13 on chip_smoke's fills a-c (V 10,000 and 1,000,000 from two
     slots' steps, and every count nonzero), the two checkouts' tables bit
-    for bit: other, this, this, other, back to back.
+    for bit: other, this, this, other, back to back;
+  * the exact form's merged update of phase 21's two slots
+    (compare_dp_exact): this checkout's launches against the other's, each
+    merged update held to the float64 plain one first, and the accumulate
+    launch over one slot: other, this, this, other, twice, between CUDA
+    events.
 
 One JSON object a line, the card's name and power limit in each. Needs a
 CUDA device; imports nothing of JAX.
@@ -442,6 +447,7 @@ def main(argv: list[str]) -> int:
     compare_spmm(torch, np, this, other, graph, order, smi)
     compare_hs(torch, this, other, order, smi)
     compare_dp(torch, this, other, order, smi)
+    compare_dp_exact(torch, this, other, order, smi)
     return 0
 
 
@@ -620,6 +626,71 @@ def compare_dp(torch, this, other, order, smi) -> None:
                           "card": smi}))
         del w_in, w_out, fill
         torch.cuda.empty_cache()
+
+
+def compare_dp_exact(torch, this, other, order, smi) -> None:
+    """The exact form's merged update of chip_smoke phase 21's two Zipf
+    slots (B 16, T 82, w 10, k 5, D 128): this checkout's one launch over
+    both slots against the other's accumulate path (a slot's accumulate
+    launch each into the reduction buffer, then K13), each held first to
+    the plain merged update in float64 (rtol 1e-5, atol 1e-6); then the
+    accumulate launch over one slot (the ranks' case) of each checkout.
+    Each launch between CUDA events, in turns, each turn on tables, a
+    workspace and a buffer of its own."""
+    from chip_smoke import cuda_ms_split, dp_slots
+
+    lr = 0.025
+    (w_in, w_out), slots, (V, B, T, win, k, _) = dp_slots(
+        torch, "exact", 128, ("zipf", "zipf"), 0)
+    stacked = [torch.stack(x) for x in zip(*slots)]
+    se, da = this("ops.sgns_exact"), this("ops.dp_apply")
+    want = (w_in.double(), w_out.double())
+    se.sgns_exact_merged_ref(*want, *stacked, lr, win)
+
+    def merged(pkg, name, accumulate_only=False):
+        """A turn's launches: this checkout's one merged launch, or the
+        other's accumulate launch a slot and K13."""
+        se, da = pkg("ops.sgns_exact"), pkg("ops.dp_apply")
+        t = (w_in.clone(), w_out.clone())
+        buf = torch.zeros(da.buffer_numel(V, 128), device="cuda")
+        if accumulate_only:
+            ws = se.Workspace(*t, B * T, win, k)
+            return (lambda: se.launch_step(ws, *t, *slots[0], win, lr,
+                                           buffer=buf),), t
+        if name == "this":
+            ws = se.Workspace(*t, 2 * B * T, win, k)
+            return (lambda: se.launch_step(ws, *t, *stacked, win, lr),), t
+        ws = se.Workspace(*t, B * T, win, k)
+        return tuple(
+            (lambda slot=slot: se.launch_step(ws, *t, *slot, win, lr,
+                                              buffer=buf))
+            for slot in slots) + (lambda: da.dp_apply(*t, buf, lr),), t
+
+    pkgs = {"other": other, "this": this}
+    for name, pkg in pkgs.items():
+        fns, t = merged(pkg, name)
+        for fn in fns:
+            fn()
+        err = max(float((a.double() - b).abs().max())
+                  for a, b in zip(t, want))
+        check(all(torch.allclose(a.double(), b, rtol=1e-5, atol=1e-6)
+                  for a, b in zip(t, want)),
+              f"{name}'s exact merged update misses the float64 one: {err:.3g}")
+    runs = [(name, cuda_ms_split(merged(pkgs[name], name)[0], 20))
+            for name in order + order]
+    print(json.dumps({"kernel": "the exact form's merged update (this: one "
+                      "sgns_exact merged launch over both slots; other: "
+                      "sgns_exact accumulate a slot, then dp_apply)",
+                      "slots": 2, "block": [B, T, win, k, 128],
+                      "ms_each_launch_in_turns": runs,
+                      "ms_a_merged_update_in_turns": [(n, sum(t))
+                                                      for n, t in runs],
+                      "card": smi}))
+    runs = [(name, cuda_ms_split(merged(pkgs[name], name, True)[0], 20)[0])
+            for name in order + order]
+    print(json.dumps({"kernel": "sgns_exact accumulate over one slot",
+                      "block": [B, T, win, k, 128], "ms_in_turns": runs,
+                      "card": smi}))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the exact-negative step's time goes on one GPU: the kernel source
 with one part changed at a time, and other launch plans, on blocks that
-differ in one input at a time.
+differ in one input at a time; then the merged update of S slots.
 
     python3 chip_sgns_exact_parts.py
 
@@ -11,9 +11,17 @@ is kept beside the kernel), built under build/ of the checkout. A variant
 that keeps the design computes the same step and is held to the plain step
 in float64 (rtol 1e-5, atol 1e-6, as chip_smoke's phase 11 holds the
 kernels) before it is timed; one with a part taken out gives wrong tables
-by design, and only its time is read. Each other launch plan's tables are
-held likewise, and whether they keep the tolerance, with their largest
-error, is printed beside its time; a plan the card refuses as a
+by design, and only its time is read. A variant whose launch the card
+refuses (the ring of 3 stages of 6 rows at D 128 asks for more shared
+memory than two blocks an SM have) is printed as refused, with its CUDA
+error. The ring variants (RING_VARIANTS) are the source with
+chip_sgns_exact_ring.cu appended, a design measured slower: the target
+rows of the group kStages ahead copied into a ring in shared memory, by
+cp.async or cp.async.bulk, at 1, 2 and 3 stages and groups of 3 and 6
+targets, launched through its own entry points (rows wider than D 128 run
+the source's step); the base is the ring taken out. Each other launch
+plan's tables are held likewise, and whether they keep the tolerance,
+with their largest error, is printed beside its time; a plan the card refuses as a
 cooperative launch (more blocks than can be resident) is printed as
 refused, with its CUDA error.
 
@@ -27,14 +35,19 @@ CUDA events (chip_smoke's cuda_ms_split), each followed by torch ops that
 empty the workspace (not counted: a variant without the update leaves it
 full), every variant twice, in turns. A
 corpus block's line also gives its most frequent row's share of the
-block's center and target row adds. One JSON object a line, the card's name
-and power limit in each, and ptxas' registers of every variant. Needs a
-CUDA device; imports nothing of JAX.
+block's center and target row adds. Last, the merged update of S = 1, 2
+and 4 slots of B = 32, 16 and 8 rows (the same positions; Zipf blocks, D
+128) as one launch of the source and of the cp.async ring variant, and
+each in accumulate mode into a reduction buffer, held to the plain
+merged update in float64 first, in turns. One JSON object a line, the
+card's name and power limit in each, and ptxas' registers of every
+variant. Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -82,7 +95,7 @@ VARIANTS = {
          "  for (int base = warp * 32; base < slots && D < 0; "
          "base += nwarps * 32) {")],
     "taken out: the target adds": [
-        ("            add_row<NV>(tab, dpad, s, 1, dst[g], c0, D, lane, v);",
+        ("          add_row<NV>(tab, dpad, s, 1, dst[g], c0, D, lane, v);",
          "")],
     "the gradient phase alone (no update; the counts' barrier kept)": [
         ("  cg::this_grid().sync();\n  apply_slots(w_in, w_out, s, D, lr);",
@@ -101,6 +114,25 @@ VARIANTS = {
         (old, new.replace("      __threadfence();\n", "")
          .replace("    __threadfence();\n", ""))
         for old, new in ARRIVAL],
+}
+RING_SOURCE = "chip_sgns_exact_ring.cu"
+# its entry points: the step's and the accumulate mode's, with their
+# arguments
+RING_SYMBOLS = ("srw_sgns_exact_ring_step_launch",
+                "srw_sgns_exact_ring_accumulate_launch")
+STAGES_3 = ("constexpr int kStages = 2;", "constexpr int kStages = 3;")
+GROUP_6 = ("constexpr int kGroup = 3;", "constexpr int kGroup = 6;")
+# name -> [(text in the source with RING_SOURCE appended, its
+# replacement), ...]
+RING_VARIANTS = {
+    "the ring: rows a group ahead by cp.async, 2 stages": [],
+    "the ring, 1 stage": [
+        ("constexpr int kStages = 2;", "constexpr int kStages = 1;")],
+    "the ring, 3 stages": [STAGES_3],
+    "the ring, kGroup 6": [GROUP_6],
+    "the ring, 3 stages, kGroup 6": [STAGES_3, GROUP_6],
+    "the ring by cp.async.bulk on an mbarrier, 2 stages": [
+        ("constexpr bool kBulk = false;", "constexpr bool kBulk = true;")],
 }
 # variants whose tables are wrong by design (their time alone is read)
 WRONG_BY_DESIGN = {"taken out: the table's atomics (racy plain adds)",
@@ -166,6 +198,25 @@ def corpus_block(torch, name: str, index: int, D: int, seed: int = 0):
     return (w(), w(), block, cwin, negs), shares
 
 
+def ring_text(edits) -> str:
+    """csrc/sgns_exact.cu with RING_SOURCE appended, `edits` applied."""
+    from stellar_rw_tpu_torch.ops import _build as build
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           RING_SOURCE)) as f:
+        ring = f.read()
+    return edited((build.CSRC / "sgns_exact.cu").read_text() + "\n" + ring,
+                  edits)
+
+
+def ring_kernel(index: int, symbol: str, argtypes):
+    """Entry point `symbol` of ring variant `index` (RING_VARIANTS'
+    order)."""
+    return source_kernel(f"ring_{index}",
+                         ring_text(list(RING_VARIANTS.values())[index]),
+                         symbol, argtypes, "sgns_exact_parts")
+
+
 def main() -> int:
     import torch
 
@@ -187,6 +238,9 @@ def main() -> int:
                                    se.SGNS_EXACT_STEP.argtypes,
                                    "sgns_exact_parts")
                for i, (name, edits) in enumerate(VARIANTS.items())}
+    kernels.update({name: ring_kernel(i, RING_SYMBOLS[0],
+                                      se.SGNS_EXACT_STEP.argtypes)
+                    for i, name in enumerate(RING_VARIANTS)})
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(lambda k: k.fn(), kernels.values()))
     for name, k in kernels.items():
@@ -245,17 +299,22 @@ def main() -> int:
             return all(torch.allclose(a.double(), b, rtol=1e-5, atol=1e-6)
                        for a, b in zip(tables, want))
 
-        errors = {}
+        errors, refused = {}, set()
         for name, k in kernels.items():
             if name in WRONG_BY_DESIGN:
                 continue
-            got = one_step(k)
+            try:
+                got = one_step(k)
+            except build.KernelLaunchError as e:
+                errors[name] = f"refused: {e}"
+                refused.add(name)
+                continue
             errors[name] = [held(got), err(got)]
             check(errors[name][0], f"variant {name!r} misses the float64 "
                   f"step ({tokens}, D {D})")
             check(workspace_empty(torch, ws), f"variant {name!r} left the "
                   f"workspace dirty ({tokens}, D {D})")
-        names = list(kernels)
+        names = [name for name in kernels if name not in refused]
         turns = {name: [] for name in names}
         for name in names + names[::-1]:
             step, empty, _ = step_fns(kernels[name])
@@ -291,7 +350,75 @@ def main() -> int:
             plans[label] = [plan._asdict(), held(got), err(got),
                             cuda_ms_split((step, empty), 20)[0]]
         say(**case, step_ms_by_plan=plans)
+    merged_slots(torch, se, say)
     return 0
+
+
+def merged_slots(torch, se, say) -> None:
+    """The merged update of S = 1, 2, 4 slots of B = 32, 16, 8 rows (Zipf
+    blocks of the phase-11 shape, D 128) as one launch, and in accumulate
+    mode into a reduction buffer, by the source and by the cp.async ring
+    variant: held to the plain merged update in float64 (rtol 1e-5, atol
+    1e-6; the accumulate mode's buffer applied in float64), then timed
+    between CUDA events in turns."""
+    from stellar_rw_tpu_torch.ops import dp_apply as da
+
+    ring = list(RING_VARIANTS)[0]
+    pairs = {"base": (se.SGNS_EXACT_MERGED, se.SGNS_EXACT_ACCUMULATE),
+             ring: tuple(ring_kernel(0, symbol, k.argtypes)
+                         for symbol, k in zip(RING_SYMBOLS, (
+                             se.SGNS_EXACT_MERGED,
+                             se.SGNS_EXACT_ACCUMULATE)))}
+    normal = pairs["base"]
+    D = 128
+    for S, Bs in ((1, 32), (2, 16), (4, 8)):
+        parts = [exact_block(torch, V, Bs, T, WIN, K, D, seed=s)
+                 for s in range(S)]
+        w_in, w_out = parts[0][:2]
+        slots = [torch.stack([p[i] for p in parts]) for i in (2, 3, 4)]
+        want = (w_in.double(), w_out.double())
+        se.sgns_exact_merged_ref(*want, *slots, LR, WIN)
+        ws = se.Workspace(w_in, w_out, S * Bs * T, WIN, K)
+        buf = torch.zeros(da.buffer_numel(V, D), device="cuda")
+
+        def with_pair(pair, fn):
+            def run():
+                se.SGNS_EXACT_MERGED, se.SGNS_EXACT_ACCUMULATE = pair
+                try:
+                    fn()
+                finally:
+                    se.SGNS_EXACT_MERGED, se.SGNS_EXACT_ACCUMULATE = normal
+            return run
+        fns, errors = {}, {}
+        for name, pair in pairs.items():
+            t = (w_in.clone(), w_out.clone())
+            with_pair(pair, lambda: se.launch_step(ws, *t, *slots, WIN,
+                                                   LR))()
+            got = (w_in.double(), w_out.double())
+            with_pair(pair, lambda: se.launch_step(ws, w_in, w_out, *slots,
+                                                   WIN, LR, buffer=buf))()
+            da.dp_apply_ref(*got, buf.double(), LR)
+            buf.zero_()
+            torch.cuda.synchronize()
+            for label, tables in (("merged", t), ("accumulate", got)):
+                e = max(float((a.double() - b).abs().max())
+                        for a, b in zip(tables, want))
+                check(all(torch.allclose(a.double(), b, rtol=1e-5, atol=1e-6)
+                          for a, b in zip(tables, want))
+                      and workspace_empty(torch, ws),
+                      f"{name} {label} misses the float64 merged update at "
+                      f"S {S}: {e:.3g}")
+                errors[f"{name}: {label}"] = e
+            fns[f"{name}: merged"] = with_pair(
+                pair, lambda t=t: se.launch_step(ws, *t, *slots, WIN, LR))
+            fns[f"{name}: accumulate"] = with_pair(
+                pair, lambda: se.launch_step(ws, w_in, w_out, *slots, WIN,
+                                             LR, buffer=buf))
+        names = list(fns)
+        turns = {name: [] for name in names}
+        for name in names + names[::-1]:
+            turns[name].append(cuda_ms_split((fns[name],), 20)[0])
+        say(slots=S, B=Bs, D=D, max_abs_err=errors, ms_in_turns=turns)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process for
 each of the ten sources, in parallel; walk.cu holds two kernels,
 sgns_conv.cu two (the scatter with its accumulate mode), sgns_exact.cu one
-with its accumulate mode, spmm.cu three; beside them the threefry probe, chip_draws_probe.cu appended
+with its merged and accumulate entry points, spmm.cu three; beside them the threefry probe, chip_draws_probe.cu appended
 to a copy of trainer_draws.cu), holds each against its plain PyTorch
 version on the card, and drives the port's paths once each through the
 entry points a user calls:
@@ -98,27 +98,34 @@ entry points a user calls:
               beside its plain version, its bound and its library call
               (torch.sparse, and the sparse softmax's backward: timed
               only);
-  phase 21    the data-parallel trainer (`--w2vPartitions`): K4 and K5's
-              scatter in accumulate mode over two slots of the main shape
-              (D 128 and 768; Zipf blocks, blocks whose negatives are
-              their own tokens, one token alone) and dp_apply (K13,
-              csrc/dp_apply.cu) against the plain merged update in
-              float64, K13 bit for bit against its plain version, the
-              buffer and the workspaces empty after every merged update,
-              each timed beside its bound (K13 on buffers that two
+  phase 21    the data-parallel trainer (`--w2vPartitions`): over two
+              slots of the main shape (D 128 and 768; Zipf blocks, blocks
+              whose negatives are their own tokens, one token alone) the
+              exact form's merged update as one launch of K4 over both
+              slots (no buffer, no K13), and K4 in accumulate mode (both
+              slots in one launch, and a launch a slot) and K5's scatter
+              in accumulate mode with dp_apply (K13, csrc/dp_apply.cu),
+              against the plain merged update in float64, K13 bit for
+              bit against its plain version, the buffer and the
+              workspaces empty after every merged update, each timed
+              beside its bound (the merged launch beside the parent's
+              two accumulate launches and K13; K13 on buffers that two
               slots' steps filled at V 10,000 and 1,000,000 and on one
               with every count nonzero, bit for bit and emptied, beside
               torch.addcdiv; the scatter at a Zipf and a one-token block
               beside index_add_); `node2vec --w2vPartitions 2`
               through the CLI on phase 4's graph, conv and exact (/path
-              byte for byte phase 4's, K13 once a merged update, the
-              calls a merged update, the epochs beside phases 4 and 12);
-              the karate gate at four slots; two gloo ranks sharing the
-              card (processes of their own) running
-              train_skipgram_multiproc against the one-process two-slot
-              run, with the labeled synthetic micro-F1 gate, then one
-              merged update of the main shape by hand (the buffers empty
-              after it).
+              byte for byte phase 4's; conv: K13 once a merged update;
+              exact: one K4 launch a merged update and no K13, no
+              accumulate launch, no all-reduce; the epochs beside phases
+              4 and 12); the karate gate at four slots; two gloo ranks
+              sharing the card (processes of their own) running
+              train_skipgram_multiproc, conv and exact (K4's accumulate
+              mode, the all-reduce and K13), against the one-process
+              two-slot run, with the labeled synthetic micro-F1 gate, then
+              one merged update of the main shape by hand in each form
+              (the buffers empty after it; K13's precondition, acc 0
+              wherever the count is 0, read before it).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every failure raises and the script exits non-zero. It
@@ -2836,6 +2843,38 @@ dp.merge(*tables, buf, 0.025, True)
 torch.cuda.synchronize()
 result["merged_buffer_empty"] = not bool(buf.any())
 np.save(f"{out}/merged{rank}.npy", torch.stack(tables).cpu().numpy())
+# the exact form across the ranks: each rank's slot in accumulate mode, the
+# all-reduce, K13; then one merged update of the main shape by hand, with
+# K13's precondition (acc 0 wherever the count is 0) read before it
+from chip_smoke import dp_slots
+from stellar_rw_tpu_torch.ops import sgns_exact as se
+from stellar_rw_tpu_torch.ops.sgns_exact import (SGNS_EXACT_ACCUMULATE,
+                                                SGNS_EXACT_MERGED)
+for k in (SGNS_EXACT_ACCUMULATE, SGNS_EXACT_MERGED, DP_APPLY):
+    k.launches = 0
+dp.ALL_REDUCES = 0
+cfg = w2v.SGNSConfig(**{**json.loads(sys.argv[6]), "shared_negatives": 0})
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+w_in, w_out = w2v.train_skipgram_multiproc(blocks, rows, V, cfg,
+                                           num_devices=2, device="cuda")
+result["exact"] = {"seconds": time.perf_counter() - t0,
+                   "all_reduces": dp.ALL_REDUCES,
+                   "accumulate_launches": SGNS_EXACT_ACCUMULATE.launches,
+                   "merged_launches": SGNS_EXACT_MERGED.launches,
+                   "merged_updates": DP_APPLY.launches}
+np.save(f"{out}/rank{rank}_exact.npy", np.stack([w_in, w_out]))
+(tables, slots, (Vm, B, T, win, k, _)) = dp_slots(torch, "exact", 128,
+                                                  ("zipf", "zipf"), 0)
+buf = torch.zeros(da.buffer_numel(Vm, 128), device="cuda")
+se.sgns_exact_step(*tables, *slots[rank], 0.025, win, buffer=buf)
+acc_in, acc_out, cnt_in, cnt_out = da.buffer_views(buf, Vm, 128)
+result["exact"]["k13_precondition"] = not bool(
+    acc_in[cnt_in == 0].any() or acc_out[cnt_out == 0].any())
+dp.merge(*tables, buf, 0.025, True)
+torch.cuda.synchronize()
+result["exact"]["merged_buffer_empty"] = not bool(buf.any())
+np.save(f"{out}/merged{rank}_exact.npy", torch.stack(tables).cpu().numpy())
 print("RESULT " + json.dumps(result), flush=True)
 torch.distributed.destroy_process_group()
 """
@@ -2846,9 +2885,11 @@ def dp_kernels() -> dict:
     from stellar_rw_tpu_torch.ops.dp_apply import DP_APPLY
     from stellar_rw_tpu_torch.ops.sgns_conv import \
         SGNS_CONV_SCATTER_ACCUMULATE
-    from stellar_rw_tpu_torch.ops.sgns_exact import SGNS_EXACT_ACCUMULATE
+    from stellar_rw_tpu_torch.ops.sgns_exact import (SGNS_EXACT_ACCUMULATE,
+                                                    SGNS_EXACT_MERGED)
 
-    return {"sgns_exact_accumulate": SGNS_EXACT_ACCUMULATE,
+    return {"sgns_exact_merged": SGNS_EXACT_MERGED,
+            "sgns_exact_accumulate": SGNS_EXACT_ACCUMULATE,
             "sgns_conv_scatter_accumulate": SGNS_CONV_SCATTER_ACCUMULATE,
             "dp_apply": DP_APPLY}
 
@@ -2940,6 +2981,23 @@ def dp_scatter_row(torch, sc, w_in, w_out, block, cwin, negs, win, nw, buf,
     return out
 
 
+def exact_work(torch, slots, window: int, k: int) -> tuple[int, int]:
+    """The valid pairs of the slots' blocks and the distinct rows of both
+    tables that they touch (a row counted once over the slots)."""
+    from stellar_rw_tpu_torch.ops.sgns_exact import (_pairs_from_valid,
+                                                    _valid_from_cwin)
+
+    pairs, rows_in, rows_out = 0, [], []
+    for block, cwin, negs in slots:
+        valid, ctx = _valid_from_cwin(block, cwin, window)
+        c, x, v = _pairs_from_valid(block, valid, ctx)
+        pairs += int(v.sum())
+        rows_in.append(c[v])
+        rows_out += [x[v], negs.reshape(-1, k)[v].reshape(-1)]
+    return pairs, (int(torch.unique(torch.cat(rows_in)).numel())
+                   + int(torch.unique(torch.cat(rows_out)).numel()))
+
+
 def dp_fill(torch, V: int, D: int, seed: int, every_row: bool = False):
     """(w_in, w_out, buffer, refill): tables [V, D] drawn from a seed on the
     card and a reduction buffer as two slots' conv accumulate steps fill it
@@ -3022,25 +3080,28 @@ def dp_apply_row(torch, da, w_in, w_out, fill, refill, lr: float,
             "library_ms": lib_ms, "touched_rows": touched}
 
 
-def phase_dp_check(torch, smi) -> tuple[dict, dict, dict]:
-    """Phase 21 (a): K4 and K5's scatter in accumulate mode against their
-    plain versions in float64 over two slots of the main shape (DP_CASES),
-    then K13 on the buffer, the tables against the plain merged update in
-    float64; K13 alone bit for bit against dp_apply_ref (DP_APPLY_SHAPES,
-    acc 0 where the count is 0, as the steps leave it); the buffer and the
-    workspaces empty after every merged update; each kernel timed at the
-    main shape beside its bound: the scatter also on the one-token block,
-    K13 on dp_fill's buffers a-c, each bit for bit dp_apply_ref and
-    emptied first."""
+def phase_dp_check(torch, smi) -> tuple[dict, dict, dict, dict]:
+    """Phase 21 (a): over two slots of the main shape (DP_CASES), the exact
+    form's one-launch merged update against the plain merged update in
+    float64, with its workspace empty after it; K4 in accumulate mode
+    (both slots in one launch, and a launch a slot) and K5's scatter in
+    accumulate mode against their plain versions in float64, then K13 on
+    the buffer, the tables against the plain merged update in float64; K13
+    alone bit for bit against dp_apply_ref (DP_APPLY_SHAPES, acc 0 where
+    the count is 0, as the steps leave it); the buffer and the workspaces
+    empty after every merged update; each kernel timed at the main shape
+    beside its bound: the merged launch beside the parent's form (a slot's
+    accumulate launch each, then K13), K4's accumulate mode over a slot and
+    over two, the scatter also on the one-token block, K13 on dp_fill's
+    buffers a-c, each bit for bit dp_apply_ref and emptied first."""
     from stellar_rw_tpu_torch.ops import dp_apply as da
     from stellar_rw_tpu_torch.ops import sgns_conv as sc
     from stellar_rw_tpu_torch.ops import sgns_exact as se
-    from stellar_rw_tpu_torch.ops.sgns_exact import (_pairs_from_valid,
-                                                    _valid_from_cwin)
 
     lr = 0.025
     err = {"exact": 0.0, "conv": 0.0}
     mode_err = {"exact": 0.0, "conv": 0.0}
+    merged_err = 0.0
     for i, (form, D, *tokens) in enumerate(DP_CASES):
         (w_in, w_out), slots, (V, B, T, win, k, kB) = dp_slots(
             torch, form, D, tokens, 10 * i)
@@ -3058,46 +3119,76 @@ def phase_dp_check(torch, smi) -> tuple[dict, dict, dict]:
                                             nw, win, buf64)
         want_buf = buf64.clone()
         da.dp_apply_ref(a_in, a_out, buf64, lr)
-        # the kernels: two accumulate steps, then K13
-        b_in, b_out = w_in.clone(), w_out.clone()
-        buf = torch.zeros(da.buffer_numel(V, D), device="cuda")
-        ws = (se.Workspace(b_in, b_out, B * T, win, k) if form == "exact"
-              else sc.ConvWorkspace(b_in, b_out, B, T, win, kB))
-        for block, cwin, negs in slots:
-            if form == "exact":
-                se.sgns_exact_step(b_in, b_out, block, cwin, negs, lr, win,
-                                   ws, buffer=buf)
-            else:
-                sc.sgns_conv_step(b_in, b_out, block, cwin, negs, lr, nw,
-                                  win, ws, buffer=buf)
-        torch.cuda.synchronize()
         at = str(DP_CASES[i])
-        check(torch.equal(b_in, w_in) and torch.equal(b_out, w_out),
-              f"an accumulate step wrote the tables at {at}")
-        counts = lambda b: torch.cat(da.buffer_views(b, V, D)[2:])
-        check(torch.equal(counts(buf).double(), counts(want_buf)),
-              f"the accumulated counts differ from float64 at {at}")
-        # the accumulate mode alone: its buffer applied in float64
-        m_in, m_out = w_in.double(), w_out.double()
-        da.dp_apply_ref(m_in, m_out, buf.double(), lr)
-        da.dp_apply(b_in, b_out, buf, lr)
-        check(dp_buffer_empty(torch, buf, ws),
-              f"the buffer or the workspace is not empty after the merged "
-              f"update at {at}")
-        for table, got, mode, want, old in (
-                ("w_in", b_in, m_in, a_in, w_in),
-                ("w_out", b_out, m_out, a_out, w_out)):
-            e_mode = float((mode - want).abs().max())
-            check(torch.allclose(mode, want, rtol=1e-5, atol=1e-6),
-                  f"{form}'s accumulate mode differs from the plain one in "
-                  f"float64 at {at} ({table}): max abs err {e_mode:.3g}")
-            e = float((got.double() - want).abs().max())
-            check(torch.allclose(got.double(), want, rtol=1e-5, atol=1e-6),
-                  f"the merged update differs from the plain one in float64 "
-                  f"at {at} ({table}): max abs err {e:.3g}")
-            check(bool((got != old).any()), "the merged update moved nothing")
-            err[form] = max(err[form], e)
-            mode_err[form] = max(mode_err[form], e_mode)
+        if form == "exact":
+            # the one-card merged update: one launch over both slots, no
+            # buffer, no K13
+            stacked = [torch.stack(x) for x in zip(*slots)]
+            b_in, b_out = w_in.clone(), w_out.clone()
+            ws = se.Workspace(b_in, b_out, 2 * B * T, win, k)
+            se.sgns_exact_step(b_in, b_out, *stacked, lr, win, ws)
+            check(workspace_empty(torch, ws),
+                  f"the merged step left its workspace dirty at {at}")
+            for table, got, want, old in (("w_in", b_in, a_in, w_in),
+                                          ("w_out", b_out, a_out, w_out)):
+                e = float((got.double() - want).abs().max())
+                check(torch.allclose(got.double(), want, rtol=1e-5,
+                                     atol=1e-6),
+                      f"the one-launch merged update differs from the plain "
+                      f"one in float64 at {at} ({table}): max abs err "
+                      f"{e:.3g}")
+                check(bool((got != old).any()),
+                      "the merged update moved nothing")
+                merged_err = max(merged_err, e)
+        # the accumulate modes, then K13: the exact step's slots in one
+        # launch (a rank's) and a launch a slot (the parent's form); the
+        # conv step's a slot at a time
+        for one_launch in ((True, False) if form == "exact" else (False,)):
+            b_in, b_out = w_in.clone(), w_out.clone()
+            buf = torch.zeros(da.buffer_numel(V, D), device="cuda")
+            ws = (se.Workspace(b_in, b_out, 2 * B * T, win, k)
+                  if form == "exact"
+                  else sc.ConvWorkspace(b_in, b_out, B, T, win, kB))
+            if one_launch:
+                se.sgns_exact_step(b_in, b_out, *stacked, lr, win, ws,
+                                   buffer=buf)
+            for block, cwin, negs in ([] if one_launch else slots):
+                if form == "exact":
+                    se.sgns_exact_step(b_in, b_out, block, cwin, negs, lr,
+                                       win, ws, buffer=buf)
+                else:
+                    sc.sgns_conv_step(b_in, b_out, block, cwin, negs, lr, nw,
+                                      win, ws, buffer=buf)
+            torch.cuda.synchronize()
+            check(torch.equal(b_in, w_in) and torch.equal(b_out, w_out),
+                  f"an accumulate step wrote the tables at {at}")
+            counts = lambda b: torch.cat(da.buffer_views(b, V, D)[2:])
+            check(torch.equal(counts(buf).double(), counts(want_buf)),
+                  f"the accumulated counts differ from float64 at {at}")
+            # the accumulate mode alone: its buffer applied in float64
+            m_in, m_out = w_in.double(), w_out.double()
+            da.dp_apply_ref(m_in, m_out, buf.double(), lr)
+            da.dp_apply(b_in, b_out, buf, lr)
+            check(dp_buffer_empty(torch, buf, ws),
+                  f"the buffer or the workspace is not empty after the "
+                  f"merged update at {at}")
+            for table, got, mode, want, old in (
+                    ("w_in", b_in, m_in, a_in, w_in),
+                    ("w_out", b_out, m_out, a_out, w_out)):
+                e_mode = float((mode - want).abs().max())
+                check(torch.allclose(mode, want, rtol=1e-5, atol=1e-6),
+                      f"{form}'s accumulate mode differs from the plain one "
+                      f"in float64 at {at} ({table}): max abs err "
+                      f"{e_mode:.3g}")
+                e = float((got.double() - want).abs().max())
+                check(torch.allclose(got.double(), want, rtol=1e-5,
+                                     atol=1e-6),
+                      f"the merged update differs from the plain one in "
+                      f"float64 at {at} ({table}): max abs err {e:.3g}")
+                check(bool((got != old).any()),
+                      "the merged update moved nothing")
+                err[form] = max(err[form], e)
+                mode_err[form] = max(mode_err[form], e_mode)
     # K13 alone, bit for bit, and the buffer zeroed
     rng = np.random.default_rng(21)
     for V, D in DP_APPLY_SHAPES:
@@ -3128,23 +3219,54 @@ def phase_dp_check(torch, smi) -> tuple[dict, dict, dict]:
         buf = torch.zeros(da.buffer_numel(V, D), device="cuda")
         N, row = B * T, D * 4
         if form == "exact":
-            ws = se.Workspace(w_in, w_out, B * T, win, k)
-            launch = lambda: se.launch_step(ws, w_in, w_out, block, cwin,
-                                            negs, win, lr, buffer=buf)
-            plain = lambda: se.sgns_exact_accumulate_ref(
-                w_in, w_out, block, cwin, negs, win, buf)
-            valid, ctx = _valid_from_cwin(block, cwin, win)
-            c, x, v = _pairs_from_valid(block, valid, ctx)
-            P = int(v.sum())
-            touched = int(torch.unique(c[v]).numel()) + int(torch.unique(
-                torch.cat([x[v], negs.reshape(-1, k)[v].reshape(-1)])).numel())
+            ws = se.Workspace(w_in, w_out, 2 * B * T, win, k)
+            stacked = [torch.stack(x) for x in zip(*slots)]
+            accumulate = lambda *a: (lambda: se.launch_step(
+                ws, w_in, w_out, *a, win, lr, buffer=buf))
+            # a slot's accumulate launch (the ranks' case, a slot a rank)
+            P, touched = exact_work(torch, slots[:1], win, k)
             # the block's draws and the touched table rows read; the touched
             # rows of the buffer read and written, their counts too
             b = bound(tensor_bytes(block, cwin, negs) + touched * row
                       + touched * (row + 4) * 2,
                       2 * P * (1 + k) * D * 3 + touched * D, F32_FLOPS)
-            rows[form] = dp_row(torch, launch, plain, b, iters)
+            rows[form] = dp_row(
+                torch, accumulate(block, cwin, negs),
+                lambda: se.sgns_exact_accumulate_ref(w_in, w_out, block,
+                                                     cwin, negs, win, buf),
+                b, iters)
             rows[form]["valid_pairs"] = P
+            # both slots in one accumulate launch (a rank of two slots)
+            P2, touched = exact_work(torch, slots, win, k)
+            b = bound(tensor_bytes(*stacked) + touched * row
+                      + touched * (row + 4) * 2,
+                      2 * P2 * (1 + k) * D * 3 + touched * D, F32_FLOPS)
+            two = dp_row(torch, accumulate(*stacked), lambda: None, b, iters)
+            rows[form].update({f"two_slots_{key}": two[key] for key in (
+                "ms", "ms_back_to_back", "bound_ms", "bound_by")})
+            # the parent's merged update: a slot's accumulate launch each,
+            # then K13
+            parent = cuda_ms_split((accumulate(*slots[0]),
+                                    accumulate(*slots[1]),
+                                    lambda: da.dp_apply(w_in, w_out, buf,
+                                                        lr)), iters)
+            # the one-card merged update: one launch over both slots; it
+            # reads both slots' draws and the touched rows, and writes those
+            # rows (3 flops a touched row's column to update it)
+            b = bound(tensor_bytes(*stacked) + touched * row * 2,
+                      2 * P2 * (1 + k) * D * 3 + touched * D * 3, F32_FLOPS)
+            rows["merged"] = dp_row(
+                torch, lambda: se.launch_step(ws, w_in, w_out, *stacked, win,
+                                              lr),
+                lambda: se.sgns_exact_merged_ref(w_in, w_out, *stacked, lr,
+                                                 win), b, iters)
+            rows["merged"].update(
+                max_abs_err=merged_err, valid_pairs=P2,
+                rows_touched=touched, parent_form_ms=sum(parent),
+                parent_form_ms_each=parent)
+            check(workspace_empty(torch, ws) and not bool(buf.any()),
+                  "the timed launches left the workspace or the buffer "
+                  "dirty")
         else:
             rows[form] = dp_scatter_row(torch, sc, w_in, w_out, block, cwin,
                                         negs, win, k / kB, buf, iters)
@@ -3179,22 +3301,33 @@ def phase_dp_check(torch, smi) -> tuple[dict, dict, dict]:
                      "library_call": "torch.addcdiv x2 on a pre-clamped "
                                      "count (not bitwise: one rounding "
                                      "fewer; a dense pass)"}
-    conv, ap = rows["conv"], rows["apply"]
-    print(f"phase 21 (a) the data-parallel step: K4 and K5's scatter in "
-          f"accumulate mode, two slots a merged update, then dp_apply (K13), "
-          f"within rtol 1e-5 atol 1e-6 of the plain merged update in float64 "
+    conv, ap, mg, ex = rows["conv"], rows["apply"], rows["merged"], \
+        rows["exact"]
+    print(f"phase 21 (a) the data-parallel step: the exact form's merged "
+          f"update of two slots in one launch (sgns_exact merged: no buffer, "
+          f"no dp_apply) within rtol 1e-5 atol 1e-6 of the plain merged "
+          f"update in float64 (max abs err {merged_err:.3g}); K4 in "
+          f"accumulate mode (both slots in one launch, and a launch a slot) "
+          f"and K5's scatter in accumulate mode, then dp_apply (K13), within "
+          f"the same tolerance "
           f"at {DP_CASES} (form, D, slots' tokens): max abs err exact "
           f"{err['exact']:.3g} / conv {err['conv']:.3g} (the accumulate "
           f"modes' buffers applied in float64: {mode_err['exact']:.3g} / "
           f"{mode_err['conv']:.3g}), the counts equal, the tables untouched "
           f"by the accumulate steps, the buffer and the workspaces empty "
           f"after every merged update; dp_apply bit for bit dp_apply_ref at "
-          f"{DP_APPLY_SHAPES} and on fills a-c; at the main shape (B 16, T "
-          f"82, w 10, D 128): sgns_exact accumulate "
-          f"{rows['exact']['ms']:.4f} ms (back to back "
-          f"{rows['exact']['ms_back_to_back']:.4f}, plain "
-          f"{rows['exact']['plain_ms']:.3f}, bound "
-          f"{rows['exact']['bound_ms']:.5f} by {rows['exact']['bound_by']}); "
+          f"{DP_APPLY_SHAPES} and on fills a-c; at the main shape (B 16 a "
+          f"slot, T 82, w 10, D 128): the merged update's one launch "
+          f"{mg['ms']:.4f} ms (back to back {mg['ms_back_to_back']:.4f}, "
+          f"twin {mg['plain_ms']:.3f}, bound {mg['bound_ms']:.5f} by "
+          f"{mg['bound_by']}; the parent's form, two accumulate launches and "
+          f"dp_apply, {mg['parent_form_ms']:.4f} = "
+          f"{' + '.join(f'{t:.4f}' for t in mg['parent_form_ms_each'])}); "
+          f"sgns_exact accumulate over a slot {ex['ms']:.4f} ms (back to "
+          f"back {ex['ms_back_to_back']:.4f}, plain {ex['plain_ms']:.3f}, "
+          f"bound {ex['bound_ms']:.5f} by {ex['bound_by']}), over two slots "
+          f"in one launch {ex['two_slots_ms']:.4f} (bound "
+          f"{ex['two_slots_bound_ms']:.5f}); "
           f"conv scatter accumulate {conv['ms']:.4f} ms (back to back "
           f"{conv['ms_back_to_back']:.4f}, plain {conv['plain_ms']:.3f} for "
           f"the whole plain step, index_add_ of its rows "
@@ -3218,15 +3351,17 @@ def phase_dp_check(torch, smi) -> tuple[dict, dict, dict]:
           f"{ap['fill_c_ms_back_to_back']:.4f}, addcdiv "
           f"{ap['fill_c_library_ms']:.4f}, bound "
           f"{ap['fill_c_bound_ms']:.5f}) [{smi}]")
-    return rows["exact"], rows["conv"], rows["apply"]
+    return rows["merged"], rows["exact"], rows["conv"], rows["apply"]
 
 
 def phase_dp_main(torch, smi, tmp, main_run, exact_run) -> dict:
     """Phase 21 (b): `node2vec --w2vPartitions 2` through the CLI on phase
     4's graph, conv (kB 128) and exact, one epoch each: /path byte for
-    byte phase 4's, dp_apply once a merged update, the calls a merged
-    update, the epoch beside phases 4 and 12, the buffer's bytes and the
-    job's peak; then the karate gate at num_partitions 4, exact and kB
+    byte phase 4's, the calls a merged update (conv: dp_apply once a
+    merged update after the slots' steps; exact: one sgns_exact merged
+    launch and nothing else: no accumulate launch, no dp_apply, no
+    all-reduce), the epoch beside phases 4 and 12, the buffer's bytes and
+    the job's peak; then the karate gate at num_partitions 4, exact and kB
     128."""
     from stellar_rw_tpu_torch import cli
     from stellar_rw_tpu_torch.graph import io as gio
@@ -3254,25 +3389,28 @@ def phase_dp_main(torch, smi, tmp, main_run, exact_run) -> dict:
               f"--w2vPartitions {P} ({name}): /path differs from phase 4's")
         B = -(-32 // P)
         merged = -(-report["paths"] // (B * P))
-        check(counts["dp_apply"] == merged,
-              f"{name}: dp_apply launched {counts['dp_apply']} times for "
-              f"{merged} merged updates: {counts}")
         calls = sum(v for k, v in counts.items() if k != "trainer_draws")
         per = calls / merged
         if name == "conv":
+            check(counts["dp_apply"] == merged,
+                  f"{name}: dp_apply launched {counts['dp_apply']} times for "
+                  f"{merged} merged updates: {counts}")
             check(counts["sgns_conv_scatter_accumulate"] == P * merged
                   and counts["sgns_conv_accumulate"] == P * merged
                   and counts["sgns_shared_grads"] == P * merged
                   and counts["sgns_conv_scatter"] == 0
-                  and counts["sgns_exact_step"] == 0,
+                  and counts["sgns_exact_step"] == 0
+                  and counts["sgns_exact_merged"] == 0,
                   f"the conv dp trainer's launches: {counts}")
             check(per <= 3 * P + 1.01, f"{per:.4f} calls a merged update")
         else:
-            check(counts["sgns_exact_accumulate"] == P * merged
+            check(counts["sgns_exact_merged"] == merged
+                  and counts["sgns_exact_accumulate"] == 0
+                  and counts["dp_apply"] == 0
                   and counts["sgns_exact_step"] == 0
                   and counts["sgns_conv_accumulate"] == 0,
                   f"the exact dp trainer's launches: {counts}")
-            check(per <= P + 1.01, f"{per:.4f} calls a merged update")
+            check(per <= 1.01, f"{per:.4f} calls a merged update")
         check(dp.ALL_REDUCES == 0, "an all-reduce in one process")
         _, w_in, w_out = n2v.load_model(out)
         check(w_in.shape == (report["vertices"], 128)
@@ -3282,8 +3420,10 @@ def phase_dp_main(torch, smi, tmp, main_run, exact_run) -> dict:
                       "single_device_seconds": beside["train_seconds"],
                       "merged_updates": merged, "calls_a_merged_update": per,
                       "launches": counts,
+                      # the exact form in one process makes no buffer
                       "buffer_bytes": buffer_numel(report["vertices"],
-                                                   128) * 4,
+                                                   128) * 4
+                      if name == "conv" else 0,
                       "peak_device_bytes": report["peak_device_bytes"]}
     g = gio.load_edge_list(os.path.join(ROOT, "tests", "data", "karate.txt"),
                            weighted=False, directed=False)
@@ -3308,7 +3448,9 @@ def phase_dp_main(torch, smi, tmp, main_run, exact_run) -> dict:
           f"{runs['exact']['train_seconds']:.3f} s (phase 12's: "
           f"{exact_run['train_seconds']:.3f} s), "
           f"{runs['exact']['calls_a_merged_update']:.4f} calls a merged "
-          f"update (<= {P + 1.01}); launches conv {runs['conv']['launches']} "
+          f"update (<= 1.01: one sgns_exact merged launch, no accumulate "
+          f"launch, no dp_apply, no all-reduce); launches conv "
+          f"{runs['conv']['launches']} "
           f"exact {runs['exact']['launches']}; reduction buffer "
           f"{runs['conv']['buffer_bytes']:,} B; the job's peak conv "
           f"{runs['conv']['peak_device_bytes']:,} B / exact "
@@ -3347,6 +3489,12 @@ def phase_dp_ranks(torch, smi, tmp) -> dict:
                                         w2v.SGNSConfig(**kw), num_devices=2,
                                         device="cuda")
     one_s = time.perf_counter() - t0
+    # the exact form in one process: one launch a merged update
+    t0 = time.perf_counter()
+    want_exact = w2v.train_skipgram_multiproc(
+        blocks, rows, V, w2v.SGNSConfig(**{**kw, "shared_negatives": 0}),
+        num_devices=2, device="cuda")
+    one_exact_s = time.perf_counter() - t0
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
     port = str(s.getsockname()[1])
@@ -3397,6 +3545,38 @@ def phase_dp_ranks(torch, smi, tmp) -> dict:
     check(np.allclose(merged[0], one, rtol=1e-5, atol=1e-6),
           f"two ranks' merged update differs from one process's: max abs "
           f"err {merged_err:.3g}")
+    # the exact form: each rank's slot in accumulate mode, the all-reduce
+    # and K13, against the one-process run's one launch a merged update
+    ex = [np.load(os.path.join(tmp, f"rank{r}_exact.npy")) for r in range(2)]
+    check(np.array_equal(ex[0], ex[1]), "the ranks' exact tables differ")
+    exact_err = max(float(np.abs(g - w).max())
+                    for g, w in zip(ex[0], want_exact))
+    check(all(np.allclose(g, w, rtol=2e-4, atol=1e-6)
+              for g, w in zip(ex[0], want_exact)),
+          f"two ranks' exact run differs from the one-process two-slot run: "
+          f"max abs err {exact_err:.3g}")
+    for r in results:
+        e = r["exact"]
+        check(e["accumulate_launches"] == e["merged_updates"] > 0
+              and e["merged_launches"] == 0
+              and e["all_reduces"] == e["merged_updates"] + 1,
+              f"the exact form across ranks: {e}")
+        check(e["k13_precondition"] and e["merged_buffer_empty"],
+              f"the exact merged update by hand across ranks: {e}")
+    merged_ex = [np.load(os.path.join(tmp, f"merged{r}_exact.npy"))
+                 for r in range(2)]
+    check(np.array_equal(merged_ex[0], merged_ex[1]),
+          "the ranks' tables differ after the exact merged update by hand")
+    from stellar_rw_tpu_torch.ops import sgns_exact as se
+    (w_in, w_out), slots, (_, B, T, win, _, _) = dp_slots(
+        torch, "exact", 128, ("zipf", "zipf"), 0)
+    se.sgns_exact_step(w_in, w_out, *(torch.stack(x) for x in zip(*slots)),
+                       0.025, win)
+    one = np.stack([w_in.cpu().numpy(), w_out.cpu().numpy()])
+    merged_exact_err = float(np.abs(merged_ex[0] - one).max())
+    check(np.allclose(merged_ex[0], one, rtol=1e-5, atol=1e-6),
+          f"two ranks' exact merged update differs from one process's one "
+          f"launch: max abs err {merged_exact_err:.3g}")
     f1 = ev.multilabel_micro_f1(got[0][0], labels, train_frac=0.5, seed=0)
     check(f1 > 0.55, f"labeled synthetic gate on two ranks: micro-F1 {f1}")
     print(f"phase 21 (c) train_skipgram_multiproc on two ranks sharing the "
@@ -3412,11 +3592,27 @@ def phase_dp_ranks(torch, smi, tmp) -> dict:
           f"counts'; micro-F1 {f1:.4f} (> 0.55); training "
           f"{max(r['seconds'] for r in results):.3f} s on two ranks, "
           f"{one_s:.3f} s in one process (not a target: gloo stages the "
-          f"buffer through the host) [{smi}]")
+          f"buffer through the host); exact negatives: each rank's slot by "
+          f"sgns_exact accumulate, "
+          f"{results[0]['exact']['accumulate_launches']} launches = merged "
+          f"updates, then the all-reduce and dp_apply, within rtol 2e-4 atol "
+          f"1e-6 of the one-process run's one launch a merged update (max "
+          f"abs err {exact_err:.3g}), {max(r['exact']['seconds'] for r in results):.3f} s on "
+          f"two ranks, {one_exact_s:.3f} s in one process; its merged update "
+          f"of the main shape by hand: acc 0 wherever the count is 0 before "
+          f"K13, the buffers empty after it, {merged_exact_err:.3g} from one "
+          f"process's one launch [{smi}]")
     return {"max_abs_err": err, "micro_f1": f1,
             "merged_max_abs_err": merged_err,
             "two_rank_seconds": max(r["seconds"] for r in results),
-            "one_process_seconds": one_s, "backend": results[0]["backend"]}
+            "one_process_seconds": one_s, "backend": results[0]["backend"],
+            "exact_max_abs_err": exact_err,
+            "exact_merged_max_abs_err": merged_exact_err,
+            "exact_two_rank_seconds": max(r["exact"]["seconds"]
+                                          for r in results),
+            "exact_one_process_seconds": one_exact_s,
+            "accumulate_launches": sum(r["exact"]["accumulate_launches"]
+                                       for r in results)}
 
 
 def main() -> int:
@@ -3464,7 +3660,8 @@ def main() -> int:
         profile = phase_profile(torch, WALK_KERNEL, KEYS_KERNEL, smi, tmp,
                                 main_run)
         server = phase_server(torch, smi, tmp)
-        dp_exact_row, dp_conv_row, dp_apply_row = phase_dp_check(torch, smi)
+        dp_merged_row, dp_exact_row, dp_conv_row, dp_apply_row = \
+            phase_dp_check(torch, smi)
         dp_run = phase_dp_main(torch, smi, tmp, main_run, exact_run)
         dp_ranks = phase_dp_ranks(torch, smi, tmp)
     corpus = hs_corpus(torch)
@@ -3497,7 +3694,10 @@ def main() -> int:
                   "buffer_bytes", "peak_device_bytes")}
                   for name in ("conv", "exact")},
               "dp_two_rank_seconds": dp_ranks["two_rank_seconds"],
-              "dp_one_process_seconds": dp_ranks["one_process_seconds"]}
+              "dp_one_process_seconds": dp_ranks["one_process_seconds"],
+              "dp_exact_two_rank_seconds": dp_ranks["exact_two_rank_seconds"],
+              "dp_exact_one_process_seconds":
+                  dp_ranks["exact_one_process_seconds"]}
     quality["streamed_micro_f1"] = stream["micro_f1"]
     quality.update(hs_karate_auc=hs_run["karate_auc"],
                    hs_karate_acc=hs_run["karate_acc"],
@@ -3505,7 +3705,9 @@ def main() -> int:
                    conv_link_auc_100k=hs_run["auc_conv"],
                    dp_karate_gate_p4=dp_run["karate_gate_p4"],
                    dp_two_rank_micro_f1=dp_ranks["micro_f1"],
-                   dp_two_rank_max_abs_err=dp_ranks["max_abs_err"])
+                   dp_two_rank_max_abs_err=dp_ranks["max_abs_err"],
+                   dp_exact_two_rank_max_abs_err=dp_ranks[
+                       "exact_max_abs_err"])
     kernels = [
         {"name": "walk", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/walk.cu",
@@ -3560,11 +3762,19 @@ def main() -> int:
          "source": "stellar_rw_tpu_torch/csrc/spmm.cu",
          "replaces": "stellar_rw_tpu/ops/spmm.py:71", **softmax_row,
          "launches": softmax_row["launches"]["spmm_row_softmax"]},
+        {"name": "sgns_exact_merged", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/sgns_exact.cu",
+         "replaces": "stellar_rw_tpu/models/word2vec.py:190",
+         "launches": dp_run["exact"]["launches"]["sgns_exact_merged"],
+         **dp_merged_row},
+        # the accumulate mode runs across ranks: its launches are phase 21
+        # (c)'s, both ranks' exact runs
         {"name": "sgns_exact_accumulate", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/sgns_exact.cu",
          "replaces": "stellar_rw_tpu/models/word2vec.py:190",
-         "launches": dp_run["exact"]["launches"]["sgns_exact_accumulate"],
-         **dp_exact_row},
+         "launches": dp_ranks["accumulate_launches"],
+         "launches_one_card_path": dp_run["exact"]["launches"][
+             "sgns_exact_accumulate"], **dp_exact_row},
         {"name": "sgns_conv_scatter_accumulate", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/sgns_conv.cu",
          "replaces": "stellar_rw_tpu/models/word2vec.py:475",
@@ -3580,6 +3790,8 @@ def main() -> int:
     for row in kernels:   # the launches of the streamed runs (phase 15)
         for name in ("conv", "exact"):
             row[f"launches_streamed_{name}"] = stream[name][row["name"]]
+        check(row["launches"] > 0, f"{row['name']} was launched no time on "
+              f"its path")
     print(json.dumps({"epochs": epochs, "quality": quality}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
 // One exact-negative SGNS step (skip-gram, k negatives a pair) as one
-// cooperative kernel launch.
+// cooperative kernel launch, over one block or over the S slots of the
+// data-parallel trainer's merged update.
 //
 // Replaces the JAX package's _sgns_apply over _pairs_for_block
 // (stellar_rw_tpu/models/word2vec.py:154-210, 60-94), which XLA lowers to
@@ -36,20 +37,33 @@
 //       calls, measured a third slower, and as fast as the barrier without
 //       the fences: after a step's flood of device atomics the fences are
 //       the cost (chip_sgns_exact_parts.py keeps both forms as variants).
-// In accumulate mode (srw_sgns_exact_accumulate_launch: one slot's step of
-// the data-parallel trainer's merged update) phase (b) adds each listed
-// slot's delta row and count into the merged update's reduction buffer
-// (its acc_in, acc_out, cnt_in and cnt_out arrays) in place of the
-// update, and still empties the slots: the JAX package's psum'd step
-// (stellar_rw_tpu/models/word2vec.py:190-199) scatters each replica's
-// gradients into dense accumulators the same way. A row has one slot in a
-// step and the steps of a merged update run in turn on one stream, so the
-// adds are plain. The tables are not written, so every slot of a merged
-// update reads them as they were before it; csrc/dp_apply.cu moves them.
-// The tables are read and written by the one kernel, so they come in as
-// plain pointers and phase (a) reads them with plain loads (cached in L1 on
-// sm_90), not through the read-only path, which the programming guide
-// allows only for data that no thread writes during the kernel.
+//
+// Slots. The launch runs over S slots' blocks of BT = B*T positions each:
+// position p belongs to slot p / BT, whose block, windows and negatives are
+// a base pointer plus the slot times that array's slot stride (arguments
+// of their own, not a struct of pointers indexed at run time, which would
+// go to local memory). A pair's context lies in its own walk, so a slot's
+// pairs read its own rows alone. The one-device step is S = 1. On one card
+// the merged update of S slots is this same step (the wrapper counts its
+// launches on their own): the JAX package's psum'd update
+// (stellar_rw_tpu/models/word2vec.py:190-201),
+// w - (lr * psum(acc)) / max(psum(cnt), 1), sums every slot's
+// gradients of a row before it divides, which is what the delta slots hold
+// when all slots' pairs add into one workspace; phase (b)'s
+// (-lr * d) / max(c, 1) rounds as csrc/dp_apply.cu's (lr * acc) / max(c, 1)
+// does. So a merged update is one launch, with no reduction buffer.
+// In accumulate mode (srw_sgns_exact_accumulate_launch: a rank's slots of
+// a merged update summed across ranks) phase (b) adds each listed slot's
+// delta row and count into the merged update's reduction buffer (its
+// acc_in, acc_out, cnt_in and cnt_out arrays) in place of the update, and
+// still empties the slots; the buffer is all-reduced and csrc/dp_apply.cu
+// moves the tables. A row has one slot in a launch and the launches run in
+// turn on one stream, so the adds are plain, and a row no slot touched
+// keeps acc 0 and count 0, as dp_apply.cu requires. The tables are read and
+// written by the one kernel, so they come in as plain pointers and phase
+// (a) reads them with plain loads (cached in L1 on sm_90), not
+// through the read-only path, which the programming guide allows only for
+// data that no thread writes during the kernel.
 //
 // The pair enumeration, dynamic window and negatives are the JAX package's
 // (the block, its window draws cwin and the negative draws come in). Sums
@@ -57,25 +71,33 @@
 // in no fixed order; the scatter-mean as sum-then-divide instead of
 // divide-then-sum), so a step agrees with it to rounding, not bit for bit.
 //
-// What bounds it: each pair's chain of dependent reads (its context, its
-// negatives, then the target rows, in L2 when the tables fit there) and the
-// target rows' device atomics, against 2 * P * (1 + k) * D * 3 flops. One
+// What bounds it: not the reads. Each group of a pair's targets runs one
+// chain of dependent reads (its negatives' indices, then the target rows,
+// in L2 when the tables fit there), then its probes, dot and row adds; one
 // warp a position with one target at a time, and a flag it waited on a
 // target, ran a chain of ~62 targets a warp in 1.24 waves; groups of three,
-// two blocks of 16 warps an SM, one wave. The gradient rows land on few
-// distinct rows: without the table a one-token block's 164,040 row adds go
-// to one device row, 8x slower and summed in one float. On blocks of real
-// walks the table pays where a hub is every other token (a star graph's)
-// and costs its probes where the largest row takes a few percent of the
-// adds (PERF.md, section 6, has both on the H100). Any D: the logits
-// and the row adds loop over D in slices of 32 * NV columns, held in
-// registers when one slice covers the row and read again from L1
-// otherwise; the table holds fewer rows at larger D (ops/sgns_exact.py::
-// launch_plan says how many). The update moves each touched row four times
-// (3,456 rows x 512 B at walk_10k's block: 1.8 MB); as a kernel of its own
-// it also cost a launch, a memset of the slot counts, and each warp's chain
-// of dependent reads (counts, then list, then the rows); here it costs one
-// grid barrier.
+// two blocks of 16 warps an SM, one wave. Taking the reads off that chain
+// (the target rows of the group a stage or more ahead copied into a ring a
+// warp in shared memory by cp.async or cp.async.bulk, while the current
+// group's math runs: chip_sgns_exact_ring.cu) measured slower at every block
+// but a star graph's, where it ties (the one-device step 0.112 ms against
+// 0.095 at B 32, D 128), and as slow with one stage in flight as with three:
+// the reads were not what the warps waited for, and the ring's cursor cost
+// instructions and shared memory of its own. The time grows with the columns
+// a group adds (D 64 0.071 ms, D 128 0.095, D 768 0.44 at B 32): the row
+// adds, not the flops (2 * P * (1 + k) * D * 3), set it. The gradient rows
+// land on few distinct rows: without the table a one-token block's 164,040
+// row adds go to one device row, 8x slower and summed in one float. On
+// blocks of real walks the table pays where a hub is every other token (a
+// star graph's) and costs its probes where the largest row takes a few
+// percent of the adds (PERF.md, section 6, has both on the H100). Any D: the
+// logits and the row adds loop over D in slices of 32 * NV columns, held in
+// registers when one slice covers the row and read again from L1 otherwise;
+// the table holds fewer rows at larger D (ops/sgns_exact.py::launch_plan
+// says how many). The update moves each touched row four times (3,456 rows x
+// 512 B at walk_10k's block: 1.8 MB); as a kernel of its own it also cost a
+// launch, a memset of the slot counts, and each warp's chain of dependent
+// reads (counts, then list, then the rows); here it costs one grid barrier.
 
 #include <cstdint>
 
@@ -98,6 +120,13 @@ struct Scratch : srw::Scratch {
   // a select, not an index, as in srw::Scratch
   __device__ float* sumt(int t) const { return t == 0 ? sum[0] : sum[1]; }
   __device__ float* numt(int t) const { return t == 0 ? num[0] : num[1]; }
+};
+
+// The launch's slots: S blocks of BT positions, each array's slot s at its
+// base plus s times its stride (elements)
+struct Slots {
+  int S, BT;
+  long long block, cwin, negs;
 };
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -213,9 +242,9 @@ template <int NV>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     sgns_exact_step(float* w_in, float* w_out, const int* __restrict__ block,
                     const int* __restrict__ cwin,
-                    const int* __restrict__ negs, Scratch s, int BT, int T,
-                    int window, int k, int D, int positions, int slots,
-                    float lr, int* stats) {
+                    const int* __restrict__ negs, Scratch s, Slots sl,
+                    int T, int window, int k, int D, int positions,
+                    int slots, float lr, int* stats) {
   constexpr int kSlice = 32 * NV;
   extern __shared__ int smem[];
   const int dpad = (D + 31) & ~31;
@@ -234,11 +263,13 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
   const int nwarps = blockDim.x >> 5;
   const int W2 = 2 * window;
   const int p0 = blockIdx.x * positions;
-  const int n = max(0, min(BT - p0, positions)) * W2;
+  const int n = max(0, min(sl.S * sl.BT - p0, positions)) * W2;
   const int i1 = static_cast<int>(static_cast<long long>(n) * (warp + 1) /
                                   nwarps);
   const bool one_slice = D <= kSlice;
-  int pos = -1, center = -1, cdest = 0, nvalid = 0, t = 0, row0 = 0, win = 0;
+  // the position's slot and its index q there address the slot's arrays
+  int pos = -1, center = -1, cdest = 0, nvalid = 0, slot = 0, q = 0, t = 0,
+      win = 0;
   int in_table = 0, in_device = 0, flushed = 0;  // this lane's, for stats
   float vi[NV], dvi[NV];
 #pragma unroll
@@ -258,11 +289,12 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     if (p != pos) {
       flush_center();
       pos = p;
-      center = block[p];
+      slot = p / sl.BT;
+      q = p - slot * sl.BT;
+      center = block[slot * sl.block + q];
       nvalid = 0;
-      t = p % T;
-      row0 = p - t;
-      win = cwin[p];
+      t = q % T;
+      win = cwin[slot * sl.cwin + q];
 #pragma unroll
       for (int m = 0; m < NV; ++m) dvi[m] = 0.f;
       if (center >= 0 && one_slice)
@@ -273,7 +305,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
     const int off = o < window ? o - window : o - window + 1;
     const int tc = t + off;
     if (abs(off) > win || tc < 0 || tc >= T) continue;
-    const int ctx = block[row0 + tc];
+    const int ctx = block[slot * sl.block + (q - t + tc)];
     if (ctx < 0) continue;
     if (nvalid++ == 0) {  // the center's first valid pair: its destination
       int d = 0;
@@ -283,7 +315,8 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
       }
       cdest = __shfl_sync(kFull, d, 0);
     }
-    const int* ng = negs + (static_cast<size_t>(p) * W2 + o) * k;
+    const int* ng =
+        negs + slot * sl.negs + (static_cast<long long>(q) * W2 + o) * k;
     for (int gb = 0; gb <= k; gb += kGroup) {
       const int nt = min(kGroup, k + 1 - gb);
       int my_tgt = 0;
@@ -420,19 +453,19 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 
 template <int NV>
 cudaError_t launch_step(float* w_in, float* w_out, const int* block,
-                        const int* cwin, const int* negs, Scratch s, int BT,
-                        int T, int window, int k, int D, int blocks,
-                        int threads, int positions, int slots, float lr,
-                        int* stats, cudaStream_t stream) {
+                        const int* cwin, const int* negs, Scratch s,
+                        Slots sl, int T, int window, int k, int D,
+                        int blocks, int threads, int positions, int slots,
+                        float lr, int* stats, cudaStream_t stream) {
   const int dpad = (D + 31) & ~31;
   const size_t smem = static_cast<size_t>(slots) * (8 + 4 * dpad);
   cudaError_t err = cudaFuncSetAttribute(
       sgns_exact_step<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  void* args[] = {&w_in, &w_out,  &block,     &cwin,  &negs,
-                  &s,    &BT,     &T,         &window, &k,
-                  &D,    &positions, &slots,  &lr,    &stats};
+  void* args[] = {&w_in, &w_out, &block,     &cwin,  &negs,  &s,
+                  &sl,   &T,     &window,    &k,     &D,     &positions,
+                  &slots, &lr,   &stats};
   // refused (cudaErrorCooperativeLaunchTooLarge) if the blocks cannot all
   // be resident at once: never run as an ordinary launch
   return cudaLaunchCooperativeKernel(
@@ -442,14 +475,20 @@ cudaError_t launch_step(float* w_in, float* w_out, const int* block,
 
 // a launch's arguments checked, then the step for the plan's NV
 int run_step(void* w_in, void* w_out, const void* block, const void* cwin,
-             const void* negs, const Scratch& s, int BT, int T, int window,
-             int k, int D, int blocks, int threads, int positions, int slots,
-             float lr, void* stats, void* stream) {
-  if (BT <= 0) return 0;
-  if (D < 1 || k < 0 || window < 1 || threads < 32 || threads % 32 ||
-      threads > kMaxThreads || slots < 0 || blocks < 1 ||
-      static_cast<long long>(blocks) * positions < BT)
+             const void* negs, const Scratch& s, int S, int BT,
+             long long block_stride, long long cwin_stride,
+             long long negs_stride, int T, int window, int k, int D,
+             int blocks, int threads, int positions, int slots, float lr,
+             void* stats, void* stream) {
+  if (S <= 0 || BT <= 0) return 0;
+  if (D < 1 || k < 0 || window < 1 || T < 1 || BT % T || threads < 32 ||
+      threads % 32 || threads > kMaxThreads || slots < 0 || blocks < 1 ||
+      block_stride < 0 || cwin_stride < 0 || negs_stride < 0 ||
+      static_cast<long long>(S) * BT > 0x7fffffffLL ||
+      static_cast<long long>(blocks) * positions <
+          static_cast<long long>(S) * BT)
     return static_cast<int>(cudaErrorInvalidValue);
+  const Slots sl{S, BT, block_stride, cwin_stride, negs_stride};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* a = static_cast<float*>(w_in);
   float* b = static_cast<float*>(w_out);
@@ -459,13 +498,13 @@ int run_step(void* w_in, void* w_out, const void* block, const void* cwin,
   int* st_out = static_cast<int*>(stats);
   cudaError_t err;
   if (D <= 32)
-    err = launch_step<1>(a, b, blk, cw, ng, s, BT, T, window, k, D, blocks,
+    err = launch_step<1>(a, b, blk, cw, ng, s, sl, T, window, k, D, blocks,
                          threads, positions, slots, lr, st_out, st);
   else if (D <= 64)
-    err = launch_step<2>(a, b, blk, cw, ng, s, BT, T, window, k, D, blocks,
+    err = launch_step<2>(a, b, blk, cw, ng, s, sl, T, window, k, D, blocks,
                          threads, positions, slots, lr, st_out, st);
   else
-    err = launch_step<4>(a, b, blk, cw, ng, s, BT, T, window, k, D, blocks,
+    err = launch_step<4>(a, b, blk, cw, ng, s, sl, T, window, k, D, blocks,
                          threads, positions, slots, lr, st_out, st);
   cudaGetLastError();  // a refused launch leaves no error for later calls
   return static_cast<int>(err);
@@ -480,34 +519,40 @@ Scratch step_scratch(void* const* scratch_ptrs) {
 
 }  // namespace
 
-// One step for a block of BT = B*T center positions under a launch plan
-// (ops/sgns_exact.py::launch_plan): `blocks` blocks of `threads` threads
-// (all resident: at most two an SM), `positions` consecutive positions a
-// block, a table of `slots` rows in shared memory; the tables move in
-// place by lr. scratch: d_in, d_out, cnt_in, cnt_out, map_in, map_out,
-// list_in, list_out, counts[2], all empty (zero, map -1) before the step
-// and again after it. stats, when not null, gets three sums added: row adds
-// into the tables, row adds into device memory, slots flushed. Returns the
-// CUDA error of the launch (a refused cooperative launch included).
+// One step for S slots of BT = B*T center positions each under a launch plan
+// (ops/sgns_exact.py::launch_plan for S*B rows): `blocks` blocks of
+// `threads` threads (all resident: at most two an SM), `positions`
+// consecutive positions a block, a table of `slots` rows in shared memory;
+// the tables move in place by lr. Slot s's block, windows and negatives
+// start at block + s * block_stride, cwin + s * cwin_stride and negs + s *
+// negs_stride (elements); one block is S = 1, and S > 1 on one card is the
+// data-parallel trainer's merged update (see the note at the top). scratch:
+// d_in, d_out, cnt_in, cnt_out, map_in, map_out, list_in, list_out,
+// counts[2], all empty (zero, map -1) before the step and again after it.
+// stats, when not null, gets three sums added: row adds into the tables, row
+// adds into device memory, slots flushed. Returns the CUDA error of the
+// launch (a refused cooperative launch included).
 extern "C" int srw_sgns_exact_step_launch(
     void* w_in, void* w_out, const void* block, const void* cwin,
-    const void* negs, void* const* scratch_ptrs, int BT, int T, int window,
-    int k, int D, int blocks, int threads, int positions, int slots,
-    float lr, void* stats, void* stream) {
+    const void* negs, void* const* scratch_ptrs, int S, int BT,
+    long long block_stride, long long cwin_stride, long long negs_stride,
+    int T, int window, int k, int D, int blocks, int threads, int positions,
+    int slots, float lr, void* stats, void* stream) {
   return run_step(w_in, w_out, block, cwin, negs, step_scratch(scratch_ptrs),
-                  BT, T, window, k, D, blocks, threads, positions, slots, lr,
-                  stats, stream);
+                  S, BT, block_stride, cwin_stride, negs_stride, T, window, k,
+                  D, blocks, threads, positions, slots, lr, stats, stream);
 }
 
-// The same step in accumulate mode: the gradients' sums added into the
-// reduction buffer's acc_in, acc_out [V, D] and their counts into cnt_in,
-// cnt_out [V], the tables left as they are (lr is not read).
+// The same step in accumulate mode: the S slots' gradient sums added into
+// the reduction buffer's acc_in, acc_out [V, D] and their counts into
+// cnt_in, cnt_out [V], the tables left as they are (lr is not read).
 extern "C" int srw_sgns_exact_accumulate_launch(
     void* w_in, void* w_out, const void* block, const void* cwin,
-    const void* negs, void* const* scratch_ptrs, int BT, int T, int window,
-    int k, int D, int blocks, int threads, int positions, int slots,
-    float lr, void* stats, void* acc_in, void* acc_out, void* cnt_in,
-    void* cnt_out, void* stream) {
+    const void* negs, void* const* scratch_ptrs, int S, int BT,
+    long long block_stride, long long cwin_stride, long long negs_stride,
+    int T, int window, int k, int D, int blocks, int threads, int positions,
+    int slots, float lr, void* stats, void* acc_in, void* acc_out,
+    void* cnt_in, void* cnt_out, void* stream) {
   if (!acc_in || !acc_out || !cnt_in || !cnt_out)
     return static_cast<int>(cudaErrorInvalidValue);
   Scratch s = step_scratch(scratch_ptrs);
@@ -515,6 +560,7 @@ extern "C" int srw_sgns_exact_accumulate_launch(
   s.sum[1] = static_cast<float*>(acc_out);
   s.num[0] = static_cast<float*>(cnt_in);
   s.num[1] = static_cast<float*>(cnt_out);
-  return run_step(w_in, w_out, block, cwin, negs, s, BT, T, window, k, D,
-                  blocks, threads, positions, slots, lr, stats, stream);
+  return run_step(w_in, w_out, block, cwin, negs, s, S, BT, block_stride,
+                  cwin_stride, negs_stride, T, window, k, D, blocks, threads,
+                  positions, slots, lr, stats, stream);
 }

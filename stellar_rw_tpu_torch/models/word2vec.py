@@ -31,13 +31,17 @@ lr times the mean of its gradients in the block (scatter-mean).
 Data parallelism (train_skipgram with num_partitions = P > 1, and
 train_skipgram_multiproc over torch.distributed ranks) runs the JAX
 package's psum-merged form: P slots (parallel/dp.py), each over its own
-contiguous range of corpus rows with its own key, take a block each; their
-steps run in accumulate mode into one reduction buffer a process (summed
-across ranks by one all-reduce), and one merged update moves the tables
-(ops/dp_apply.py, csrc/dp_apply.cu). Every slot reads the tables as they
-were before the update. In the conv form the negatives' counts merge with
-the context rows' there, as in the JAX package, where one device divides
-them on their own: P = 1 is the single-device path, not a merged update.
+contiguous range of corpus rows with its own key, take a block each, and
+one merged update moves the tables. Every slot reads the tables as they
+were before the update. With exact negatives in one process the merged
+update is one exact step over all the slots' blocks (one launch of
+csrc/sgns_exact.cu on the card: no reduction buffer, no csrc/dp_apply.cu);
+across ranks that step runs in accumulate mode into the process's
+reduction buffer, which one all-reduce sums before ops/dp_apply.py
+(csrc/dp_apply.cu) moves the tables. In the conv form every slot's step
+adds into the buffer, and the negatives' counts merge with the context
+rows' there, as in the JAX package, where one device divides them on their
+own: P = 1 is the single-device path, not a merged update.
 """
 
 from __future__ import annotations
@@ -140,18 +144,22 @@ def _block_lr(i: int, n_blocks: int, lr_start: np.float32,
 def _train_epoch(w_in, w_out, slots, neg_keep, neg_alias, keys, lr_start,
                  lr_end, window: int, negatives: int,
                  shared_negatives: int = 0, groups=None, buf=None,
-                 reduce: bool = False):
+                 reduce: bool = False, merged: bool = False):
     """One epoch over slots [S, n_blocks, B, T] (-1 padded), keys [S] the
-    slots' epoch keys, block index by block index. Without a reduction
-    buffer (S = 1: one device) each block's step moves the tables. With
-    one (data parallel, parallel/dp.py) every slot's step on its block i
-    adds into `buf` in accumulate mode, then one merged update (dp.merge,
-    summed over the ranks when `reduce`) moves them. Each slot's draws are
-    made a chunk of blocks at a time (one kernel launch on the card), all
-    slots' chunks together within _DRAW_BUDGET. groups: group_blocks of
-    the slots' blocks as [S * n_blocks, B, T] for the one-device conv step
-    on the card (made here if none is given; the accumulate mode reads
-    none)."""
+    slots' epoch keys, block index by block index. Without `merged` (S =
+    1: one device) each block's step moves the tables. With it (data
+    parallel, parallel/dp.py) each block index is one merged update of the
+    S slots' steps on their blocks i: with exact negatives one step over
+    all of them (sgns_exact_step on slots[:, i]: one launch on the card),
+    which moves the tables itself unless `buf` is given, where it adds into
+    `buf` in accumulate mode and dp.merge (summed over the ranks when
+    `reduce`) moves them; in the conv form every slot's step adds into
+    `buf`, then dp.merge. Each slot's draws are made a chunk of blocks at a
+    time (one kernel launch on the card) into the chunk's [S, n, ...]
+    draws, all slots' chunks together within _DRAW_BUDGET. groups:
+    group_blocks of the slots' blocks as [S * n_blocks, B, T] for the
+    one-device conv step on the card (made here if none is given; the
+    accumulate mode reads none)."""
     S, n_blocks, B, T = slots.shape
     per_block = (shared_negatives if shared_negatives
                  else B * T * 2 * window * negatives) + B * T
@@ -163,32 +171,43 @@ def _train_epoch(w_in, w_out, slots, neg_keep, neg_alias, keys, lr_start,
     if w_in.device.type == "cuda":
         ws = (ConvWorkspace(w_in, w_out, B, T, window, shared_negatives)
               if shared_negatives
-              else Workspace(w_in, w_out, B * T, window, negatives))
+              else Workspace(w_in, w_out, S * B * T, window, negatives))
         if shared_negatives and groups is None and buf is None:
             groups = group_blocks(slots.reshape(S * n_blocks, B, T))
+    elif merged and not shared_negatives and buf is None:
+        # the plain merged step's reduction buffer, left zero by each
+        ws = torch.zeros(buffer_numel(*w_in.shape), dtype=w_in.dtype)
     for c0 in range(0, n_blocks, chunk):
         n = min(chunk, n_blocks - c0)
-        draws = [trainer_draws(k, c0, n, B, T, window, nshape, neg_keep,
-                               neg_alias) for k in keys]
+        cwin = torch.empty((S, n, B, T), dtype=torch.int32,
+                           device=slots.device)
+        negs = torch.empty((S, n, *nshape), dtype=torch.int32,
+                           device=slots.device)
+        for s, key in enumerate(keys):
+            trainer_draws(key, c0, n, B, T, window, nshape, neg_keep,
+                          neg_alias, out=(cwin[s], negs[s]))
         for j in range(n):
             i = c0 + j
             lr = _block_lr(i, n_blocks, lr_start, lr_end)
-            for s, (cwin, negs) in enumerate(draws):
-                if shared_negatives:
+            if shared_negatives:
+                for s in range(S):
                     g = s * n_blocks + i
-                    sgns_conv_step(w_in, w_out, slots[s, i], cwin[j],
-                                   negs[j], lr, negatives / shared_negatives,
-                                   window, ws,
+                    sgns_conv_step(w_in, w_out, slots[s, i], cwin[s, j],
+                                   negs[s, j], lr,
+                                   negatives / shared_negatives, window, ws,
                                    None if groups is None
                                    else (groups.order[g], groups.units[g]),
                                    buffer=buf)
-                else:
-                    sgns_exact_step(w_in, w_out, slots[s, i], cwin[j],
-                                    negs[j], lr, window, ws, buffer=buf)
+            elif merged:
+                sgns_exact_step(w_in, w_out, slots[:, i], cwin[:, j],
+                                negs[:, j], lr, window, ws, buffer=buf)
+            else:
+                sgns_exact_step(w_in, w_out, slots[0, i], cwin[0, j],
+                                negs[0, j], lr, window, ws)
             if buf is not None:
                 dp.merge(w_in, w_out, buf, lr, reduce)
         # freed before the next chunk is drawn: one chunk's draws are held
-        del draws, cwin, negs
+        del cwin, negs
     return w_in, w_out
 
 
@@ -199,8 +218,10 @@ def _train(slots, vocab_size: int, cfg: SGNSConfig, neg_keep, neg_alias,
     device. first_slot None: the one-device path (S = 1, the epoch key
     fold_in(key, ep)); else data parallel over global slots first_slot ..
     first_slot + S - 1 (slot s's key fold_in(fold_in(key, ep), s)), one
-    merged update a block index, all-reduced when `reduce`. Returns
-    (w_in, w_out) as numpy."""
+    merged update a block index, all-reduced when `reduce`: through the
+    reduction buffer in the conv form and across ranks, by the exact step
+    alone with exact negatives in one process. Returns (w_in, w_out) as
+    numpy."""
     device = slots.device
     S, n_blocks, B, T = slots.shape
     # the one-device conv step's token groups: one sort of the blocks a
@@ -215,9 +236,10 @@ def _train(slots, vocab_size: int, cfg: SGNSConfig, neg_keep, neg_alias,
     else:
         w_in, w_out = _init_embeddings(vocab_size, cfg.dim,
                                        prng.fold_in(key, 0x1A17))
-    buf = (None if first_slot is None else torch.zeros(
-        buffer_numel(vocab_size, cfg.dim), dtype=torch.float32,
-        device=device))
+    dp_buffer = first_slot is not None and (cfg.shared_negatives or reduce)
+    buf = (torch.zeros(buffer_numel(vocab_size, cfg.dim),
+                       dtype=torch.float32, device=device)
+           if dp_buffer else None)
     lr_lo = cfg.lr * cfg.min_lr_frac
     for ep in range(start_epoch, cfg.iters):
         lr_s = cfg.lr + (lr_lo - cfg.lr) * ep / max(cfg.iters, 1)
@@ -227,7 +249,8 @@ def _train(slots, vocab_size: int, cfg: SGNSConfig, neg_keep, neg_alias,
                 [dp.slot_key(kep, first_slot + s) for s in range(S)])
         _train_epoch(w_in, w_out, slots, neg_keep, neg_alias, keys,
                      np.float32(lr_s), np.float32(lr_e), cfg.window,
-                     cfg.negatives, cfg.shared_negatives, groups, buf, reduce)
+                     cfg.negatives, cfg.shared_negatives, groups, buf, reduce,
+                     merged=first_slot is not None)
         if on_epoch is not None:
             on_epoch(ep, w_in.cpu().numpy(), w_out.cpu().numpy())
     return w_in.cpu().numpy(), w_out.cpu().numpy()

@@ -18,13 +18,21 @@ _valid_from_cwin, _pairs_from_valid and _sgns_apply, the trainer's own
 step. The kernels sum in another order (atomics), so they agree with the
 plain version to rounding: rtol 1e-5 on the tables after a step.
 
-With `buffer` given (a reduction buffer, ops/dp_apply.py) the step runs in
-accumulate mode, one slot of the data-parallel trainer's merged update: its
-gradient sums and counts are added into the buffer and the tables are not
-written (the JAX package's _sgns_apply with axis_name, before its psum:
-stellar_rw_tpu/models/word2vec.py:190-199). On the card that is the same
-kernel through its accumulate entry point; its plain version is
-sgns_exact_accumulate_ref.
+Slots. block, cwin and negs may carry a leading slot dimension ([S, B, T],
+[S, B, T], [S, B*T*2w, k]; each slot's part contiguous, any stride between
+slots, as slots[:, i] of the trainer's [S, n_blocks, B, T]): the S slots of
+the data-parallel trainer's merged update. Without a buffer that is the
+merged update itself (the JAX package's psum'd step,
+stellar_rw_tpu/models/word2vec.py:190-201, on one card): one launch of the
+same kernel over all the slots' pairs, counted as a merged launch, whose
+plain twin is sgns_exact_merged_ref (each slot's _sgns_accumulate,
+then dp_apply_ref). With `buffer` given (a reduction buffer,
+ops/dp_apply.py) the step runs in accumulate mode, for slots whose update
+is summed across ranks first: their gradient sums and counts are added into
+the buffer and the tables are not written (_sgns_apply with axis_name,
+before its psum). On the card that is the same kernel through its
+accumulate entry point, one launch for all the slots; its plain version is
+sgns_exact_accumulate_ref, slot by slot.
 """
 
 from __future__ import annotations
@@ -35,19 +43,25 @@ from typing import NamedTuple
 import torch
 
 from ._build import Kernel, ptr, require_cuda, stream
-from .dp_apply import buffer_ptrs, buffer_views
+from .dp_apply import buffer_numel, buffer_ptrs, buffer_views, dp_apply_ref
 from ._build import sm_count as _sms
 
-SGNS_EXACT_STEP = Kernel(
-    "sgns_exact.cu", "srw_sgns_exact_step_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
-    + [ctypes.c_void_p] * 2)
-# the step in accumulate mode: the same kernel (and library), the merged
-# update's buffer as four more arguments (acc_in, acc_out, cnt_in, cnt_out)
+# w_in, w_out, block, cwin, negs, scratch; S, BT; the slot strides; T,
+# window, k, D, blocks, threads, positions, slots; lr; stats
+_STEP_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+              + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 8
+              + [ctypes.c_float] + [ctypes.c_void_p])
+SGNS_EXACT_STEP = Kernel("sgns_exact.cu", "srw_sgns_exact_step_launch",
+                         _STEP_ARGS + [ctypes.c_void_p])
+# the data-parallel merged update of S slots on one card: the same entry
+# point, counted on its own
+SGNS_EXACT_MERGED = Kernel("sgns_exact.cu", SGNS_EXACT_STEP.symbol,
+                           SGNS_EXACT_STEP.argtypes)
+# the step in accumulate mode: the merged update's buffer as four more
+# arguments (acc_in, acc_out, cnt_in, cnt_out)
 SGNS_EXACT_ACCUMULATE = Kernel(
     "sgns_exact.cu", "srw_sgns_exact_accumulate_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_float]
-    + [ctypes.c_void_p] * 6)
+    _STEP_ARGS + [ctypes.c_void_p] * 5)
 
 APPLY_BLOCKS = 1056     # the conv scatter's grid cap: 8 blocks of 8 warps
                         # an SM of the H100's 132
@@ -82,15 +96,16 @@ def slot_bytes(D: int) -> int:
 
 def launch_plan(D: int, B: int, T: int, window: int, k: int,
                 sm_count: int = H100_SMS) -> LaunchPlan:
-    """The step's plan for a block [B, T] at dim D, window w and k
-    negatives on a card of `sm_count` SMs (the .cu dispatch picks nv from D
-    alike): at most BLOCKS_PER_SM persistent blocks an SM (all resident, as
-    the cooperative launch needs), each over `positions`
-    consecutive centers, with a table of TABLE_ROWS rows where TABLE_BUDGET
-    holds them, never more than twice the rows its positions can touch. The
-    table is for the hub rows, which come first and most often: rows that
-    find no slot go straight to device memory, and a larger table costs
-    more in probes and flushes than it saves (PERF.md, section 6)."""
+    """The step's plan for a block [B, T] (the merged update of S slots of
+    B rows: S * B rows) at dim D, window w and k negatives on a card of
+    `sm_count` SMs (the .cu dispatch picks nv from D alike): at most
+    BLOCKS_PER_SM persistent blocks an SM (all resident, as the cooperative
+    launch needs), each over `positions` consecutive centers, with a table
+    of TABLE_ROWS rows where TABLE_BUDGET holds them, never more than twice
+    the rows its positions can touch. The table is for the hub rows, which
+    come first and most often: rows that find no slot go straight to
+    device memory, and a larger table costs more in probes and flushes than
+    it saves (PERF.md, section 6)."""
     if D < 1 or B < 0 or T < 0 or window < 1 or k < 0 or sm_count < 1:
         raise ValueError(f"sgns_exact launch_plan: D={D} B={B} T={T} "
                          f"window={window} k={k} sm_count={sm_count}")
@@ -243,53 +258,111 @@ def _sgns_accumulate(w_in, w_out, centers, contexts, valid, negs, buffer):
 def sgns_exact_accumulate_ref(w_in, w_out, block, cwin, negs, window: int,
                               buffer):
     """Plain torch version of the accumulate mode: the trainer's pair
-    enumeration and _sgns_accumulate."""
+    enumeration and _sgns_accumulate, slot by slot where block has a slot
+    dimension."""
+    if block.dim() == 3:
+        for s in range(block.shape[0]):
+            sgns_exact_accumulate_ref(w_in, w_out, block[s], cwin[s],
+                                      negs[s], window, buffer)
+        return buffer
     valid, ctx_pos_c = _valid_from_cwin(block, cwin, window)
     centers, contexts, vflat = _pairs_from_valid(block, valid, ctx_pos_c)
     return _sgns_accumulate(w_in, w_out, centers, contexts, vflat, negs,
                             buffer)
 
 
+def sgns_exact_merged_ref(w_in, w_out, blocks, cwins, negs, lr: float,
+                          window: int, buffer=None):
+    """Plain twin of the merged update of S slots (blocks [S, B, T]), in
+    place: each slot's _sgns_accumulate into one reduction buffer in the
+    tables' dtype, then dp_apply_ref, as the data-parallel trainer merges
+    its slots. `buffer`, when given, is that buffer, zero: dp_apply_ref
+    leaves it zero again, so one serves every merged update."""
+    if buffer is None:
+        buffer = torch.zeros(buffer_numel(*w_in.shape), dtype=w_in.dtype,
+                             device=w_in.device)
+    sgns_exact_accumulate_ref(w_in, w_out, blocks, cwins, negs, window,
+                              buffer)
+    return dp_apply_ref(w_in, w_out, buffer, lr)
+
+
+def _slot_layout(name: str, block, cwin, negs, window: int):
+    """(S, B, T, k, slot strides) of one block ([B, T], [B, T],
+    [B*T*2w, k]) or of S slots' ([S, B, T], [S, B, T], [S, B*T*2w, k]),
+    each slot's part contiguous; raises on anything else."""
+    if block.dim() == 2:
+        block, cwin, negs = block[None], cwin[None], negs[None]
+    if block.dim() != 3 or cwin.dim() != 3 or negs.dim() != 3:
+        raise ValueError(f"{name}: block {tuple(block.shape)}, cwin "
+                         f"{tuple(cwin.shape)}, negs {tuple(negs.shape)}")
+    S, B, T = block.shape
+    k = negs.shape[2]
+    if (cwin.shape != (S, B, T) or negs.shape[:2] != (S, B * T * 2 * window)
+            or block.stride()[1:] != (T, 1) or cwin.stride()[1:] != (T, 1)
+            or negs.stride()[1:] != (k, 1)):
+        raise ValueError(f"{name}: slots of block {tuple(block.shape)} "
+                         f"cwin {tuple(cwin.shape)} negs "
+                         f"{tuple(negs.shape)} window {window}, or a slot "
+                         f"not contiguous")
+    strides = tuple(t.stride(0) if S > 1 else 0 for t in (block, cwin, negs))
+    return S, B, T, k, strides
+
+
 def sgns_exact_step(w_in, w_out, block, cwin, negs, lr: float, window: int,
-                    ws: Workspace | None = None, buffer=None):
-    """One exact-negative step in place (see the module). CUDA tensors
-    launch csrc/sgns_exact.cu once, with the scratch `ws` (a new Workspace
-    if none is given); CPU tensors run sgns_exact_step_ref. Any D. With
-    `buffer` (the reduction buffer of ops/dp_apply.py) the step runs in
-    accumulate mode: the tables stay, lr is not read."""
+                    ws: Workspace | torch.Tensor | None = None, buffer=None):
+    """One exact-negative step in place (see the module): of one block, or
+    the merged update of S slots when block, cwin and negs carry a slot
+    dimension. CUDA tensors launch csrc/sgns_exact.cu once, with the
+    scratch `ws` (a new Workspace for S * B * T positions if none is
+    given); CPU tensors run sgns_exact_step_ref (one block) or
+    sgns_exact_merged_ref (slots; `ws` is then its zero reduction buffer,
+    a new one if none is given). Any D. With `buffer` (the reduction
+    buffer of ops/dp_apply.py) the step runs in accumulate mode: the
+    tables stay, lr is not read."""
     if w_in.device.type == "cpu":
         if buffer is not None:
             return sgns_exact_accumulate_ref(w_in, w_out, block, cwin, negs,
                                              window, buffer)
+        if block.dim() == 3:
+            return sgns_exact_merged_ref(w_in, w_out, block, cwin, negs, lr,
+                                         window, ws)
         return sgns_exact_step_ref(w_in, w_out, block, cwin, negs, lr, window)
-    SGNS_EXACT_STEP.fn()
-    B, T = block.shape
+    (SGNS_EXACT_STEP if block.dim() == 2 and buffer is None
+     else SGNS_EXACT_MERGED if buffer is None else SGNS_EXACT_ACCUMULATE).fn()
+    negs = negs.to(torch.int32)
+    S, B, T, k, _ = _slot_layout("sgns_exact_step", block, cwin, negs,
+                                 window)
     D = w_in.shape[1]
-    if (w_out.shape[1] != D or cwin.shape != (B, T)
-            or negs.shape[0] != B * T * 2 * window):
-        raise ValueError(f"sgns_exact_step: shapes w_in {tuple(w_in.shape)} "
-                         f"w_out {tuple(w_out.shape)} block {(B, T)} cwin "
-                         f"{tuple(cwin.shape)} negs {tuple(negs.shape)} "
-                         f"window {window}")
+    if w_out.shape[1] != D:
+        raise ValueError(f"sgns_exact_step: tables {tuple(w_in.shape)} and "
+                         f"{tuple(w_out.shape)}")
     if w_in.dtype != torch.float32 or w_out.dtype != torch.float32:
         raise ValueError("sgns_exact_step: tables must be float32")
-    negs = negs.to(torch.int32)
     for name, t in (("block", block), ("cwin", cwin)):
         if t.dtype != torch.int32:
             raise ValueError(f"sgns_exact_step: {name} must be int32, "
                              f"got {t.dtype}")
-    require_cuda("sgns_exact_step", w_in, w_out, block, cwin, negs)
+    require_cuda("sgns_exact_step", w_in, w_out)
+    require_slots("sgns_exact_step", w_in, block, cwin, negs)
     if buffer is not None:
         check_buffer("sgns_exact_step", w_in, w_out, buffer)
-    k = negs.shape[1]
     if ws is None:
-        ws = Workspace(w_in, w_out, B * T, window, k)
-    elif not ws.serves(w_in, w_out, B * T, window, k):
+        ws = Workspace(w_in, w_out, S * B * T, window, k)
+    elif not ws.serves(w_in, w_out, S * B * T, window, k):
         raise ValueError(f"sgns_exact_step: workspace for {ws.shape} with "
                          f"{ws.rows} delta rows")
     launch_step(ws, w_in, w_out, block, cwin, negs, window, lr,
                 buffer=buffer)
     return w_in, w_out
+
+
+def require_slots(name: str, w_in, *tensors) -> None:
+    """The slot arrays on the tables' CUDA device (their layout is
+    _slot_layout's)."""
+    for t in tensors:
+        if t.device != w_in.device:
+            raise ValueError(f"{name}: expected CUDA tensors on one device, "
+                             f"got {t.device}")
 
 
 def check_buffer(name: str, w_in, w_out, buffer) -> None:
@@ -307,24 +380,27 @@ def launch_step(ws: Workspace, w_in, w_out, block, cwin, negs, window: int,
                 lr: float, plan: LaunchPlan | None = None,
                 stats=None, buffer=None) -> None:
     """The step's kernel on checked tensors under `plan` (launch_plan for
-    this card if none is given): gradients into ws, the update, ws emptied.
-    stats, an int32 [3] tensor, gets added the row adds into the blocks'
-    tables, the row adds into device memory and the table slots flushed.
-    With a checked `buffer` the accumulate entry point runs in place of the
-    update. A cooperative launch the card refuses raises
-    KernelLaunchError."""
-    B, T = block.shape
-    k = negs.shape[1]
+    this card and the S * B rows if none is given): gradients into ws, the
+    update, ws emptied. block, cwin, negs: one block, or S slots' (the
+    merged update, counted by SGNS_EXACT_MERGED). stats, an int32 [3]
+    tensor, gets added the row adds into the blocks' tables, the row adds
+    into device memory and the table slots flushed. With a checked
+    `buffer` the accumulate entry point runs in place of the update. A
+    cooperative launch the card refuses raises KernelLaunchError."""
+    S, B, T, k, strides = _slot_layout("launch_step", block, cwin, negs,
+                                       window)
     if plan is None:
-        plan = launch_plan(w_in.shape[1], B, T, window, k, _sms(w_in.device))
+        plan = launch_plan(w_in.shape[1], S * B, T, window, k,
+                           _sms(w_in.device))
     args = (ptr(w_in), ptr(w_out), ptr(block), ptr(cwin), ptr(negs),
-            ws._ptrs, B * T, T, window, k, w_in.shape[1], plan.blocks,
-            plan.threads, plan.positions, plan.slots, float(lr),
-            None if stats is None else ptr(stats))
-    if buffer is None:
-        SGNS_EXACT_STEP.launch(*args, stream(w_in.device))
-    else:
+            ws._ptrs, S, B * T, *strides, T, window, k, w_in.shape[1],
+            plan.blocks, plan.threads, plan.positions, plan.slots,
+            float(lr), None if stats is None else ptr(stats))
+    if buffer is not None:
         SGNS_EXACT_ACCUMULATE.launch(
             *args, *buffer_ptrs(buffer, *w_in.shape),
             stream(w_in.device))
-
+    elif block.dim() == 2:
+        SGNS_EXACT_STEP.launch(*args, stream(w_in.device))
+    else:
+        SGNS_EXACT_MERGED.launch(*args, stream(w_in.device))

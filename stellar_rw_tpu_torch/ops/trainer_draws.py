@@ -100,13 +100,21 @@ def trainer_draws_ref(key, c0: int, n: int, B: int, T: int, window: int,
 
 
 def trainer_draws(key, c0: int, n: int, B: int, T: int, window: int,
-                  neg_shape, neg_keep, neg_alias):
+                  neg_shape, neg_keep, neg_alias, out=None):
     """Draws of blocks c0 .. c0 + n - 1 (see the module). key: int64 [2]
     (uint32 words); neg_keep f32 [V]; neg_alias int [V] (int32 on the
-    card); both unused, and may be None, when neg_shape has no element."""
+    card); both unused, and may be None, when neg_shape has no element.
+    out: (cwin, negs), int32 tensors of those shapes on key's device, each
+    contiguous (a slot's part of the trainer's [S, n, ...] draws), written
+    in place of new ones and returned."""
     if key.device.type == "cpu":
-        return trainer_draws_ref(key, c0, n, B, T, window, neg_shape,
-                                 neg_keep, neg_alias)
+        got = trainer_draws_ref(key, c0, n, B, T, window, neg_shape,
+                                neg_keep, neg_alias)
+        if out is None:
+            return got
+        for into, drawn in zip(out, got):
+            into.copy_(drawn)
+        return tuple(out)
     TRAINER_DRAWS_KERNEL.fn()
     neg_shape = tuple(neg_shape)
     M = math.prod(neg_shape)
@@ -124,9 +132,18 @@ def trainer_draws(key, c0: int, n: int, B: int, T: int, window: int,
         raise ValueError("trainer_draws: keep must be float32 and alias "
                          "int32")
     require_cuda("trainer_draws", key, neg_keep, neg_alias)
-    cwin = torch.empty((n, B, T), dtype=torch.int32, device=key.device)
-    negs = torch.empty((n,) + neg_shape, dtype=torch.int32,
-                       device=key.device)
+    if out is None:
+        cwin = torch.empty((n, B, T), dtype=torch.int32, device=key.device)
+        negs = torch.empty((n,) + neg_shape, dtype=torch.int32,
+                           device=key.device)
+    else:
+        cwin, negs = out
+        if (cwin.shape != (n, B, T) or negs.shape != (n,) + neg_shape
+                or cwin.dtype != torch.int32 or negs.dtype != torch.int32):
+            raise ValueError(f"trainer_draws: out of {tuple(cwin.shape)} "
+                             f"{cwin.dtype}, {tuple(negs.shape)} "
+                             f"{negs.dtype} for {n} blocks")
+        require_cuda("trainer_draws", key, cwin, negs)
     plan = launch_plan(n, B * T, M)
     TRAINER_DRAWS_KERNEL.launch(ptr(key), c0, n, B * T, M, window,
                                 *span_magic(window), plan.runs, plan.per,

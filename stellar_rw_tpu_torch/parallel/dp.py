@@ -13,14 +13,17 @@ update. Here a replica is a *slot*:
     of the padded corpus; its key for an epoch is
     fold_in(epoch_key, s) (slot_key), and block i's draws come from
     fold_in(that key, i), as in the JAX package;
-  * the slots of one process share its card and run in turn on one
-    stream, each step in accumulate mode, adding its gradient sums and
-    counts into the process's one reduction buffer (ops/dp_apply.py holds
-    its layout);
-  * merge() makes one merged update: where the trainer's slots span ranks,
-    the buffer is summed across them by one all_reduce(SUM), then every
-    rank applies the same update (ops/dp_apply.py::dp_apply), so the
-    tables stay equal on every rank.
+  * the slots of one process share its card. With exact negatives their
+    steps are one launch over all of them (ops/sgns_exact.py's slot
+    form): in one process that launch is the merged update itself, with no
+    buffer; across ranks it adds the slots' gradient sums and counts into
+    the process's one reduction buffer (ops/dp_apply.py holds its layout).
+    In the conv form each slot's step adds into the buffer in turn on one
+    stream;
+  * merge() makes one merged update from the buffer: where the trainer's
+    slots span ranks, the buffer is summed across them by one
+    all_reduce(SUM), then every rank applies the same update
+    (ops/dp_apply.py::dp_apply), so the tables stay equal on every rank.
 
 So P slots on one card compute the function that the JAX package's P
 replicas compute on P devices, and so do P slots spread over ranks.

@@ -144,6 +144,38 @@ def test_merged_step_matches_jax(P, form, own):
         assert not np.array_equal(g, old)
 
 
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("own", [False, True])
+@pytest.mark.parametrize("padded", [False, True])
+def test_merged_twin_matches_jax(P, own, padded):
+    """The exact form's merged update as the trainer makes it on one card,
+    one step over the P slots' blocks (sgns_exact_step on slots[:, i] of
+    [P, n_blocks, B, T] and the chunk's [P, n, ...] draws: on the CPU its
+    twin, each slot's accumulate then dp_apply_ref), against the JAX
+    package's psum'd _sgns_apply under shard_map over P CPU devices;
+    own-token negatives, and a last slot whose walks are all -1 (the
+    padding of a ragged corpus)."""
+    V, D, B, T, window, k = 40, 16, 3, 14, 3, 3
+    blocks, cwin, negs = _slot_blocks(P, B, T, V, P + 10, own, None, k,
+                                      window)
+    if padded:
+        blocks[-1] = -1
+    w_in, w_out = _tables(V, D, P)
+    want = _jax_merged(w_in, w_out, blocks, cwin, negs, window, None, k)
+    n, j = 3, 1
+    laid = lambda x: torch.as_tensor(np.repeat(x[:, None], n, axis=1))
+    got = [torch.tensor(w) for w in (w_in, w_out)]
+    sgns_exact.sgns_exact_step(*got, laid(blocks)[:, j], laid(cwin)[:, j],
+                               laid(negs)[:, j], float(LR), window)
+    for g, w, old in zip(got, want, (w_in, w_out)):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-6)
+        assert not np.array_equal(g.numpy(), old)
+    # the one-slot-at-a-time form of the same update agrees too
+    one = _port_merged(w_in, w_out, blocks, cwin, negs, window, None, k)
+    for g, o in zip(got, one):
+        np.testing.assert_array_equal(g.numpy(), o)
+
+
 def test_conv_negative_counts_merge_with_the_context_rows():
     """With one slot the merged conv update is not the single-device step
     where a row is both a context and a negative: the dp count merges the
@@ -165,7 +197,7 @@ def test_conv_negative_counts_merge_with_the_context_rows():
                            rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("P", [2, 4, 3])
 @pytest.mark.parametrize("kB", [0, 8])
 def test_train_skipgram_partitions_matches_jax(walks, P, kB):
     """train_skipgram(num_partitions=P) on the CPU against the JAX
@@ -294,18 +326,39 @@ def test_reduction_buffer_and_backend_rule():
 # The kernels' changes in NumPy (float32), against the plain float64 step
 
 
-def _exact_accumulate_np(w_in, w_out, block, cwin, negs, window, acc, cnt):
+def _exact_accumulate_np(w_in, w_out, block, cwin, negs, window, acc, cnt,
+                         d=None):
     """csrc/sgns_exact.cu in accumulate mode, with no shared-memory table
     (every row straight to its delta slot, claimed at its first touch):
     phase (a) adds each valid pair's gradient rows, from the old tables,
     into the slots; phase (b) adds each listed slot's delta row and count
     into the buffer's acc and cnt rows and empties the slot. Returns the
-    rows listed of each table."""
+    rows listed of each table. d: delta slots that other slots of the same
+    launch filled first (phase (b) then runs over all of them); block
+    [S, B, T]: the S slots of one launch."""
+    if block.ndim == 3:
+        d = [dict(), dict()]
+        for s in range(len(block) - 1):
+            _exact_deltas_np(w_in, w_out, block[s], cwin[s], negs[s], window,
+                             d)
+        return _exact_accumulate_np(w_in, w_out, block[-1], cwin[-1],
+                                    negs[-1], window, acc, cnt, d)
+    d = d or [dict(), dict()]
+    _exact_deltas_np(w_in, w_out, block, cwin, negs, window, d)
+    for t in (0, 1):                              # phase (b), accumulate
+        for row, (delta, n) in d[t].items():
+            acc[t][row] += delta
+            cnt[t][row] += np.float32(n)
+    return [list(d[t]) for t in (0, 1)]
+
+
+def _exact_deltas_np(w_in, w_out, block, cwin, negs, window, d):
+    """Phase (a) of the transcription above for one block: its pairs'
+    gradient rows into the delta slots d (row -> [delta, count], in claim
+    order)."""
     B, T = block.shape
     V, D = w_in.shape
-    k = negs.shape[1]
     W2 = 2 * window
-    d = [dict(), dict()]          # row -> [delta, count], in claim order
     for p in range(B * T):
         b, t = divmod(p, T)
         center = block[b, t]
@@ -334,11 +387,6 @@ def _exact_accumulate_np(w_in, w_out, block, cwin, negs, window, acc, cnt):
             slot = d[0].setdefault(int(center), [np.zeros(D, np.float32), 0])
             slot[0] += dvi
             slot[1] += nvalid
-    for t in (0, 1):                              # phase (b), accumulate
-        for row, (delta, n) in d[t].items():
-            acc[t][row] += delta
-            cnt[t][row] += np.float32(n)
-    return [list(d[t]) for t in (0, 1)]
 
 
 def _conv_scatter_accumulate_np(block, d_in, acc_out, cnt_pos, d_wn, negs,
@@ -433,6 +481,81 @@ def test_kernel_changes_transcribed_match_the_float64_step(form, own):
     assert not any(a.any() for a in acc) and not any(c.any() for c in cnt)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("own", [False, True])
+def test_slots_in_one_accumulate_launch_transcribed(P, own):
+    """A rank's slots in one accumulate launch (the exact form across
+    ranks): every slot's gradient rows summed in one set of delta slots,
+    then added into the buffer once a row, transcribed in NumPy float32.
+    The counts equal the plain accumulate's, acc is exactly 0 wherever the
+    count is 0 (K13's precondition), and K13's transcription of the buffer
+    is within rtol 1e-5 atol 1e-6 of the plain merged update in float64
+    and bit for bit dp_apply_ref in float32."""
+    V, D, B, T, window, k = 600, 12, 3, 16, 2, 2
+    blocks, cwin, negs = _slot_blocks(P, B, T, V, 13, own, None, k, window)
+    w_in, w_out = _tables(V, D, 13)
+    want = _port_merged(w_in, w_out, blocks, cwin, negs, window, None, k,
+                        dtype=torch.float64)
+    acc = [np.zeros((V, D), np.float32) for _ in range(2)]
+    cnt = [np.zeros(V, np.float32) for _ in range(2)]
+    listed = _exact_accumulate_np(w_in, w_out, blocks, cwin, negs, window,
+                                  acc, cnt)
+    assert all(len(set(r)) == len(r) for r in listed)
+    plain = torch.zeros(da.buffer_numel(V, D))
+    sgns_exact.sgns_exact_accumulate_ref(
+        torch.tensor(w_in), torch.tensor(w_out),
+        *(torch.as_tensor(x) for x in (blocks, cwin, negs)), window, plain)
+    np.testing.assert_array_equal(cnt[0], da.buffer_views(plain, V, D)[2])
+    np.testing.assert_array_equal(cnt[1], da.buffer_views(plain, V, D)[3])
+    for a, c in zip(acc, cnt):
+        assert (c == 0).any() and not a[c == 0].any()
+    buf = torch.as_tensor(np.concatenate(
+        [acc[0].ravel(), acc[1].ravel(), cnt[0], cnt[1]]))
+    ref = [torch.tensor(w) for w in (w_in, w_out)]
+    da.dp_apply_ref(*ref, buf, float(LR))
+    got = _dp_apply_np(w_in, w_out, acc, cnt, LR)
+    for g, r, w in zip(got, ref, want):
+        np.testing.assert_array_equal(g, r.numpy())
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("multiproc", [False, True])
+def test_exact_partitions_merge_without_a_buffer(walks, multiproc,
+                                                 monkeypatch):
+    """In one process the exact form's merged update is the step over all
+    the slots (no reduction buffer: dp.merge, and with it K13, never
+    runs), and one call a block index; the conv form still merges through
+    the buffer."""
+    calls = {"merge": 0, "step": 0}
+    merge, step = dp.merge, w2v.sgns_exact_step
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+    monkeypatch.setattr(dp, "merge", count("merge", merge))
+    monkeypatch.setattr(w2v, "sgns_exact_step", count("step", step))
+    for kB in (0, 8):
+        calls.update(merge=0, step=0)
+        kw = dict(dim=8, window=3, negatives=2, iters=1, seed=3, lr=0.05,
+                  shared_negatives=kB)
+        if multiproc:
+            blocks, rows = w2v.full_corpus_blocks(walks, 2)
+            w2v.train_skipgram_multiproc(blocks, rows, 34,
+                                         w2v.SGNSConfig(**kw), num_devices=2,
+                                         device="cpu")
+            merged = (rows // 2) // w2v._divisor_block(rows // 2, 16)
+        else:
+            w2v.train_skipgram(walks.copy(), 34, w2v.SGNSConfig(**kw),
+                               num_partitions=2, device="cpu")
+            merged = -(-97 // 32)
+        if kB:
+            assert calls["merge"] == merged and calls["step"] == 0
+        else:
+            assert calls["merge"] == 0 and calls["step"] == merged
 
 
 def _one_slot(tokens, form, V, B, T, window, kB, k, seed):

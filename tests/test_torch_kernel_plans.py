@@ -503,6 +503,27 @@ def test_sgns_exact_parts_variant_edits_the_source_once(name):
         assert source.count(old) == 1 and new != old
 
 
+@pytest.mark.parametrize("name", list(chip_sgns_exact_parts.RING_VARIANTS))
+def test_sgns_exact_ring_variant_builds_on_the_source(name):
+    """chip_sgns_exact_parts.py's ring variants are csrc/sgns_exact.cu with
+    chip_sgns_exact_ring.cu appended, edited by text: each piece occurs
+    once in that text and its replacement differs; the ring's entry points
+    are in its file and not in the kernel source, whose step has no ring
+    left."""
+    mod = chip_sgns_exact_parts
+    source = (_build.CSRC / sgns_exact.SGNS_EXACT_STEP.source).read_text()
+    text = mod.ring_text([])
+    for old, new in mod.RING_VARIANTS[name]:
+        assert text.count(old) == 1 and new != old
+        text = text.replace(old, new)
+    assert mod.ring_text(mod.RING_VARIANTS[name]) == text
+    ring = text[len(source):]
+    for symbol in mod.RING_SYMBOLS:
+        assert f"extern \"C\" int {symbol}(" in ring
+        assert symbol not in source
+    assert "kStages" not in source and "asm volatile" not in source
+
+
 @pytest.mark.parametrize("name", [n for n, edits in
                                   chip_draws_parts.VARIANTS.items()
                                   if edits])

@@ -230,3 +230,38 @@ def test_reciprocal_modulo_matches_numpy():
                                       v % np.uint64(span), err_msg=str(span))
         magic, sh1, sh2 = td.span_magic(span)
         assert 0 < magic < 1 << 32 and sh1 in (0, 1) and 0 <= sh2 <= 30
+
+
+@pytest.mark.parametrize("B,T,window,k,kB,V,c0,n", CASES[:4])
+def test_draws_into_the_slots_tensor(B, T, window, k, kB, V, c0, n):
+    """out=: each slot's draws written into its part of one [S, n, ...]
+    tensor (the data-parallel trainer's chunk, read as [S, ...] views a
+    block index), bit for bit the JAX streams of the slot's key; the part
+    itself is returned and the other slots' parts are not touched."""
+    keep, alias = _alias(V, 5)
+    shape = (B * T * 2 * window, k) if k else (kB,)
+    S = 3
+    cwin = torch.full((S, n, B, T), -7, dtype=torch.int32)
+    negs = torch.full((S, n, *shape), -7, dtype=torch.int32)
+    key = prng.fold_in(prng.prng_key(4), 0)
+    for s in (0, 2):
+        got = td.trainer_draws(prng.fold_in(key, s), c0, n, B, T, window,
+                               shape, torch.as_tensor(keep),
+                               torch.as_tensor(alias), out=(cwin[s], negs[s]))
+        assert got[0].data_ptr() == cwin[s].data_ptr()
+        assert got[1].data_ptr() == negs[s].data_ptr()
+    assert (cwin[1] == -7).all() and (negs[1] == -7).all()
+    with jax.enable_x64(False):
+        jkey = jax.random.fold_in(jax.random.PRNGKey(4), 0)
+        for s in (0, 2):
+            ks = jax.random.fold_in(jkey, s)
+            for j, i in enumerate(range(c0, c0 + n)):
+                kb = jax.random.fold_in(ks, i)
+                np.testing.assert_array_equal(
+                    cwin[s, j].numpy(),
+                    np.asarray(jax.random.randint(kb, (B, T), 1,
+                                                  window + 1)))
+                np.testing.assert_array_equal(
+                    negs[s, j].numpy(), np.asarray(jw2v._draw_negatives(
+                        jax.random.fold_in(kb, 2), shape, jnp.asarray(keep),
+                        jnp.asarray(alias))))
