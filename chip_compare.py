@@ -16,7 +16,12 @@ events around launches queued behind a long product):
   * the walk kernel on the walk_10k graph (10 rounds, L = 80, p = q = 0.25):
     other, this, this, other, after checking the two corpora equal;
   * the trial-key table as each checkout's walk_corpus gets it: host wall
-    time of the call, synchronized;
+    time of the call, synchronized; then its device time alone, and the
+    table followed by the walk kernel it feeds, after checking the corpus
+    equal: other, this, this, other, twice; then this checkout's launch
+    forms against text edits of its sources (compare_launch_forms): the
+    walk kernel as the table's programmatic dependent, and K11's serve (a
+    programmatic dependent) as an ordinary launch after the emit;
   * the resident-row walk kernel (walk_corpus_resident, whatever it runs
     around its launch) on chip_smoke's three phase-7 shapes: other, this,
     this, other, after checking the two corpora equal; then each checkout's
@@ -152,6 +157,112 @@ def conv_step_fns(pkg, tables, window: int, lr: float, nw: float,
             lambda: se.launch_apply(ws.slots, a_in, a_out, lr)], (a_in, a_out)
 
 
+# this checkout's sources with the launch form changed: the walk kernel as
+# the key table's programmatic dependent (it waits for the table first),
+# and K11's serve as an ordinary launch
+WALK_AS_DEPENDENT = [
+    ("    walk_kernel<<<(N + kBlock - 1) / kBlock, kBlock, 0, "
+     "(cudaStream_t)stream>>>(\n        starts,",
+     "    const cudaError_t err = srw::launch_dependent(\n        walk_kernel,"
+     " dim3((N + kBlock - 1) / kBlock), dim3(kBlock),\n        "
+     "(cudaStream_t)stream, starts,"),
+    ("        inv_q, max_f, mode);\n  }\n  return (int)cudaGetLastError();\n}"
+     "\n\nextern \"C\" int srw_trial_keys_launch",
+     "        inv_q, max_f, mode);\n    if (err != cudaSuccess) return (int)err;"
+     "\n  }\n  return (int)cudaGetLastError();\n}\n\nextern \"C\" int "
+     "srw_trial_keys_launch"),
+    ("            float inv_p, float inv_q, float max_f, int mode) {\n"
+     "  const int row",
+     "            float inv_p, float inv_q, float max_f, int mode) {\n"
+     "  asm volatile(\"griddepcontrol.wait;\" ::: \"memory\");\n"
+     "  const int row"),
+]
+SERVE_ORDINARY = [
+    ("    const cudaError_t err = srw::launch_dependent(\n"
+     "        shard_serve_kernel, dim3((m + kServeThreads - 1) / "
+     "kServeThreads),\n        dim3(kServeThreads), (cudaStream_t)stream, "
+     "cur,",
+     "    const cudaError_t err = (shard_serve_kernel<<<(m + kServeThreads - "
+     "1) / kServeThreads,\n        kServeThreads, 0, (cudaStream_t)stream>>>("
+     "cur,"),
+    ("        L1, T, E, inv_p, inv_q, max_f, mode);",
+     "        L1, T, E, inv_p, inv_q, max_f, mode), cudaSuccess);"),
+]
+
+
+def compare_launch_forms(torch, this, walker, graph, R, L, p, q,
+                         smi) -> None:
+    """The launch forms, each against this checkout's source in turns (this,
+    variant, variant, this, twice), outputs bit for bit: the key table +
+    the walk kernel at walk_10k with the walk as the table's programmatic
+    dependent; the emit + K11's serve at chip_smoke phase 22's superstep
+    (hash route, rank 0's walkers) with the serve as an ordinary launch."""
+    from chip_smoke import edited, shard_superstep, source_kernel
+
+    build = this("ops._build")
+    ws, sw = this("ops.walk_step"), this("ops.shard_walk")
+    pkg, dg, starts, spec, key = walker
+    T = spec.max_rounds * spec.k_candidates
+    V = graph.num_vertices
+    text = (build.CSRC / "walk.cu").read_text()
+    dep = {k.symbol: source_kernel("walk_dependent", edited(
+        text, WALK_AS_DEPENDENT), k.symbol, k.argtypes, "walk_dependent")
+        for k in (ws.WALK_KERNEL, ws.KEYS_KERNEL)}
+    saved = (ws.WALK_KERNEL, ws.KEYS_KERNEL)
+
+    def walk_with(kernels):
+        def run():
+            ws.WALK_KERNEL, ws.KEYS_KERNEL = kernels
+            keys = ws.trial_keys(key, 0, R, L, T, device="cuda")
+            out = ws.walk_rounds(dg, starts, keys, L, p, q, V)
+            ws.WALK_KERNEL, ws.KEYS_KERNEL = saved
+            return out
+        return run
+
+    fns = {"source": walk_with(saved), "dependent": walk_with(
+        (dep[saved[0].symbol], dep[saved[1].symbol]))}
+    check(torch.equal(fns["source"](), fns["dependent"]()),
+          "the walk as a programmatic dependent differs")
+    order = ("source", "dependent", "dependent", "source") * 2
+    runs = [(name, cuda_ms(fns[name], 10)) for name in order]
+    print(json.dumps({"launch form": "trial_keys + walk, the walk as the "
+                      "table's programmatic dependent", "ms_in_turns": runs,
+                      "card": smi}))
+
+    corpus = fns["source"]().reshape(R * V, L + 2)
+    keys = ws.trial_keys(key, 0, R, L, T, device="cuda")
+    tabs, cur, prev, alive, _, S, Ln, C, W_pad = shard_superstep(
+        torch, graph, "hash", corpus, keys)
+    text = (build.CSRC / "shard_walk.cu").read_text()
+    ordinary = source_kernel("serve_ordinary", edited(text, SERVE_ORDINARY),
+                             sw.SERVE_KERNEL.symbol, sw.SERVE_KERNEL.argtypes,
+                             "serve_ordinary")
+    saved_serve = sw.SERVE_KERNEL
+    n = cur.shape[0]
+    pend, loc = (torch.zeros(n, dtype=torch.int32, device="cuda")
+                 for _ in range(2))
+    kw = dict(W_pad=W_pad, W_total=R * W_pad, n_stream=V, p=p, q=q)
+
+    def serve_with(kernel):
+        def run():
+            sw.SERVE_KERNEL = kernel
+            sw.emit(tabs[0], cur, prev, pend, alive, loc, Ln, S * Ln, 0, C)
+            out = sw.serve(tabs[0], (cur, prev, None), loc, 0, keys, 5,
+                           False, **kw)
+            sw.SERVE_KERNEL = saved_serve
+            return out
+        return run
+
+    fns = {"source": serve_with(saved_serve), "ordinary": serve_with(ordinary)}
+    check(torch.equal(fns["source"](), fns["ordinary"]()),
+          "K11's serve as an ordinary launch differs")
+    order = ("source", "ordinary", "ordinary", "source") * 2
+    runs = [(name, cuda_ms(fns[name], 20)) for name in order]
+    print(json.dumps({"launch form": "shard_emit + shard_serve, the serve "
+                      "as an ordinary launch", "ms_in_turns": runs,
+                      "card": smi}))
+
+
 def wall_ms(torch, fn, iters: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -257,6 +368,27 @@ def main(argv: list[str]) -> int:
     runs = [(name, wall_ms(torch, key_table(name), 10)) for name in order]
     print(json.dumps({"step": "trial-key table, host wall ms a call",
                       "ms_in_turns": runs, "card": smi}))
+    # the table alone on the card, and the table with the walk it feeds
+    # (this checkout launches the walk as the table's programmatic
+    # dependent), device time by CUDA events
+    runs = [(name, cuda_ms(key_table(name), 20)) for name in order]
+    print(json.dumps({"kernel": "trial_keys", "shape": [R, L + 1, 64],
+                      "ms_in_turns": runs, "card": smi}))
+
+    def keys_and_walk(name):
+        pkg, dg, starts, spec, key = walkers[name]
+        ws = pkg("ops.walk_step")
+        table = key_table(name)
+        return lambda: ws.walk_rounds(dg, starts, table(), L, p, q, V)
+
+    both = {name: keys_and_walk(name) for name in walkers}
+    check(torch.equal(both["this"](), corpus["other"]),
+          "this checkout's table and walk differ from the other's corpus")
+    runs = [(name, cuda_ms(both[name], 5)) for name in order * 2]
+    print(json.dumps({"kernel": "trial_keys + walk", "walkers": R * V,
+                      "walk_length": L, "ms_in_turns": runs, "card": smi}))
+    compare_launch_forms(torch, this, walkers["this"], graph, R, L, p, q,
+                         smi)
 
     # the resident-row walk kernel
     L, T, md = 80, 8, 16

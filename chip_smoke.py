@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ (nvcc, sm_90a, one process for
-each of the ten sources, in parallel; walk.cu holds two kernels,
+each of the eleven sources, in parallel; walk.cu holds two kernels,
+shard_walk.cu two (K11's request emit and serve),
 sgns_conv.cu two (the scatter with its accumulate mode), sgns_exact.cu one
 with its merged and accumulate entry points, spmm.cu three; beside them the threefry probe, chip_draws_probe.cu appended
 to a copy of trainer_draws.cu), holds each against its plain PyTorch
@@ -125,7 +126,24 @@ entry points a user calls:
               two-slot run, with the labeled synthetic micro-F1 gate, then
               one merged update of the main shape by hand in each form
               (the buffers empty after it; K13's precondition, acc 0
-              wherever the count is 0, read before it).
+              wherever the count is 0, read before it);
+  phase 22    the sharded walk engine (parallel/distributed.py, K11):
+              shard_emit and shard_serve (csrc/shard_walk.cu) bit for bit
+              against their plain versions on one superstep's requests of
+              phase 4's corpus in each layout (the emit at the auto
+              capacity and at a small one, two rounds; the serve on the
+              local walkers and on the requests sent to the other shard,
+              both equal to the corpus's next column), timed beside their
+              bounds and (the emit) torch.sort(stable=True) + a scatter;
+              then run_walks at phase 4's graph and walk on two gloo ranks
+              sharing the card (processes of their own), hash route over 2
+              shards, a vertex-cut route over 2 shards and 1 shard x 2
+              lanes: /path byte for byte phase 4's, the stats equal to the
+              plain path's (the plain versions on the card), K11's
+              launches and none of the walk kernel, walk seconds,
+              supersteps, exchange rounds, boundary walkers, replication
+              factor, capacity, the kernels' ms and the collectives' host
+              ms a superstep.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every failure raises and the script exits non-zero. It
@@ -677,12 +695,25 @@ def phase_walk_main_shape(torch, graph, keys_kernel) -> tuple[dict, dict]:
     launches0 = keys_kernel.launches
     kt_ms = cuda_ms(kt, 20)
     check(keys_kernel.launches == launches0 + 21, "key-table launch count")
+    # the card's floor for a launch of the table's grid: the kernel with its
+    # body taken out (a warp returns at once), timed the same way
+    from stellar_rw_tpu_torch.ops._build import CSRC, ptr, stream
+
+    empty = source_kernel(
+        "keys_empty", edited((CSRC / "walk.cu").read_text(), [
+            ("  if (warp >= R * L1) return;", "  if (warp >= 0) return;")]),
+        keys_kernel.symbol, keys_kernel.argtypes, "keys_empty")
+    scratch = torch.empty_like(keys)
+    floor_ms = cuda_ms(lambda: empty.launch(
+        ptr(scratch), 0, 0, 0, R, L + 1, T, stream(scratch.device)), 20)
     print(f"  key table [{R}, {L + 1}, {T}] ({tensor_bytes(keys)} bytes): "
           f"kernel {kt_ms:.4f} ms (CUDA events, mean of 20), plain version "
           f"on the card {kt_plain_ms:.2f} ms (one call), built on the CPU "
           f"and copied {kt_host_ms:.2f} ms of wall (one call), bound "
           f"{kb['bound_ms']:.5f} ms by {kb['bound_by']} ({blocks} threefry "
-          f"blocks)")
+          f"blocks; a warp a (round, step) makes "
+          f"{R * (L + 1) * (2 + T)}); the empty launch of its grid "
+          f"{floor_ms:.4f} ms")
     walk_row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
                 "library_ms": None,
                 "trials_per_step": trials / max(steps, 1),
@@ -691,7 +722,8 @@ def phase_walk_main_shape(torch, graph, keys_kernel) -> tuple[dict, dict]:
                     counts["step_warp_max"] / warp_total.numel(),
                 "draws": draws, "draws_with_u_acc_always": draws_all}
     keys_row = {"max_abs_err": keys_err, "ms": kt_ms, "plain_ms": kt_plain_ms,
-                **kb, "library_ms": None, "host_built_ms": kt_host_ms}
+                **kb, "library_ms": None, "host_built_ms": kt_host_ms,
+                "launch_floor_ms": floor_ms}
     return walk_row, keys_row
 
 
@@ -1801,7 +1833,7 @@ def phase_streaming(torch, path_kernels: dict, smi, tmp, main_run) -> dict:
 
     edges = main_run["edges"]
     params = parse(["--input", edges, "--output", tmp] + STREAM_FLAGS)
-    graph = cli._load_graph(params)
+    graph, _ = cli._load_graph(params)
     V, R, D = graph.num_vertices, params.num_walks, params.w2v_dim
     dg = cli._device_graph(graph, params, torch.device("cuda"))
     # what a run holds whatever its corpus, taken off both runs' peaks: the
@@ -3615,6 +3647,406 @@ def phase_dp_ranks(torch, smi, tmp) -> dict:
                                        for r in results)}
 
 
+# phase 22: the sharded walk engine (K11) on two gloo ranks sharing the
+# card, at phase 4's graph and walk (walk_10k: 10 x 80, p = q = 0.25), in
+# three layouts: the hash route over 2 shards, a vertex-cut route over 2
+# shards (homes drawn from a seed, routed home % 2), 1 shard x 2 lanes
+SHARD_FLAGS = ["--cmd", "randomwalk", "--walkLength", "80", "--numWalks",
+               "10", "--p", "0.25", "--q", "0.25"]
+SHARD_LAYOUTS = {"hash": ["--shards", "2"],
+                 "vcut": ["--shards", "2", "--partitioned", "true"],
+                 "lanes": ["--shards", "2", "--lanes", "2"]}
+SHARD_STATS = ("num_shards", "lanes", "capacity", "replication_factor",
+               "boundary_walkers", "zero_neighbors", "overflow_steps",
+               "exchange_rounds_total", "exchange_rounds_with_traffic")
+# the superstep whose requests phase 22 holds the kernels to, and the
+# capacity of its overflow check
+SHARD_STEP = 5
+SHARD_SMALL_C = 4096
+SHARD_RANK_WORKER = r"""
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from chip_smoke import shard_home, plain_shard_walk
+from stellar_rw_tpu_torch.graph import io as gio
+from stellar_rw_tpu_torch.models import node2vec as n2v
+from stellar_rw_tpu_torch.ops import shard_walk, walk_step
+from stellar_rw_tpu_torch.parallel import dp
+from stellar_rw_tpu_torch.utils.config import parse
+
+rank, port, edges, out = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                          sys.argv[4])
+layouts, flags = json.loads(sys.argv[5]), json.loads(sys.argv[6])
+backend = dp.init_group(rank, 2, ["cuda:0", "cuda:0"],
+                        f"tcp://localhost:{port}")
+result = {"backend": backend}
+kernels = {"shard_emit": shard_walk.EMIT_KERNEL,
+           "shard_serve": shard_walk.SERVE_KERNEL,
+           "walk": walk_step.WALK_KERNEL, "trial_keys": walk_step.KEYS_KERNEL}
+for name, extra in layouts.items():
+    params = parse(["--input", edges, "--output", f"{out}/{name}"] + flags
+                   + extra)
+    graph = gio.load_edge_list(edges, weighted=params.weighted,
+                               directed=params.directed)
+    home = shard_home(graph) if params.partitioned else None
+    runs = {}
+    for mode in ("main", "timed", "plain"):
+        for k in kernels.values():
+            k.launches = 0
+        timing = {} if mode == "timed" else None
+        report = {}
+        with plain_shard_walk(mode == "plain"):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            walks = n2v.run_walks(graph, params, "cuda", home=home,
+                                  report=report, timing=timing)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        report.pop("diag")
+        runs[mode] = {"seconds": seconds, "stats": report,
+                      "launches": {n: k.launches for n, k in kernels.items()},
+                      "timing": timing}
+        walks = walks.cpu().numpy()
+        if mode == "main":
+            corpus = walks
+            runs[mode]["steps"] = int((walks[:, 1:] >= 0).sum())
+            if rank == 0:
+                gio.save_walks(walks, graph, params.output, 1)
+        else:
+            runs[mode]["same_corpus"] = bool(np.array_equal(walks, corpus))
+    result[name] = runs
+print("RESULT " + json.dumps(result), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def shard_home(graph):
+    """Phase 22's vertex-cut homes: one of 4 partitions a vertex, from a
+    seed (the partitioned loader draws them so for a file without a
+    partition column)."""
+    return np.random.default_rng(1).integers(
+        0, 4, graph.num_vertices).astype(np.int32)
+
+
+class plain_shard_walk:
+    """Within it (when on), the sharded engine runs K11's plain versions on
+    the card in place of its kernels: the plain path phase 22 holds the
+    stats to."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        from stellar_rw_tpu_torch.ops import shard_walk as sw
+
+        self.saved = (sw.emit, sw.serve)
+        if self.on:
+            def emit(*a):
+                return sw.emit_ref(*a[:10])
+
+            def serve(tab, req, valid, gid_base, keys, t, first, **kw):
+                if isinstance(req, tuple):
+                    fcur, fprev, _ = req
+                    fgid = gid_base + torch_arange_like(fcur)
+                else:
+                    fcur, fprev, fgid = req[:, 0], req[:, 1], req[:, 2]
+                return sw.serve_ref(tab, fcur, fprev, fgid,
+                                    None if valid is None else valid != 0,
+                                    keys, t, first, **kw)
+            sw.emit, sw.serve = emit, serve
+        return self
+
+    def __exit__(self, *exc):
+        from stellar_rw_tpu_torch.ops import shard_walk as sw
+
+        sw.emit, sw.serve = self.saved
+        return False
+
+
+def torch_arange_like(x):
+    import torch
+
+    return torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
+
+
+def shard_superstep(torch, graph, layout: str, corpus, keys):
+    """The requests of rank 0 at superstep SHARD_STEP of phase 22's layout:
+    (rank 0's shard tables, the other shard's (None at one shard), cur,
+    prev, alive, the gids' corpus rows, S, L, the auto capacity)."""
+    from stellar_rw_tpu_torch.graph.partition import plan_shards
+    from stellar_rw_tpu_torch.ops import shard_walk
+    from stellar_rw_tpu_torch.parallel import distributed
+
+    V = graph.num_vertices
+    L = 2 if layout == "lanes" else 1
+    S = 2 // L
+    route = (shard_home(graph) % S if layout == "vcut" else None)
+    plan = plan_shards(graph, S, route)
+    tabs = [shard_walk.shard_tables(graph, plan, s, "cuda")
+            for s in range(S)]
+    W_pad = -(-V // 2) * 2
+    n = keys.shape[0] * W_pad // 2
+    gid = torch.arange(n, device="cuda")
+    rows = (gid // W_pad) * V + gid % W_pad    # W_pad == V at walk_10k
+    t = SHARD_STEP
+    cur = corpus[rows, t].contiguous()
+    prev = corpus[rows, t - 1].contiguous()
+    alive = (cur >= 0).to(torch.int32)
+    C = max(1, min(distributed.auto_capacity(graph, plan.route, 2, n), n))
+    return tabs, cur, prev, alive, rows, S, L, C, W_pad
+
+
+def phase_shard_check(torch, smi, graph) -> tuple[dict, dict]:
+    """Phase 22 (a): K11's two halves against their plain versions on the
+    card at one superstep's requests of each layout (rank 0's walkers of
+    phase 4's corpus at superstep SHARD_STEP): the emit's buffers, slots,
+    flags and counts bit for bit (the first round at the auto capacity and
+    at SHARD_SMALL_C, then the next round), the serve's destinations bit
+    for bit and equal to the corpus's next column (the local walkers on
+    rank 0's shard, the requests sent to the other shard on its), each
+    timed beside its bound. Returns the two kernels' rows."""
+    from stellar_rw_tpu_torch.ops import prng, sampling, shard_walk
+    from stellar_rw_tpu_torch.ops import walk_step
+    from stellar_rw_tpu_torch.walk import engine
+
+    V, R, Lw = graph.num_vertices, 10, 80
+    corpus = engine.random_walks(graph, walk_length=Lw, num_walks=R,
+                                 p=0.25, q=0.25, seed=0, as_numpy=False,
+                                 device="cuda")
+    _, max_rounds = sampling.plan_sampler("rejection", 0.25, 0.25)
+    keys = walk_step.trial_keys(prng.prng_key(0), 0, R, Lw, 4 * max_rounds,
+                                device="cuda")
+    rows_out = {"shard_emit": {}, "shard_serve": {}}
+    errs = {"shard_emit": 0, "shard_serve": 0}
+
+    def held(name, a, b, what):
+        """a bit for b, and the largest difference into errs[name]"""
+        if a.numel():
+            errs[name] = max(errs[name],
+                             int((a.long() - b.long()).abs().max()))
+        check(torch.equal(a, b), f"{name} differs from its plain version "
+              f"({what})")
+    for layout in SHARD_LAYOUTS:
+        tabs, cur, prev, alive, rows, S, L, C, W_pad = shard_superstep(
+            torch, graph, layout, corpus, keys)
+        D, n = S * L, cur.shape[0]
+        i32 = lambda: torch.zeros(n, dtype=torch.int32, device="cuda")
+        rounds = {}
+        for cap in (C, SHARD_SMALL_C):
+            pk, lk, pr, lr = i32(), i32(), i32(), i32()
+            rounds[cap] = []
+            for first in (True, False):
+                k = [x.clone() for x in shard_walk.emit(
+                    tabs[0], cur, prev, pk, alive if first else None, lk, L,
+                    D, 0, cap)]
+                r = shard_walk.emit_ref(tabs[0], cur, prev, pr,
+                                        alive if first else None, lr, L, D,
+                                        0, cap)
+                torch.cuda.synchronize()
+                what = f"{layout}, C {cap}, first {first}"
+                for a, b in zip(k, r):
+                    held("shard_emit", a, b, what)
+                held("shard_emit", pk, pr, f"pending flags, {what}")
+                held("shard_emit", lk, lr, f"local flags, {what}")
+                rounds[cap].append([int(v) for v in r[2]])
+        # the serve: rank 0's local walkers, then what it sends shard 1
+        t = SHARD_STEP
+        kw = dict(W_pad=W_pad, W_total=R * W_pad, n_stream=V, p=0.25,
+                  q=0.25)
+        send, slot, counters = shard_walk.emit(tabs[0], cur, prev, i32(),
+                                               alive, lk, L, D, 0, C)
+        send, slot = send.clone(), slot.clone()
+        nxt = corpus[rows, t + 1]
+        local_k = shard_walk.serve(tabs[0], (cur, prev, None), lk, 0, keys,
+                                   t, False, **kw)
+        counts = {}
+        local_r, plain_ms = cuda_ms_once(lambda: shard_walk.serve_ref(
+            tabs[0], cur, prev, torch_arange_like(cur), lk != 0, keys, t,
+            False, counts=counts, **kw))
+        torch.cuda.synchronize()
+        held("shard_serve", local_k, local_r, f"local walkers, {layout}")
+        lm = lk != 0
+        check(torch.equal(local_k[lm], nxt[lm]), f"shard_serve's local "
+              f"steps differ from the corpus ({layout})")
+        serve_ms = cuda_ms(lambda: shard_walk.serve(
+            tabs[0], (cur, prev, None), lk, 0, keys, t, False, **kw), 10)
+        remote = {}
+        if S > 1:
+            req = send[1].reshape(C, 3)
+            rk = shard_walk.serve(tabs[1], req, None, 0, keys, t, False,
+                                  **kw)
+            rr = shard_walk.serve_ref(tabs[1], req[:, 0], req[:, 1],
+                                      req[:, 2], None, keys, t, False, **kw)
+            torch.cuda.synchronize()
+            held("shard_serve", rk, rr, f"the requests sent, {layout}")
+            ok = req[:, 2] >= 0
+            check(torch.equal(rk[ok], nxt[req[ok, 2].long()]),
+                  f"shard_serve's remote steps differ from the corpus "
+                  f"({layout})")
+            remote = {"requests": int(ok.sum()), "ms": cuda_ms(
+                lambda: shard_walk.serve(tabs[1], req, None, 0, keys, t,
+                                         False, **kw), 10)}
+        # the emit's time: the first round's form (idempotent)
+        pend, loc = i32(), i32()
+        emit_ms = cuda_ms(lambda: shard_walk.emit(
+            tabs[0], cur, prev, pend, alive, loc, L, D, 0, C), 20)
+        _, emit_plain_ms = cuda_ms_once(lambda: shard_walk.emit_ref(
+            tabs[0], cur, prev, i32(), alive, i32(), L, D, 0, C))
+        # the library yardstick: the emit's function in PyTorch calls,
+        # emit_ref's body less its allocations: each pending walker's
+        # destination (route, gid % L), torch.sort(stable=True), the ranks
+        # in the buckets by bincount and cumsum, and the scatter of the
+        # walkers ranked below C; held to the kernel's buffer
+        waiting = (alive != 0) & (loc == 0)
+        gid = torch.arange(n, device="cuda")
+        fields = torch.stack([cur, prev, gid.to(torch.int32)], 1)
+        buf = torch.zeros((D, C, 3), dtype=torch.int32, device="cuda")
+        buf[..., 2] = -1
+        to_shard = shard_walk._dest_shard(tabs[0], cur).long() * L
+
+        def library():
+            dest = torch.where(waiting, to_shard + gid % L, D)
+            order = torch.sort(dest, stable=True).indices
+            sd = dest[order]
+            counts = torch.bincount(dest, minlength=D + 1)[:D]
+            bstart = torch.cumsum(counts, 0) - counts
+            rank = gid - bstart[sd.clamp_max(D - 1)]
+            sent = (sd < D) & (rank < C)
+            buf[sd[sent], rank[sent]] = fields[order[sent]]
+        library_ms = cuda_ms(library, 20)
+        check(torch.equal(buf, send), f"the library yardstick's buffer "
+              f"differs from shard_emit's ({layout})")
+        route_bytes = 4 * n if tabs[0].route is not None else 0
+        eb = bound(4 * n * 3 + route_bytes + 4 * n * 2 + 16 * D * C + 8, 0,
+                   INT_OPS_PER_S)
+        served = counts["served"]
+        draws = (2 * counts["dense_trials"] + 3 * counts["lane_trials"]
+                 + counts["acc_draws"])
+        trials = counts["dense_trials"] + counts["lane_trials"]
+        sb = bound(4 * n * 4 + 16 * (2 * served + 2 * trials),
+                   draws * OPS_PER_DRAW, INT_OPS_PER_S)
+        rows_out["shard_emit"][layout] = {
+            "ms": emit_ms, "plain_ms": emit_plain_ms,
+            "library_ms": library_ms, **eb, "walkers": n, "capacity": C,
+            "counts": {str(c): v for c, v in rounds.items()}}
+        rows_out["shard_serve"][layout] = {
+            "ms": serve_ms, "plain_ms": plain_ms, **sb, "library_ms": None,
+            "requests": n, "served": served, "trials": trials,
+            "draws": draws, "remote": remote}
+        print(f"phase 22 (a) {layout}: shard_emit bitwise emit_ref over "
+              f"{n} walkers (C {C} and {SHARD_SMALL_C}, two rounds; counts "
+              f"{rounds}): kernel {emit_ms:.4f} ms, plain {emit_plain_ms:.2f}"
+              f", the library calls (stable sort, bincount ranks, scatter) "
+              f"{library_ms:.4f}, bound "
+              f"{eb['bound_ms']:.5f} by {eb['bound_by']}; shard_serve "
+              f"bitwise serve_ref and the corpus's column {t + 1} on "
+              f"{served} local walkers ({trials} trials): kernel "
+              f"{serve_ms:.4f} ms, plain {plain_ms:.2f}, bound "
+              f"{sb['bound_ms']:.5f} by {sb['bound_by']}; the requests sent "
+              f"to the other shard {remote} [{smi}]")
+    return ({"max_abs_err": errs["shard_emit"],
+             **rows_out["shard_emit"]["hash"],
+             "layouts": rows_out["shard_emit"]},
+            {"max_abs_err": errs["shard_serve"],
+             **rows_out["shard_serve"]["hash"],
+             "layouts": rows_out["shard_serve"]})
+
+
+def phase_shard_ranks(torch, smi, tmp, main_run) -> dict:
+    """Phase 22 (b): run_walks on two gloo ranks sharing the card (each a
+    process of its own, as phase 21 (c)), in each layout: /path byte for
+    byte phase 4's (rank 0 writes it), the stats of the kernels' run equal
+    to the plain path's on the card, the corpus of a timed run and of the
+    plain run equal to the first, K11's launches and no walk kernel launch;
+    the walk's seconds, steps/s, supersteps, exchange rounds, the
+    kernels' ms and the collectives' host ms a superstep."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARD_RANK_WORKER, str(r), port,
+         main_run["edges"], tmp, json.dumps(SHARD_LAYOUTS),
+         json.dumps(SHARD_FLAGS)], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    results = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=420)
+            check(p.returncode == 0, f"a rank failed: {stderr[-3000:]}")
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("RESULT ")]
+            check(bool(line), f"a rank printed no result: {stdout[-2000:]}")
+            results.append(json.loads(line[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    out = {"backend": results[0]["backend"]}
+    for layout in SHARD_LAYOUTS:
+        check(same_path(os.path.join(tmp, layout), main_run["out"]),
+              f"phase 22 {layout}: /path differs from phase 4's")
+        runs = [r[layout] for r in results]
+        main = [r["main"] for r in runs]
+        for r in runs:
+            check(r["timed"]["same_corpus"] and r["plain"]["same_corpus"],
+                  f"{layout}: the timed or plain run's corpus differs")
+            for k in SHARD_STATS:
+                check(r["main"]["stats"][k] == r["plain"]["stats"][k],
+                      f"{layout}: stat {k} {r['main']['stats'][k]} against "
+                      f"the plain path's {r['plain']['stats'][k]}")
+            la = r["main"]["launches"]
+            check(la["shard_emit"] > 0 and la["shard_serve"] > 0
+                  and la["walk"] == 0 and la["trial_keys"] == 1,
+                  f"{layout}: launches {la}")
+            check(r["plain"]["launches"]["shard_emit"] == 0
+                  and r["plain"]["launches"]["shard_serve"] == 0,
+                  f"{layout}: the plain run launched K11")
+        st = main[0]["stats"]
+        tm = [r["timed"]["timing"] for r in runs]
+        sec = max(m["seconds"] for m in main)
+        steps = main[0]["steps"]
+        sup = tm[0]["supersteps"]
+        row = {"walk_seconds": sec, "steps_per_s": steps / sec,
+               "plain_walk_seconds": max(r["plain"]["seconds"]
+                                         for r in runs),
+               "stats": {k: st[k] for k in SHARD_STATS},
+               "launches": [m["launches"] for m in main],
+               "emit_ms_a_superstep": max(t["emit_ms"] for t in tm) / sup,
+               "serve_ms_a_superstep": max(t["serve_ms"] for t in tm) / sup,
+               "collective_host_ms_a_superstep":
+                   max(t["collective_host_ms"] for t in tm) / sup,
+               "timed_walk_seconds": max(r["timed"]["seconds"]
+                                         for r in runs)}
+        out[layout] = row
+        print(f"phase 22 (b) {layout}: run_walks on two gloo ranks sharing "
+              f"the card ({st['num_shards']} shards x {st['lanes']} lanes), "
+              f"/path byte-equal to phase 4's; walk {sec:.3f} s = "
+              f"{steps / sec:,.0f} steps/s (the plain path "
+              f"{row['plain_walk_seconds']:.2f} s); {sup} supersteps, "
+              f"{st['exchange_rounds_total']} exchange rounds "
+              f"({st['exchange_rounds_with_traffic']} with traffic, "
+              f"{st['overflow_steps']} overflow supersteps), boundary "
+              f"walkers {st['boundary_walkers']}, replication factor "
+              f"{st['replication_factor']:.4f}, capacity {st['capacity']} "
+              f"(stats equal to the plain path's); a superstep: shard_emit "
+              f"{row['emit_ms_a_superstep']:.4f} ms, shard_serve "
+              f"{row['serve_ms_a_superstep']:.4f} ms (CUDA events), "
+              f"collectives {row['collective_host_ms_a_superstep']:.3f} ms "
+              f"of host time (the timed run {row['timed_walk_seconds']:.3f} "
+              f"s); launches {row['launches']} [{smi}]")
+    print(f"  the exchange: all_to_all_single on CUDA tensors under "
+          f"{out['backend']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3624,11 +4056,13 @@ def main() -> int:
     from stellar_rw_tpu_torch.ops.cdf_walk import CDF_WALK_KERNEL
     from stellar_rw_tpu_torch.ops.resident_walk import RESIDENT_WALK_KERNEL
     from stellar_rw_tpu_torch.ops.sgns import SGNS_KERNEL
+    from stellar_rw_tpu_torch.ops.shard_walk import EMIT_KERNEL, SERVE_KERNEL
     from stellar_rw_tpu_torch.ops.walk_step import KEYS_KERNEL, WALK_KERNEL
 
     probe = draws_probe()
     smi = phase_env(torch, (WALK_KERNEL, KEYS_KERNEL, RESIDENT_WALK_KERNEL,
-                            CDF_WALK_KERNEL, *trainer_kernels().values(),
+                            CDF_WALK_KERNEL, EMIT_KERNEL, SERVE_KERNEL,
+                            *trainer_kernels().values(),
                             *hs_kernels().values(),
                             *spmm_kernels().values(),
                             *dp_kernels().values(), probe))
@@ -3654,7 +4088,8 @@ def main() -> int:
         stream = phase_streaming(torch, {
             "walk": WALK_KERNEL, "trial_keys": KEYS_KERNEL,
             "resident_walk": RESIDENT_WALK_KERNEL,
-            "cdf_walk": CDF_WALK_KERNEL, **trainer_kernels(),
+            "cdf_walk": CDF_WALK_KERNEL, "shard_emit": EMIT_KERNEL,
+            "shard_serve": SERVE_KERNEL, **trainer_kernels(),
             **hs_kernels(), **spmm_kernels(), **dp_kernels()},
             smi, tmp, main_run)
         profile = phase_profile(torch, WALK_KERNEL, KEYS_KERNEL, smi, tmp,
@@ -3664,6 +4099,11 @@ def main() -> int:
             phase_dp_check(torch, smi)
         dp_run = phase_dp_main(torch, smi, tmp, main_run, exact_run)
         dp_ranks = phase_dp_ranks(torch, smi, tmp)
+        from stellar_rw_tpu_torch.graph import io as gio
+
+        emit_row, serve_row = phase_shard_check(
+            torch, smi, gio.load_edge_list(main_run["edges"]))
+        shard_run = phase_shard_ranks(torch, smi, tmp, main_run)
     corpus = hs_corpus(torch)
     hs_row = phase_hs_check(torch, smi, corpus)
     hs_run = phase_hs_main(torch, smi, corpus)
@@ -3697,7 +4137,8 @@ def main() -> int:
               "dp_one_process_seconds": dp_ranks["one_process_seconds"],
               "dp_exact_two_rank_seconds": dp_ranks["exact_two_rank_seconds"],
               "dp_exact_one_process_seconds":
-                  dp_ranks["exact_one_process_seconds"]}
+                  dp_ranks["exact_one_process_seconds"],
+              "sharded_walks": {k: v for k, v in shard_run.items()}}
     quality["streamed_micro_f1"] = stream["micro_f1"]
     quality.update(hs_karate_auc=hs_run["karate_auc"],
                    hs_karate_acc=hs_run["karate_acc"],
@@ -3786,6 +4227,20 @@ def main() -> int:
          "launches": dp_run["conv"]["launches"]["dp_apply"],
          "launches_exact_path": dp_run["exact"]["launches"]["dp_apply"],
          **dp_apply_row},
+        # K11 runs on the sharded path: its launches are phase 22 (b)'s,
+        # both ranks' hash-route run
+        {"name": "shard_emit", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/shard_walk.cu",
+         "replaces": "stellar_rw_tpu/parallel/distributed.py:362",
+         "launches": sum(la["shard_emit"]
+                         for la in shard_run["hash"]["launches"]),
+         **emit_row},
+        {"name": "shard_serve", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/shard_walk.cu",
+         "replaces": "stellar_rw_tpu/parallel/distributed.py:204",
+         "launches": sum(la["shard_serve"]
+                         for la in shard_run["hash"]["launches"]),
+         **serve_row},
     ]
     for row in kernels:   # the launches of the streamed runs (phase 15)
         for name in ("conv", "exact"):

@@ -5,9 +5,11 @@ Same flags as `python -m stellar_rw_tpu` (utils/config.py is the port's copy
 of that parser) and the same outputs: <output>/path walks, <output>/vec
 vectors and <output>/bin model; `embedding` reads a /path corpus back. It runs on one CUDA
 device; from the command line a machine without a GPU gets CudaUnavailable,
-never a CPU run. --shards and --partitioned resolve as in the JAX package,
-to one walk shard on the one device (--partitioned true still reads the
-vertex-cut file format). `node2vec --streaming true` keeps one walk round on
+never a CPU run. --shards and --partitioned resolve as in the JAX package
+(capped at the walk devices, which are the ranks of a process group: the
+command line runs one process, so one walk shard on the one device;
+--partitioned true still reads the vertex-cut file format, and its homes
+route the walks wherever they are sharded). `node2vec --streaming true` keeps one walk round on
 the device at a time (the flag is ignored by the other commands, as in the
 JAX package); --profile DIR writes a torch.profiler trace of the job into
 DIR. --w2vPartitions P trains data-parallel as the JAX package does on P
@@ -81,16 +83,17 @@ def _sync(device: torch.device) -> None:
 
 
 def _load_graph(params: Params):
-    """The edge list; with --partitioned true through the vertex-cut loader
-    (a third column is a partition id). One walk shard leaves the vertices'
-    home partitions unused, as in the JAX package."""
+    """(graph, home): the edge list; with --partitioned true through the
+    vertex-cut loader (a third column is a partition id), whose per-vertex
+    home partitions route the sharded walks (None otherwise). One walk
+    shard leaves them unused, as in the JAX package."""
     if params.partitioned:
         return gio.load_edge_list_partitioned(
             params.input, weighted=params.weighted, directed=params.directed,
             partitioned=True, num_partitions=params.rdd_partitions,
-            seed=params.seed)[0]
+            seed=params.seed)
     return gio.load_edge_list(params.input, weighted=params.weighted,
-                              directed=params.directed)
+                              directed=params.directed), None
 
 
 def _device_graph(graph, params: Params, device: torch.device):
@@ -113,13 +116,14 @@ def do_random_walk(params: Params, device: torch.device, report: dict):
     device, graph). walk_seconds spans the graph load and the walks up to
     the corpus on the device, as the JAX package's CLI times its walks."""
     t0 = time.perf_counter()
-    graph = _load_graph(params)
+    graph, home = _load_graph(params)
     logger.info("vertices: %d", graph.num_vertices)
     logger.info("edges: %d", graph.num_edges)
     print(f"vertices: {graph.num_vertices}")
     print(f"edges: {graph.num_edges}")
     dg = _device_graph(graph, params, device)
-    walks = n2v.run_walks(graph, params, device, device_graph=dg)
+    # the shards report line, where the walks are sharded, comes from here
+    walks = n2v.run_walks(graph, params, device, device_graph=dg, home=home)
     _sync(device)
     dt = time.perf_counter() - t0
     walks_np = walks.cpu().numpy()
@@ -150,14 +154,14 @@ def do_streaming_node2vec(params: Params, device: torch.device,
     graph load and the pre-pass that writes /path; train_seconds the
     epochs, which walk every round again. Returns (tokens, w_in, w_out)."""
     t0 = time.perf_counter()
-    graph = _load_graph(params)
+    graph, home = _load_graph(params)
     print(f"vertices: {graph.num_vertices}")
     print(f"edges: {graph.num_edges}")
     dg = _device_graph(graph, params, device)
     times = {}
     t_load = time.perf_counter() - t0
     tokens, w_in, w_out, ws = n2v.run_node2vec_streaming(
-        graph, params, device, dg, times)
+        graph, params, device, dg, times, home)
     _print_stats(ws, f"walks (streamed): {ws.num_paths} paths, "
                      f"{ws.num_steps} steps")
     report.update(vertices=graph.num_vertices, edges=graph.num_edges,

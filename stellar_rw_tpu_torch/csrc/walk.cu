@@ -39,7 +39,14 @@
 //     coalesce where its lanes are at the same step;
 //   * the key of trial j of step t in round r, fold_in(fold_in(fold_in(key,
 //     round_offset + r), t), j), is the same for every walker, so a second
-//     kernel builds the [R, L+1, T] table on the card, one thread a key.
+//     kernel builds the [R, L+1, T] table on the card (below). The walk
+//     kernel is an ordinary launch after it: as the table's programmatic
+//     dependent, table + walk took 0.9-1.4% longer at walk_10k on an H100
+//     (chip_compare.py's launch forms).
+//
+// The trial itself (alias_draw, is_member, the dense and per-lane draws)
+// lives in walk_trial.cuh, which K11's serve half (shard_walk.cu) compiles
+// too.
 //
 // Roundings follow XLA exactly: u_pos * f32(deg) and u_acc * max_f are
 // single f32 multiplies (__fmul_rn, so no FMA contraction), the cast to int
@@ -50,34 +57,14 @@
 #include <cuda_runtime.h>
 
 #include "threefry.cuh"
+#include "walk_trial.cuh"
 
 namespace {
 
 using srw::threefry;
-using srw::uniform_at;
 
-// Weight-proportional neighbor of a row (start, deg) by its alias row.
-__device__ __forceinline__ int alias_draw(const int4* __restrict__ alias_packed,
-                                          int start, int deg, int E,
-                                          float u_pos, float u_keep) {
-  int j = (int)__fmul_rn(u_pos, (float)deg);
-  j = min(j, max(deg - 1, 0));
-  const int k = min(max(start + j, 0), E - 1);
-  const int4 r = alias_packed[k];
-  return u_keep < __int_as_float(r.x) ? r.y : r.z;
-}
-
-// cand in N(prev): a key's only home is bucket hash(cand) & mask of prev's
-// bucket range.
-__device__ __forceinline__ bool is_member(const int4* __restrict__ buckets,
-                                          int base, int mask, int cand) {
-  const int h = (int)((uint32_t)cand * 2654435761u);
-  const int4 b = buckets[base + (h & mask)];
-  return b.x == cand || b.y == cand || b.z == cand || b.w == cand;
-}
-
-constexpr int kDenseTrials = 2;  // trials read from the (3, Wd) array draw
 constexpr int kBlock = 128;      // threads a block
+constexpr int kKeyThreads = 256; // threads a block of the key table
 
 // mode: 0 general; 1 q == 1 (no membership read); 2 p == q == 1 (trial 0
 // always accepts).
@@ -98,8 +85,7 @@ walk_kernel(const int* __restrict__ starts, const int4* __restrict__ vmeta,
   const int4 vm0 = vmeta[s];
   if (vm0.y > 0) {
     // first-order step: step key t = 0, trial 0
-    int cur = alias_draw(alias_packed, vm0.x, vm0.y, E,
-                         uniform_at(rkeys[0], w), uniform_at(rkeys[0], Wd + w));
+    int cur = srw::first_order(alias_packed, vm0, E, rkeys[0], w, Wd);
     out[(size_t)N + row] = cur;
     c = 2;
     int prev = s;
@@ -109,23 +95,10 @@ walk_kernel(const int* __restrict__ starts, const int4* __restrict__ vmeta,
     bool live = L >= 1 && cm.y > 0;
     while (live) {
       // one trial: trial j of step t
-      uint2 k = rkeys[(size_t)t * T + j];
-      uint32_t i_pos = w, i_keep = Wd + w, i_acc = 2 * Wd + w;
-      if (j >= kDenseTrials) {
-        // per-lane key fold_in(k, w), then uniform(., (3,))
-        k = threefry(k.x, k.y, 0u, w);
-        i_pos = 0u; i_keep = 1u; i_acc = 2u;
-      }
-      const int cand = alias_draw(alias_packed, cm.x, cm.y, E,
-                                  uniform_at(k, i_pos), uniform_at(k, i_keep));
-      bool accept = true;
-      if (mode != 2) {
-        float f;
-        if (cand == prev) f = inv_p;
-        else if (mode == 1) f = 1.0f;
-        else f = is_member(buckets, pm.z, pm.w, cand) ? 1.0f : inv_q;
-        if (f < max_f) accept = __fmul_rn(uniform_at(k, i_acc), max_f) < f;
-      }
+      bool accept;
+      const int cand = srw::trial(alias_packed, buckets,
+                                  rkeys[(size_t)t * T + j], j, w, Wd, cm, pm,
+                                  prev, E, inv_p, inv_q, max_f, mode, accept);
       if (accept || j == T - 1) {
         // the step's result: the first accepted candidate, else the last
         out[(size_t)(t + 1) * N + row] = cand;
@@ -150,17 +123,30 @@ walk_kernel(const int* __restrict__ starts, const int4* __restrict__ vmeta,
 }
 
 // keys[r, t, j] = fold_in(fold_in(fold_in((k0, k1), round_offset + r), t), j)
-__global__ void trial_keys_kernel(uint2* __restrict__ keys, uint32_t k0,
-                                  uint32_t k1, uint32_t round_offset, int R,
-                                  int L1, int T) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R * L1 * T) return;
-  const int j = i % T;
-  const int t = (i / T) % L1;
-  const int r = i / (T * L1);
+//
+// A warp a (round, step): its round key and step key are derived once for
+// the T keys below them (every lane derives them, which costs the warp the
+// same instructions as one lane would, and needs no shuffle), then lane l
+// makes trials l, l + 32, ... So the table takes R * (L+1) * (2 + T)
+// threefry blocks, not 3 a key. It releases a programmatic dependent (K11's
+// first serve on the sharded path) at once: that grid's blocks are
+// scheduled while this one runs and wait for it before they read a key. At
+// the main path's size the table is bound by the launch, not by its
+// operations.
+__global__ void __launch_bounds__(kKeyThreads)
+trial_keys_kernel(uint2* __restrict__ keys, uint32_t k0, uint32_t k1,
+                  uint32_t round_offset, int R, int L1, int T) {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  const int warp = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+  const int lane = (int)(threadIdx.x & 31);
+  if (warp >= R * L1) return;
+  const int r = warp / L1;
+  const int t = warp - r * L1;
   const uint2 rk = threefry(k0, k1, 0u, round_offset + (uint32_t)r);
   const uint2 sk = threefry(rk.x, rk.y, 0u, (uint32_t)t);
-  keys[i] = threefry(sk.x, sk.y, 0u, (uint32_t)j);
+  uint2* out = keys + (size_t)warp * T;
+  for (int j = lane; j < T; j += 32)
+    out[j] = threefry(sk.x, sk.y, 0u, (uint32_t)j);
 }
 
 }  // namespace
@@ -185,9 +171,10 @@ extern "C" int srw_walk_launch(const int* starts, const int* vmeta,
 extern "C" int srw_trial_keys_launch(unsigned* keys, unsigned k0, unsigned k1,
                                      unsigned round_offset, int R, int L1,
                                      int T, void* stream) {
-  const int n = R * L1 * T;
-  if (n > 0) {
-    trial_keys_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+  const long long threads = 32LL * R * L1;
+  if (threads > 0 && T > 0) {
+    trial_keys_kernel<<<(unsigned)((threads + kKeyThreads - 1) / kKeyThreads),
+                        kKeyThreads, 0, (cudaStream_t)stream>>>(
         reinterpret_cast<uint2*>(keys), k0, k1, round_offset, R, L1, T);
   }
   return (int)cudaGetLastError();

@@ -1,8 +1,11 @@
-"""The node2vec pipeline on one device: walks -> skip-gram embeddings.
+"""The node2vec pipeline: walks -> skip-gram embeddings.
 
-Port of the single-device path of stellar_rw_tpu/models/node2vec.py, and of
-its multi-process trainer with checkpoints (train_multiproc_with_ckpt,
-over the ranks of a torch.distributed process group). Model
+Port of stellar_rw_tpu/models/node2vec.py: the single-device path, the
+sharded walks (parallel/distributed.py over the ranks of the default
+torch.distributed process group, one walk device a rank: run_walks,
+checkpointed_random_walks and run_node2vec_streaming are called on every
+rank), and the multi-process trainer with checkpoints
+(train_multiproc_with_ckpt, over the same group's ranks). Model
 artifacts go to <output>/bin in the JAX package's format (model.npz +
 metadata.json), and walk-round checkpoints to <output>/bin/walk_rounds in
 its layout (round files, marker JSON and fingerprint), so a model or a
@@ -32,13 +35,19 @@ from . import word2vec as w2v
 logger = logging.getLogger("stellar_rw_tpu_torch.node2vec")
 
 
-WALK_DEVICES = 1   # the port's walk engine runs on one device
+def walk_devices() -> int:
+    """The devices the walks run on: the default process group's ranks (one
+    device a rank), 1 without a group."""
+    from ..parallel.distributed import rank_world
+
+    return rank_world()[1]
 
 
-def num_walk_shards(params: Params, devices: int = WALK_DEVICES) -> int:
+def num_walk_shards(params: Params, devices: int | None = None) -> int:
     """Resolve --shards as the JAX package does: 0 = auto (one shard, unless
     --partitioned true, which takes min(devices, rddPartitions)), always
-    capped at the devices the walks run on."""
+    capped at the devices the walks run on (walk_devices() by default)."""
+    devices = walk_devices() if devices is None else devices
     if params.shards > 0:
         return max(1, min(params.shards, devices))
     if params.partitioned:
@@ -46,39 +55,87 @@ def num_walk_shards(params: Params, devices: int = WALK_DEVICES) -> int:
     return 1
 
 
-def _refuse_sharded(params: Params) -> None:
-    """One shard takes the single-device engine; --partitioned then changes
-    only the loader (the walks do not depend on the routing)."""
-    if num_walk_shards(params) > 1:
-        raise NotPorted("more than one walk shard: the sharded walk engine "
-                        "is ROADMAP Queue 1 item 12 (K11)")
+def resolve_lanes(S: int, lanes: int) -> int:
+    """Clamp --lanes to a divisor of the device count S.
+
+    lanes must divide S (each graph shard is replicated across exactly `lanes`
+    devices); a non-divisor falls back to the largest divisor <= lanes with a
+    warning, so `--shards 6 --lanes 4` degrades gracefully (lanes=3) instead
+    of crashing — and identically in every pipeline (run_walks, streaming,
+    checkpointed)."""
+    L = max(1, min(lanes, S))
+    while S % L:
+        L -= 1
+    if L != lanes and lanes > 1:
+        logger.warning("lanes=%d does not divide device count %d; using "
+                       "lanes=%d", lanes, S, L)
+    return L
+
+
+def _sharded(params: Params, home: np.ndarray | None):
+    """(devices S, lanes L, route or None) of a sharded walk: the route
+    targets GRAPH shards, home % (S / L) under --partitioned true with a
+    home array, else the hash policy."""
+    S = num_walk_shards(params)
+    L = resolve_lanes(S, params.lanes)
+    route = None
+    if params.partitioned and home is not None:
+        route = (home.astype(np.int64) % max(S // L, 1)).astype(np.int32)
+    return S, L, route
 
 
 def run_walks(graph: CSRGraph, params: Params, device="cuda",
-              device_graph: DeviceGraph | None = None) -> torch.Tensor:
+              device_graph: DeviceGraph | None = None,
+              home: np.ndarray | None = None,
+              report: dict | None = None,
+              timing: dict | None = None) -> torch.Tensor:
     """The corpus as a device tensor [num_walks * V, L+2] (the trainer's
     handoff: no host round trip). With --checkpointEvery and an output the
-    rounds run one at a time through checkpointed_random_walks."""
-    _refuse_sharded(params)
+    rounds run one at a time through checkpointed_random_walks. More than
+    one walk shard (the default group's ranks, called on each) runs the
+    sharded engine, routed by home % shards under --partitioned true (the
+    reference's VCutRandomWalk) or by hash; the corpus is the same.
+    report, when given, receives the sharded engine's stats, and timing
+    its timing (parallel/distributed.py::distributed_walk_corpus)."""
     if params.checkpoint_every and params.output:
         walks, resumed = checkpointed_random_walks(graph, params, device,
-                                                   device_graph)
+                                                   device_graph, home)
         if resumed:
             print(f"resumed {resumed} completed walk rounds from checkpoint")
         return torch.as_tensor(walks).to(resolve_device("run_walks", device))
-    return engine.random_walks(
-        graph, walk_length=params.walk_length, num_walks=params.num_walks,
-        p=params.p, q=params.q, seed=params.seed, sampler=params.sampler,
-        rng_impl=params.rng_impl, device_graph=device_graph, as_numpy=False,
-        device=device)
+    kw = dict(walk_length=params.walk_length, num_walks=params.num_walks,
+              p=params.p, q=params.q, seed=params.seed,
+              sampler=params.sampler, rng_impl=params.rng_impl)
+    if num_walk_shards(params) <= 1:
+        return engine.random_walks(graph, device_graph=device_graph,
+                                   as_numpy=False, device=device, **kw)
+    from ..parallel import distributed
+
+    S, lanes, route = _sharded(params, home)
+    walks, stats = distributed.distributed_random_walks(
+        graph, num_shards=S, route=route, verbose=True, return_stats=True,
+        lanes=lanes, device=device, as_numpy=False, timing=timing, **kw)
+    print(f"shards: {stats['num_shards']} x {stats['lanes']} lanes "
+          f"({'vcut' if route is not None else 'hash'} routing), "
+          f"replication factor: {stats['replication_factor']:.3f}, "
+          f"boundary walkers: {stats['boundary_walkers']}, "
+          f"a2a capacity: {stats['capacity']}, "
+          f"overflow supersteps: {stats['overflow_steps']}")
+    logger.info("shard stats: %s",
+                {k: v for k, v in stats.items() if k != "diag"})
+    if report is not None:
+        report.update(stats)
+    return walks
 
 
 def _round_maker(graph: CSRGraph, params: Params, device="cuda",
-                 device_graph: DeviceGraph | None = None):
+                 device_graph: DeviceGraph | None = None,
+                 home: np.ndarray | None = None):
     """make_round(r) -> round r of the full corpus [V, L+2] on the device,
     bitwise the rows of the all-rounds corpus (the streams are addressed by
-    round). Single device only: the sharded rounds are ROADMAP item 12."""
-    _refuse_sharded(params)
+    round). Single device or sharded per --shards/--partitioned (the routing
+    rules of run_walks); sharded, every walking rank builds its own shard
+    once, and every rank of the default group gets every round whole."""
     device = resolve_device("checkpointed_random_walks", device)
     sampler, max_rounds = sampling.plan_sampler(params.sampler, params.p,
                                                 params.q)
@@ -89,11 +146,41 @@ def _round_maker(graph: CSRGraph, params: Params, device="cuda",
     spec = engine.walk_spec(graph, params.walk_length, params.num_walks,
                             params.p, params.q, sampler, max_rounds,
                             "float32", V)
+    base = prng.prng_key(params.seed)
+    if num_walk_shards(params) > 1:
+        from ..graph.partition import plan_shards
+        from ..ops import shard_walk
+        from ..parallel import distributed
+
+        S, L, route = _sharded(params, home)
+        distributed.check_sharded(sampler, params.rng_impl, S)
+        SH = S // L     # graph shards (each replicated across its L lanes)
+        group, member = distributed.walk_group(S)
+        plan = plan_shards(graph, SH, route)
+        distributed.log_shard_stats(graph, plan)
+        tables = (shard_walk.shard_tables(
+            graph, plan, distributed.rank_world()[0] // L, device)
+            if member else None)
+        W_pad = -(-V // S) * S
+        starts_pad = torch.full((W_pad,), -1, dtype=torch.int32)
+        starts_pad[:V] = torch.arange(V, dtype=torch.int32)
+        C = distributed.auto_capacity(graph, plan.route, S, W_pad // S)
+        C = max(1, min(C, W_pad // S))
+
+        def make_round(r: int) -> torch.Tensor:
+            paths = None
+            if member:
+                paths, _ = distributed.distributed_walk_corpus(
+                    tables, starts_pad, base, r, spec, 1, SH, C, L,
+                    group=group)
+            return distributed.gather_corpus(
+                paths, group, (W_pad, params.walk_length + 2), device)[:V]
+
+        return make_round, V
     g = (device_graph if device_graph is not None
          else sampling.device_put_graph(graph, device))
     if sampler == "cdf":
         g = sampling.with_cdf_rows(g, graph)
-    base = prng.prng_key(params.seed)
     starts = torch.arange(V, dtype=torch.int32, device=g.device)
 
     def make_round(r: int) -> torch.Tensor:
@@ -119,7 +206,8 @@ def _save_round_atomic(ckpt_dir: str, r: int, block: np.ndarray) -> None:
 
 def checkpointed_random_walks(graph: CSRGraph, params: Params,
                               device="cuda",
-                              device_graph: DeviceGraph | None = None
+                              device_graph: DeviceGraph | None = None,
+                              home: np.ndarray | None = None
                               ) -> tuple[np.ndarray, int]:
     """Round-granular walk checkpoints. Each finished round goes to its own
     atomic file <output>/bin/walk_rounds/round-NNNNN.npy; every
@@ -128,9 +216,16 @@ def checkpointed_random_walks(graph: CSRGraph, params: Params,
     completed rounds load from their files and only the rest is walked: the
     corpus is bitwise the uninterrupted one. A marker whose fingerprint or
     shape differs, or whose round files are missing, restarts from round 0.
+    Sharded (called on every rank of the group), rank 0 decides where to
+    resume and writes the files; the ranks read the completed rounds from
+    them (one filesystem).
 
     Returns (walks [num_walks*V, L+2] on the host, rounds resumed)."""
-    make_round, V = _round_maker(graph, params, device, device_graph)
+    from ..parallel.distributed import for_backend, rank_world
+
+    make_round, V = _round_maker(graph, params, device, device_graph, home)
+    rank, world = rank_world()
+    writer = rank == 0
     R = params.num_walks
     T = params.walk_length + 2
     ckpt_dir = os.path.join(params.output, MODEL_SUFFIX, WALK_CKPT_DIR)
@@ -140,7 +235,7 @@ def checkpointed_random_walks(graph: CSRGraph, params: Params,
                      params.rng_impl, params.shards, params.lanes,
                      params.partitioned, params.walk_length])
     start = 0
-    if params.resume and os.path.exists(marker):
+    if writer and params.resume and os.path.exists(marker):
         try:
             with open(marker) as f:
                 m = json.load(f)
@@ -164,8 +259,13 @@ def checkpointed_random_walks(graph: CSRGraph, params: Params,
             start = done
             logger.info("walk checkpoint: resuming after %d completed rounds",
                         done)
+    if world > 1:
+        found = for_backend(torch.tensor([start]), device)
+        torch.distributed.broadcast(found, src=0)
+        start = int(found)
     every = max(1, params.checkpoint_every)
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
     out = np.empty((R * V, T), dtype=np.int32)
     for r in range(start):
         out[r * V:(r + 1) * V] = np.load(_round_file(ckpt_dir, r))
@@ -177,11 +277,13 @@ def checkpointed_random_walks(graph: CSRGraph, params: Params,
                        "rows": V, "cols": T}, f)
         os.replace(tmp, marker)   # a kill never leaves half a marker
 
-    if start == 0:
+    if start == 0 and writer:
         write_marker(0)   # void a stale marker before its files are replaced
     for r in range(start, R):
         block = make_round(r).cpu().numpy()
         out[r * V:(r + 1) * V] = block
+        if not writer:
+            continue
         _save_round_atomic(ckpt_dir, r, block)
         done = r + 1
         if done % every == 0 or done == R:
@@ -191,7 +293,8 @@ def checkpointed_random_walks(graph: CSRGraph, params: Params,
 
 def run_node2vec_streaming(graph: CSRGraph, params: Params, device="cuda",
                            device_graph: DeviceGraph | None = None,
-                           report: dict | None = None):
+                           report: dict | None = None,
+                           home: np.ndarray | None = None):
     """Node2vec with one walk round on the device at a time (port of the
     JAX package's run_node2vec_streaming).
 
@@ -205,13 +308,17 @@ def run_node2vec_streaming(graph: CSRGraph, params: Params, device="cuda",
     Each walk dispatch walks only its own round. The graph is uploaded once
     (device_graph, when given, is used as it is). As in the JAX package
     there are no walk-round or trainer checkpoints and no --validate.
+    Sharded (called on every rank of the group), every rank walks and
+    trains the same rounds; rank 0 alone writes /path.
 
     Returns (tokens, w_in, w_out, stats); report, when given, receives
     walk_seconds (the pre-pass) and train_seconds (the epochs)."""
     t0 = time.perf_counter()
     V = graph.num_vertices
     R = params.num_walks
-    make_round, _ = _round_maker(graph, params, device, device_graph)
+    from ..parallel.distributed import rank_world
+
+    make_round, _ = _round_maker(graph, params, device, device_graph, home)
     counts = None
     lengths = []
 
@@ -228,8 +335,12 @@ def run_node2vec_streaming(graph: CSRGraph, params: Params, device="cuda",
             lengths.append((block_np >= 0).sum(axis=1))
             yield block_np
 
-    gio.save_walks_stream(rounds_for_save(), R * V, graph, params.output,
-                          output_partitions(params))
+    if rank_world()[0] == 0:
+        gio.save_walks_stream(rounds_for_save(), R * V, graph, params.output,
+                              output_partitions(params))
+    else:
+        for _ in rounds_for_save():
+            pass
     counts = (counts.cpu().numpy().astype(np.float64) if counts is not None
               else np.zeros(V))
     lengths = np.concatenate(lengths) if lengths else np.zeros(0, np.int64)

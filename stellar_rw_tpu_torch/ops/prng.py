@@ -118,6 +118,16 @@ def uniform3_at(key: torch.Tensor, w: torch.Tensor, Wd: int):
     return tuple(uniform_at(key, w + c * Wd) for c in range(3))
 
 
+def use_slice_draws(rng_impl: str, dtype) -> bool:
+    """Whether an engine's streams can be drawn element by element
+    (uniform_at, uniform3_at) bit for bit: threefry keys and float32
+    draws. The JAX package also asks for jax_threefry_partitionable, which
+    these streams always follow; float64 draws take two words an element in
+    another interleave, and 'rbg' keys have no port."""
+    return (rng_impl in ("threefry", "threefry2x32", "", None)
+            and str(dtype).replace("torch.", "") == "float32")
+
+
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """jax.random.bits(key, shape) (uint32) for each key in key[..., :];
     output shape = key.shape[:-1] + shape."""

@@ -1,0 +1,358 @@
+"""K11: the two halves of a superstep of the sharded walk engine.
+
+The JAX package's superstep (stellar_rw_tpu/parallel/distributed.py ->
+shard_fn, :121-453, lowered by XLA) samples the walkers whose current
+vertex this shard owns in place, and sends every other live walker's
+request (cur, prev, gid) to its owner through a capacity-bounded bucketed
+all_to_all, in rounds until none is left. parallel/distributed.py runs the
+collectives; the work on either side of them is here:
+
+  * `emit` builds one exchange round's buckets (`exchange`, :345-378):
+    each pending walker's destination device dest_shard * L + gid % L, its
+    rank in its bucket in the stable order by destination, the [D, C, 3]
+    send buffer of (cur, prev, gid) with the slots [D, C] they came from
+    (fill (0, 0, -1) and slot n), the sent walkers' pending flags cleared,
+    and the counts (pending before the round, pending after). The first
+    round of a superstep takes the alive flags and decides which walkers
+    are local (their vertex is this shard's) and which are pending;
+  * `serve` runs one step for requests on this shard's tables
+    (`sample_req`, :204-323): the rows of cur and prev (hash arithmetic,
+    the packed VCut route, the halo bucket rows, or glob2loc), then the
+    first-order alias draw or the rejection trials, the uniforms addressed
+    by the request's global walker id, so the step is the single-device
+    engine's wherever it is served. -1 for a dead end or an invalid
+    request.
+
+For CUDA tensors each wrapper launches its kernel of csrc/shard_walk.cu;
+for CPU tensors it runs its plain version (`emit_ref`, `serve_ref`), with
+which it agrees bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import prng, walk_step
+from ._build import Kernel, ptr, require_cuda, stream
+from .sampling import HASH_MULT, DeviceGraph
+
+# csrc/shard_walk.cu's constants (tests/test_torch_shard_walk.py holds them)
+EMIT_THREADS = 512        # walkers a tile of the emit
+MAX_DEVICES = 256         # devices D the emit's shared tables hold
+SERVE_THREADS = 128
+ROUTE_HASH, ROUTE_PACKED, ROUTE_DENSE = 0, 1, 2
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+EMIT_KERNEL = Kernel(
+    "shard_walk.cu", "srw_shard_emit_launch",
+    [_P] * 6 + [_I] * 9 + [_P] * 4 + [_P])
+SERVE_KERNEL = Kernel(
+    "shard_walk.cu", "srw_shard_serve_launch",
+    [_P] * 3 + [_I] + [_P] + [_I] * 2 + [_P] + [_P] + [_I] * 4 + [_P]
+    + [_I] + [_P] * 5 + [_I] * 8 + [ctypes.c_float] * 3 + [_I] + [_P])
+
+
+class ShardTables(NamedTuple):
+    """One graph shard's walk tables on a device, with its routing.
+
+    g: the shard's packed tables (rows owned first, then halo; cols hold
+    global ids); route: i32[V], the packed VCut route (ROUTE_PACKED) or
+    the dense route (ROUTE_DENSE), None for hash; halo_buckets: i32[nb, 8]
+    (4 keys, 4 rows) and halo_nb, for the compact modes; glob2loc: i32[V],
+    ROUTE_DENSE only. shard: this shard's index of S."""
+
+    g: DeviceGraph
+    route_mode: int
+    route: torch.Tensor | None
+    halo_buckets: torch.Tensor | None
+    halo_nb: int
+    glob2loc: torch.Tensor | None
+    S: int
+    shard: int
+
+    @property
+    def rbits(self) -> int:
+        return max(1, (self.S - 1).bit_length())
+
+    @property
+    def device(self) -> torch.device:
+        return self.g.device
+
+
+def _dest_shard(tab: ShardTables, cur: torch.Tensor) -> torch.Tensor:
+    if tab.route_mode == ROUTE_HASH:
+        return cur % tab.S
+    e = tab.route[cur.clamp_min(0).long()]
+    if tab.route_mode == ROUTE_PACKED:
+        return e & ((1 << tab.rbits) - 1)
+    return e
+
+
+def emit_ref(tab: ShardTables, cur, prev, pending, alive, local, L: int,
+             D: int, gid_base: int, C: int):
+    """Plain version of the emit: the transcription of the JAX package's
+    bucket build by a stable argsort. pending (and, with alive, local) are
+    int32 [n] updated in place. Returns (send i32 [D, C, 3], slot i32
+    [D, C], counters i32 [2])."""
+    n = cur.shape[0]
+    dev = cur.device
+    if alive is not None:
+        a = alive != 0
+        ds = torch.where(a, _dest_shard(tab, cur),
+                         torch.full_like(cur, tab.shard))
+        loc = a & (ds == tab.shard)
+        local.copy_(loc.to(torch.int32))
+        pending.copy_((a & ~loc).to(torch.int32))
+    p = pending != 0
+    gid = gid_base + torch.arange(n, dtype=torch.int64, device=dev)
+    dest = torch.where(p, _dest_shard(tab, cur).long() * L + gid % L,
+                       torch.full_like(gid, D))
+    order = torch.sort(dest, stable=True).indices
+    sd = dest[order]
+    counts = torch.bincount(dest, minlength=D + 1)[:D]
+    bstart = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(n, device=dev) - bstart[sd.clamp_max(D - 1)]
+    sent = (sd < D) & (rank < C)
+    send = torch.zeros((D, C, 3), dtype=torch.int32, device=dev)
+    send[..., 2] = -1
+    slot = torch.full((D, C), n, dtype=torch.int32, device=dev)
+    idx = order[sent]
+    d_s, r_s = sd[sent], rank[sent]
+    send[d_s, r_s] = torch.stack([cur[idx], prev[idx],
+                                  gid[idx].to(torch.int32)], 1)
+    slot[d_s, r_s] = idx.to(torch.int32)
+    pending[idx] = 0
+    counters = torch.stack([p.sum(), (pending != 0).sum()]).to(torch.int32)
+    return send, slot, counters
+
+
+class EmitWork(NamedTuple):
+    """The emit's buffers for n walkers, D devices and capacity C, reused
+    round after round."""
+
+    send: torch.Tensor          # i32 [D, C, 3]
+    slot: torch.Tensor          # i32 [D, C]
+    tile_counts: torch.Tensor   # i32 [(tiles + 1) * D]
+    counters: torch.Tensor      # i32 [2]
+
+
+def emit_work(n: int, D: int, C: int, device) -> EmitWork:
+    tiles = -(-n // EMIT_THREADS)
+    e = lambda *s: torch.empty(s, dtype=torch.int32, device=device)
+    return EmitWork(e(D, C, 3), e(D, C), e((tiles + 1) * D), e(2))
+
+
+def emit(tab: ShardTables, cur, prev, pending, alive, local, L: int, D: int,
+         gid_base: int, C: int, work: EmitWork | None = None):
+    """One exchange round's buckets (see the module note). cur, prev: i32
+    [n]; pending: i32 [n], read and updated; alive (the superstep's first
+    round) i32 [n] or None; local: i32 [n], written when alive is given.
+    CPU tensors run emit_ref; CUDA tensors launch the emit kernel into
+    `work` (made here when None). Returns (send, slot, counters)."""
+    if cur.device.type == "cpu":
+        return emit_ref(tab, cur, prev, pending, alive, local, L, D,
+                        gid_base, C)
+    EMIT_KERNEL.fn()
+    n = cur.shape[0]
+    if not 1 <= D <= MAX_DEVICES or C < 1:
+        raise ValueError(f"emit: D={D} outside 1..{MAX_DEVICES} or C={C}")
+    if gid_base + n >= 2**31 or D * C * 3 >= 2**31:
+        raise ValueError("emit: walker ids or buffers beyond i32")
+    work = emit_work(n, D, C, cur.device) if work is None else work
+    if work.send.shape != (D, C, 3):
+        raise ValueError("emit: work buffers of another shape")
+    first = alive is not None
+    tensors = [cur, prev, pending, *work]
+    if first:
+        tensors += [alive, local]
+    if tab.route is not None:
+        tensors.append(tab.route)
+    for t in tensors:
+        if t.dtype != torch.int32:
+            raise ValueError("emit: int32 tensors expected")
+    require_cuda("emit", *tensors)
+    null = ctypes.c_void_p(0)
+    EMIT_KERNEL.launch(
+        ptr(cur), ptr(prev), ptr(alive) if first else null, ptr(pending),
+        ptr(local) if first else null,
+        ptr(tab.route) if tab.route is not None else null, tab.route_mode,
+        tab.S, tab.rbits, tab.shard, L, D, gid_base, n, C, ptr(work.send),
+        ptr(work.slot), ptr(work.tile_counts), ptr(work.counters),
+        stream(cur.device))
+    return work.send, work.slot, work.counters
+
+
+def _rows(tab: ShardTables, fcur, fprev):
+    """(cur's row, prev's row) on this shard, as the JAX package resolves
+    them (distributed.py:215-240)."""
+    if tab.route_mode == ROUTE_DENSE:
+        g2l = tab.glob2loc
+        return (g2l[fcur.long()].clamp_min(0),
+                g2l[fprev.long()].clamp_min(0))
+    pv = fprev.clamp_min(0)
+    if tab.route_mode == ROUTE_HASH:
+        cur_row = fcur.clamp_min(0) // tab.S
+        p_owned = pv % tab.S == tab.shard
+        p_row = pv // tab.S
+    else:
+        cur_row = tab.route[fcur.clamp_min(0).long()] >> tab.rbits
+        pr = tab.route[pv.long()]
+        p_owned = (pr & ((1 << tab.rbits) - 1)) == tab.shard
+        p_row = pr >> tab.rbits
+    hh = ((pv.to(torch.int64) * int(HASH_MULT)) & prng.MASK32) \
+        & (tab.halo_nb - 1)
+    row8 = tab.halo_buckets[hh]
+    hit = row8[:, :4] == pv[:, None]
+    hrow = torch.where(hit, row8[:, 4:], -1).max(dim=1).values
+    prev_row = torch.where(p_owned, p_row, hrow).clamp_min(0)
+    return cur_row, prev_row
+
+
+def serve_ref(tab: ShardTables, fcur, fprev, fgid, valid, keys, t: int,
+              first: bool, W_pad: int, W_total: int, n_stream: int,
+              p: float, q: float, counts: dict | None = None) -> torch.Tensor:
+    """Plain version of the serve kernel over m requests (i32 [m] each;
+    valid bool [m] or None): walk_step's trial arithmetic on the shard's
+    rows. Returns dst i32 [m]. `counts`, when given, receives what the
+    requests needed: `served` (requests stepped), `dense_trials`,
+    `lane_trials` and `acc_draws` (as walk_step.walk_corpus_ref counts
+    them; a first-order step is one dense trial with no u_acc)."""
+    g = tab.g
+    m = fcur.shape[0]
+    if m == 0:
+        return torch.zeros(0, dtype=torch.int32, device=fcur.device)
+    ok = fgid >= 0
+    if valid is not None:
+        ok = ok & valid
+    gc = fgid.clamp(0, W_total - 1).long()
+    rnd, lane = gc // W_pad, gc % W_pad
+    Wd = walk_step.draw_width(n_stream)
+    cur_row, prev_row = _rows(tab, fcur, fprev)
+    cm = g.vmeta[cur_row.long()]
+    can = ok & (cm[:, 1] > 0)
+    kw = keys.to(torch.int64) & prng.MASK32
+    tally = walk_step._Tally(kw.shape[2], m, fcur.device)
+    if first:
+        k0 = kw[rnd, 0, 0]
+        dst = walk_step._alias_draw(g, cm[:, 0], cm[:, 1],
+                                    prng.uniform_at(k0, lane),
+                                    prng.uniform_at(k0, lane + Wd))
+        tally.trials[0] = int(can.sum())
+    else:
+        pm = g.vmeta[prev_row.long()]
+        inv_p, inv_q, max_f, mode = walk_step.bias_constants(p, q)
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32,
+                                     device=fcur.device)
+        consts = (f32(inv_p), f32(inv_q), f32(max_f), mode)
+        dst = walk_step._second_order(g, kw[:, t], rnd, lane, Wd, cm, pm,
+                                      fprev, can, consts, tally)
+    if counts is not None:
+        counts.update(
+            served=int(can.sum()),
+            dense_trials=sum(tally.trials[:walk_step.DENSE_TRIALS]),
+            lane_trials=sum(tally.trials[walk_step.DENSE_TRIALS:]),
+            acc_draws=tally.acc_draws)
+    return torch.where(can, dst, -1).to(torch.int32)
+
+
+def serve(tab: ShardTables, req, valid, gid_base: int, keys, t: int,
+          first: bool, W_pad: int, W_total: int, n_stream: int, p: float,
+          q: float, out: torch.Tensor | None = None) -> torch.Tensor:
+    """One step for requests on this shard. req: (cur, prev, gid) i32 [m]
+    each, or an i32 [m, 3] tensor of them; gid None means gid_base + i;
+    valid i32 [m] (nonzero: served) or None (every request with gid >= 0).
+    keys: the trial-key table of the rounds (walk_step.trial_keys). CPU
+    tensors run serve_ref; CUDA tensors launch the serve kernel into `out`
+    (i32 [m], made here when None). Returns dst i32 [m]."""
+    if torch.is_tensor(req):
+        fcur, fprev, fgid, stride = req[:, 0], req[:, 1], req[:, 2], 3
+    else:
+        fcur, fprev, fgid = req
+        stride = 1
+    m = fcur.shape[0]
+    dev = fcur.device
+    if dev.type == "cpu":
+        if fgid is None:
+            fgid = gid_base + torch.arange(m, dtype=torch.int32)
+        return serve_ref(tab, fcur, fprev, fgid,
+                         None if valid is None else valid != 0, keys, t,
+                         first, W_pad, W_total, n_stream, p, q)
+    SERVE_KERNEL.fn()
+    g = tab.g
+    R, L1, T = keys.shape[0], keys.shape[1], keys.shape[2]
+    if keys.shape[3] != 2 or not 0 <= t < L1:
+        raise ValueError(f"serve: key table {tuple(keys.shape)}, step {t}")
+    if W_total >= 2**31 or R * W_pad < W_total:
+        raise ValueError("serve: walker ids beyond i32 or the key table")
+    base = req if torch.is_tensor(req) else None
+    tensors = [g.vmeta, g.alias_packed, g.hash_buckets, keys]
+    tensors += [base] if base is not None else [fcur, fprev]
+    if fgid is not None and base is None:
+        tensors.append(fgid)
+    for name in ("route", "halo_buckets", "glob2loc"):
+        if getattr(tab, name) is not None:
+            tensors.append(getattr(tab, name))
+    if valid is not None:
+        tensors.append(valid)
+    out = (torch.empty(m, dtype=torch.int32, device=dev) if out is None
+           else out)
+    tensors.append(out)
+    for x in tensors:
+        if x.dtype != torch.int32:
+            raise ValueError("serve: int32 tensors expected")
+    require_cuda("serve", *tensors)
+    if out.shape != (m,):
+        raise ValueError("serve: out of another shape")
+    inv_p, inv_q, max_f, mode = walk_step.bias_constants(p, q)
+    null = ctypes.c_void_p(0)
+    if base is not None:
+        at = base.data_ptr()
+        pcur, pprev, pgid = (ctypes.c_void_p(at + 4 * k) for k in range(3))
+    else:
+        pcur, pprev = ptr(fcur), ptr(fprev)
+        pgid = ptr(fgid) if fgid is not None else null
+    opt = lambda x: ptr(x) if x is not None else null
+    SERVE_KERNEL.launch(
+        pcur, pprev, pgid, stride, opt(valid), gid_base, m, ptr(out),
+        opt(tab.route), tab.route_mode, tab.S, tab.rbits, tab.shard,
+        opt(tab.halo_buckets), max(tab.halo_nb, 1), opt(tab.glob2loc),
+        ptr(g.vmeta), ptr(g.alias_packed), ptr(g.hash_buckets), ptr(keys), t,
+        int(first), W_pad, W_total, walk_step.draw_width(n_stream), L1, T,
+        g.num_edges, float(inv_p), float(inv_q), float(max_f), mode,
+        stream(dev))
+    return out
+
+
+def shard_tables(graph, plan, s: int, device) -> ShardTables:
+    """Shard s of a ShardPlan (graph/partition.py), built alone on the host
+    and uploaded: the rank's share of the graph (its host memory is the
+    graph plus this one shard)."""
+    from ..graph import partition as part
+    from .sampling import PackingUnavailable
+
+    sh = part.build_shard(graph, plan, s, build_packed=True)
+    if "vmeta" not in sh:
+        raise PackingUnavailable(f"shard {s} has no packed tables")
+    put = lambda x: torch.as_tensor(np.ascontiguousarray(x),
+                                    dtype=torch.int32).to(device)
+    g = DeviceGraph(
+        offsets=torch.as_tensor(sh["offsets"]).to(device),
+        alias_packed=put(sh["alias_packed"]),
+        hash_buckets=put(sh["hash_buckets"]), vmeta=put(sh["vmeta"]))
+    if plan.is_hash:
+        mode, route = ROUTE_HASH, None
+    elif plan.route_packed is not None:
+        mode, route = ROUTE_PACKED, put(plan.route_packed)
+    else:
+        mode, route = ROUTE_DENSE, put(plan.route)
+    compact = mode != ROUTE_DENSE
+    return ShardTables(
+        g=g, route_mode=mode, route=route,
+        halo_buckets=put(sh["halo_buckets"]) if compact else None,
+        halo_nb=int(sh["halo_nb"]) if compact else 0,
+        glob2loc=None if compact else put(sh["glob2loc"]),
+        S=plan.num_shards, shard=s)

@@ -73,13 +73,15 @@ def test_sharded_flags_walk_like_the_jax_cli(karate_path, tmp_path, flags,
 ])
 def test_num_walk_shards_resolves_like_jax(flags):
     """On the JAX package's device count the two resolve --shards alike; on
-    the port's one device every case is one shard."""
+    the port's one device (no process group: its walk devices are one)
+    every case is one shard, which run_walks takes to the single-device
+    engine."""
     argv = ["--cmd", "randomwalk", "--input", "x", "--output", "y"] + flags
     want = jn2v.num_walk_shards(jconfig.parse(argv))
     params = parse(argv)
     assert n2v.num_walk_shards(params, devices=len(jax.devices())) == want
     assert n2v.num_walk_shards(params) == 1
-    n2v._refuse_sharded(params)            # one shard: nothing refused
+    assert n2v.num_walk_shards(params, devices=n2v.walk_devices()) == 1
 
 
 def _dim768(karate_path, out, *extra):

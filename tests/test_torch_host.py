@@ -1,6 +1,6 @@
 """The port's own copies of the host modules (graph/csr.py, graph/io.py,
-graph/datasets.py, native/, utils/, ops/alias.py, models/eval.py,
-models/hsoftmax.py's build_huffman) against the JAX package's
+graph/datasets.py, graph/partition.py, native/, utils/, ops/alias.py,
+models/eval.py, models/hsoftmax.py's build_huffman) against the JAX package's
 originals on the same inputs. Everything here is NumPy on the host, so the
 tolerance is exact: arrays equal, files byte for byte. The CSR tables are
 held with the port's C++ builder and with its NumPy builders."""
@@ -17,6 +17,7 @@ from stellar_rw_tpu import native as jnative
 from stellar_rw_tpu.graph import csr as jcsr
 from stellar_rw_tpu.graph import datasets as jdatasets
 from stellar_rw_tpu.graph import io as jio
+from stellar_rw_tpu.graph import partition as jpartition
 from stellar_rw_tpu.models import eval as jev
 from stellar_rw_tpu.models import hsoftmax as jhs
 from stellar_rw_tpu.models import word2vec as jw2v
@@ -25,7 +26,7 @@ from stellar_rw_tpu.utils import config as jconfig
 from stellar_rw_tpu.utils import logging as jlogging
 from stellar_rw_tpu.utils import stats as jstats
 from stellar_rw_tpu_torch import native
-from stellar_rw_tpu_torch.graph import csr, datasets, io
+from stellar_rw_tpu_torch.graph import csr, datasets, io, partition
 from stellar_rw_tpu_torch.models import eval as ev
 from stellar_rw_tpu_torch.models import hsoftmax as hs
 from stellar_rw_tpu_torch.models import word2vec as w2v
@@ -474,3 +475,94 @@ def test_build_huffman_equal(counts):
                          jhs.build_huffman(counts)):
         assert got.dtype == want.dtype and got.shape == want.shape
         np.testing.assert_array_equal(got, want)
+
+
+def _routes(V):
+    """Hash (None) and a random VCut route over three shards."""
+    rng = np.random.default_rng(5)
+    return {"hash": None, "vcut": rng.integers(0, 3, V).astype(np.int32)}
+
+
+def _assert_same(a, b, what):
+    if a is None or b is None:
+        assert a is None and b is None, what
+        return
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype, what
+    np.testing.assert_array_equal(a, b, err_msg=what)
+
+
+# arrays the partitioner leaves uninitialized past each shard's fill
+EDGE_FIELDS = ("cols", "weights", "alias_prob", "alias_pos")
+
+
+def _fills(g, plan, s):
+    """(arcs, hash-table entries) filled in shard s."""
+    rows = plan.rows_per_shard[s]
+    deg = np.diff(g.offsets)
+    return int(deg[rows].sum()), int(np.diff(g.hash_offsets)[rows].sum())
+
+
+def _same_shard(a, b, f, fills):
+    if f in EDGE_FIELDS:
+        a, b = a[:fills[0]], b[:fills[0]]
+    elif f == "hash_table":
+        a, b = a[:fills[1]], b[:fills[1]]
+    _assert_same(a, b, f)
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+@pytest.mark.parametrize("route", ["hash", "vcut"])
+def test_partition_equal(name, route, karate_path, testgraph_path):
+    """graph/partition.py: partition_graph (every field, the stacked form),
+    plan_shards and each shard of build_shard equal the JAX package's."""
+    jg, g = _pair(name, karate_path, testgraph_path)
+    r = _routes(g.num_vertices)[route]
+    S = 3
+    jh = jpartition.partition_graph(jg, S, r, build_glob2loc=True)
+    th = partition.partition_graph(g, S, r, build_glob2loc=True)
+    jp, tp = jpartition.plan_shards(jg, S, r), partition.plan_shards(g, S, r)
+    for f in dataclasses.fields(jh):
+        a, b = getattr(th, f.name), getattr(jh, f.name)
+        if f.name in EDGE_FIELDS + ("hash_table",):
+            for s in range(S):
+                _same_shard(a[s], b[s], f.name, _fills(jg, jp, s))
+        else:
+            _assert_same(a, b, f.name)
+    assert th.replication_factor == jh.replication_factor
+    for f in dataclasses.fields(jp):
+        if f.name == "rows_per_shard":
+            for a, b in zip(tp.rows_per_shard, jp.rows_per_shard):
+                _assert_same(a, b, "rows_per_shard")
+        else:
+            _assert_same(getattr(tp, f.name), getattr(jp, f.name), f.name)
+    for s in range(S):
+        js, ts = (m.build_shard(x, p, s) for m, x, p in
+                  ((jpartition, jg, jp), (partition, g, tp)))
+        assert set(ts) == set(js)
+        for k in js:
+            _same_shard(ts[k], js[k], k, _fills(jg, jp, s))
+        assert partition.shard_bucket_sizes(g, tp, s, True) == \
+            jpartition.shard_bucket_sizes(jg, jp, s, True)
+
+
+def test_partition_dense_fallback_and_helpers_equal():
+    """The packed route's int32 overflow falls back to glob2loc alike;
+    _kv_bucket_table, pack_route and shard_bits equal."""
+    owned = [np.arange(0, 10), np.arange(10, 20)]
+    route = np.repeat([0, 1], 10).astype(np.int32)
+    num_owned = np.array([10, 10], np.int32)
+    for S in (2, 5, 64):
+        assert partition.shard_bits(S) == jpartition.shard_bits(S)
+    _assert_same(partition.pack_route(route, owned, num_owned, 2),
+                 jpartition.pack_route(route, owned, num_owned, 2), "pack")
+    big = np.array([2**30 + 1, 0], np.int32)
+    assert partition.pack_route(route, owned, big, 2) is None
+    assert jpartition.pack_route(route, owned, big, 2) is None
+    keys = np.random.default_rng(1).integers(0, 10**6, 300)
+    rows = np.arange(300)
+    for mult in (2654435761, 7):
+        a, b = (m._kv_bucket_table(keys, rows, mult)
+                for m in (partition, jpartition))
+        _assert_same(a[0], b[0], "buckets")
+        assert a[1] == b[1]

@@ -79,8 +79,9 @@ def test_port_imports_resolve_inside_the_port():
             if m.split(".")[0] == "stellar_rw_tpu_torch":
                 seen.add(m)
                 assert _module_file(m) is not None, f"{path} imports {m}"
-    for m in ("graph.csr", "graph.io", "native", "utils.config",
-              "utils.stats", "utils.logging", "ops.alias", "models.eval"):
+    for m in ("graph.csr", "graph.io", "graph.partition", "native",
+              "utils.config", "utils.stats", "utils.logging", "ops.alias",
+              "ops.shard_walk", "models.eval"):
         assert f"stellar_rw_tpu_torch.{m}" in seen, m
 
 

@@ -1,0 +1,322 @@
+"""K11's two halves (stellar_rw_tpu_torch/ops/shard_walk.py,
+csrc/shard_walk.cu) on the CPU, where their plain versions run:
+
+  * emit_ref against a NumPy transcription of the JAX package's bucket build
+    (stellar_rw_tpu/parallel/distributed.py:345-378: argsort(stable=True),
+    counts, bucket starts, ranks, the sent mask, put) on random
+    destinations, capacities 1 to n, lanes 1 and 2, a superstep's first
+    round and a later one;
+  * the emit kernel's design (tiles of EMIT_THREADS walkers, a warp's
+    peers, per-warp counts, the tiles' offsets scanned) transcribed in
+    NumPy against emit_ref;
+  * serve_ref (and the wrapper's two request forms) over every superstep's
+    requests of a corpus, each served by the shard that owns its vertex,
+    against the single-device corpus's next column, under hash and
+    vertex-cut shards (halo prev rows among them) on karate, directed
+    karate and tests/data/testgraph.txt (dead ends);
+  * the key table's redesign (a warp a (round, step)) transcribed against
+    trial_keys_ref;
+  * the constants and entry points ops/shard_walk.py mirrors, against the
+    source; a CUDA tensor goes to the kernel or raises.
+Exact throughout: the kernels compute integers and threefry bits."""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from stellar_rw_tpu_torch.graph import io, partition
+from stellar_rw_tpu_torch.ops import _build, prng, sampling, shard_walk
+from stellar_rw_tpu_torch.ops import walk_step
+from stellar_rw_tpu_torch.walk import engine
+
+torch.set_num_threads(2)
+SOURCE = (_build.CSRC / "shard_walk.cu").read_text()
+WALK_SOURCE = (_build.CSRC / "walk.cu").read_text()
+
+
+def _route_tables(S, shard, route):
+    """ShardTables carrying only a dense route: what the emit reads."""
+    return shard_walk.ShardTables(
+        g=None, route_mode=shard_walk.ROUTE_DENSE,
+        route=torch.as_tensor(route, dtype=torch.int32), halo_buckets=None,
+        halo_nb=0, glob2loc=None, S=S, shard=shard)
+
+
+def _jax_exchange(dest, cur, prev, gids, C, D):
+    """distributed.py:361-378 in NumPy: dest = D where nothing is sent."""
+    n = len(dest)
+    order = np.argsort(dest, kind="stable")
+    sd = dest[order]
+    counts = np.zeros(D, np.int64)
+    np.add.at(counts, dest[dest < D], 1)
+    bstart = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(n) - bstart[np.clip(sd, 0, D - 1)]
+    ok = (sd < D) & (rank < C)
+    sent = np.zeros(n, bool)
+    sent[order] = ok
+
+    def put(field, fill):
+        buf = np.full((D, C), fill, np.int64)
+        buf[sd[ok], rank[ok]] = field[order][ok]
+        return buf
+    send = np.stack([put(cur, 0), put(prev, 0), put(gids, -1)], -1)
+    return send, put(np.arange(n), n), sent
+
+
+def _walkers(n, S, seed):
+    rng = np.random.default_rng(seed)
+    V = 50
+    route = rng.integers(0, S, V)
+    cur = rng.integers(0, V, n)
+    prev = rng.integers(0, V, n)
+    alive = rng.random(n) < 0.8
+    return route, cur, prev, alive
+
+
+@pytest.mark.parametrize("C", [1, 3, 17, 1000])
+@pytest.mark.parametrize("L", [1, 2])
+def test_emit_ref_matches_jax_transcription(C, L):
+    """Order, counts, buffers, slots and the sent mask of the first round
+    and of the next, at random destinations over 3 shards x L lanes."""
+    S, n, my = 3, 400, 1
+    D = S * L
+    C = min(C, n)
+    route, cur, prev, alive = _walkers(n, S, C + L)
+    tab = _route_tables(S, my, route)
+    gid_base = my * L * n
+    gids = gid_base + np.arange(n)
+    t = lambda x: torch.as_tensor(x, dtype=torch.int32)
+    pending, local = t(np.zeros(n)), t(np.zeros(n))
+    ds = np.where(alive, route[cur], my)
+    want_local = alive & (ds == my)
+    rem = alive & ~want_local
+    for first in (True, False):
+        send, slot, counters = shard_walk.emit_ref(
+            tab, t(cur), t(prev), pending, t(alive) if first else None,
+            local, L, D, gid_base, C)
+        dest = np.where(rem, route[cur] * L + gids % L, D)
+        w_send, w_slot, sent = _jax_exchange(dest, cur, prev, gids, C, D)
+        np.testing.assert_array_equal(local.numpy(), want_local)
+        np.testing.assert_array_equal(send.numpy(), w_send)
+        np.testing.assert_array_equal(slot.numpy(), w_slot)
+        np.testing.assert_array_equal(counters.numpy(),
+                                      [rem.sum(), (rem & ~sent).sum()])
+        rem = rem & ~sent
+        np.testing.assert_array_equal(pending.numpy(), rem)
+
+
+def _emit_kernel_transcription(dest, C, D, tile=shard_walk.EMIT_THREADS):
+    """csrc/shard_walk.cu's emit for given destinations (D: nothing sent):
+    (1) a tile's count for each destination, (2) the tiles' counts scanned,
+    (3) rank = tile offset + the counts of the warps before + the lanes
+    before among the warp's peers. Returns (slot [D, C], sent mask)."""
+    n = len(dest)
+    ntiles = -(-n // tile)
+    pad = np.full(ntiles * tile, D)
+    pad[:n] = dest
+    tiles = pad.reshape(ntiles, tile // 32, 32)          # tile, warp, lane
+    wcnt = np.stack([(tiles == d).sum(axis=2) for d in range(D)], -1)
+    tile_counts = wcnt.sum(axis=1)                       # [tiles, D]
+    offs = np.cumsum(tile_counts, axis=0) - tile_counts  # exclusive scan
+    slot = np.full((D, C), n)
+    sent = np.zeros(n, bool)
+    for i in range(n):
+        d = dest[i]
+        if d == D:
+            continue
+        tl, w, lane = i // tile, (i % tile) // 32, i % 32
+        peers_before = int((tiles[tl, w, :lane] == d).sum())
+        rank = offs[tl, d] + wcnt[tl, :w, d].sum() + peers_before
+        if rank < C:
+            slot[d, rank] = i
+            sent[i] = True
+    return slot, sent
+
+
+@pytest.mark.parametrize("n,D,C", [(1500, 2, 600), (1500, 8, 50),
+                                   (512, 3, 512), (37, 5, 1), (0, 2, 4)])
+def test_emit_kernel_design_matches_emit_ref(n, D, C):
+    """The kernel's tiles, warps and scans give emit_ref's slots and sent
+    mask: several tiles, destinations crowded and sparse, capacity 1."""
+    rng = np.random.default_rng(n + D)
+    route = rng.integers(0, D, 64)
+    cur = rng.integers(0, 64, n)
+    pending = rng.random(n) < 0.7
+    tab = _route_tables(D, D - 1, route)
+    t = lambda x: torch.as_tensor(x, dtype=torch.int32)
+    pend = t(pending)
+    _, slot, _ = shard_walk.emit_ref(tab, t(cur), t(cur), pend, None, None,
+                                     1, D, 0, C)
+    dest = np.where(pending, route[cur], D)
+    k_slot, k_sent = _emit_kernel_transcription(dest, C, D)
+    np.testing.assert_array_equal(slot.numpy(), k_slot)
+    np.testing.assert_array_equal(pend.numpy(), pending & ~k_sent)
+
+
+GRAPHS = ["karate", "karate_directed", "testgraph"]
+
+
+def _graph(name, karate_path, testgraph_path):
+    if name == "testgraph":
+        return io.load_edge_list(testgraph_path, weighted=False,
+                                 directed=True)
+    return io.load_edge_list(karate_path, weighted=False,
+                             directed=name == "karate_directed")
+
+
+@pytest.mark.parametrize("name", GRAPHS)
+@pytest.mark.parametrize("route", ["hash", "vcut"])
+@pytest.mark.parametrize("pq", [(0.5, 2.0), (1.0, 1.0)])
+def test_serve_ref_steps_the_single_device_corpus(name, route, pq,
+                                                  karate_path,
+                                                  testgraph_path):
+    """Every superstep's requests, each served by the shard owning its
+    vertex (prev's row owned or a halo row), give the single-device
+    corpus's next column, -1 at dead ends."""
+    g = _graph(name, karate_path, testgraph_path)
+    V, R, Lw, S = g.num_vertices, 2, 5, 3
+    p, q = pq
+    r = (None if route == "hash" else
+         np.random.default_rng(2).integers(0, S, V).astype(np.int32))
+    corpus = torch.as_tensor(engine.random_walks(
+        g, walk_length=Lw, num_walks=R, p=p, q=q, seed=4, device="cpu"))
+    _, max_rounds = sampling.plan_sampler("rejection", p, q)
+    keys = walk_step.trial_keys_ref(prng.prng_key(4), 0, R, Lw,
+                                    4 * max_rounds)
+    plan = partition.plan_shards(g, S, r)
+    tabs = [shard_walk.shard_tables(g, plan, s, "cpu") for s in range(S)]
+    W_pad = V + 2                     # gids of a padded layout
+    rows = torch.arange(R * V)
+    gid = ((rows // V) * W_pad + rows % V).to(torch.int32)
+    owner = torch.as_tensor(plan.route).long()
+    halo = 0
+    for t in range(Lw + 1):
+        cur = corpus[:, t] if t else corpus[:, 0]
+        prev = corpus[:, t - 1] if t > 1 else corpus[:, 0]
+        alive = cur >= 0
+        for s, tab in enumerate(tabs):
+            m = alive & (owner[cur.clamp_min(0)] == s)
+            halo += int((m & (owner[prev.clamp_min(0)] != s)).sum())
+            req = torch.stack([cur[m], prev[m], gid[m]], 1).to(torch.int32)
+            got = shard_walk.serve(tab, req, None, 0, keys, t, t == 0, W_pad,
+                                   R * W_pad, V, p, q)
+            np.testing.assert_array_equal(got.numpy(),
+                                          corpus[m, t + 1].numpy())
+            alone = shard_walk.serve_ref(tab, cur[m], prev[m], gid[m], None,
+                                         keys, t, t == 0, W_pad, R * W_pad,
+                                         V, p, q)
+            np.testing.assert_array_equal(alone.numpy(), got.numpy())
+    if name == "karate":
+        assert halo > 0
+    if name != "karate":
+        assert bool((corpus == -1).any())
+
+
+def test_serve_local_form_and_validity(karate_path):
+    """The local form (gid = gid_base + i, a valid flag per walker) serves
+    only the flagged walkers; -1 elsewhere and for gid -1 requests."""
+    g = io.load_edge_list(karate_path, weighted=False)
+    plan = partition.plan_shards(g, 1)
+    tab = shard_walk.shard_tables(g, plan, 0, "cpu")
+    V = g.num_vertices
+    keys = walk_step.trial_keys_ref(prng.prng_key(1), 0, 1, 3, 64)
+    corpus = torch.as_tensor(engine.random_walks(
+        g, walk_length=3, num_walks=1, p=0.5, q=2.0, seed=1, device="cpu"))
+    cur = corpus[:, 1].to(torch.int32)
+    prev = corpus[:, 0].to(torch.int32)
+    valid = (torch.arange(V) % 2).to(torch.int32)
+    got = shard_walk.serve(tab, (cur, prev, None), valid, 0, keys, 1, False,
+                           V, V, V, 0.5, 2.0)
+    want = torch.where(valid != 0, corpus[:, 2], -1)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    req = torch.stack([cur, prev, torch.full_like(cur, -1)], 1)
+    assert (shard_walk.serve(tab, req, None, 0, keys, 1, False, V, V, V,
+                             0.5, 2.0) == -1).all()
+
+
+@pytest.mark.parametrize("R,L,T", [(2, 6, 64), (3, 0, 1), (2, 5, 33)])
+def test_key_table_design_matches_ref(R, L, T):
+    """csrc/walk.cu's trial_keys_kernel: a warp a (round, step) derives the
+    round key and the step key once, lane l makes trials l, l+32, ...:
+    every key of the table once, equal to trial_keys_ref."""
+    k = prng.prng_key(7)
+    want = walk_step.trial_keys_ref(k, 5, R, L, T).long() & prng.MASK32
+    got = torch.full((R, L + 1, T, 2), -1, dtype=torch.int64)
+    for warp in range(R * (L + 1)):
+        r, t = divmod(warp, L + 1)
+        sk = prng.fold_in(prng.fold_in(k, 5 + r), t)
+        for lane in range(32):
+            for j in range(lane, T, 32):
+                assert (got[r, t, j] == -1).all()
+                got[r, t, j] = prng.fold_in(sk, j)
+    assert torch.equal(got, want)
+    assert "for (int j = lane; j < T; j += 32)" in WALK_SOURCE
+    # the table releases K11's serve, a programmatic dependent that waits
+    # for it; the walk kernel is an ordinary launch
+    assert "griddepcontrol.launch_dependents" in WALK_SOURCE
+    assert "griddepcontrol.wait" not in WALK_SOURCE
+    assert SOURCE.count("griddepcontrol.wait") == 1
+
+
+MIRRORED = {"kEmitThreads": "EMIT_THREADS", "kMaxDevices": "MAX_DEVICES",
+            "kServeThreads": "SERVE_THREADS", "kRouteHash": "ROUTE_HASH",
+            "kRoutePacked": "ROUTE_PACKED", "kRouteDense": "ROUTE_DENSE"}
+
+
+@pytest.mark.parametrize("name", list(MIRRORED))
+def test_constants_mirror_the_source(name):
+    value = getattr(shard_walk, MIRRORED[name])
+    assert SOURCE.count(f"constexpr int {name} = ") == 1
+    assert f"constexpr int {name} = {value};" in SOURCE
+
+
+@pytest.mark.parametrize("kernel", [shard_walk.EMIT_KERNEL,
+                                    shard_walk.SERVE_KERNEL])
+def test_entry_points_take_the_bound_arguments(kernel):
+    """Each C entry point's parameter count is the argtypes' count."""
+    m = re.search(rf'extern "C" int {kernel.symbol}\((.*?)\)\s*\{{', SOURCE,
+                  re.S)
+    assert m, kernel.symbol
+    assert len(m.group(1).split(",")) == len(kernel.argtypes)
+
+
+def test_wrappers_raise_without_a_build(karate_path, monkeypatch, tmp_path):
+    """Tensors off the CPU go to the kernels or raise: with no compiler the
+    build fails loudly and nothing falls back to the plain versions."""
+    def no_nvcc():
+        raise _build.KernelBuildError("nvcc not found")
+
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    for k in (shard_walk.EMIT_KERNEL, shard_walk.SERVE_KERNEL):
+        monkeypatch.setattr(k, "_fn", None)
+    g = io.load_edge_list(karate_path, weighted=False)
+    tab = shard_walk.shard_tables(g, partition.plan_shards(g, 2), 0, "cpu")
+    x = torch.zeros(8, dtype=torch.int32, device="meta")
+    keys = torch.zeros((1, 2, 4, 2), dtype=torch.int32, device="meta")
+    before = (shard_walk.EMIT_KERNEL.launches,
+              shard_walk.SERVE_KERNEL.launches)
+    with pytest.raises(_build.KernelBuildError):
+        shard_walk.emit(tab, x, x, x, x, x, 1, 2, 0, 4)
+    with pytest.raises(_build.KernelBuildError):
+        shard_walk.serve(tab, (x, x, None), x, 0, keys, 1, False, 8, 8, 8,
+                         1.0, 1.0)
+    assert (shard_walk.EMIT_KERNEL.launches,
+            shard_walk.SERVE_KERNEL.launches) == before
+
+
+def test_launch_form_edits_apply_once():
+    """chip_compare.py's launch forms edit the sources they time: the walk
+    kernel made the table's programmatic dependent (it then waits for the
+    table first), K11's serve made an ordinary launch; each piece once."""
+    import chip_compare
+    import chip_smoke
+
+    walk = chip_smoke.edited(WALK_SOURCE, chip_compare.WALK_AS_DEPENDENT)
+    assert "srw::launch_dependent(\n        walk_kernel," in walk
+    assert walk.count("griddepcontrol.wait") == 1
+    serve = chip_smoke.edited(SOURCE, chip_compare.SERVE_ORDINARY)
+    assert "shard_serve_kernel<<<" in serve
+    assert "launch_dependent(\n        shard_serve_kernel" not in serve
