@@ -143,7 +143,26 @@ entry points a user calls:
               launches and none of the walk kernel, walk seconds,
               supersteps, exchange rounds, boundary walkers, replication
               factor, capacity, the kernels' ms and the collectives' host
-              ms a superstep.
+              ms a superstep;
+  phase 23    dim-sharded tables on the card: `node2vec --w2vModelShards
+              2` through the CLI on phase 4's graph at its width (/path
+              byte for byte phase 4's, the trainer's launches phase 4's,
+              no dp kernel, the epoch beside phase 4's), `--w2vPartitions 2
+              --w2vModelShards 2` with exact negatives (one K4 launch a
+              merged update), the karate gate at model_shards 2, karate
+              through the CLI on the card against the CPU's plain run of
+              the same flags, and sgns_loss on the card against the CPU on
+              phase 4's tables;
+  phase 24    the multi-host CLI: two processes joined by SRW_* on the
+              card (gloo ranks sharing cuda:0): `python -m
+              stellar_rw_tpu_torch --cmd randomwalk` (hash route), then
+              through a worker calling cli.main as that module does, the
+              vertex-cut route, node2vec at phase 4's flags and embedding
+              over phase 4's /path: each rank's parts merged byte for byte
+              phase 4's /path, rank 0's stats line phase 4's, the tables
+              against train_skipgram_multiproc(num_devices=2) in this
+              process, K11's launches and the all-reduces, each rank's walk
+              and train seconds.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every failure raises and the script exits non-zero. It
@@ -4047,6 +4066,387 @@ def phase_shard_ranks(torch, smi, tmp, main_run) -> dict:
     return out
 
 
+# phase 23: dim-sharded tables on the one card (--w2vModelShards 2) and
+# sgns_loss. The CLI at phase 4's graph and width, conv and (with
+# --w2vPartitions 2) exact; karate runs on the card against the CPU's plain
+# run of the same flags
+MP_FLAGS = ["--w2vModelShards", "2"]
+KARATE_MP_FLAGS = ["--cmd", "node2vec", "--walkLength", "20", "--numWalks",
+                   "10", "--dim", "32", "--window", "5", "--iter", "2",
+                   "--seed", "2"] + MP_FLAGS
+# sgns_loss's pairs on phase 4's tables: (pairs, negatives a pair)
+LOSS_SHAPE = (100_000, 5)
+# phase 24: the multi-host CLI, two processes joined by SRW_* on the card.
+# The hash route through `python -m stellar_rw_tpu_torch` itself; the
+# vertex-cut route, node2vec and embedding through a worker that calls
+# cli.main as that module does and reads the kernels' counts after each
+MULTIHOST_RUNS = {"vcut": SHARD_FLAGS + ["--partitioned", "true"],
+                  "node2vec": MAIN_FLAGS,
+                  "embedding": EMBED_FLAGS}
+MULTIHOST_WORKER = r"""
+import contextlib, io, json, os, sys
+import torch
+import torch.distributed as dist
+from chip_smoke import dp_kernels, trainer_kernels
+from stellar_rw_tpu_torch import cli
+from stellar_rw_tpu_torch.ops import shard_walk
+from stellar_rw_tpu_torch.parallel import dp, multihost
+
+kernels = {"shard_emit": shard_walk.EMIT_KERNEL,
+           "shard_serve": shard_walk.SERVE_KERNEL, **trainer_kernels(),
+           **dp_kernels()}
+joined = {}
+initialize = multihost.initialize
+
+
+def recorded(*args, **kw):
+    device = initialize(*args, **kw)
+    joined.update(device=str(device), backend=dist.get_backend())
+    return device
+
+
+multihost.initialize = recorded
+result = {}
+for run in json.loads(sys.argv[1]):
+    os.environ["SRW_COORDINATOR"] = f"127.0.0.1:{run['port']}"
+    for k in kernels.values():
+        k.launches = 0
+    dp.ALL_REDUCES = 0
+    report, out = {}, io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(run["argv"], report=report)
+    result[run["name"]] = {
+        "rc": rc, "stdout": out.getvalue(), **joined,
+        "report": {k: v for k, v in report.items()
+                   if isinstance(v, (int, float))},
+        "launches": {n: k.launches for n, k in kernels.items()},
+        "all_reduces": dp.ALL_REDUCES}
+print("RESULT " + json.dumps(result), flush=True)
+"""
+
+
+def phase_model_shards(torch, smi, tmp, main_run, exact_run) -> dict:
+    """Phase 23: `node2vec --w2vModelShards 2` through the CLI on phase 4's
+    graph at its width (conv, kB 128): /path byte for byte phase 4's, the
+    trainer's kernels a block as in phase 4 and no dp kernel (one slot:
+    the one-device update with the slot key, so its tables differ from
+    phase 4's), the epoch beside phase 4's; `--w2vPartitions 2
+    --w2vModelShards 2` with exact negatives: one K4 launch a merged
+    update and nothing else, as phase 21 (b); the karate gate at
+    model_shards 2 (exact and kB 32); karate through the CLI on the card
+    against the CPU's plain run of the same flags (rtol 1e-4 atol 1e-6);
+    sgns_loss on the card against the CPU on phase 4's tables (rtol
+    1e-6)."""
+    from stellar_rw_tpu_torch import cli
+    from stellar_rw_tpu_torch.graph import io as gio
+    from stellar_rw_tpu_torch.models import node2vec as n2v
+    from stellar_rw_tpu_torch.models import word2vec as w2v
+    from stellar_rw_tpu_torch.walk import engine
+
+    kernels = {**trainer_kernels(), **dp_kernels()}
+    runs = {}
+    for name, flags, beside in (
+            ("conv", MAIN_FLAGS + MP_FLAGS, main_run),
+            ("exact_p2", EXACT_FLAGS + DP_FLAGS + MP_FLAGS, exact_run)):
+        out = os.path.join(tmp, f"out_mp_{name}")
+        report = {}
+        reset_counts(*kernels.values())
+        rc = cli.main(["--input", main_run["edges"], "--output", out]
+                      + flags, report=report)
+        torch.cuda.synchronize()
+        check(rc == 0, f"--w2vModelShards 2 ({name}) returned {rc}")
+        check(same_path(out, main_run["out"]),
+              f"--w2vModelShards 2 ({name}): /path differs from phase 4's")
+        counts = {k: t.launches for k, t in kernels.items()}
+        _, w_in, w_out = n2v.load_model(out)
+        check(np.isfinite(w_in).all() and np.isfinite(w_out).all(),
+              f"--w2vModelShards 2 ({name}): tables not finite")
+        if name == "conv":
+            _, blocks, per = trainer_launches(report)
+            check(all(counts[k] == main_run[k] for k in trainer_kernels())
+                  and not any(counts[k] for k in dp_kernels()),
+                  f"--w2vModelShards 2: launches {counts}, phase 4's "
+                  f"{ {k: main_run[k] for k in trainer_kernels()} }")
+            check(per <= 3.01, f"{per:.4f} calls a block")
+            moved = float(np.abs(w_in - n2v.load_model(
+                main_run["out"])[1]).max())
+            check(moved > 1e-4, "--w2vModelShards 2 drew phase 4's stream, "
+                  "not the slot key's")
+        else:
+            merged = -(-report["paths"] // 32)
+            per = sum(v for k, v in counts.items()
+                      if k != "trainer_draws") / merged
+            check(counts["sgns_exact_merged"] == merged
+                  and counts["sgns_exact_accumulate"] == 0
+                  and counts["dp_apply"] == 0
+                  and counts["sgns_exact_step"] == 0, f"launches {counts}")
+            check(per <= 1.01, f"{per:.4f} calls a merged update")
+        runs[name] = {"train_seconds": report["train_seconds"],
+                      "beside_seconds": beside["train_seconds"],
+                      "calls": per, "launches": counts}
+    karate = os.path.join(ROOT, "tests", "data", "karate.txt")
+    g = gio.load_edge_list(karate, weighted=False, directed=False)
+    walks = engine.random_walks(g, walk_length=20, num_walks=10, seed=2,
+                                as_numpy=False, device="cuda")
+    gate = {}
+    for name, kB in (("exact", 0), ("kB 32", 32)):
+        cfg = w2v.SGNSConfig(dim=32, window=5, negatives=5, lr=0.2, iters=20,
+                             seed=1, shared_negatives=kB, model_shards=2)
+        w_in, _ = w2v.train_skipgram(walks, g.num_vertices, cfg,
+                                     device="cuda")
+        gate[name] = karate_gate(w_in, g)
+        check(gate[name][0] > 0.7 and gate[name][1] >= 0.85,
+              f"karate gate at model_shards 2 ({name}): {gate[name]}")
+    plain = {}
+    for name, extra in (("exact", []), ("kB 32", ["--sharedNegatives",
+                                                   "32"])):
+        tables = []
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"out_mp_karate_{dev}_{len(extra)}")
+            check(cli.main(["--input", karate, "--output", out]
+                           + KARATE_MP_FLAGS + extra, device=dev) == 0,
+                  f"karate --w2vModelShards 2 on {dev} failed")
+            tables.append(n2v.load_model(out)[1:])
+        check(same_path(os.path.join(tmp, f"out_mp_karate_cuda_{len(extra)}"),
+                        os.path.join(tmp, f"out_mp_karate_cpu_{len(extra)}")),
+              "karate /path differs between the card and the CPU")
+        plain[name] = max(float(np.abs(a - b).max())
+                          for a, b in zip(*tables))
+        check(all(np.allclose(a, b, rtol=1e-4, atol=1e-6)
+                  for a, b in zip(*tables)),
+              f"karate at model_shards 2 ({name}): the card against the "
+              f"CPU's plain run, max abs err {plain[name]:.3g}")
+    # sgns_loss on phase 4's tables
+    _, w_in, w_out = n2v.load_model(main_run["out"])
+    rng = np.random.default_rng(23)
+    P, k = LOSS_SHAPE
+    V = w_in.shape[0]
+    pairs = (rng.integers(0, V, P), rng.integers(0, V, P),
+             rng.integers(0, V, (P, k)))
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        t_in, t_out = (torch.as_tensor(w).to(dev) for w in (w_in, w_out))
+        loss = w2v.sgns_loss(t_in, t_out, *(torch.as_tensor(x).to(dev)
+                                            for x in pairs))
+        check(loss.dim() == 0 and loss.device.type == dev,
+              f"sgns_loss on {dev}: {loss}")
+        losses[dev] = float(loss)
+    loss_err = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    check(np.isfinite(losses["cuda"]) and loss_err <= 1e-6,
+          f"sgns_loss on the card {losses['cuda']} against the CPU "
+          f"{losses['cpu']}")
+    print(f"phase 23 --w2vModelShards 2 through the CLI on phase 4's graph, "
+          f"/path byte-equal to phase 4's: conv (kB 128, one slot, the slot "
+          f"key) epoch {runs['conv']['train_seconds']:.3f} s (phase 4: "
+          f"{main_run['train_seconds']:.3f} s), {runs['conv']['calls']:.4f} "
+          f"calls a block (<= 3.01, no dp kernel), launches "
+          f"{runs['conv']['launches']}; --w2vPartitions 2 exact epoch "
+          f"{runs['exact_p2']['train_seconds']:.3f} s (phase 12, one "
+          f"device: {exact_run['train_seconds']:.3f} s), "
+          f"{runs['exact_p2']['calls']:.4f} calls a merged update (<= 1.01: "
+          f"one sgns_exact merged launch); karate gate at model_shards 2 "
+          f"(AUC, faction accuracy): {gate}; karate through the CLI, the "
+          f"card against the CPU's plain run: max abs err {plain} (rtol "
+          f"1e-4 atol 1e-6), /path equal; sgns_loss at {LOSS_SHAPE} on "
+          f"phase 4's tables: {losses['cuda']:.7f} on the card, "
+          f"{losses['cpu']:.7f} on the CPU (rel err {loss_err:.2e} <= 1e-6) "
+          f"[{smi}]")
+    return {"conv_epoch_s": runs["conv"]["train_seconds"],
+            "exact_p2_epoch_s": runs["exact_p2"]["train_seconds"],
+            "karate_gate": gate, "karate_plain_max_abs_err": plain,
+            "loss_rel_err": loss_err,
+            "launches": {name: run["launches"] for name, run in runs.items()}}
+
+
+def spawn_ranks(argv_for, env_for, timeout: int) -> list[str]:
+    """Two processes on the card, argv_for(rank) each with env_for(rank)
+    added to the environment; returns their stdouts, failing on a non-zero
+    exit."""
+    procs = [subprocess.Popen(
+        argv_for(r), env=dict(os.environ, PYTHONPATH=ROOT, **env_for(r)),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=timeout)
+            check(p.returncode == 0, f"a rank failed: {stderr[-3000:]}")
+            outs.append(stdout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def merged_parts(out: str) -> bytes:
+    path = os.path.join(out, "path")
+    return b"".join(open(os.path.join(path, f), "rb").read()
+                    for f in sorted(os.listdir(path)))
+
+
+def phase_multihost(torch, smi, tmp, main_run) -> dict:
+    """Phase 24: the multi-host CLI, two processes joined by SRW_* on the
+    card (one rank each, gloo: they share cuda:0). randomwalk on phase 4's
+    graph and walk by `python -m stellar_rw_tpu_torch` (the hash route
+    over both ranks), then through the worker: randomwalk --partitioned
+    true (the vertex-cut route), node2vec at phase 4's flags (kB 128, the
+    trainer over both ranks) and embedding over phase 4's /path. Each
+    walk's two parts merge to phase 4's /path byte for byte, rank 0 prints
+    phase 4's corpus stats, each rank validates its rows; the tables
+    within rtol 2e-4 atol 1e-6 of train_skipgram_multiproc(num_devices=2)
+    in this process on the card, as phase 21 (c); K11 launched, one
+    all-reduce a merged update and one for the token counts; each rank's
+    walk and train seconds."""
+    from stellar_rw_tpu_torch.graph import io as gio
+    from stellar_rw_tpu_torch.models import node2vec as n2v
+    from stellar_rw_tpu_torch.models import word2vec as w2v
+    from stellar_rw_tpu_torch.utils.config import parse
+    from stellar_rw_tpu_torch.utils.stats import walk_stats
+    from stellar_rw_tpu_torch.walk import engine
+
+    edges, phase4 = main_run["edges"], os.path.join(main_run["out"], "path")
+    io_args = {"hash": ["--input", edges, "--output",
+                        os.path.join(tmp, "mh_hash")],
+               "vcut": ["--input", edges, "--output",
+                        os.path.join(tmp, "mh_vcut")],
+               "node2vec": ["--input", edges, "--output",
+                            os.path.join(tmp, "mh_node2vec")],
+               "embedding": ["--input", phase4, "--output",
+                             os.path.join(tmp, "mh_embedding")]}
+    group = lambda r: {"SRW_NUM_PROCESSES": "2", "SRW_PROCESS_ID": str(r)}
+    port = free_port()
+    t0 = time.perf_counter()
+    hash_out = spawn_ranks(
+        lambda r: [sys.executable, "-m", "stellar_rw_tpu_torch"]
+        + io_args["hash"] + SHARD_FLAGS,
+        lambda r: {**group(r), "SRW_COORDINATOR": f"127.0.0.1:{port}"}, 300)
+    hash_wall = time.perf_counter() - t0
+    plan = json.dumps([{"name": n, "port": free_port(),
+                        "argv": io_args[n] + flags}
+                       for n, flags in MULTIHOST_RUNS.items()])
+    t0 = time.perf_counter()
+    outs = spawn_ranks(lambda r: [sys.executable, "-c", MULTIHOST_WORKER,
+                                  plan], group, 600)
+    worker_wall = time.perf_counter() - t0
+    ranks = []
+    for out in outs:
+        line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        check(bool(line), f"a rank printed no result: {out[-2000:]}")
+        ranks.append(json.loads(line[-1][len("RESULT "):]))
+    # the corpus stats phase 4's run prints, from its corpus on the card
+    graph = gio.load_edge_list(edges)
+    walks = engine.random_walks(graph, walk_length=80, num_walks=10, p=0.25,
+                                q=0.25, seed=0, device="cuda")
+    ws = walk_stats(walks)
+    stats_lines = (f"walks: {ws.num_paths} paths, {ws.num_steps} steps in",
+                   f"Zero Neighbors: {ws.dead_ends}  (isolated starts: "
+                   f"{ws.isolated_starts}, full paths: {ws.full_paths}, "
+                   f"mean length: {ws.mean_length:.1f})")
+    phase4_bytes = open(os.path.join(phase4, "part-00000"), "rb").read()
+    for name, stdout0 in (("hash", hash_out[0]),
+                          ("vcut", ranks[0]["vcut"]["stdout"]),
+                          ("node2vec", ranks[0]["node2vec"]["stdout"])):
+        out = io_args[name][3]
+        check(sorted(os.listdir(os.path.join(out, "path")))
+              == ["part-00000", "part-00001"], f"{name}: part files")
+        check(merged_parts(out) == phase4_bytes,
+              f"phase 24 {name}: the merged parts differ from phase 4's "
+              f"/path")
+        check(all(s in stdout0 for s in stats_lines)
+              and "2 processes x 1 devices" in stdout0,
+              f"phase 24 {name}: rank 0 did not print phase 4's stats "
+              f"{stats_lines}: {stdout0[-1500:]}")
+    for r, res in enumerate(ranks):
+        for name, run in res.items():
+            check(run["rc"] == 0 and run["backend"] == "gloo"
+                  and run["device"] == "cuda:0",
+                  f"rank {r} {name}: rc {run['rc']}, {run['backend']} on "
+                  f"{run['device']}")
+        check(f"walk invariants: ok (process {r})"
+              in res["node2vec"]["stdout"], f"rank {r} did not validate")
+        for name in ("vcut", "node2vec"):
+            la = res[name]["launches"]
+            check(la["shard_emit"] > 0 and la["shard_serve"] > 0,
+                  f"rank {r} {name}: K11 not launched: {la}")
+        for name in ("node2vec", "embedding"):
+            run = res[name]
+            merged = run["launches"]["dp_apply"]
+            check(merged > 0 and run["all_reduces"] == merged + 1
+                  and run["launches"]["sgns_conv_scatter_accumulate"]
+                  == merged, f"rank {r} {name}: {run['all_reduces']} "
+                  f"all-reduces, launches {run['launches']}")
+    # the tables against the two-slot trainer in this process on the card
+    errs = {}
+    for name in ("node2vec", "embedding"):
+        params = parse(io_args[name] + MULTIHOST_RUNS[name])
+        cfg = n2v.sgns_config(params)
+        if name == "node2vec":
+            W, T = graph.num_vertices, 82
+            W_pad = -(-W // 2) * 2
+            corpus = np.full((10, W_pad, T), -1, np.int32)
+            corpus[:, :W] = walks.reshape(10, W, T)
+            corpus, vocab = corpus.reshape(-1, T), None
+        else:
+            values, offsets = gio.load_walks_ragged(phase4)
+            corpus, vocab = w2v.corpus_from_ragged(values, offsets)
+        blocks, rows = w2v.full_corpus_blocks(corpus, 2)
+        want = w2v.train_skipgram_multiproc(
+            blocks, rows, graph.num_vertices if vocab is None else len(vocab),
+            cfg, num_devices=2, row_width=corpus.shape[1], device="cuda")
+        tokens, *got = n2v.load_model(io_args[name][3])
+        if vocab is not None:
+            check([int(t) for t in tokens] == vocab,
+                  "embedding: the vocabulary differs")
+        errs[name] = max(float(np.abs(g - w).max())
+                         for g, w in zip(got, want))
+        check(all(np.allclose(g, w, rtol=2e-4, atol=1e-6)
+                  for g, w in zip(got, want)),
+              f"phase 24 {name}: two processes against the two-slot run "
+              f"in one process, max abs err {errs[name]:.3g}")
+    secs = {name: [res[name]["report"].get(k) for res in ranks
+                   for k in ("walk_seconds", "train_seconds")]
+            for name in MULTIHOST_RUNS}
+    print(f"phase 24 the multi-host CLI, two processes joined by SRW_* on "
+          f"the card (gloo, both on cuda:0): randomwalk by `python -m "
+          f"stellar_rw_tpu_torch` (hash route, {hash_wall:.1f} s of wall "
+          f"with the processes' start), then vcut / node2vec / embedding "
+          f"through cli.main in one worker a rank ({worker_wall:.1f} s of "
+          f"wall): the parts merge to phase 4's /path byte for byte, rank 0 "
+          f"prints phase 4's stats ({stats_lines[0]} ..., "
+          f"{stats_lines[1]}), each rank validates its rows; the tables "
+          f"within rtol 2e-4 atol 1e-6 of train_skipgram_multiproc("
+          f"num_devices=2) in one process (max abs err {errs}); per rank "
+          f"[walk s, train s] rank 0 then rank 1: {secs}; K11 launches "
+          f"vcut {[res['vcut']['launches']['shard_emit'] for res in ranks]}"
+          f" emit / {[res['vcut']['launches']['shard_serve'] for res in ranks]}"
+          f" serve, node2vec "
+          f"{[res['node2vec']['launches']['shard_emit'] for res in ranks]}"
+          f" / {[res['node2vec']['launches']['shard_serve'] for res in ranks]};"
+          f" all-reduces node2vec "
+          f"{[res['node2vec']['all_reduces'] for res in ranks]}, embedding "
+          f"{[res['embedding']['all_reduces'] for res in ranks]} (merged "
+          f"updates + the token counts'); node2vec trainer launches rank 0 "
+          f"{ranks[0]['node2vec']['launches']} [{smi}]")
+    return {"seconds": secs, "max_abs_err": errs,
+            "hash_wall_s": hash_wall, "worker_wall_s": worker_wall,
+            "launches": {name: [res[name]["launches"] for res in ranks]
+                         for name in ("vcut", "node2vec", "embedding")},
+            "all_reduces": {name: [res[name]["all_reduces"] for res in ranks]
+                            for name in ("node2vec", "embedding")}}
+
+
 def main() -> int:
     import torch
 
@@ -4104,6 +4504,8 @@ def main() -> int:
         emit_row, serve_row = phase_shard_check(
             torch, smi, gio.load_edge_list(main_run["edges"]))
         shard_run = phase_shard_ranks(torch, smi, tmp, main_run)
+        mp_run = phase_model_shards(torch, smi, tmp, main_run, exact_run)
+        multihost_run = phase_multihost(torch, smi, tmp, main_run)
     corpus = hs_corpus(torch)
     hs_row = phase_hs_check(torch, smi, corpus)
     hs_run = phase_hs_main(torch, smi, corpus)
@@ -4138,7 +4540,12 @@ def main() -> int:
               "dp_exact_two_rank_seconds": dp_ranks["exact_two_rank_seconds"],
               "dp_exact_one_process_seconds":
                   dp_ranks["exact_one_process_seconds"],
-              "sharded_walks": {k: v for k, v in shard_run.items()}}
+              "sharded_walks": {k: v for k, v in shard_run.items()},
+              "model_shards": {k: mp_run[k] for k in (
+                  "conv_epoch_s", "exact_p2_epoch_s")},
+              "multihost_cli": {k: multihost_run[k] for k in (
+                  "seconds", "hash_wall_s", "worker_wall_s",
+                  "all_reduces")}}
     quality["streamed_micro_f1"] = stream["micro_f1"]
     quality.update(hs_karate_auc=hs_run["karate_auc"],
                    hs_karate_acc=hs_run["karate_acc"],
@@ -4148,7 +4555,12 @@ def main() -> int:
                    dp_two_rank_micro_f1=dp_ranks["micro_f1"],
                    dp_two_rank_max_abs_err=dp_ranks["max_abs_err"],
                    dp_exact_two_rank_max_abs_err=dp_ranks[
-                       "exact_max_abs_err"])
+                       "exact_max_abs_err"],
+                   model_shards_karate_gate=mp_run["karate_gate"],
+                   model_shards_karate_plain_max_abs_err=mp_run[
+                       "karate_plain_max_abs_err"],
+                   sgns_loss_rel_err=mp_run["loss_rel_err"],
+                   multihost_max_abs_err=multihost_run["max_abs_err"])
     kernels = [
         {"name": "walk", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/walk.cu",
@@ -4245,6 +4657,12 @@ def main() -> int:
     for row in kernels:   # the launches of the streamed runs (phase 15)
         for name in ("conv", "exact"):
             row[f"launches_streamed_{name}"] = stream[name][row["name"]]
+        # and of phase 23's CLI runs and phase 24's ranks (both ranks)
+        row["launches_model_shards"] = sum(
+            la.get(row["name"], 0) for la in mp_run["launches"].values())
+        row["launches_multihost"] = sum(
+            la.get(row["name"], 0)
+            for ranks in multihost_run["launches"].values() for la in ranks)
         check(row["launches"] > 0, f"{row['name']} was launched no time on "
               f"its path")
     print(json.dumps({"epochs": epochs, "quality": quality}))

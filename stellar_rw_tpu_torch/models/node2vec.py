@@ -4,8 +4,10 @@ Port of stellar_rw_tpu/models/node2vec.py: the single-device path, the
 sharded walks (parallel/distributed.py over the ranks of the default
 torch.distributed process group, one walk device a rank: run_walks,
 checkpointed_random_walks and run_node2vec_streaming are called on every
-rank), and the multi-process trainer with checkpoints
-(train_multiproc_with_ckpt, over the same group's ranks). Model
+rank), the multi-host CLI's walks and trainer (run_walks_multihost, each
+rank keeping its own rows, and embed_walk_blocks), and the multi-process
+trainer with checkpoints (train_multiproc_with_ckpt, over the same
+group's ranks). Model
 artifacts go to <output>/bin in the JAX package's format (model.npz +
 metadata.json), and walk-round checkpoints to <output>/bin/walk_rounds in
 its layout (round files, marker JSON and fingerprint), so a model or a
@@ -126,6 +128,42 @@ def run_walks(graph: CSRGraph, params: Params, device="cuda",
     if report is not None:
         report.update(stats)
     return walks
+
+
+def run_walks_multihost(graph: CSRGraph, params: Params,
+                        home: np.ndarray | None = None, device="cuda",
+                        timing: dict | None = None):
+    """The multi-host CLI's walks (port of the JAX package's
+    run_walks_multihost), called on every rank of the default group with
+    the same params: the sharded engine over every rank, each keeping and
+    writing only its own rows (parallel/multihost.py). The devices are the
+    ranks, so --shards other than their count is ignored with the JAX
+    package's warning; --lanes divides them into graph shards, routed by
+    home % shards under --partitioned true.
+
+    Returns (local blocks [(global row start, rows)], diag, padded rows
+    num_walks * W_pad, devices D): the blocks tile the padded corpus
+    [num_walks * W_pad, L+2] across the ranks; rows whose start slot was
+    padding are all -1. timing: see distributed_walk_corpus."""
+    from ..parallel import multihost
+
+    D = walk_devices()
+    if params.shards > 0 and params.shards != D:
+        logger.warning(
+            "multi-host runs use all %d global devices; --shards %d is "
+            "ignored (use --lanes to reduce the graph-shard count)",
+            D, params.shards)
+    lanes = resolve_lanes(D, params.lanes)
+    route = None
+    if params.partitioned and home is not None:
+        route = (home.astype(np.int64) % max(D // lanes, 1)).astype(np.int32)
+    blocks, diag = multihost.multihost_random_walks(
+        graph, walk_length=params.walk_length, num_walks=params.num_walks,
+        p=params.p, q=params.q, seed=params.seed, sampler=params.sampler,
+        num_shards=D, route=route, rng_impl=params.rng_impl, lanes=lanes,
+        device=device, timing=timing)
+    W_pad = -(-graph.num_vertices // D) * D
+    return blocks, diag, params.num_walks * W_pad, D
 
 
 def _round_maker(graph: CSRGraph, params: Params, device="cuda",
@@ -484,6 +522,17 @@ def train_multiproc_with_ckpt(blocks, num_rows: int, vocab_size: int,
         blocks, num_rows, vocab_size, cfg, init=init,
         start_epoch=start_epoch, on_epoch=on_epoch,
         num_devices=num_devices, row_width=row_width, device=device)
+
+
+def embed_walk_blocks(blocks, num_rows: int, graph: CSRGraph,
+                      params: Params, num_devices: int | None = None,
+                      row_width: int | None = None, *, device="cuda"):
+    """The multi-host node2vec trainer: SGNS over the ranks' own corpus
+    blocks (train_multiproc_with_ckpt). Returns (tokens, w_in, w_out)."""
+    w_in, w_out = train_multiproc_with_ckpt(
+        blocks, num_rows, graph.num_vertices, params,
+        num_devices=num_devices, row_width=row_width, device=device)
+    return [int(i) for i in graph.ids], w_in, w_out
 
 
 def embed_walks(walks, graph: CSRGraph, params: Params, device="cuda"):

@@ -42,6 +42,17 @@ reduction buffer, which one all-reduce sums before ops/dp_apply.py
 adds into the buffer, and the negatives' counts merge with the context
 rows' there, as in the JAX package, where one device divides them on their
 own: P = 1 is the single-device path, not a merged update.
+
+Dim-sharded tables (model_shards = MP > 1, --w2vModelShards): the JAX
+package stores [V, D/MP] column slices on MP devices and psums each dot's
+partial sums over them before the sigmoid. On one card the tables keep
+their full rows and the same kernels run: the psum only fixes the order in
+which a dot sums, and every column slice sees the same pairs and counts.
+What MP does change is the key: the JAX package's mesh branch runs whenever
+P·MP > 1 and folds each replica's key by its dp index, so at P = 1 the
+epoch's draws come from fold_in(epoch_key, 0) (the slot key), with the
+one-device update. Like the JAX package, the multi-process trainer refuses
+MP > 1.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..errors import NotPorted, resolve_device
 from ..ops import prng
@@ -84,8 +96,9 @@ class SGNSConfig:
     power: float = 0.75      # unigram smoothing for the negative table
     shared_negatives: int = 0  # >0: kB block-shared negatives
     shared_impl: str = "conv"  # "conv" is ported; "band" / "pos" are not
-    model_shards: int = 1    # >1: dim-sharded tables (not ported; ignored
-    #                          by the streamed trainer, as in the JAX package)
+    model_shards: int = 1    # >1: dim-sharded tables: full rows on the one
+    #                          card, the slot key of the JAX package's mesh;
+    #                          ignored by the streamed trainer, as in JAX
 
     def __post_init__(self):
         if self.shared_impl not in ("band", "conv", "pos"):
@@ -213,15 +226,16 @@ def _train_epoch(w_in, w_out, slots, neg_keep, neg_alias, keys, lr_start,
 
 def _train(slots, vocab_size: int, cfg: SGNSConfig, neg_keep, neg_alias,
            init, start_epoch: int, on_epoch, first_slot: int | None = None,
-           reduce: bool = False):
+           reduce: bool = False, merged: bool = False):
     """The epochs over this process's slots [S, n_blocks, B, T] on their
-    device. first_slot None: the one-device path (S = 1, the epoch key
-    fold_in(key, ep)); else data parallel over global slots first_slot ..
-    first_slot + S - 1 (slot s's key fold_in(fold_in(key, ep), s)), one
-    merged update a block index, all-reduced when `reduce`: through the
-    reduction buffer in the conv form and across ranks, by the exact step
-    alone with exact negatives in one process. Returns (w_in, w_out) as
-    numpy."""
+    device. first_slot None: the epoch key fold_in(key, ep), as the JAX
+    package's one device draws it; else global slots first_slot ..
+    first_slot + S - 1, slot s's key fold_in(fold_in(key, ep), s), as its
+    mesh draws them. merged: data parallel, one merged update of the S
+    slots a block index, all-reduced when `reduce`: through the reduction
+    buffer in the conv form and across ranks, by the exact step alone with
+    exact negatives in one process; else the one-device update (S = 1).
+    Returns (w_in, w_out) as numpy."""
     device = slots.device
     S, n_blocks, B, T = slots.shape
     # the one-device conv step's token groups: one sort of the blocks a
@@ -229,14 +243,14 @@ def _train(slots, vocab_size: int, cfg: SGNSConfig, neg_keep, neg_alias,
     # data-parallel slots' accumulate mode reads none)
     groups = (group_blocks(slots.reshape(S * n_blocks, B, T))
               if cfg.shared_negatives and device.type == "cuda"
-              and first_slot is None else None)
+              and not merged else None)
     key = prng.prng_key(cfg.seed, device)
     if init is not None:
         w_in, w_out = params_from_numpy(init[0], init[1], device)
     else:
         w_in, w_out = _init_embeddings(vocab_size, cfg.dim,
                                        prng.fold_in(key, 0x1A17))
-    dp_buffer = first_slot is not None and (cfg.shared_negatives or reduce)
+    dp_buffer = merged and (cfg.shared_negatives or reduce)
     buf = (torch.zeros(buffer_numel(vocab_size, cfg.dim),
                        dtype=torch.float32, device=device)
            if dp_buffer else None)
@@ -250,18 +264,26 @@ def _train(slots, vocab_size: int, cfg: SGNSConfig, neg_keep, neg_alias,
         _train_epoch(w_in, w_out, slots, neg_keep, neg_alias, keys,
                      np.float32(lr_s), np.float32(lr_e), cfg.window,
                      cfg.negatives, cfg.shared_negatives, groups, buf, reduce,
-                     merged=first_slot is not None)
+                     merged)
         if on_epoch is not None:
             on_epoch(ep, w_in.cpu().numpy(), w_out.cpu().numpy())
     return w_in.cpu().numpy(), w_out.cpu().numpy()
 
 
-def _refuse_unported(cfg: SGNSConfig, streamed: bool = False) -> None:
-    """NotPorted for the trainer forms the port does not serve. The
-    streamed trainer reads no model_shards, as in the JAX package."""
-    if cfg.model_shards != 1 and not streamed:
-        raise NotPorted("model_shards > 1 (--w2vModelShards): dim-sharded "
-                        "tables are ROADMAP Queue 1 item 15")
+def check_model_shards(cfg: SGNSConfig, multiproc: bool = False) -> None:
+    """ValueError where the JAX package asserts: a dim that the model
+    shards do not divide, and model_shards > 1 in the multi-process
+    trainer."""
+    MP = max(1, cfg.model_shards)
+    if multiproc and MP > 1:
+        raise ValueError("model_shards > 1 is single-process only; use "
+                         "train_skipgram")
+    if cfg.dim % MP:
+        raise ValueError(f"dim={cfg.dim} not divisible by model_shards={MP}")
+
+
+def _refuse_unported(cfg: SGNSConfig) -> None:
+    """NotPorted for the trainer forms the port does not serve."""
     if cfg.shared_negatives and cfg.shared_impl != "conv":
         raise NotPorted(f"shared_impl {cfg.shared_impl!r}: only 'conv' is "
                         "ported (ROADMAP Queue 1, not to port)")
@@ -298,8 +320,11 @@ def train_skipgram(
     num_partitions does on P devices: P slots on this device, each over a
     contiguous range of the padded corpus (reshape(P, n_blocks, B, T))
     with B = ceil(row_block / P) (at most ceil(N / P)), one merged update
-    a block index (see the module)."""
+    a block index (see the module). model_shards = MP > 1 trains the
+    same function on full rows with the JAX package's mesh keys (slot
+    keys even at P = 1); dim % MP != 0 raises ValueError."""
     _refuse_unported(cfg)
+    check_model_shards(cfg)
     device = resolve_device("train_skipgram", device)
     corpus = torch.as_tensor(corpus).to(device=device, dtype=torch.int32)
     N, T = corpus.shape
@@ -318,9 +343,12 @@ def train_skipgram(
     padded = torch.full((P * n_blocks * B, T), -1, dtype=torch.int32,
                         device=device)
     padded[:N] = corpus
+    # the JAX package's mesh (P·MP > 1) folds every replica's key by its
+    # dp index; the merged update is data parallelism's alone
+    mesh = P * max(1, cfg.model_shards) > 1
     return _train(padded.reshape(P, n_blocks, B, T), vocab_size, cfg,
                   neg_keep, neg_alias, init, start_epoch, on_epoch,
-                  first_slot=0 if P > 1 else None)
+                  first_slot=0 if mesh else None, merged=P > 1)
 
 
 def train_skipgram_streaming(
@@ -351,7 +379,7 @@ def train_skipgram_streaming(
     draws. As in the JAX package, cfg.model_shards is not read, and there
     is no data parallelism. Returns (w_in, w_out) as numpy f32 [vocab,
     dim]."""
-    _refuse_unported(cfg, streamed=True)
+    _refuse_unported(cfg)
     device = resolve_device("train_skipgram_streaming", device)
     W, T = round_shape
     neg_keep, neg_alias = _negative_tables(counts, cfg.power, device)
@@ -455,9 +483,11 @@ def train_skipgram_multiproc(
     table are one all-reduced integer bincount of the slots' rows. Every
     merged update is the sum over all slots (one all-reduce of the
     buffer), so the tables stay equal on every rank. row_width (T) is
-    needed where this rank holds no blocks. Returns (w_in, w_out) as
+    needed where this rank holds no blocks. model_shards > 1 raises
+    ValueError, as the JAX package asserts. Returns (w_in, w_out) as
     numpy."""
     _refuse_unported(cfg)
+    check_model_shards(cfg, multiproc=True)
     device = resolve_device("train_skipgram_multiproc", device)
     rank, world = dp.rank_world()
     D = num_devices or world
@@ -484,7 +514,26 @@ def train_skipgram_multiproc(
     neg_keep, neg_alias = _negative_tables(counts, cfg.power, device)
     return _train(slots, vocab_size, cfg, neg_keep, neg_alias, init,
                   start_epoch, on_epoch, first_slot=rank * local,
-                  reduce=world > 1)
+                  reduce=world > 1, merged=True)
+
+
+def sgns_loss(w_in, w_out, centers, contexts, negs) -> torch.Tensor:
+    """The mean SGNS loss of the pairs (centers, contexts) with negatives
+    negs [P, k] (port of the JAX package's sgns_loss, a monitoring forward
+    pass outside the trainer's kernels): a 0-d tensor on the tables'
+    device. The indices may be tensors or arrays."""
+    def idx(x):
+        x = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+        return x.to(w_in.device, torch.long)
+
+    vi = w_in[idx(centers)]
+    targets = torch.cat([idx(contexts)[:, None], idx(negs)], dim=1)
+    vo = w_out[targets]
+    logits = torch.einsum("pd,pkd->pk", vi, vo)
+    labels = torch.cat([torch.ones_like(logits[:, :1]),
+                        torch.zeros_like(logits[:, 1:])], dim=1)
+    return torch.mean(-labels * F.logsigmoid(logits)
+                      - (1 - labels) * F.logsigmoid(-logits))
 
 
 def corpus_from_token_lists(token_lists) -> tuple[np.ndarray, list]:

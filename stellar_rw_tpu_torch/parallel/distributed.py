@@ -32,7 +32,10 @@ CUDA tensors in it, as it must for ranks that share a card, where NCCL
 refuses two ranks on one device). A layout of fewer walk devices than the
 default group has ranks walks on the subgroup of its first ranks
 (walk_group), as the JAX package meshes as many devices as the shards ask
-for; every rank of the default group gets the corpus.
+for. walk_shards leaves each walking rank its own rows of the corpus
+(the multi-host CLI writes and trains on them: parallel/multihost.py);
+distributed_random_walks gathers them, so that every rank of the default
+group gets the corpus.
 
 Left out: the static-schedule overflow re-dispatch (a per-thread trial
 loop has no compaction buffer that could overflow; its diag column reads
@@ -45,6 +48,7 @@ from __future__ import annotations
 import logging
 import math
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -366,6 +370,101 @@ def check_sharded(sampler: str, rng_impl: str, D: int) -> None:
                         "step)")
 
 
+class ShardedWalk(NamedTuple):
+    """A sharded corpus as each rank holds it (walk_shards): paths, this
+    rank's rows [n, L+2] of the padded corpus [num_walks * W_pad, L+2]
+    (rows rank * n .. rank * n + n - 1; None on a rank outside the walk
+    group); diag, the supersteps' counters summed over the walk group, on
+    every rank of the default group; the layout."""
+    paths: torch.Tensor | None
+    diag: np.ndarray
+    group: object
+    S: int
+    L: int
+    C: int
+    W: int
+    W_pad: int
+    replication_factor: float
+
+
+def walk_shards(graph: CSRGraph, walk_length: int, num_walks: int,
+                p: float = 1.0, q: float = 1.0, seed: int = 0,
+                sampler: str = "rejection", dtype: str = "float32",
+                num_shards: int | None = None,
+                route: np.ndarray | None = None,
+                starts: np.ndarray | None = None,
+                capacity: int | None = None, verbose: bool = False,
+                rng_impl: str = "threefry", lanes: int = 1, *,
+                device="cuda", timing: dict | None = None) -> ShardedWalk:
+    """The sharded walk up to each rank's own rows, called on every rank of
+    the default process group: the walk runs on the first num_shards ranks
+    (all of them when None), each building only its own graph shard; no
+    rank gathers the corpus. distributed_random_walks gathers it for the
+    single-process callers; the multi-host CLI keeps each rank's rows
+    (parallel/multihost.py). Arguments as distributed_random_walks'."""
+    device = resolve_device("walk_shards", device)
+    rank, world = rank_world()
+    D_req = num_shards or world
+    lanes = max(1, min(lanes, D_req))
+    if D_req % lanes:
+        raise ValueError(f"device count {D_req} not divisible by "
+                         f"lanes={lanes}")
+    S, L = D_req // lanes, lanes
+    D = S * L
+    sampler, max_rounds = sampling.plan_sampler(sampler, p, q)
+    check_sharded(sampler, rng_impl, D)
+    group, member = walk_group(D)
+    plan = plan_shards(graph, S, route)
+    if verbose:
+        log_shard_stats(graph, plan)
+    if starts is None:
+        starts = np.arange(graph.num_vertices, dtype=np.int32)
+    W = len(starts)
+    W_pad = -(-W // D) * D
+    starts_pad = np.full(W_pad, -1, dtype=np.int32)
+    starts_pad[:W] = starts
+    n = num_walks * W_pad // D
+    C = capacity if capacity is not None else auto_capacity(
+        graph, plan.route, D, n)
+    C = max(1, min(C, n))
+    spec = WalkSpec(walk_length=walk_length, p=float(p), q=float(q),
+                    sampler=sampler, max_degree=max(graph.max_degree, 1),
+                    max_rounds=max_rounds, dtype=dtype, n_stream=W)
+    paths, diag = None, np.zeros((walk_length + 1, 4), dtype=np.int64)
+    if member:
+        tables = shard_walk.shard_tables(graph, plan, rank // L, device)
+        paths, diag = distributed_walk_corpus(
+            tables, torch.as_tensor(starts_pad), prng.prng_key(seed), 0,
+            spec, num_walks, S, C, L, timing, group)
+    if group is not None:
+        # rank 0's diag (summed over the walk group) for the other ranks
+        d = for_backend(torch.as_tensor(diag), device)
+        dist.broadcast(d, src=0)
+        diag = d.cpu().numpy()
+    return ShardedWalk(paths, diag, group, S, L, C, W, W_pad,
+                       plan.replication_factor)
+
+
+def shard_stats(sw: ShardedWalk) -> dict:
+    """The exchange stats of a sharded walk (the JAX package's
+    return_stats dict)."""
+    diag = sw.diag
+    return {
+        "num_shards": sw.S,
+        "lanes": sw.L,
+        "capacity": sw.C,
+        "replication_factor": sw.replication_factor,
+        "boundary_walkers": int(diag[:, 0].sum()),
+        "zero_neighbors": int(diag[:, 1].sum()),
+        "overflow_steps": int((diag[:, 2] > 1).sum()),
+        "exchange_rounds_total": int(diag[:, 2].sum()),
+        "exchange_rounds_with_traffic": int(
+            (diag[:, 0] > 0).sum() + np.maximum(diag[:, 2] - 1, 0).sum()),
+        "static_schedule_overflow": int(diag[:, 3].sum()),
+        "diag": diag,
+    }
+
+
 def distributed_random_walks(
     graph: CSRGraph,
     walk_length: int,
@@ -402,66 +501,17 @@ def distributed_random_walks(
     as_numpy=False), and the stats. timing: see distributed_walk_corpus.
     """
     device = resolve_device("distributed_random_walks", device)
-    rank, world = rank_world()
-    D_req = num_shards or world
-    lanes = max(1, min(lanes, D_req))
-    if D_req % lanes:
-        raise ValueError(f"device count {D_req} not divisible by "
-                         f"lanes={lanes}")
-    S, L = D_req // lanes, lanes
-    D = S * L
-    sampler, max_rounds = sampling.plan_sampler(sampler, p, q)
-    check_sharded(sampler, rng_impl, D)
-    group, member = walk_group(D)
-    plan = plan_shards(graph, S, route)
-    if verbose:
-        log_shard_stats(graph, plan)
-    if starts is None:
-        starts = np.arange(graph.num_vertices, dtype=np.int32)
-    W = len(starts)
-    W_pad = -(-W // D) * D
-    starts_pad = np.full(W_pad, -1, dtype=np.int32)
-    starts_pad[:W] = starts
-    n = num_walks * W_pad // D
-    C = capacity if capacity is not None else auto_capacity(
-        graph, plan.route, D, n)
-    C = max(1, min(C, n))
-    spec = WalkSpec(walk_length=walk_length, p=float(p), q=float(q),
-                    sampler=sampler, max_degree=max(graph.max_degree, 1),
-                    max_rounds=max_rounds, dtype=dtype, n_stream=W)
-    paths, diag = None, np.zeros((walk_length + 1, 4), dtype=np.int64)
-    if member:
-        tables = shard_walk.shard_tables(graph, plan, rank // L, device)
-        paths, diag = distributed_walk_corpus(
-            tables, torch.as_tensor(starts_pad), prng.prng_key(seed), 0,
-            spec, num_walks, S, C, L, timing, group)
-    full = gather_corpus(paths, group, (num_walks * W_pad, walk_length + 2),
-                         device)
-    if group is not None:
-        # rank 0's diag (summed over the walk group) for the other ranks
-        d = for_backend(torch.as_tensor(diag), device)
-        dist.broadcast(d, src=0)
-        diag = d.cpu().numpy()
-    walks = full.reshape(num_walks, W_pad, -1)[:, :W].reshape(
-        num_walks * W, -1)
+    sw = walk_shards(graph, walk_length, num_walks, p, q, seed, sampler,
+                     dtype, num_shards, route, starts, capacity, verbose,
+                     rng_impl, lanes, device=device, timing=timing)
+    full = gather_corpus(sw.paths, sw.group,
+                         (num_walks * sw.W_pad, walk_length + 2), device)
+    walks = full.reshape(num_walks, sw.W_pad, -1)[:, :sw.W].reshape(
+        num_walks * sw.W, -1)
     if as_numpy:
         walks = walks.cpu().numpy()
     if verbose:
-        log_superstep_diag(diag)
+        log_superstep_diag(sw.diag)
     if return_stats:
-        stats = {
-            "num_shards": S,
-            "lanes": L,
-            "capacity": C,
-            "replication_factor": plan.replication_factor,
-            "boundary_walkers": int(diag[:, 0].sum()),
-            "zero_neighbors": int(diag[:, 1].sum()),
-            "overflow_steps": int((diag[:, 2] > 1).sum()),
-            "exchange_rounds_total": int(diag[:, 2].sum()),
-            "exchange_rounds_with_traffic": int(
-                (diag[:, 0] > 0).sum() + np.maximum(diag[:, 2] - 1, 0).sum()),
-            "static_schedule_overflow": int(diag[:, 3].sum()),
-            "diag": diag,
-        }
-        return walks, stats
+        return walks, shard_stats(sw)
     return walks

@@ -81,7 +81,7 @@ def test_port_imports_resolve_inside_the_port():
                 assert _module_file(m) is not None, f"{path} imports {m}"
     for m in ("graph.csr", "graph.io", "graph.partition", "native",
               "utils.config", "utils.stats", "utils.logging", "ops.alias",
-              "ops.shard_walk", "models.eval"):
+              "ops.shard_walk", "models.eval", "parallel.multihost"):
         assert f"stellar_rw_tpu_torch.{m}" in seen, m
 
 

@@ -182,18 +182,20 @@ def test_device_corpus_handoff(karate, jkarate):
     ["--cmd", "embedding", "--w2vPartitions", "2"],
     ["--profile", "{tmp}/profile"],
 ])
-def test_unserved_flags_raise(karate_path, tmp_path, flags):
+def test_unserved_flags_raise(karate_path, tmp_path, monkeypatch, flags):
     """Each flag value the port does not serve raises NotPorted before
     anything is written. The exact-CDF sampler (--sampler cdf, a p/q ratio
     above 32), the walk-round checkpoints (--checkpointEvery, --resume),
     --shards / --partitioned (one walk shard on one device), --streaming
     true (one walk round on the device at a time), --profile (a
-    torch.profiler trace; the JAX CLI writes a jax.profiler one) and
+    torch.profiler trace; the JAX CLI writes a jax.profiler one),
     --w2vPartitions 2 (two data-parallel slots on the one device; the JAX
-    CLI runs two of conftest's CPU devices) are served: those cases run
-    both CLIs and compare /path byte for byte and the trained tables to
-    the trainer's tolerance (rtol 1e-4 / atol 1e-6, the scatter-adds'
-    summation order)."""
+    CLI runs two of conftest's CPU devices) and --w2vModelShards 2 (full
+    rows on one device; the JAX CLI's mesh branch, which does not trace
+    at P = 1 under this jax, by tests/test_torch_model_shards.py's
+    jax_one_slot_mesh) are served: those cases run both CLIs and compare
+    /path byte for byte and the trained tables to the trainer's tolerance
+    (rtol 1e-4 / atol 1e-6, the scatter-adds' summation order)."""
     small = ["--walkLength", "6", "--numWalks", "2", "--dim", "8", "--iter",
              "1", "--window", "3", "--seed", "2"]
     flags = [f.format(tmp=tmp_path) for f in flags]
@@ -202,13 +204,17 @@ def test_unserved_flags_raise(karate_path, tmp_path, flags):
     served = any(f in flags for f in ("--sampler", "--p", "--resume",
                                       "--checkpointEvery", "--shards",
                                       "--partitioned", "--streaming",
-                                      "--profile", "--w2vPartitions"))
+                                      "--profile", "--w2vPartitions",
+                                      "--w2vModelShards"))
     if not served:
         with pytest.raises(NotPorted):
             cli.main(argv(tmp_path / "o"), device="cpu")
         assert not os.path.exists(tmp_path / "o")
         return
     jout, tout = tmp_path / "jax", tmp_path / "port"
+    if "--w2vModelShards" in flags:
+        from test_torch_model_shards import jax_one_slot_mesh
+        monkeypatch.setattr(jw2v, "train_skipgram", jax_one_slot_mesh)
     with jax.enable_x64(False):
         assert jcli.main(argv(jout)) == 0
     assert cli.main(argv(tout), device="cpu") == 0
@@ -226,17 +232,28 @@ def test_unserved_flags_raise(karate_path, tmp_path, flags):
 
 @pytest.mark.parametrize("kw", [dict(shared_impl="pos", shared_negatives=8),
                                 dict(shared_impl="band", shared_negatives=8),
-                                dict(model_shards=2)])
+                                dict(model_shards=2, dim=5),
+                                dict(model_shards=2, multiproc=True)])
 def test_unported_trainer_forms_raise(kw):
-    """The pos and band forms are not to port; model_shards is ROADMAP
-    item 15, refused with or without data parallelism."""
-    match = "item 15" if "model_shards" in kw else "not to port"
-    with pytest.raises(NotPorted, match=match):
-        w2v.train_skipgram(np.zeros((2, 5), np.int32), 3,
-                           w2v.SGNSConfig(dim=4, **kw), device="cpu")
-    with pytest.raises(NotPorted, match=match):
-        w2v.train_skipgram(np.zeros((2, 5), np.int32), 3,
-                           w2v.SGNSConfig(dim=4, **kw), num_partitions=2,
+    """The pos and band forms are not to port (NotPorted), with or without
+    data parallelism. model_shards is served; the trainer refuses, as the
+    JAX package asserts, a dim the shards do not divide (with or without
+    data parallelism) and model shards in the multi-process trainer
+    (ValueError)."""
+    kw = {"dim": 4, **kw}
+    corpus = np.zeros((2, 5), np.int32)
+    if kw.pop("multiproc", False):
+        blocks, rows = w2v.full_corpus_blocks(corpus, 1)
+        with pytest.raises(ValueError, match="single-process only"):
+            w2v.train_skipgram_multiproc(blocks, rows, 3,
+                                         w2v.SGNSConfig(**kw), device="cpu")
+        return
+    error, match = ((ValueError, "not divisible") if "model_shards" in kw
+                    else (NotPorted, "not to port"))
+    with pytest.raises(error, match=match):
+        w2v.train_skipgram(corpus, 3, w2v.SGNSConfig(**kw), device="cpu")
+    with pytest.raises(error, match=match):
+        w2v.train_skipgram(corpus, 3, w2v.SGNSConfig(**kw), num_partitions=2,
                            device="cpu")
 
 
