@@ -5,9 +5,10 @@ kernel on a graph whose rows are all shorter than a warp.
 
     python3 chip_cdf_parts.py
 
-A variant is csrc/cdf_walk.cu with pieces of text replaced (VARIANTS; a piece
-that is not exactly once in the source stops the script, so the list is kept
-beside the kernel), built under build/ of the checkout. A variant that keeps
+A variant is csrc/cdf_walk.cu, with csrc/cdf_pick.cuh (its row scan) written
+in where it is included (kernel_text), with pieces of text replaced (VARIANTS;
+a piece that is not exactly once in the text stops the script, so the list is
+kept beside the kernel), built under build/ of the checkout. A variant that keeps
 the design is held bit for bit to the base's corpus; one with a part taken
 out walks elsewhere by design, so beside its time stand the row entries its
 corpus made the walkers scan (sum of deg(cur) over the steps taken).
@@ -413,6 +414,21 @@ WRONG_BY_DESIGN = {NO_BUCKET_READ, NO_FIND}
 L, R, P, Q = 80, 10, 0.0625, 4.0
 
 
+def kernel_text() -> str:
+    """csrc/cdf_walk.cu with csrc/cdf_pick.cuh written in where it is
+    included: the one text VARIANTS edit (the row scan is the header's,
+    the kernel and its launch the source's)."""
+    from stellar_rw_tpu_torch.ops import _build as build
+    from stellar_rw_tpu_torch.ops import cdf_walk as cw
+
+    source = (build.CSRC / cw.CDF_WALK_KERNEL.source).read_text()
+    header = (build.CSRC / "cdf_pick.cuh").read_text()
+    include = '#include "cdf_pick.cuh"\n'
+    if source.count(include) != 1:
+        raise RuntimeError("cdf_walk.cu does not include cdf_pick.cuh once")
+    return source.replace(include, header.replace("#pragma once\n", ""))
+
+
 def main() -> int:
     import torch
 
@@ -429,7 +445,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     say = lambda **kw: print(json.dumps({**kw, "card": smi}), flush=True)
-    source = (build.CSRC / cw.CDF_WALK_KERNEL.source).read_text()
+    source = kernel_text()
     root = os.path.dirname(os.path.realpath(__file__))
     out_dir = os.path.join(root, "build", "cdf_parts")
     os.makedirs(out_dir, exist_ok=True)

@@ -22,6 +22,9 @@ events around launches queued behind a long product):
     forms against text edits of its sources (compare_launch_forms): the
     walk kernel as the table's programmatic dependent, and K11's serve (a
     programmatic dependent) as an ordinary launch after the emit;
+  * K11's serve at chip_smoke phase 22's superstep (hash route, rank 0's
+    local walkers) on the same tables: other, this, this, other, twice,
+    after checking the two checkouts' steps equal;
   * the resident-row walk kernel (walk_corpus_resident, whatever it runs
     around its launch) on chip_smoke's three phase-7 shapes: other, this,
     this, other, after checking the two corpora equal; then each checkout's
@@ -232,7 +235,7 @@ def compare_launch_forms(torch, this, walker, graph, R, L, p, q,
     corpus = fns["source"]().reshape(R * V, L + 2)
     keys = ws.trial_keys(key, 0, R, L, T, device="cuda")
     tabs, cur, prev, alive, _, S, Ln, C, W_pad = shard_superstep(
-        torch, graph, "hash", corpus, keys)
+        torch, graph, "hash", corpus)
     text = (build.CSRC / "shard_walk.cu").read_text()
     ordinary = source_kernel("serve_ordinary", edited(text, SERVE_ORDINARY),
                              sw.SERVE_KERNEL.symbol, sw.SERVE_KERNEL.argtypes,
@@ -261,6 +264,41 @@ def compare_launch_forms(torch, this, walker, graph, R, L, p, q,
     print(json.dumps({"launch form": "shard_emit + shard_serve, the serve "
                       "as an ordinary launch", "ms_in_turns": runs,
                       "card": smi}))
+
+
+def compare_shard_serve(torch, this, other, walker, graph, R, L, p, q,
+                        smi) -> None:
+    """K11's serve at chip_smoke phase 22's superstep (hash route, rank 0's
+    local walkers, the flags of one emit) against the other checkout's, on
+    the same shard tables and key table, outputs bit for bit: other, this,
+    this, other, twice."""
+    from chip_smoke import SHARD_STEP, shard_superstep
+
+    ws = this("ops.walk_step")
+    pkg, dg, starts, spec, key = walker
+    T = spec.max_rounds * spec.k_candidates
+    V = graph.num_vertices
+    keys = ws.trial_keys(key, 0, R, L, T, device="cuda")
+    corpus = ws.walk_rounds(dg, starts, keys, L, p, q, V).reshape(R * V,
+                                                                  L + 2)
+    tabs, cur, prev, alive, _, S, Ln, C, W_pad = shard_superstep(
+        torch, graph, "hash", corpus)
+    n = cur.shape[0]
+    pend, loc = (torch.zeros(n, dtype=torch.int32, device="cuda")
+                 for _ in range(2))
+    this("ops.shard_walk").emit(tabs[0], cur, prev, pend, alive, loc, Ln,
+                                S * Ln, 0, C)
+    kw = dict(W_pad=W_pad, W_total=R * W_pad, n_stream=V, p=p, q=q)
+    fns = {name: (lambda sw=pkg("ops.shard_walk"): sw.serve(
+        tabs[0], (cur, prev, None), loc, 0, keys, SHARD_STEP, False, **kw))
+        for name, pkg in (("other", other), ("this", this))}
+    check(torch.equal(fns["this"](), fns["other"]()),
+          "the two checkouts' K11 serves differ")
+    order = ("other", "this", "this", "other") * 2
+    runs = [(name, cuda_ms(fns[name], 20)) for name in order]
+    print(json.dumps({"kernel": "shard_serve", "walkers": n,
+                      "served": int((loc != 0).sum()),
+                      "ms_in_turns": runs, "card": smi}))
 
 
 def wall_ms(torch, fn, iters: int) -> float:
@@ -389,6 +427,8 @@ def main(argv: list[str]) -> int:
                       "walk_length": L, "ms_in_turns": runs, "card": smi}))
     compare_launch_forms(torch, this, walkers["this"], graph, R, L, p, q,
                          smi)
+    compare_shard_serve(torch, this, other, walkers["this"], graph, R, L, p,
+                        q, smi)
 
     # the resident-row walk kernel
     L, T, md = 80, 8, 16

@@ -248,6 +248,7 @@ DIM768_FLAGS = ["--dim", "768", "--window", "5", "--negatives", "5", "--lr",
 # phase 10: a bias ratio of 64 sends plan_sampler to the exact CDF
 CDF_FLAGS = ["--cmd", "randomwalk", "--walkLength", "80", "--numWalks", "10",
              "--p", "0.0625", "--q", "4", "--validate", "true"]
+CDF_OUT = "out_cdf"      # phase 10's output under the run's directory
 # a row entry of the CDF scan: the hash multiply, mask and base add, four
 # compares and their or, the select of f, the product and the sum
 OPS_PER_ENTRY = 12
@@ -1235,7 +1236,7 @@ def phase_cdf_main(torch, kernel, smi, tmp, edges) -> dict:
     from stellar_rw_tpu_torch.utils.config import parse
     from stellar_rw_tpu_torch.walk import engine
 
-    out = os.path.join(tmp, "out_cdf")
+    out = os.path.join(tmp, CDF_OUT)
     report = {}
     kernel.launches = 0
     rc = cli.main(["--input", edges, "--output", out] + CDF_FLAGS,
@@ -3750,9 +3751,9 @@ def shard_home(graph):
 
 
 class plain_shard_walk:
-    """Within it (when on), the sharded engine runs K11's plain versions on
-    the card in place of its kernels: the plain path phase 22 holds the
-    stats to."""
+    """Within it (when on), the sharded engine runs K11's plain versions
+    (and the CDF serve's) on the card in place of its kernels: the plain
+    path phases 22 and 25 hold the stats to."""
 
     def __init__(self, on: bool):
         self.on = on
@@ -3760,27 +3761,34 @@ class plain_shard_walk:
     def __enter__(self):
         from stellar_rw_tpu_torch.ops import shard_walk as sw
 
-        self.saved = (sw.emit, sw.serve)
+        self.saved = (sw.emit, sw.serve, sw.cdf_serve)
         if self.on:
-            def emit(*a):
-                return sw.emit_ref(*a[:10])
-
-            def serve(tab, req, valid, gid_base, keys, t, first, **kw):
+            def fields(req, valid, gid_base):
                 if isinstance(req, tuple):
                     fcur, fprev, _ = req
                     fgid = gid_base + torch_arange_like(fcur)
                 else:
                     fcur, fprev, fgid = req[:, 0], req[:, 1], req[:, 2]
-                return sw.serve_ref(tab, fcur, fprev, fgid,
-                                    None if valid is None else valid != 0,
+                return (fcur, fprev, fgid,
+                        None if valid is None else valid != 0)
+
+            def emit(*a):
+                return sw.emit_ref(*a[:10])
+
+            def serve(tab, req, valid, gid_base, keys, t, first, **kw):
+                return sw.serve_ref(tab, *fields(req, valid, gid_base),
                                     keys, t, first, **kw)
-            sw.emit, sw.serve = emit, serve
+
+            def cdf_serve(tab, req, valid, gid_base, *a, **kw):
+                return sw.cdf_serve_ref(tab, *fields(req, valid, gid_base),
+                                        *a, **kw)
+            sw.emit, sw.serve, sw.cdf_serve = emit, serve, cdf_serve
         return self
 
     def __exit__(self, *exc):
         from stellar_rw_tpu_torch.ops import shard_walk as sw
 
-        sw.emit, sw.serve = self.saved
+        sw.emit, sw.serve, sw.cdf_serve = self.saved
         return False
 
 
@@ -3790,10 +3798,11 @@ def torch_arange_like(x):
     return torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
 
 
-def shard_superstep(torch, graph, layout: str, corpus, keys):
-    """The requests of rank 0 at superstep SHARD_STEP of phase 22's layout:
-    (rank 0's shard tables, the other shard's (None at one shard), cur,
-    prev, alive, the gids' corpus rows, S, L, the auto capacity)."""
+def shard_superstep(torch, graph, layout: str, corpus, cdf: bool = False):
+    """The requests of rank 0 at superstep SHARD_STEP of phase 22's layout
+    for a corpus of R rounds [R * V, L + 2]: (rank 0's shard tables, the
+    other shard's (None at one shard), cur, prev, alive, the gids' corpus
+    rows, S, L, the auto capacity); cdf: the tables with their cdf_rows."""
     from stellar_rw_tpu_torch.graph.partition import plan_shards
     from stellar_rw_tpu_torch.ops import shard_walk
     from stellar_rw_tpu_torch.parallel import distributed
@@ -3803,16 +3812,18 @@ def shard_superstep(torch, graph, layout: str, corpus, keys):
     S = 2 // L
     route = (shard_home(graph) % S if layout == "vcut" else None)
     plan = plan_shards(graph, S, route)
-    tabs = [shard_walk.shard_tables(graph, plan, s, "cuda")
+    tabs = [shard_walk.shard_tables(graph, plan, s, "cuda", cdf=cdf)
             for s in range(S)]
     W_pad = -(-V // 2) * 2
-    n = keys.shape[0] * W_pad // 2
+    n = corpus.shape[0] // V * W_pad // 2
     gid = torch.arange(n, device="cuda")
-    rows = (gid // W_pad) * V + gid % W_pad    # W_pad == V at walk_10k
+    # a lane past V is shard padding: never alive
+    lane = gid % W_pad
+    rows = (gid // W_pad) * V + lane.clamp_max(V - 1)
     t = SHARD_STEP
     cur = corpus[rows, t].contiguous()
     prev = corpus[rows, t - 1].contiguous()
-    alive = (cur >= 0).to(torch.int32)
+    alive = ((cur >= 0) & (lane < V)).to(torch.int32)
     C = max(1, min(distributed.auto_capacity(graph, plan.route, 2, n), n))
     return tabs, cur, prev, alive, rows, S, L, C, W_pad
 
@@ -3849,7 +3860,7 @@ def phase_shard_check(torch, smi, graph) -> tuple[dict, dict]:
               f"({what})")
     for layout in SHARD_LAYOUTS:
         tabs, cur, prev, alive, rows, S, L, C, W_pad = shard_superstep(
-            torch, graph, layout, corpus, keys)
+            torch, graph, layout, corpus)
         D, n = S * L, cur.shape[0]
         i32 = lambda: torch.zeros(n, dtype=torch.int32, device="cuda")
         rounds = {}
@@ -4093,8 +4104,9 @@ from stellar_rw_tpu_torch.ops import shard_walk
 from stellar_rw_tpu_torch.parallel import dp, multihost
 
 kernels = {"shard_emit": shard_walk.EMIT_KERNEL,
-           "shard_serve": shard_walk.SERVE_KERNEL, **trainer_kernels(),
-           **dp_kernels()}
+           "shard_serve": shard_walk.SERVE_KERNEL,
+           "shard_cdf_serve": shard_walk.CDF_SERVE_KERNEL,
+           **trainer_kernels(), **dp_kernels()}
 joined = {}
 initialize = multihost.initialize
 
@@ -4447,6 +4459,501 @@ def phase_multihost(torch, smi, tmp, main_run) -> dict:
                             for name in ("node2vec", "embedding")}}
 
 
+# phase 25: the exact-CDF sampler across ranks (item 12c). The CDF serve
+# (shard_walk.cdf_serve, K7's row scan applied to a request) against its
+# plain version at one superstep of phase 10's corpus and on phase 9's edge
+# graphs; phase 10's walk on two gloo ranks in each layout; the multi-host
+# CLI at phase 10's flags, and node2vec at them over 2 rounds
+CDF_LAYOUTS = {"hash": ["--shards", "2"],
+               "vcut": ["--shards", "2", "--partitioned", "true"]}
+# phase 25 (b)'s plain run: the first supersteps only (the plain chunked
+# scan is a torch loop over a hub's pieces)
+CDF_PLAIN_STEPS = 2
+CDF_N2V_FLAGS = (["--cmd", "node2vec", "--walkLength", "80", "--numWalks",
+                  "2", "--p", "0.0625", "--q", "4"]
+                 + MAIN_FLAGS[MAIN_FLAGS.index("--dim"):])
+CDF_RANK_WORKER = r"""
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+from chip_smoke import shard_home, plain_shard_walk
+from stellar_rw_tpu_torch.graph import io as gio
+from stellar_rw_tpu_torch.models import node2vec as n2v
+from stellar_rw_tpu_torch.ops import cdf_walk, shard_walk, walk_step
+from stellar_rw_tpu_torch.parallel import dp
+from stellar_rw_tpu_torch.utils.config import parse
+
+rank, port, edges, out = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                          sys.argv[4])
+layouts, flags = json.loads(sys.argv[5]), json.loads(sys.argv[6])
+plain_steps = int(sys.argv[7])
+backend = dp.init_group(rank, 2, ["cuda:0", "cuda:0"],
+                        f"tcp://localhost:{port}")
+kernels = {"shard_cdf_serve": shard_walk.CDF_SERVE_KERNEL,
+           "shard_emit": shard_walk.EMIT_KERNEL,
+           "shard_serve": shard_walk.SERVE_KERNEL,
+           "walk": walk_step.WALK_KERNEL, "trial_keys": walk_step.KEYS_KERNEL,
+           "cdf_walk": cdf_walk.CDF_WALK_KERNEL}
+
+
+def walk(output, argv, save=True, plain=False, timing=None):
+    params = parse(["--input", edges, "--output", output] + argv)
+    graph = gio.load_edge_list(edges, weighted=params.weighted,
+                               directed=params.directed)
+    home = shard_home(graph) if params.partitioned else None
+    for k in kernels.values():
+        k.launches = 0
+    report = {}
+    with plain_shard_walk(plain):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        walks = n2v.run_walks(graph, params, "cuda", home=home,
+                              report=report, timing=timing)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    walks = walks.cpu().numpy()
+    if save and rank == 0:
+        gio.save_walks(walks, graph, params.output, 1)
+    return (walks, report, seconds,
+            {n: k.launches for n, k in kernels.items()})
+
+
+result = {"backend": backend}
+for name, extra in layouts.items():
+    corpus, report, seconds, launches = walk(f"{out}/cdf_{name}",
+                                             flags + extra)
+    diag = report.pop("diag")
+    timing = {}
+    timed, _, timed_seconds, _ = walk(f"{out}/cdf_{name}_timed",
+                                      flags + extra, save=False,
+                                      timing=timing)
+    cut = list(flags)
+    cut[cut.index("--walkLength") + 1] = str(plain_steps)
+    plain, preport, plain_seconds, plain_launches = walk(
+        f"{out}/cdf_{name}_plain", cut + extra, save=False, plain=True)
+    result[name] = {
+        "seconds": seconds, "stats": report, "launches": launches,
+        "timing": timing, "timed_seconds": timed_seconds,
+        "steps": int((corpus[:, 1:] >= 0).sum()),
+        "same_timed": bool(np.array_equal(timed, corpus)),
+        "plain_seconds": plain_seconds, "plain_launches": plain_launches,
+        "same_plain_corpus": bool(np.array_equal(
+            plain, corpus[:, :plain_steps + 2])),
+        "same_plain_diag": bool(np.array_equal(
+            preport["diag"], diag[:plain_steps + 1]))}
+# walk-round checkpoints: 2 rounds, then resumed to all of them
+ck = flags + ["--shards", "2", "--checkpointEvery", "2"]
+cut = list(ck)
+cut[cut.index("--numWalks") + 1] = "2"
+walk(f"{out}/cdf_ckpt", cut)
+walk(f"{out}/cdf_ckpt", ck + ["--resume", "true"])
+print("RESULT " + json.dumps(result), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def cdf_serve_bound(tab, n: int, served: int, scanned: int,
+                    second: bool = True) -> dict:
+    """The CDF serve's bound: the row entries scanned x OPS_PER_ENTRY at
+    the f32 lanes' rate (phase 10's formula), or the bytes if larger, each
+    input read once: the n requests read (12 B) and answered (4 B), the
+    vmeta rows of the requests served (two 16-byte rows each), their row
+    entries (8 B each) and, for a second-order step, prev's bucket rows
+    (16 B an entry), each at most its table."""
+    g = tab.g
+    nbytes = (16 * n + min(32 * served, tensor_bytes(g.vmeta))
+              + min(8 * scanned, tensor_bytes(g.cdf_rows)))
+    if second:
+        nbytes += min(16 * scanned, tensor_bytes(g.hash_buckets))
+    return bound(nbytes, scanned * OPS_PER_ENTRY, INT_OPS_PER_S)
+
+
+def phase_cdf_shard_check(torch, smi, edges) -> dict:
+    """Phase 25 (a): the CDF serve against cdf_serve_ref on the card, bit
+    for bit. At superstep SHARD_STEP of phase 10's corpus (phase 4's graph
+    at p = 1/16, q = 4, the chunked form, f32), under the hash route and a
+    vertex-cut route over 2 shards: rank 0's local walkers and the requests
+    it sends the other shard, each served column the corpus's next one;
+    then on phase 9's edge graphs in f32 and f64, padded and chunked, every
+    step of a short corpus (t = 0 first order) on 2 shards, every shard's
+    requests in the request form with a fill request (gid -1) and in the
+    local form with the other shard's walkers invalid (star50k's hub row
+    of 50,000 entries among the requests). Each timed between CUDA events
+    beside its bound and the plain version's ms. Returns the kernel's
+    row."""
+    from stellar_rw_tpu_torch.graph import io as gio
+    from stellar_rw_tpu_torch.graph.partition import plan_shards
+    from stellar_rw_tpu_torch.ops import cdf_walk, prng, sampling, shard_walk
+    from stellar_rw_tpu_torch.utils.config import parse
+    from stellar_rw_tpu_torch.walk import engine
+
+    params = parse(CDF_FLAGS + ["--input", edges, "--output", "-"])
+    graph = gio.load_edge_list(edges, weighted=params.weighted,
+                               directed=params.directed)
+    V, R, Lw = graph.num_vertices, params.num_walks, params.walk_length
+    p, q = params.p, params.q
+    spec = engine.walk_spec(graph, Lw, R, p, q, "cdf", 16, "float32", V)
+    check(spec.cdf_chunk == sampling.CDF_CHUNK, f"phase 10's spec {spec}")
+    corpus = engine.random_walks(graph, walk_length=Lw, num_walks=R, p=p,
+                                 q=q, seed=params.seed, as_numpy=False,
+                                 device="cuda")
+    key = prng.prng_key(params.seed)
+    deg = torch.as_tensor(graph.offsets[1:] - graph.offsets[:-1],
+                          device="cuda")
+    cases = 0
+
+    def held(a, b, what):
+        check(torch.equal(a, b), f"shard_cdf_serve differs from "
+              f"cdf_serve_ref ({what})")
+
+    layouts = {}
+    for layout in CDF_LAYOUTS:
+        tabs, cur, prev, alive, rows, S, L, C, W_pad = shard_superstep(
+            torch, graph, layout, corpus, cdf=True)
+        n, t = cur.shape[0], SHARD_STEP
+        kw = dict(W_pad=W_pad, W_total=R * W_pad, p=p, q=q,
+                  cdf_chunk=spec.cdf_chunk, dtype="float32")
+        i32 = lambda: torch.zeros(n, dtype=torch.int32, device="cuda")
+        lk = i32()
+        send, _, _ = shard_walk.emit(tabs[0], cur, prev, i32(), alive, lk,
+                                     L, S * L, 0, C)
+        send = send.clone()
+        nxt = corpus[rows, t + 1]
+        local = lambda: shard_walk.cdf_serve(tabs[0], (cur, prev, None), lk,
+                                             0, key, 0, t, False, **kw)
+        got = local()
+        want, plain_ms = cuda_ms_once(lambda: shard_walk.cdf_serve_ref(
+            tabs[0], cur, prev, torch_arange_like(cur), lk != 0, key, 0, t,
+            False, **kw))
+        held(got, want, f"phase 10's superstep {t}, {layout}, local")
+        lm = lk != 0
+        check(torch.equal(got[lm], nxt[lm]), f"shard_cdf_serve's local "
+              f"steps differ from phase 10's corpus ({layout})")
+        ms = cuda_ms(local, 10)
+        served = int(lm.sum())
+        scanned = int(deg[cur[lm].long()].sum())
+        b = cdf_serve_bound(tabs[0], n, served, scanned)
+        req = send[1].reshape(C, 3)
+        remote = lambda: shard_walk.cdf_serve(tabs[1], req, None, 0, key, 0,
+                                              t, False, **kw)
+        rk = remote()
+        rr, r_plain_ms = cuda_ms_once(lambda: shard_walk.cdf_serve_ref(
+            tabs[1], req[:, 0], req[:, 1], req[:, 2], None, key, 0, t, False,
+            **kw))
+        held(rk, rr, f"phase 10's superstep {t}, {layout}, sent")
+        ok = req[:, 2] >= 0
+        check(torch.equal(rk[ok], nxt[req[ok, 2].long()]),
+              f"shard_cdf_serve's remote steps differ from phase 10's "
+              f"corpus ({layout})")
+        r_scanned = int(deg[req[ok, 0].long()].sum())
+        rb = cdf_serve_bound(tabs[1], C, int(ok.sum()), r_scanned)
+        r_ms = cuda_ms(remote, 10)
+        cases += 2
+        layouts[layout] = {
+            "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
+            "walkers": n, "served": served, "entries_scanned": scanned,
+            "remote": {"requests": int(ok.sum()), "ms": r_ms,
+                       "plain_ms": r_plain_ms, "bound_ms": rb["bound_ms"],
+                       "bound_by": rb["bound_by"],
+                       "entries_scanned": r_scanned}}
+        print(f"phase 25 (a) {layout}: shard_cdf_serve bitwise "
+              f"cdf_serve_ref and phase 10's column {t + 1} on rank 0's "
+              f"{served} local walkers of {n} ({scanned:,} row entries): "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.1f}, bound "
+              f"{b['bound_ms']:.5f} by {b['bound_by']}; on the "
+              f"{int(ok.sum())} requests sent the other shard "
+              f"({r_scanned:,} entries): kernel {r_ms:.4f} ms, plain "
+              f"{r_plain_ms:.1f}, bound {rb['bound_ms']:.5f} [{smi}]")
+    # phase 9's edge graphs
+    pqs = [(0.25, 4.0), (4.0, 0.25), (1.0, 1.0), (0.0625, 4.0), (0.5, 2.0)]
+    rng = np.random.default_rng(5)
+    edge_ms = {}
+    i = 0
+    for name, g in cdf_graphs().items():
+        Vg = g.num_vertices
+        starts = (np.arange(0, Vg, 997, dtype=np.int32) if name == "star50k"
+                  else np.arange(Vg, dtype=np.int32))
+        W, Rg, Lg, S = len(starts), 2, 4, 2
+        dg = sampling.device_put_graph(g, "cuda", cdf=True)
+        gdeg = dg.vmeta[:, 1]
+        st = torch.as_tensor(starts, device="cuda")
+        edge_ms[name] = []
+        for chunk in (256,) if name == "star50k" else (0, 256):
+            for dtype in ("float32", "float64"):
+                gp, gq = pqs[i % len(pqs)]
+                route = (None if i % 2 == 0 else
+                         rng.integers(0, S, Vg).astype(np.int32))
+                i += 1
+                plan = plan_shards(g, S, route)
+                tabs = [shard_walk.shard_tables(g, plan, s, "cuda", cdf=True)
+                        for s in range(S)]
+                owner = torch.as_tensor(plan.route, device="cuda").long()
+                md = max(g.max_degree, 1)
+                corpus_g = cdf_walk.cdf_walk_rounds(dg, st, key, 1, Rg, Lg,
+                                                    gp, gq, md, chunk, dtype)
+                gid = torch.arange(Rg * W, dtype=torch.int32, device="cuda")
+                kw = dict(W_pad=W, W_total=Rg * W, p=gp, q=gq,
+                          cdf_chunk=chunk, dtype=dtype)
+                timed = None
+                for t in range(Lg + 1):
+                    cur = corpus_g[:, t] if t else corpus_g[:, 0]
+                    prev = corpus_g[:, t - 1] if t > 1 else corpus_g[:, 0]
+                    cur, prev = cur.contiguous(), prev.contiguous()
+                    live = cur >= 0
+                    for s, tab in enumerate(tabs):
+                        m = live & (owner[cur.clamp_min(0).long()] == s)
+                        what = (f"{name}, {dtype}, chunk {chunk}, step {t}, "
+                                f"shard {s}")
+                        req = torch.cat([torch.stack(
+                            [cur[m], prev[m], gid[m]], 1),
+                            torch.tensor([[0, 0, -1]], dtype=torch.int32,
+                                         device="cuda")]).contiguous()
+                        k = shard_walk.cdf_serve(tab, req, None, 0, key, 1,
+                                                 t, t == 0, **kw)
+                        ref = shard_walk.cdf_serve_ref(
+                            tab, req[:, 0], req[:, 1], req[:, 2], None, key,
+                            1, t, t == 0, **kw)
+                        held(k, ref, what + ", requests")
+                        check(torch.equal(k[:-1], corpus_g[m, t + 1])
+                              and int(k[-1]) == -1, f"shard_cdf_serve "
+                              f"differs from the corpus's column ({what})")
+                        valid = m.to(torch.int32)
+                        k = shard_walk.cdf_serve(tab, (cur, prev, None),
+                                                 valid, 0, key, 1, t, t == 0,
+                                                 **kw)
+                        ref = shard_walk.cdf_serve_ref(
+                            tab, cur, prev, gid, m, key, 1, t, t == 0, **kw)
+                        held(k, ref, what + ", local")
+                        check(torch.equal(
+                            k, torch.where(m, corpus_g[:, t + 1], -1)),
+                            f"shard_cdf_serve's local form ({what})")
+                        cases += 2
+                        scanned = int(gdeg[cur[m].long()].sum())
+                        if t == 1 and (timed is None or scanned > timed[0]):
+                            timed = (scanned, req, tab)
+                scanned, req, tab = timed
+                ms = cuda_ms(lambda: shard_walk.cdf_serve(
+                    tab, req, None, 0, key, 1, 1, False, **kw), 5)
+                b = cdf_serve_bound(tab, req.shape[0], req.shape[0] - 1,
+                                    scanned)
+                edge_ms[name].append({
+                    "dtype": dtype, "chunk": chunk, "p": gp, "q": gq,
+                    "route": "hash" if route is None else "vcut",
+                    "requests": req.shape[0] - 1, "entries_scanned": scanned,
+                    "ms": ms, "bound_ms": b["bound_ms"]})
+    print(f"phase 25 (a) edge graphs: shard_cdf_serve bitwise cdf_serve_ref "
+          f"and the single-device corpus's next column in {cases} cases "
+          f"({list(edge_ms)}; f32 and f64, padded and chunked, hash and "
+          f"vertex-cut over 2 shards, t = 0-4, request form with a gid -1 "
+          f"fill and local form with invalid flags; star50k's hub row of "
+          f"50,000 entries among the requests); step 1's requests of the "
+          f"busiest shard timed (ms / bound ms): "
+          + "; ".join(f"{n}: " + ", ".join(
+              f"{c['dtype'][-2:]} {'chunked' if c['chunk'] else 'padded'} "
+              f"{c['ms']:.4f} / {c['bound_ms']:.5f}" for c in cs)
+              for n, cs in edge_ms.items()) + f" [{smi}]")
+    return {"max_abs_err": 0, **layouts["hash"], "layouts": layouts,
+            "edge_cases": cases, "edge_graphs": edge_ms,
+            "library": "none: a data-dependent scan a request"}
+
+
+def phase_cdf_shard_ranks(torch, smi, tmp, main_run) -> dict:
+    """Phase 25 (b): phase 10's walk (`--cmd randomwalk --p 0.0625 --q 4`)
+    through run_walks on two gloo ranks sharing the card, each a process
+    of its own (as phase 22 (b)), with --shards 2 (hash) and with
+    --partitioned true (vertex cut): /path byte for byte phase 10's (rank
+    0 writes it); the CDF serve launched, and neither K11's serve, the key
+    table, the walk kernel nor K7; a timed run's corpus the same, with the
+    serve's ms and the collectives' host ms a superstep; the plain path
+    (emit_ref, cdf_serve_ref) over the first CDF_PLAIN_STEPS supersteps,
+    its corpus the first columns and its counters the first supersteps'
+    of the kernels' run; then walk-round checkpoints (--checkpointEvery 2)
+    cut after 2 rounds and resumed, /path phase 10's."""
+    port = str(free_port())
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CDF_RANK_WORKER, str(r), port,
+         main_run["edges"],
+         tmp, json.dumps(CDF_LAYOUTS), json.dumps(CDF_FLAGS),
+         str(CDF_PLAIN_STEPS)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    results = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=420)
+            check(p.returncode == 0, f"a rank failed: {stderr[-3000:]}")
+            line = [ln for ln in stdout.splitlines()
+                    if ln.startswith("RESULT ")]
+            check(bool(line), f"a rank printed no result: {stdout[-2000:]}")
+            results.append((json.loads(line[-1][len("RESULT "):]), stdout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    phase10 = os.path.join(tmp, CDF_OUT)
+    out = {"backend": results[0][0]["backend"]}
+    for layout in CDF_LAYOUTS:
+        check(same_path(os.path.join(tmp, f"cdf_{layout}"), phase10),
+              f"phase 25 {layout}: /path differs from phase 10's")
+        runs = [r[layout] for r, _ in results]
+        for r in runs:
+            check(r["same_timed"], f"{layout}: the timed run's corpus "
+                  f"differs")
+            check(r["same_plain_corpus"] and r["same_plain_diag"],
+                  f"{layout}: the plain path's first {CDF_PLAIN_STEPS} "
+                  f"supersteps differ from the kernels' (corpus "
+                  f"{r['same_plain_corpus']}, counters "
+                  f"{r['same_plain_diag']})")
+            la, pl = r["launches"], r["plain_launches"]
+            check(la["shard_cdf_serve"] > 0 and la["shard_emit"] > 0
+                  and la["shard_serve"] == la["trial_keys"] == la["walk"]
+                  == la["cdf_walk"] == 0, f"{layout}: launches {la}")
+            check(pl["shard_cdf_serve"] == pl["shard_emit"] == 0,
+                  f"{layout}: the plain run launched a kernel: {pl}")
+        st = runs[0]["stats"]
+        tm = [r["timing"] for r in runs]
+        sec = max(r["seconds"] for r in runs)
+        sup = tm[0]["supersteps"]
+        row = {"walk_seconds": sec, "steps_per_s": runs[0]["steps"] / sec,
+               "stats": {k: st[k] for k in SHARD_STATS},
+               "launches": [r["launches"] for r in runs],
+               "serve_ms_a_superstep": max(t["serve_ms"] for t in tm) / sup,
+               "emit_ms_a_superstep": max(t["emit_ms"] for t in tm) / sup,
+               "collective_host_ms_a_superstep":
+                   max(t["collective_host_ms"] for t in tm) / sup,
+               "timed_walk_seconds": max(r["timed_seconds"] for r in runs),
+               "plain_seconds_first_supersteps": max(
+                   r["plain_seconds"] for r in runs)}
+        out[layout] = row
+        print(f"phase 25 (b) {layout}: phase 10's walk on two gloo ranks "
+              f"sharing the card ({st['num_shards']} shards), /path "
+              f"byte-equal to phase 10's; walk {sec:.3f} s = "
+              f"{row['steps_per_s']:,.0f} steps/s; {sup} supersteps, "
+              f"{st['exchange_rounds_total']} exchange rounds "
+              f"({st['overflow_steps']} overflow supersteps), boundary "
+              f"walkers {st['boundary_walkers']}, zero neighbors "
+              f"{st['zero_neighbors']}, capacity {st['capacity']}; a "
+              f"superstep: shard_cdf_serve {row['serve_ms_a_superstep']:.4f}"
+              f" ms, shard_emit {row['emit_ms_a_superstep']:.4f} ms (CUDA "
+              f"events), collectives "
+              f"{row['collective_host_ms_a_superstep']:.3f} ms of host time "
+              f"(the timed run {row['timed_walk_seconds']:.3f} s); the plain "
+              f"path's first {CDF_PLAIN_STEPS} supersteps "
+              f"{row['plain_seconds_first_supersteps']:.2f} s, their corpus "
+              f"and counters the kernels'; launches {row['launches']} "
+              f"[{smi}]")
+    check(same_path(os.path.join(tmp, "cdf_ckpt"), phase10),
+          "phase 25: the resumed walk-round checkpoint run's /path differs "
+          "from phase 10's")
+    check(all("resumed 2 completed walk rounds" in stdout
+              for _, stdout in results), "phase 25: the checkpointed run "
+          "did not resume after 2 rounds")
+    print(f"phase 25 (b) --checkpointEvery 2 on the two ranks, cut after 2 "
+          f"rounds and resumed: /path byte-equal to phase 10's; the "
+          f"exchange under {out['backend']}")
+    return out
+
+
+def phase_cdf_multihost(torch, smi, tmp, main_run) -> dict:
+    """Phase 25 (c): the multi-host CLI at phase 10's flags, two processes
+    joined by SRW_* on the card (phase 24's harness): `python -m
+    stellar_rw_tpu_torch --cmd randomwalk --p 0.0625 --q 4`, the parts
+    merged byte for byte phase 10's /path; then node2vec --sharedNegatives
+    128 at the same p and q over 2 rounds (CDF_N2V_FLAGS) through the
+    worker: its parts the randomwalk run's first 2 rounds, the CDF serve
+    launched, the tables within rtol 2e-4 atol 1e-6 of
+    train_skipgram_multiproc(num_devices=2) in this process."""
+    from stellar_rw_tpu_torch.graph import io as gio
+    from stellar_rw_tpu_torch.models import node2vec as n2v
+    from stellar_rw_tpu_torch.models import word2vec as w2v
+    from stellar_rw_tpu_torch.utils.config import parse
+    from stellar_rw_tpu_torch.walk import engine
+
+    edges = main_run["edges"]
+    rw_out = os.path.join(tmp, "mh_cdf_randomwalk")
+    n2v_out = os.path.join(tmp, "mh_cdf_node2vec")
+    group = lambda r: {"SRW_NUM_PROCESSES": "2", "SRW_PROCESS_ID": str(r)}
+    port = free_port()
+    t0 = time.perf_counter()
+    rw = spawn_ranks(
+        lambda r: [sys.executable, "-m", "stellar_rw_tpu_torch", "--input",
+                   edges, "--output", rw_out] + CDF_FLAGS,
+        lambda r: {**group(r), "SRW_COORDINATOR": f"127.0.0.1:{port}"}, 300)
+    rw_wall = time.perf_counter() - t0
+    argv = ["--input", edges, "--output", n2v_out] + CDF_N2V_FLAGS
+    plan = json.dumps([{"name": "node2vec", "port": free_port(),
+                        "argv": argv}])
+    t0 = time.perf_counter()
+    outs = spawn_ranks(lambda r: [sys.executable, "-c", MULTIHOST_WORKER,
+                                  plan], group, 600)
+    n2v_wall = time.perf_counter() - t0
+    ranks = []
+    for out in outs:
+        line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        check(bool(line), f"a rank printed no result: {out[-2000:]}")
+        ranks.append(json.loads(line[-1][len("RESULT "):])["node2vec"])
+    phase10 = open(os.path.join(tmp, CDF_OUT, "path", "part-00000"),
+                   "rb").read()
+    merged = merged_parts(rw_out)
+    check(merged == phase10, "phase 25 (c): the randomwalk parts differ "
+          "from phase 10's /path")
+    for r, stdout in enumerate(rw):
+        check(f"walk invariants: ok (process {r})" in stdout,
+              f"rank {r} did not validate its rows")
+    params = parse(argv)
+    graph = gio.load_edge_list(edges, weighted=params.weighted,
+                               directed=params.directed)
+    V, R = graph.num_vertices, params.num_walks
+    part = merged_parts(n2v_out)
+    check(part.count(b"\n") == R * V and merged.startswith(part),
+          f"phase 25 (c): node2vec's parts are not the randomwalk run's "
+          f"first {R} rounds")
+    for r, run in enumerate(ranks):
+        la = run["launches"]
+        check(run["rc"] == 0 and la["shard_cdf_serve"] > 0
+              and la["shard_serve"] == 0 and run["all_reduces"]
+              == la["dp_apply"] + 1, f"rank {r} node2vec: rc {run['rc']}, "
+              f"launches {la}, {run['all_reduces']} all-reduces")
+    walks = engine.random_walks(graph, walk_length=params.walk_length,
+                                num_walks=R, p=params.p, q=params.q,
+                                seed=params.seed, device="cuda")
+    T = walks.shape[1]
+    W_pad = -(-V // 2) * 2
+    corpus = np.full((R, W_pad, T), -1, np.int32)
+    corpus[:, :V] = walks.reshape(R, V, T)
+    corpus = corpus.reshape(-1, T)
+    blocks, rows = w2v.full_corpus_blocks(corpus, 2)
+    want = w2v.train_skipgram_multiproc(
+        blocks, rows, V, n2v.sgns_config(params), num_devices=2,
+        row_width=T, device="cuda")
+    _, *got = n2v.load_model(n2v_out)
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    check(all(np.allclose(g, w, rtol=2e-4, atol=1e-6)
+              for g, w in zip(got, want)),
+          f"phase 25 (c): two processes against the two-slot run in one "
+          f"process, max abs err {err:.3g}")
+    secs = [[run["report"].get(k) for k in ("walk_seconds", "train_seconds")]
+            for run in ranks]
+    print(f"phase 25 (c) the multi-host CLI at phase 10's flags, two "
+          f"processes joined by SRW_* on the card: randomwalk by `python -m "
+          f"stellar_rw_tpu_torch` ({rw_wall:.1f} s of wall), the parts "
+          f"merged byte-equal to phase 10's /path, each rank validated; "
+          f"node2vec --sharedNegatives 128 over {R} rounds through cli.main "
+          f"({n2v_wall:.1f} s of wall): its parts the first {R} rounds of "
+          f"it, shard_cdf_serve launches "
+          f"{[run['launches']['shard_cdf_serve'] for run in ranks]}, the "
+          f"tables within rtol 2e-4 atol 1e-6 of train_skipgram_multiproc("
+          f"num_devices=2) in one process (max abs err {err:.3g}); per rank "
+          f"[walk s, train s] {secs} [{smi}]")
+    return {"randomwalk_wall_s": rw_wall, "node2vec_wall_s": n2v_wall,
+            "seconds": secs, "max_abs_err": err,
+            "launches": [run["launches"] for run in ranks]}
+
+
 def main() -> int:
     import torch
 
@@ -4456,12 +4963,15 @@ def main() -> int:
     from stellar_rw_tpu_torch.ops.cdf_walk import CDF_WALK_KERNEL
     from stellar_rw_tpu_torch.ops.resident_walk import RESIDENT_WALK_KERNEL
     from stellar_rw_tpu_torch.ops.sgns import SGNS_KERNEL
-    from stellar_rw_tpu_torch.ops.shard_walk import EMIT_KERNEL, SERVE_KERNEL
+    from stellar_rw_tpu_torch.ops.shard_walk import (CDF_SERVE_KERNEL,
+                                                     EMIT_KERNEL,
+                                                     SERVE_KERNEL)
     from stellar_rw_tpu_torch.ops.walk_step import KEYS_KERNEL, WALK_KERNEL
 
     probe = draws_probe()
     smi = phase_env(torch, (WALK_KERNEL, KEYS_KERNEL, RESIDENT_WALK_KERNEL,
                             CDF_WALK_KERNEL, EMIT_KERNEL, SERVE_KERNEL,
+                            CDF_SERVE_KERNEL,
                             *trainer_kernels().values(),
                             *hs_kernels().values(),
                             *spmm_kernels().values(),
@@ -4489,7 +4999,8 @@ def main() -> int:
             "walk": WALK_KERNEL, "trial_keys": KEYS_KERNEL,
             "resident_walk": RESIDENT_WALK_KERNEL,
             "cdf_walk": CDF_WALK_KERNEL, "shard_emit": EMIT_KERNEL,
-            "shard_serve": SERVE_KERNEL, **trainer_kernels(),
+            "shard_serve": SERVE_KERNEL, "shard_cdf_serve": CDF_SERVE_KERNEL,
+            **trainer_kernels(),
             **hs_kernels(), **spmm_kernels(), **dp_kernels()},
             smi, tmp, main_run)
         profile = phase_profile(torch, WALK_KERNEL, KEYS_KERNEL, smi, tmp,
@@ -4506,6 +5017,9 @@ def main() -> int:
         shard_run = phase_shard_ranks(torch, smi, tmp, main_run)
         mp_run = phase_model_shards(torch, smi, tmp, main_run, exact_run)
         multihost_run = phase_multihost(torch, smi, tmp, main_run)
+        cdf_serve_row = phase_cdf_shard_check(torch, smi, main_run["edges"])
+        cdf_ranks = phase_cdf_shard_ranks(torch, smi, tmp, main_run)
+        cdf_multihost = phase_cdf_multihost(torch, smi, tmp, main_run)
     corpus = hs_corpus(torch)
     hs_row = phase_hs_check(torch, smi, corpus)
     hs_run = phase_hs_main(torch, smi, corpus)
@@ -4545,7 +5059,10 @@ def main() -> int:
                   "conv_epoch_s", "exact_p2_epoch_s")},
               "multihost_cli": {k: multihost_run[k] for k in (
                   "seconds", "hash_wall_s", "worker_wall_s",
-                  "all_reduces")}}
+                  "all_reduces")},
+              "sharded_cdf_walks": cdf_ranks,
+              "multihost_cdf_cli": {k: cdf_multihost[k] for k in (
+                  "randomwalk_wall_s", "node2vec_wall_s", "seconds")}}
     quality["streamed_micro_f1"] = stream["micro_f1"]
     quality.update(hs_karate_auc=hs_run["karate_auc"],
                    hs_karate_acc=hs_run["karate_acc"],
@@ -4560,7 +5077,8 @@ def main() -> int:
                    model_shards_karate_plain_max_abs_err=mp_run[
                        "karate_plain_max_abs_err"],
                    sgns_loss_rel_err=mp_run["loss_rel_err"],
-                   multihost_max_abs_err=multihost_run["max_abs_err"])
+                   multihost_max_abs_err=multihost_run["max_abs_err"],
+                   multihost_cdf_max_abs_err=cdf_multihost["max_abs_err"])
     kernels = [
         {"name": "walk", "route": "cuda",
          "source": "stellar_rw_tpu_torch/csrc/walk.cu",
@@ -4653,6 +5171,16 @@ def main() -> int:
          "launches": sum(la["shard_serve"]
                          for la in shard_run["hash"]["launches"]),
          **serve_row},
+        # the CDF serve runs on the sharded exact-CDF path: its launches
+        # are phase 25 (b)'s, both ranks' hash-route run
+        {"name": "shard_cdf_serve", "route": "cuda",
+         "source": "stellar_rw_tpu_torch/csrc/shard_walk.cu",
+         "replaces": "stellar_rw_tpu/parallel/distributed.py:262",
+         "launches": sum(la["shard_cdf_serve"]
+                         for la in cdf_ranks["hash"]["launches"]),
+         "launches_multihost_cdf": sum(
+             la["shard_cdf_serve"] for la in cdf_multihost["launches"]),
+         **cdf_serve_row},
     ]
     for row in kernels:   # the launches of the streamed runs (phase 15)
         for name in ("conv", "exact"):

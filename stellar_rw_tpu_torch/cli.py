@@ -200,10 +200,8 @@ def _run_job_multihost(params: Params, device: torch.device,
             "(the multi-host corpus is already distributed per process)")
     walks = params.cmd in (TaskName.node2vec, TaskName.randomwalk)
     if walks:
-        # refused before the graph is read (the JAX package's engine
-        # refuses no sampler; the port's item 12c is still to come)
-        distributed.check_sharded(sampling.plan_sampler(
-            params.sampler, params.p, params.q)[0], params.rng_impl, world)
+        # refused before the graph is read
+        distributed.check_sharded(params.rng_impl)
     if params.checkpoint_every:
         logger.warning("multi-host: walk-round checkpoints are single-host "
                        "only and are skipped; trainer epoch checkpoints "

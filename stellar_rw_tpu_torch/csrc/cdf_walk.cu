@@ -22,6 +22,8 @@
 // 32-entry piece added to the running sum. Every product, sum and quotient
 // is rounded on its own (__fmul_rn and kin: no FMA contraction), so the
 // kernel equals the plain version bit for bit on any input.
+// The row scan (pick) is cdf_pick.cuh's, which shard_walk.cu's CDF serve
+// compiles too.
 //
 // What bounds it: the row entries scanned, sum over steps of deg(cur),
 // each read twice (the total, then the find pass up to the crossing): 8
@@ -35,134 +37,10 @@
 
 #include <cuda_runtime.h>
 
+#include "cdf_pick.cuh"
 #include "threefry.cuh"
 
 namespace {
-
-constexpr unsigned kFull = 0xffffffffu;
-constexpr uint32_t kHashMult = 2654435761u;
-
-template <typename T>
-struct Ops;
-
-template <>
-struct Ops<float> {
-  static __device__ __forceinline__ float add(float a, float b) {
-    return __fadd_rn(a, b);
-  }
-  static __device__ __forceinline__ float mul(float a, float b) {
-    return __fmul_rn(a, b);
-  }
-  static __device__ __forceinline__ float div(float a, float b) {
-    return __fdiv_rn(a, b);
-  }
-  static __device__ __forceinline__ float draw(uint2 step_key, uint32_t w) {
-    return srw::uniform_at(step_key, w);
-  }
-};
-
-template <>
-struct Ops<double> {
-  static __device__ __forceinline__ double add(double a, double b) {
-    return __dadd_rn(a, b);
-  }
-  static __device__ __forceinline__ double mul(double a, double b) {
-    return __dmul_rn(a, b);
-  }
-  static __device__ __forceinline__ double div(double a, double b) {
-    return __ddiv_rn(a, b);
-  }
-  // jax.random.uniform(key, shape, float64): the 64-bit word (o0 << 32) | o1,
-  // its top 52 bits as the mantissa of a double in [1, 2), minus 1.
-  static __device__ __forceinline__ double draw(uint2 step_key, uint32_t w) {
-    const uint2 o = srw::threefry(step_key.x, step_key.y, 0u, w);
-    const uint64_t bits = (static_cast<uint64_t>(o.x) << 32) | o.y;
-    return __longlong_as_double(
-               static_cast<long long>((bits >> 12) | 0x3FF0000000000000ull)) -
-           1.0;
-  }
-};
-
-// The bias inputs of a second-order step: the previous vertex and its
-// neighbor set's bucket rows.
-struct Prev {
-  int id, bucket_base, bucket_mask;
-};
-
-template <typename T, bool kSecond>
-__device__ __forceinline__ T weigh(int2 e, const Prev& pv,
-                                   const int4* __restrict__ buckets, T inv_p,
-                                   T inv_q) {
-  const T w = static_cast<T>(__int_as_float(e.y));
-  if (!kSecond) return w;
-  T f;
-  if (e.x == pv.id) {
-    f = inv_p;
-  } else {
-    const uint32_t h = static_cast<uint32_t>(e.x) * kHashMult;
-    const int4 b = __ldg(&buckets[pv.bucket_base +
-                                  static_cast<int>(h & pv.bucket_mask)]);
-    f = (b.x == e.x || b.y == e.x || b.z == e.x || b.w == e.x) ? T(1) : inv_q;
-  }
-  return Ops<T>::mul(w, f);
-}
-
-// Index of the picked entry in the row [s, s + d), or -1 (the row head).
-template <typename T, bool kChunked, bool kSecond>
-__device__ int pick(const int2* __restrict__ rows, int s, int d, T u,
-                    const Prev& pv, const int4* __restrict__ buckets, T inv_p,
-                    T inv_q, int lane) {
-  using O = Ops<T>;
-  const int2* row = rows + s;
-  if (kChunked) {
-    T acc = T(0);
-    for (int i = lane; i < d; i += 32)
-      acc = O::add(acc, weigh<T, kSecond>(row[i], pv, buckets, inv_p, inv_q));
-    for (int off = 16; off; off >>= 1)
-      acc = O::add(acc, __shfl_xor_sync(kFull, acc, off));
-    const T thresh = O::mul(u, acc);
-    T cum = T(0);
-    for (int base = 0; base < d; base += 32) {
-      const int i = base + lane;
-      T v =
-          i < d ? weigh<T, kSecond>(row[i], pv, buckets, inv_p, inv_q) : T(0);
-      for (int o = 1; o < 32; o <<= 1) {
-        const T y = __shfl_up_sync(kFull, v, o);
-        if (lane >= o) v = O::add(v, y);
-      }
-      const T c = O::add(cum, v);
-      const unsigned hit = __ballot_sync(kFull, i < d && c >= thresh);
-      if (hit) return base + __ffs(hit) - 1;
-      cum = __shfl_sync(kFull, c, 31);
-    }
-    return -1;
-  }
-  T total = T(0);
-  for (int base = 0; base < d; base += 32) {
-    const int i = base + lane;
-    const T v =
-        i < d ? weigh<T, kSecond>(row[i], pv, buckets, inv_p, inv_q) : T(0);
-    const int n = min(32, d - base);
-    for (int k = 0; k < n; ++k) total = O::add(total, __shfl_sync(kFull, v, k));
-  }
-  const T div = total > T(0) ? total : T(1);
-  T c = T(0);
-  for (int base = 0; base < d; base += 32) {
-    const int i = base + lane;
-    const T v =
-        i < d ? weigh<T, kSecond>(row[i], pv, buckets, inv_p, inv_q) : T(0);
-    const T x = O::div(v, div);
-    const int n = min(32, d - base);
-    T mine = T(0);
-    for (int k = 0; k < n; ++k) {
-      c = O::add(c, __shfl_sync(kFull, x, k));
-      if (lane == k) mine = c;
-    }
-    const unsigned hit = __ballot_sync(kFull, i < d && mine >= u);
-    if (hit) return base + __ffs(hit) - 1;
-  }
-  return -1;
-}
 
 template <typename T, bool kChunked>
 __global__ void __launch_bounds__(256)

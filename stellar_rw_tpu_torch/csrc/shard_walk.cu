@@ -20,7 +20,12 @@
 //                walk_trial.cuh, whose uniforms are addressed by the
 //                request's global walker id (round gid / W_pad, lane
 //                gid % W_pad), so a request draws the same bits wherever
-//                it is served.
+//                it is served;
+//   shard_cdf_serve  the same step by the exact inverse CDF (the CDF
+//                branch of `sample_req`, :262-286): cdf_pick.cuh's row
+//                scan, which cdf_walk.cu's whole-walk kernel (K7)
+//                compiles too, over the shard's cdf_rows, u addressed by
+//                the request's global walker id as above.
 //
 // shard_emit. What bounds it: bytes (it reads cur, prev and the pending
 // flag of n walkers and writes at most D * C requests) and, far more, its
@@ -54,11 +59,21 @@
 // is read again every step (a carried row would index another shard).
 // Launched as a programmatic dependent: it waits for the grid before it
 // (the key table, or the emit) before its first access.
+//
+// shard_cdf_serve. What bounds it: the row entries scanned (deg(cur) a
+// request, each read in the total pass and again in the find pass up to
+// the crossing, with a 16-byte bucket row for a second-order weight), as
+// K7. One warp a request, as K7 is one warp a walker: a hub's row of tens
+// of thousands of entries goes by deg/32 turns of coalesced reads. It
+// reads no key table (its one draw a step is made from the seed key), so
+// it is an ordinary launch. Bit for bit its plain version on any input:
+// the sums run in K7's order, each operation rounded on its own.
 
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cdf_pick.cuh"
 #include "threefry.cuh"
 #include "walk_trial.cuh"
 
@@ -70,6 +85,7 @@ constexpr int kEmitThreads = 512;                 // walkers a tile
 constexpr int kEmitWarps = kEmitThreads / 32;
 constexpr int kMaxDevices = 256;                  // D the emit takes
 constexpr int kServeThreads = 128;
+constexpr int kCdfServeThreads = 256;        // 8 requests a block
 
 // route modes: hash (v % S), packed VCut (shard | row << rbits), dense
 // route (shard only; rows through glob2loc)
@@ -241,6 +257,50 @@ shard_emit_kernel(const int* __restrict__ cur, const int* __restrict__ prev,
   }
 }
 
+// The rows of a request's cur and prev on this shard (`sample_req`,
+// :215-240): cur's owned row by arithmetic (hash: cur / S) or from the
+// packed route's high bits, prev's as owned or through the 8-wide halo
+// bucket row (one 32-byte read: 4 keys, 4 rows), or both through glob2loc
+// where the partitioner kept it (the dense route). A row not found is
+// row 0, as the JAX package clamps it. Returns (cur's row, prev's row).
+__device__ __forceinline__ int2 request_rows(const Route& rt, int my,
+                                             const int4* __restrict__ halo,
+                                             int halo_nb,
+                                             const int* __restrict__ glob2loc,
+                                             int fcur, int fprev) {
+  int cur_row, prev_row;
+  if (rt.mode == kRouteDense) {
+    cur_row = max(glob2loc[fcur], 0);
+    prev_row = max(glob2loc[fprev], 0);
+  } else {
+    const int cv = max(fcur, 0), pv = max(fprev, 0);
+    bool p_owned;
+    int p_row;
+    if (rt.mode == kRouteHash) {
+      cur_row = cv / rt.S;
+      p_owned = pv % rt.S == my;
+      p_row = pv / rt.S;
+    } else {
+      cur_row = rt.route[cv] >> rt.rbits;
+      const int pr = rt.route[pv];
+      p_owned = (pr & ((1 << rt.rbits) - 1)) == my;
+      p_row = pr >> rt.rbits;
+    }
+    int hrow = -1;
+    if (!p_owned) {
+      // the halo bucket row: keys k0..k3, rows v0..v3
+      const int hh = (int)((uint32_t)pv * 2654435761u) & (halo_nb - 1);
+      const int4 k4 = halo[2 * hh], v4 = halo[2 * hh + 1];
+      if (k4.x == pv) hrow = max(hrow, v4.x);
+      if (k4.y == pv) hrow = max(hrow, v4.y);
+      if (k4.z == pv) hrow = max(hrow, v4.z);
+      if (k4.w == pv) hrow = max(hrow, v4.w);
+    }
+    prev_row = max(p_owned ? p_row : hrow, 0);
+  }
+  return make_int2(cur_row, prev_row);
+}
+
 __global__ void __launch_bounds__(kServeThreads)
 shard_serve_kernel(const int* __restrict__ cur, const int* __restrict__ prev,
                    const int* __restrict__ gid, int stride,
@@ -265,49 +325,101 @@ shard_serve_kernel(const int* __restrict__ cur, const int* __restrict__ prev,
     const int r = gc / W_pad;
     const uint32_t w = (uint32_t)(gc - r * W_pad);
     const int fcur = cur[at], fprev = prev[at];
-    int cur_row, prev_row;
-    if (rt.mode == kRouteDense) {
-      cur_row = max(glob2loc[fcur], 0);
-      prev_row = max(glob2loc[fprev], 0);
-    } else {
-      const int cv = max(fcur, 0), pv = max(fprev, 0);
-      bool p_owned;
-      int p_row;
-      if (rt.mode == kRouteHash) {
-        cur_row = cv / rt.S;
-        p_owned = pv % rt.S == my;
-        p_row = pv / rt.S;
-      } else {
-        cur_row = rt.route[cv] >> rt.rbits;
-        const int pr = rt.route[pv];
-        p_owned = (pr & ((1 << rt.rbits) - 1)) == my;
-        p_row = pr >> rt.rbits;
-      }
-      int hrow = -1;
-      if (!p_owned) {
-        // the halo bucket row: keys k0..k3, rows v0..v3
-        const int hh = (int)((uint32_t)pv * 2654435761u) & (halo_nb - 1);
-        const int4 k4 = halo[2 * hh], v4 = halo[2 * hh + 1];
-        if (k4.x == pv) hrow = max(hrow, v4.x);
-        if (k4.y == pv) hrow = max(hrow, v4.y);
-        if (k4.z == pv) hrow = max(hrow, v4.z);
-        if (k4.w == pv) hrow = max(hrow, v4.w);
-      }
-      prev_row = max(p_owned ? p_row : hrow, 0);
-    }
-    const int4 cm = vmeta[cur_row];
+    const int2 rows = request_rows(rt, my, halo, halo_nb, glob2loc, fcur,
+                                   fprev);
+    const int4 cm = vmeta[rows.x];
     if (cm.y > 0) {
       const uint2* kt = keys + ((size_t)r * L1 + t) * T;
       if (first) {
         out = srw::first_order(alias_packed, cm, E, kt[0], w, Wd);
       } else {
-        const int4 pm = vmeta[prev_row];
+        const int4 pm = vmeta[rows.y];
         out = srw::second_order(alias_packed, buckets, kt, T, w, Wd, cm, pm,
                                 fprev, E, inv_p, inv_q, max_f, mode);
       }
     }
   }
   dst[i] = out;
+}
+
+// The CDF serve's arguments (the launch's, one struct for its four
+// instantiations).
+struct CdfServe {
+  const int* cur;
+  const int* prev;
+  const int* gid;      // null: gid_base + i
+  int stride;          // elements between a request's fields
+  const int* valid;    // null: every request with gid >= 0
+  int gid_base, m;
+  int* dst;
+  Route rt;
+  int my;
+  const int4* halo;
+  int halo_nb;
+  const int* glob2loc;
+  const int4* vmeta;
+  const int2* rows;    // cdf_rows: (col, weight bits) in vmeta's arc order
+  const int4* buckets;
+  uint32_t k0, k1, round_offset;
+  int t, first, W_pad, W_total;
+};
+
+// One warp a request: its rows, its u (element w of uniform(fold_in(
+// fold_in(seed_key, round_offset + r), t), (n_stream,)) in T, r = gid /
+// W_pad, w = gid % W_pad, the step key made here as cdf_walk_kernel makes
+// it), then cdf_pick.cuh's pick over cur's row; a second-order step weighs
+// by prev's neighbor set on this shard (an owned or a halo bucket row).
+// Every branch is the warp's own, so the lanes of a warp stay together.
+template <typename T, bool kChunked>
+__global__ void __launch_bounds__(kCdfServeThreads)
+shard_cdf_serve_kernel(const CdfServe a, T inv_p, T inv_q) {
+  const int i = static_cast<int>(
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (i >= a.m) return;  // a whole warp leaves together
+  const size_t at = (size_t)i * a.stride;
+  const int g = a.gid != nullptr ? a.gid[at] : a.gid_base + i;
+  int out = -1;
+  if (g >= 0 && (a.valid == nullptr || a.valid[i] != 0)) {
+    const int gc = min(g, a.W_total - 1);
+    const int r = gc / a.W_pad;
+    const uint32_t w = (uint32_t)(gc - r * a.W_pad);
+    const int fprev = a.prev[at];
+    const int2 rw = request_rows(a.rt, a.my, a.halo, a.halo_nb, a.glob2loc,
+                                 a.cur[at], fprev);
+    const int4 cm = a.vmeta[rw.x];
+    if (cm.y > 0) {
+      const uint2 rk =
+          srw::threefry(a.k0, a.k1, 0u, a.round_offset + (uint32_t)r);
+      const T u = Ops<T>::draw(
+          srw::threefry(rk.x, rk.y, 0u, static_cast<uint32_t>(a.t)), w);
+      int j;
+      if (a.first) {
+        const Prev none{0, 0, 0};
+        j = pick<T, kChunked, false>(a.rows, cm.x, cm.y, u, none, a.buckets,
+                                     inv_p, inv_q, lane);
+      } else {
+        const int4 pm = a.vmeta[rw.y];
+        const Prev pv{fprev, pm.z, pm.w};
+        j = pick<T, kChunked, true>(a.rows, cm.x, cm.y, u, pv, a.buckets,
+                                    inv_p, inv_q, lane);
+      }
+      out = a.rows[cm.x + max(j, 0)].x;
+    }
+  }
+  if (lane == 0) a.dst[i] = out;
+}
+
+template <typename T, bool kChunked>
+cudaError_t launch_cdf_serve(const CdfServe& a, double inv_p, double inv_q,
+                             cudaStream_t stream) {
+  const long long threads = static_cast<long long>(a.m) * 32;
+  const unsigned blocks = static_cast<unsigned>(
+      (threads + kCdfServeThreads - 1) / kCdfServeThreads);
+  shard_cdf_serve_kernel<T, kChunked><<<blocks, kCdfServeThreads, 0,
+                                        stream>>>(
+      a, static_cast<T>(inv_p), static_cast<T>(inv_q));
+  return cudaGetLastError();
 }
 
 int emit_grid(int ntiles) {
@@ -374,4 +486,37 @@ extern "C" int srw_shard_serve_launch(
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
+}
+
+// One exact-CDF step for m requests (the request forms of
+// srw_shard_serve_launch) on the shard's cdf_rows: dst [m], -1 for a dead
+// end, an invalid request or gid -1. inv_p, inv_q come rounded to the
+// accumulation type (f32: the f32 quotients, exact in a double); f64
+// draws and sums in double. An ordinary launch: no key table comes before
+// it. Returns the CUDA error of the launch.
+extern "C" int srw_shard_cdf_serve_launch(
+    const int* cur, const int* prev, const int* gid, int stride,
+    const int* valid, int gid_base, int m, int* dst, const int* route,
+    int route_mode, int S, int rbits, int my, const int* halo, int halo_nb,
+    const int* glob2loc, const int* vmeta, const int* rows,
+    const int* buckets, unsigned k0, unsigned k1, unsigned round_offset,
+    int t, int first, int W_pad, int W_total, double inv_p, double inv_q,
+    int chunked, int f64, void* stream) {
+  if (m <= 0) return 0;
+  const CdfServe a{cur, prev, gid, stride, valid, gid_base, m, dst,
+                   Route{route, route_mode, S, rbits}, my,
+                   reinterpret_cast<const int4*>(halo), halo_nb, glob2loc,
+                   reinterpret_cast<const int4*>(vmeta),
+                   reinterpret_cast<const int2*>(rows),
+                   reinterpret_cast<const int4*>(buckets), k0, k1,
+                   round_offset, t, first, W_pad, W_total};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (f64)
+    err = chunked ? launch_cdf_serve<double, true>(a, inv_p, inv_q, s)
+                  : launch_cdf_serve<double, false>(a, inv_p, inv_q, s);
+  else
+    err = chunked ? launch_cdf_serve<float, true>(a, inv_p, inv_q, s)
+                  : launch_cdf_serve<float, false>(a, inv_p, inv_q, s);
+  return static_cast<int>(err);
 }

@@ -191,14 +191,13 @@ def _round_maker(graph: CSRGraph, params: Params, device="cuda",
         from ..parallel import distributed
 
         S, L, route = _sharded(params, home)
-        distributed.check_sharded(sampler, params.rng_impl, S)
         SH = S // L     # graph shards (each replicated across its L lanes)
         group, member = distributed.walk_group(S)
         plan = plan_shards(graph, SH, route)
         distributed.log_shard_stats(graph, plan)
         tables = (shard_walk.shard_tables(
-            graph, plan, distributed.rank_world()[0] // L, device)
-            if member else None)
+            graph, plan, distributed.rank_world()[0] // L, device,
+            cdf=sampler == "cdf") if member else None)
         W_pad = -(-V // S) * S
         starts_pad = torch.full((W_pad,), -1, dtype=torch.int32)
         starts_pad[:V] = torch.arange(V, dtype=torch.int32)

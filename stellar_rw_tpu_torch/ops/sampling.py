@@ -258,8 +258,9 @@ def _row_span(g: DeviceGraph, rows: torch.Tensor):
 
 def _entries(g: DeviceGraph, idx: torch.Tensor):
     """(cols, f32 weights) of the row entries at flat positions idx
-    (clamped into the table, as the JAX package's gathers are)."""
-    e = g.cdf_rows[idx.clamp(0, max(g.num_edges - 1, 0))]
+    (clamped into the table, as the JAX package's gathers are; a shard's
+    table holds its own rows' arcs, fewer than its packed tables' rows)."""
+    e = g.cdf_rows[idx.clamp(0, max(g.cdf_rows.shape[0] - 1, 0))]
     return e[..., 0], e[..., 1].view(torch.float32)
 
 

@@ -21,11 +21,19 @@ collectives; the work on either side of them is here:
     first-order alias draw or the rejection trials, the uniforms addressed
     by the request's global walker id, so the step is the single-device
     engine's wherever it is served. -1 for a dead end or an invalid
+    request;
+  * `cdf_serve` runs the same step by the exact inverse CDF (the CDF branch
+    of `sample_req`, :262-286): the padded or chunked pick of
+    ops/sampling.py over the shard's `cdf_rows`, u element w of
+    uniform(fold_in(fold_in(seed_key, round_offset + r), t), (n_stream,))
+    in the accumulation type for the request's round r and lane w, the
+    bias by prev's neighbor set on this shard (an owned or a halo bucket
+    row). Its kernel is K7's row scan (csrc/cdf_pick.cuh) applied to one
     request.
 
 For CUDA tensors each wrapper launches its kernel of csrc/shard_walk.cu;
-for CPU tensors it runs its plain version (`emit_ref`, `serve_ref`), with
-which it agrees bit for bit.
+for CPU tensors it runs its plain version (`emit_ref`, `serve_ref`,
+`cdf_serve_ref`), with which it agrees bit for bit.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import prng, walk_step
+from . import prng, sampling, walk_step
 from ._build import Kernel, ptr, require_cuda, stream
 from .sampling import HASH_MULT, DeviceGraph
 
@@ -44,6 +52,7 @@ from .sampling import HASH_MULT, DeviceGraph
 EMIT_THREADS = 512        # walkers a tile of the emit
 MAX_DEVICES = 256         # devices D the emit's shared tables hold
 SERVE_THREADS = 128
+CDF_SERVE_THREADS = 256     # 8 requests (a warp each) a block
 ROUTE_HASH, ROUTE_PACKED, ROUTE_DENSE = 0, 1, 2
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -54,6 +63,11 @@ SERVE_KERNEL = Kernel(
     "shard_walk.cu", "srw_shard_serve_launch",
     [_P] * 3 + [_I] + [_P] + [_I] * 2 + [_P] + [_P] + [_I] * 4 + [_P]
     + [_I] + [_P] * 5 + [_I] * 8 + [ctypes.c_float] * 3 + [_I] + [_P])
+CDF_SERVE_KERNEL = Kernel(
+    "shard_walk.cu", "srw_shard_cdf_serve_launch",
+    [_P] * 3 + [_I] + [_P] + [_I] * 2 + [_P] + [_P] + [_I] * 4 + [_P]
+    + [_I] + [_P] * 4 + [ctypes.c_uint] * 3 + [_I] * 4
+    + [ctypes.c_double] * 2 + [_I] * 2 + [_P])
 
 
 class ShardTables(NamedTuple):
@@ -268,14 +282,9 @@ def serve(tab: ShardTables, req, valid, gid_base: int, keys, t: int,
     keys: the trial-key table of the rounds (walk_step.trial_keys). CPU
     tensors run serve_ref; CUDA tensors launch the serve kernel into `out`
     (i32 [m], made here when None). Returns dst i32 [m]."""
-    if torch.is_tensor(req):
-        fcur, fprev, fgid, stride = req[:, 0], req[:, 1], req[:, 2], 3
-    else:
-        fcur, fprev, fgid = req
-        stride = 1
+    fcur, fprev, fgid, _ = _fields(req)
     m = fcur.shape[0]
-    dev = fcur.device
-    if dev.type == "cpu":
+    if fcur.device.type == "cpu":
         if fgid is None:
             fgid = gid_base + torch.arange(m, dtype=torch.int32)
         return serve_ref(tab, fcur, fprev, fgid,
@@ -288,26 +297,54 @@ def serve(tab: ShardTables, req, valid, gid_base: int, keys, t: int,
         raise ValueError(f"serve: key table {tuple(keys.shape)}, step {t}")
     if W_total >= 2**31 or R * W_pad < W_total:
         raise ValueError("serve: walker ids beyond i32 or the key table")
+    out, launch_args = _launch_args("serve", tab, req, valid, gid_base,
+                                    [g.alias_packed, g.hash_buckets, keys],
+                                    out)
+    inv_p, inv_q, max_f, mode = walk_step.bias_constants(p, q)
+    SERVE_KERNEL.launch(
+        *launch_args, ptr(g.vmeta), ptr(g.alias_packed), ptr(g.hash_buckets),
+        ptr(keys), t, int(first), W_pad, W_total,
+        walk_step.draw_width(n_stream), L1, T, g.num_edges, float(inv_p),
+        float(inv_q), float(max_f), mode, stream(fcur.device))
+    return out
+
+
+def _fields(req):
+    """(cur, prev, gid or None, stride) of a request form: an i32 [m, 3]
+    tensor (stride 3) or a tuple of i32 [m] tensors."""
+    if torch.is_tensor(req):
+        return req[:, 0], req[:, 1], req[:, 2], 3
+    fcur, fprev, fgid = req
+    return fcur, fprev, fgid, 1
+
+
+def _launch_args(name: str, tab: ShardTables, req, valid, gid_base: int,
+                 tables: list, out):
+    """(out, the leading arguments both serve entry points take: the
+    requests, validity, out and the routing), after checking every tensor
+    the launch reads (the requests, the routing, vmeta and `tables`) is
+    int32 on the card. out: i32 [m], made here when None."""
+    fcur, fprev, fgid, stride = _fields(req)
+    m = fcur.shape[0]
     base = req if torch.is_tensor(req) else None
-    tensors = [g.vmeta, g.alias_packed, g.hash_buckets, keys]
+    tensors = [tab.g.vmeta, *tables]
     tensors += [base] if base is not None else [fcur, fprev]
     if fgid is not None and base is None:
         tensors.append(fgid)
-    for name in ("route", "halo_buckets", "glob2loc"):
-        if getattr(tab, name) is not None:
-            tensors.append(getattr(tab, name))
+    for field in ("route", "halo_buckets", "glob2loc"):
+        if getattr(tab, field) is not None:
+            tensors.append(getattr(tab, field))
     if valid is not None:
         tensors.append(valid)
-    out = (torch.empty(m, dtype=torch.int32, device=dev) if out is None
-           else out)
+    out = (torch.empty(m, dtype=torch.int32, device=fcur.device)
+           if out is None else out)
     tensors.append(out)
     for x in tensors:
         if x.dtype != torch.int32:
-            raise ValueError("serve: int32 tensors expected")
-    require_cuda("serve", *tensors)
+            raise ValueError(f"{name}: int32 tensors expected")
+    require_cuda(name, *tensors)
     if out.shape != (m,):
-        raise ValueError("serve: out of another shape")
-    inv_p, inv_q, max_f, mode = walk_step.bias_constants(p, q)
+        raise ValueError(f"{name}: out of another shape")
     null = ctypes.c_void_p(0)
     if base is not None:
         at = base.data_ptr()
@@ -316,21 +353,107 @@ def serve(tab: ShardTables, req, valid, gid_base: int, keys, t: int,
         pcur, pprev = ptr(fcur), ptr(fprev)
         pgid = ptr(fgid) if fgid is not None else null
     opt = lambda x: ptr(x) if x is not None else null
-    SERVE_KERNEL.launch(
-        pcur, pprev, pgid, stride, opt(valid), gid_base, m, ptr(out),
-        opt(tab.route), tab.route_mode, tab.S, tab.rbits, tab.shard,
-        opt(tab.halo_buckets), max(tab.halo_nb, 1), opt(tab.glob2loc),
-        ptr(g.vmeta), ptr(g.alias_packed), ptr(g.hash_buckets), ptr(keys), t,
-        int(first), W_pad, W_total, walk_step.draw_width(n_stream), L1, T,
-        g.num_edges, float(inv_p), float(inv_q), float(max_f), mode,
-        stream(dev))
+    return out, (pcur, pprev, pgid, stride, opt(valid), gid_base, m,
+                 ptr(out), opt(tab.route), tab.route_mode, tab.S, tab.rbits,
+                 tab.shard, opt(tab.halo_buckets), max(tab.halo_nb, 1),
+                 opt(tab.glob2loc))
+
+
+def cdf_serve_ref(tab: ShardTables, fcur, fprev, fgid, valid, key,
+                  round_offset: int, t: int, first: bool, W_pad: int,
+                  W_total: int, p: float, q: float, cdf_chunk: int,
+                  dtype: str = "float32") -> torch.Tensor:
+    """Plain version of the CDF serve kernel over m requests (i32 [m]
+    each; valid bool [m] or None): the exact inverse CDF of ops/sampling.py
+    on the shard's rows, u for the request's round r = gid // W_pad and
+    lane w = gid % W_pad from the seed key `key` (cdf_chunk 0: the padded
+    form, else the chunked form). Returns dst i32 [m], -1 for a dead end
+    or an invalid request."""
+    g = tab.g
+    m = fcur.shape[0]
+    dev = fcur.device
+    dst = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    if m == 0:
+        return dst
+    ok = fgid >= 0
+    if valid is not None:
+        ok = ok & valid
+    gc = fgid.clamp(0, W_total - 1).long()
+    cur_row, prev_row = _rows(tab, fcur, fprev)
+    deg = g.vmeta[cur_row.long(), 1]
+    idx = (ok & (deg > 0)).nonzero().squeeze(1)
+    if not idx.numel():
+        return dst
+    rnd, lane = gc[idx] // W_pad, gc[idx] % W_pad
+    step = prng.fold_in(prng.fold_in(key.to(dev), rnd + round_offset), t)
+    draw = prng.uniform_f64_at if dtype == "float64" else prng.uniform_at
+    u = draw(step, lane)
+    cr = cur_row[idx]
+    if cdf_chunk:
+        picked = (sampling.cdf_sample_first_order_chunked(
+            g, cr, u, cdf_chunk, dtype) if first else
+            sampling.cdf_sample_second_order_chunked(
+                g, cr, prev_row[idx], fprev[idx], u, p, q, cdf_chunk, dtype))
+    else:
+        md = int(deg[idx].max())
+        picked = (sampling.cdf_sample_first_order(g, cr, u, md, dtype)
+                  if first else sampling.cdf_sample_second_order(
+                      g, cr, prev_row[idx], fprev[idx], u, p, q, md, dtype))
+    dst[idx] = picked.to(torch.int32)
+    return dst
+
+
+def cdf_serve(tab: ShardTables, req, valid, gid_base: int, key,
+              round_offset: int, t: int, first: bool, W_pad: int,
+              W_total: int, p: float, q: float, cdf_chunk: int,
+              dtype: str = "float32",
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """One exact-CDF step for requests on this shard (the request forms
+    of `serve`). key: the seed key (i32 [2]); round_offset: the corpus's
+    first round; cdf_chunk 0 the padded form, else the chunked form; dtype
+    the accumulation type. tab.g needs its cdf_rows (shard_tables(...,
+    cdf=True)). CPU tensors run cdf_serve_ref; CUDA tensors launch the CDF
+    serve kernel into `out` (i32 [m], made here when None). Returns dst
+    i32 [m]."""
+    g = tab.g
+    if g.cdf_rows is None:
+        raise ValueError("cdf_serve: the shard has no cdf_rows "
+                         "(shard_tables(..., cdf=True))")
+    if dtype not in ("float32", "float64"):
+        raise ValueError(f"cdf_serve: dtype {dtype!r}")
+    fcur, fprev, fgid, _ = _fields(req)
+    if fcur.device.type == "cpu":
+        m = fcur.shape[0]
+        if fgid is None:
+            fgid = gid_base + torch.arange(m, dtype=torch.int32)
+        return cdf_serve_ref(tab, fcur, fprev, fgid,
+                             None if valid is None else valid != 0, key,
+                             round_offset, t, first, W_pad, W_total, p, q,
+                             cdf_chunk, dtype)
+    CDF_SERVE_KERNEL.fn()
+    rounds = -(-W_total // W_pad)
+    if W_total >= 2**31 or round_offset < 0 \
+            or round_offset + rounds > 2**32:
+        raise ValueError("cdf_serve: walker ids beyond i32 or rounds "
+                         "beyond 32 bits")
+    out, launch_args = _launch_args("cdf_serve", tab, req, valid, gid_base,
+                                    [g.cdf_rows, g.hash_buckets], out)
+    inv_p, inv_q = sampling.bias_quotients(p, q, dtype)
+    k0, k1 = (int(v) & prng.MASK32 for v in key.tolist())
+    CDF_SERVE_KERNEL.launch(
+        *launch_args, ptr(g.vmeta), ptr(g.cdf_rows), ptr(g.hash_buckets), k0,
+        k1, round_offset, t, int(first), W_pad, W_total, inv_p, inv_q,
+        int(cdf_chunk > 0), int(dtype == "float64"), stream(fcur.device))
     return out
 
 
-def shard_tables(graph, plan, s: int, device) -> ShardTables:
+def shard_tables(graph, plan, s: int, device,
+                 cdf: bool = False) -> ShardTables:
     """Shard s of a ShardPlan (graph/partition.py), built alone on the host
     and uploaded: the rank's share of the graph (its host memory is the
-    graph plus this one shard)."""
+    graph plus this one shard). cdf=True adds the CDF serve's `cdf_rows`
+    (col, weight bits) of the shard's arcs, in the order its vmeta row
+    starts index."""
     from ..graph import partition as part
     from .sampling import PackingUnavailable
 
@@ -343,6 +466,10 @@ def shard_tables(graph, plan, s: int, device) -> ShardTables:
         offsets=torch.as_tensor(sh["offsets"]).to(device),
         alias_packed=put(sh["alias_packed"]),
         hash_buckets=put(sh["hash_buckets"]), vmeta=put(sh["vmeta"]))
+    if cdf:
+        E_s = int(sh["offsets"][-1])
+        g = g._replace(cdf_rows=put(np.stack(
+            [sh["cols"][:E_s], sh["weights"][:E_s].view(np.int32)], 1)))
     if plan.is_hash:
         mode, route = ROUTE_HASH, None
     elif plan.route_packed is not None:

@@ -37,10 +37,17 @@ for. walk_shards leaves each walking rank its own rows of the corpus
 distributed_random_walks gathers them, so that every rank of the default
 group gets the corpus.
 
+The exact-CDF sampler (sampler "cdf", or a p/q ratio beyond 32) serves
+both halves of a superstep by shard_walk.cdf_serve (K7's row scan applied
+to one request) on each shard's cdf_rows: no trial-key table is made, and
+u is drawn at the accumulation type from the seed key, addressed by the
+request's global walker id, so the corpus is bitwise the single-device
+exact-CDF engine's too. Padded against chunked is decided from the whole
+corpus (engine.walk_spec), as in every engine.
+
 Left out: the static-schedule overflow re-dispatch (a per-thread trial
 loop has no compaction buffer that could overflow; its diag column reads
-0) and 'rbg' keys (no port). The exact-CDF sampler at more than one device
-is ROADMAP item 12c.
+0) and 'rbg' keys (no port).
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from ..errors import NotPorted, resolve_device
 from ..graph.csr import CSRGraph
 from ..graph.partition import ShardPlan, plan_shards
 from ..ops import prng, sampling, shard_walk, walk_step
+from ..walk import engine
 from ..walk.engine import WalkSpec
 
 logger = logging.getLogger("stellar_rw_tpu_torch.distributed")
@@ -212,9 +220,27 @@ def distributed_walk_corpus(tables: shard_walk.ShardTables,
             else None)
     i32 = lambda: torch.empty(n, dtype=torch.int32, device=dev)
     pending, local = i32(), i32()
-    serve_kw = dict(W_pad=W_pad, W_total=W_total, n_stream=ns, p=spec.p,
-                    q=spec.q)
     clock = _Clock(dev, timing)
+    if spec.sampler == "cdf":
+        cdf_kw = dict(W_pad=W_pad, W_total=W_total, p=spec.p, q=spec.q,
+                      cdf_chunk=spec.cdf_chunk, dtype=spec.dtype)
+
+        def serve(req, valid, base, t, first):
+            return clock.device("serve", shard_walk.cdf_serve, tables, req,
+                                valid, base, key, round_offset, t, first,
+                                **cdf_kw)
+    else:
+        serve_kw = dict(W_pad=W_pad, W_total=W_total, n_stream=ns,
+                        p=spec.p, q=spec.q)
+
+        def serve(req, valid, base, t, first):
+            if not keys:
+                # the first local serve runs as the table's programmatic
+                # dependent
+                keys.append(walk_step.trial_keys(key, round_offset, R, Lw,
+                                                 T, device=dev))
+            return clock.device("serve", shard_walk.serve, tables, req,
+                                valid, base, keys[0], t, first, **serve_kw)
 
     def advance(cur, prev, alive, t, first):
         """One superstep: local fast path + bounded boundary exchange.
@@ -224,23 +250,14 @@ def distributed_walk_corpus(tables: shard_walk.ShardTables,
             "emit", shard_walk.emit, tables, cur, prev, pending,
             alive.to(torch.int32), local, L, D, gid_base, C, work)
         crossings = counters[0].clone()
-        if not keys:
-            # the local serve below runs as the table's programmatic
-            # dependent
-            keys.append(walk_step.trial_keys(key, round_offset, R, Lw, T,
-                                             device=dev))
-        dst = clock.device("serve", shard_walk.serve, tables,
-                           (cur, prev, None), local, gid_base, keys[0], t,
-                           first, **serve_kw)
+        dst = serve((cur, prev, None), local, gid_base, t, first)
         rounds = 0
         if D > 1:
             dst = torch.cat([dst, dst.new_full((1,), -1)])   # slot n: drop
             while True:
                 recv = clock.collective(_all_to_all, send.reshape(D, 3 * C),
                                         group)
-                reply = clock.device("serve", shard_walk.serve, tables,
-                                     recv.reshape(D * C, 3), None, 0,
-                                     keys[0], t, first, **serve_kw)
+                reply = serve(recv.reshape(D * C, 3), None, 0, t, first)
                 left = counters[1].reshape(1, 1).expand(D, 1)
                 back = clock.collective(
                     _all_to_all, torch.cat([reply.reshape(D, C), left], 1),
@@ -359,15 +376,12 @@ def log_superstep_diag(diag: np.ndarray) -> None:
             " (overflow)" if rounds > 1 else "")
 
 
-def check_sharded(sampler: str, rng_impl: str, D: int) -> None:
-    """Raise NotPorted for what the sharded engine does not serve."""
+def check_sharded(rng_impl: str) -> None:
+    """Raise NotPorted for what the sharded engine does not serve: 'rbg'
+    keys, whose XLA RngBitGenerator streams have no port."""
     if not prng.use_slice_draws(rng_impl, "float32"):
         raise NotPorted(f"rng_impl {rng_impl!r}: XLA RngBitGenerator streams "
                         "have no port (ROADMAP Queue 1, not to port)")
-    if sampler == "cdf" and D > 1:
-        raise NotPorted("the exact-CDF sampler on more than one walk "
-                        "device: ROADMAP Queue 1 item 12c (K7 split per "
-                        "step)")
 
 
 class ShardedWalk(NamedTuple):
@@ -412,7 +426,7 @@ def walk_shards(graph: CSRGraph, walk_length: int, num_walks: int,
     S, L = D_req // lanes, lanes
     D = S * L
     sampler, max_rounds = sampling.plan_sampler(sampler, p, q)
-    check_sharded(sampler, rng_impl, D)
+    check_sharded(rng_impl)
     group, member = walk_group(D)
     plan = plan_shards(graph, S, route)
     if verbose:
@@ -427,12 +441,12 @@ def walk_shards(graph: CSRGraph, walk_length: int, num_walks: int,
     C = capacity if capacity is not None else auto_capacity(
         graph, plan.route, D, n)
     C = max(1, min(C, n))
-    spec = WalkSpec(walk_length=walk_length, p=float(p), q=float(q),
-                    sampler=sampler, max_degree=max(graph.max_degree, 1),
-                    max_rounds=max_rounds, dtype=dtype, n_stream=W)
+    spec = engine.walk_spec(graph, walk_length, num_walks, p, q, sampler,
+                            max_rounds, dtype, W)
     paths, diag = None, np.zeros((walk_length + 1, 4), dtype=np.int64)
     if member:
-        tables = shard_walk.shard_tables(graph, plan, rank // L, device)
+        tables = shard_walk.shard_tables(graph, plan, rank // L, device,
+                                         cdf=sampler == "cdf")
         paths, diag = distributed_walk_corpus(
             tables, torch.as_tensor(starts_pad), prng.prng_key(seed), 0,
             spec, num_walks, S, C, L, timing, group)

@@ -311,7 +311,7 @@ def _ks(v: np.ndarray) -> np.ndarray:
 
 
 def _warp_pick(b: np.ndarray, u: np.float32, chunked: bool) -> int:
-    """csrc/cdf_walk.cu's pick() for one walker, transcribed lane by lane in
+    """csrc/cdf_pick.cuh's pick() for one walker, transcribed lane by lane in
     f32: the index of the picked entry, or -1 for the row head. Chunked:
     the lane sums and their butterfly, then the find loop (each piece's
     scan added to the sum before it, the ballot's first lane)."""
@@ -352,8 +352,20 @@ def test_kernel_pick_transcription_equals_plain(chunked):
     """The kernel's lane-by-lane order, transcribed, picks what the plain
     samplers pick, on rows around a warp's width and of many pieces, with
     arbitrary f32 weights: the two share one summation order, so they agree
-    bit for bit on any input (the card checks the kernel itself:
-    chip_smoke.py phases 9-10)."""
+    bit for bit on any input (the card checks the kernels themselves:
+    chip_smoke.py phases 9-10 and 25)."""
+    # the one text of the scan both kernels compile: K7's whole walks and
+    # the sharded engine's CDF serve
+    pick = (_build.CSRC / "cdf_pick.cuh").read_text()
+    for piece in ("for (int off = 16; off; off >>= 1)",
+                  "__ballot_sync(kFull, i < d && c >= thresh)",
+                  "for (int k = 0; k < n; ++k) total = O::add(",
+                  "__ballot_sync(kFull, i < d && mine >= u)"):
+        assert pick.count(piece) == 1, piece
+    for source in ("cdf_walk.cu", "shard_walk.cu"):
+        text = (_build.CSRC / source).read_text()
+        assert '#include "cdf_pick.cuh"' in text
+        assert "__device__ int pick(" not in text
     rng = np.random.default_rng(5)
     for d in (1, 5, 31, 32, 33, 100, 257, 2000):
         w = (rng.random(d) * 3 + 0.01).astype(np.float32)

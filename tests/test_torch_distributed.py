@@ -36,10 +36,14 @@ import pytest
 
 from stellar_rw_tpu.graph import io as jio
 from stellar_rw_tpu.graph.csr import from_edge_arrays as jfrom_edge_arrays
+from stellar_rw_tpu import cli as jcli
 from stellar_rw_tpu.models import node2vec as jn2v
+from stellar_rw_tpu.ops import sampling as jsampling
 from stellar_rw_tpu.parallel import distributed as jdist
+from stellar_rw_tpu.utils import config as jconfig
 from stellar_rw_tpu.walk import engine as jengine
 from stellar_rw_tpu_torch.models import node2vec as n2v
+from stellar_rw_tpu_torch.ops import sampling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STATS = ("num_shards", "lanes", "capacity", "replication_factor",
@@ -48,26 +52,48 @@ STATS = ("num_shards", "lanes", "capacity", "replication_factor",
          "static_schedule_overflow")
 WALK = dict(walk_length=6, num_walks=3, p=0.5, q=2.0, seed=3)
 
+# the exact-CDF sampler: f64, or the chunked form (CDF_PAD_LIMIT and
+# CDF_CHUNK set in both packages) at dyadic p, q; at p = 1/16, q = 4
+# plan_sampler picks it
+CDF64 = {"sampler": "cdf", "dtype": "float64"}
+CHUNKED = {"sampler": "cdf", "chunk": 4, "p": 0.25, "q": 4.0}
+AUTO_CDF = {"p": 0.0625, "q": 4.0}
 # name -> (graph, lanes, route, capacity, starts, walk devices (None: the
-# world))
+# world), the walk's arguments beside WALK's)
 CASES = {
-    "hash": ("karate", 1, None, None, None, None),
-    "vcut": ("karate_vcut", 1, "home", None, None, None),
-    "lanes2": ("karate", 2, None, None, None, None),
-    "directed": ("karate_directed", 1, None, None, None, None),
-    "padded": ("karate", 1, None, None, 33, None),
-    "capacity1": ("karate", 1, None, 1, None, None),
-    "vcut_capacity1": ("karate_vcut", 1, "home", 1, None, None),
+    "hash": ("karate", 1, None, None, None, None, {}),
+    "vcut": ("karate_vcut", 1, "home", None, None, None, {}),
+    "lanes2": ("karate", 2, None, None, None, None, {}),
+    "directed": ("karate_directed", 1, None, None, None, None, {}),
+    "padded": ("karate", 1, None, None, 33, None, {}),
+    "capacity1": ("karate", 1, None, 1, None, None, {}),
+    "vcut_capacity1": ("karate_vcut", 1, "home", 1, None, None, {}),
+    "cdf_hash": ("karate", 1, None, None, None, None, CDF64),
+    "cdf_vcut_capacity1": ("karate_vcut", 1, "home", 1, None, None,
+                           {"sampler": "cdf"}),
+    "cdf_directed": ("karate_directed", 1, None, None, None, None, CDF64),
+    "cdf_chunked": ("karate", 1, None, None, None, None, CHUNKED),
+    "cdf_auto": ("karate", 1, None, None, None, None, AUTO_CDF),
 }
-EIGHT = {"karate8": ("karate", 1, None, None, None, None),
-         "ring8": ("ring", 1, None, None, None, None),
-         "sub2of8": ("karate", 1, None, None, None, 2)}
+# held to the port's single-device corpus, not JAX's: at p = q = 100 the
+# quotient 0.01 is inexact and XLA's CPU cumsum sums in blocks
+PORT_CASES = {"cdf_chunked_pq100": (
+    "karate", 1, None, None, None, None,
+    {"sampler": "cdf", "chunk": 4, "p": 100.0, "q": 100.0})}
+EIGHT = {"karate8": ("karate", 1, None, None, None, None, {}),
+         "ring8": ("ring", 1, None, None, None, None, {}),
+         "sub2of8": ("karate", 1, None, None, None, 2, {}),
+         "cdf8": ("karate", 1, None, None, None, None, CDF64)}
 # run_walks on eight ranks at fewer walk devices: name -> (flags, the JAX
 # case its corpus is)
 SUB_RUNS = {"partitioned2": (["--shards", "2"],
-                             ("karate_vcut", 1, "home", None, None, 2)),
+                             ("karate_vcut", 1, "home", None, None, 2, {})),
             "partitioned3": (["--rddPartitions", "3"],
-                             ("karate_vcut", 1, "home", None, None, 3))}
+                             ("karate_vcut", 1, "home", None, None, 3, {}))}
+# the CLI's walk at --shards 2, p = 1/16, q = 4 (two ranks)
+CDF_CLI = ["--cmd", "randomwalk", "--shards", "2", "--walkLength", "6",
+           "--numWalks", "3", "--p", "0.0625", "--q", "4", "--seed", "3",
+           "--weighted", "false"]
 
 WORKER = r"""
 import json, sys
@@ -76,7 +102,9 @@ import torch
 torch.set_num_threads(1)
 from stellar_rw_tpu_torch.graph import io
 from stellar_rw_tpu_torch.graph.csr import from_edge_arrays
+from stellar_rw_tpu_torch import cli
 from stellar_rw_tpu_torch.models import node2vec as n2v
+from stellar_rw_tpu_torch.ops import sampling
 from stellar_rw_tpu_torch.parallel import distributed, dp
 from stellar_rw_tpu_torch.utils.config import parse
 
@@ -101,16 +129,23 @@ def graph(name):
 
 
 result = {}
-for name, (gname, lanes, route, cap, nstarts, shards) in cases.items():
+limits = sampling.CDF_PAD_LIMIT, sampling.CDF_CHUNK
+for name, (gname, lanes, route, cap, nstarts, shards, extra) in \
+        cases.items():
     g, home = graph(gname)
     shards = shards or world
     r = None if route is None else (home % (shards // lanes)).astype(np.int32)
     starts = None if nstarts is None else np.arange(nstarts, dtype=np.int32)
     kw = dict(walk) if gname != "ring" else dict(walk_length=4, num_walks=2,
                                                  p=0.25, q=0.25, seed=9)
+    kw.update(extra)
+    chunk = kw.pop("chunk", None)
+    if chunk:   # the chunked exact-CDF form
+        sampling.CDF_PAD_LIMIT, sampling.CDF_CHUNK = 1, chunk
     walks, stats = distributed.distributed_random_walks(
         g, route=r, capacity=cap, lanes=lanes, starts=starts,
         return_stats=True, device="cpu", num_shards=shards, **kw)
+    sampling.CDF_PAD_LIMIT, sampling.CDF_CHUNK = limits
     np.save(f"{out}/{name}_rank{rank}.npy", walks)
     result[name] = {k: v for k, v in stats.items() if k != "diag"}
 
@@ -139,13 +174,9 @@ if world == 2:
     np.save(f"{out}/run_walks_rank{rank}.npy",
             n2v.run_walks(g, p, device="cpu", home=home).numpy())
 
-    # the checkpointed rounds: whole, cut after round 0, resumed
+    # the checkpointed rounds: whole, cut after round 0, resumed; then the
+    # same at p = 1/16, q = 4 (the exact-CDF sampler)
     g, _ = graph("karate")
-    ck = lambda o, resume: parse(
-        ["--input", paths["karate"], "--output", f"{out}/{o}",
-         "--shards", "2", "--checkpointEvery", "1", "--resume",
-         "true" if resume else "false"] + base)
-    whole, _ = n2v.checkpointed_random_walks(g, ck("whole", False), "cpu")
 
     class Cut(Exception):
         pass
@@ -161,15 +192,31 @@ if world == 2:
             return make_round(r)
         return make, V
 
-    n2v._round_maker = cut_maker
-    try:
-        n2v.checkpointed_random_walks(g, ck("cut", False), "cpu")
-    except Cut:
-        result["cut"] = True
-    n2v._round_maker = maker
-    resumed, start = n2v.checkpointed_random_walks(g, ck("cut", True), "cpu")
-    result["resumed_from"] = start
-    np.save(f"{out}/ckpt_rank{rank}.npy", np.stack([whole, resumed]))
+    cdf_base = base + ["--p", "0.0625", "--q", "4"]
+    for tag, flags in (("", base), ("_cdf", cdf_base)):
+        ck = lambda o, resume: parse(
+            ["--input", paths["karate"], "--output", f"{out}/{o}{tag}",
+             "--shards", "2", "--checkpointEvery", "1", "--resume",
+             "true" if resume else "false"] + flags)
+        whole, _ = n2v.checkpointed_random_walks(g, ck("whole", False),
+                                                 "cpu")
+        n2v._round_maker = cut_maker
+        try:
+            n2v.checkpointed_random_walks(g, ck("cut", False), "cpu")
+        except Cut:
+            result["cut" + tag] = True
+        n2v._round_maker = maker
+        resumed, start = n2v.checkpointed_random_walks(g, ck("cut", True),
+                                                       "cpu")
+        result["resumed_from" + tag] = start
+        np.save(f"{out}/ckpt{tag}_rank{rank}.npy", np.stack([whole, resumed]))
+
+    # the CLI's walk over --shards 2 at p = 1/16, q = 4: each rank writes
+    # its /path
+    cli.do_random_walk(parse(["--input", paths["karate"], "--output",
+                              f"{out}/cdf_cli{rank}"]
+                             + json.loads(sys.argv[9])),
+                       torch.device("cpu"), {})
 
     # node2vec --streaming true on the sharded rounds
     p = parse(["--input", paths["karate"], "--output", f"{out}/stream",
@@ -215,8 +262,8 @@ def _spawn(world, cases, karate_path, out, timeout, meanwhile):
     procs = [subprocess.Popen(
         [sys.executable, "-c", WORKER, str(r), str(world), port, str(out),
          json.dumps(cases), json.dumps(WALK), json.dumps(paths),
-         json.dumps(runs)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True)
+         json.dumps(runs), json.dumps(CDF_CLI)], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]
     results = []
     try:
@@ -242,7 +289,9 @@ def two_ranks(karate_path, tmp_path_factory):
     def refs():
         for spec in CASES.values():
             _jax_case(karate_path, out, 2, *spec)
-    return _spawn(2, CASES, karate_path, out, 240, refs), out
+        _jax_cli_path(karate_path, out)
+    return _spawn(2, {**CASES, **PORT_CASES}, karate_path, out, 300,
+                  refs), out
 
 
 @pytest.fixture(scope="module")
@@ -259,18 +308,33 @@ _JAX = {}
 
 
 def _jax_case(karate_path, out, world, gname, lanes, route, cap, nstarts,
-              shards):
+              shards, extra):
     """(single-device corpus, sharded corpus, sharded stats) of the JAX
     package for one case, at `shards` devices (None: `world`); each case is
     computed once."""
     shards = shards or world
-    key = (gname, shards, lanes, route, cap, nstarts)
+    key = (gname, shards, lanes, route, cap, nstarts,
+           json.dumps(extra, sort_keys=True))
     if key not in _JAX:
-        _JAX[key] = _jax_walks(karate_path, out, *key)
+        _JAX[key] = _jax_walks(karate_path, out, *key[:-1], extra)
     return _JAX[key]
 
 
-def _jax_walks(karate_path, out, gname, shards, lanes, route, cap, nstarts):
+def _jax_cli_path(karate_path, out) -> str:
+    """The JAX CLI's /path for CDF_CLI (its sharded engine on conftest's
+    CPU devices); computed once."""
+    if "cli" not in _JAX:
+        args = CDF_CLI + ["--input", karate_path, "--output",
+                          str(out / "jax_cdf_cli")]
+        with jax.enable_x64(False):
+            jcli.run_job(jconfig.parse(args))
+        _JAX["cli"] = (out / "jax_cdf_cli" / "path" / "part-00000"
+                       ).read_text()
+    return _JAX["cli"]
+
+
+def _jax_walks(karate_path, out, gname, shards, lanes, route, cap, nstarts,
+               extra):
     if gname == "ring":
         src = np.arange(8191)
         g = jfrom_edge_arrays(src, (src + 1) % 8191, num_vertices=8191,
@@ -288,14 +352,23 @@ def _jax_walks(karate_path, out, gname, shards, lanes, route, cap, nstarts):
         home, kw = None, dict(WALK)
     r = None if route is None else (home % (shards // lanes)).astype(np.int32)
     starts = None if nstarts is None else np.arange(nstarts, dtype=np.int32)
+    kw.update(extra)
+    chunk = kw.pop("chunk", None)
+    limits = jsampling.CDF_PAD_LIMIT, jsampling.CDF_CHUNK
+    if chunk:   # the chunked exact-CDF form
+        jsampling.CDF_PAD_LIMIT, jsampling.CDF_CHUNK = 1, chunk
     # the dynamic schedule: the same corpus as the static cascade, which
-    # takes some 40 s more to compile on the CPU for each layout
-    with jax.enable_x64(False):
-        single = np.asarray(jengine.random_walks(g, starts=starts,
-                                                 schedule="dynamic", **kw))
-        multi, stats = jdist.distributed_random_walks(
-            g, num_shards=shards, route=r, capacity=cap, lanes=lanes,
-            starts=starts, return_stats=True, schedule="dynamic", **kw)
+    # takes some 40 s more to compile on the CPU for each layout; float64
+    # draws need x64 on
+    try:
+        with jax.enable_x64(kw.get("dtype") == "float64"):
+            single = np.asarray(jengine.random_walks(
+                g, starts=starts, schedule="dynamic", **kw))
+            multi, stats = jdist.distributed_random_walks(
+                g, num_shards=shards, route=r, capacity=cap, lanes=lanes,
+                starts=starts, return_stats=True, schedule="dynamic", **kw)
+    finally:
+        jsampling.CDF_PAD_LIMIT, jsampling.CDF_CHUNK = limits
     return single, np.asarray(multi), stats
 
 
@@ -318,9 +391,9 @@ def test_two_ranks_match_jax(name, two_ranks, karate_path):
     and its distributed_random_walks at the same layout, on both ranks, and
     the exchange stats are JAX's."""
     stats = _check_case(name, CASES[name], two_ranks, karate_path, 2)
-    if name == "capacity1":
+    if name in ("capacity1", "cdf_vcut_capacity1"):
         assert stats["overflow_steps"] > 0
-    if name == "directed":
+    if name in ("directed", "cdf_directed"):
         assert stats["zero_neighbors"] > 0
     if name == "lanes2":
         assert (stats["num_shards"], stats["lanes"]) == (1, 2)
@@ -359,7 +432,7 @@ def test_checkpointed_rounds_on_fewer_devices_than_ranks(eight_ranks,
     every rank JAX's single-device corpus."""
     _, out = eight_ranks
     single, _, _ = _jax_case(karate_path, out, 8, "karate", 1, None, None,
-                             None, 2)
+                             None, 2, {})
     for r in range(8):
         np.testing.assert_array_equal(np.load(out / f"ckpt2_rank{r}.npy"),
                                       single)
@@ -371,7 +444,7 @@ def test_run_walks_sharded_vcut(two_ranks, karate_path):
     shards report line, and gives the JAX CLI's corpus."""
     results, out = two_ranks
     _, multi, _ = _jax_case(karate_path, out, 2, "karate_vcut", 1, "home",
-                            None, None, None)
+                            None, None, None, {})
     for r in range(2):
         np.testing.assert_array_equal(
             np.load(out / f"run_walks_rank{r}.npy"), multi)
@@ -383,14 +456,62 @@ def test_checkpointed_sharded_rounds_resume(two_ranks, karate_path):
     """The sharded rounds cut after round 0 and resumed (rank 0 read the
     marker and broadcast where to start) equal the uninterrupted corpus,
     which is JAX's."""
+    _check_resumed(two_ranks, karate_path, "", {})
+
+
+def test_checkpointed_sharded_cdf_rounds_resume(two_ranks, karate_path):
+    """The same at p = 1/16, q = 4, where plan_sampler takes the exact-CDF
+    sampler: the sharded CDF rounds cut after round 0 and resumed equal
+    the uninterrupted corpus, which is JAX's."""
+    _check_resumed(two_ranks, karate_path, "_cdf", AUTO_CDF)
+
+
+def _check_resumed(two_ranks, karate_path, tag, extra):
     results, out = two_ranks
-    assert all(r["cut"] and r["resumed_from"] == 1 for r, _ in results)
+    assert all(r["cut" + tag] and r["resumed_from" + tag] == 1
+               for r, _ in results)
     single, _, _ = _jax_case(karate_path, out, 2, "karate", 1, None, None,
-                             None, None)
+                             None, None, extra)
     for r in range(2):
-        whole, resumed = np.load(out / f"ckpt_rank{r}.npy")
+        whole, resumed = np.load(out / f"ckpt{tag}_rank{r}.npy")
         np.testing.assert_array_equal(whole, single)
         np.testing.assert_array_equal(resumed, whole)
+
+
+@pytest.mark.parametrize("name", list(PORT_CASES))
+def test_two_ranks_cdf_match_the_port_where_jax_sums_otherwise(
+        name, two_ranks, karate_path, monkeypatch):
+    """The chunked form at p = q = 100 (the quotient 0.01 inexact): the
+    corpus on two ranks is bitwise the port's single-device exact-CDF
+    corpus, which sums in the same order (JAX's XLA cumsum runs in blocks
+    past 17 entries, so it is no yardstick here)."""
+    from stellar_rw_tpu_torch.graph import io as tio
+    from stellar_rw_tpu_torch.walk import engine
+
+    results, out = two_ranks
+    gname, *_, extra = PORT_CASES[name]
+    kw = dict(WALK, **extra)
+    monkeypatch.setattr(sampling, "CDF_PAD_LIMIT", 1)
+    monkeypatch.setattr(sampling, "CDF_CHUNK", kw.pop("chunk"))
+    g = tio.load_edge_list(karate_path, weighted=False)
+    single = engine.random_walks(g, device="cpu", **kw)
+    for r in range(2):
+        np.testing.assert_array_equal(np.load(out / f"{name}_rank{r}.npy"),
+                                      single)
+    for stats, _ in results:
+        assert stats[name]["num_shards"] == 2
+
+
+def test_cli_cdf_path_over_two_shards_equals_jax_cli(two_ranks,
+                                                     karate_path):
+    """The CLI's walk at --shards 2, p = 1/16, q = 4 (plan_sampler: the
+    exact-CDF sampler) on two ranks: each rank's /path is the JAX CLI's
+    byte for byte."""
+    _, out = two_ranks
+    want = _jax_cli_path(karate_path, out)
+    for r in range(2):
+        assert (out / f"cdf_cli{r}" / "path" / "part-00000").read_text() \
+            == want
 
 
 def test_streaming_sharded_rounds_write_single_device_path(two_ranks,
@@ -440,16 +561,20 @@ def test_one_rank_walks_one_shard():
         assert n2v.num_walk_shards(p) == 1
 
 
-def test_sharded_refusals():
-    """The exact-CDF sampler on more than one walk device is ROADMAP item
-    12c and 'rbg' keys have no port: both refused with NotPorted; one
-    device takes either check's other side."""
+def test_sharded_refusals(two_ranks, eight_ranks):
+    """'rbg' keys have no port: refused with NotPorted, threefry keys
+    taken. The exact-CDF sampler is served at 2 and at 8 walk devices:
+    the spawns' CDF cases ran on every rank (their corpora are held to
+    JAX's above)."""
     from stellar_rw_tpu_torch.errors import NotPorted
     from stellar_rw_tpu_torch.parallel import distributed
 
-    with pytest.raises(NotPorted, match="item 12c"):
-        distributed.check_sharded("cdf", "threefry", 2)
-    with pytest.raises(NotPorted, match="rbg"):
-        distributed.check_sharded("rejection", "rbg", 2)
-    distributed.check_sharded("cdf", "threefry", 1)
-    distributed.check_sharded("rejection", "threefry", 8)
+    for impl in ("rbg", "unsafe_rbg"):
+        with pytest.raises(NotPorted, match="rbg"):
+            distributed.check_sharded(impl)
+    distributed.check_sharded("threefry")
+    for (results, _), name, D in ((two_ranks, "cdf_hash", 2),
+                                  (eight_ranks, "cdf8", 8)):
+        assert len(results) == D
+        for stats, _ in results:
+            assert stats[name]["num_shards"] == D

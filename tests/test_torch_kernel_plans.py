@@ -36,7 +36,7 @@ from stellar_rw_tpu_torch.graph import io as tio
 from stellar_rw_tpu_torch.models import node2vec as n2v
 from stellar_rw_tpu_torch.models import word2vec as w2v
 from stellar_rw_tpu_torch.ops import _build, prng, resident_walk, sampling
-from stellar_rw_tpu_torch.ops import cdf_walk, hsoftmax, sgns, sgns_conv
+from stellar_rw_tpu_torch.ops import hsoftmax, sgns, sgns_conv
 from stellar_rw_tpu_torch.ops import sgns_exact, spmm
 from stellar_rw_tpu_torch.ops import trainer_draws, walk_step
 from stellar_rw_tpu_torch.utils.config import Params
@@ -540,10 +540,12 @@ def test_draws_parts_variant_edits_the_source_once(name):
 @pytest.mark.parametrize("name", [n for n, edits in
                                   chip_cdf_parts.VARIANTS.items() if edits])
 def test_cdf_parts_variant_edits_the_source_once(name):
-    """chip_cdf_parts.py patches csrc/cdf_walk.cu by text, one piece after
-    the other: each piece must occur exactly once in the text as the pieces
-    before it left it, and its replacement must differ."""
-    text = (_build.CSRC / cdf_walk.CDF_WALK_KERNEL.source).read_text()
+    """chip_cdf_parts.py patches csrc/cdf_walk.cu, with the row scan of
+    csrc/cdf_pick.cuh written in where it is included, by text, one piece
+    after the other: each piece must occur exactly once in the text as the
+    pieces before it left it, and its replacement must differ."""
+    text = chip_cdf_parts.kernel_text()
+    assert text.count("__device__ int pick(") == 1
     for old, new in chip_cdf_parts.VARIANTS[name]:
         assert text.count(old) == 1 and new != old
         text = text.replace(old, new)

@@ -14,7 +14,8 @@ at num_devices=2 on the same padded corpus), embedding, and
 the ranks is ignored with the JAX package's warning). Beside them: a
 trainer cut after its first epoch and resumed with --resume true (rank 0
 reads the checkpoint and broadcasts it) equal to the uninterrupted run,
-the refusals (--streaming, the exact-CDF sampler across ranks, model
+randomwalk --sampler cdf (the exact-CDF sampler across the ranks) whose
+parts merge to the JAX CLI's /path, the refusals (--streaming, model
 shards across processes) raised on every rank, and --lanes 2 on four
 ranks. Each spawn runs its CLI runs one after the other, a coordinator
 port each; the JAX references are computed while the ranks run. JAX runs
@@ -217,7 +218,7 @@ def two_ranks(karate_path, tmp_path_factory):
                                        "--resume", "true"]},
         "streaming": {"argv": N2V + k + ["--output", str(out / "no1"),
                                          "--streaming", "true"]},
-        "cdf": {"argv": RW + k + ["--output", str(out / "no2"),
+        "cdf": {"argv": RW + k + ["--output", str(out / "cdf"),
                                   "--sampler", "cdf"]},
         "model_shards": {"argv": N2V + k + ["--output", str(out / "no3"),
                                             "--w2vModelShards", "2"]},
@@ -226,6 +227,8 @@ def two_ranks(karate_path, tmp_path_factory):
 
     def meanwhile():
         refs["rw"] = _jax_cli_path(RW + k, out / "jax_rw")
+        refs["cdf"] = _jax_cli_path(RW + k + ["--sampler", "cdf"],
+                                    out / "jax_cdf")
         refs["vcut"] = _jax_cli_path(VCUT + ["--input", vcut, "--shards",
                                              "1"], out / "jax_vcut")
         g = jio.load_edge_list(karate_path, weighted=False, directed=False)
@@ -327,20 +330,34 @@ def test_resume_broadcasts_the_checkpoint(two_ranks):
         np.testing.assert_array_equal(a, b)
 
 
+def test_cdf_sampler_parts_match_jax_cli(two_ranks):
+    """randomwalk --sampler cdf over the two ranks (the sharded engine's
+    exact-CDF serve): each rank validates and writes its own part, and the
+    two parts in name order are the JAX CLI's single-process /path byte
+    for byte."""
+    results, out, refs = two_ranks
+    for r in range(2):
+        run = results[r]["cdf"]
+        assert run["error"] is None, run
+        assert f"walk invariants: ok (process {r})" in run["stdout"]
+    assert sorted(os.listdir(out / "cdf" / "path")) == ["part-00000",
+                                                       "part-00001"]
+    assert _merged_path(out / "cdf") == refs["cdf"]
+    assert "walks: 68 paths" in results[0]["cdf"]["stdout"]
+
+
 @pytest.mark.parametrize("name,error,match", [
     ("streaming", "ValueError", "--streaming is not supported in multi-host"),
-    ("cdf", "NotPorted", "item 12c"),
     ("model_shards", "ValueError", "model_shards > 1 is single-process")])
 def test_refusals_on_every_rank(two_ranks, name, error, match):
-    """--streaming (as the JAX CLI), the exact-CDF sampler across ranks
-    (ROADMAP item 12c) and model shards across processes (as the JAX
-    trainer) are refused on every rank before the graph is read or an
-    output made."""
+    """--streaming (as the JAX CLI) and model shards across processes (as
+    the JAX trainer) are refused on every rank before the graph is read or
+    an output made."""
     results, out, _ = two_ranks
     for r in range(2):
         got = results[r][name]["error"]
         assert got[0] == error and match in got[1], got
-    assert not any((out / d).exists() for d in ("no1", "no2", "no3"))
+    assert not any((out / d).exists() for d in ("no1", "no3"))
 
 
 def test_lanes_on_four_ranks(karate_path, tmp_path):

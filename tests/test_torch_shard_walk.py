@@ -14,11 +14,15 @@ csrc/shard_walk.cu) on the CPU, where their plain versions run:
     against the single-device corpus's next column, under hash and
     vertex-cut shards (halo prev rows among them) on karate, directed
     karate and tests/data/testgraph.txt (dead ends);
+  * cdf_serve_ref (and the wrapper's two request forms) the same way,
+    against cdf_walk_ref's exact-CDF corpus, padded and chunked, f32 and
+    f64, and its invalid requests;
   * the key table's redesign (a warp a (round, step)) transcribed against
     trial_keys_ref;
   * the constants and entry points ops/shard_walk.py mirrors, against the
     source; a CUDA tensor goes to the kernel or raises.
-Exact throughout: the kernels compute integers and threefry bits."""
+Exact throughout: the kernels compute integers, threefry bits and sums
+in one fixed order."""
 
 import re
 
@@ -214,6 +218,116 @@ def test_serve_ref_steps_the_single_device_corpus(name, route, pq,
         assert bool((corpus == -1).any())
 
 
+# dyadic weights: every biased partial sum exact in f32
+DYADIC = {0: [(1, 0.5), (2, 2.0), (3, 1.0)],
+          1: [(0, 0.5), (2, 0.25), (4, 4.0), (5, 1.5)],
+          2: [(0, 2.0), (1, 0.25), (3, 0.75), (5, 1.0)],
+          3: [(0, 1.0), (2, 0.75), (4, 2.5)],
+          4: [(1, 4.0), (3, 2.5), (5, 0.125)],
+          5: [(1, 1.5), (2, 1.0), (4, 0.125)]}
+
+
+@pytest.mark.parametrize("name", ["karate", "karate_directed", "dyadic"])
+@pytest.mark.parametrize("route", ["hash", "vcut"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("chunk", [0, 4])
+def test_cdf_serve_ref_steps_the_single_device_corpus(
+        name, route, dtype, chunk, karate_path, testgraph_path,
+        monkeypatch):
+    """Every superstep's requests, each served by the shard owning its
+    vertex (prev's row owned or a halo row) over 3 shards, give the next
+    column of cdf_walk_ref's corpus, -1 at dead ends: in the request
+    tensor form, and in the local form (gid = gid_base + i) with only the
+    shard's walkers valid; padded and chunked (CDF_PAD_LIMIT and CDF_CHUNK
+    set small), f32 and f64, at p = 1/16, q = 4."""
+    from stellar_rw_tpu_torch.graph import csr
+    from stellar_rw_tpu_torch.ops import cdf_walk
+
+    if chunk:
+        monkeypatch.setattr(sampling, "CDF_PAD_LIMIT", 1)
+        monkeypatch.setattr(sampling, "CDF_CHUNK", chunk)
+    g = (csr.from_adjacency(DYADIC) if name == "dyadic"
+         else _graph(name, karate_path, testgraph_path))
+    V, R, Lw, S, p, q = g.num_vertices, 2, 5, 3, 0.0625, 4.0
+    r = (None if route == "hash" else
+         np.random.default_rng(2).integers(0, S, V).astype(np.int32))
+    key = prng.prng_key(4)
+    spec = engine.walk_spec(g, Lw, R, p, q, "cdf", 16, dtype, V)
+    assert spec.cdf_chunk == chunk
+    corpus = cdf_walk.cdf_walk_ref(
+        sampling.device_put_graph(g, "cpu", cdf=True),
+        torch.arange(V, dtype=torch.int32), key, 3, R, Lw, p, q,
+        spec.max_degree, spec.cdf_chunk, dtype)
+    plan = partition.plan_shards(g, S, r)
+    tabs = [shard_walk.shard_tables(g, plan, s, "cpu", cdf=True)
+            for s in range(S)]
+    W_pad = V + 2                     # gids of a padded layout
+    rows = torch.arange(R * V)
+    gid = ((rows // V) * W_pad + rows % V).to(torch.int32)
+    owner = torch.as_tensor(plan.route).long()
+    kw = dict(W_pad=W_pad, W_total=R * W_pad, p=p, q=q,
+              cdf_chunk=spec.cdf_chunk, dtype=dtype)
+    halo = 0
+    for t in range(Lw + 1):
+        cur = corpus[:, t] if t else corpus[:, 0]
+        prev = corpus[:, t - 1] if t > 1 else corpus[:, 0]
+        alive = cur >= 0
+        for s, tab in enumerate(tabs):
+            m = alive & (owner[cur.clamp_min(0)] == s)
+            halo += int((m & (owner[prev.clamp_min(0)] != s)).sum())
+            req = torch.stack([cur[m], prev[m], gid[m]], 1).to(torch.int32)
+            got = shard_walk.cdf_serve(tab, req, None, 0, key, 3, t, t == 0,
+                                       **kw)
+            np.testing.assert_array_equal(got.numpy(),
+                                          corpus[m, t + 1].numpy())
+            # the local form: round r's walkers at gid_base r * W_pad
+            for rnd in range(R):
+                sl = slice(rnd * V, (rnd + 1) * V)
+                loc = shard_walk.cdf_serve(
+                    tab, (cur[sl].to(torch.int32), prev[sl].to(torch.int32),
+                          None), m[sl].to(torch.int32), rnd * W_pad, key, 3,
+                    t, t == 0, **kw)
+                want = torch.where(m[sl], corpus[sl, t + 1], -1)
+                np.testing.assert_array_equal(loc.numpy(), want.numpy())
+    if name == "karate":
+        assert halo > 0
+    if name == "karate_directed":
+        assert bool((corpus == -1).any())
+
+
+def test_cdf_serve_invalid_requests(karate_path):
+    """A request with gid -1 (the exchange's fill) or an invalid flag is
+    served -1; the shard's cdf_rows hold its own rows' arcs in vmeta's
+    order."""
+    g = io.load_edge_list(karate_path, weighted=False)
+    plan = partition.plan_shards(g, 2)
+    tab = shard_walk.shard_tables(g, plan, 1, "cpu", cdf=True)
+    vm = tab.g.vmeta
+    rows_owned = plan.rows_per_shard[1]
+    E_s = int((g.offsets[1:] - g.offsets[:-1])[rows_owned].sum())
+    assert tab.g.cdf_rows.shape == (E_s, 2)
+    for i, v in enumerate(rows_owned):
+        s0, d = int(vm[i, 0]), int(vm[i, 1])
+        np.testing.assert_array_equal(
+            tab.g.cdf_rows[s0:s0 + d, 0].numpy(),
+            g.cols[g.offsets[v]:g.offsets[v + 1]])
+    key = prng.prng_key(1)
+    cur = torch.tensor([1, 3, 5], dtype=torch.int32)
+    req = torch.stack([cur, cur, torch.tensor([0, -1, 2],
+                                              dtype=torch.int32)], 1)
+    got = shard_walk.cdf_serve(tab, req, None, 0, key, 0, 0, True, 34, 34,
+                               1.0, 1.0, 0)
+    assert got[1] == -1 and (got[[0, 2]] >= 0).all()
+    valid = torch.tensor([1, 0, 1], dtype=torch.int32)
+    got = shard_walk.cdf_serve(tab, (cur, cur, None), valid, 0, key, 0, 0,
+                               True, 34, 34, 1.0, 1.0, 0)
+    assert got[1] == -1 and (got[[0, 2]] >= 0).all()
+    with pytest.raises(ValueError, match="cdf_rows"):
+        shard_walk.cdf_serve(shard_walk.shard_tables(g, plan, 1, "cpu"),
+                             req, None, 0, key, 0, 0, True, 34, 34, 1.0,
+                             1.0, 0)
+
+
 def test_serve_local_form_and_validity(karate_path):
     """The local form (gid = gid_base + i, a valid flag per walker) serves
     only the flagged walkers; -1 elsewhere and for gid -1 requests."""
@@ -261,8 +375,10 @@ def test_key_table_design_matches_ref(R, L, T):
 
 
 MIRRORED = {"kEmitThreads": "EMIT_THREADS", "kMaxDevices": "MAX_DEVICES",
-            "kServeThreads": "SERVE_THREADS", "kRouteHash": "ROUTE_HASH",
-            "kRoutePacked": "ROUTE_PACKED", "kRouteDense": "ROUTE_DENSE"}
+            "kServeThreads": "SERVE_THREADS",
+            "kCdfServeThreads": "CDF_SERVE_THREADS",
+            "kRouteHash": "ROUTE_HASH", "kRoutePacked": "ROUTE_PACKED",
+            "kRouteDense": "ROUTE_DENSE"}
 
 
 @pytest.mark.parametrize("name", list(MIRRORED))
@@ -273,7 +389,8 @@ def test_constants_mirror_the_source(name):
 
 
 @pytest.mark.parametrize("kernel", [shard_walk.EMIT_KERNEL,
-                                    shard_walk.SERVE_KERNEL])
+                                    shard_walk.SERVE_KERNEL,
+                                    shard_walk.CDF_SERVE_KERNEL])
 def test_entry_points_take_the_bound_arguments(kernel):
     """Each C entry point's parameter count is the argtypes' count."""
     m = re.search(rf'extern "C" int {kernel.symbol}\((.*?)\)\s*\{{', SOURCE,
@@ -290,21 +407,25 @@ def test_wrappers_raise_without_a_build(karate_path, monkeypatch, tmp_path):
 
     monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
-    for k in (shard_walk.EMIT_KERNEL, shard_walk.SERVE_KERNEL):
+    kernels = (shard_walk.EMIT_KERNEL, shard_walk.SERVE_KERNEL,
+               shard_walk.CDF_SERVE_KERNEL)
+    for k in kernels:
         monkeypatch.setattr(k, "_fn", None)
     g = io.load_edge_list(karate_path, weighted=False)
-    tab = shard_walk.shard_tables(g, partition.plan_shards(g, 2), 0, "cpu")
+    tab = shard_walk.shard_tables(g, partition.plan_shards(g, 2), 0, "cpu",
+                                  cdf=True)
     x = torch.zeros(8, dtype=torch.int32, device="meta")
     keys = torch.zeros((1, 2, 4, 2), dtype=torch.int32, device="meta")
-    before = (shard_walk.EMIT_KERNEL.launches,
-              shard_walk.SERVE_KERNEL.launches)
+    before = [k.launches for k in kernels]
     with pytest.raises(_build.KernelBuildError):
         shard_walk.emit(tab, x, x, x, x, x, 1, 2, 0, 4)
     with pytest.raises(_build.KernelBuildError):
         shard_walk.serve(tab, (x, x, None), x, 0, keys, 1, False, 8, 8, 8,
                          1.0, 1.0)
-    assert (shard_walk.EMIT_KERNEL.launches,
-            shard_walk.SERVE_KERNEL.launches) == before
+    with pytest.raises(_build.KernelBuildError):
+        shard_walk.cdf_serve(tab, (x, x, None), x, 0, prng.prng_key(0), 0,
+                             1, False, 8, 8, 1.0, 1.0, 0)
+    assert [k.launches for k in kernels] == before
 
 
 def test_launch_form_edits_apply_once():
