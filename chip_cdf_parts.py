@@ -83,50 +83,59 @@ WEIGH_ONCE = [
      "// vertex's table): no branch around the read, so a warp's reads of"
      " several\n"
      "// entries go out together.\n"),
-    ("  T f;\n"
+    (
+     "  T f;\n"
      "  if (e.x == pv.id) {\n"
      "    f = inv_p;\n"
      "  } else {\n"
      "    const uint32_t h = static_cast<uint32_t>(e.x) * kHashMult;\n"
      "    const int4 b = __ldg(&buckets[pv.bucket_base +\n"
-     "                                  static_cast<int>(h &"
-     " pv.bucket_mask)]);\n"
-     "    f = (b.x == e.x || b.y == e.x || b.z == e.x || b.w == e.x) ? T(1)"
-     " : inv_q;\n"
+     "                                  static_cast<int>(h & pv.bucket_mask)]);\n"
+     "    f = (b.x == e.x || b.y == e.x || b.z == e.x || b.w == e.x) ? T(1) : inv_q;\n"
      "  }\n"
      "  return Ops<T>::mul(w, f);\n"
      "}\n"
      "\n"
-     "// Index of the picked entry in the row [s, s + d), or -1 (the row"
-     " head).\n"
+     "// The chunked form's lane sums joined by the xor butterfly: every lane\n"
+     "// gets the row's total (each level adds the same two values on both\n"
+     "// lanes of a pair).\n"
+     "template <typename T>\n"
+     "__device__ __forceinline__ T butterfly(T acc) {\n"
+     "  for (int off = 16; off; off >>= 1)\n"
+     "    acc = Ops<T>::add(acc, __shfl_xor_sync(kFull, acc, off));\n"
+     "  return acc;\n"
+     "}\n"
+     "\n"
+     "// The Kogge-Stone inclusive scan of one 32-entry piece over the lanes.\n"
+     "template <typename T>\n"
+     "__device__ __forceinline__ T piece_scan(T v, int lane) {\n"
+     "  for (int o = 1; o < 32; o <<= 1) {\n"
+     "    const T y = __shfl_up_sync(kFull, v, o);\n"
+     "    if (lane >= o) v = Ops<T>::add(v, y);\n"
+     "  }\n"
+     "  return v;\n"
+     "}\n"
+     "\n"
+     "// Index of the picked entry in the row [s, s + d), or -1 (the row head).\n"
      "template <typename T, bool kChunked, bool kSecond>\n"
      "__device__ int pick(const int2* __restrict__ rows, int s, int d, T u,\n"
-     "                    const Prev& pv, const int4* __restrict__ buckets,"
-     " T inv_p,\n"
+     "                    const Prev& pv, const int4* __restrict__ buckets, T inv_p,\n"
      "                    T inv_q, int lane) {\n"
      "  using O = Ops<T>;\n"
      "  const int2* row = rows + s;\n"
      "  if (kChunked) {\n"
      "    T acc = T(0);\n"
      "    for (int i = lane; i < d; i += 32)\n"
-     "      acc = O::add(acc, weigh<T, kSecond>(row[i], pv, buckets, inv_p,"
-     " inv_q));\n"
-     "    for (int off = 16; off; off >>= 1)\n"
-     "      acc = O::add(acc, __shfl_xor_sync(kFull, acc, off));\n"
-     "    const T thresh = O::mul(u, acc);\n"
+     "      acc = O::add(acc, weigh<T, kSecond>(row[i], pv, buckets, inv_p, inv_q));\n"
+     "    const T thresh = O::mul(u, butterfly(acc));\n"
      "    T cum = T(0);\n"
      "    for (int base = 0; base < d; base += 32) {\n"
      "      const int i = base + lane;\n"
-     "      T v =\n"
-     "          i < d ? weigh<T, kSecond>(row[i], pv, buckets, inv_p,"
-     " inv_q) : T(0);\n"
-     "      for (int o = 1; o < 32; o <<= 1) {\n"
-     "        const T y = __shfl_up_sync(kFull, v, o);\n"
-     "        if (lane >= o) v = O::add(v, y);\n"
-     "      }\n"
+     "      const T v = piece_scan(\n"
+     "          i < d ? weigh<T, kSecond>(row[i], pv, buckets, inv_p, inv_q) : T(0),\n"
+     "          lane);\n"
      "      const T c = O::add(cum, v);\n"
-     "      const unsigned hit = __ballot_sync(kFull, i < d && c >="
-     " thresh);\n"
+     "      const unsigned hit = __ballot_sync(kFull, i < d && c >= thresh);\n"
      "      if (hit) return base + __ffs(hit) - 1;\n"
      "      cum = __shfl_sync(kFull, c, 31);\n"
      "    }\n"
@@ -163,7 +172,17 @@ WEIGH_ONCE = [
      "  return -1;\n"
      "}\n"
      "\n"
-     "// Inclusive Kogge-Stone scan of a 32-entry piece over the lanes.\n"
+     "// The chunked form's lane sums joined by the xor butterfly: every lane\n"
+     "// gets the row's total (each level adds the same two values on both\n"
+     "// lanes of a pair).\n"
+     "template <typename T>\n"
+     "__device__ __forceinline__ T butterfly(T acc) {\n"
+     "  for (int off = 16; off; off >>= 1)\n"
+     "    acc = Ops<T>::add(acc, __shfl_xor_sync(kFull, acc, off));\n"
+     "  return acc;\n"
+     "}\n"
+     "\n"
+     "// The Kogge-Stone inclusive scan of one 32-entry piece over the lanes.\n"
      "template <typename T>\n"
      "__device__ __forceinline__ T piece_scan(T v, int lane) {\n"
      "  for (int o = 1; o < 32; o <<= 1) {\n"
@@ -388,15 +407,17 @@ VARIANTS = {
          "b.z == e.x || b.w == e.x) ? T(1) : inv_q;\n")],
     "the next piece's entries read a turn ahead in the find pass": [
         ("    T cum = T(0);\n    for (int base = 0; base < d; "
-         "base += 32) {\n      const int i = base + lane;\n      T v =\n"
-         "          i < d ? weigh<T, kSecond>(row[i], pv, buckets, inv_p, "
-         "inv_q) : T(0);\n",
+         "base += 32) {\n      const int i = base + lane;\n"
+         "      const T v = piece_scan(\n          i < d ? weigh<T, "
+         "kSecond>(row[i], pv, buckets, inv_p, inv_q) : T(0),\n"
+         "          lane);\n",
          "    T cum = T(0);\n    int2 e = lane < d ? row[lane] : "
          "make_int2(0, 0);\n    for (int base = 0; base < d; "
          "base += 32) {\n      const int i = base + lane;\n"
          "      const int2 next = i + 32 < d ? row[i + 32] : "
-         "make_int2(0, 0);\n      T v = i < d ? weigh<T, kSecond>(e, pv, "
-         "buckets, inv_p, inv_q) : T(0);\n      e = next;\n")],
+         "make_int2(0, 0);\n      const T v = piece_scan(\n"
+         "          i < d ? weigh<T, kSecond>(e, pv, buckets, inv_p, inv_q) "
+         ": T(0),\n          lane);\n      e = next;\n")],
     NO_FIND: [
         ("      cum = __shfl_sync(kFull, c, 31);\n    }\n    return -1;",
          "      cum = __shfl_sync(kFull, c, 31);\n      break;\n    }\n"

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time two checkouts' kernels of the PyTorch/CUDA port on one GPU, in turns.
 
-    python3 chip_compare.py OTHER_CHECKOUT
+    python3 chip_compare.py OTHER_CHECKOUT [--only cdf]
 
 OTHER_CHECKOUT is the root of another checkout of this repository under this
 checkout's build/ (say the parent commit, unpacked by `git archive` into
@@ -46,6 +46,12 @@ events around launches queued behind a long product):
   * the exact-CDF walk kernel on phase 10's corpus (the walk_10k graph,
     10 rounds, L = 80, p = 1/16, q = 4, chunked): other, this, this,
     other, after checking the two corpora equal;
+  * the CDF serve (compare_cdf_serve) at chip_smoke phase 25 (a)'s
+    superstep of that corpus, hash and vertex cut: rank 0's local walkers
+    and the whole received buffer as each checkout's walk serves them, and
+    star50k's hub row at one request and at 2,048, after checking the two
+    checkouts' steps equal: other, this, this, other, twice. With --only
+    cdf, these two (the CDF serve, then K7) and nothing else;
   * the trainer's per-block draws as each checkout's epoch makes them, on
     the main path's chunks (the conv trainer's 1,524 blocks of kB 128, the
     exact trainer's 15 blocks of 5 negatives a pair): other, this, this,
@@ -301,6 +307,118 @@ def compare_shard_serve(torch, this, other, walker, graph, R, L, p, q,
                       "ms_in_turns": runs, "card": smi}))
 
 
+def compare_cdf_walk(torch, this, other, graph, order, smi) -> None:
+    """The exact-CDF walk kernel (K7) at phase 10's corpus (the walk_10k
+    graph, 10 rounds, L = 80, p = 1/16, q = 4, chunked) against the other
+    checkout's, after checking the two corpora equal."""
+    V, R, L, p, q = graph.num_vertices, 10, 80, 0.0625, 4.0
+    fns = {}
+    for name, pkg in (("other", other), ("this", this)):
+        sampling, engine = pkg("ops.sampling"), pkg("walk.engine")
+        dg = sampling.device_put_graph(graph, "cuda", cdf=True)
+        spec = engine.walk_spec(graph, L, R, p, q, "cdf", 16, "float32", V)
+        starts = torch.arange(V, dtype=torch.int32, device="cuda")
+        key = pkg("ops.prng").prng_key(0)
+        fns[name] = (lambda cw=pkg("ops.cdf_walk"), dg=dg, spec=spec,
+                     starts=starts, key=key: cw.cdf_walk_rounds(
+                         dg, starts, key, 0, R, L, p, q, spec.max_degree,
+                         spec.cdf_chunk))
+    check(torch.equal(fns["this"](), fns["other"]()),
+          "the two checkouts' exact-CDF corpora differ")
+    runs = [(name, cuda_ms(fns[name], 3)) for name in order]
+    print(json.dumps({"kernel": "cdf_walk", "walkers": R * V,
+                      "walk_length": L, "p": p, "q": q,
+                      "ms_in_turns": runs, "card": smi}))
+
+
+def compare_cdf_serve(torch, this, other, smi) -> None:
+    """The CDF serve at chip_smoke phase 25 (a)'s superstep (phase 10's
+    corpus, superstep SHARD_STEP, hash and vertex cut over 2 shards): rank
+    0's local walkers, and the whole received buffer (rank 0's send buffer,
+    served on shard 1) as each checkout's walk serves it; then star50k's
+    hub row at one request and at 2,048;
+    each checkout on its own shard tables, the steps bit for bit: other,
+    this, this, other, twice."""
+    from chip_smoke import SHARD_STEP, shard_home, shard_superstep, star_graph
+
+    graph = synth_power_law_graph(10_000, 334_000, seed=0)
+    V, R, L, p, q = graph.num_vertices, 10, 80, 0.0625, 4.0
+    engine = this("walk.engine")
+    spec = engine.walk_spec(graph, L, R, p, q, "cdf", 16, "float32", V)
+    corpus = engine.random_walks(graph, walk_length=L, num_walks=R, p=p,
+                                 q=q, seed=0, as_numpy=False, device="cuda")
+    t = SHARD_STEP
+    order = ("other", "this", "this", "other") * 2
+
+    def serves(graph, route, cdf_kw):
+        """Each checkout's (shard tables, cdf_serve)."""
+        out = {}
+        for name, pkg in (("other", other), ("this", this)):
+            sw = pkg("ops.shard_walk")
+            plan = pkg("graph.partition").plan_shards(graph, 2, route)
+            tabs = [sw.shard_tables(graph, plan, s, "cuda", cdf=True)
+                    for s in range(2)]
+
+            counters = "work" in inspect.signature(sw.cdf_serve).parameters
+
+            def serve(tab, req, valid, segments=0, sw=sw,
+                      counters=counters):
+                # as each checkout's walk serves it: this one counts a
+                # received buffer over its buckets' prefixes
+                extra = ({"work": torch.zeros(2, dtype=torch.int32,
+                                              device="cuda"),
+                          "segments": segments} if counters else {})
+                return lambda: sw.cdf_serve(tab, req, valid, 0, key, 0, t,
+                                            False, **cdf_kw, **extra)
+            out[name] = (tabs, serve)
+        return out
+
+    key = this("ops.prng").prng_key(0)
+    for layout in ("hash", "vcut"):
+        tabs, cur, prev, alive, rows, S, Ln, C, W_pad = shard_superstep(
+            torch, graph, layout, corpus, cdf=True)
+        n = cur.shape[0]
+        lk = torch.zeros(n, dtype=torch.int32, device="cuda")
+        send, _, _ = this("ops.shard_walk").emit(
+            tabs[0], cur, prev, torch.zeros_like(lk), alive, lk, Ln, S * Ln,
+            0, C)
+        recv = send.reshape(-1, 3).clone()
+        route = shard_home(graph) % S if layout == "vcut" else None
+        kw = dict(W_pad=W_pad, W_total=R * W_pad, p=p, q=q,
+                  cdf_chunk=spec.cdf_chunk, dtype="float32")
+        each = serves(graph, route, kw)
+        for what, make in (
+                ("local walkers", lambda tabs, serve: serve(
+                    tabs[0], (cur, prev, None), lk)),
+                ("received buffer", lambda tabs, serve: serve(
+                    tabs[1], recv, None, S * Ln))):
+            fns = {name: make(*each[name]) for name in each}
+            check(torch.equal(fns["this"](), fns["other"]()),
+                  f"the two checkouts' CDF serves differ ({layout}, {what})")
+            runs = [(name, cuda_ms(fns[name], 10)) for name in order]
+            print(json.dumps({"kernel": "shard_cdf_serve", "layout": layout,
+                              "requests": what, "slots": n if what[0] == "l"
+                              else recv.shape[0],
+                              "ms_in_turns": runs, "card": smi}))
+    star = star_graph(50_000)
+    Vs = star.num_vertices
+    each = serves(star, None, dict(W_pad=Vs, W_total=Vs, p=p, q=q,
+                                   cdf_chunk=this("ops.sampling").CDF_CHUNK,
+                                   dtype="float32"))
+    leaves = torch.arange(1, 2049, dtype=torch.int32, device="cuda")
+    many = torch.stack([torch.zeros_like(leaves), leaves, leaves], 1)
+    for k in (1, 2048):
+        req = many[:k].contiguous()
+        fns = {name: serve(tabs[0], req, None)
+               for name, (tabs, serve) in each.items()}
+        check(torch.equal(fns["this"](), fns["other"]()),
+              f"the two checkouts' CDF serves differ (star50k, {k})")
+        runs = [(name, cuda_ms(fns[name], 10)) for name in order]
+        print(json.dumps({"kernel": "shard_cdf_serve",
+                          "requests": f"star50k's hub, {k}",
+                          "ms_in_turns": runs, "card": smi}))
+
+
 def wall_ms(torch, fn, iters: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -315,7 +433,8 @@ def main(argv: list[str]) -> int:
     import numpy as np
     import torch
 
-    if len(argv) != 1 or not os.path.isdir(argv[0]):
+    only = argv[1:] == ["--only", "cdf"]
+    if len(argv) != (3 if only else 1) or not os.path.isdir(argv[0]):
         print(__doc__, file=sys.stderr)
         return 2
     root = os.path.dirname(os.path.realpath(__file__))
@@ -335,6 +454,12 @@ def main(argv: list[str]) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     this = load_package(root, "srw_this")
     other = load_package(other_root, "srw_other")
+    if only:
+        compare_cdf_serve(torch, this, other, smi)
+        compare_cdf_walk(torch, this, other,
+                         synth_power_law_graph(10_000, 334_000, seed=0),
+                         ("other", "this", "this", "other"), smi)
+        return 0
 
     # sgns_shared_grads at the main shape and at each D of the split form
     order = ("plain", "other", "this", "this", "other", "plain")
@@ -535,25 +660,8 @@ def main(argv: list[str]) -> int:
                           "block": [B, T, win, kB, D],
                           "ms_each_launch_in_turns": runs, "card": smi}))
 
-    # the exact-CDF walk kernel at phase 10's corpus
-    V, R, L, p, q = graph.num_vertices, 10, 80, 0.0625, 4.0
-    fns = {}
-    for name, pkg in (("other", other), ("this", this)):
-        sampling, engine = pkg("ops.sampling"), pkg("walk.engine")
-        dg = sampling.device_put_graph(graph, "cuda", cdf=True)
-        spec = engine.walk_spec(graph, L, R, p, q, "cdf", 16, "float32", V)
-        starts = torch.arange(V, dtype=torch.int32, device="cuda")
-        key = pkg("ops.prng").prng_key(0)
-        fns[name] = (lambda cw=pkg("ops.cdf_walk"), dg=dg, spec=spec,
-                     starts=starts, key=key: cw.cdf_walk_rounds(
-                         dg, starts, key, 0, R, L, p, q, spec.max_degree,
-                         spec.cdf_chunk))
-    check(torch.equal(fns["this"](), fns["other"]()),
-          "the two checkouts' exact-CDF corpora differ")
-    runs = [(name, cuda_ms(fns[name], 3)) for name in order]
-    print(json.dumps({"kernel": "cdf_walk", "walkers": R * V,
-                      "walk_length": L, "p": p, "q": q,
-                      "ms_in_turns": runs, "card": smi}))
+    compare_cdf_walk(torch, this, other, graph, order, smi)
+    compare_cdf_serve(torch, this, other, smi)
 
     # the trainer's draws, as each checkout's _train_epoch makes them
     from chip_smoke import draw_tables

@@ -1502,8 +1502,9 @@ def phase_exact_main(torch, smi, tmp, edges) -> dict:
     cfg = w2v.SGNSConfig(dim=32, window=5, negatives=5, lr=0.2, iters=20,
                          seed=1)
     kw_in, _ = w2v.train_skipgram(walks, g.num_vertices, cfg, device="cuda")
+    # the reference fixture's gate (tests/test_word2vec.py)
     auc, acc = karate_gate(kw_in, g)
-    check(auc > 0.7 and acc >= 0.85,
+    check(auc > 0.75 and acc >= 0.90,
           f"karate gate with exact negatives: auc {auc} acc {acc}")
     # --dim 768 through the CLI (wider than one register slice of the
     # kernel), exact negatives, and its karate gate
@@ -1525,7 +1526,7 @@ def phase_exact_main(torch, smi, tmp, edges) -> dict:
           f"operations a block (one sgns_exact_step launch a block, no "
           f"memset, no apply kernel; one draws launch a chunk); karate gate "
           f"with exact negatives on the card: AUC "
-          f"{auc:.4f} (> 0.7), faction accuracy {acc:.4f} (>= 0.85); --dim "
+          f"{auc:.4f} (> 0.75), faction accuracy {acc:.4f} (>= 0.90); --dim "
           f"768 through the CLI: AUC {auc768:.4f}, faction accuracy "
           f"{acc768:.4f} [{smi}]")
     return {**trainer, "train_seconds": report["train_seconds"],
@@ -3779,7 +3780,8 @@ class plain_shard_walk:
                 return sw.serve_ref(tab, *fields(req, valid, gid_base),
                                     keys, t, first, **kw)
 
-            def cdf_serve(tab, req, valid, gid_base, *a, **kw):
+            def cdf_serve(tab, req, valid, gid_base, *a, work=None,
+                          segments=0, **kw):
                 return sw.cdf_serve_ref(tab, *fields(req, valid, gid_base),
                                         *a, **kw)
             sw.emit, sw.serve, sw.cdf_serve = emit, serve, cdf_serve
@@ -4576,13 +4578,18 @@ def phase_cdf_shard_check(torch, smi, edges) -> dict:
     at p = 1/16, q = 4, the chunked form, f32), under the hash route and a
     vertex-cut route over 2 shards: rank 0's local walkers and the requests
     it sends the other shard, each served column the corpus's next one;
-    then on phase 9's edge graphs in f32 and f64, padded and chunked, every
-    step of a short corpus (t = 0 first order) on 2 shards, every shard's
-    requests in the request form with a fill request (gid -1) and in the
-    local form with the other shard's walkers invalid (star50k's hub row
-    of 50,000 entries among the requests). Each timed between CUDA events
-    beside its bound and the plain version's ms. Returns the kernel's
-    row."""
+    the whole received buffer (D buckets of requests and fills, counted
+    over each bucket's filled prefix), and one
+    superstep's two serves under torch.cuda.set_sync_debug_mode("error");
+    then on phase 9's edge graphs
+    in f32 and f64, padded and chunked, every step of a short corpus (t =
+    0 first order) on 2 shards, every shard's requests in the request form
+    with a fill request (gid -1) and in the local form with the other
+    shard's walkers invalid (star50k's hub row of 50,000 entries among the
+    requests); then star50k's hub row at one request, at 17 and at 2,048
+    (prev a leaf), f32 and f64. Each timed between CUDA events beside its
+    bound and the plain version's ms, with the requests that read the
+    bitmap. Returns the kernel's row."""
     from stellar_rw_tpu_torch.graph import io as gio
     from stellar_rw_tpu_torch.graph.partition import plan_shards
     from stellar_rw_tpu_torch.ops import cdf_walk, prng, sampling, shard_walk
@@ -4621,14 +4628,17 @@ def phase_cdf_shard_check(torch, smi, edges) -> dict:
                                      L, S * L, 0, C)
         send = send.clone()
         nxt = corpus[rows, t + 1]
+        work = torch.zeros(2, dtype=torch.int32, device="cuda")
         local = lambda: shard_walk.cdf_serve(tabs[0], (cur, prev, None), lk,
-                                             0, key, 0, t, False, **kw)
+                                             0, key, 0, t, False, work=work,
+                                             **kw)
         got = local()
         want, plain_ms = cuda_ms_once(lambda: shard_walk.cdf_serve_ref(
             tabs[0], cur, prev, torch_arange_like(cur), lk != 0, key, 0, t,
             False, **kw))
         held(got, want, f"phase 10's superstep {t}, {layout}, local")
         lm = lk != 0
+        split = cdf_split(tabs[0], cur[lm], prev[lm], spec.cdf_chunk)
         check(torch.equal(got[lm], nxt[lm]), f"shard_cdf_serve's local "
               f"steps differ from phase 10's corpus ({layout})")
         ms = cuda_ms(local, 10)
@@ -4637,7 +4647,7 @@ def phase_cdf_shard_check(torch, smi, edges) -> dict:
         b = cdf_serve_bound(tabs[0], n, served, scanned)
         req = send[1].reshape(C, 3)
         remote = lambda: shard_walk.cdf_serve(tabs[1], req, None, 0, key, 0,
-                                              t, False, **kw)
+                                              t, False, work=work, **kw)
         rk = remote()
         rr, r_plain_ms = cuda_ms_once(lambda: shard_walk.cdf_serve_ref(
             tabs[1], req[:, 0], req[:, 1], req[:, 2], None, key, 0, t, False,
@@ -4650,22 +4660,51 @@ def phase_cdf_shard_check(torch, smi, edges) -> dict:
         r_scanned = int(deg[req[ok, 0].long()].sum())
         rb = cdf_serve_bound(tabs[1], C, int(ok.sum()), r_scanned)
         r_ms = cuda_ms(remote, 10)
-        cases += 2
+        # the whole received buffer, as the exchange hands it over: D
+        # buckets, each its requests then fills (here rank 0's own buffer:
+        # its bucket for itself holds fills only)
+        recv = send.reshape(-1, 3)
+        whole = lambda: shard_walk.cdf_serve(tabs[1], recv, None, 0, key, 0,
+                                             t, False, work=work,
+                                             segments=S * L, **kw)
+        held(whole(), shard_walk.cdf_serve_ref(
+            tabs[1], recv[:, 0], recv[:, 1], recv[:, 2], None, key, 0, t,
+            False, **kw), f"phase 10's superstep {t}, {layout}, the "
+            f"received buffer")
+        w_ms = cuda_ms(whole, 10)
+        # one superstep's two serves may not wait on the host
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            local()
+            whole()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        cases += 3
         layouts[layout] = {
             "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None,
             "walkers": n, "served": served, "entries_scanned": scanned,
+            **split,
             "remote": {"requests": int(ok.sum()), "ms": r_ms,
                        "plain_ms": r_plain_ms, "bound_ms": rb["bound_ms"],
                        "bound_by": rb["bound_by"],
-                       "entries_scanned": r_scanned}}
+                       "entries_scanned": r_scanned,
+                       "received_buffer_ms": w_ms, "slots": recv.shape[0]}}
         print(f"phase 25 (a) {layout}: shard_cdf_serve bitwise "
               f"cdf_serve_ref and phase 10's column {t + 1} on rank 0's "
-              f"{served} local walkers of {n} ({scanned:,} row entries): "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.1f}, bound "
-              f"{b['bound_ms']:.5f} by {b['bound_by']}; on the "
+              f"{served} local walkers of {n} ({scanned:,} row entries; "
+              f"{split['bitmap_requests']} by the bitmap, "
+              f"{split['bitmap_entries']:,} entries): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.1f}, bound {b['bound_ms']:.5f} by "
+              f"{b['bound_by']} ({ms / b['bound_ms']:.1f}x); on the "
               f"{int(ok.sum())} requests sent the other shard "
               f"({r_scanned:,} entries): kernel {r_ms:.4f} ms, plain "
-              f"{r_plain_ms:.1f}, bound {rb['bound_ms']:.5f} [{smi}]")
+              f"{r_plain_ms:.1f}, bound {rb['bound_ms']:.5f} "
+              f"({r_ms / rb['bound_ms']:.1f}x); the whole received buffer "
+              f"({recv.shape[0]} slots, {S * L} buckets) {w_ms:.4f} ms; one "
+              f"superstep's serves under sync debug mode \"error\": no host "
+              f"sync [{smi}]")
     # phase 9's edge graphs
     pqs = [(0.25, 4.0), (4.0, 0.25), (1.0, 1.0), (0.0625, 4.0), (0.5, 2.0)]
     rng = np.random.default_rng(5)
@@ -4743,6 +4782,8 @@ def phase_cdf_shard_check(torch, smi, edges) -> dict:
                     "route": "hash" if route is None else "vcut",
                     "requests": req.shape[0] - 1, "entries_scanned": scanned,
                     "ms": ms, "bound_ms": b["bound_ms"]})
+    hub = cdf_star_hub(torch, key, held)
+    cases += hub.pop("cases")
     print(f"phase 25 (a) edge graphs: shard_cdf_serve bitwise cdf_serve_ref "
           f"and the single-device corpus's next column in {cases} cases "
           f"({list(edge_ms)}; f32 and f64, padded and chunked, hash and "
@@ -4754,9 +4795,61 @@ def phase_cdf_shard_check(torch, smi, edges) -> dict:
               f"{c['dtype'][-2:]} {'chunked' if c['chunk'] else 'padded'} "
               f"{c['ms']:.4f} / {c['bound_ms']:.5f}" for c in cs)
               for n, cs in edge_ms.items()) + f" [{smi}]")
+    print(f"phase 25 (a) star50k's hub row (50,000 entries, chunked; ms "
+          f"f32 / f64): " + "; ".join(
+              f"{k} requests {v['float32']:.4f} / {v['float64']:.4f}"
+              for k, v in hub.items()) + f", bitwise cdf_serve_ref [{smi}]")
     return {"max_abs_err": 0, **layouts["hash"], "layouts": layouts,
-            "edge_cases": cases, "edge_graphs": edge_ms,
+            "edge_cases": cases, "edge_graphs": edge_ms, "star_hub": hub,
             "library": "none: a data-dependent scan a request"}
+
+
+def cdf_split(tab, cur, prev, cdf_chunk: int) -> dict:
+    """The CDF serve's second-order requests at (cur, prev) on shard tab
+    that read prev's neighbors from the bitmap (shard_walk.bitmap_words: V
+    fits; a row of BITMAP_MIN_ENTRIES entries or more; prev with no more
+    bucket rows than cur has entries), and the row entries they scan."""
+    from stellar_rw_tpu_torch.ops import shard_walk
+
+    cur_row, prev_row = shard_walk._rows(tab, cur, prev)
+    d = tab.g.vmeta[cur_row.long(), 1]
+    nb = tab.g.vmeta[prev_row.long(), 3] + 1
+    on = ((d >= shard_walk.BITMAP_MIN_ENTRIES) & (nb <= d)
+          & (shard_walk.bitmap_words(tab.V, cdf_chunk) > 0))
+    return {"bitmap_requests": int(on.sum()),
+            "bitmap_entries": int(d[on].sum())}
+
+
+def cdf_star_hub(torch, key, held) -> dict:
+    """star50k's hub row (50,000 entries) served at one request, at 17 and
+    at 2,048 second-order requests (prev a leaf), against cdf_serve_ref bit
+    for bit, f32 and f64, each timed."""
+    from stellar_rw_tpu_torch.graph.partition import plan_shards
+    from stellar_rw_tpu_torch.ops import shard_walk
+
+    star = star_graph(50_000)
+    tabs = [shard_walk.shard_tables(star, plan_shards(star, 2), s, "cuda",
+                                    cdf=True) for s in range(2)]
+    leaves = torch.arange(1, 2049, dtype=torch.int32, device="cuda")
+    many = torch.stack([torch.zeros_like(leaves), leaves, leaves], 1)
+    V = star.num_vertices
+    out, cases = {}, 0
+    for k in (1, 17, 2048):
+        req = many[:k].contiguous()
+        out[k] = {}
+        for dtype in ("float32", "float64"):
+            kw = dict(W_pad=V, W_total=V, p=0.0625, q=4.0,
+                      cdf_chunk=shard_walk.sampling.CDF_CHUNK, dtype=dtype)
+            work = torch.zeros(2, dtype=torch.int32, device="cuda")
+            fn = lambda: shard_walk.cdf_serve(tabs[0], req, None, 0, key, 0,
+                                              1, False, work=work, **kw)
+            held(fn(), shard_walk.cdf_serve_ref(
+                tabs[0], req[:, 0], req[:, 1], req[:, 2], None, key, 0, 1,
+                False, **kw), f"star50k's hub, {k} requests, {dtype}")
+            out[k][dtype] = cuda_ms(fn, 5)
+            cases += 1
+    out["cases"] = cases
+    return out
 
 
 def phase_cdf_shard_ranks(torch, smi, tmp, main_run) -> dict:

@@ -60,14 +60,32 @@
 // Launched as a programmatic dependent: it waits for the grid before it
 // (the key table, or the emit) before its first access.
 //
-// shard_cdf_serve. What bounds it: the row entries scanned (deg(cur) a
-// request, each read in the total pass and again in the find pass up to
-// the crossing, with a 16-byte bucket row for a second-order weight), as
-// K7. One warp a request, as K7 is one warp a walker: a hub's row of tens
-// of thousands of entries goes by deg/32 turns of coalesced reads. It
-// reads no key table (its one draw a step is made from the seed key), so
-// it is an ordinary launch. Bit for bit its plain version on any input:
-// the sums run in K7's order, each operation rounded on its own.
+// shard_cdf_serve. What bounds it: the row entries weighed (deg(cur) a
+// request, each in the total pass and again in the find pass up to the
+// crossing, with a 16-byte bucket row of prev for a second-order weight),
+// as K7. At a superstep those entries are almost all a few heavy rows'
+// (a walker stands on a vertex in proportion to its degree, so the
+// entries go as the sum of deg^2): at walk_10k's, one hub row takes 6,797
+// requests of 27,877 and 2.67e8 of the 2.82e8 entries, and their prevs
+// are hubs too, whose bucket rows miss L1: the bucket reads are a third of
+// the time. A warp a request, as K7 is one warp a walker: a hub's row of
+// tens of thousands of entries goes by deg/32 turns of coalesced reads. A
+// second-order step of the chunked form at a row of at least
+// kBitmapMinEntries entries reads prev's neighbor set from the warp's
+// bitmap of the vertices in shared memory instead (cdf_pick.cuh's
+// pick_bits, where V fits kBitmapWords words and prev has no more bucket
+// rows than cur has entries): a bit an entry where the bucket read was a
+// 16-byte row. It reads no key table (its one draw a step is made from the
+// seed key), so it is an ordinary launch, of persistent warps that take
+// the requests from a counter: a warp that drew a hub's row holds no other
+// warp's block slot (a block leaves the SM only with its slowest warp, so
+// a block of warps a request each would); a received buffer is counted
+// over each bucket's filled prefix alone. Bit for bit its plain version
+// on any input: the sums run in K7's order, each operation rounded on its
+// own. Three forms that compacted the requests on the card, or staged a
+// heavy row in shared memory for a group of its requests, measured slower
+// and stay outside the package (chip_cdf_serve_tile.cu,
+// chip_cdf_serve_staged.cu, chip_cdf_serve_compact.cu).
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -85,7 +103,9 @@ constexpr int kEmitThreads = 512;                 // walkers a tile
 constexpr int kEmitWarps = kEmitThreads / 32;
 constexpr int kMaxDevices = 256;                  // D the emit takes
 constexpr int kServeThreads = 128;
-constexpr int kCdfServeThreads = 256;        // 8 requests a block
+constexpr int kCdfServeThreads = 256;        // 8 warps a block
+constexpr int kBitmapWords = 2048;    // a warp's bitmap: V <= 65,536
+constexpr int kBitmapMinEntries = 1024;   // rows that read the bitmap
 
 // route modes: hash (v % S), packed VCut (shard | row << rbits), dense
 // route (shard only; rows through glob2loc)
@@ -360,23 +380,26 @@ struct CdfServe {
   const int4* vmeta;
   const int2* rows;    // cdf_rows: (col, weight bits) in vmeta's arc order
   const int4* buckets;
+  int words;           // a warp's bitmap of the vertices (0: none)
+  int segments;        // > 0: m / segments requests a bucket, prefix filled
+  int* next;           // [2] the next request, the warps out: 0 between
   uint32_t k0, k1, round_offset;
   int t, first, W_pad, W_total;
 };
 
-// One warp a request: its rows, its u (element w of uniform(fold_in(
-// fold_in(seed_key, round_offset + r), t), (n_stream,)) in T, r = gid /
-// W_pad, w = gid % W_pad, the step key made here as cdf_walk_kernel makes
-// it), then cdf_pick.cuh's pick over cur's row; a second-order step weighs
-// by prev's neighbor set on this shard (an owned or a halo bucket row).
-// Every branch is the warp's own, so the lanes of a warp stay together.
+// One request by the calling warp: its rows, its u (element w of
+// uniform(fold_in(fold_in(seed_key, round_offset + r), t), (n_stream,)) in
+// T, r = gid / W_pad, w = gid % W_pad, the step key made here as
+// cdf_walk_kernel makes it), then cdf_pick.cuh's pick over cur's row; a
+// second-order step weighs by prev's neighbor set on this shard (an owned
+// or a halo bucket row), read from the warp's bitmap bm (`words`, set from
+// prev's bucket rows) at a chunked row of kBitmapMinEntries entries or
+// more. Every branch is the warp's own, so the lanes of a warp stay
+// together.
 template <typename T, bool kChunked>
-__global__ void __launch_bounds__(kCdfServeThreads)
-shard_cdf_serve_kernel(const CdfServe a, T inv_p, T inv_q) {
-  const int i = static_cast<int>(
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (i >= a.m) return;  // a whole warp leaves together
+__device__ __forceinline__ void cdf_serve_one(const CdfServe& a, int i,
+                                              int lane, unsigned* bm, T inv_p,
+                                              T inv_q) {
   const size_t at = (size_t)i * a.stride;
   const int g = a.gid != nullptr ? a.gid[at] : a.gid_base + i;
   int out = -1;
@@ -401,8 +424,17 @@ shard_cdf_serve_kernel(const CdfServe a, T inv_p, T inv_q) {
       } else {
         const int4 pm = a.vmeta[rw.y];
         const Prev pv{fprev, pm.z, pm.w};
-        j = pick<T, kChunked, true>(a.rows, cm.x, cm.y, u, pv, a.buckets,
-                                    inv_p, inv_q, lane);
+        if (kChunked && a.words > 0 && cm.y >= kBitmapMinEntries &&
+            pv.bucket_mask < cm.y) {
+          for (int k = lane; k < a.words; k += 32) bm[k] = 0u;
+          __syncwarp();
+          mark_neighbors(pv, a.buckets, bm, lane);
+          j = pick_bits<T>(a.rows, cm.x, cm.y, u, fprev, bm, inv_p, inv_q,
+                           lane);
+        } else {
+          j = pick<T, kChunked, true>(a.rows, cm.x, cm.y, u, pv, a.buckets,
+                                      inv_p, inv_q, lane);
+        }
       }
       out = a.rows[cm.x + max(j, 0)].x;
     }
@@ -410,14 +442,104 @@ shard_cdf_serve_kernel(const CdfServe a, T inv_p, T inv_q) {
   if (lane == 0) a.dst[i] = out;
 }
 
+// Persistent warps, as many as the card holds at once (at most one a
+// request): each takes the next request from the counter next[0] until
+// none is left, so a warp that drew a hub's row holds no other warp's
+// block slot. A received buffer (segments buckets, each its requests and
+// then fills of gid -1) is counted over its requests only: each bucket's
+// filled prefix is found by a binary search, the fills written -1 by a
+// pass of their own. The last warp out sets the counters back to 0
+// (next[1] counts the warps out).
+template <typename T, bool kChunked>
+__global__ void __launch_bounds__(kCdfServeThreads)
+shard_cdf_serve_kernel(const CdfServe a, T inv_p, T inv_q) {
+  extern __shared__ unsigned bits[];
+  __shared__ int seg_start[kMaxDevices + 1];
+  const int lane = threadIdx.x & 31;
+  unsigned* bm = bits + (threadIdx.x >> 5) * a.words;
+  int n = a.m;
+  const int len = a.segments > 0 ? a.m / a.segments : 0;
+  if (a.segments > 0) {
+    for (int b = threadIdx.x; b < a.segments; b += kCdfServeThreads) {
+      int lo = 0, hi = len;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (a.gid[(size_t)(b * len + mid) * a.stride] >= 0)
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      seg_start[b + 1] = lo;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      seg_start[0] = 0;
+      for (int b = 0; b < a.segments; ++b) seg_start[b + 1] += seg_start[b];
+    }
+    __syncthreads();
+    n = seg_start[a.segments];
+    for (int i = blockIdx.x * kCdfServeThreads + threadIdx.x; i < a.m;
+         i += gridDim.x * kCdfServeThreads) {
+      const int b = i / len;
+      if (i - b * len >= seg_start[b + 1] - seg_start[b]) a.dst[i] = -1;
+    }
+  }
+  for (;;) {
+    int k = 0;
+    if (lane == 0) k = atomicAdd(a.next, 1);
+    k = __shfl_sync(kFull, k, 0);
+    if (k >= n) break;
+    int i = k;
+    if (len > 0) {   // the k-th request: its bucket, the last starting <= k
+      int lo = 0, hi = a.segments;
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (seg_start[mid] <= k)
+          lo = mid;
+        else
+          hi = mid;
+      }
+      i = lo * len + (k - seg_start[lo]);
+    }
+    cdf_serve_one<T, kChunked>(a, i, lane, bm, inv_p, inv_q);
+  }
+  const int warps = gridDim.x * (kCdfServeThreads / 32);
+  if (lane == 0 && atomicAdd(a.next + 1, 1) == warps - 1) {
+    atomicExch(a.next, 0);
+    atomicExch(a.next + 1, 0);
+  }
+}
+
 template <typename T, bool kChunked>
 cudaError_t launch_cdf_serve(const CdfServe& a, double inv_p, double inv_q,
                              cudaStream_t stream) {
-  const long long threads = static_cast<long long>(a.m) * 32;
-  const unsigned blocks = static_cast<unsigned>(
-      (threads + kCdfServeThreads - 1) / kCdfServeThreads);
-  shard_cdf_serve_kernel<T, kChunked><<<blocks, kCdfServeThreads, 0,
-                                        stream>>>(
+  auto kernel = shard_cdf_serve_kernel<T, kChunked>;
+  const size_t smem =
+      kChunked ? (size_t)(kCdfServeThreads / 32) * a.words * sizeof(int) : 0;
+  static int sms = 0, resident = 0;
+  static size_t sized = 0;   // the shared memory `resident` is for
+  if (sms == 0 || sized != smem) {
+    int dev = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kCdfServeThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    resident = sms * per_sm;
+    sized = smem;
+  }
+  const long long want =
+      (static_cast<long long>(a.m) + kCdfServeThreads / 32 - 1) /
+      (kCdfServeThreads / 32);
+  const int blocks = static_cast<int>(want < resident ? want : resident);
+  kernel<<<blocks, kCdfServeThreads, smem, stream>>>(
       a, static_cast<T>(inv_p), static_cast<T>(inv_q));
   return cudaGetLastError();
 }
@@ -490,26 +612,36 @@ extern "C" int srw_shard_serve_launch(
 
 // One exact-CDF step for m requests (the request forms of
 // srw_shard_serve_launch) on the shard's cdf_rows: dst [m], -1 for a dead
-// end, an invalid request or gid -1. inv_p, inv_q come rounded to the
-// accumulation type (f32: the f32 quotients, exact in a double); f64
-// draws and sums in double. An ordinary launch: no key table comes before
-// it. Returns the CUDA error of the launch.
+// end, an invalid request or gid -1. words: a warp's bitmap of the graph's
+// vertices (ceil(V / 32) <= kBitmapWords; 0: prev's bucket rows only);
+// segments > 0: the requests are that many buckets of m / segments, each
+// its requests and then fills (gid < 0); next: two ints at 0, as each
+// launch leaves them.
+// inv_p, inv_q come rounded to the accumulation type (f32: the f32
+// quotients, exact in a double); f64 draws and sums in double. An ordinary
+// launch of persistent warps: no key table comes before it. Returns the
+// CUDA error of the launch.
 extern "C" int srw_shard_cdf_serve_launch(
     const int* cur, const int* prev, const int* gid, int stride,
     const int* valid, int gid_base, int m, int* dst, const int* route,
     int route_mode, int S, int rbits, int my, const int* halo, int halo_nb,
     const int* glob2loc, const int* vmeta, const int* rows,
-    const int* buckets, unsigned k0, unsigned k1, unsigned round_offset,
+    const int* buckets, int words, int segments, int* next, unsigned k0,
+    unsigned k1, unsigned round_offset,
     int t, int first, int W_pad, int W_total, double inv_p, double inv_q,
     int chunked, int f64, void* stream) {
   if (m <= 0) return 0;
+  if (words < 0 || words > kBitmapWords || next == nullptr ||
+      segments < 0 || segments > kMaxDevices ||
+      (segments > 0 && (gid == nullptr || m % segments != 0)))
+    return (int)cudaErrorInvalidValue;
   const CdfServe a{cur, prev, gid, stride, valid, gid_base, m, dst,
                    Route{route, route_mode, S, rbits}, my,
                    reinterpret_cast<const int4*>(halo), halo_nb, glob2loc,
                    reinterpret_cast<const int4*>(vmeta),
                    reinterpret_cast<const int2*>(rows),
-                   reinterpret_cast<const int4*>(buckets), k0, k1,
-                   round_offset, t, first, W_pad, W_total};
+                   reinterpret_cast<const int4*>(buckets), words, segments,
+                   next, k0, k1, round_offset, t, first, W_pad, W_total};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (f64)

@@ -29,7 +29,12 @@ collectives; the work on either side of them is here:
     in the accumulation type for the request's round r and lane w, the
     bias by prev's neighbor set on this shard (an owned or a halo bucket
     row). Its kernel is K7's row scan (csrc/cdf_pick.cuh) applied to one
-    request.
+    request, by persistent warps that take the requests from a counter
+    (two ints at 0 between launches, `work`; a received buffer's fills
+    skipped, `segments`); a second-order step at a row of
+    BITMAP_MIN_ENTRIES entries or more reads prev's neighbor set from a
+    bitmap of the graph's vertices in shared memory, where they fit
+    BITMAP_WORDS words.
 
 For CUDA tensors each wrapper launches its kernel of csrc/shard_walk.cu;
 for CPU tensors it runs its plain version (`emit_ref`, `serve_ref`,
@@ -52,7 +57,9 @@ from .sampling import HASH_MULT, DeviceGraph
 EMIT_THREADS = 512        # walkers a tile of the emit
 MAX_DEVICES = 256         # devices D the emit's shared tables hold
 SERVE_THREADS = 128
-CDF_SERVE_THREADS = 256     # 8 requests (a warp each) a block
+CDF_SERVE_THREADS = 256     # 8 warps a block
+BITMAP_WORDS = 2048         # a warp's bitmap of the vertices: V <= 65,536
+BITMAP_MIN_ENTRIES = 1024   # rows whose steps read the bitmap
 ROUTE_HASH, ROUTE_PACKED, ROUTE_DENSE = 0, 1, 2
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -66,7 +73,7 @@ SERVE_KERNEL = Kernel(
 CDF_SERVE_KERNEL = Kernel(
     "shard_walk.cu", "srw_shard_cdf_serve_launch",
     [_P] * 3 + [_I] + [_P] + [_I] * 2 + [_P] + [_P] + [_I] * 4 + [_P]
-    + [_I] + [_P] * 4 + [ctypes.c_uint] * 3 + [_I] * 4
+    + [_I] + [_P] * 4 + [_I] * 2 + [_P] + [ctypes.c_uint] * 3 + [_I] * 4
     + [ctypes.c_double] * 2 + [_I] * 2 + [_P])
 
 
@@ -77,7 +84,8 @@ class ShardTables(NamedTuple):
     global ids); route: i32[V], the packed VCut route (ROUTE_PACKED) or
     the dense route (ROUTE_DENSE), None for hash; halo_buckets: i32[nb, 8]
     (4 keys, 4 rows) and halo_nb, for the compact modes; glob2loc: i32[V],
-    ROUTE_DENSE only. shard: this shard's index of S."""
+    ROUTE_DENSE only. shard: this shard's index of S; V: the graph's
+    vertices (0: unknown)."""
 
     g: DeviceGraph
     route_mode: int
@@ -87,6 +95,7 @@ class ShardTables(NamedTuple):
     glob2loc: torch.Tensor | None
     S: int
     shard: int
+    V: int = 0
 
     @property
     def rbits(self) -> int:
@@ -406,15 +415,20 @@ def cdf_serve_ref(tab: ShardTables, fcur, fprev, fgid, valid, key,
 def cdf_serve(tab: ShardTables, req, valid, gid_base: int, key,
               round_offset: int, t: int, first: bool, W_pad: int,
               W_total: int, p: float, q: float, cdf_chunk: int,
-              dtype: str = "float32",
-              out: torch.Tensor | None = None) -> torch.Tensor:
+              dtype: str = "float32", out: torch.Tensor | None = None,
+              work: torch.Tensor | None = None,
+              segments: int = 0) -> torch.Tensor:
     """One exact-CDF step for requests on this shard (the request forms
-    of `serve`). key: the seed key (i32 [2]); round_offset: the corpus's
-    first round; cdf_chunk 0 the padded form, else the chunked form; dtype
-    the accumulation type. tab.g needs its cdf_rows (shard_tables(...,
-    cdf=True)). CPU tensors run cdf_serve_ref; CUDA tensors launch the CDF
-    serve kernel into `out` (i32 [m], made here when None). Returns dst
-    i32 [m]."""
+    of `serve`). key: the seed key (i32 [2], on the host); round_offset:
+    the corpus's first round; cdf_chunk 0 the padded form, else the
+    chunked form; dtype the accumulation type. tab.g needs its cdf_rows
+    (shard_tables(..., cdf=True)). CPU tensors run cdf_serve_ref; CUDA
+    tensors launch the CDF serve kernel into `out` (i32 [m], made here when
+    None) with the counters `work` (i32 [2] at 0, as each launch leaves
+    them; made here when None). segments > 0: the requests are that many
+    buckets of equal length, each its requests and then fills (gid < 0),
+    as the exchange receives them: the kernel counts only each bucket's
+    filled prefix. Returns dst i32 [m]."""
     g = tab.g
     if g.cdf_rows is None:
         raise ValueError("cdf_serve: the shard has no cdf_rows "
@@ -422,8 +436,11 @@ def cdf_serve(tab: ShardTables, req, valid, gid_base: int, key,
     if dtype not in ("float32", "float64"):
         raise ValueError(f"cdf_serve: dtype {dtype!r}")
     fcur, fprev, fgid, _ = _fields(req)
+    m = fcur.shape[0]
+    if segments < 0 or segments > MAX_DEVICES or (
+            segments and (fgid is None or m % segments)):
+        raise ValueError(f"cdf_serve: {m} requests in {segments} buckets")
     if fcur.device.type == "cpu":
-        m = fcur.shape[0]
         if fgid is None:
             fgid = gid_base + torch.arange(m, dtype=torch.int32)
         return cdf_serve_ref(tab, fcur, fprev, fgid,
@@ -436,15 +453,28 @@ def cdf_serve(tab: ShardTables, req, valid, gid_base: int, key,
             or round_offset + rounds > 2**32:
         raise ValueError("cdf_serve: walker ids beyond i32 or rounds "
                          "beyond 32 bits")
+    if work is None:
+        work = torch.zeros(2, dtype=torch.int32, device=fcur.device)
+    if work.shape != (2,):
+        raise ValueError("cdf_serve: work of another shape")
     out, launch_args = _launch_args("cdf_serve", tab, req, valid, gid_base,
-                                    [g.cdf_rows, g.hash_buckets], out)
+                                    [g.cdf_rows, g.hash_buckets, work], out)
     inv_p, inv_q = sampling.bias_quotients(p, q, dtype)
     k0, k1 = (int(v) & prng.MASK32 for v in key.tolist())
     CDF_SERVE_KERNEL.launch(
-        *launch_args, ptr(g.vmeta), ptr(g.cdf_rows), ptr(g.hash_buckets), k0,
-        k1, round_offset, t, int(first), W_pad, W_total, inv_p, inv_q,
+        *launch_args, ptr(g.vmeta), ptr(g.cdf_rows), ptr(g.hash_buckets),
+        bitmap_words(tab.V, cdf_chunk), segments, ptr(work), k0, k1,
+        round_offset, t, int(first), W_pad, W_total, inv_p, inv_q,
         int(cdf_chunk > 0), int(dtype == "float64"), stream(fcur.device))
     return out
+
+
+def bitmap_words(V: int, cdf_chunk: int) -> int:
+    """Words of a warp's bitmap of the vertices for the CDF serve: the
+    chunked form's, where V vertices fit BITMAP_WORDS; else 0 (prev's
+    bucket rows are read)."""
+    words = -(-V // 32)
+    return words if cdf_chunk > 0 and 0 < words <= BITMAP_WORDS else 0
 
 
 def shard_tables(graph, plan, s: int, device,
@@ -482,4 +512,4 @@ def shard_tables(graph, plan, s: int, device,
         halo_buckets=put(sh["halo_buckets"]) if compact else None,
         halo_nb=int(sh["halo_nb"]) if compact else 0,
         glob2loc=None if compact else put(sh["glob2loc"]),
-        S=plan.num_shards, shard=s)
+        S=plan.num_shards, shard=s, V=len(plan.route))

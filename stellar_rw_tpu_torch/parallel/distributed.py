@@ -39,8 +39,10 @@ group gets the corpus.
 
 The exact-CDF sampler (sampler "cdf", or a p/q ratio beyond 32) serves
 both halves of a superstep by shard_walk.cdf_serve (K7's row scan applied
-to one request) on each shard's cdf_rows: no trial-key table is made, and
-u is drawn at the accumulation type from the seed key, addressed by the
+to one request, prev's neighbor set read from a bitmap at long rows, the
+received buffer's fills skipped; its counters made once a corpus) on each
+shard's cdf_rows: no trial-key table is made, and u is drawn at the
+accumulation type from the seed key, addressed by the
 request's global walker id, so the corpus is bitwise the single-device
 exact-CDF engine's too. Padded against chunked is decided from the whole
 corpus (engine.walk_spec), as in every engine.
@@ -223,12 +225,16 @@ def distributed_walk_corpus(tables: shard_walk.ShardTables,
     clock = _Clock(dev, timing)
     if spec.sampler == "cdf":
         cdf_kw = dict(W_pad=W_pad, W_total=W_total, p=spec.p, q=spec.q,
-                      cdf_chunk=spec.cdf_chunk, dtype=spec.dtype)
+                      cdf_chunk=spec.cdf_chunk, dtype=spec.dtype,
+                      work=(torch.zeros(2, dtype=torch.int32, device=dev)
+                            if dev.type == "cuda" else None))
 
         def serve(req, valid, base, t, first):
+            # the received buffer: D buckets, each its requests then fills
+            segments = D if valid is None else 0
             return clock.device("serve", shard_walk.cdf_serve, tables, req,
                                 valid, base, key, round_offset, t, first,
-                                **cdf_kw)
+                                segments=segments, **cdf_kw)
     else:
         serve_kw = dict(W_pad=W_pad, W_total=W_total, n_stream=ns,
                         p=spec.p, q=spec.q)

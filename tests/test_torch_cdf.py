@@ -1,8 +1,10 @@
 """The port's exact-CDF samplers and walks (stellar_rw_tpu_torch) against the
 JAX package: the float64 uniform, the plain samplers padded and chunked in
 f32 and f64, corpora of random_walks(sampler="cdf") bit for bit, the
-float64 oracle, two chi-square tests, the plan, batching, and the kernel
-wrapper without a build.
+float64 oracle, two chi-square tests, the plan, batching, the kernel
+wrapper without a build, and the kernels' row scan transcribed (K7's pick,
+and the staged pick of a redesign of the sharded CDF serve kept outside
+the package).
 
 Bit for bit where the JAX package's sums are reproducible: every partial
 sum exact (unit or dyadic weights; p, q in {0.25, 1, 4}), or padded rows of
@@ -415,3 +417,84 @@ def test_kernel_pick_finds_a_crossing_inside_a_piece():
         sampling.CDF_CHUNK)
     assert _warp_pick(w_row, u, True) == 2
     assert got.item() == g.cols[g.offsets[0] + 2]
+
+
+def _staged_pick(b: np.ndarray, u, chunk: int) -> int:
+    """csrc/cdf_pick.cuh's pick_group for one request of a group (its
+    warp), transcribed in b's type with the row staged in chunks of
+    `chunk` entries (a multiple of 32): the total pass's lane sums chunk
+    after chunk (lane i % 32 adds entry i) and their butterfly; then the
+    find pass, chunk after chunk, each piece's scan added to cum, the first
+    lane in the row that reaches thresh. -1: the row head."""
+    d, lanes, dt = len(b), np.arange(32), b.dtype.type
+    acc = np.zeros(32, b.dtype)
+    for c0 in range(0, d, chunk):
+        for e, x in enumerate(b[c0:c0 + chunk]):
+            acc[e % 32] = dt(acc[e % 32] + x)
+    off = 16
+    while off:
+        acc = (acc + acc[lanes ^ off]).astype(b.dtype)
+        off //= 2
+    thresh, cum = dt(dt(u) * acc[0]), dt(0)
+    for c0 in range(0, d, chunk):
+        n = min(chunk, d - c0)
+        for base in range(0, n, 32):
+            v = np.zeros(32, b.dtype)
+            seg = b[c0 + base:c0 + min(base + 32, n)]
+            v[:len(seg)] = seg
+            c = (cum + _ks(v)).astype(b.dtype)
+            hit = np.flatnonzero((base + lanes < n) & (c >= thresh))
+            if len(hit):
+                return c0 + base + int(hit[0])
+            cum = c[31]
+    return -1
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_staged_pick_transcription_equals_plain(chunk, dtype):
+    """The staged form of the CDF serve (pick_group: a warp a request over
+    its group's row staged through shared memory in chunks; it measured
+    slower and is kept outside the package, chip_cdf_serve_staged.cu),
+    transcribed with chunks of 32 and 64 entries, picks what the plain
+    chunked sampler picks on the rows of
+    test_kernel_pick_transcription_equals_plain, in f32 and f64; and the
+    crossing inside a piece of test_kernel_pick_finds_a_crossing_inside_a_
+    piece. Both it and the package's pick_bits sum by the header's
+    butterfly and piece scan."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    staged = open(os.path.join(root, "chip_cdf_serve_staged.cu")).read()
+    assert staged.count("__device__ void pick_group(") == 1
+    assert "thresh = O::mul(u, butterfly(acc));" in staged
+    pick = (_build.CSRC / "cdf_pick.cuh").read_text()
+    assert pick.count("O::mul(u, butterfly(acc))") == 2   # pick, pick_bits
+    assert pick.count("piece_scan(") == 3      # defined, pick, pick_bits
+    assert "pick_bits<" in (_build.CSRC / "shard_walk.cu").read_text()
+    dt = np.float64 if dtype == "float64" else np.float32
+    rng = np.random.default_rng(7)
+    for d in (1, 5, 31, 32, 33, 100, 257, 2000):
+        w = (rng.random(d) * 3 + 0.01).astype(np.float32)
+        g = tcsr.from_adjacency({0: [(i + 1, float(x)) for i, x in
+                                     enumerate(w)],
+                                 **{i + 1: [(0, 1.0)] for i in range(d)}})
+        dg = sampling.device_put_graph(g, "cpu", cdf=True)
+        u = rng.random(40).astype(dt)
+        u[:3] = (0.0, np.nextafter(dt(1), dt(0)), 0.5)
+        got = sampling.cdf_sample_first_order_chunked(
+            dg, torch.zeros(40, dtype=torch.int32), torch.as_tensor(u),
+            sampling.CDF_CHUNK, dtype)
+        cols = g.cols[g.offsets[0]:g.offsets[1]]
+        b = g.weights[g.offsets[0]:g.offsets[1]].astype(np.float32).astype(dt)
+        for i in range(40):
+            j = _staged_pick(b, u[i], chunk)
+            assert got[i].item() == cols[max(j, 0)], (d, i)
+            if dtype == "float32":
+                assert j == _warp_pick(b, u[i], True)
+    b = np.zeros(96, np.float32)
+    b[:3] = (1.0, 2.0 ** -24, 2.0 ** -24)
+    b[32:] = 1.0
+    total = np.float32(65)
+    u = np.float32(np.float32(1 + 2.0 ** -23) / total)
+    while np.float32(u * total) > np.float32(1 + 2.0 ** -23):
+        u = np.nextafter(u, np.float32(0))
+    assert _staged_pick(b, u, chunk) == _warp_pick(b, u, True) == 2

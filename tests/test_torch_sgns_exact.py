@@ -287,8 +287,9 @@ def test_workspace_is_bounded_by_the_block(V):
 
 
 def test_karate_gate_with_exact_negatives(karate_path):
-    """The karate gates of tests/test_word2vec.py with the CLI's default
-    trainer (shared_negatives = 0)."""
+    """The karate gates of tests/test_word2vec.py (AUC > 0.75, faction
+    accuracy >= 0.90 at train_frac 0.5) with the CLI's default trainer
+    (shared_negatives = 0)."""
     g = tio.load_edge_list(karate_path, weighted=False, directed=False)
     walks = engine.random_walks(g, walk_length=20, num_walks=10, seed=2,
                                 device="cpu")
@@ -300,8 +301,8 @@ def test_karate_gate_with_exact_negatives(karate_path):
     auc = tev.link_prediction_auc(w_in, np.asarray(edges), g.num_vertices,
                                   seed=0)
     acc = tev.node_classification_accuracy(w_in, tev.karate_labels(g.ids),
-                                           seed=0)
-    assert auc > 0.7 and acc >= 0.85, (auc, acc)
+                                           train_frac=0.5, seed=0)
+    assert auc > 0.75 and acc >= 0.90, (auc, acc)
 
 
 def test_exact_kernel_wrapper_raises_without_a_build(monkeypatch, tmp_path):

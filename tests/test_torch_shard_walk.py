@@ -17,6 +17,11 @@ csrc/shard_walk.cu) on the CPU, where their plain versions run:
   * cdf_serve_ref (and the wrapper's two request forms) the same way,
     against cdf_walk_ref's exact-CDF corpus, padded and chunked, f32 and
     f64, and its invalid requests;
+  * the CDF serve kernel transcribed (a warp a request; prev's neighbor
+    set from a bitmap of the vertices at long rows, its weights held to
+    weigh's) against cdf_serve_ref, on received buffers with fills and on
+    the local form; the heavy-row table of chip_cdf_serve_parts.py's kept
+    redesigns;
   * the key table's redesign (a warp a (round, step)) transcribed against
     trial_keys_ref;
   * the constants and entry points ops/shard_walk.py mirrors, against the
@@ -328,6 +333,255 @@ def test_cdf_serve_invalid_requests(karate_path):
                              1.0, 0)
 
 
+def _scan32(v):
+    """A piece's inclusive Kogge-Stone scan over the lanes (shfl_up by o)."""
+    lanes, o = np.arange(32), 1
+    while o < 32:
+        v = np.where(lanes >= o, v + np.roll(v, o), v).astype(v.dtype)
+        o *= 2
+    return v
+
+
+def _lane_sums(b, chunk):
+    """The total pass: lane i % 32 adds entry i, chunk after chunk; then the
+    xor butterfly."""
+    dt, lanes = b.dtype.type, np.arange(32)
+    acc = np.zeros(32, b.dtype)
+    for c0 in range(0, len(b), chunk):
+        for e, x in enumerate(b[c0:c0 + chunk]):
+            acc[e % 32] = dt(acc[e % 32] + x)
+    off = 16
+    while off:
+        acc = (acc + acc[lanes ^ off]).astype(b.dtype)
+        off //= 2
+    return acc[0]
+
+
+def _warp_pick(b, u, chunked):
+    """cdf_pick.cuh's pick (a warp a light request): the chunked form's
+    find loop piece by piece, or the padded form's serial sums."""
+    dt, d, lanes = b.dtype.type, len(b), np.arange(32)
+    if chunked:
+        thresh, cum = dt(u * _lane_sums(b, 32)), dt(0)
+        for base in range(0, d, 32):
+            v = np.zeros(32, b.dtype)
+            v[:min(32, d - base)] = b[base:base + 32]
+            c = (cum + _scan32(v)).astype(b.dtype)
+            hit = np.flatnonzero((base + lanes < d) & (c >= thresh))
+            if len(hit):
+                return base + int(hit[0])
+            cum = c[31]
+        return -1
+    total = dt(0)
+    for x in b:
+        total = dt(total + x)
+    div, c = (total if total > 0 else dt(1)), dt(0)
+    for i, x in enumerate(b):
+        c = dt(c + dt(x / div))
+        if c >= u:
+            return i
+    return -1
+
+
+def _row_weights(tab, row, prev_id, prev_row, first, p, q, dtype):
+    """(cols, weigh()'s weights) of a request's row on the shard."""
+    dt = np.float64 if dtype == "float64" else np.float32
+    vm, g = tab.g.vmeta.numpy(), tab.g
+    s, d = int(vm[row, 0]), int(vm[row, 1])
+    ent = g.cdf_rows.numpy()[s:s + d]
+    col, w = ent[:, 0], ent[:, 1].view(np.float32).astype(dt)
+    if first:
+        return col, w
+    inv_p, inv_q = sampling.bias_quotients(p, q, dtype)
+    h = ((col.astype(np.uint64) * np.uint64(HASH)) & np.uint64(0xFFFFFFFF)
+         ).astype(np.int64) & int(vm[prev_row, 3])
+    member = (g.hash_buckets.numpy()[int(vm[prev_row, 2]) + h]
+              == col[:, None]).any(1)
+    f = np.where(col == prev_id, dt(inv_p),
+                 np.where(member, dt(1), dt(inv_q))).astype(dt)
+    return col, (w * f).astype(dt)
+
+
+HASH = 2654435761
+
+
+def _bits_weights(tab, row, prev_id, prev_row, p, q, dtype):
+    """pick_bits' weights for one request: prev's neighbor set as a bitmap
+    of the vertices, set from the keys of prev's bucket rows, then w * f
+    with f = 1/p at prev, 1 at a set bit, 1/q elsewhere."""
+    dt = np.float64 if dtype == "float64" else np.float32
+    vm, g = tab.g.vmeta.numpy(), tab.g
+    s, d = int(vm[row, 0]), int(vm[row, 1])
+    ent = g.cdf_rows.numpy()[s:s + d]
+    cols, w = ent[:, 0], ent[:, 1].view(np.float32).astype(dt)
+    base, nb = int(vm[prev_row, 2]), int(vm[prev_row, 3]) + 1
+    bm = np.zeros(-(-tab.V // 32), np.uint32)
+    for key in g.hash_buckets.numpy()[base:base + nb].reshape(-1):
+        if key >= 0:
+            bm[key >> 5] |= np.uint32(1) << np.uint32(key & 31)
+    inv_p, inv_q = sampling.bias_quotients(p, q, dtype)
+    bit = (bm[cols >> 5] >> (cols & 31).astype(np.uint32)) & 1
+    f = np.where(cols == prev_id, dt(inv_p),
+                 np.where(bit == 1, dt(1), dt(inv_q))).astype(dt)
+    return (w * f).astype(dt)
+
+
+def _cdf_serve_transcribed(tab, fcur, fprev, fgid, valid, segments, key, t,
+                           first, W_pad, W_total, p, q, chunked, dtype,
+                           min_entries):
+    """csrc/shard_walk.cu's CDF serve transcribed: the requests counted
+    (with segments, over each bucket's filled prefix, found by the kernel's
+    binary search, the fills -1), then each by a warp: -1 for a fill (gid
+    < 0), an invalid request or a dead end; else pick over cur's row, a
+    second-order chunked step at a row of at least `min_entries` entries
+    whose prev has no more bucket rows than the row has entries weighing by
+    the bitmap (pick_bits, where the vertices fit BITMAP_WORDS), held equal
+    to weigh's weights. Returns (dst, the bitmap steps)."""
+    m = fcur.shape[0]
+    dst = np.full(m, -2, np.int64)
+    order = np.arange(m)
+    if segments:
+        length, start = m // segments, [0]
+        for b in range(segments):
+            lo, hi = 0, length
+            while lo < hi:
+                mid = (lo + hi) // 2
+                if fgid[b * length + mid] >= 0:
+                    lo = mid + 1
+                else:
+                    hi = mid
+            start.append(start[-1] + lo)
+        order = []
+        for k in range(start[-1]):      # the k-th request's slot
+            b = max(j for j in range(segments) if start[j] <= k)
+            order.append(b * length + k - start[b])
+        order = np.asarray(order, np.int64)
+        fills = np.setdiff1d(np.arange(m), order)
+        assert (fgid[fills] < 0).all()
+        dst[fills] = -1
+    cur_row, prev_row = (x.numpy() for x in shard_walk._rows(tab, fcur,
+                                                              fprev))
+    gc = fgid.clamp(0, W_total - 1).long()
+    step = prng.fold_in(prng.fold_in(key, gc // W_pad), t)
+    draw = prng.uniform_f64_at if dtype == "float64" else prng.uniform_at
+    u = draw(step, gc % W_pad).numpy()
+    vm = tab.g.vmeta.numpy()
+    words = shard_walk.bitmap_words(tab.V, int(chunked))
+    bits = 0
+    for i in order:
+        d = int(vm[cur_row[i], 1])
+        if int(fgid[i]) < 0 or (valid is not None and not valid[i]) \
+                or d <= 0:
+            dst[i] = -1
+            continue
+        col, b = _row_weights(tab, cur_row[i], int(fprev[i]), prev_row[i],
+                              first, p, q, dtype)
+        if (words and not first and d >= min_entries
+                and vm[prev_row[i], 3] < d):
+            np.testing.assert_array_equal(b, _bits_weights(
+                tab, cur_row[i], int(fprev[i]), prev_row[i], p, q, dtype))
+            bits += 1
+        dst[i] = col[max(_warp_pick(b, u[i], chunked), 0)]
+    assert (dst != -2).all()     # every slot written
+    return dst, bits
+
+
+def _star(leaves, seed=0):
+    from stellar_rw_tpu_torch.graph.csr import from_edge_arrays
+
+    rng = np.random.default_rng(seed)
+    return from_edge_arrays(
+        np.zeros(leaves, np.int64), np.arange(1, leaves + 1),
+        rng.random(leaves).astype(np.float32) * 4 + 0.25,
+        num_vertices=leaves + 1, symmetrize=True)
+
+
+@pytest.mark.parametrize("name", ["karate", "star"])
+@pytest.mark.parametrize("route", ["hash", "vcut"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("chunk", [0, 4])
+def test_cdf_serve_transcription_matches_ref(name, route, dtype, chunk,
+                                             karate_path, monkeypatch):
+    """The CDF serve (csrc/shard_walk.cu, transcribed in NumPy with the
+    bitmap's least row forced small: 4 entries on karate, 50 on a star of
+    120 leaves with random f32 weights) over every superstep of a corpus on
+    2 shards: the received form (two buckets, each its requests then
+    fills, counted over the buckets' prefixes) and the local form (the
+    other walkers invalid). Every slot is written, and dst equals
+    cdf_serve_ref bit for bit: f32 and f64, padded and chunked (the bitmap
+    weights where prev's bucket rows are few), first order (t = 0) and
+    second, hash and vertex cut."""
+    from stellar_rw_tpu_torch.ops import cdf_walk
+
+    if chunk:
+        monkeypatch.setattr(sampling, "CDF_PAD_LIMIT", 1)
+        monkeypatch.setattr(sampling, "CDF_CHUNK", chunk)
+    g = (_star(120) if name == "star"
+         else io.load_edge_list(karate_path, weighted=False))
+    least = 50 if name == "star" else 4
+    V, R, Lw, S, p, q = g.num_vertices, 2, 3, 2, 0.0625, 4.0
+    r = (None if route == "hash" else
+         np.random.default_rng(3).integers(0, S, V).astype(np.int32))
+    key = prng.prng_key(6)
+    spec = engine.walk_spec(g, Lw, R, p, q, "cdf", 16, dtype, V)
+    assert spec.cdf_chunk == chunk
+    corpus = cdf_walk.cdf_walk_ref(
+        sampling.device_put_graph(g, "cpu", cdf=True),
+        torch.arange(V, dtype=torch.int32), key, 0, R, Lw, p, q,
+        spec.max_degree, spec.cdf_chunk, dtype)
+    plan = partition.plan_shards(g, S, r)
+    tabs = [shard_walk.shard_tables(g, plan, s, "cpu", cdf=True)
+            for s in range(S)]
+    assert all(tab.V == V for tab in tabs)
+    gid = torch.arange(R * V, dtype=torch.int32)
+    owner = torch.as_tensor(plan.route).long()
+    kw = dict(W_pad=V, W_total=R * V, p=p, q=q)
+    bits = 0
+    for t in range(Lw + 1):
+        cur = (corpus[:, t] if t else corpus[:, 0]).contiguous()
+        prev = (corpus[:, t - 1] if t > 1 else corpus[:, 0]).contiguous()
+        for s, tab in enumerate(tabs):
+            m = (cur >= 0) & (owner[cur.clamp_min(0)] == s)
+            req = torch.stack([cur[m], prev[m], gid[m]], 1)
+            half = req.shape[0] // 2
+            C = req.shape[0] - half + 1
+            fill = torch.tensor([0, 0, -1], dtype=torch.int32)
+            recv = torch.cat([req[:half], fill.repeat(C - half, 1),
+                              req[half:], fill.repeat(C - req.shape[0] + half,
+                                                      1)])
+            for fcur, fprev, fgid, valid, segs in (
+                    (recv[:, 0], recv[:, 1], recv[:, 2], None, 2),
+                    (cur, prev, gid, m, 0)):
+                got, n = _cdf_serve_transcribed(
+                    tab, fcur, fprev, fgid, valid, segs, key, t, t == 0,
+                    chunked=bool(chunk), dtype=dtype, min_entries=least,
+                    **kw)
+                want = shard_walk.cdf_serve_ref(
+                    tab, fcur, fprev, fgid, valid, key, 0, t, t == 0,
+                    cdf_chunk=spec.cdf_chunk, dtype=dtype, **kw)
+                np.testing.assert_array_equal(got, want.numpy())
+                bits += n
+            np.testing.assert_array_equal(got[m.numpy()],
+                                          corpus[m, t + 1].numpy())
+    assert (bits > 0) == bool(chunk)
+
+
+def test_kept_heavy_row_table():
+    """chip_cdf_serve_parts.heavy_rows, the heavy-row table the kept
+    redesigns take: the rows of at least the degree, numbered by degree,
+    largest first (ties by row), at most KEPT_MAX_HEAVY; the others -1."""
+    import chip_cdf_serve_parts as parts
+
+    deg = np.array([5, 9, 2, 9, 12, 40, 7])
+    table, n = parts.heavy_rows(deg, 8)
+    assert n == 4
+    np.testing.assert_array_equal(table, [-1, 2, -1, 3, 1, 0, -1])
+    table, n = parts.heavy_rows(np.full(3000, 8), 8)
+    assert n == parts.KEPT_MAX_HEAVY
+    np.testing.assert_array_equal(table[:n], np.arange(n))
+    assert (table[n:] == -1).all()
+
+
 def test_serve_local_form_and_validity(karate_path):
     """The local form (gid = gid_base + i, a valid flag per walker) serves
     only the flagged walkers; -1 elsewhere and for gid -1 requests."""
@@ -377,6 +631,8 @@ def test_key_table_design_matches_ref(R, L, T):
 MIRRORED = {"kEmitThreads": "EMIT_THREADS", "kMaxDevices": "MAX_DEVICES",
             "kServeThreads": "SERVE_THREADS",
             "kCdfServeThreads": "CDF_SERVE_THREADS",
+            "kBitmapWords": "BITMAP_WORDS",
+            "kBitmapMinEntries": "BITMAP_MIN_ENTRIES",
             "kRouteHash": "ROUTE_HASH", "kRoutePacked": "ROUTE_PACKED",
             "kRouteDense": "ROUTE_DENSE"}
 
