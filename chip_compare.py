@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time two checkouts' kernels of the PyTorch/CUDA port on one GPU, in turns.
 
-    python3 chip_compare.py OTHER_CHECKOUT [--only cdf]
+    python3 chip_compare.py OTHER_CHECKOUT [--only cdf|shard]
 
 OTHER_CHECKOUT is the root of another checkout of this repository under this
 checkout's build/ (say the parent commit, unpacked by `git archive` into
@@ -22,9 +22,17 @@ events around launches queued behind a long product):
     forms against text edits of its sources (compare_launch_forms): the
     walk kernel as the table's programmatic dependent, and K11's serve (a
     programmatic dependent) as an ordinary launch after the emit;
-  * K11's serve at chip_smoke phase 22's superstep (hash route, rank 0's
+  * K11's emit at chip_smoke phase 22's superstep (compare_shard_emit:
+    rank 0's walkers, the first round, the three layouts), then its serve
+    (compare_shard_serve: rank 0's local walkers and the buffer it
+    receives, one launch of this checkout against the two of a checkout
+    whose serve takes each half alone, or against the one launch of a
+    checkout that serves the requests alone, from the emit's list of the
     local walkers) on the same tables: other, this, this, other, twice,
-    after checking the two checkouts' steps equal;
+    after checking the two checkouts' outputs equal; then phase 22 (b)'s
+    timed walk on two gloo ranks (compare_shard_superstep: K11's ms a
+    superstep by the engine's CUDA events and the wrappers' host ms) for
+    each checkout. With --only shard, these three and nothing else;
   * the resident-row walk kernel (walk_corpus_resident, whatever it runs
     around its launch) on chip_smoke's three phase-7 shapes: other, this,
     this, other, after checking the two corpora equal; then each checkout's
@@ -103,7 +111,7 @@ import time
 
 from chip_smoke import (HS_SHAPES, RESIDENT_SHAPES, SGNS_SHAPES, SGNS_WIDE,
                         check, cuda_ms, hs_block, hs_corpus, regular_graph,
-                        synth_power_law_graph)
+                        shard_graph, synth_power_law_graph)
 
 
 def load_package(root: str, name: str):
@@ -188,14 +196,13 @@ WALK_AS_DEPENDENT = [
 ]
 SERVE_ORDINARY = [
     ("    const cudaError_t err = srw::launch_dependent(\n"
-     "        shard_serve_kernel, dim3((m + kServeThreads - 1) / "
-     "kServeThreads),\n        dim3(kServeThreads), (cudaStream_t)stream, "
-     "cur,",
-     "    const cudaError_t err = (shard_serve_kernel<<<(m + kServeThreads - "
-     "1) / kServeThreads,\n        kServeThreads, 0, (cudaStream_t)stream>>>("
-     "cur,"),
-    ("        L1, T, E, inv_p, inv_q, max_f, mode);",
-     "        L1, T, E, inv_p, inv_q, max_f, mode), cudaSuccess);"),
+     "        shard_serve_kernel,\n"
+     "        dim3((unsigned)((items + kServeThreads - 1) / kServeThreads)),\n"
+     "        dim3(kServeThreads), (cudaStream_t)stream, a);",
+     "    shard_serve_kernel<<<(unsigned)((items + kServeThreads - 1) /\n"
+     "                                    kServeThreads),\n"
+     "                         kServeThreads, 0, (cudaStream_t)stream>>>(a);\n"
+     "    const cudaError_t err = cudaSuccess;"),
 ]
 
 
@@ -204,8 +211,9 @@ def compare_launch_forms(torch, this, walker, graph, R, L, p, q,
     """The launch forms, each against this checkout's source in turns (this,
     variant, variant, this, twice), outputs bit for bit: the key table +
     the walk kernel at walk_10k with the walk as the table's programmatic
-    dependent; the emit + K11's serve at chip_smoke phase 22's superstep
-    (hash route, rank 0's walkers) with the serve as an ordinary launch."""
+    dependent; the emit + K11's serve of the local walkers it flags at
+    chip_smoke phase 22's superstep (hash route, rank 0's walkers) with the
+    serve as an ordinary launch."""
     from chip_smoke import edited, shard_superstep, source_kernel
 
     build = this("ops._build")
@@ -251,13 +259,15 @@ def compare_launch_forms(torch, this, walker, graph, R, L, p, q,
     pend, loc = (torch.zeros(n, dtype=torch.int32, device="cuda")
                  for _ in range(2))
     kw = dict(W_pad=W_pad, W_total=R * W_pad, n_stream=V, p=p, q=q)
+    work = sw.emit_work(n, S * Ln, C, "cuda")
 
     def serve_with(kernel):
         def run():
             sw.SERVE_KERNEL = kernel
-            sw.emit(tabs[0], cur, prev, pend, alive, loc, Ln, S * Ln, 0, C)
-            out = sw.serve(tabs[0], (cur, prev, None), loc, 0, keys, 5,
-                           False, **kw)
+            sw.emit(tabs[0], cur, prev, pend, alive, loc, Ln, S * Ln, 0, C,
+                    work)
+            out, _ = sw.serve(tabs[0], keys, 5, False,
+                              local=(cur, prev, loc), **kw)
             sw.SERVE_KERNEL = saved_serve
             return out
         return run
@@ -272,39 +282,240 @@ def compare_launch_forms(torch, this, walker, graph, R, L, p, q,
                       "card": smi}))
 
 
-def compare_shard_serve(torch, this, other, walker, graph, R, L, p, q,
-                        smi) -> None:
-    """K11's serve at chip_smoke phase 22's superstep (hash route, rank 0's
-    local walkers, the flags of one emit) against the other checkout's, on
-    the same shard tables and key table, outputs bit for bit: other, this,
-    this, other, twice."""
-    from chip_smoke import SHARD_STEP, shard_superstep
+def k11_superstep(torch, this, graph):
+    """chip_smoke phase 22's superstep as this checkout builds it: the
+    corpus and key table of phase 4's walk, each layout's walkers of ranks
+    0 and 1 (chip_smoke.shard_superstep), each rank's emit (the first round
+    at the auto capacity) into a work of its own, and rank 0's requests:
+    its walkers with their local flags and the buffer it receives. Returns
+    (keys, {layout: (rank 0's superstep, its local flags, the received
+    buffer [2, C, 3])})."""
+    from chip_smoke import SHARD_LAYOUTS, shard_superstep
 
-    ws = this("ops.walk_step")
-    pkg, dg, starts, spec, key = walker
-    T = spec.max_rounds * spec.k_candidates
-    V = graph.num_vertices
-    keys = ws.trial_keys(key, 0, R, L, T, device="cuda")
-    corpus = ws.walk_rounds(dg, starts, keys, L, p, q, V).reshape(R * V,
-                                                                  L + 2)
-    tabs, cur, prev, alive, _, S, Ln, C, W_pad = shard_superstep(
-        torch, graph, "hash", corpus)
-    n = cur.shape[0]
-    pend, loc = (torch.zeros(n, dtype=torch.int32, device="cuda")
-                 for _ in range(2))
-    this("ops.shard_walk").emit(tabs[0], cur, prev, pend, alive, loc, Ln,
-                                S * Ln, 0, C)
-    kw = dict(W_pad=W_pad, W_total=R * W_pad, n_stream=V, p=p, q=q)
-    fns = {name: (lambda sw=pkg("ops.shard_walk"): sw.serve(
-        tabs[0], (cur, prev, None), loc, 0, keys, SHARD_STEP, False, **kw))
-        for name, pkg in (("other", other), ("this", this))}
-    check(torch.equal(fns["this"](), fns["other"]()),
-          "the two checkouts' K11 serves differ")
+    ws, sw = this("ops.walk_step"), this("ops.shard_walk")
+    R, Lw, p, q = 10, 80, 0.25, 0.25
+    corpus = this("walk.engine").random_walks(
+        graph, walk_length=Lw, num_walks=R, p=p, q=q, seed=0,
+        as_numpy=False, device="cuda")
+    _, max_rounds = this("ops.sampling").plan_sampler("rejection", p, q)
+    keys = ws.trial_keys(this("ops.prng").prng_key(0), 0, R, Lw,
+                         4 * max_rounds, device="cuda")
+    out = {}
+    for layout in SHARD_LAYOUTS:
+        ranks = [shard_superstep(torch, graph, layout, corpus, rank=r)
+                 for r in range(2)]
+        sends = []
+        for rk, (tabs, cur, prev, alive, _, S, L, C, W_pad) in \
+                enumerate(ranks):
+            n = cur.shape[0]
+            flags = torch.zeros(n, dtype=torch.int32, device="cuda")
+            send, _, _ = sw.emit(
+                tabs[rk // L], cur, prev, torch.zeros_like(flags), alive,
+                flags, L, S * L, rk * n, C, sw.emit_work(n, S * L, C, "cuda"))
+            sends.append(send.clone())
+            if rk == 0:
+                local = flags
+        recv = torch.stack([sends[0][0], sends[1][0]]).contiguous()
+        out[layout] = (ranks[0], local, recv)
+    return keys, out
+
+
+def compare_shard_emit(torch, this, other, graph, smi) -> None:
+    """K11's emit at chip_smoke phase 22's superstep (rank 0's walkers, the
+    first round at the auto capacity) in the three layouts against the
+    other checkout's, each into buffers of its own, after checking the
+    buffers, slots, counts and flags equal: other, this, this, other,
+    twice."""
+    from chip_smoke import SHARD_LAYOUTS, shard_superstep
+
+    corpus = this("walk.engine").random_walks(
+        graph, walk_length=80, num_walks=10, p=0.25, q=0.25, seed=0,
+        as_numpy=False, device="cuda")
     order = ("other", "this", "this", "other") * 2
-    runs = [(name, cuda_ms(fns[name], 20)) for name in order]
-    print(json.dumps({"kernel": "shard_serve", "walkers": n,
-                      "served": int((loc != 0).sum()),
-                      "ms_in_turns": runs, "card": smi}))
+    for layout in SHARD_LAYOUTS:
+        tabs, cur, prev, alive, _, S, L, C, _ = shard_superstep(
+            torch, graph, layout, corpus)
+        n, D = cur.shape[0], S * L
+        fns, flags = {}, {}
+        for name, pkg in (("other", other), ("this", this)):
+            sw = pkg("ops.shard_walk")
+            pend, loc = (torch.zeros(n, dtype=torch.int32, device="cuda")
+                         for _ in range(2))
+            work = sw.emit_work(n, D, C, "cuda")
+            fns[name] = (lambda sw=sw, pend=pend, loc=loc, work=work:
+                         sw.emit(tabs[0], cur, prev, pend, alive, loc, L, D,
+                                 0, C, work))
+            flags[name] = (pend, loc)
+        a, b = fns["this"](), fns["other"]()
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+              and torch.equal(a[2][:2], b[2][:2])
+              and all(torch.equal(x, y) for x, y in zip(flags["this"],
+                                                        flags["other"])),
+              f"the two checkouts' emits differ ({layout})")
+        runs = [(name, cuda_ms(fns[name], 20)) for name in order]
+        print(json.dumps({"kernel": "shard_emit", "layout": layout,
+                          "walkers": n, "capacity": C,
+                          "requests": int(a[2][0]), "ms_in_turns": runs,
+                          "card": smi}))
+
+
+def compare_shard_serve(torch, this, other, graph, smi) -> None:
+    """K11's serve at chip_smoke phase 22's superstep (k11_superstep) in
+    the three layouts: this checkout's serve of rank 0's walkers with their
+    local flags and the buffer it receives against the other checkout's,
+    on the same shard tables and key table. A checkout whose serve takes
+    one half a call serves them in two launches (the walkers by their
+    local flags, then every slot of the received buffer), timed together;
+    one whose serve takes the local walkers as a list (the local walkers'
+    indices and their count) gets it from the flags. The steps bit for
+    bit: other, this, this, other, twice."""
+    from chip_smoke import SHARD_STEP
+
+    keys, steps = k11_superstep(torch, this, graph)
+    order = ("other", "this", "this", "other") * 2
+    t = SHARD_STEP
+    for layout, (sup, flags, recv) in steps.items():
+        tabs, cur, prev, alive, _, S, L, C, W_pad = sup
+        n = cur.shape[0]
+        kw = dict(W_pad=W_pad, W_total=10 * W_pad,
+                  n_stream=graph.num_vertices, p=0.25, q=0.25)
+        listed = torch.full((n,), -1, dtype=torch.int32, device="cuda")
+        idx = flags.nonzero().squeeze(1)
+        listed[:idx.shape[0]] = idx.to(torch.int32)
+        count = torch.tensor([idx.shape[0]], dtype=torch.int32,
+                             device="cuda")
+        fns = {}
+        for name, pkg in (("other", other), ("this", this)):
+            sw = pkg("ops.shard_walk")
+            dst = torch.full((n,), -1, dtype=torch.int32, device="cuda")
+            if not hasattr(sw, "serve_plain"):
+                fns[name] = (lambda sw=sw: (
+                    sw.serve(tabs[0], (cur, prev, None), flags, 0, keys, t,
+                             False, **kw),
+                    sw.serve(tabs[0], recv.reshape(-1, 3), None, 0, keys, t,
+                             False, **kw)))
+            else:
+                local = ((cur, prev, listed, count)
+                         if "local_list" in inspect.getsource(sw.EmitWork)
+                         else (cur, prev, flags))
+                fns[name] = (lambda sw=sw, dst=dst, local=local: sw.serve(
+                    tabs[0], keys, t, False, local=local, recv=recv,
+                    dst=dst, **kw))
+        a, b = fns["this"](), fns["other"]()
+        check(torch.equal(a[0][flags != 0], b[0][flags != 0])
+              and torch.equal(a[1], b[1]),
+              f"the two checkouts' K11 serves differ ({layout})")
+        runs = [(name, cuda_ms(fns[name], 20)) for name in order]
+        print(json.dumps({"kernel": "shard_serve", "layout": layout,
+                          "local": int(count),
+                          "received": int((recv[..., 2] >= 0).sum()),
+                          "slots": recv.shape[0] * recv.shape[1],
+                          "ms_in_turns": runs, "card": smi}))
+
+
+# phase 22 (b)'s timed run on two gloo ranks sharing the card: K11's ms a
+# superstep by the engine's CUDA events (timing=), the host ms inside the
+# emit and serve wrappers a superstep, the walk's seconds, the corpus's
+# digest
+SUPERSTEP_WORKER = r"""
+import hashlib, json, sys, time
+import torch, torch.distributed as dist
+from stellar_rw_tpu_torch.graph import io as gio
+from stellar_rw_tpu_torch.models import node2vec as n2v
+from stellar_rw_tpu_torch.ops import shard_walk
+from stellar_rw_tpu_torch.parallel import dp
+from stellar_rw_tpu_torch.utils.config import parse
+
+rank, port, edges, out, runs = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                                sys.argv[4], int(sys.argv[5]))
+dp.init_group(rank, 2, ["cuda:0", "cuda:0"], f"tcp://localhost:{port}")
+host = {"emit": 0.0, "serve": 0.0}
+
+
+def timed(name, fn):
+    def run(*a, **k):
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        host[name] += time.perf_counter() - t0
+        return out
+    return run
+
+
+shard_walk.emit = timed("emit", shard_walk.emit)
+shard_walk.serve = timed("serve", shard_walk.serve)
+params = parse(["--input", edges, "--output", out] + json.loads(sys.argv[6]))
+graph = gio.load_edge_list(edges)
+res = []
+for _ in range(runs + 1):     # the first builds the kernels
+    timing = {}
+    host.update(emit=0.0, serve=0.0)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    walks = n2v.run_walks(graph, params, "cuda", timing=timing)
+    torch.cuda.synchronize()
+    sup = timing["supersteps"]
+    res.append({"walk_seconds": time.perf_counter() - t0,
+                "k11_ms": (timing["emit_ms"] + timing["serve_ms"]) / sup,
+                "emit_ms": timing["emit_ms"] / sup,
+                "serve_ms": timing["serve_ms"] / sup,
+                "serve_calls": timing["serve_calls"],
+                "host_ms": (host["emit"] + host["serve"]) * 1e3 / sup,
+                "collective_host_ms": timing["collective_host_ms"] / sup,
+                "corpus": hashlib.sha1(
+                    walks.cpu().numpy().tobytes()).hexdigest()})
+print("RESULT " + json.dumps(res[1:]), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def compare_shard_superstep(this_root: str, other_root: str, smi,
+                            runs: int = 3) -> None:
+    """Phase 22 (b)'s timed run (the hash route over 2 shards, phase 4's
+    graph and walk) on two gloo ranks sharing the card, as each checkout's
+    engine runs it: other, this, this, other, `runs` timed walks each after
+    one that builds the kernels; the corpora equal. A line a form and rank: K11's ms a superstep by CUDA
+    events, the wrappers' host ms a superstep, the collectives' host ms
+    and the walk's seconds."""
+    import tempfile
+
+    import numpy as np
+
+    from chip_smoke import (SHARD_FLAGS, SHARD_LAYOUTS, free_port,
+                            synth_power_law_arcs)
+
+    roots = {"other": other_root, "this": this_root}
+    flags = json.dumps(SHARD_FLAGS + SHARD_LAYOUTS["hash"])
+    digests = set()
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = synth_power_law_arcs(10_000, 334_000, seed=0)
+        edges = os.path.join(tmp, "edges.txt")
+        np.savetxt(edges, np.stack([src, dst], 1), fmt="%d")
+        for name in ("other", "this", "this", "other"):
+            port = str(free_port())
+            env = dict(os.environ, PYTHONPATH=roots[name])
+            procs = [subprocess.Popen(
+                [sys.executable, "-c", SUPERSTEP_WORKER, str(r), port, edges,
+                 os.path.join(tmp, name), str(runs), flags], env=env,
+                cwd=roots[name], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True) for r in range(2)]
+            try:
+                outs = [p.communicate(timeout=600) for p in procs]
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.communicate()
+            for p, (out, err) in zip(procs, outs):
+                check(p.returncode == 0, f"{name}: a rank failed: "
+                      f"{err[-3000:]}")
+            for rank, (out, _) in enumerate(outs):
+                res = json.loads([ln for ln in out.splitlines()
+                                  if ln.startswith("RESULT ")][-1][7:])
+                digests.update(r.pop("corpus") for r in res)
+                print(json.dumps({"superstep": name, "rank": rank,
+                                  "runs": res, "card": smi}), flush=True)
+    check(len(digests) == 1, "the checkouts' corpora differ")
 
 
 def compare_cdf_walk(torch, this, other, graph, order, smi) -> None:
@@ -379,7 +590,7 @@ def compare_cdf_serve(torch, this, other, smi) -> None:
             torch, graph, layout, corpus, cdf=True)
         n = cur.shape[0]
         lk = torch.zeros(n, dtype=torch.int32, device="cuda")
-        send, _, _ = this("ops.shard_walk").emit(
+        send, *_ = this("ops.shard_walk").emit(
             tabs[0], cur, prev, torch.zeros_like(lk), alive, lk, Ln, S * Ln,
             0, C)
         recv = send.reshape(-1, 3).clone()
@@ -433,7 +644,10 @@ def main(argv: list[str]) -> int:
     import numpy as np
     import torch
 
-    only = argv[1:] == ["--only", "cdf"]
+    only = argv[2] if argv[1:2] == ["--only"] and len(argv) == 3 else None
+    if only not in (None, "cdf", "shard"):
+        print(__doc__, file=sys.stderr)
+        return 2
     if len(argv) != (3 if only else 1) or not os.path.isdir(argv[0]):
         print(__doc__, file=sys.stderr)
         return 2
@@ -454,6 +668,11 @@ def main(argv: list[str]) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     this = load_package(root, "srw_this")
     other = load_package(other_root, "srw_other")
+    if only == "shard":
+        compare_shard_emit(torch, this, other, shard_graph(), smi)
+        compare_shard_serve(torch, this, other, shard_graph(), smi)
+        compare_shard_superstep(root, other_root, smi)
+        return 0
     if only:
         compare_cdf_serve(torch, this, other, smi)
         compare_cdf_walk(torch, this, other,
@@ -552,8 +771,9 @@ def main(argv: list[str]) -> int:
                       "walk_length": L, "ms_in_turns": runs, "card": smi}))
     compare_launch_forms(torch, this, walkers["this"], graph, R, L, p, q,
                          smi)
-    compare_shard_serve(torch, this, other, walkers["this"], graph, R, L, p,
-                        q, smi)
+    compare_shard_emit(torch, this, other, shard_graph(), smi)
+    compare_shard_serve(torch, this, other, shard_graph(), smi)
+    compare_shard_superstep(root, other_root, smi)
 
     # the resident-row walk kernel
     L, T, md = 80, 8, 16

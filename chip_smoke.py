@@ -129,18 +129,21 @@ entry points a user calls:
               wherever the count is 0, read before it);
   phase 22    the sharded walk engine (parallel/distributed.py, K11):
               shard_emit and shard_serve (csrc/shard_walk.cu) bit for bit
-              against their plain versions on one superstep's requests of
-              phase 4's corpus in each layout (the emit at the auto
-              capacity and at a small one, two rounds; the serve on the
-              local walkers and on the requests sent to the other shard,
-              both equal to the corpus's next column), timed beside their
-              bounds and (the emit) torch.sort(stable=True) + a scatter;
-              then run_walks at phase 4's graph and walk on two gloo ranks
-              sharing the card (processes of their own), hash route over 2
-              shards, a vertex-cut route over 2 shards and 1 shard x 2
-              lanes: /path byte for byte phase 4's, the stats equal to the
-              plain path's (the plain versions on the card), K11's
-              launches and none of the walk kernel, walk seconds,
+              against their plain versions on one superstep of phase 4's
+              corpus in each layout (the emit at the auto capacity and at
+              a small one, three launches into one work each; the serve in
+              one launch of rank 0's walkers with their local flags and
+              the buffer it receives, equal to the corpus's next column;
+              one superstep under sync debug "error"), timed beside their
+              empty launches, their bounds and (the emit)
+              torch.sort(stable=True) + a scatter, the emit also on first
+              and next rounds in turn; then run_walks at
+              phase 4's graph and walk on two gloo ranks sharing the card
+              (processes of their own), hash route over 2 shards, a
+              vertex-cut route over 2 shards and 1 shard x 2 lanes: /path
+              byte for byte phase 4's, the stats equal to the plain path's
+              (the plain versions on the card), one emit and one serve an
+              exchange round and none of the walk kernel, walk seconds,
               supersteps, exchange rounds, boundary walkers, replication
               factor, capacity, the kernels' ms and the collectives' host
               ms a superstep;
@@ -3743,6 +3746,18 @@ dist.destroy_process_group()
 """
 
 
+def shard_graph():
+    """Phase 4's graph as phases 22 and 25 load it: the arcs written to an
+    edge list and read back."""
+    from stellar_rw_tpu_torch.graph import io as gio
+
+    src, dst = synth_power_law_arcs(10_000, 334_000, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        edges = os.path.join(tmp, "edges.txt")
+        np.savetxt(edges, np.stack([src, dst], 1), fmt="%d")
+        return gio.load_edge_list(edges)
+
+
 def shard_home(graph):
     """Phase 22's vertex-cut homes: one of 4 partitions a vertex, from a
     seed (the partitioned loader draws them so for a file without a
@@ -3776,15 +3791,13 @@ class plain_shard_walk:
             def emit(*a):
                 return sw.emit_ref(*a[:10])
 
-            def serve(tab, req, valid, gid_base, keys, t, first, **kw):
-                return sw.serve_ref(tab, *fields(req, valid, gid_base),
-                                    keys, t, first, **kw)
-
             def cdf_serve(tab, req, valid, gid_base, *a, work=None,
-                          segments=0, **kw):
-                return sw.cdf_serve_ref(tab, *fields(req, valid, gid_base),
-                                        *a, **kw)
-            sw.emit, sw.serve, sw.cdf_serve = emit, serve, cdf_serve
+                          segments=0, out=None, **kw):
+                got = sw.cdf_serve_ref(tab, *fields(req, valid, gid_base),
+                                       *a, **kw)
+                return got if out is None else out.copy_(got)
+            sw.emit, sw.serve, sw.cdf_serve = emit, sw.serve_plain, \
+                cdf_serve
         return self
 
     def __exit__(self, *exc):
@@ -3794,17 +3807,64 @@ class plain_shard_walk:
         return False
 
 
+# K11's kernels with their bodies taken out (the launch of each grid in its
+# own form): the emit after its wait and release, the serve after its wait
+K11_EMPTY = {
+    "shard_emit": [('  asm volatile("griddepcontrol.launch_dependents;");\n',
+                    '  asm volatile("griddepcontrol.launch_dependents;");\n'
+                    '  if (a.n >= 0) return;\n')],
+    "shard_serve": [('  asm volatile("griddepcontrol.wait;" ::: "memory");\n'
+                     "  const int k = blockIdx.x",
+                     '  asm volatile("griddepcontrol.wait;" ::: "memory");\n'
+                     "  if (a.m >= 0) return;\n"
+                     "  const int k = blockIdx.x")]}
+
+
+def k11_empty_kernels() -> dict:
+    """K11's kernels with their bodies out (K11_EMPTY), as Kernels of the
+    package's build machinery, each bound to its wrapper's entry point."""
+    from stellar_rw_tpu_torch.ops import _build as build
+    from stellar_rw_tpu_torch.ops import shard_walk as sw
+
+    text = (build.CSRC / "shard_walk.cu").read_text()
+    return {name: source_kernel(f"{name}_empty", edited(text, edits),
+                                k.symbol, k.argtypes, "k11_empty")
+            for (name, edits), k in zip(K11_EMPTY.items(),
+                                        (sw.EMIT_KERNEL, sw.SERVE_KERNEL))}
+
+
+class using_kernel:
+    """Within it, ops/shard_walk.py's `name` Kernel is `kernel`."""
+
+    def __init__(self, name: str, kernel):
+        self.name, self.kernel = name, kernel
+
+    def __enter__(self):
+        from stellar_rw_tpu_torch.ops import shard_walk as sw
+
+        self.saved = getattr(sw, self.name)
+        setattr(sw, self.name, self.kernel)
+
+    def __exit__(self, *exc):
+        from stellar_rw_tpu_torch.ops import shard_walk as sw
+
+        setattr(sw, self.name, self.saved)
+        return False
+
+
 def torch_arange_like(x):
     import torch
 
     return torch.arange(x.shape[0], dtype=torch.int32, device=x.device)
 
 
-def shard_superstep(torch, graph, layout: str, corpus, cdf: bool = False):
-    """The requests of rank 0 at superstep SHARD_STEP of phase 22's layout
-    for a corpus of R rounds [R * V, L + 2]: (rank 0's shard tables, the
-    other shard's (None at one shard), cur, prev, alive, the gids' corpus
-    rows, S, L, the auto capacity); cdf: the tables with their cdf_rows."""
+def shard_superstep(torch, graph, layout: str, corpus, cdf: bool = False,
+                    rank: int = 0):
+    """The walkers of a rank (0 or 1; walker i is gid rank * n + i) at
+    superstep SHARD_STEP of phase 22's layout for a corpus of R rounds
+    [R * V, L + 2]: (the shard tables, shard 0's first (one at one shard),
+    cur, prev, alive, the gids' corpus rows, S, L, the auto capacity); cdf:
+    the tables with their cdf_rows."""
     from stellar_rw_tpu_torch.graph.partition import plan_shards
     from stellar_rw_tpu_torch.ops import shard_walk
     from stellar_rw_tpu_torch.parallel import distributed
@@ -3818,7 +3878,7 @@ def shard_superstep(torch, graph, layout: str, corpus, cdf: bool = False):
             for s in range(S)]
     W_pad = -(-V // 2) * 2
     n = corpus.shape[0] // V * W_pad // 2
-    gid = torch.arange(n, device="cuda")
+    gid = rank * n + torch.arange(n, device="cuda")
     # a lane past V is shard padding: never alive
     lane = gid % W_pad
     rows = (gid // W_pad) * V + lane.clamp_max(V - 1)
@@ -3830,15 +3890,36 @@ def shard_superstep(torch, graph, layout: str, corpus, cdf: bool = False):
     return tabs, cur, prev, alive, rows, S, L, C, W_pad
 
 
-def phase_shard_check(torch, smi, graph) -> tuple[dict, dict]:
+def emit_bytes(n: int, first: bool, routed: int, pending: int, sent: int,
+               refilled: int, tiles: int, D: int) -> int:
+    """The bytes one emit launch must move: the first round reads cur,
+    prev and alive (12 B a walker) and writes the pending and local flags
+    (8 B); a later round reads the pending flags (4 B a walker) and the
+    pending walkers' cur and prev, and clears a sent walker's flag. Both
+    read the route of each walker routed (VCut), write 16 B a request sent
+    (its fields and slot) and a fill re-written, a status word a tile and
+    column, and the counters."""
+    flags = 20 * n if first else 4 * n + 8 * pending + 4 * sent
+    return flags + 4 * routed + 16 * (sent + refilled) + 8 * tiles * D + 12
+
+
+def phase_shard_check(torch, smi, graph, empty) -> tuple[dict, dict]:
     """Phase 22 (a): K11's two halves against their plain versions on the
-    card at one superstep's requests of each layout (rank 0's walkers of
-    phase 4's corpus at superstep SHARD_STEP): the emit's buffers, slots,
-    flags and counts bit for bit (the first round at the auto capacity and
-    at SHARD_SMALL_C, then the next round), the serve's destinations bit
-    for bit and equal to the corpus's next column (the local walkers on
-    rank 0's shard, the requests sent to the other shard on its), each
-    timed beside its bound. Returns the two kernels' rows."""
+    card at one superstep of each layout (the walkers of ranks 0 and 1 of
+    phase 4's corpus at superstep SHARD_STEP). The emit's buffers, slots,
+    counts and flags bit for bit, at the auto capacity and at
+    SHARD_SMALL_C, each over three launches into one work (the first
+    round, the next, the first again: the buffers re-filled as the counts
+    shrink and grow). The serve: one launch of rank 0's walkers with their
+    local flags and the buffer it receives (its own bucket and rank 1's
+    requests for shard 0) bit for bit serve_plain's, each step the
+    corpus's next column; one superstep (emit, serve, the next round's
+    emit) under torch.cuda.set_sync_debug_mode("error"). Each kernel timed
+    beside its empty launch (`empty`: K11_EMPTY's kernels) and its bound;
+    the emit both on its first round again and again (the buffer as the
+    last launch left it) and on first and next rounds in turn (each launch
+    re-fills the entries the other one sent). Returns the two kernels'
+    rows."""
     from stellar_rw_tpu_torch.ops import prng, sampling, shard_walk
     from stellar_rw_tpu_torch.ops import walk_step
     from stellar_rw_tpu_torch.walk import engine
@@ -3860,70 +3941,120 @@ def phase_shard_check(torch, smi, graph) -> tuple[dict, dict]:
                              int((a.long() - b.long()).abs().max()))
         check(torch.equal(a, b), f"{name} differs from its plain version "
               f"({what})")
+    t = SHARD_STEP
     for layout in SHARD_LAYOUTS:
-        tabs, cur, prev, alive, rows, S, L, C, W_pad = shard_superstep(
-            torch, graph, layout, corpus)
+        ranks = [shard_superstep(torch, graph, layout, corpus, rank=r)
+                 for r in range(2)]
+        tabs, cur, prev, alive, rows, S, L, C, W_pad = ranks[0]
         D, n = S * L, cur.shape[0]
         i32 = lambda: torch.zeros(n, dtype=torch.int32, device="cuda")
         rounds = {}
         for cap in (C, SHARD_SMALL_C):
+            work = shard_walk.emit_work(n, D, cap, "cuda")
             pk, lk, pr, lr = i32(), i32(), i32(), i32()
             rounds[cap] = []
-            for first in (True, False):
+            for first in (True, False, True):
                 k = [x.clone() for x in shard_walk.emit(
                     tabs[0], cur, prev, pk, alive if first else None, lk, L,
-                    D, 0, cap)]
+                    D, 0, cap, work)]
                 r = shard_walk.emit_ref(tabs[0], cur, prev, pr,
                                         alive if first else None, lr, L, D,
                                         0, cap)
                 torch.cuda.synchronize()
-                what = f"{layout}, C {cap}, first {first}"
+                what = f"{layout}, C {cap}, launch {len(rounds[cap])}"
                 for a, b in zip(k, r):
                     held("shard_emit", a, b, what)
                 held("shard_emit", pk, pr, f"pending flags, {what}")
                 held("shard_emit", lk, lr, f"local flags, {what}")
                 rounds[cap].append([int(v) for v in r[2]])
-        # the serve: rank 0's local walkers, then what it sends shard 1
-        t = SHARD_STEP
+        # rank 0's superstep: its emit, the buffer it receives, one serve
         kw = dict(W_pad=W_pad, W_total=R * W_pad, n_stream=V, p=0.25,
                   q=0.25)
-        send, slot, counters = shard_walk.emit(tabs[0], cur, prev, i32(),
-                                               alive, lk, L, D, 0, C)
-        send, slot = send.clone(), slot.clone()
-        nxt = corpus[rows, t + 1]
-        local_k = shard_walk.serve(tabs[0], (cur, prev, None), lk, 0, keys,
-                                   t, False, **kw)
-        counts = {}
-        local_r, plain_ms = cuda_ms_once(lambda: shard_walk.serve_ref(
-            tabs[0], cur, prev, torch_arange_like(cur), lk != 0, keys, t,
-            False, counts=counts, **kw))
+        sends = []
+        for rk, (rtabs, rcur, rprev, ralive, *_) in enumerate(ranks):
+            lk = i32()
+            send, *_ = shard_walk.emit(
+                rtabs[rk // L], rcur, rprev, i32(), ralive, lk, L, D, rk * n,
+                C, shard_walk.emit_work(n, D, C, "cuda"))
+            sends.append(send.clone())
+            if rk == 0:
+                local_flags = lk
+        mine = (cur, prev, local_flags)
+        # rank 0 receives bucket 0 of every rank's buffer (ranks 0, 1 are
+        # devices 0, 1)
+        recv = torch.stack([sends[0][0], sends[1][0]]).contiguous()
+        dst_k, reply_k = shard_walk.serve(tabs[0], keys, t, False, local=mine,
+                                          recv=recv, **kw)
+        counts, rcounts = {}, {}
+        lm = local_flags != 0
+        count = int(lm.sum())
+        (dst_r, reply_r), plain_ms = cuda_ms_once(
+            lambda: shard_walk.serve_plain(tabs[0], keys, t, False,
+                                           local=mine, recv=recv, **kw))
+        shard_walk.serve_ref(tabs[0], cur, prev, torch_arange_like(cur), lm,
+                             keys, t, False, counts=counts, **kw)
+        flat = recv.reshape(-1, 3)
+        shard_walk.serve_ref(tabs[0], flat[:, 0], flat[:, 1], flat[:, 2],
+                             None, keys, t, False, counts=rcounts, **kw)
         torch.cuda.synchronize()
-        held("shard_serve", local_k, local_r, f"local walkers, {layout}")
-        lm = lk != 0
-        check(torch.equal(local_k[lm], nxt[lm]), f"shard_serve's local "
+        held("shard_serve", dst_k, dst_r, f"local walkers, {layout}")
+        held("shard_serve", reply_k, reply_r, f"received buffer, {layout}")
+        nxt = corpus[rows, t + 1]
+        check(torch.equal(dst_k[lm], nxt[lm])
+              and bool((dst_k[~lm] == -1).all()), f"shard_serve's local "
               f"steps differ from the corpus ({layout})")
-        serve_ms = cuda_ms(lambda: shard_walk.serve(
-            tabs[0], (cur, prev, None), lk, 0, keys, t, False, **kw), 10)
-        remote = {}
-        if S > 1:
-            req = send[1].reshape(C, 3)
-            rk = shard_walk.serve(tabs[1], req, None, 0, keys, t, False,
-                                  **kw)
-            rr = shard_walk.serve_ref(tabs[1], req[:, 0], req[:, 1],
-                                      req[:, 2], None, keys, t, False, **kw)
-            torch.cuda.synchronize()
-            held("shard_serve", rk, rr, f"the requests sent, {layout}")
-            ok = req[:, 2] >= 0
-            check(torch.equal(rk[ok], nxt[req[ok, 2].long()]),
-                  f"shard_serve's remote steps differ from the corpus "
-                  f"({layout})")
-            remote = {"requests": int(ok.sum()), "ms": cuda_ms(
-                lambda: shard_walk.serve(tabs[1], req, None, 0, keys, t,
-                                         False, **kw), 10)}
-        # the emit's time: the first round's form (idempotent)
+        ok = flat[:, 2] >= 0
+        g = flat[ok, 2].long()
+        check(torch.equal(reply_k[ok], corpus[(g // W_pad) * V + g % W_pad,
+                                              t + 1])
+              and bool((reply_k[~ok] == -1).all()),
+              f"shard_serve's received steps differ from the corpus "
+              f"({layout})")
+        # one superstep on the card alone: the emit, the serve, the next
+        # round's emit
+        sync_pend, sync_loc = i32(), i32()
+        sync_work = shard_walk.emit_work(n, D, C, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            shard_walk.emit(tabs[0], cur, prev, sync_pend, alive, sync_loc,
+                            L, D, 0, C, sync_work)
+            shard_walk.serve(tabs[0], keys, t, False,
+                             local=(cur, prev, sync_loc), recv=recv, **kw)
+            shard_walk.emit(tabs[0], cur, prev, sync_pend, None, None, L, D,
+                            0, C, sync_work)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        # times: the emit's first round again and again (no entry to
+        # re-fill), the first and next rounds in turn, the serve of the
+        # superstep, each beside its grid's empty launch
         pend, loc = i32(), i32()
-        emit_ms = cuda_ms(lambda: shard_walk.emit(
-            tabs[0], cur, prev, pend, alive, loc, L, D, 0, C), 20)
+        i32_empty = (i32(), i32())
+        emit_work = shard_walk.emit_work(n, D, C, "cuda")
+        emit_fn = lambda: shard_walk.emit(tabs[0], cur, prev, pend, alive,
+                                          loc, L, D, 0, C, emit_work)
+        turn_work = shard_walk.emit_work(n, D, C, "cuda")
+        turn_flags = (i32(), i32())
+
+        def emit_turns():
+            shard_walk.emit(tabs[0], cur, prev, turn_flags[0], alive,
+                            turn_flags[1], L, D, 0, C, turn_work)
+            shard_walk.emit(tabs[0], cur, prev, turn_flags[0], None, None,
+                            L, D, 0, C, turn_work)
+        serve_fn = lambda: shard_walk.serve(tabs[0], keys, t, False,
+                                            local=mine, recv=recv,
+                                            dst=dst_k, reply=reply_k, **kw)
+        emit_ms = cuda_ms(emit_fn, 20)
+        turns_ms = cuda_ms(emit_turns, 20)
+        serve_ms = cuda_ms(serve_fn, 20)
+        empty_work = shard_walk.emit_work(n, D, C, "cuda")
+        with using_kernel("EMIT_KERNEL", empty["shard_emit"]):
+            emit_empty_ms = cuda_ms(lambda: shard_walk.emit(
+                tabs[0], cur, prev, i32_empty[0], alive, i32_empty[1], L, D,
+                0, C, empty_work), 20)
+        with using_kernel("SERVE_KERNEL", empty["shard_serve"]):
+            serve_empty_ms = cuda_ms(serve_fn, 20)
         _, emit_plain_ms = cuda_ms_once(lambda: shard_walk.emit_ref(
             tabs[0], cur, prev, i32(), alive, i32(), L, D, 0, C))
         # the library yardstick: the emit's function in PyTorch calls,
@@ -3948,36 +4079,65 @@ def phase_shard_check(torch, smi, graph) -> tuple[dict, dict]:
             sent = (sd < D) & (rank < C)
             buf[sd[sent], rank[sent]] = fields[order[sent]]
         library_ms = cuda_ms(library, 20)
-        check(torch.equal(buf, send), f"the library yardstick's buffer "
+        check(torch.equal(buf, sends[0]), f"the library yardstick's buffer "
               f"differs from shard_emit's ({layout})")
-        route_bytes = 4 * n if tabs[0].route is not None else 0
-        eb = bound(4 * n * 3 + route_bytes + 4 * n * 2 + 16 * D * C + 8, 0,
-                   INT_OPS_PER_S)
-        served = counts["served"]
-        draws = (2 * counts["dense_trials"] + 3 * counts["lane_trials"]
-                 + counts["acc_draws"])
-        trials = counts["dense_trials"] + counts["lane_trials"]
-        sb = bound(4 * n * 4 + 16 * (2 * served + 2 * trials),
+        # the bounds, from this run's counts: the first round sends
+        # `sent` and leaves `left`; in turns, the next round sends the
+        # rest and re-fills the first's entries, then the first re-fills
+        # the next's
+        (before, left), (before2, left2) = rounds[C][:2]
+        sent, sent2 = before - left, before2 - left2
+        routed = int((alive != 0).sum()) if tabs[0].route is not None else 0
+        tiles = max(1, -(-n // shard_walk.EMIT_THREADS))
+        first_bytes = emit_bytes(n, True, routed, 0, sent, 0, tiles, D)
+        eb = bound(first_bytes, 0, INT_OPS_PER_S)
+        tb = bound(first_bytes + emit_bytes(
+            n, False, before2 if routed else 0, before2, sent2, sent - sent2,
+            tiles, D), 0, INT_OPS_PER_S)
+        served = counts["served"] + rcounts["served"]
+        draws = sum(2 * c["dense_trials"] + 3 * c["lane_trials"]
+                    + c["acc_draws"] for c in (counts, rcounts))
+        trials = sum(c["dense_trials"] + c["lane_trials"]
+                     for c in (counts, rcounts))
+        slots = flat.shape[0]
+        received = int(ok.sum())
+        # the flags, cur and prev of the local walkers, dst; every slot's
+        # gid and the received requests' cur and prev, reply; the rows
+        sb = bound(8 * n + 8 * count + 8 * slots + 8 * received
+                   + 16 * (2 * served + 2 * trials),
                    draws * OPS_PER_DRAW, INT_OPS_PER_S)
         rows_out["shard_emit"][layout] = {
-            "ms": emit_ms, "plain_ms": emit_plain_ms,
-            "library_ms": library_ms, **eb, "walkers": n, "capacity": C,
+            "ms": emit_ms, "empty_launch_ms": emit_empty_ms,
+            "plain_ms": emit_plain_ms, "library_ms": library_ms, **eb,
+            "turns_ms_a_launch": turns_ms / 2,
+            "turns_bound_ms_a_launch": tb["bound_ms"] / 2,
+            "walkers": n, "capacity": C, "sent": sent,
             "counts": {str(c): v for c, v in rounds.items()}}
         rows_out["shard_serve"][layout] = {
-            "ms": serve_ms, "plain_ms": plain_ms, **sb, "library_ms": None,
-            "requests": n, "served": served, "trials": trials,
-            "draws": draws, "remote": remote}
+            "ms": serve_ms, "empty_launch_ms": serve_empty_ms,
+            "plain_ms": plain_ms, **sb, "library_ms": None,
+            "local": count, "received_slots": slots, "received": received,
+            "served": served, "trials": trials,
+            "max_trials": max(counts["max_trials"], rcounts["max_trials"]),
+            "draws": draws}
         print(f"phase 22 (a) {layout}: shard_emit bitwise emit_ref over "
-              f"{n} walkers (C {C} and {SHARD_SMALL_C}, two rounds; counts "
-              f"{rounds}): kernel {emit_ms:.4f} ms, plain {emit_plain_ms:.2f}"
-              f", the library calls (stable sort, bincount ranks, scatter) "
-              f"{library_ms:.4f}, bound "
-              f"{eb['bound_ms']:.5f} by {eb['bound_by']}; shard_serve "
-              f"bitwise serve_ref and the corpus's column {t + 1} on "
-              f"{served} local walkers ({trials} trials): kernel "
-              f"{serve_ms:.4f} ms, plain {plain_ms:.2f}, bound "
-              f"{sb['bound_ms']:.5f} by {sb['bound_by']}; the requests sent "
-              f"to the other shard {remote} [{smi}]")
+              f"{n} walkers (C {C} and {SHARD_SMALL_C}, three launches "
+              f"into one work each; counts {rounds}): the first round "
+              f"{emit_ms:.5f} ms (bound {eb['bound_ms']:.5f} by "
+              f"{eb['bound_by']}), the first and next rounds in turn "
+              f"{turns_ms / 2:.5f} ms a launch (bound "
+              f"{tb['bound_ms'] / 2:.5f}), its empty launch "
+              f"{emit_empty_ms:.5f}, plain {emit_plain_ms:.2f}, the library "
+              f"calls (stable sort, bincount ranks, scatter) "
+              f"{library_ms:.4f}; shard_serve bitwise serve_plain and the "
+              f"corpus's column {t + 1} in one launch of the {count} local "
+              f"walkers of {n} and the {received} requests received in "
+              f"{slots} slots ({trials} trials, at most "
+              f"{rows_out['shard_serve'][layout]['max_trials']} a "
+              f"request): kernel {serve_ms:.4f} ms, its empty launch "
+              f"{serve_empty_ms:.4f}, plain {plain_ms:.2f}, bound "
+              f"{sb['bound_ms']:.5f} by {sb['bound_by']}; one superstep "
+              f"under sync debug 'error' [{smi}]")
     return ({"max_abs_err": errs["shard_emit"],
              **rows_out["shard_emit"]["hash"],
              "layouts": rows_out["shard_emit"]},
@@ -4035,9 +4195,11 @@ def phase_shard_ranks(torch, smi, tmp, main_run) -> dict:
                       f"{layout}: stat {k} {r['main']['stats'][k]} against "
                       f"the plain path's {r['plain']['stats'][k]}")
             la = r["main"]["launches"]
-            check(la["shard_emit"] > 0 and la["shard_serve"] > 0
+            rounds = r["main"]["stats"]["exchange_rounds_total"]
+            # one emit and one serve an exchange round
+            check(la["shard_emit"] == rounds and la["shard_serve"] == rounds
                   and la["walk"] == 0 and la["trial_keys"] == 1,
-                  f"{layout}: launches {la}")
+                  f"{layout}: launches {la}, {rounds} exchange rounds")
             check(r["plain"]["launches"]["shard_emit"] == 0
                   and r["plain"]["launches"]["shard_serve"] == 0,
                   f"{layout}: the plain run launched K11")
@@ -5062,9 +5224,10 @@ def main() -> int:
     from stellar_rw_tpu_torch.ops.walk_step import KEYS_KERNEL, WALK_KERNEL
 
     probe = draws_probe()
+    k11_empty = k11_empty_kernels()
     smi = phase_env(torch, (WALK_KERNEL, KEYS_KERNEL, RESIDENT_WALK_KERNEL,
                             CDF_WALK_KERNEL, EMIT_KERNEL, SERVE_KERNEL,
-                            CDF_SERVE_KERNEL,
+                            CDF_SERVE_KERNEL, *k11_empty.values(),
                             *trainer_kernels().values(),
                             *hs_kernels().values(),
                             *spmm_kernels().values(),
@@ -5106,7 +5269,7 @@ def main() -> int:
         from stellar_rw_tpu_torch.graph import io as gio
 
         emit_row, serve_row = phase_shard_check(
-            torch, smi, gio.load_edge_list(main_run["edges"]))
+            torch, smi, gio.load_edge_list(main_run["edges"]), k11_empty)
         shard_run = phase_shard_ranks(torch, smi, tmp, main_run)
         mp_run = phase_model_shards(torch, smi, tmp, main_run, exact_run)
         multihost_run = phase_multihost(torch, smi, tmp, main_run)

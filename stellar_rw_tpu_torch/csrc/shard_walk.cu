@@ -28,37 +28,56 @@
 //                the request's global walker id as above.
 //
 // shard_emit. What bounds it: bytes (it reads cur, prev and the pending
-// flag of n walkers and writes at most D * C requests) and, far more, its
-// launch and the two grid barriers at the shapes of a walk. Its design: one
-// cooperative launch of persistent blocks over tiles of kEmitThreads
-// walkers, a walker a thread, in three phases:
-//   (1) each tile's count of requests for each destination: a warp's
-//       requests for one destination found by __match_any_sync, counted by
-//       its lowest lane into a per-warp table in shared memory, the warps
-//       summed into the tile's row of `tile_counts`;
-//   (2) after a grid barrier, an exclusive scan of each destination's
-//       column over the tiles (a block a destination), the total in the
-//       last row;
-//   (3) after a second barrier, each request's rank in its bucket: its
-//       tile's offset + the counts of the warps before it in the tile +
-//       its rank among its warp's peers. That is its position in the
-//       stable order by destination, less the bucket's start, exactly as
-//       the JAX package ranks it. A rank below C is sent (its fields
-//       written, its pending flag cleared); the entries past each bucket's
-//       count are filled (0, 0, -1) and slot n. counters[0] gets the
-//       requests pending before the round, counters[1] those left after.
+// flag of n walkers and writes at most D * C requests) and, far more, the
+// latency of its one pass at the shapes of a walk: a grid of a few dozen
+// tiles that each load, count, scan and write once. Its design: one
+// ordinary launch (a programmatic dependent of the grid before it, and it
+// releases the serve after it) of a block a tile of kEmitThreads walkers, a
+// walker a thread, in a single pass with no grid barrier:
+//   * a block takes its tile from a counter (counters[2]), so that every
+//     tile it waits on below is already running;
+//   * each walker's column: its destination device, or none (a local
+//     walker, or one not pending); a warp's walkers of one column found by
+//     __match_any_sync and counted by its lowest lane into a per-warp table;
+//   * the tile publishes a status word for each of its D columns at once:
+//     the launch's epoch, a flag (its own count, or the count of the tiles
+//     up to it) and the count. A warp a column looks back over the
+//     tiles before, 32 at a time, and sums counts until it meets a tile
+//     with its prefix; then it publishes the tile's own prefix. A status of
+//     another epoch is not yet written in this launch, so no launch clears
+//     the statuses;
+//   * each request's rank in its bucket: the tiles' prefix, plus the warps
+//     before it in the tile, plus its rank among its warp's peers. That is
+//     its position in the stable order by destination, less the bucket's
+//     start, exactly as the JAX package ranks it. A rank below C is sent
+//     (its fields written, its pending flag cleared);
+//   * the last tile taken sees the totals: it writes the fill (0, 0, -1)
+//     and slot n into each bucket's entries that the last launch into this
+//     work filled and this one does not ([total, last total), the buffers
+//     filled once when made), the totals for the next launch, counters[0]
+//     (requests pending before the round), counters[1] (left after) and
+//     counters[2] = 0.
 // The first round of a superstep also decides each live walker's place:
 // `local` (its vertex is this shard's) or pending.
 //
-// shard_serve. What bounds it: int32 issue, as the walk kernel (a trial is
-// two or three threefry blocks around two dependent 16-byte row reads).
-// One thread a request; the rows: cur's owned row by arithmetic (hash:
-// cur / S) or from the packed route's high bits, prev's as owned or
-// through the 8-wide halo bucket row (one 32-byte read: 4 keys, 4 rows),
-// or both through glob2loc where the partitioner kept it. prev's vmeta row
-// is read again every step (a carried row would index another shard).
+// shard_serve. What bounds it: the longest chain of trials one request
+// needs (each trial two or three threefry blocks around two dependent
+// 16-byte row reads, as the walk kernel): at phase 22's superstep its
+// slowest warp takes most of the launch. So a superstep's two serves go
+// into one launch, which lets the local walkers' tail and the received
+// requests' tail run side by side. A thread a slot: the n walkers first
+// (those the emit flagged local step, the others get -1), then every
+// entry of the received buffer (a fill gets -1). Serving the requests
+// alone, compacted, bought nothing: every warp of the grid is resident at
+// once, and the slowest is as slow either way. The rows: cur's owned row
+// by arithmetic (hash: cur / S) or from the packed route's high bits,
+// prev's as owned or through the 8-wide halo bucket row (one 32-byte read:
+// 4 keys, 4 rows), or both through glob2loc where the partitioner kept
+// it. prev's vmeta row is read again every step (a carried row would
+// index another shard).
 // Launched as a programmatic dependent: it waits for the grid before it
-// (the key table, or the emit) before its first access.
+// (the key table, the emit, or the exchange's copy) before its first
+// access. The grid is sized from the slots, so no count goes to the host.
 //
 // shard_cdf_serve. What bounds it: the row entries weighed (deg(cur) a
 // request, each in the total pass and again in the find pass up to the
@@ -87,15 +106,12 @@
 // and stay outside the package (chip_cdf_serve_tile.cu,
 // chip_cdf_serve_staged.cu, chip_cdf_serve_compact.cu).
 
-#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "cdf_pick.cuh"
 #include "threefry.cuh"
 #include "walk_trial.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -106,6 +122,11 @@ constexpr int kServeThreads = 128;
 constexpr int kCdfServeThreads = 256;        // 8 warps a block
 constexpr int kBitmapWords = 2048;    // a warp's bitmap: V <= 65,536
 constexpr int kBitmapMinEntries = 1024;   // rows that read the bitmap
+// a tile's status word: (epoch << 2 | flag) << 32 | count, where the flag
+// says whether the count is the tile's own or the tiles' up to it
+constexpr int kTileCount = 1;
+constexpr int kTilePrefix = 2;
+constexpr int kMaxEpoch = 1073741823;   // 2^30 - 1: epochs 1 .. kMaxEpoch
 
 // route modes: hash (v % S), packed VCut (shard | row << rbits), dense
 // route (shard only; rows through glob2loc)
@@ -126,154 +147,179 @@ __device__ __forceinline__ int dest_shard(const Route& rt, int v) {
   return rt.mode == kRoutePacked ? (e & ((1 << rt.rbits) - 1)) : e;
 }
 
-// A walker's destination device, or D where it sends nothing this round.
-// first: decides local / pending from `alive` and writes both flags.
-__device__ __forceinline__ int emit_dest(const int* __restrict__ cur,
-                                         const int* __restrict__ alive,
-                                         int* __restrict__ pending,
-                                         int* __restrict__ local,
-                                         const Route& rt, int my, int L,
-                                         int D, int gid_base, int i, int n) {
-  if (i >= n) return D;
-  bool p;
-  int ds = 0;
-  if (alive != nullptr) {
-    const bool a = alive[i] != 0;
-    if (a) ds = dest_shard(rt, cur[i]);
-    const bool loc = a && ds == my;
-    p = a && !loc;
-    local[i] = loc;
-    pending[i] = p;
-  } else {
-    p = pending[i] != 0;
-    if (p) ds = dest_shard(rt, cur[i]);
-  }
-  return p ? ds * L + (gid_base + i) % L : D;
+// The emit's arguments (see srw_shard_emit_launch).
+struct Emit {
+  const int* cur;
+  const int* prev;
+  const int* alive;     // the superstep's first round; else null
+  int* pending;
+  int* local;
+  Route rt;
+  int my, L, D, gid_base, n, C;
+  int* send;            // [D, C, 3]
+  int* slot;            // [D, C]
+  unsigned long long* status;   // [tiles, D]
+  int* totals;          // [D] the last launch's totals
+  int* counters;        // [3]
+  unsigned epoch;
+};
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// Exclusive scan of one int a thread over the block; *total gets the sum.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sums[kEmitWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned epoch, int flag,
+                                             int count) {
+  const unsigned long long v =
+      (static_cast<unsigned long long>(epoch << 2 | flag) << 32) |
+      static_cast<unsigned>(count);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// The count of column k in the tiles before `tile`: a warp reads the
+// statuses of 32 tiles at a time (lane l the tile `base - l`), waits until
+// each is of this launch, and sums the counts up to the nearest tile that
+// holds its prefix (tile -1 holds 0).
+__device__ __forceinline__ int look_back(const Emit& a, int tile, int k,
+                                         int lane) {
+  int sum = 0;
+  for (int base = tile - 1;; base -= 32) {
+    const int j = base - lane;
+    unsigned long long s = 0;
+    bool ready;
+    do {
+      if (j >= 0) s = load_status(a.status + (size_t)j * a.D + k);
+      ready = j < 0 || static_cast<unsigned>(s >> 34) == a.epoch;
+    } while (!__all_sync(0xffffffffu, ready));
+    const bool prefix =
+        j < 0 || static_cast<int>((s >> 32) & 3u) == kTilePrefix;
+    const unsigned found = __ballot_sync(0xffffffffu, prefix);
+    const int upto = found ? __ffs(found) - 1 : 31;
+    int x = (j >= 0 && lane <= upto) ? static_cast<int>(s & 0xffffffffu) : 0;
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    sum += x;
+    if (found) return sum;
   }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  int before = 0, all = 0;
-  for (int w = 0; w < kEmitWarps; ++w) {
-    const int s = warp_sums[w];
-    if (w < warp) before += s;
-    all += s;
-  }
-  __syncthreads();
-  *total = all;
-  return before + x - v;
 }
 
 __global__ void __launch_bounds__(kEmitThreads)
-shard_emit_kernel(const int* __restrict__ cur, const int* __restrict__ prev,
-                  const int* __restrict__ alive, int* __restrict__ pending,
-                  int* __restrict__ local, Route rt, int my, int L, int D,
-                  int gid_base, int n, int C, int* __restrict__ send,
-                  int* __restrict__ slot, int* __restrict__ tile_counts,
-                  int* __restrict__ counters) {
-  __shared__ int wcnt[kEmitWarps * kMaxDevices];
-  cg::grid_group grid = cg::this_grid();
+shard_emit_kernel(const Emit a) {
+  __shared__ int wcnt[kEmitWarps * kMaxDevices];   // [warp, column]
+  __shared__ int own[kMaxDevices];       // the tile's count a column
+  __shared__ int before[kMaxDevices];    // the tiles' before it
+  __shared__ int tile_at;
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ntiles = (n + kEmitThreads - 1) / kEmitThreads;
-  if (blockIdx.x == 0 && threadIdx.x == 0) counters[1] = 0;
+  const int cols = a.D;
+  if (threadIdx.x == 0) tile_at = atomicAdd(a.counters + 2, 1);
+  for (int k = threadIdx.x; k < kEmitWarps * cols; k += kEmitThreads)
+    wcnt[k] = 0;
+  __syncthreads();
+  const int tile = tile_at;
+  const int i = tile * kEmitThreads + threadIdx.x;
 
-  // (1) each tile's count of requests for each destination
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int i = tile * kEmitThreads + threadIdx.x;
-    const int d = emit_dest(cur, alive, pending, local, rt, my, L, D,
-                            gid_base, i, n);
-    for (int k = threadIdx.x; k < kEmitWarps * D; k += kEmitThreads)
-      wcnt[k] = 0;
-    __syncthreads();
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    if (d < D && lane == __ffs(peers) - 1) wcnt[warp * D + d] = __popc(peers);
-    __syncthreads();
-    for (int k = threadIdx.x; k < D; k += kEmitThreads) {
-      int s = 0;
-      for (int w = 0; w < kEmitWarps; ++w) s += wcnt[w * D + k];
-      tile_counts[(size_t)tile * D + k] = s;
+  // the walker's column: its destination device, D none. Its fields are
+  // read here, ahead of the barriers, for the write below
+  int c = cols, fcur = 0, fprev = 0;
+  if (i < a.n) {
+    fcur = a.cur[i];
+    fprev = a.prev[i];
+    if (a.alive != nullptr) {
+      const bool al = a.alive[i] != 0;
+      const int ds = al ? dest_shard(a.rt, fcur) : 0;
+      const bool loc = al && ds == a.my;
+      a.local[i] = loc;
+      if (al && !loc) c = ds * a.L + (a.gid_base + i) % a.L;
+    } else if (a.pending[i] != 0) {
+      c = dest_shard(a.rt, fcur) * a.L + (a.gid_base + i) % a.L;
     }
-    __syncthreads();
   }
-  grid.sync();
+  const unsigned peers = __match_any_sync(0xffffffffu, c);
+  if (c < cols && lane == __ffs(peers) - 1)
+    wcnt[warp * cols + c] = __popc(peers);
+  __syncthreads();
 
-  // (2) each destination's column scanned over the tiles; totals last
-  for (int d = blockIdx.x; d < D; d += gridDim.x) {
-    const int per = (ntiles + kEmitThreads - 1) / kEmitThreads;
-    const int t0 = min(threadIdx.x * per, ntiles);
-    const int t1 = min(t0 + per, ntiles);
+  // the tile's count a column, published at once; wcnt becomes each warp's
+  // offset in the tile
+  for (int k = threadIdx.x; k < cols; k += kEmitThreads) {
     int s = 0;
-    for (int t = t0; t < t1; ++t) s += tile_counts[(size_t)t * D + d];
-    int total;
-    int run = block_exclusive_scan(s, &total);
-    for (int t = t0; t < t1; ++t) {
-      const int c = tile_counts[(size_t)t * D + d];
-      tile_counts[(size_t)t * D + d] = run;
-      run += c;
+    for (int w = 0; w < kEmitWarps; ++w) {
+      const int x = wcnt[w * cols + k];
+      wcnt[w * cols + k] = s;
+      s += x;
     }
-    if (threadIdx.x == 0) tile_counts[(size_t)ntiles * D + d] = total;
+    own[k] = s;
+    if (tile == 0) before[k] = 0;
+    store_status(a.status + (size_t)tile * cols + k, a.epoch,
+                 tile == 0 ? kTilePrefix : kTileCount, s);
   }
-  grid.sync();
-
-  // (3) each request's rank in its bucket; the first C are sent
-  const int* totals = tile_counts + (size_t)ntiles * D;
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const int i = tile * kEmitThreads + threadIdx.x;
-    // pending and the destination again (this thread wrote the flags in
-    // (1) for the first round)
-    const int d = emit_dest(cur, nullptr, pending, nullptr, rt, my, L, D,
-                            gid_base, i, n);
-    for (int k = threadIdx.x; k < kEmitWarps * D; k += kEmitThreads)
-      wcnt[k] = 0;
+  if (tile > 0) {
     __syncthreads();
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    if (d < D && lane == __ffs(peers) - 1) wcnt[warp * D + d] = __popc(peers);
-    __syncthreads();
-    bool left = false;
-    if (d < D) {
-      int rank = tile_counts[(size_t)tile * D + d]
-                 + __popc(peers & ((1u << lane) - 1u));
-      for (int w = 0; w < warp; ++w) rank += wcnt[w * D + d];
-      if (rank < C) {
-        const size_t e = (size_t)d * C + rank;
-        send[3 * e] = cur[i];
-        send[3 * e + 1] = prev[i];
-        send[3 * e + 2] = gid_base + i;
-        slot[e] = i;
-        pending[i] = 0;
-      } else {
-        left = true;
+    for (int k = warp; k < cols; k += kEmitWarps) {
+      const int sum = look_back(a, tile, k, lane);
+      if (lane == 0) {
+        before[k] = sum;
+        store_status(a.status + (size_t)tile * cols + k, a.epoch,
+                     kTilePrefix, sum + own[k]);
       }
     }
-    const int n_left = __syncthreads_count(left);
-    if (threadIdx.x == 0 && n_left) atomicAdd(counters + 1, n_left);
   }
-  // the entries past each bucket's count
-  const size_t stride = (size_t)gridDim.x * kEmitThreads;
-  for (size_t e = (size_t)blockIdx.x * kEmitThreads + threadIdx.x;
-       e < (size_t)D * C; e += stride) {
-    const int d = (int)(e / C);
-    if ((int)(e - (size_t)d * C) >= totals[d]) {
-      send[3 * e] = 0;
-      send[3 * e + 1] = 0;
-      send[3 * e + 2] = -1;
-      slot[e] = n;
+  __syncthreads();
+
+  // each request's rank in its bucket; the first C are sent
+  if (c < cols) {
+    const int at = before[c] + wcnt[warp * cols + c] +
+                   __popc(peers & ((1u << lane) - 1u));
+    if (at < a.C) {
+      const size_t e = (size_t)c * a.C + at;
+      a.send[3 * e] = fcur;
+      a.send[3 * e + 1] = fprev;
+      a.send[3 * e + 2] = a.gid_base + i;
+      a.slot[e] = i;
     }
+    a.pending[i] = at >= a.C;
+  } else if (a.alive != nullptr && i < a.n) {
+    a.pending[i] = 0;
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    int s = 0;
-    for (int d = 0; d < D; ++d) s += totals[d];
-    counters[0] = s;
+
+  // the last tile taken: the fills past this launch's totals, the counts
+  if (tile == static_cast<int>(gridDim.x) - 1) {
+    __syncthreads();
+    int* high = wcnt;   // each bucket's filled prefix in the last launch
+    for (int d = threadIdx.x; d < a.D; d += kEmitThreads) {
+      high[d] = min(a.totals[d], a.C);
+      a.totals[d] = before[d] + own[d];
+    }
+    __syncthreads();
+    for (int d = 0; d < a.D; ++d) {
+      const int lo = min(before[d] + own[d], a.C);
+      for (int r = lo + threadIdx.x; r < high[d]; r += kEmitThreads) {
+        const size_t e = (size_t)d * a.C + r;
+        a.send[3 * e] = 0;
+        a.send[3 * e + 1] = 0;
+        a.send[3 * e + 2] = -1;
+        a.slot[e] = a.n;
+      }
+    }
+    if (threadIdx.x == 0) {
+      int pend = 0, left = 0;
+      for (int d = 0; d < a.D; ++d) {
+        const int total = before[d] + own[d];
+        pend += total;
+        left += max(total - a.C, 0);
+      }
+      a.counters[0] = pend;
+      a.counters[1] = left;
+      a.counters[2] = 0;
+    }
   }
 }
 
@@ -321,45 +367,63 @@ __device__ __forceinline__ int2 request_rows(const Route& rt, int my,
   return make_int2(cur_row, prev_row);
 }
 
+// The serve's arguments (see srw_shard_serve_launch).
+struct Serve {
+  const int* cur;       // [n] the walkers' fields
+  const int* prev;
+  const int* local;     // [n] the emit's local flags
+  int n, gid_base;
+  int* dst;             // [n] a walker's result
+  const int* recv;      // [m, 3] received
+  int m;
+  int* reply;           // [m]
+  Route rt;
+  int my;
+  const int4* halo;
+  int halo_nb;
+  const int* glob2loc;
+  const int4* vmeta;
+  const int4* alias_packed;
+  const int4* buckets;
+  const uint2* keys;
+  int t, first, W_pad, W_total, Wd, L1, T, E;
+  float inv_p, inv_q, max_f;
+  int mode;
+};
+
+// One step of the request (cur, prev, gid): -1 for gid < 0 or a dead end.
+__device__ __forceinline__ int serve_one(const Serve& a, int fcur, int fprev,
+                                         int g) {
+  if (g < 0) return -1;
+  const int gc = min(g, a.W_total - 1);
+  const int r = gc / a.W_pad;
+  const uint32_t w = (uint32_t)(gc - r * a.W_pad);
+  const int2 rows = request_rows(a.rt, a.my, a.halo, a.halo_nb, a.glob2loc,
+                                 fcur, fprev);
+  const int4 cm = a.vmeta[rows.x];
+  if (cm.y <= 0) return -1;
+  const uint2* kt = a.keys + ((size_t)r * a.L1 + a.t) * a.T;
+  if (a.first)
+    return srw::first_order(a.alias_packed, cm, a.E, kt[0], w, a.Wd);
+  const int4 pm = a.vmeta[rows.y];
+  return srw::second_order(a.alias_packed, a.buckets, kt, a.T, w, a.Wd, cm,
+                           pm, fprev, a.E, a.inv_p, a.inv_q, a.max_f, a.mode);
+}
+
+// A thread a slot: slot k < n is walker k, which steps if the emit flagged
+// it local (else -1), slot n + e is entry e of the received buffer.
 __global__ void __launch_bounds__(kServeThreads)
-shard_serve_kernel(const int* __restrict__ cur, const int* __restrict__ prev,
-                   const int* __restrict__ gid, int stride,
-                   const int* __restrict__ valid, int gid_base, int m,
-                   int* __restrict__ dst, Route rt, int my,
-                   const int4* __restrict__ halo, int halo_nb,
-                   const int* __restrict__ glob2loc,
-                   const int4* __restrict__ vmeta,
-                   const int4* __restrict__ alias_packed,
-                   const int4* __restrict__ buckets,
-                   const uint2* __restrict__ keys, int t, int first,
-                   int W_pad, int W_total, int Wd, int L1, int T, int E,
-                   float inv_p, float inv_q, float max_f, int mode) {
+shard_serve_kernel(const Serve a) {
   asm volatile("griddepcontrol.wait;" ::: "memory");
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const size_t at = (size_t)i * stride;
-  const int g = gid != nullptr ? gid[at] : gid_base + i;
-  int out = -1;
-  if (g >= 0 && (valid == nullptr || valid[i] != 0)) {
-    const int gc = min(g, W_total - 1);
-    const int r = gc / W_pad;
-    const uint32_t w = (uint32_t)(gc - r * W_pad);
-    const int fcur = cur[at], fprev = prev[at];
-    const int2 rows = request_rows(rt, my, halo, halo_nb, glob2loc, fcur,
-                                   fprev);
-    const int4 cm = vmeta[rows.x];
-    if (cm.y > 0) {
-      const uint2* kt = keys + ((size_t)r * L1 + t) * T;
-      if (first) {
-        out = srw::first_order(alias_packed, cm, E, kt[0], w, Wd);
-      } else {
-        const int4 pm = vmeta[rows.y];
-        out = srw::second_order(alias_packed, buckets, kt, T, w, Wd, cm, pm,
-                                fprev, E, inv_p, inv_q, max_f, mode);
-      }
-    }
+  const int k = blockIdx.x * kServeThreads + threadIdx.x;
+  if (k < a.n) {
+    a.dst[k] = a.local[k] != 0
+                   ? serve_one(a, a.cur[k], a.prev[k], a.gid_base + k)
+                   : -1;
+  } else if (k - a.n < a.m) {
+    const int* f = a.recv + 3 * (size_t)(k - a.n);
+    a.reply[k - a.n] = serve_one(a, f[0], f[1], f[2]);
   }
-  dst[i] = out;
 }
 
 // The CDF serve's arguments (the launch's, one struct for its four
@@ -544,67 +608,67 @@ cudaError_t launch_cdf_serve(const CdfServe& a, double inv_p, double inv_q,
   return cudaGetLastError();
 }
 
-int emit_grid(int ntiles) {
-  static int resident = 0;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shard_emit_kernel,
-                                                  kEmitThreads, 0);
-    resident = sms * per_sm;
-  }
-  return ntiles < resident ? ntiles : resident;
-}
-
 }  // namespace
 
 // One exchange round's bucket build over n walkers (see the note at the
 // top). alive: the superstep's first round (the local and pending flags
-// are written from it), else null (pending is read). send [D, C, 3], slot
-// [D, C], tile_counts [(ceil(n / 512) + 1) * D], counters [2]. Returns
-// the CUDA error of the launch (a refused cooperative launch included).
+// are written from it), else null (pending is read). send [D, C, 3] and
+// slot [D, C], filled (0, 0, -1) and n when made; status [max(ceil(n /
+// 512), 1) * D] of 64 bits; totals [D], 0 when made; counters [3], 0 when
+// made: (pending before, left after, 0). The work's launches come one
+// after another with n, D, C unchanged, each with an epoch in 1 ..
+// kMaxEpoch other than the last one's. Returns the CUDA error of the
+// launch.
 extern "C" int srw_shard_emit_launch(
     const int* cur, const int* prev, const int* alive, int* pending,
     int* local, const int* route, int route_mode, int S, int rbits, int my,
     int L, int D, int gid_base, int n, int C, int* send, int* slot,
-    int* tile_counts, int* counters, void* stream) {
-  if (D < 1 || D > kMaxDevices || C < 1) return (int)cudaErrorInvalidValue;
-  const int ntiles = (n + kEmitThreads - 1) / kEmitThreads;
-  const int blocks = emit_grid(ntiles > 0 ? ntiles : 1);
-  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
-  Route rt{route, route_mode, S, rbits};
-  void* args[] = {&cur, &prev, &alive, &pending, &local, &rt, &my, &L, &D,
-                  &gid_base, &n, &C, &send, &slot, &tile_counts, &counters};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      (void*)shard_emit_kernel, dim3(blocks), dim3(kEmitThreads), args, 0,
-      (cudaStream_t)stream);
-  cudaGetLastError();  // a refused launch leaves no error for later calls
-  return (int)err;
+    unsigned long long* status, int* totals, int* counters, unsigned epoch,
+    void* stream) {
+  if (D < 1 || D > kMaxDevices || C < 1 || n < 0 || epoch < 1 ||
+      epoch > static_cast<unsigned>(kMaxEpoch))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = n > 0 ? (n + kEmitThreads - 1) / kEmitThreads : 1;
+  const Emit a{cur, prev, alive, pending, local,
+               Route{route, route_mode, S, rbits}, my, L, D, gid_base, n, C,
+               send, slot, status, totals, counters, epoch};
+  const cudaError_t err =
+      srw::launch_dependent(shard_emit_kernel, dim3(tiles),
+                            dim3(kEmitThreads), (cudaStream_t)stream, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
-// One step for m requests: cur, prev, gid at element stride `stride` (gid
-// null: gid_base + i), valid (null: every request with gid >= 0) -> dst
-// [m], -1 for a dead end or an invalid request.
+// One step for a superstep's requests in one launch: the n walkers (cur,
+// prev of walker i, gid gid_base + i; null: none) into dst[i], -1 where
+// local[i] is 0, and the m received requests recv [m, 3] (null: none) into
+// reply [m], -1 for a fill (gid < 0) or a dead end.
 extern "C" int srw_shard_serve_launch(
-    const int* cur, const int* prev, const int* gid, int stride,
-    const int* valid, int gid_base, int m, int* dst, const int* route,
+    const int* cur, const int* prev, const int* local, int n, int gid_base,
+    int* dst, const int* recv, int m, int* reply, const int* route,
     int route_mode, int S, int rbits, int my, const int* halo, int halo_nb,
     const int* glob2loc, const int* vmeta, const int* alias_packed,
     const int* buckets, const unsigned* keys, int t, int first, int W_pad,
     int W_total, int Wd, int L1, int T, int E, float inv_p, float inv_q,
     float max_f, int mode, void* stream) {
-  if (m > 0) {
-    Route rt{route, route_mode, S, rbits};
+  if (cur == nullptr) n = 0;
+  if (recv == nullptr) m = 0;
+  if (n < 0 || m < 0) return (int)cudaErrorInvalidValue;
+  const long long items = (long long)n + m;
+  if (items >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  if (items > 0) {
+    const Serve a{cur, prev, local, n, gid_base, dst, recv, m, reply,
+                  Route{route, route_mode, S, rbits}, my,
+                  reinterpret_cast<const int4*>(halo), halo_nb, glob2loc,
+                  reinterpret_cast<const int4*>(vmeta),
+                  reinterpret_cast<const int4*>(alias_packed),
+                  reinterpret_cast<const int4*>(buckets),
+                  reinterpret_cast<const uint2*>(keys), t, first, W_pad,
+                  W_total, Wd, L1, T, E, inv_p, inv_q, max_f, mode};
     const cudaError_t err = srw::launch_dependent(
-        shard_serve_kernel, dim3((m + kServeThreads - 1) / kServeThreads),
-        dim3(kServeThreads), (cudaStream_t)stream, cur, prev, gid, stride,
-        valid, gid_base, m, dst, rt, my, reinterpret_cast<const int4*>(halo),
-        halo_nb, glob2loc, reinterpret_cast<const int4*>(vmeta),
-        reinterpret_cast<const int4*>(alias_packed),
-        reinterpret_cast<const int4*>(buckets),
-        reinterpret_cast<const uint2*>(keys), t, first, W_pad, W_total, Wd,
-        L1, T, E, inv_p, inv_q, max_f, mode);
+        shard_serve_kernel,
+        dim3((unsigned)((items + kServeThreads - 1) / kServeThreads)),
+        dim3(kServeThreads), (cudaStream_t)stream, a);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();

@@ -14,14 +14,18 @@ collectives; the work on either side of them is here:
     (fill (0, 0, -1) and slot n), the sent walkers' pending flags cleared,
     and the counts (pending before the round, pending after). The first
     round of a superstep takes the alive flags and decides which walkers
-    are local (their vertex is this shard's) and which are pending;
-  * `serve` runs one step for requests on this shard's tables
-    (`sample_req`, :204-323): the rows of cur and prev (hash arithmetic,
-    the packed VCut route, the halo bucket rows, or glob2loc), then the
-    first-order alias draw or the rejection trials, the uniforms addressed
-    by the request's global walker id, so the step is the single-device
-    engine's wherever it is served. -1 for a dead end or an invalid
-    request;
+    are local (their vertex is this shard's) and which are pending. Its
+    kernel is one ordinary launch in a single pass (a decoupled look-back
+    over the tiles' counts; `EmitWork` keeps what a launch leaves for the
+    next);
+  * `serve` runs one step for a superstep's requests on this shard's
+    tables in one launch (`sample_req`, :204-323): the walkers the emit
+    flagged local and the received buffer's requests; the rows of cur and
+    prev (hash arithmetic, the packed VCut route, the halo bucket rows, or
+    glob2loc), then the first-order alias draw or the rejection trials, the
+    uniforms addressed by the request's global walker id, so the step is
+    the single-device engine's wherever it is served. -1 for a dead end or
+    a fill; its plain version is `serve_plain` (serve_ref on each half);
   * `cdf_serve` runs the same step by the exact inverse CDF (the CDF branch
     of `sample_req`, :262-286): the padded or chunked pick of
     ops/sampling.py over the shard's `cdf_rows`, u element w of
@@ -37,7 +41,7 @@ collectives; the work on either side of them is here:
     BITMAP_WORDS words.
 
 For CUDA tensors each wrapper launches its kernel of csrc/shard_walk.cu;
-for CPU tensors it runs its plain version (`emit_ref`, `serve_ref`,
+for CPU tensors it runs its plain version (`emit_ref`, `serve_plain`,
 `cdf_serve_ref`), with which it agrees bit for bit.
 """
 
@@ -58,6 +62,8 @@ EMIT_THREADS = 512        # walkers a tile of the emit
 MAX_DEVICES = 256         # devices D the emit's shared tables hold
 SERVE_THREADS = 128
 CDF_SERVE_THREADS = 256     # 8 warps a block
+TILE_COUNT, TILE_PREFIX = 1, 2   # an emit tile status's flags
+MAX_EPOCH = 1073741823      # 2^30 - 1: an emit launch's epochs 1 .. this
 BITMAP_WORDS = 2048         # a warp's bitmap of the vertices: V <= 65,536
 BITMAP_MIN_ENTRIES = 1024   # rows whose steps read the bitmap
 ROUTE_HASH, ROUTE_PACKED, ROUTE_DENSE = 0, 1, 2
@@ -65,10 +71,10 @@ ROUTE_HASH, ROUTE_PACKED, ROUTE_DENSE = 0, 1, 2
 _P, _I = ctypes.c_void_p, ctypes.c_int
 EMIT_KERNEL = Kernel(
     "shard_walk.cu", "srw_shard_emit_launch",
-    [_P] * 6 + [_I] * 9 + [_P] * 4 + [_P])
+    [_P] * 6 + [_I] * 9 + [_P] * 5 + [ctypes.c_uint] + [_P])
 SERVE_KERNEL = Kernel(
     "shard_walk.cu", "srw_shard_serve_launch",
-    [_P] * 3 + [_I] + [_P] + [_I] * 2 + [_P] + [_P] + [_I] * 4 + [_P]
+    [_P] * 3 + [_I] * 2 + [_P] * 2 + [_I] + [_P] * 2 + [_I] * 4 + [_P]
     + [_I] + [_P] * 5 + [_I] * 8 + [ctypes.c_float] * 3 + [_I] + [_P])
 CDF_SERVE_KERNEL = Kernel(
     "shard_walk.cu", "srw_shard_cdf_serve_launch",
@@ -120,7 +126,7 @@ def emit_ref(tab: ShardTables, cur, prev, pending, alive, local, L: int,
     """Plain version of the emit: the transcription of the JAX package's
     bucket build by a stable argsort. pending (and, with alive, local) are
     int32 [n] updated in place. Returns (send i32 [D, C, 3], slot i32
-    [D, C], counters i32 [2])."""
+    [D, C], counters i32 [2]: pending before the round, left after)."""
     n = cur.shape[0]
     dev = cur.device
     if alive is not None:
@@ -153,20 +159,40 @@ def emit_ref(tab: ShardTables, cur, prev, pending, alive, local, L: int,
     return send, slot, counters
 
 
-class EmitWork(NamedTuple):
+class EmitWork:
     """The emit's buffers for n walkers, D devices and capacity C, reused
-    round after round."""
+    launch after launch (the launches one after another on a stream):
 
-    send: torch.Tensor          # i32 [D, C, 3]
-    slot: torch.Tensor          # i32 [D, C]
-    tile_counts: torch.Tensor   # i32 [(tiles + 1) * D]
-    counters: torch.Tensor      # i32 [2]
+      send i32 [D, C, 3], slot i32 [D, C]: filled (0, 0, -1) and n here; a
+          launch re-fills only the entries the last one filled and it does
+          not;
+      status i64 [tiles * D]: each tile's status word a column (the
+          launch's epoch, a flag, a count), never cleared;
+      totals i32 [D]: the last launch's count a bucket;
+      counters i32 [3]: pending before the round, left after, and the
+          counter the tiles are taken from (0 between launches);
+      epoch: the last launch's (0: none yet)."""
+
+    def __init__(self, n: int, D: int, C: int, device):
+        tiles = max(1, -(-n // EMIT_THREADS))
+        i32 = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
+        self.n = n
+        self.send = i32(D, C, 3)
+        self.send[..., 2] = -1
+        self.slot = torch.full((D, C), n, dtype=torch.int32, device=device)
+        self.status = torch.zeros(tiles * D, dtype=torch.int64,
+                                  device=device)
+        self.totals = i32(D)
+        self.counters = i32(3)
+        self.epoch = 0
+
+    def tensors(self) -> list:
+        return [self.send, self.slot, self.status, self.totals,
+                self.counters]
 
 
 def emit_work(n: int, D: int, C: int, device) -> EmitWork:
-    tiles = -(-n // EMIT_THREADS)
-    e = lambda *s: torch.empty(s, dtype=torch.int32, device=device)
-    return EmitWork(e(D, C, 3), e(D, C), e((tiles + 1) * D), e(2))
+    return EmitWork(n, D, C, device)
 
 
 def emit(tab: ShardTables, cur, prev, pending, alive, local, L: int, D: int,
@@ -175,7 +201,9 @@ def emit(tab: ShardTables, cur, prev, pending, alive, local, L: int, D: int,
     [n]; pending: i32 [n], read and updated; alive (the superstep's first
     round) i32 [n] or None; local: i32 [n], written when alive is given.
     CPU tensors run emit_ref; CUDA tensors launch the emit kernel into
-    `work` (made here when None). Returns (send, slot, counters)."""
+    `work` (made here when None; one work serves the launches of one n, D
+    and C on one stream). Returns (send, slot, counters) as emit_ref
+    does."""
     if cur.device.type == "cpu":
         return emit_ref(tab, cur, prev, pending, alive, local, L, D,
                         gid_base, C)
@@ -186,27 +214,28 @@ def emit(tab: ShardTables, cur, prev, pending, alive, local, L: int, D: int,
     if gid_base + n >= 2**31 or D * C * 3 >= 2**31:
         raise ValueError("emit: walker ids or buffers beyond i32")
     work = emit_work(n, D, C, cur.device) if work is None else work
-    if work.send.shape != (D, C, 3):
+    if work.send.shape != (D, C, 3) or work.n != n:
         raise ValueError("emit: work buffers of another shape")
     first = alive is not None
-    tensors = [cur, prev, pending, *work]
+    tensors = [cur, prev, pending, *work.tensors()]
     if first:
         tensors += [alive, local]
     if tab.route is not None:
         tensors.append(tab.route)
     for t in tensors:
-        if t.dtype != torch.int32:
+        if t.dtype != torch.int32 and t is not work.status:
             raise ValueError("emit: int32 tensors expected")
     require_cuda("emit", *tensors)
     null = ctypes.c_void_p(0)
+    work.epoch = work.epoch % MAX_EPOCH + 1
     EMIT_KERNEL.launch(
         ptr(cur), ptr(prev), ptr(alive) if first else null, ptr(pending),
         ptr(local) if first else null,
         ptr(tab.route) if tab.route is not None else null, tab.route_mode,
         tab.S, tab.rbits, tab.shard, L, D, gid_base, n, C, ptr(work.send),
-        ptr(work.slot), ptr(work.tile_counts), ptr(work.counters),
-        stream(cur.device))
-    return work.send, work.slot, work.counters
+        ptr(work.slot), ptr(work.status), ptr(work.totals),
+        ptr(work.counters), work.epoch, stream(cur.device))
+    return work.send, work.slot, work.counters[:2]
 
 
 def _rows(tab: ShardTables, fcur, fprev):
@@ -243,7 +272,8 @@ def serve_ref(tab: ShardTables, fcur, fprev, fgid, valid, keys, t: int,
     rows. Returns dst i32 [m]. `counts`, when given, receives what the
     requests needed: `served` (requests stepped), `dense_trials`,
     `lane_trials` and `acc_draws` (as walk_step.walk_corpus_ref counts
-    them; a first-order step is one dense trial with no u_acc)."""
+    them; a first-order step is one dense trial with no u_acc) and
+    `max_trials`, the most trials one request ran."""
     g = tab.g
     m = fcur.shape[0]
     if m == 0:
@@ -278,27 +308,55 @@ def serve_ref(tab: ShardTables, fcur, fprev, fgid, valid, keys, t: int,
             served=int(can.sum()),
             dense_trials=sum(tally.trials[:walk_step.DENSE_TRIALS]),
             lane_trials=sum(tally.trials[walk_step.DENSE_TRIALS:]),
-            acc_draws=tally.acc_draws)
+            acc_draws=tally.acc_draws,
+            max_trials=(int(bool(can.any())) if first
+                        else int(tally.step.max())))
     return torch.where(can, dst, -1).to(torch.int32)
 
 
-def serve(tab: ShardTables, req, valid, gid_base: int, keys, t: int,
-          first: bool, W_pad: int, W_total: int, n_stream: int, p: float,
-          q: float, out: torch.Tensor | None = None) -> torch.Tensor:
-    """One step for requests on this shard. req: (cur, prev, gid) i32 [m]
-    each, or an i32 [m, 3] tensor of them; gid None means gid_base + i;
-    valid i32 [m] (nonzero: served) or None (every request with gid >= 0).
-    keys: the trial-key table of the rounds (walk_step.trial_keys). CPU
-    tensors run serve_ref; CUDA tensors launch the serve kernel into `out`
-    (i32 [m], made here when None). Returns dst i32 [m]."""
-    fcur, fprev, fgid, _ = _fields(req)
-    m = fcur.shape[0]
-    if fcur.device.type == "cpu":
-        if fgid is None:
-            fgid = gid_base + torch.arange(m, dtype=torch.int32)
-        return serve_ref(tab, fcur, fprev, fgid,
-                         None if valid is None else valid != 0, keys, t,
-                         first, W_pad, W_total, n_stream, p, q)
+def serve_plain(tab: ShardTables, keys, t: int, first: bool, W_pad: int,
+                W_total: int, n_stream: int, p: float, q: float, *,
+                local=None, recv=None, gid_base: int = 0, dst=None,
+                reply=None):
+    """Plain version of the serve kernel (the arguments of `serve`, on any
+    device): serve_ref on the walkers by their local flags, then on the
+    received buffer. Returns (dst, reply)."""
+    kw = dict(keys=keys, t=t, first=first, W_pad=W_pad, W_total=W_total,
+              n_stream=n_stream, p=p, q=q)
+    if local is not None:
+        cur, prev, flags = local
+        gid = gid_base + torch.arange(cur.shape[0], dtype=torch.int32,
+                                      device=cur.device)
+        got = serve_ref(tab, cur, prev, gid, flags != 0, **kw)
+        dst = got if dst is None else dst.copy_(got)
+    if recv is not None:
+        r = recv.reshape(-1, 3)
+        got = serve_ref(tab, r[:, 0], r[:, 1], r[:, 2], None, **kw)
+        reply = got if reply is None else reply.copy_(got)
+    return dst, reply
+
+
+def serve(tab: ShardTables, keys, t: int, first: bool, W_pad: int,
+          W_total: int, n_stream: int, p: float, q: float, *, local=None,
+          recv=None, gid_base: int = 0, dst=None, reply=None):
+    """One step for a superstep's requests on this shard, in one launch.
+    local: (cur, prev, flags), i32 [n] each: walker i steps from (cur[i],
+    prev[i]) as walker gid_base + i where flags[i] (the emit's local flags)
+    is not 0, into dst[i] (i32 [n], made when None), -1 elsewhere. recv:
+    the received buffer, i32 [D, C, 3] or [m, 3] of requests (cur, prev,
+    gid), into reply i32 [D * C] or [m] (made when None), -1 for a fill
+    (gid < 0). -1 for a dead end. keys: the trial-key table of the rounds
+    (walk_step.trial_keys). CPU tensors run serve_plain; CUDA tensors
+    launch the serve kernel. Returns (dst, reply), None for a half not
+    given."""
+    args = (tab, keys, t, first, W_pad, W_total, n_stream, p, q)
+    kw = dict(local=local, recv=recv, gid_base=gid_base, dst=dst,
+              reply=reply)
+    some = local[0] if local is not None else recv
+    if some is None:
+        return dst, reply
+    if some.device.type == "cpu":
+        return serve_plain(*args, **kw)
     SERVE_KERNEL.fn()
     g = tab.g
     R, L1, T = keys.shape[0], keys.shape[1], keys.shape[2]
@@ -306,16 +364,47 @@ def serve(tab: ShardTables, req, valid, gid_base: int, keys, t: int,
         raise ValueError(f"serve: key table {tuple(keys.shape)}, step {t}")
     if W_total >= 2**31 or R * W_pad < W_total:
         raise ValueError("serve: walker ids beyond i32 or the key table")
-    out, launch_args = _launch_args("serve", tab, req, valid, gid_base,
-                                    [g.alias_packed, g.hash_buckets, keys],
-                                    out)
+    null = ctypes.c_void_p(0)
+    tensors = [g.vmeta, g.alias_packed, g.hash_buckets, keys]
+    tensors += [getattr(tab, f) for f in ("route", "halo_buckets",
+                                          "glob2loc")
+                if getattr(tab, f) is not None]
+    lp, n = [null] * 4, 0
+    if local is not None:
+        cur, prev, flags = local
+        n = cur.shape[0]
+        if dst is None:
+            dst = torch.empty_like(cur)
+        if any(x.shape != (n,) for x in (prev, flags, dst)):
+            raise ValueError("serve: local walkers of other shapes")
+        tensors += [cur, prev, flags, dst]
+        lp = [ptr(cur), ptr(prev), ptr(flags), ptr(dst)]
+    rp, m = [null] * 2, 0
+    if recv is not None:
+        m = recv.numel() // 3
+        if recv.shape[-1] != 3 or not recv.is_contiguous():
+            raise ValueError(f"serve: received buffer {tuple(recv.shape)}")
+        if reply is None:
+            reply = torch.empty(m, dtype=torch.int32, device=recv.device)
+        if reply.shape != (m,):
+            raise ValueError("serve: reply of another shape")
+        tensors += [recv, reply]
+        rp = [ptr(recv), ptr(reply)]
+    for x in tensors:
+        if x.dtype != torch.int32:
+            raise ValueError("serve: int32 tensors expected")
+    require_cuda("serve", *tensors)
+    opt = lambda x: ptr(x) if x is not None else null
     inv_p, inv_q, max_f, mode = walk_step.bias_constants(p, q)
     SERVE_KERNEL.launch(
-        *launch_args, ptr(g.vmeta), ptr(g.alias_packed), ptr(g.hash_buckets),
-        ptr(keys), t, int(first), W_pad, W_total,
-        walk_step.draw_width(n_stream), L1, T, g.num_edges, float(inv_p),
-        float(inv_q), float(max_f), mode, stream(fcur.device))
-    return out
+        *lp[:3], n, gid_base, lp[3], rp[0], m, rp[1], opt(tab.route),
+        tab.route_mode, tab.S, tab.rbits, tab.shard, opt(tab.halo_buckets),
+        max(tab.halo_nb, 1), opt(tab.glob2loc), ptr(g.vmeta),
+        ptr(g.alias_packed), ptr(g.hash_buckets), ptr(keys), t, int(first),
+        W_pad, W_total, walk_step.draw_width(n_stream), L1, T, g.num_edges,
+        float(inv_p), float(inv_q), float(max_f), mode,
+        stream(some.device))
+    return dst, reply
 
 
 def _fields(req):
@@ -329,7 +418,7 @@ def _fields(req):
 
 def _launch_args(name: str, tab: ShardTables, req, valid, gid_base: int,
                  tables: list, out):
-    """(out, the leading arguments both serve entry points take: the
+    """(out, the leading arguments of the CDF serve's entry point: the
     requests, validity, out and the routing), after checking every tensor
     the launch reads (the requests, the routing, vmeta and `tables`) is
     int32 on the card. out: i32 [m], made here when None."""
@@ -422,9 +511,9 @@ def cdf_serve(tab: ShardTables, req, valid, gid_base: int, key,
     of `serve`). key: the seed key (i32 [2], on the host); round_offset:
     the corpus's first round; cdf_chunk 0 the padded form, else the
     chunked form; dtype the accumulation type. tab.g needs its cdf_rows
-    (shard_tables(..., cdf=True)). CPU tensors run cdf_serve_ref; CUDA
-    tensors launch the CDF serve kernel into `out` (i32 [m], made here when
-    None) with the counters `work` (i32 [2] at 0, as each launch leaves
+    (shard_tables(..., cdf=True)). CPU tensors run cdf_serve_ref, CUDA
+    tensors the CDF serve kernel, into `out` (i32 [m], made here when
+    None); the kernel with the counters `work` (i32 [2] at 0, as each launch leaves
     them; made here when None). segments > 0: the requests are that many
     buckets of equal length, each its requests and then fills (gid < 0),
     as the exchange receives them: the kernel counts only each bucket's
@@ -443,10 +532,11 @@ def cdf_serve(tab: ShardTables, req, valid, gid_base: int, key,
     if fcur.device.type == "cpu":
         if fgid is None:
             fgid = gid_base + torch.arange(m, dtype=torch.int32)
-        return cdf_serve_ref(tab, fcur, fprev, fgid,
-                             None if valid is None else valid != 0, key,
-                             round_offset, t, first, W_pad, W_total, p, q,
-                             cdf_chunk, dtype)
+        dst = cdf_serve_ref(tab, fcur, fprev, fgid,
+                            None if valid is None else valid != 0, key,
+                            round_offset, t, first, W_pad, W_total, p, q,
+                            cdf_chunk, dtype)
+        return dst if out is None else out.copy_(dst)
     CDF_SERVE_KERNEL.fn()
     rounds = -(-W_total // W_pad)
     if W_total >= 2**31 or round_offset < 0 \

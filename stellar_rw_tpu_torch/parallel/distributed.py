@@ -10,17 +10,19 @@ rank's host memory is the graph plus one shard.
 Design ("remote sampling", as in the JAX package): walker state never
 migrates. Each superstep
   * the first exchange round's buckets are built (ops/shard_walk.py::emit,
-    K11's request-emit half), which also marks the walkers whose current
+    K11's request-emit half), which also flags the walkers whose current
     vertex this shard owns;
-  * those are stepped in place with no collective (the local fast path:
-    shard_walk.serve, K11's serve half);
   * every other live walker's request (cur, prev, gid) goes to its owner
-    in one all_to_all_single of a packed [D, C, 3] int32 buffer; the owner
-    serves them (shard_walk.serve) and the destinations come back in one
-    all_to_all_single of [D, C + 1], whose last column carries each rank's
-    count of requests still unsent, so every rank learns the global count
-    from the same call. Overflow rounds run while that count is above 0;
-    every rank runs the same number of collectives.
+    in one all_to_all_single of a packed [D, C, 3] int32 buffer, right
+    after the emit (so the copy of the buffer to the host waits for the
+    emit alone);
+  * one launch of shard_walk.serve (K11's serve half) steps the flagged
+    local walkers in place (the local fast path, no collective) and the
+    requests received; the destinations go back in one all_to_all_single
+    of [D, C + 1], whose last column carries each rank's count of requests
+    still unsent, so every rank learns the global count from the same
+    call. Overflow rounds (the serve on the requests alone) run while that
+    count is above 0; every rank runs the same number of collectives.
 
 Determinism: every uniform is addressed by the global walker id (round
 gid // W_pad, lane gid % W_pad; step keys fold the round, then the step),
@@ -44,8 +46,10 @@ received buffer's fills skipped; its counters made once a corpus) on each
 shard's cdf_rows: no trial-key table is made, and u is drawn at the
 accumulation type from the seed key, addressed by the
 request's global walker id, so the corpus is bitwise the single-device
-exact-CDF engine's too. Padded against chunked is decided from the whole
-corpus (engine.walk_spec), as in every engine.
+exact-CDF engine's too. It keeps a launch a half, in the same order: the
+local walkers by their flags, then the requests received. Padded against
+chunked is decided from the whole corpus (engine.walk_spec), as in every
+engine.
 
 Left out: the static-schedule overflow re-dispatch (a per-thread trial
 loop has no compaction buffer that could overflow; its diag column reads
@@ -229,54 +233,66 @@ def distributed_walk_corpus(tables: shard_walk.ShardTables,
                       work=(torch.zeros(2, dtype=torch.int32, device=dev)
                             if dev.type == "cuda" else None))
 
-        def serve(req, valid, base, t, first):
-            # the received buffer: D buckets, each its requests then fills
-            segments = D if valid is None else 0
-            return clock.device("serve", shard_walk.cdf_serve, tables, req,
-                                valid, base, key, round_offset, t, first,
-                                segments=segments, **cdf_kw)
+        def serve(t, first, local=None, recv=None, dst=None):
+            if local is not None:
+                cur, prev, flags = local
+                clock.device("serve", shard_walk.cdf_serve, tables,
+                             (cur, prev, None), flags, gid_base, key,
+                             round_offset, t, first, out=dst, **cdf_kw)
+            reply = None
+            if recv is not None:
+                # D buckets, each its requests then fills
+                reply = clock.device(
+                    "serve", shard_walk.cdf_serve, tables,
+                    recv.reshape(D * C, 3), None, 0, key, round_offset, t,
+                    first, segments=D, **cdf_kw)
+            return dst, reply
     else:
         serve_kw = dict(W_pad=W_pad, W_total=W_total, n_stream=ns,
                         p=spec.p, q=spec.q)
 
-        def serve(req, valid, base, t, first):
+        def serve(t, first, **kw):
             if not keys:
-                # the first local serve runs as the table's programmatic
+                # the first serve runs as the table's programmatic
                 # dependent
                 keys.append(walk_step.trial_keys(key, round_offset, R, Lw,
                                                  T, device=dev))
-            return clock.device("serve", shard_walk.serve, tables, req,
-                                valid, base, keys[0], t, first, **serve_kw)
+            return clock.device("serve", shard_walk.serve, tables, keys[0],
+                                t, first, gid_base=gid_base, **serve_kw,
+                                **kw)
 
     def advance(cur, prev, alive, t, first):
         """One superstep: local fast path + bounded boundary exchange.
         Returns (dst i32[n] (-1 dead/inactive), local crossings, local new
         dead ends, exchange rounds)."""
+        # slot n takes the fills' results, dropped
+        dst = torch.empty(n + 1, dtype=torch.int32, device=dev)
         send, slot, counters = clock.device(
             "emit", shard_walk.emit, tables, cur, prev, pending,
             alive.to(torch.int32), local, L, D, gid_base, C, work)
         crossings = counters[0].clone()
-        dst = serve((cur, prev, None), local, gid_base, t, first)
+        mine = (cur, prev, local)
         rounds = 0
-        if D > 1:
-            dst = torch.cat([dst, dst.new_full((1,), -1)])   # slot n: drop
-            while True:
-                recv = clock.collective(_all_to_all, send.reshape(D, 3 * C),
-                                        group)
-                reply = serve(recv.reshape(D * C, 3), None, 0, t, first)
-                left = counters[1].reshape(1, 1).expand(D, 1)
-                back = clock.collective(
-                    _all_to_all, torch.cat([reply.reshape(D, C), left], 1),
-                    group)
-                dst.scatter_(0, slot.reshape(-1).long(),
-                             back[:, :C].reshape(-1))
-                rounds += 1
-                if int(back[:, C].sum()) == 0:
-                    break
-                send, slot, counters = clock.device(
-                    "emit", shard_walk.emit, tables, cur, prev, pending,
-                    None, None, L, D, gid_base, C, work)
-            dst = dst[:n]
+        while True:
+            recv = (clock.collective(_all_to_all, send.reshape(D, 3 * C),
+                                     group).reshape(D, C, 3)
+                    if D > 1 else None)
+            _, reply = serve(t, first, local=mine, recv=recv, dst=dst[:n])
+            if D == 1:
+                break
+            mine = None
+            left = counters[1].reshape(1, 1).expand(D, 1)
+            back = clock.collective(
+                _all_to_all, torch.cat([reply.reshape(D, C), left], 1),
+                group)
+            dst.scatter_(0, slot.reshape(-1).long(), back[:, :C].reshape(-1))
+            rounds += 1
+            if int(back[:, C].sum()) == 0:
+                break
+            send, slot, counters = clock.device(
+                "emit", shard_walk.emit, tables, cur, prev, pending, None,
+                None, L, D, gid_base, C, work)
+        dst = dst[:n]
         dead = (alive & (dst < 0)).sum()
         return dst, crossings, dead, rounds
 

@@ -6,14 +6,20 @@ csrc/shard_walk.cu) on the CPU, where their plain versions run:
     counts, bucket starts, ranks, the sent mask, put) on random
     destinations, capacities 1 to n, lanes 1 and 2, a superstep's first
     round and a later one;
-  * the emit kernel's design (tiles of EMIT_THREADS walkers, a warp's
-    peers, per-warp counts, the tiles' offsets scanned) transcribed in
-    NumPy against emit_ref;
-  * serve_ref (and the wrapper's two request forms) over every superstep's
+  * the emit kernel's design (tiles of EMIT_THREADS walkers taken in
+    order, a warp's peers, per-warp counts, each tile's status words and
+    the decoupled look-back over them, in an order of its own and with
+    statuses of the last launch in the way; the last tile's re-fill of
+    what the last launch filled) transcribed in NumPy against emit_ref,
+    one round and a sequence of rounds and supersteps into one reused
+    work;
+  * serve_ref (and the wrapper's received form) over every superstep's
     requests of a corpus, each served by the shard that owns its vertex,
     against the single-device corpus's next column, under hash and
     vertex-cut shards (halo prev rows among them) on karate, directed
-    karate and tests/data/testgraph.txt (dead ends);
+    karate and tests/data/testgraph.txt (dead ends); the serve kernel's
+    map of its threads to the flagged local walkers and the received
+    buffer's slots transcribed against serve_plain;
   * cdf_serve_ref (and the wrapper's two request forms) the same way,
     against cdf_walk_ref's exact-CDF corpus, padded and chunked, f32 and
     f64, and its invalid requests;
@@ -116,52 +122,209 @@ def test_emit_ref_matches_jax_transcription(C, L):
         np.testing.assert_array_equal(pending.numpy(), rem)
 
 
-def _emit_kernel_transcription(dest, C, D, tile=shard_walk.EMIT_THREADS):
-    """csrc/shard_walk.cu's emit for given destinations (D: nothing sent):
-    (1) a tile's count for each destination, (2) the tiles' counts scanned,
-    (3) rank = tile offset + the counts of the warps before + the lanes
-    before among the warp's peers. Returns (slot [D, C], sent mask)."""
-    n = len(dest)
-    ntiles = -(-n // tile)
-    pad = np.full(ntiles * tile, D)
-    pad[:n] = dest
-    tiles = pad.reshape(ntiles, tile // 32, 32)          # tile, warp, lane
-    wcnt = np.stack([(tiles == d).sum(axis=2) for d in range(D)], -1)
-    tile_counts = wcnt.sum(axis=1)                       # [tiles, D]
-    offs = np.cumsum(tile_counts, axis=0) - tile_counts  # exclusive scan
-    slot = np.full((D, C), n)
-    sent = np.zeros(n, bool)
+class _EmitWorkModel:
+    """ops/shard_walk.py::EmitWork's buffers as the kernel keeps them, in
+    NumPy: filled when made, then left by each launch for the next."""
+
+    def __init__(self, n, D, C):
+        tiles = max(1, -(-n // shard_walk.EMIT_THREADS))
+        self.n, self.D, self.C = n, D, C
+        self.send = np.zeros((D, C, 3), np.int64)
+        self.send[..., 2] = -1
+        self.slot = np.full((D, C), n, np.int64)
+        # each (tile, column): epoch, flag, count
+        self.status = np.zeros((tiles, D, 3), np.int64)
+        self.totals = np.zeros(D, np.int64)
+        self.counters = np.zeros(3, np.int64)
+        self.epoch = 0
+        self.prefix_hits = self.spins = 0
+
+
+def _emit_transcribed(work, col, cur, prev, gid_base, pending, first, rng):
+    """csrc/shard_walk.cu's emit for the walkers' columns `col` (destination
+    device, D none): the tiles taken in order (tile k holds
+    walkers k * EMIT_THREADS ...), each warp's count a column and each
+    warp's offset in its tile; each tile's status words published (a random
+    half before any look-back, the rest when a look-back first waits on
+    them: a status of the last epoch is not ready), the look-backs in a
+    random order, a warp a column summing the counts of 32 tiles at a time
+    up to the nearest prefix; each walker's place (the tiles' prefix + the
+    warps before + the lanes before among its peers): a request sent below
+    C; the last tile's fills of [total, the last launch's total) and the
+    counts. pending is updated in place."""
+    T, D, C = shard_walk.EMIT_THREADS, work.D, work.C
+    cols, n = D, len(col)
+    ntiles = work.status.shape[0]
+    work.epoch = work.epoch % shard_walk.MAX_EPOCH + 1
+    ep = work.epoch
+    pad = np.full(ntiles * T, cols)
+    pad[:n] = col
+    tiles = pad.reshape(ntiles, T // 32, 32)               # tile, warp, lane
+    wcnt = np.stack([(tiles == c).sum(axis=2) for c in range(cols)], -1)
+    own = wcnt.sum(axis=1)                                 # [tile, column]
+    woff = np.cumsum(wcnt, axis=1) - wcnt                  # warps' offsets
+    peers = np.zeros_like(pad)                             # lanes before
+    for c in range(cols):
+        hit = tiles == c
+        peers = np.where(pad == c, (np.cumsum(hit, axis=2) - hit).reshape(-1),
+                         peers)
+
+    def publish(j):
+        work.status[j, :, 0] = ep
+        work.status[j, :, 1] = (shard_walk.TILE_PREFIX if j == 0
+                                else shard_walk.TILE_COUNT)
+        work.status[j, :, 2] = own[j]
+
+    for j in np.flatnonzero(rng.random(ntiles) < 0.5):
+        publish(j)
+    before = np.zeros((ntiles, cols), np.int64)
+    lanes = np.arange(32)
+    for k in rng.permutation(ntiles):
+        if work.status[k, 0, 0] != ep:
+            publish(k)
+        for c in range(1 if k == 0 else 0, cols if k else 0):
+            total, base = 0, k - 1
+            while True:
+                j = base - lanes
+                for jj in j[j >= 0]:
+                    if work.status[jj, c, 0] != ep:   # the warp waits on it
+                        work.spins += 1
+                        publish(jj)
+                st = work.status[np.maximum(j, 0), c]
+                prefix = (j < 0) | (st[:, 1] == shard_walk.TILE_PREFIX)
+                upto = int(np.argmax(prefix)) if prefix.any() else 31
+                total += int(st[(j >= 0) & (lanes <= upto), 2].sum())
+                if prefix.any():
+                    work.prefix_hits += int(j[upto] >= 0)
+                    break
+                base -= 32
+            before[k, c] = total
+            work.status[k, c] = (ep, shard_walk.TILE_PREFIX, total + own[k, c])
     for i in range(n):
-        d = dest[i]
-        if d == D:
-            continue
-        tl, w, lane = i // tile, (i % tile) // 32, i % 32
-        peers_before = int((tiles[tl, w, :lane] == d).sum())
-        rank = offs[tl, d] + wcnt[tl, :w, d].sum() + peers_before
-        if rank < C:
-            slot[d, rank] = i
-            sent[i] = True
-    return slot, sent
+        c = col[i]
+        tl, w = i // T, (i % T) // 32
+        if c < cols:
+            at = before[tl, c] + woff[tl, w, c] + peers[i]
+            if at < C:
+                work.send[c, at] = (cur[i], prev[i], gid_base + i)
+                work.slot[c, at] = i
+            pending[i] = int(at >= C)
+        elif first:
+            pending[i] = 0
+    last = ntiles - 1
+    total = before[last] + own[last]
+    for d in range(D):
+        lo, high = min(total[d], C), min(work.totals[d], C)
+        work.send[d, lo:high] = (0, 0, -1)
+        work.slot[d, lo:high] = n
+    work.totals = total.copy()
+    work.counters[:] = (total.sum(), np.maximum(total - C, 0).sum(), 0)
+
+
+def _emit_columns(route, cur, alive, pending, local, my, L, D, gid_base):
+    """Each walker's column as the kernel decides it: its destination
+    device (pending), D (none). The first round (alive given) writes the
+    local flags."""
+    gids = gid_base + np.arange(len(cur))
+    dest = route[cur] * L + gids % L
+    if alive is not None:
+        loc = alive & (route[cur] == my)
+        local[:] = loc
+        return np.where(alive & ~loc, dest, D)
+    return np.where(pending != 0, dest, D)
+
+
+def _held_to_emit_ref(work, ref, pending, local, what):
+    send, slot, counters = (x.numpy() for x in ref)
+    np.testing.assert_array_equal(work.send, send, err_msg=what)
+    np.testing.assert_array_equal(work.slot, slot, err_msg=what)
+    np.testing.assert_array_equal(work.counters[:2], counters, err_msg=what)
+    assert work.counters[2] == 0
+    np.testing.assert_array_equal(pending[0], pending[1].numpy(),
+                                  err_msg=what)
+    if local is not None:
+        np.testing.assert_array_equal(local[0], local[1].numpy(),
+                                      err_msg=what)
 
 
 @pytest.mark.parametrize("n,D,C", [(1500, 2, 600), (1500, 8, 50),
-                                   (512, 3, 512), (37, 5, 1), (0, 2, 4)])
+                                   (512, 3, 512), (37, 5, 1), (0, 2, 4),
+                                   (40_000, 3, 9_000)])
 def test_emit_kernel_design_matches_emit_ref(n, D, C):
-    """The kernel's tiles, warps and scans give emit_ref's slots and sent
-    mask: several tiles, destinations crowded and sparse, capacity 1."""
+    """The kernel's tiles, warps, status words and look-back give emit_ref's
+    buffers, counts and flags, in a superstep's first round (alive: the
+    local walkers flagged) and the round after: several tiles (79 at
+    n 40,000, more than a window of 32), destinations crowded and sparse,
+    capacity 1."""
     rng = np.random.default_rng(n + D)
     route = rng.integers(0, D, 64)
     cur = rng.integers(0, 64, n)
-    pending = rng.random(n) < 0.7
-    tab = _route_tables(D, D - 1, route)
+    prev = rng.integers(0, 64, n)
+    alive = rng.random(n) < 0.7
+    my = D - 1
+    tab = _route_tables(D, my, route)
     t = lambda x: torch.as_tensor(x, dtype=torch.int32)
-    pend = t(pending)
-    _, slot, _ = shard_walk.emit_ref(tab, t(cur), t(cur), pend, None, None,
-                                     1, D, 0, C)
-    dest = np.where(pending, route[cur], D)
-    k_slot, k_sent = _emit_kernel_transcription(dest, C, D)
-    np.testing.assert_array_equal(slot.numpy(), k_slot)
-    np.testing.assert_array_equal(pend.numpy(), pending & ~k_sent)
+    work = _EmitWorkModel(n, D, C)
+    pend, loc = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    pr, lr = t(np.zeros(n)), t(np.zeros(n))
+    for first in (True, False):
+        col = _emit_columns(route, cur, alive if first else None, pend,
+                            loc, my, 1, D, 0)
+        _emit_transcribed(work, col, cur, prev, 0, pend, first, rng)
+        ref = shard_walk.emit_ref(tab, t(cur), t(prev), pr,
+                                  t(alive) if first else None, lr, 1, D, 0,
+                                  C)
+        _held_to_emit_ref(work, ref, (pend, pr),
+                          (loc, lr) if first else None, f"first {first}")
+    if n >= 40_000:
+        assert work.prefix_hits > 0 and work.spins > 0
+
+
+def test_emit_reused_work_refills_to_the_high_water():
+    """Supersteps of rounds into one reused work, the alive share and the
+    routes changing so that bucket counts grow and shrink (past C and back
+    to 0): after every launch each buffer equals a fresh emit_ref's. So the
+    last tile's re-fill of [total, the last launch's total) leaves the
+    fills where a fresh buffer has them, and the epochs keep the last
+    launch's statuses out of the look-back."""
+    n, D, C, L = 3000, 4, 300, 2
+    rng = np.random.default_rng(11)
+    t = lambda x: torch.as_tensor(x, dtype=torch.int32)
+    work = _EmitWorkModel(n, D, C)
+    seen = set()
+    for step, share in enumerate((0.9, 0.2, 1.0, 0.0, 0.5, 0.05, 0.95)):
+        S, my = D // L, 1
+        route = rng.integers(0, S, 128)
+        if step % 2:
+            route[rng.random(128) < 0.7] = my    # most walkers local
+        tab = _route_tables(S, my, route)
+        cur = rng.integers(0, 128, n)
+        prev = rng.integers(0, 128, n)
+        alive = rng.random(n) < share
+        gid_base = my * n
+        pend, loc = np.zeros(n, np.int64), np.zeros(n, np.int64)
+        pr, lr = t(np.zeros(n)), t(np.zeros(n))
+        first = True
+        while True:
+            col = _emit_columns(route, cur, alive if first else None, pend,
+                                loc, my, L, D, gid_base)
+            _emit_transcribed(work, col, cur, prev, gid_base, pend, first,
+                              rng)
+            ref = shard_walk.emit_ref(tab, t(cur), t(prev), pr,
+                                      t(alive) if first else None, lr, L, D,
+                                      gid_base, C)
+            _held_to_emit_ref(work, ref, (pend, pr),
+                              (loc, lr) if first else None,
+                              f"superstep {step}, first {first}")
+            seen.add(tuple(min(int(x), C) for x in work.totals))
+            first = False
+            if work.counters[1] == 0:
+                break
+    # fills grew and shrank in every bucket of the other shard (shard 0's
+    # lanes: a rank sends its own shard nothing)
+    highs = np.array(sorted(seen))[:, :L]
+    assert (highs.max(axis=0) == C).all() and (highs.min(axis=0) == 0).all()
+    assert len(seen) > 8
 
 
 GRAPHS = ["karate", "karate_directed", "testgraph"]
@@ -209,8 +372,8 @@ def test_serve_ref_steps_the_single_device_corpus(name, route, pq,
             m = alive & (owner[cur.clamp_min(0)] == s)
             halo += int((m & (owner[prev.clamp_min(0)] != s)).sum())
             req = torch.stack([cur[m], prev[m], gid[m]], 1).to(torch.int32)
-            got = shard_walk.serve(tab, req, None, 0, keys, t, t == 0, W_pad,
-                                   R * W_pad, V, p, q)
+            _, got = shard_walk.serve(tab, keys, t, t == 0, W_pad, R * W_pad,
+                                      V, p, q, recv=req)
             np.testing.assert_array_equal(got.numpy(),
                                           corpus[m, t + 1].numpy())
             alone = shard_walk.serve_ref(tab, cur[m], prev[m], gid[m], None,
@@ -583,7 +746,7 @@ def test_kept_heavy_row_table():
 
 
 def test_serve_local_form_and_validity(karate_path):
-    """The local form (gid = gid_base + i, a valid flag per walker) serves
+    """The local form (gid = gid_base + i, a local flag per walker) serves
     only the flagged walkers; -1 elsewhere and for gid -1 requests."""
     g = io.load_edge_list(karate_path, weighted=False)
     plan = partition.plan_shards(g, 1)
@@ -595,13 +758,110 @@ def test_serve_local_form_and_validity(karate_path):
     cur = corpus[:, 1].to(torch.int32)
     prev = corpus[:, 0].to(torch.int32)
     valid = (torch.arange(V) % 2).to(torch.int32)
-    got = shard_walk.serve(tab, (cur, prev, None), valid, 0, keys, 1, False,
-                           V, V, V, 0.5, 2.0)
+    dst = torch.full((V,), -7, dtype=torch.int32)
+    got, none = shard_walk.serve(tab, keys, 1, False, V, V, V, 0.5, 2.0,
+                                 local=(cur, prev, valid), dst=dst)
+    assert got is dst and none is None
     want = torch.where(valid != 0, corpus[:, 2], -1)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     req = torch.stack([cur, prev, torch.full_like(cur, -1)], 1)
-    assert (shard_walk.serve(tab, req, None, 0, keys, 1, False, V, V, V,
-                             0.5, 2.0) == -1).all()
+    _, reply = shard_walk.serve(tab, keys, 1, False, V, V, V, 0.5, 2.0,
+                                recv=req)
+    assert (reply == -1).all()
+
+
+def _serve_transcribed(tab, keys, t, first, W_pad, W_total, n_stream, p, q,
+                       cur, prev, flags, gid_base, recv):
+    """csrc/shard_walk.cu's serve: a grid of SERVE_THREADS-thread blocks
+    over n + D * C slots; slot k < n is walker k (stepped where its flag is
+    set, else -1), slot n + e entry e of the received buffer (-1 for a
+    fill). Each request is stepped as serve_ref steps it. Returns (dst,
+    reply; -7 where nothing was written), each slot written once."""
+    n, m = cur.shape[0], recv.shape[0] * recv.shape[1]
+    flat = recv.reshape(-1, 3)
+    dst = np.full(n, -7, np.int64)
+    reply = np.full(m, -7, np.int64)
+    B = shard_walk.SERVE_THREADS
+    stepped, entries = [], []
+    for k in range(-(-(n + m) // B) * B):
+        if k < n:
+            assert dst[k] == -7
+            dst[k] = -1
+            if flags[k] != 0:
+                stepped.append(k)
+        elif k - n < m:
+            assert reply[k - n] == -7
+            entries.append(k - n)
+    kw = dict(keys=keys, t=t, first=first, W_pad=W_pad, W_total=W_total,
+              n_stream=n_stream, p=p, q=q)
+    i = torch.as_tensor(stepped, dtype=torch.int64)
+    dst[stepped] = shard_walk.serve_ref(
+        tab, cur[i], prev[i], (gid_base + i).to(torch.int32), None, **kw)
+    r = flat[torch.as_tensor(entries, dtype=torch.int64)]
+    reply[entries] = shard_walk.serve_ref(tab, r[:, 0], r[:, 1], r[:, 2],
+                                          None, **kw)
+    return dst, reply
+
+
+@pytest.mark.parametrize("name", ["karate", "karate_directed"])
+@pytest.mark.parametrize("C", [40, 300])
+def test_serve_kernel_index_map_matches_serve_plain(name, C, karate_path,
+                                                    testgraph_path):
+    """The serve kernel's threads over one superstep's slots (rank 0's
+    walkers with their local flags, then a received buffer of 2 buckets:
+    shard 0's requests from two senders, each bucket's prefix then fills
+    of gid -1) step every flagged walker and every request once, write -1
+    at every other walker and every fill, and equal serve_plain, which is
+    serve_ref on each half; dead ends among the steps on directed
+    karate."""
+    g = _graph(name, karate_path, testgraph_path)
+    V, R, Lw, S, p, q = g.num_vertices, 4, 4, 2, 0.5, 2.0
+    corpus = torch.as_tensor(engine.random_walks(
+        g, walk_length=Lw, num_walks=R, p=p, q=q, seed=2, device="cpu"))
+    _, max_rounds = sampling.plan_sampler("rejection", p, q)
+    keys = walk_step.trial_keys_ref(prng.prng_key(2), 0, R, Lw,
+                                    4 * max_rounds)
+    plan = partition.plan_shards(g, S)
+    tab = shard_walk.shard_tables(g, plan, 0, "cpu")
+    owner = torch.as_tensor(plan.route).long()
+    t, n = 1, R * V
+    cur = corpus[:, t].to(torch.int32)
+    prev = corpus[:, t - 1].to(torch.int32)
+    alive = cur >= 0
+    mine = alive & (owner[cur.clamp_min(0)] == 0)
+    # rank 0 walks the first half of the rows, rank 1 the rest
+    half = n // 2
+    flags = mine[:half].to(torch.int32)
+    rows = mine.nonzero().squeeze(1)
+    gid = rows.to(torch.int32)
+    reqs = torch.stack([cur[rows], prev[rows], gid], 1)
+    recv = torch.zeros((2, C, 3), dtype=torch.int32)
+    recv[..., 2] = -1
+    for b, part in enumerate((reqs[:len(rows) // 3],
+                              reqs[len(rows) // 3:])):
+        part = part[:C]
+        recv[b, :part.shape[0]] = part
+    kw = dict(W_pad=V, W_total=n, n_stream=V, p=p, q=q)
+    dst, reply = _serve_transcribed(
+        tab, keys, t, False, cur=cur[:half], prev=prev[:half], flags=flags,
+        gid_base=0, recv=recv, **kw)
+    pdst, preply = shard_walk.serve_plain(
+        tab, keys, t, False, local=(cur[:half], prev[:half], flags),
+        recv=recv, dst=torch.full((half,), -7, dtype=torch.int32), **kw)
+    np.testing.assert_array_equal(dst, pdst.numpy())
+    np.testing.assert_array_equal(reply, preply.numpy())
+    assert (reply != -7).all() and (dst != -7).all()
+    assert (dst[~mine[:half].numpy()] == -1).all()
+    np.testing.assert_array_equal(dst[mine[:half].numpy()],
+                                  corpus[:half, t + 1][mine[:half]].numpy())
+    served = recv.reshape(-1, 3)[:, 2] >= 0
+    np.testing.assert_array_equal(reply[served.numpy()],
+                                  corpus[recv.reshape(-1, 3)[served, 2]
+                                         .long(), t + 1].numpy())
+    dead = (reply == -1).sum() - (~served).sum() + (
+        dst[mine[:half].numpy()] == -1).sum()
+    assert (dead > 0) == (name == "karate_directed")
+    assert flags.any() and served.any() and (~served).any()
 
 
 @pytest.mark.parametrize("R,L,T", [(2, 6, 64), (3, 0, 1), (2, 5, 33)])
@@ -621,11 +881,17 @@ def test_key_table_design_matches_ref(R, L, T):
                 got[r, t, j] = prng.fold_in(sk, j)
     assert torch.equal(got, want)
     assert "for (int j = lane; j < T; j += 32)" in WALK_SOURCE
-    # the table releases K11's serve, a programmatic dependent that waits
-    # for it; the walk kernel is an ordinary launch
+    # the table releases K11's serve (or the emit), programmatic
+    # dependents that wait for the grid before them, and the emit releases
+    # the serve after it; the walk kernel and the CDF serve are ordinary
+    # launches
     assert "griddepcontrol.launch_dependents" in WALK_SOURCE
     assert "griddepcontrol.wait" not in WALK_SOURCE
-    assert SOURCE.count("griddepcontrol.wait") == 1
+    assert SOURCE.count("griddepcontrol.wait") == 2
+    assert SOURCE.count("griddepcontrol.launch_dependents") == 1
+    assert SOURCE.count("srw::launch_dependent(") == 2
+    assert "cudaLaunchCooperativeKernel" not in SOURCE
+    assert "grid.sync" not in SOURCE
 
 
 MIRRORED = {"kEmitThreads": "EMIT_THREADS", "kMaxDevices": "MAX_DEVICES",
@@ -633,6 +899,8 @@ MIRRORED = {"kEmitThreads": "EMIT_THREADS", "kMaxDevices": "MAX_DEVICES",
             "kCdfServeThreads": "CDF_SERVE_THREADS",
             "kBitmapWords": "BITMAP_WORDS",
             "kBitmapMinEntries": "BITMAP_MIN_ENTRIES",
+            "kTileCount": "TILE_COUNT", "kTilePrefix": "TILE_PREFIX",
+            "kMaxEpoch": "MAX_EPOCH",
             "kRouteHash": "ROUTE_HASH", "kRoutePacked": "ROUTE_PACKED",
             "kRouteDense": "ROUTE_DENSE"}
 
@@ -676,8 +944,11 @@ def test_wrappers_raise_without_a_build(karate_path, monkeypatch, tmp_path):
     with pytest.raises(_build.KernelBuildError):
         shard_walk.emit(tab, x, x, x, x, x, 1, 2, 0, 4)
     with pytest.raises(_build.KernelBuildError):
-        shard_walk.serve(tab, (x, x, None), x, 0, keys, 1, False, 8, 8, 8,
-                         1.0, 1.0)
+        shard_walk.serve(tab, keys, 1, False, 8, 8, 8, 1.0, 1.0,
+                         local=(x, x, x))
+    with pytest.raises(_build.KernelBuildError):
+        shard_walk.serve(tab, keys, 1, False, 8, 8, 8, 1.0, 1.0,
+                         recv=x[:6].reshape(1, 2, 3))
     with pytest.raises(_build.KernelBuildError):
         shard_walk.cdf_serve(tab, (x, x, None), x, 0, prng.prng_key(0), 0,
                              1, False, 8, 8, 1.0, 1.0, 0)
