@@ -59,7 +59,8 @@ events around launches queued behind a long product):
     and the whole received buffer as each checkout's walk serves them, and
     star50k's hub row at one request and at 2,048, after checking the two
     checkouts' steps equal: other, this, this, other, twice. With --only
-    cdf, these two (the CDF serve, then K7) and nothing else;
+    cdf, these two (the CDF serve, then K7 in four turns each) and nothing
+    else;
   * the trainer's per-block draws as each checkout's epoch makes them, on
     the main path's chunks (the conv trainer's 1,524 blocks of kB 128, the
     exact trainer's 15 blocks of 5 negatives a pair): other, this, this,
@@ -677,7 +678,7 @@ def main(argv: list[str]) -> int:
         compare_cdf_serve(torch, this, other, smi)
         compare_cdf_walk(torch, this, other,
                          synth_power_law_graph(10_000, 334_000, seed=0),
-                         ("other", "this", "this", "other"), smi)
+                         ("other", "this", "this", "other") * 2, smi)
         return 0
 
     # sgns_shared_grads at the main shape and at each D of the split form

@@ -181,6 +181,7 @@ import ctypes
 import dataclasses
 import filecmp
 import glob
+import hashlib
 import json
 import os
 import re
@@ -252,9 +253,19 @@ DIM768_FLAGS = ["--dim", "768", "--window", "5", "--negatives", "5", "--lr",
 CDF_FLAGS = ["--cmd", "randomwalk", "--walkLength", "80", "--numWalks", "10",
              "--p", "0.0625", "--q", "4", "--validate", "true"]
 CDF_OUT = "out_cdf"      # phase 10's output under the run's directory
-# a row entry of the CDF scan: the hash multiply, mask and base add, four
-# compares and their or, the select of f, the product and the sum
+# a row entry of the CDF scan with prev's bucket rows: the hash multiply,
+# mask and base add, four compares and their or, the select of f, the
+# product and the sum (phases 10 and 25 charge a first-order entry so too)
 OPS_PER_ENTRY = 12
+# a row entry with prev's neighbors in a bitmap (pick_bits): the compare
+# with prev, the word's index, the shared load, the bit's shift and mask,
+# the select of f, the product and the sum
+OPS_PER_BITMAP_ENTRY = 8
+# phase 10's row-stream probe: K7's rows read in its order, no weighing
+CDF_PROBE_SOURCE = "chip_cdf_probe.cu"
+CDF_PROBE_SYMBOL = "srw_cdf_row_probe_launch"
+CDF_PROBE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+    ctypes.c_void_p]
 EMBED_FLAGS = ["--cmd", "embedding", "--dim", "128", "--window", "10",
                "--negatives", "5", "--sharedNegatives", "128", "--iter", "1"]
 # phase 5's karate run of shared negatives above the old 512 limit
@@ -484,6 +495,47 @@ def draws_probe():
     text = (build.CSRC / TRAINER_DRAWS_KERNEL.source).read_text()
     return source_kernel("draws_probe", with_probe(text), PROBE_SYMBOL,
                          PROBE_ARGTYPES, "draws_probe")
+
+
+def cdf_row_probe():
+    """Phase 10's row-stream probe (chip_cdf_probe.cu) as a Kernel."""
+    with open(os.path.join(ROOT, CDF_PROBE_SOURCE)) as f:
+        return source_kernel("cdf_probe", f.read(), CDF_PROBE_SYMBOL,
+                             CDF_PROBE_ARGTYPES, "cdf_probe")
+
+
+def cdf_scan_ops(entries: int, bitmap_entries: int) -> int:
+    """The operations of a CDF row scan of `entries` row entries, of which
+    `bitmap_entries` read prev's neighbors from a bitmap: those at
+    OPS_PER_BITMAP_ENTRY, the others at OPS_PER_ENTRY."""
+    return (bitmap_entries * OPS_PER_BITMAP_ENTRY
+            + (entries - bitmap_entries) * OPS_PER_ENTRY)
+
+
+def cdf_registers(build_log: str) -> dict:
+    """ptxas' registers of each instantiation of K7's kernels in a build
+    log: {"f32 chunked": n, "f32 chunked bitmap": n, ...} (" recording"
+    after the recording forms), with a spilling one's stack line."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            # cdf_walk_kernel<T, kChunked, kRecord> or
+            # cdf_walk_bitmap_kernel<T, kRecord>, mangled
+            m = re.search(r"cdf_walk_(bitmap_)?kernelI([fd])((?:Lb[01]E)*)",
+                          line)
+            flags = m and re.findall(r"Lb([01])E", m[3])
+            name = m and (("f32" if m[2] == "f" else "f64")
+                          + (" chunked bitmap" if m[1]
+                             else " chunked" if flags[:1] == ["1"]
+                             else " padded")
+                          + (" recording" if flags[int(not m[1]):][:1]
+                             == ["1"] else ""))
+        elif name and "Used" in line and "registers" in line:
+            out[name] = int(line.split("Used")[1].split("registers")[0])
+        elif name and "spill stores" in line and \
+                " 0 bytes spill stores" not in line:
+            out[name + " spills"] = line.strip()
+    return out
 
 
 def probe_rates(torch, kernel) -> dict:
@@ -1164,6 +1216,96 @@ def cdf_graphs():
     }
 
 
+def threshold_hubs(n: int):
+    """Hub 0 joined to leaves 2 .. n + 1 (a row of n entries) and hub 1 to
+    leaves 2 .. n (n - 1 entries), weights 0.25 to 4.25."""
+    from stellar_rw_tpu_torch.graph.csr import from_edge_arrays
+
+    rng = np.random.default_rng(n)
+    src = np.concatenate([np.zeros(n, np.int64), np.ones(n - 1, np.int64)])
+    dst = np.concatenate([np.arange(2, n + 2), np.arange(2, n + 1)])
+    return from_edge_arrays(src, dst,
+                            rng.random(len(src)).astype(np.float32) * 4
+                            + 0.25, num_vertices=n + 2, symmetrize=True)
+
+
+def twin_hubs(leaves: int, arcs: int, bridge: int, seed: int):
+    """Hubs 0 and 1, joined to each other by `bridge` arcs and each by
+    `arcs` arcs to leaves drawn with repetition from `leaves` (multi-arcs):
+    two rows of arcs + bridge entries, a hub's step to the other common,
+    weights 0.25 to 4.25."""
+    from stellar_rw_tpu_torch.graph.csr import from_edge_arrays
+
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([np.zeros(bridge, np.int64),
+                          np.repeat([0, 1], arcs)])
+    dst = np.concatenate([np.ones(bridge, np.int64),
+                          rng.integers(2, leaves + 2, 2 * arcs)])
+    return from_edge_arrays(src, dst,
+                            rng.random(len(src)).astype(np.float32) * 4
+                            + 0.25, num_vertices=leaves + 2, symmetrize=True)
+
+
+def cdf_gate_graphs() -> dict:
+    """Phase 9's graphs at the edges of K7's bitmap gate: V at the limit
+    (BITMAP_WORDS words) and one past it, a row at BITMAP_MIN_ENTRIES
+    entries and one entry short, and two hubs of 50,000 arcs joined to each
+    other (a hub as cur and as prev, its bitmap cleared word by word)."""
+    from stellar_rw_tpu_torch.ops import cdf_walk
+
+    lim, thr = cdf_walk.BITMAP_WORDS * 32, cdf_walk.BITMAP_MIN_ENTRIES
+    return {f"star, V {lim} (the limit)": star_graph(lim - 1),
+            f"star, V {lim + 1}": star_graph(lim),
+            f"hubs of {thr} and {thr - 1} entries": threshold_hubs(thr),
+            "twin hubs of 50,000 arcs": twin_hubs(20_000, 50_000, 5_000,
+                                                  seed=5)}
+
+
+def cdf_branches(torch, dg, starts, key, ro, R, L, p, q, md, chunk, dtype,
+                 want):
+    """K7's recording form on the inputs of a corpus `want`: the branch
+    each second-order step took, as the kernel wrote it. Fails unless its
+    corpus is `want` and every step took the branch that the gate's mirror
+    (cdf_walk.step_branches) gives it."""
+    from stellar_rw_tpu_torch.ops import cdf_walk
+
+    branches = torch.empty(want.shape, dtype=torch.uint8, device="cuda")
+    got = cdf_walk.cdf_walk_rounds(dg, starts, key, ro, R, L, p, q, md,
+                                   chunk, dtype, branches=branches)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "the recording form of the cdf walk "
+          "kernel walks another corpus")
+    mirror = cdf_walk.step_branches(dg.vmeta, want, md, chunk)
+    check(torch.equal(branches, mirror),
+          f"the cdf walk kernel's branches differ from the gate's mirror at "
+          f"{int((branches != mirror).sum())} steps")
+    return branches
+
+
+def cdf_branch_split(branches, corpus, vmeta) -> dict:
+    """K7's second-order steps by the branch the kernel recorded for each
+    (cdf_branches): steps and row entries by the bitmap and by prev's
+    bucket rows, the first-order entries, and the steps whose cur or prev
+    is vertex 0 or 1 (phase 9's hubs)."""
+    from stellar_rw_tpu_torch.ops import cdf_walk
+
+    cur, prev = corpus[:, 1:-1].clamp_min(0), corpus[:, :-2].clamp_min(0)
+    on = branches[:, 2:] == cdf_walk.BY_BITMAP
+    off = branches[:, 2:] == cdf_walk.BY_BUCKETS
+    d = vmeta[cur.long(), 1].long()
+    first = vmeta[corpus[:, 0].long(), 1].long() * (corpus[:, 1] >= 0)
+    return {"second_order_steps": int((corpus[:, 2:] >= 0).sum()),
+            "bitmap_steps": int(on.sum()),
+            "bitmap_entries": int((d * on).sum()),
+            "bucket_steps": int(off.sum()),
+            "bucket_entries": int((d * off).sum()),
+            "first_order_entries": int(first.sum()),
+            "bitmap_at_hub": [int((on & (cur == h)).sum()) for h in (0, 1)],
+            "steps_at_hub": [int(((on | off) & (cur == h)).sum())
+                             for h in (0, 1)],
+            "bitmap_hub_prev": int((on & (prev <= 1) & (cur <= 1)).sum())}
+
+
 def phase_cdf_check(torch) -> int:
     """Phase 9: the CDF walk kernel against its plain version, bit for bit,
     on the card. Both sum in one order, so every input is held bitwise:
@@ -1191,6 +1333,11 @@ def phase_cdf_check(torch) -> int:
         from stellar_rw_tpu_torch.walk import engine
         bad = engine.corpus_invariants(dg, got).tolist()
         check(bad == [0, 0, 0], f"cdf walk invariants {bad} on {name}")
+        if chunk:
+            # the recording form: the same corpus, the gate's branches
+            return got, dg, cdf_branches(torch, dg, st, key, ro, R, L, p, q,
+                                         md, chunk, dtype, got)
+        return got, dg, None
 
     i = 0
     for name, g in graphs.items():
@@ -1220,19 +1367,59 @@ def phase_cdf_check(torch) -> int:
             for dtype in ("float32", "float64"):
                 held(name, g, starts, R, L, 0.0625, 4.0, chunk, dtype, ro)
                 n += 1
+    # the bitmap gate's edges, chunked (the bitmap's form), f32 and f64,
+    # round offsets 0 and 3: walkers from both hubs and from leaves; the
+    # branches as the kernel's recording form wrote them
+    gates = {}
+    for name, g in cdf_gate_graphs().items():
+        V = g.num_vertices
+        starts = np.concatenate([[0, 1], np.arange(2, V, max(V // 40, 1))
+                                 ]).astype(np.int32)
+        words = cdf_walk.bitmap_words(V, sampling.CDF_CHUNK)
+        for dtype, ro in (("float32", 0), ("float64", 3)):
+            got, dg, branches = held(name, g, starts, 2, 6, 0.0625, 4.0,
+                                     sampling.CDF_CHUNK, dtype, ro)
+            n += 1
+            gates[f"{name} {dtype}"] = split = {
+                "words": words, **cdf_branch_split(branches, got, dg.vmeta)}
+            if name.startswith("star, V"):
+                at_limit = V <= 32 * cdf_walk.BITMAP_WORDS
+                check((words > 0) == at_limit
+                      and (split["bitmap_at_hub"][0] > 0) == at_limit,
+                      f"{name}: the bitmap at V {V}: {split}")
+            elif name.startswith("hubs of"):
+                check(split["bitmap_at_hub"][0] > 0
+                      and split["bitmap_at_hub"][1] == 0
+                      and split["steps_at_hub"][1] > 0,
+                      f"{name}: the row at the threshold takes the bitmap, "
+                      f"the one short of it not: {split}")
+            else:
+                check(split["bitmap_hub_prev"] > 0,
+                      f"{name}: no hub-to-hub step took the bitmap: {split}")
     print(f"phase 9 cdf walk kernel: bitwise equal to cdf_walk_ref on the "
           f"card in {n} cases ({list(graphs)}; padded and chunked, f32 and "
           f"f64, (p, q) in {pqs}, L in (0, 1, 4, 6, 7, 9, 13, 20), W in (1, 3, "
           f"37, 51, 1001, |V|), round offsets 0-5; star50k's hub row is "
-          f"50,000 entries), walk invariants zero on each")
+          f"50,000 entries), walk invariants zero on each; the chunked "
+          f"cases' branches as the recording form wrote them equal to the "
+          f"gate's mirror; at the bitmap gate's edges (words, second-order "
+          f"steps by the bitmap as the kernel recorded them, at hub 0 / 1, "
+          f"hub to hub): " + "; ".join(
+              f"{k}: {v['words']}, {v['bitmap_steps']} of "
+              f"{v['second_order_steps']}, {v['bitmap_at_hub']}, "
+              f"{v['bitmap_hub_prev']}" for k, v in gates.items()))
     return n
 
 
-def phase_cdf_main(torch, kernel, smi, tmp, edges) -> dict:
+def phase_cdf_main(torch, kernel, smi, tmp, edges, probe) -> dict:
     """Phase 10: `--cmd randomwalk --p 0.0625 --q 4` through the CLI on
     phase 4's graph (plan_sampler: exact CDF, chunked at this corpus size),
     the first 4,096 walkers of round 0 against the plain version, and a
-    run with walk-round checkpoints cut at 4 rounds and resumed."""
+    run with walk-round checkpoints cut at 4 rounds and resumed. Beside the
+    kernel's time: its bound, the row-stream probe's floor (`probe`,
+    chip_cdf_probe.cu, on the same corpus), ptxas' registers, and the
+    second-order steps that took the bitmap and the bucket rows, as the
+    kernel's recording form wrote them on the same inputs."""
     from stellar_rw_tpu_torch import cli
     from stellar_rw_tpu_torch.graph import io as gio
     from stellar_rw_tpu_torch.ops import cdf_walk, prng, sampling
@@ -1285,8 +1472,28 @@ def phase_cdf_main(torch, kernel, smi, tmp, edges) -> dict:
         dg, starts, key, 0, 1, L, p, q, spec.max_degree, spec.cdf_chunk)
     ms = cuda_ms(kern, 3)
     ms_sub = cuda_ms(kern_sub, 3)
-    b = bound(tensor_bytes(dg.vmeta, dg.cdf_rows, dg.hash_buckets, corpus),
-              scanned * OPS_PER_ENTRY, INT_OPS_PER_S)
+    branches = cdf_branches(torch, dg, torch.arange(V, dtype=torch.int32,
+                                                    device="cuda"),
+                            key, 0, R, L, p, q, spec.max_degree,
+                            spec.cdf_chunk, "float32", corpus)
+    split = cdf_branch_split(branches, corpus, dg.vmeta)
+    check(split["bitmap_steps"] + split["bucket_steps"]
+          == split["second_order_steps"]
+          and split["bitmap_entries"] + split["bucket_entries"]
+          + split["first_order_entries"] == scanned,
+          f"the recorded branches do not cover the corpus's steps: {split}")
+    nbytes = tensor_bytes(dg.vmeta, dg.cdf_rows, dg.hash_buckets, corpus)
+    b = bound(nbytes, cdf_scan_ops(scanned, split["bitmap_entries"]),
+              INT_OPS_PER_S)
+    # the count of PRs 5-22: every entry at OPS_PER_ENTRY
+    b12 = bound(nbytes, scanned * OPS_PER_ENTRY, INT_OPS_PER_S)
+    from stellar_rw_tpu_torch.ops._build import ptr, stream
+
+    sums = torch.empty(corpus.shape[0], dtype=torch.int32, device="cuda")
+    probe_ms = cuda_ms(lambda: probe.launch(
+        ptr(corpus), ptr(dg.vmeta), ptr(dg.cdf_rows), ptr(sums),
+        corpus.shape[0], L, stream(corpus.device)), 3)
+    regs = cdf_registers(kernel.build_log)
     # walk-round checkpoints: 4 rounds, then resumed to 10
     ck = os.path.join(tmp, "out_cdf_ckpt")
     flags = ["--input", edges, "--output", ck] + CDF_FLAGS[:-2] + [
@@ -1299,8 +1506,10 @@ def phase_cdf_main(torch, kernel, smi, tmp, edges) -> dict:
           "resumed run failed")
     with open(os.path.join(out, "path", "part-00000"), "rb") as a, \
             open(os.path.join(ck, "path", "part-00000"), "rb") as c:
-        check(a.read() == c.read(), "the resumed walk-round checkpoint run "
+        path = a.read()
+        check(path == c.read(), "the resumed walk-round checkpoint run "
               "differs from the uninterrupted one")
+    digest = hashlib.sha256(path).hexdigest()
     print(f"phase 10 --cmd randomwalk --p {p} --q {q} (exact CDF, chunked): "
           f"{report['paths']} walks, {report['steps']} steps in "
           f"{report['walk_seconds']:.3f} s = "
@@ -1313,9 +1522,21 @@ def phase_cdf_main(torch, kernel, smi, tmp, edges) -> dict:
           f"corpus (CUDA events, mean of 3) = {scanned / ms / 1e6:.2f} G "
           f"entries/s; on the first {n_chk} "
           f"walkers of round 0 kernel {ms_sub:.2f} ms, plain version "
-          f"{plain_ms:.0f} ms (one call), bitwise equal; bound "
-          f"{b['bound_ms']:.3f} ms by {b['bound_by']}; --checkpointEvery 2 "
-          f"cut at 4 rounds and resumed: /path byte-equal [{smi}]")
+          f"{plain_ms:.0f} ms (one call), bitwise equal; second-order "
+          f"steps as the kernel's recording form took them (each the "
+          f"gate's branch): by the bitmap {split['bitmap_steps']:,} "
+          f"({split['bitmap_entries']:,} entries), by prev's bucket rows "
+          f"{split['bucket_steps']:,} ({split['bucket_entries']:,} "
+          f"entries), first-order entries "
+          f"{split['first_order_entries']:,}; bound {b['bound_ms']:.3f} ms "
+          f"by {b['bound_by']} (bitmap entries x {OPS_PER_BITMAP_ENTRY}, "
+          f"the others x {OPS_PER_ENTRY}; every entry x {OPS_PER_ENTRY}, "
+          f"the count of PRs 5-22: {b12['bound_ms']:.3f} ms); the "
+          f"row-stream probe (rows read in the kernel's order, no "
+          f"weighing) {probe_ms:.2f} ms; registers {regs}; "
+          f"--checkpointEvery 2 cut at 4 "
+          f"rounds and resumed: /path byte-equal; /path sha256 {digest} "
+          f"[{smi}]")
     # ms and the bound: the whole corpus; plain_ms: the first 4,096
     # walkers of round 0 (the whole corpus would take the plain version
     # minutes), beside the kernel's time on them
@@ -1325,6 +1546,11 @@ def phase_cdf_main(torch, kernel, smi, tmp, edges) -> dict:
             "kernel_ms_same_scope": ms_sub,
             "entries_scanned": scanned, "entries_scanned_same_scope":
                 scanned_in(want), "steps": steps,
+            "bound_ms_every_entry_at_12": b12["bound_ms"],
+            **{k: split[k] for k in ("bitmap_steps", "bitmap_entries",
+                                     "bucket_steps", "bucket_entries",
+                                     "first_order_entries")},
+            "probe_ms": probe_ms, "registers": regs, "path_sha256": digest,
             "walk_seconds": report["walk_seconds"]}
 
 
@@ -4719,9 +4945,10 @@ dist.destroy_process_group()
 
 
 def cdf_serve_bound(tab, n: int, served: int, scanned: int,
-                    second: bool = True) -> dict:
-    """The CDF serve's bound: the row entries scanned x OPS_PER_ENTRY at
-    the f32 lanes' rate (phase 10's formula), or the bytes if larger, each
+                    second: bool = True, bitmap_entries: int = 0) -> dict:
+    """The CDF serve's bound: the row entries scanned, by cdf_scan_ops
+    (bitmap_entries of them read prev's neighbors from the bitmap), at the
+    f32 lanes' rate (phase 10's formula), or the bytes if larger, each
     input read once: the n requests read (12 B) and answered (4 B), the
     vmeta rows of the requests served (two 16-byte rows each), their row
     entries (8 B each) and, for a second-order step, prev's bucket rows
@@ -4731,7 +4958,8 @@ def cdf_serve_bound(tab, n: int, served: int, scanned: int,
               + min(8 * scanned, tensor_bytes(g.cdf_rows)))
     if second:
         nbytes += min(16 * scanned, tensor_bytes(g.hash_buckets))
-    return bound(nbytes, scanned * OPS_PER_ENTRY, INT_OPS_PER_S)
+    return bound(nbytes, cdf_scan_ops(scanned, bitmap_entries),
+                 INT_OPS_PER_S)
 
 
 def phase_cdf_shard_check(torch, smi, edges) -> dict:
@@ -4806,7 +5034,8 @@ def phase_cdf_shard_check(torch, smi, edges) -> dict:
         ms = cuda_ms(local, 10)
         served = int(lm.sum())
         scanned = int(deg[cur[lm].long()].sum())
-        b = cdf_serve_bound(tabs[0], n, served, scanned)
+        b = cdf_serve_bound(tabs[0], n, served, scanned,
+                            bitmap_entries=split["bitmap_entries"])
         req = send[1].reshape(C, 3)
         remote = lambda: shard_walk.cdf_serve(tabs[1], req, None, 0, key, 0,
                                               t, False, work=work, **kw)
@@ -4820,7 +5049,9 @@ def phase_cdf_shard_check(torch, smi, edges) -> dict:
               f"shard_cdf_serve's remote steps differ from phase 10's "
               f"corpus ({layout})")
         r_scanned = int(deg[req[ok, 0].long()].sum())
-        rb = cdf_serve_bound(tabs[1], C, int(ok.sum()), r_scanned)
+        r_split = cdf_split(tabs[1], req[ok, 0], req[ok, 1], spec.cdf_chunk)
+        rb = cdf_serve_bound(tabs[1], C, int(ok.sum()), r_scanned,
+                             bitmap_entries=r_split["bitmap_entries"])
         r_ms = cuda_ms(remote, 10)
         # the whole received buffer, as the exchange hands it over: D
         # buckets, each its requests then fills (here rank 0's own buffer:
@@ -4937,8 +5168,10 @@ def phase_cdf_shard_check(torch, smi, edges) -> dict:
                 scanned, req, tab = timed
                 ms = cuda_ms(lambda: shard_walk.cdf_serve(
                     tab, req, None, 0, key, 1, 1, False, **kw), 5)
-                b = cdf_serve_bound(tab, req.shape[0], req.shape[0] - 1,
-                                    scanned)
+                b = cdf_serve_bound(
+                    tab, req.shape[0], req.shape[0] - 1, scanned,
+                    bitmap_entries=cdf_split(tab, req[:-1, 0], req[:-1, 1],
+                                             chunk)["bitmap_entries"])
                 edge_ms[name].append({
                     "dtype": dtype, "chunk": chunk, "p": gp, "q": gq,
                     "route": "hash" if route is None else "vcut",
@@ -5224,6 +5457,7 @@ def main() -> int:
     from stellar_rw_tpu_torch.ops.walk_step import KEYS_KERNEL, WALK_KERNEL
 
     probe = draws_probe()
+    cdf_probe = cdf_row_probe()
     k11_empty = k11_empty_kernels()
     smi = phase_env(torch, (WALK_KERNEL, KEYS_KERNEL, RESIDENT_WALK_KERNEL,
                             CDF_WALK_KERNEL, EMIT_KERNEL, SERVE_KERNEL,
@@ -5231,7 +5465,7 @@ def main() -> int:
                             *trainer_kernels().values(),
                             *hs_kernels().values(),
                             *spmm_kernels().values(),
-                            *dp_kernels().values(), probe))
+                            *dp_kernels().values(), probe, cdf_probe))
     phase_walk(torch)
     sgns_row = phase_sgns(torch)
     walk_row, keys_row = phase_walk_main_shape(
@@ -5246,7 +5480,7 @@ def main() -> int:
                         os.path.join(tmp, "out_embedding"))
         phase_cdf_check(torch)
         cdf_row = phase_cdf_main(torch, CDF_WALK_KERNEL, smi, tmp,
-                                 main_run["edges"])
+                                 main_run["edges"], cdf_probe)
         step_row = phase_exact_check(torch)
         exact_run = phase_exact_main(torch, smi, tmp, main_run["edges"])
         draws_row = phase_draws_check(torch, smi, probe)

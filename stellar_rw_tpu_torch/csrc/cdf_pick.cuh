@@ -3,9 +3,9 @@
 // warp a walker) and shard_walk.cu's shard_cdf_serve (one step of a
 // request on its owner shard, a warp a request), so that both compile
 // the same text and pick the same entry. Beside it pick_bits, the chunked
-// second-order pick with prev's neighbor set read from a bitmap, which the
-// CDF serve runs where the graph's vertices fit one: the same butterfly
-// and piece scan, and weigh's product, so the two round alike.
+// second-order pick with prev's neighbor set read from a bitmap, which both
+// run where the graph's vertices fit one: the same butterfly and piece
+// scan, and weigh's product, so the two round alike.
 //
 // The semantics and the summation order are cdf_walk.cu's note: padded
 // form left to right, entry by entry; chunked form as lane sums joined by a
@@ -191,6 +191,23 @@ __device__ __forceinline__ void mark_neighbors(const Prev& pv,
       if (keys[j] >= 0) atomicOr(&bm[keys[j] >> 5], 1u << (keys[j] & 31));
   }
   __syncwarp();
+}
+
+// Zeroes the bitmap again after a pick by mark_neighbors's bits: the word
+// of each key of prev's bucket rows is stored 0 (every set bit came from
+// these keys), nb(prev) rows where zeroing the whole bitmap is V/32 words.
+__device__ __forceinline__ void clear_neighbors(
+    const Prev& pv, const int4* __restrict__ buckets, unsigned* bm,
+    int lane) {
+  __syncwarp();   // the lanes' reads of the bitmap are done
+  for (int b = lane; b <= pv.bucket_mask; b += 32) {
+    const int4 k = __ldg(&buckets[pv.bucket_base + b]);
+    const int keys[4] = {k.x, k.y, k.z, k.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (keys[j] >= 0) bm[keys[j] >> 5] = 0u;
+  }
+  __syncwarp();   // no lane marks the next step's bits before the clear
 }
 
 // weigh's second-order weight with the membership read from the bitmap.

@@ -498,3 +498,295 @@ def test_staged_pick_transcription_equals_plain(chunk, dtype):
     while np.float32(u * total) > np.float32(1 + 2.0 ** -23):
         u = np.nextafter(u, np.float32(0))
     assert _staged_pick(b, u, chunk) == _warp_pick(b, u, True) == 2
+
+
+# hubs 0 and 1 each joined to the other and to leaves 2 .. 41: a step
+# from one hub to the other has a hub as prev, with 32 bucket rows
+# against the other hub's 41 entries
+TWIN = {0: [(1, 1.0)] + [(i, 1.0) for i in range(2, 42)],
+        1: [(0, 1.0)] + [(i, 1.0) for i in range(2, 42)],
+        **{i: [(0, 1.0), (1, 1.0)] for i in range(2, 42)}}
+
+
+def _gate_graphs(name, karate_path, testgraph_path):
+    if name == "twin hubs":
+        return jcsr.from_adjacency(TWIN), tcsr.from_adjacency(TWIN)
+    return _graphs(name, karate_path, testgraph_path)
+
+
+def _k7_walks(g, starts, key, round_offset, R, L, p, q, dtype,
+              min_entries=None, clear_by_words=None, stale=False):
+    """csrc/cdf_walk.cu's chunked form transcribed in NumPy, a walker (a
+    warp) at a time, its bitmap of the vertices carried from step to step:
+    zeroed at the walker's start; at a second-order step of a row of
+    min_entries entries or more whose prev has no more bucket rows than the
+    row has entries, marked from prev's bucket keys, read for the
+    membership, then cleared by zeroing every word (where the words are
+    fewer than clear_by_words times prev's bucket rows) or the words of
+    prev's keys; the other steps read prev's bucket row at the entry's
+    hash. The sums are pick's (_staged_pick with pieces of 32). stale:
+    each walker's first bitmap step leaves its first key's bit set.
+    Returns (corpus [R*W, L+2], bitmap steps, bucket steps, steps after
+    which the bitmap was not zero, branches [R*W, L+2]: BY_BITMAP or
+    BY_BUCKETS at column t + 1 of each second-order step t, else 0)."""
+    dt = np.float64 if dtype == "float64" else np.float32
+    dg = sampling.device_put_graph(g, "cpu", cdf=True)
+    vmeta, buckets = dg.vmeta.numpy(), dg.hash_buckets.numpy()
+    rows = dg.cdf_rows.numpy()
+    cols = rows[:, 0]
+    wts = rows[:, 1].view(np.float32).astype(dt)
+    words = cdf_walk.bitmap_words(vmeta.shape[0], 1)
+    min_entries = (cdf_walk.BITMAP_MIN_ENTRIES if min_entries is None
+                   else min_entries)
+    clear_by_words = (cdf_walk.CLEAR_BY_WORDS if clear_by_words is None
+                      else clear_by_words)
+    inv_p, inv_q = (dt(x) for x in sampling.bias_quotients(p, q, dtype))
+    W = len(starts)
+    rk = prng.fold_in(key, torch.arange(R) + round_offset)
+    n_row = torch.arange(R * W)
+    draw = prng.uniform_f64_at if dtype == "float64" else prng.uniform_at
+    us = np.stack([draw(prng.fold_in(rk, t)[n_row // W], n_row % W).numpy()
+                   for t in range(L + 1)], 1)
+    out = np.full((R * W, L + 2), -1, np.int32)
+    branches = np.zeros((R * W, L + 2), np.uint8)
+    on = off = dirty = 0
+    for n in range(R * W):
+        bm = np.zeros(max(words, 1), np.uint32)
+        start = int(starts[n % W])
+        pm = vmeta[start]
+        out[n, 0] = start
+        cur = -1
+        if pm[1] > 0:
+            j = _staged_pick(wts[pm[0]:pm[0] + pm[1]], us[n, 0], 32)
+            cur = int(cols[pm[0] + max(j, 0)])
+        out[n, 1] = cur
+        prev, left = start, stale
+        for t in range(1, L + 1):
+            if cur < 0 or vmeta[cur, 1] <= 0:
+                break
+            cm = vmeta[cur]
+            s, d = int(cm[0]), int(cm[1])
+            c = cols[s:s + d]
+            if words > 0 and d >= min_entries and pm[3] < d:
+                keys = buckets[pm[2]:pm[2] + pm[3] + 1].ravel()
+                keys = keys[keys >= 0]
+                np.bitwise_or.at(bm, keys >> 5,
+                                 (np.uint32(1) << (keys & 31)).astype(
+                                     np.uint32))
+                member = (bm[c >> 5] >> (c & 31)) & 1
+                if words < clear_by_words * (pm[3] + 1):
+                    bm[:] = 0
+                else:
+                    bm[keys >> 5] = 0
+                if left:
+                    bm[keys[0] >> 5] |= np.uint32(1) << np.uint32(keys[0] & 31)
+                    left = False
+                dirty += bool(bm.any())
+                on += 1
+                branches[n, t + 1] = cdf_walk.BY_BITMAP
+            else:
+                h = (c.astype(np.uint64) * np.uint64(sampling.HASH_MULT)
+                     ) & np.uint64(0xFFFFFFFF)
+                brow = buckets[pm[2] + (h & np.uint64(pm[3])).astype(np.int64)]
+                member = (brow == c[:, None]).any(1)
+                off += 1
+                branches[n, t + 1] = cdf_walk.BY_BUCKETS
+            f = np.where(c == prev, inv_p,
+                         np.where(member != 0, dt(1), inv_q)).astype(dt)
+            j = _staged_pick((wts[s:s + d] * f).astype(dt), us[n, t], 32)
+            dst = int(cols[s + max(j, 0)])
+            out[n, t + 1] = dst
+            prev, pm, cur = cur, cm, dst
+    return out, on, off, dirty, branches
+
+
+GATE_GRAPHS = ["karate", "testgraph", "multi", "twin hubs"]
+
+
+@pytest.mark.parametrize("name", GATE_GRAPHS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("pq", [(0.25, 4.0), (4.0, 0.25)])
+def test_k7_bitmap_transcription_equals_plain_and_jax(
+        karate_path, testgraph_path, monkeypatch, name, dtype, pq):
+    """K7's walk transcribed with its bitmap carried across the walk, the
+    gate forced down to rows of one entry so that these graphs' steps take
+    the bitmap wherever prev has no more bucket rows than cur's row has
+    entries (the others read the bucket rows), each bitmap step cleared
+    word by word and, apart, by prev's keys: the corpus is cdf_walk_ref's
+    (the port's random_walks on the CPU) and the JAX package's, chunked (as
+    _chunked forces both packages), bit for bit; the bitmap is zero after
+    every bitmap step; with the kernel's own gate no step of these graphs
+    takes the bitmap. Exact sums: unit weights, p and q in {1/4, 4}. The
+    directed testgraph's walks die before a second-order step (its dead
+    end)."""
+    jg, tg = _gate_graphs(name, karate_path, testgraph_path)
+    _chunked(monkeypatch)
+    p, q = pq
+    L, R, seed = 9, 3, 4
+    kw = dict(walk_length=L, num_walks=R, p=p, q=q, seed=seed, sampler="cdf",
+              dtype=dtype)
+    with jax.enable_x64(dtype == "float64"):
+        want = np.asarray(jengine.random_walks(jg, **kw))
+    got = engine.random_walks(tg, device="cpu", **kw)
+    np.testing.assert_array_equal(got, want)
+    starts = np.arange(tg.num_vertices, dtype=np.int32)
+    key = prng.prng_key(seed)
+    runs = [_k7_walks(tg, starts, key, 0, R, L, p, q, dtype, min_entries=1,
+                      clear_by_words=cbw)
+            for cbw in (cdf_walk.CLEAR_BY_WORDS, 0)]
+    for corpus, on, off, dirty, _ in runs:
+        np.testing.assert_array_equal(corpus, want)
+        # the directed testgraph's walks end after one step: no second order
+        assert (on > 0 or name == "testgraph") and dirty == 0
+    corpus, on, off, dirty, _ = _k7_walks(tg, starts, key, 0, R, L, p, q,
+                                          dtype)
+    np.testing.assert_array_equal(corpus, want)
+    assert on == 0 and (off > 0 or name == "testgraph") and dirty == 0
+
+
+def test_k7_bitmap_transcription_round_offset_and_twin_hubs(monkeypatch):
+    """The transcription against cdf_walk_ref at a round offset, with hub
+    to hub steps (a hub as prev, its 32 bucket rows marked), rounded f32
+    weights, f32 and f64; cdf_walk.bitmap_steps counts the transcription's
+    bitmap steps from the corpus."""
+    rng = np.random.default_rng(9)
+    adj = {v: [(u, float(rng.random() * 3 + 0.1)) for u, _ in nb]
+           for v, nb in TWIN.items()}
+    g = tcsr.from_adjacency(adj)
+    dg = sampling.device_put_graph(g, "cpu", cdf=True)
+    starts = torch.tensor([0, 1, 5, 17, 40], dtype=torch.int32)
+    key = prng.prng_key(7)
+    monkeypatch.setattr(cdf_walk, "BITMAP_MIN_ENTRIES", 1)
+    for dtype in ("float32", "float64"):
+        want = cdf_walk.cdf_walk_ref(dg, starts, key, 5, 4, 12, 0.5, 2.0,
+                                     g.max_degree, 256, dtype).numpy()
+        corpus, on, off, dirty, _ = _k7_walks(g, starts.numpy(), key, 5, 4,
+                                              12, 0.5, 2.0, dtype,
+                                              min_entries=1)
+        np.testing.assert_array_equal(corpus, want)
+        assert dirty == 0 and off > 0
+        hub_prev = (np.isin(corpus[:, :-2], (0, 1))
+                    & np.isin(corpus[:, 1:-1], (0, 1)) & (corpus[:, 2:] >= 0))
+        assert hub_prev.any()
+        c = torch.as_tensor(corpus)
+        split = cdf_walk.bitmap_steps(dg.vmeta, c[:, 1:-1].clamp_min(0),
+                                      c[:, :-2].clamp_min(0), 256)
+        assert int((split & (c[:, 2:] >= 0)).sum()) == on
+
+
+def test_k7_stale_bit_changes_the_corpus(karate_path):
+    """The mutation: each walker's first bitmap step leaves one bit set.
+    The transcription sees it (the bitmap is not zero after the step) and
+    the corpus changes, so the tests above would catch a stale bit."""
+    g = tio.load_edge_list(karate_path, weighted=False, directed=False)
+    starts = np.arange(g.num_vertices, dtype=np.int32)
+    key = prng.prng_key(4)
+    args = (g, starts, key, 0, 3, 20, 0.25, 4.0, "float32")
+    good, on, _, dirty, _ = _k7_walks(*args, min_entries=1)
+    bad, on_bad, _, dirty_bad, _ = _k7_walks(*args, min_entries=1,
+                                             stale=True)
+    assert on > 0 and dirty == 0 and dirty_bad > 0
+    assert not np.array_equal(good, bad)
+    dg = sampling.device_put_graph(g, "cpu", cdf=True)
+    want = cdf_walk.cdf_walk_ref(dg, torch.as_tensor(starts), key, 0, 3, 20,
+                                 0.25, 4.0, g.max_degree, 256).numpy()
+    np.testing.assert_array_equal(good, want)
+
+
+@pytest.mark.parametrize("name", GATE_GRAPHS)
+def test_bucket_keys_are_the_row_columns(karate_path, testgraph_path, name):
+    """For every vertex, the set of its row's columns (what cdf_rows holds)
+    equals the set of its bucket rows' keys: the bitmap marked from the
+    keys is prev's neighbor set, and the bucket read finds an entry exactly
+    where its bit is set. Multi-arcs and self-loops included."""
+    _, g = _gate_graphs(name, karate_path, testgraph_path)
+    dg = sampling.device_put_graph(g, "cpu", cdf=True)
+    vmeta, buckets = dg.vmeta.numpy(), dg.hash_buckets.numpy()
+    cols = dg.cdf_rows.numpy()[:, 0]
+    for v in range(g.num_vertices):
+        s, d, base, mask = (int(x) for x in vmeta[v])
+        keys = buckets[base:base + mask + 1].ravel()
+        assert set(keys[keys >= 0].tolist()) == set(cols[s:s + d].tolist())
+        assert len(keys[keys >= 0]) == len(set(cols[s:s + d].tolist()))
+
+
+def test_k7_constants_equal_their_mirrors():
+    """csrc/cdf_walk.cu's gate constants equal ops/cdf_walk.py's, and
+    bitmap_words gives the kernel's words: ceil(V / 32) up to
+    BITMAP_WORDS in the chunked form, else 0."""
+    import re
+
+    text = (_build.CSRC / "cdf_walk.cu").read_text()
+    for const, mirror in (("kBitmapWords", cdf_walk.BITMAP_WORDS),
+                          ("kBitmapMinEntries", cdf_walk.BITMAP_MIN_ENTRIES),
+                          ("kClearByWords", cdf_walk.CLEAR_BY_WORDS)):
+        found = re.findall(rf"constexpr int {const} = (\d+);", text)
+        assert found == [str(mirror)], const
+    assert re.findall(r"constexpr unsigned char kByBuckets = (\d+), "
+                      r"kByBitmap = (\d+);", text) == [
+        (str(cdf_walk.BY_BUCKETS), str(cdf_walk.BY_BITMAP))]
+    lim = 32 * cdf_walk.BITMAP_WORDS
+    assert cdf_walk.bitmap_words(lim, 256) == cdf_walk.BITMAP_WORDS
+    assert cdf_walk.bitmap_words(lim + 1, 256) == 0
+    assert cdf_walk.bitmap_words(lim, 0) == 0
+    assert cdf_walk.bitmap_words(33, 4) == 2
+
+
+@pytest.mark.parametrize("name", GATE_GRAPHS)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_k7_branches_equal_the_transcription(karate_path, testgraph_path,
+                                             monkeypatch, name, dtype):
+    """cdf_walk_rounds' `branches` on the CPU (step_branches, the plain
+    version of the kernel's recording form) marks each second-order step
+    with the branch the transcription took there, the gate forced down to
+    rows of one entry and at the kernel's own (no step of these graphs
+    reaches it: every one by the bucket rows); the corpus is unchanged by
+    asking for them, and first-order and dead steps are 0."""
+    _, g = _gate_graphs(name, karate_path, testgraph_path)
+    dg = sampling.device_put_graph(g, "cpu", cdf=True)
+    starts = np.arange(g.num_vertices, dtype=np.int32)
+    st = torch.as_tensor(starts)
+    key = prng.prng_key(6)
+    R, L, p, q = 2, 9, 0.25, 4.0
+    for min_entries in (1, cdf_walk.BITMAP_MIN_ENTRIES):
+        monkeypatch.setattr(cdf_walk, "BITMAP_MIN_ENTRIES", min_entries)
+        corpus, on, off, _, want = _k7_walks(g, starts, key, 2, R, L, p, q,
+                                             dtype, min_entries=min_entries)
+        branches = torch.full((R * len(starts), L + 2), 7, dtype=torch.uint8)
+        got = cdf_walk.cdf_walk_rounds(dg, st, key, 2, R, L, p, q,
+                                       g.max_degree, 256, dtype,
+                                       branches=branches)
+        np.testing.assert_array_equal(got.numpy(), corpus)
+        np.testing.assert_array_equal(branches.numpy(), want)
+        assert int((branches == cdf_walk.BY_BITMAP).sum()) == on
+        assert int((branches == cdf_walk.BY_BUCKETS).sum()) == off
+        assert not branches[:, :2].any()
+        if min_entries > 1:
+            assert on == 0
+        np.testing.assert_array_equal(
+            got.numpy(), cdf_walk.cdf_walk_ref(dg, st, key, 2, R, L, p, q,
+                                               g.max_degree, 256,
+                                               dtype).numpy())
+
+
+@pytest.mark.parametrize("bad", ["padded", "dtype", "shape", "strided"])
+def test_cdf_walk_rounds_refuses_bad_branches(karate_path, bad):
+    """`branches` is the chunked form's, a contiguous uint8 [R*W, L+2] on
+    the starts' device; a padded walk, another dtype or shape, or a
+    strided tensor is refused before any walk."""
+    g = tio.load_edge_list(karate_path, weighted=False, directed=False)
+    dg = sampling.device_put_graph(g, "cpu", cdf=True)
+    st = torch.arange(4, dtype=torch.int32)
+    shape, dtype, chunk = (8, 7), torch.uint8, 256
+    if bad == "padded":
+        chunk = 0
+    elif bad == "dtype":
+        dtype = torch.int32
+    elif bad == "shape":
+        shape = (4, 7)
+    branches = torch.zeros(shape, dtype=dtype)
+    if bad == "strided":
+        branches = torch.zeros((8, 14), dtype=torch.uint8)[:, ::2]
+    with pytest.raises(ValueError, match="branches"):
+        cdf_walk.cdf_walk_rounds(dg, st, prng.prng_key(1), 0, 2, 5, 0.5, 2.0,
+                                 g.max_degree, chunk, branches=branches)

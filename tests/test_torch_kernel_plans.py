@@ -537,18 +537,75 @@ def test_draws_parts_variant_edits_the_source_once(name):
         assert source.count(old) == 1 and new != old
 
 
-@pytest.mark.parametrize("name", [n for n, edits in
-                                  chip_cdf_parts.VARIANTS.items() if edits])
+CDF_PARTS_EDITS = {
+    **{n: e for n, e in chip_cdf_parts.VARIANTS.items() if e},
+    **chip_cdf_parts.TAKEN_OUT,
+    "clocks": (chip_cdf_parts.CLOCK_DECL + chip_cdf_parts.PICK_CLOCKS
+               + chip_cdf_parts.BITS_CLOCKS)}
+
+
+@pytest.mark.parametrize("name", list(CDF_PARTS_EDITS))
 def test_cdf_parts_variant_edits_the_source_once(name):
     """chip_cdf_parts.py patches csrc/cdf_walk.cu, with the row scan of
     csrc/cdf_pick.cuh written in where it is included, by text, one piece
     after the other: each piece must occur exactly once in the text as the
-    pieces before it left it, and its replacement must differ."""
+    pieces before it left it, and its replacement must differ. Its forms
+    (VARIANTS) and clocks edit this checkout's text; the parts it takes out
+    of the parent (TAKEN_OUT, in pick's bucket form, which this text keeps)
+    apply here too, as they will to the next checkout's parent."""
     text = chip_cdf_parts.kernel_text()
     assert text.count("__device__ int pick(") == 1
-    for old, new in chip_cdf_parts.VARIANTS[name]:
+    for old, new in CDF_PARTS_EDITS[name]:
         assert text.count(old) == 1 and new != old
         text = text.replace(old, new)
+
+
+# ptxas' lines for K7's instantiations, mangled: this checkout's kernels
+# (T, kChunked, kRecord) and (T, kRecord), and the two-argument form of
+# the checkouts before them
+CDF_PTXAS = {
+    "_ZN12_GLOBAL__N_115cdf_walk_kernelIfLb1ELb0EEEvPKi": "f32 chunked",
+    "_ZN12_GLOBAL__N_115cdf_walk_kernelIdLb1ELb1EEEvPKi":
+        "f64 chunked recording",
+    "_ZN12_GLOBAL__N_115cdf_walk_kernelIfLb0ELb0EEEvPKi": "f32 padded",
+    "_ZN12_GLOBAL__N_122cdf_walk_bitmap_kernelIfLb0EEEvPKi":
+        "f32 chunked bitmap",
+    "_ZN12_GLOBAL__N_122cdf_walk_bitmap_kernelIdLb1EEEvPKi":
+        "f64 chunked bitmap recording",
+    "_ZN12_GLOBAL__N_115cdf_walk_kernelIdLb1EEEvPKi": "f64 chunked",
+    "_ZN12_GLOBAL__N_115cdf_walk_kernelIfLb0EEEvPKi": "f32 padded"}
+
+
+@pytest.mark.parametrize("mangled", list(CDF_PTXAS))
+def test_cdf_registers_names_each_instantiation(mangled):
+    """chip_smoke.cdf_registers reads the registers of each of K7's
+    instantiations from a build log under a name that says its type, form
+    and whether it is the recording form, and a spilling one's stack."""
+    import chip_smoke
+
+    log = (f"ptxas info    : Compiling entry function '{mangled}' for "
+           "'sm_90a'\nptxas info    : Function properties for x\n"
+           "    40 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
+           "loads\nptxas info    : Used 37 registers, used 1 barriers\n")
+    name = CDF_PTXAS[mangled]
+    got = chip_smoke.cdf_registers(log)
+    assert got[name] == 37 and "spill stores" in got[name + " spills"]
+    assert len(got) == 2
+
+
+def test_cdf_scan_ops_counts_bitmap_entries_apart():
+    """The CDF scans' bound counts an entry read by the bitmap at
+    OPS_PER_BITMAP_ENTRY and every other at OPS_PER_ENTRY; with no bitmap
+    entries it is the count of every entry at OPS_PER_ENTRY."""
+    import chip_smoke
+
+    assert chip_smoke.OPS_PER_BITMAP_ENTRY < chip_smoke.OPS_PER_ENTRY
+    assert chip_smoke.cdf_scan_ops(1000, 0) == 1000 * chip_smoke.OPS_PER_ENTRY
+    assert chip_smoke.cdf_scan_ops(1000, 1000) == (
+        1000 * chip_smoke.OPS_PER_BITMAP_ENTRY)
+    assert chip_smoke.cdf_scan_ops(1000, 250) == (
+        250 * chip_smoke.OPS_PER_BITMAP_ENTRY
+        + 750 * chip_smoke.OPS_PER_ENTRY)
 
 
 @pytest.mark.parametrize("name", [
