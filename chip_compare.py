@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time two checkouts' kernels of the PyTorch/CUDA port on one GPU, in turns.
 
-    python3 chip_compare.py OTHER_CHECKOUT [--only cdf|shard]
+    python3 chip_compare.py OTHER_CHECKOUT [--only cdf|shard|conv]
 
 OTHER_CHECKOUT is the root of another checkout of this repository under this
 checkout's build/ (say the parent commit, unpacked by `git archive` into
@@ -46,11 +46,12 @@ events around launches queued behind a long product):
     checking the two checkouts' tables agree (rtol 1e-5): other, this,
     this, other, twice, each turn with a workspace and tables allocated for
     it;
-  * the conv step's kernels on chip_smoke's phase-14 block (B 32, T 82,
-    w 10, kB 128, Zipf) at D 128 and 768, each launch timed between CUDA
-    events,
-    after checking the two checkouts' tables agree (rtol 1e-5, atol 1e-6):
-    other, this, this, other, twice;
+  * the conv step's kernels (compare_conv) on chip_smoke's phase-14 block
+    (B 32, T 82, w 10, kB 128, Zipf) at D 128 and 768 and on phase 21's
+    slot block (B 16) at D 128, each launch timed between CUDA events and
+    the accumulate kernel back to back, after checking the two checkouts'
+    tables agree (rtol 1e-5, atol 1e-6): other, this, this, other, twice.
+    With --only conv, these and nothing else;
   * the exact-CDF walk kernel on phase 10's corpus (the walk_10k graph,
     10 rounds, L = 80, p = 1/16, q = 4, chunked): other, this, this,
     other, after checking the two corpora equal;
@@ -631,6 +632,45 @@ def compare_cdf_serve(torch, this, other, smi) -> None:
                           "ms_in_turns": runs, "card": smi}))
 
 
+def compare_conv(torch, this, other, order, smi) -> None:
+    """The conv step's launches of each checkout (accumulate,
+    sgns_shared_grads, scatter-update; or a delta-slot checkout's four) at
+    chip_smoke's phase-14 block at D 128 and 768 and at phase 21's slot
+    block (B 16, D 128): each launch between CUDA events, and the
+    accumulate launch back to back, in `order`, after checking the two
+    checkouts' tables agree (rtol 1e-5, atol 1e-6)."""
+    from chip_smoke import CONV_SHAPES, cuda_ms_split, conv_block
+
+    main, wide = CONV_SHAPES[0], CONV_SHAPES[2]
+    slot = (main[0], 16, *main[2:])
+    for V, B, T, win, kB, D, tokens in (main, wide, slot):
+        tables = conv_block(torch, V, B, T, win, kB, D, 0, tokens)
+        nw, lr = 5 / kB, 0.025
+        pkgs = {"other": other, "this": this}
+        results = {}
+        for name, pkg in pkgs.items():
+            fns, moved = conv_step_fns(pkg, tables, win, lr, nw)
+            for fn in fns:
+                fn()
+            results[name] = moved
+        check(all(torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in
+                  zip(results["this"], results["other"])),
+              f"the two checkouts' conv steps disagree at B {B} D {D}")
+        runs, back = [], []
+        for name in order:
+            fns = conv_step_fns(pkgs[name], tables, win, lr, nw)[0]
+            runs.append((name, cuda_ms_split(fns, 20)))
+            back.append((name, cuda_ms(fns[0], 20)))
+        print(json.dumps({"kernel": "the conv step's launches (this: "
+                          "accumulate, sgns_shared_grads, scatter-update; "
+                          "the delta-slot design: accumulate, "
+                          "sgns_shared_grads, scatter, apply)",
+                          "block": [B, T, win, kB, D],
+                          "ms_each_launch_in_turns": runs,
+                          "accumulate_ms_back_to_back_in_turns": back,
+                          "card": smi}), flush=True)
+
+
 def wall_ms(torch, fn, iters: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -646,7 +686,7 @@ def main(argv: list[str]) -> int:
     import torch
 
     only = argv[2] if argv[1:2] == ["--only"] and len(argv) == 3 else None
-    if only not in (None, "cdf", "shard"):
+    if only not in (None, "cdf", "shard", "conv"):
         print(__doc__, file=sys.stderr)
         return 2
     if len(argv) != (3 if only else 1) or not os.path.isdir(argv[0]):
@@ -673,6 +713,10 @@ def main(argv: list[str]) -> int:
         compare_shard_emit(torch, this, other, shard_graph(), smi)
         compare_shard_serve(torch, this, other, shard_graph(), smi)
         compare_shard_superstep(root, other_root, smi)
+        return 0
+    if only == "conv":
+        compare_conv(torch, this, other, ("other", "this", "this", "other")
+                     * 2, smi)
         return 0
     if only:
         compare_cdf_serve(torch, this, other, smi)
@@ -854,33 +898,7 @@ def main(argv: list[str]) -> int:
                           "ms_a_step_in_turns": [(n, sum(t)) for n, t in runs],
                           "card": smi}))
 
-    # the conv step's kernels at phase 14's main block: this checkout's
-    # three launches against the delta-slot design's four, each between
-    # CUDA events
-    from chip_smoke import CONV_SHAPES, conv_block
-
-    for V, B, T, win, kB, D, tokens in (CONV_SHAPES[0], CONV_SHAPES[2]):
-        tables = conv_block(torch, V, B, T, win, kB, D, 0, tokens)
-        nw, lr = 5 / kB, 0.025
-        results = {}
-        for name, pkg in (("other", other), ("this", this)):
-            fns, moved = conv_step_fns(pkg, tables, win, lr, nw)
-            for fn in fns:
-                fn()
-            results[name] = moved
-        check(all(torch.allclose(a, b, rtol=1e-5, atol=1e-6) for a, b in
-                  zip(results["this"], results["other"])),
-              f"the two checkouts' conv steps disagree at D {D}")
-        runs = [(name, cuda_ms_split(conv_step_fns(
-            {"other": other, "this": this}[name], tables, win, lr, nw)[0],
-            20)) for name in order + order]
-        print(json.dumps({"kernel": "the conv step's launches (this: "
-                          "accumulate, sgns_shared_grads, scatter-update; "
-                          "the delta-slot design: accumulate, "
-                          "sgns_shared_grads, scatter, apply)",
-                          "block": [B, T, win, kB, D],
-                          "ms_each_launch_in_turns": runs, "card": smi}))
-
+    compare_conv(torch, this, other, order + order, smi)
     compare_cdf_walk(torch, this, other, graph, order, smi)
     compare_cdf_serve(torch, this, other, smi)
 

@@ -13,8 +13,8 @@
 // center it holds, once (kDotLanes lanes a pair, 16-byte shared loads, a
 // shuffle sum), and keeps g_pos; the context side's acc_out reads the
 // centers' g_pos, copied into the halo the same way, and recomputes no dot.
-// Accumulations: a thread a float4 of a row. Its outputs are the halo
-// tiles' (sgns_conv_accumulate). Rows wider than the shared memory holds go
+// Accumulations: a thread a float4 of a row. Its outputs are
+// sgns_conv_accumulate's. Rows wider than the shared memory holds go
 // in column slices, as the tiles'. No rank leaves while another may still
 // read its shared memory: a relaxed arrive after its last remote read, a
 // wait at its end.

@@ -52,10 +52,11 @@ entry points a user calls:
               path's chunks beside the card's threefry rate with no memory
               traffic (the probe);
   phase 14    the conv step's kernels (the accumulate kernel's halo
-              tiles, sgns_shared_grads, the scatter-update by token
-              groups) against the plain step in float32 (rtol 1e-5 atol
-              1e-6) and in float64 at D = 64, 128 and 768 (and ragged and
-              sliced shapes, T 201, window 20) on Zipf, one-token (also
+              tiles a warp a position, sgns_shared_grads, the
+              scatter-update by token groups) against the plain step in
+              float32 (rtol 1e-5 atol 1e-6) and in float64 at D = 64,
+              128 and 768 (and ragged and sliced shapes, T 201, window
+              20) on Zipf, one-token (also
               with every negative that token, also at T 201), a token at
               every other position and padded blocks; each kernel timed
               at the main shape, the accumulate kernel by tile, and the

@@ -21,20 +21,27 @@
 //   (a) sgns_conv_accumulate: a block of threads takes one walk b and a tile
 //       of `tile` positions of it. It gathers the ein and eout rows of the
 //       tile and of its halo (window positions on each side) by token into
-//       shared memory, once for all 2w offsets (kTileReads loads in flight
-//       a thread), and forms validity itself from the tokens, cwin and the
-//       bounds (no [B, T, 2w] mask). Each pair's dot is taken twice, once by
-//       its center's tile and once by its context's tile, so no block needs
-//       another's g_pos; a thread takes a dot whole, lanes on neighbouring
-//       offsets, rows padded to one bank apart. It writes ein (the negative
-//       half's input, zero at padding), acc_in, acc_out, the two counts,
-//       neg_weight * vcnt (the negative half's mask), each block's valid
-//       pairs and the kB negative rows of w_out (wn). Rows wider than the
-//       shared memory holds go in column slices: the dots summed over every
-//       slice first, then the accumulations slice by slice. (A thread-block
-//       cluster a walk, each row read once and each dot taken once, measured
-//       slower at walk_10k's blocks on the H100: chip_conv_parts.py keeps it
-//       as a variant.)
+//       shared memory by cp.async (16 bytes a copy through L1 where D % 4 ==
+//       0, rows unpadded), once for all 2w offsets, and forms validity
+//       itself from the tokens, cwin and the bounds (no [B, T, 2w] mask). A
+//       warp takes a tile position x, a lane four columns of each 128-column
+//       chunk: the 2w dots of x as a center (ein[x] . eout[x + d]) and as a
+//       context (ein[x - d] . eout[x]), each side's lane shares of 32
+//       offsets summed by one transposed butterfly, g_pos formed by the
+//       lane of each offset, the pair counts by ballots, then acc_in and
+//       acc_out of x from the rows around it. Each pair's dot is taken
+//       twice, by its center's tile and by its context's, so no block needs
+//       another's g_pos. It writes ein (the negative half's input, zero at
+//       padding), acc_in, acc_out, the two counts, neg_weight * vcnt (the
+//       negative half's mask), each block's valid pairs and the kB negative
+//       rows of w_out (wn). Rows wider than the shared memory holds go in
+//       column slices of a multiple of 32 columns: the dots summed over
+//       every slice first, then the accumulations slice by slice. (Three
+//       forms measured slower at walk_10k's blocks on the H100: the halo
+//       tiles a thread a dot, this kernel's first design; a thread-block
+//       cluster a walk that splits its positions, chip_conv_cluster.cu; one
+//       that splits its columns, chip_conv_split.cu, which is faster at
+//       D 768. The last two stay variants of chip_conv_parts.py.)
 //   (b) sgns_conv_scatter: the scatter-mean and the update in one pass, by
 //       token groups. ops/sgns_conv.py::group_blocks sorts each corpus
 //       block's positions by token once a run (`order`) and cuts the groups
@@ -76,16 +83,18 @@
 //       so those are the grid's first blocks.
 // Every gradient comes from the tables as they were before the step: (a)
 // and the negative half only read them, (b) only adds into them. Sums run
-// in another order than XLA's (a thread's dot in four partial sums,
+// in another order than XLA's (a dot in lane shares and a butterfly,
 // sum-then-divide for the scatter-mean, atomics between a group's add and
 // its negatives'), so a step agrees with it to rounding.
 //
 // What bounds it: the row gathers (two rows a halo position) and the
 // accumulations written, then read back with the table rows they update,
 // against 2 * D flops a dot and a multiply-add an element and offset:
-// bytes. At walk_10k's block the card's time goes to latency instead: the
-// launch and two dependent reads from device memory. The tile is cut so
-// that the grid fills the SMs (ops/sgns_conv.py::launch_plan mirrors it).
+// bytes. At walk_10k's block the card's time goes to latency and issue
+// instead: the launch, two dependent reads from device memory and the
+// shared loads of the dots and sums, which a warp a position takes as
+// 16-byte loads and butterflies. The tile is cut so that the grid fills the
+// SMs (ops/sgns_conv.py::launch_plan mirrors it).
 
 #include <climits>
 #include <cstdint>
@@ -98,7 +107,12 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kLow = 0x7fffffff;    // a unit's first sorted index
 constexpr int kBatch = 8;           // rows a warp of (b) reads before adding
-constexpr int kTileReads = 4;       // a thread's row loads in flight, (a)
+// threads a block of (a) at one chunk of 128 columns a slice (a warp takes
+// two of a tile's 8 positions); twice as many at more chunks
+constexpr int kAccThreads = 128;
+// blocks an SM that ptxas must fit (a) in at kAccThreads threads: walk_10k's
+// 352 blocks in one wave on 132 SMs (at 2, 169 registers, it takes two)
+constexpr int kAccBlocks = 3;
 
 struct ConvOut {
   float* ein;      // [N, D]
@@ -115,59 +129,80 @@ __device__ __forceinline__ int offset_of(int o, int window) {
   return o < window ? o - window : o - window + 1;
 }
 
-// halo rows hc (center) and hx (context) form a valid pair
-__device__ __forceinline__ bool pair_ok(const int* tok, const int* win,
-                                        int hc, int hx) {
-  const int d = hx - hc;
-  return tok[hc] >= 0 && tok[hx] >= 0 && abs(d) <= win[hc];
+__device__ __forceinline__ void acc_cp_async16(void* dst, const void* src,
+                                                bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(fill ? 16 : 0));
 }
 
-// columns [c0, c0 + w) of the halo's ein and eout rows into shared memory
-// (rows of ld floats); a row outside the walk or at padding is zero. A
-// thread's loads go out kTileReads at a time, all before the first is
-// stored.
-__device__ void load_halo(float* s_in, float* s_out, const int* tok,
-                          const float* __restrict__ w_in,
-                          const float* __restrict__ w_out, int H, int ld,
-                          int D, int c0, int w, bool vec) {
-  const int g = vec ? 4 : 1;         // floats a load: 4 when D, c0 and w
-  const int wg = w / g, n = H * wg;  // are multiples of 4
-  for (int i0 = threadIdx.x; i0 < n; i0 += blockDim.x * kTileReads) {
-    float4 a[kTileReads], b[kTileReads];
+__device__ __forceinline__ void acc_cp_async4(void* dst, const void* src,
+                                              bool fill) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(fill ? 4 : 0));
+}
+
+__device__ __forceinline__ float4 acc_ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float acc_dot4(float4 a, float4 e, float v) {
+  v = fmaf(a.x, e.x, v);
+  v = fmaf(a.y, e.y, v);
+  v = fmaf(a.z, e.z, v);
+  return fmaf(a.w, e.w, v);
+}
+
+__device__ __forceinline__ float4 acc_fma4(float g, float4 v, float4 a) {
+  return make_float4(fmaf(g, v.x, a.x), fmaf(g, v.y, a.y), fmaf(g, v.z, a.z),
+                     fmaf(g, v.w, a.w));
+}
+
+// The transposed butterfly's steps H, H / 2, ..., 1 over the lanes: each
+// lane holds its shares s[k] of 2H sums; after the steps s[0] of lane r is
+// sum r over the lanes (in a fixed tree: each pair of lanes added as a full
+// butterfly would add them).
+template <int H, int N>
+__device__ __forceinline__ void acc_fold(float (&s)[N], int r) {
+  const bool up = r & H;
 #pragma unroll
-    for (int u = 0; u < kTileReads; ++u) {
-      const int i = i0 + u * blockDim.x;
-      a[u] = b[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-      const int h = i / wg, c = (i - h * wg) * g;
-      const int t = i < n ? tok[h] : -1;
-      if (t < 0) continue;
-      const size_t o = static_cast<size_t>(t) * D + c0 + c;
-      if (vec) {
-        a[u] = __ldg(reinterpret_cast<const float4*>(w_in + o));
-        b[u] = __ldg(reinterpret_cast<const float4*>(w_out + o));
-      } else {
-        a[u].x = __ldg(w_in + o);
-        b[u].x = __ldg(w_out + o);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kTileReads; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i >= n) break;
-      const int h = i / wg, c = (i - h * wg) * g;
-      float* di = s_in + h * ld + c;
-      float* dout = s_out + h * ld + c;
-      di[0] = a[u].x;
-      dout[0] = b[u].x;
-      if (vec) {
-        di[1] = a[u].y, di[2] = a[u].z, di[3] = a[u].w;
-        dout[1] = b[u].y, dout[2] = b[u].z, dout[3] = b[u].w;
-      }
+  for (int k = 0; k < H; ++k) {
+    const float send = up ? s[k] : s[k + H];
+    const float keep = up ? s[k + H] : s[k];
+    s[k] = keep + __shfl_xor_sync(kFull, send, H);
+  }
+  if constexpr (H > 1) acc_fold<H / 2>(s, r);
+}
+
+// columns [c0, c0 + w) of the halo's ein and eout rows (rows of `cols`
+// floats): zero outside the walk, at padding and beyond w
+__device__ void acc_gather(float* s_in, float* s_out, const int* s_tok,
+                           const float* __restrict__ w_in,
+                           const float* __restrict__ w_out, int H, int D,
+                           int cols, int c0, int w, bool vec) {
+  const int g = vec ? 4 : 1, per = cols / g, n = H * per;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int h = i / per, c = (i - h * per) * g;
+    const int tok = s_tok[h];
+    const bool ok = tok >= 0 && c < w;
+    const size_t src = ok ? static_cast<size_t>(tok) * D + c0 + c : 0;
+    float* di = s_in + h * cols + c;
+    float* dout = s_out + h * cols + c;
+    if (vec) {
+      acc_cp_async16(di, w_in + src, ok);
+      acc_cp_async16(dout, w_out + src, ok);
+    } else {
+      acc_cp_async4(di, w_in + src, ok);
+      acc_cp_async4(dout, w_out + src, ok);
     }
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int kBlock>
+__global__ void __launch_bounds__(kBlock,
+                                  kBlock == kAccThreads ? kAccBlocks : 1)
     sgns_conv_accumulate(const float* __restrict__ w_in,
                          const float* __restrict__ w_out,
                          const int* __restrict__ block,
@@ -177,124 +212,153 @@ __global__ void __launch_bounds__(kThreads)
                          float neg_weight) {
   extern __shared__ __align__(16) float sm[];
   const int W2 = 2 * window, H = tile + W2;
-  // rows ld = cols + 1 floats apart: the lanes of a warp that read 32
-  // different rows at one column hit 32 different banks
-  const int ld = cols + 1;
-  float* s_in = sm;                         // [H, ld] ein rows
-  float* s_out = s_in + H * ld;             // [H, ld] eout rows
-  float* s_gc = s_out + H * ld;             // [tile, 2w] center-side dots
-  float* s_gx = s_gc + tile * W2;           // [tile, 2w] context-side dots
-  int* s_tok = reinterpret_cast<int*>(s_gx + tile * W2);  // [H]
-  int* s_win = s_tok + H;                                 // [H]
-  int* s_cnt = s_win + H;                   // [2, tile] vcnt, cnt_out_pos
+  float* s_in = sm;                         // [H, cols] ein rows
+  float* s_out = s_in + H * cols;           // [H, cols] eout rows
+  float* s_dot = s_out + H * cols;          // [2, tile, 2w] dots, then g_pos
+  int* s_tok = reinterpret_cast<int*>(s_dot + 2 * tile * W2);  // [H]
+  int* s_win = s_tok + H;                                      // [H]
   __shared__ int s_valid;
 
   const int b = blockIdx.y, t0 = blockIdx.x * tile;
-  const int nt = min(tile, T - t0);         // the tile's positions
-  const int hb = t0 - window;               // halo row 0's position
-  const int lane = threadIdx.x & 31;
+  const int nt = min(tile, T - t0);
+  const int hb = t0 - window;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
   const int cta = blockIdx.y * gridDim.x + blockIdx.x;
   const int nctas = gridDim.x * gridDim.y;
   const size_t N = static_cast<size_t>(gridDim.y) * T;
+  const int slices = (D + cols - 1) / cols;
+  const int chunks = (cols + 127) / 128;
 
   if (threadIdx.x == 0) s_valid = 0;
-  for (int k = cta; k < kB; k += nctas) {   // the negatives' rows
-    const float* src = w_out + static_cast<size_t>(negs[k]) * D;
-    float* dst = o.wn + static_cast<size_t>(k) * D;
-    for (int c = threadIdx.x; c < D; c += blockDim.x) dst[c] = __ldg(src + c);
-  }
   for (int h = threadIdx.x; h < H; h += blockDim.x) {
     const int t = hb + h;
     const bool in = t >= 0 && t < T;
     s_tok[h] = in ? block[static_cast<size_t>(b) * T + t] : -1;
     s_win[h] = in ? cwin[static_cast<size_t>(b) * T + t] : 0;
   }
-  for (int i = threadIdx.x; i < 2 * tile * W2; i += blockDim.x) s_gc[i] = 0.f;
-  for (int i = threadIdx.x; i < 2 * tile; i += blockDim.x) s_cnt[i] = 0;
   __syncthreads();
 
   const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(w_in) % 16 == 0
                    && reinterpret_cast<uintptr_t>(w_out) % 16 == 0;
-  const int slices = (D + cols - 1) / cols;
-  const int items = nt * W2;
-  // the dots, slice by slice; a thread an item (side, position, offset),
-  // neighbouring lanes on neighbouring offsets; the pair counts with the
-  // first slice
+  // the dots, slice by slice: a warp a position, each side's 32 offsets of
+  // a round summed over the lanes by one transposed butterfly
   for (int s = 0; s < slices; ++s) {
     const int c0 = s * cols, w = min(cols, D - c0);
     if (s > 0) __syncthreads();
-    load_halo(s_in, s_out, s_tok, w_in, w_out, H, ld, D, c0, w, vec);
+    acc_gather(s_in, s_out, s_tok, w_in, w_out, H, D, cols, c0, w, vec);
     __syncthreads();
-    for (int it = threadIdx.x; it < 2 * items; it += blockDim.x) {
-      const int side = it >= items, r = it - side * items;
-      const int tl = r / W2, d = offset_of(r - tl * W2, window);
-      // side 0: center tl, context tl + d; side 1: context tl, center tl - d
-      const int hc = window + tl - side * d, hx = hc + d;
-      if (!pair_ok(s_tok, s_win, hc, hx)) continue;
-      const float* a = s_in + hc * ld;
-      const float* e = s_out + hx * ld;
-      float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
-      int c = 0;
-      for (; c + 4 <= w; c += 4) {
-        s0 = fmaf(a[c], e[c], s0);
-        s1 = fmaf(a[c + 1], e[c + 1], s1);
-        s2 = fmaf(a[c + 2], e[c + 2], s2);
-        s3 = fmaf(a[c + 3], e[c + 3], s3);
+    for (int tl = warp; tl < nt; tl += nwarps) {
+      const int h = window + tl;
+      for (int o0 = 0; o0 < W2; o0 += 32) {
+        float vc[32], vx[32];
+#pragma unroll
+        for (int k = 0; k < 32; ++k) vc[k] = vx[k] = 0.f;
+        for (int ch = 0; ch < chunks; ++ch) {
+          const int c = 4 * (ch * 32 + lane);
+          if (c >= cols) break;   // a slice narrower than its chunks
+          const float4 ai = acc_ld4(s_in + h * cols + c);
+          const float4 ao = acc_ld4(s_out + h * cols + c);
+#pragma unroll
+          for (int k = 0; k < 32; ++k) {
+            if (o0 + k >= W2) break;
+            const int d = offset_of(o0 + k, window);
+            vc[k] = acc_dot4(ai, acc_ld4(s_out + (h + d) * cols + c), vc[k]);
+            vx[k] = acc_dot4(acc_ld4(s_in + (h - d) * cols + c), ao, vx[k]);
+          }
+        }
+        acc_fold<16>(vc, lane);
+        acc_fold<16>(vx, lane);
+        const int oi = o0 + lane;
+        if (oi < W2) {
+          float* pc = s_dot + tl * W2 + oi;
+          float* px = pc + tile * W2;
+          *pc = s == 0 ? vc[0] : *pc + vc[0];
+          *px = s == 0 ? vx[0] : *px + vx[0];
+        }
       }
-      for (; c < w; ++c) s0 = fmaf(a[c], e[c], s0);
-      (side ? s_gx : s_gc)[r] += (s0 + s1) + (s2 + s3);
-      if (s == 0) atomicAdd(s_cnt + side * tile + tl, 1);
     }
   }
-  __syncthreads();
-  for (int it = threadIdx.x; it < 2 * items; it += blockDim.x) {
-    const int side = it >= items, r = it - side * items;
-    const int tl = r / W2, d = offset_of(r - tl * W2, window);
-    const int hc = window + tl - side * d;
-    float* g = (side ? s_gx : s_gc) + r;
-    *g = pair_ok(s_tok, s_win, hc, hc + d) ? 1.f / (1.f + expf(-*g)) - 1.f
-                                           : 0.f;
-  }
+  // g_pos of both sides by the lane of each offset, the pair counts by
+  // ballots; each warp reads back only its own positions' dots
+  __syncwarp();
   int my_valid = 0;
-  for (int tl = threadIdx.x; tl < nt; tl += blockDim.x) {
-    const int vc = s_cnt[tl];
-    const size_t p = static_cast<size_t>(b) * T + t0 + tl;
-    o.cnt[p] = vc;
-    o.cnt[N + p] = s_cnt[tile + tl];
-    o.mask[p] = neg_weight * static_cast<float>(vc);
-    my_valid += vc;
+  for (int tl = warp; tl < nt; tl += nwarps) {
+    const int h = window + tl;
+    int vc = 0, vx = 0;
+    for (int o0 = 0; o0 < W2; o0 += 32) {
+      const int oi = o0 + lane;
+      bool okc = false, okx = false;
+      if (oi < W2) {
+        const int d = offset_of(oi, window);
+        okc = s_tok[h] >= 0 && s_tok[h + d] >= 0 && abs(d) <= s_win[h];
+        okx = s_tok[h - d] >= 0 && s_tok[h] >= 0 && abs(d) <= s_win[h - d];
+        float* pc = s_dot + tl * W2 + oi;
+        float* px = pc + tile * W2;
+        *pc = okc ? 1.f / (1.f + expf(-*pc)) - 1.f : 0.f;
+        *px = okx ? 1.f / (1.f + expf(-*px)) - 1.f : 0.f;
+      }
+      vc += __popc(__ballot_sync(kFull, okc));
+      vx += __popc(__ballot_sync(kFull, okx));
+    }
+    if (lane == 0) {
+      const size_t p = static_cast<size_t>(b) * T + t0 + tl;
+      o.cnt[p] = vc;
+      o.cnt[N + p] = vx;
+      o.mask[p] = neg_weight * static_cast<float>(vc);
+      my_valid += vc;
+    }
   }
-  for (int sh = 16; sh; sh >>= 1)
-    my_valid += __shfl_xor_sync(kFull, my_valid, sh);
   if (lane == 0 && my_valid) atomicAdd(&s_valid, my_valid);
-  __syncthreads();
-  if (threadIdx.x == 0) o.valid[cta] = s_valid;
+  __syncwarp();
 
-  // the accumulations, a thread an element (position, column) of a slice;
-  // the last slice loaded is still in shared memory
+  // the accumulations, slice by slice (the last slice gathered first): a
+  // warp a position, a float4 a lane
   for (int s = slices - 1; s >= 0; --s) {
     const int c0 = s * cols, w = min(cols, D - c0);
     if (s < slices - 1) {
       __syncthreads();
-      load_halo(s_in, s_out, s_tok, w_in, w_out, H, ld, D, c0, w, vec);
+      acc_gather(s_in, s_out, s_tok, w_in, w_out, H, D, cols, c0, w, vec);
       __syncthreads();
     }
-    for (int i = threadIdx.x; i < nt * w; i += blockDim.x) {
-      const int tl = i / w, c = i - tl * w, h = window + tl;
-      const float* gc = s_gc + tl * W2;
-      const float* gx = s_gx + tl * W2;
-      float ai = 0.f, ao = 0.f;
-#pragma unroll 4
-      for (int oi = 0; oi < W2; ++oi) {
-        const int d = offset_of(oi, window);
-        ai = fmaf(gc[oi], s_out[(h + d) * ld + c], ai);
-        ao = fmaf(gx[oi], s_in[(h - d) * ld + c], ao);
+    for (int tl = warp; tl < nt; tl += nwarps) {
+      const int h = window + tl;
+      const float* gc = s_dot + tl * W2;
+      const float* gx = gc + tile * W2;
+      for (int ch = 0; ch < chunks; ++ch) {
+        const int c = 4 * (ch * 32 + lane);
+        if (c >= w) break;
+        float4 ai = make_float4(0.f, 0.f, 0.f, 0.f), ao = ai;
+        for (int oi = 0; oi < W2; ++oi) {
+          const int d = offset_of(oi, window);
+          ai = acc_fma4(gc[oi], acc_ld4(s_out + (h + d) * cols + c), ai);
+          ao = acc_fma4(gx[oi], acc_ld4(s_in + (h - d) * cols + c), ao);
+        }
+        const float4 ei = acc_ld4(s_in + h * cols + c);
+        const size_t e = (static_cast<size_t>(b) * T + t0 + tl) * D + c0 + c;
+        if (vec) {
+          *reinterpret_cast<float4*>(o.acc_in + e) = ai;
+          *reinterpret_cast<float4*>(o.acc_out + e) = ao;
+          *reinterpret_cast<float4*>(o.ein + e) = ei;
+        } else {
+          const float a4[4] = {ai.x, ai.y, ai.z, ai.w};
+          const float o4[4] = {ao.x, ao.y, ao.z, ao.w};
+          const float e4[4] = {ei.x, ei.y, ei.z, ei.w};
+          for (int j = 0; j < 4 && c + j < w; ++j) {
+            o.acc_in[e + j] = a4[j];
+            o.acc_out[e + j] = o4[j];
+            o.ein[e + j] = e4[j];
+          }
+        }
       }
-      const size_t e = (static_cast<size_t>(b) * T + t0 + tl) * D + c0 + c;
-      o.acc_in[e] = ai;
-      o.acc_out[e] = ao;
-      o.ein[e] = s_in[h * ld + c];
     }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) o.valid[cta] = s_valid;
+  for (int k = cta; k < kB; k += nctas) {
+    const float* src = w_out + static_cast<size_t>(negs[k]) * D;
+    float* dst = o.wn + static_cast<size_t>(k) * D;
+    for (int c = threadIdx.x; c < D; c += blockDim.x) dst[c] = __ldg(src + c);
   }
 }
 
@@ -562,17 +626,19 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // Kernel (a) on a block [B, T] under ops/sgns_conv.py::launch_plan: a grid
-// of (tiles, B) blocks of kThreads, `tile` positions a block, `cols` columns
-// a slice, `smem` bytes of dynamic shared memory. out: ein, acc_in, acc_out,
-// mask, cnt, valid, wn. Returns the CUDA error of the launch.
+// of (tiles, B) blocks, `tile` positions a block, `cols` columns a slice (a
+// multiple of 32), `smem` bytes of dynamic shared memory; kAccThreads
+// threads a block at one 128-column chunk a slice, twice as many at more.
+// out: ein, acc_in, acc_out, mask, cnt, valid, wn. Returns the CUDA error
+// of the launch.
 extern "C" int srw_sgns_conv_accumulate_launch(
     const void* w_in, const void* w_out, const void* block, const void* cwin,
     const void* negs, int kB, void* const* out, int B, int T, int D,
     int window, int tile, int tiles, int cols, int smem, float neg_weight,
     void* stream) {
   if (B <= 0 || T <= 0) return 0;
-  if (D < 1 || window < 1 || tile < 1 || cols < 1 || kB < 0 ||
-      static_cast<long long>(tile) * tiles < T || B > 65535)
+  if (D < 1 || window < 1 || tile < 1 || cols < 32 || cols % 32 != 0 ||
+      kB < 0 || static_cast<long long>(tile) * tiles < T || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   ConvOut o;
   o.ein = static_cast<float*>(out[0]);
@@ -582,12 +648,14 @@ extern "C" int srw_sgns_conv_accumulate_launch(
   o.cnt = static_cast<int*>(out[4]);
   o.valid = static_cast<int*>(out[5]);
   o.wn = static_cast<float*>(out[6]);
+  const auto kernel = cols > 128 ? sgns_conv_accumulate<2 * kAccThreads>
+                                  : sgns_conv_accumulate<kAccThreads>;
   cudaError_t err = cudaFuncSetAttribute(
-      sgns_conv_accumulate, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sgns_conv_accumulate<<<dim3(tiles, B), kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const int threads = cols > 128 ? 2 * kAccThreads : kAccThreads;
+  kernel<<<dim3(tiles, B), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w_in), static_cast<const float*>(w_out),
       static_cast<const int*>(block), static_cast<const int*>(cwin),
       static_cast<const int*>(negs), kB, o, T, D, window, tile, cols,

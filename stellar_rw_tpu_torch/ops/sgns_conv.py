@@ -11,14 +11,15 @@ non-band and single replica, which it matches to rounding).
 
 CUDA tensors make three calls a step: csrc/sgns_conv.cu's accumulate kernel
 (the positive half for all 2w offsets at once, the counts, ein and the
-negatives' rows; a block of threads a tile of a walk with its halo of rows:
-launch_plan), sgns_shared_grads (the negative half, csrc/sgns_shared.cu,
-with the accumulated acc_in as its vo and g_pos = 1, so its d_vi is acc_in +
-d_neg) and csrc/sgns_conv.cu's scatter kernel (a warp 128 columns of a unit
-of a token group: its rows' sum; a group split over several units summed in
-unit order by the last of them; each group's sum over its count added into
-the tables once; the negatives' rows). The token groups come from
-group_blocks, once a run for the whole corpus (the trainer) or once a call.
+negatives' rows; a block of threads a tile of a walk with its halo of rows,
+a warp a position: launch_plan), sgns_shared_grads (the negative half,
+csrc/sgns_shared.cu, with the accumulated acc_in as its vo and g_pos = 1,
+so its d_vi is acc_in + d_neg) and csrc/sgns_conv.cu's scatter kernel (a
+warp 128 columns of a unit of a token group: its rows' sum; a group split
+over several units summed in unit order by the last of them; each group's
+sum over its count added into the tables once; the negatives' rows). The
+token groups come from group_blocks, once a run for the whole corpus (the
+trainer) or once a call.
 CPU tensors run sgns_conv_step_ref: _valid_from_cwin and
 _sgns_apply_shared_conv, the trainer's own plain step. The kernels sum in
 another order (sum-then-divide, atomics between a row's group and its
@@ -70,6 +71,10 @@ SGNS_CONV_SCATTER_ACCUMULATE = Kernel(
     + [ctypes.c_void_p] * 5)
 
 THREADS = 256           # kThreads in the source
+# kAccThreads in the source: the accumulate kernel's threads a block at a
+# slice of at most CHUNK columns, twice as many at a wider one
+ACC_THREADS = 128
+CHUNK = 128
 H100_SMS = 132          # launch_plan's default; the wrapper asks the device
 TILES = (32, 16, 8)     # positions a block of the accumulate kernel, widest first
 # dynamic shared memory a block of the accumulate kernel may take: two an
@@ -93,15 +98,15 @@ class LaunchPlan(NamedTuple):
     cols: int          # columns of a row slice held at once (a multiple of 32)
     slices: int        # slices a row takes
     smem_bytes: int    # dynamic shared memory a block
+    threads: int       # threads a block: ACC_THREADS, twice that above CHUNK
 
 
 def smem_bytes(tile: int, window: int, cols: int) -> int:
     """The accumulate kernel's shared memory: the halo's ein and eout
-    slices (rows of cols + 1 floats), the two sides' dots (g), the halo's
-    tokens and windows and the tile's two pair counts."""
+    slices (rows of cols floats), the two sides' dots (then g), and the
+    halo's tokens and windows."""
     H = tile + 2 * window
-    return 4 * (2 * H * (cols + 1) + 2 * tile * 2 * window + 2 * H
-                + 2 * tile)
+    return 4 * (2 * H * cols + 2 * tile * 2 * window + 2 * H)
 
 
 def launch_plan(B: int, T: int, D: int, window: int,
@@ -110,9 +115,10 @@ def launch_plan(B: int, T: int, D: int, window: int,
     on a card of `sm_count` SMs (mirrors the dispatch of the .cu): the
     widest tile of `tiles` whose grid of B * ceil(T / tile) blocks gives
     every SM two (the narrowest when none does; never wider than T; at
-    walk_10k's blocks tiles of 8 beat 16 and 32, PERF.md), and the widest
-    row slice, a multiple of 32 columns, that keeps the block within
-    SMEM_BUDGET."""
+    walk_10k's blocks tiles of 8 beat 16 and 32, PERF.md), the fewest row
+    slices of a multiple of 32 columns that keep the block within
+    SMEM_BUDGET, cut evenly, and ACC_THREADS threads a block at one chunk
+    of CHUNK columns a slice, twice as many at more."""
     if B < 1 or T < 1 or D < 1 or window < 1 or sm_count < 1 \
             or B > 65535:
         raise ValueError(f"sgns_conv launch_plan: B={B} T={T} D={D} "
@@ -122,13 +128,16 @@ def launch_plan(B: int, T: int, D: int, window: int,
     tile = min(tile, T)
     fit = (SMEM_BUDGET - smem_bytes(tile, window, 0)) // (
         smem_bytes(tile, window, 32) - smem_bytes(tile, window, 0)) * 32
-    cols = min(-(-D // 32) * 32, fit)
-    if cols < 32:
+    if fit < 32:
         raise ValueError(f"sgns_conv launch_plan: window {window} leaves no "
                          f"room for a row slice in {SMEM_BUDGET} bytes")
+    slices = -(-D // fit)
+    cols = -(-D // slices)                  # the row cut evenly
+    cols = -(-cols // 32) * 32
     n = -(-T // tile)
     return LaunchPlan(tile, n, n * B, tile + 2 * window, cols,
-                      -(-D // cols), smem_bytes(tile, window, cols))
+                      -(-D // cols), smem_bytes(tile, window, cols),
+                      2 * ACC_THREADS if cols > CHUNK else ACC_THREADS)
 
 
 class Groups(NamedTuple):

@@ -16,6 +16,7 @@
 """
 
 import os
+import re
 from pathlib import Path
 
 import numpy as np
@@ -608,28 +609,61 @@ def test_cdf_scan_ops_counts_bitmap_entries_apart():
         + 750 * chip_smoke.OPS_PER_ENTRY)
 
 
-@pytest.mark.parametrize("name", [
-    n for n, edits in [*chip_conv_parts.VARIANTS.items(),
-                       *chip_conv_parts.CLUSTER_VARIANTS.items()] if edits])
+CONV_SOURCE = "stellar_rw_tpu_torch/csrc/sgns_conv.cu"
+# name -> [(file, the edits chip_conv_parts.py makes in it, one after the
+# other)]
+CONV_PARTS_EDITS = {
+    **{n: [(CONV_SOURCE, e)] for n, e in chip_conv_parts.VARIANTS.items()
+       if e},
+    "clock64 of the accumulate kernel": [
+        (CONV_SOURCE, chip_conv_parts.ACC_CLOCKS)],
+    **{n: [(chip_conv_parts.SPLIT_SOURCE, e)]
+       for n, e in [*chip_conv_parts.SPLIT_VARIANTS.items(),
+                    *chip_conv_parts.SPLIT_TAKEN_OUT.items()] if e},
+    "clock64 of the split cluster": [
+        (chip_conv_parts.SPLIT_SOURCE, chip_conv_parts.SPLIT_CLOCKS)],
+    **{n: [(chip_conv_parts.CLUSTER_SOURCE, e)]
+       for n, e in chip_conv_parts.CLUSTER_VARIANTS.items() if e},
+}
+# the entry points of the files appended to csrc/sgns_conv.cu
+CONV_PARTS_ENTRIES = {
+    chip_conv_parts.CLUSTER_SOURCE: ("srw_sgns_conv_accumulate_cluster_launch",
+                                     "srw_sgns_conv_max_clusters"),
+    chip_conv_parts.SPLIT_SOURCE: ("srw_sgns_conv_accumulate_split_launch",
+                                   "srw_sgns_conv_split_clusters"),
+    chip_conv_parts.PROBE_SOURCE: ("srw_conv_probe_launch",)}
+
+
+@pytest.mark.parametrize("name", list(CONV_PARTS_EDITS))
 def test_conv_parts_variant_edits_the_source_once(name):
-    """chip_conv_parts.py patches csrc/sgns_conv.cu, or the cluster design
-    it appends to it (chip_conv_cluster.cu), by text: each piece must occur
-    exactly once in its source, and its replacement must differ; the
-    cluster design's entry points are in its file and not in the kernel
-    source."""
-    source = (_build.CSRC / sgns_conv.SGNS_CONV_ACCUMULATE.source
-              ).read_text()
-    cluster = (Path(chip_conv_parts.__file__).parent
-               / chip_conv_parts.CLUSTER_SOURCE).read_text()
-    edits = chip_conv_parts.VARIANTS.get(name)
-    text = source if edits is not None else cluster
-    for old, new in edits or chip_conv_parts.CLUSTER_VARIANTS[name]:
-        assert text.count(old) == 1 and new != old
-        text = text.replace(old, new)
-    for symbol in ("srw_sgns_conv_accumulate_cluster_launch",
-                   "srw_sgns_conv_max_clusters"):
-        assert f"extern \"C\" int {symbol}(" in cluster
-        assert symbol not in source
+    """chip_conv_parts.py patches csrc/sgns_conv.cu and the files it
+    appends to it (the split cluster chip_conv_split.cu, the position-split
+    cluster chip_conv_cluster.cu) by text, one piece after the other: each
+    piece must occur exactly once in the text as the pieces before it left
+    it, and its replacement must differ; the appended files' entry points
+    are in their files and not in the kernel source, and none of them
+    defines a name the source does."""
+    root = Path(chip_conv_parts.__file__).parent
+    source = (root / CONV_SOURCE).read_text()
+    for path, edits in CONV_PARTS_EDITS[name]:
+        text = (root / path).read_text()
+        for old, new in edits:
+            assert text.count(old) == 1 and new != old
+            text = text.replace(old, new)
+    for path, symbols in CONV_PARTS_ENTRIES.items():
+        text = (root / path).read_text()
+        for symbol in symbols:
+            assert f"extern \"C\" int {symbol}(" in text
+            assert symbol not in source
+        if path != chip_conv_parts.PROBE_SOURCE:
+            assert not _defined(text) & _defined(source), path
+
+
+def _defined(text: str) -> set:
+    """The device functions, kernels and constants a CUDA text defines."""
+    return set(re.findall(
+        r"(?:__device__|__global__|constexpr)[^(=;]*?\b(\w+)\s*[(=]",
+        text)) - {"__launch_bounds__"}
 
 
 PARTS_OF = {

@@ -5,9 +5,11 @@ function.
 
 The transcription walks the accumulate kernel's grid under launch_plan: a
 block of threads a tile of a walk, its rows and a halo of `window` rows a
-side gathered, validity formed from the tokens, windows and bounds, each
-pair's dot taken by its center's tile and again by its context's, row
-slices of `cols` columns (the dots summed over every slice before the
+side gathered, validity formed from the tokens, windows and bounds, a warp
+a position, each pair's dot taken by its center's tile and again by its
+context's as the warp takes it (a lane's fmaf shares over its four columns
+of each 128-column chunk, then the transposed butterfly over the lanes),
+row slices of `cols` columns (the dots summed over every slice before the
 sigmoid); then the negative half, and the scatter-update over
 group_blocks' units: a unit's rows summed in group order, a group's unit
 sums summed in unit order (a hub group split into units), divided by the
@@ -89,20 +91,70 @@ def _offset(o, window):
     return o - window if o < window else o - window + 1
 
 
+def _fma(a, b, c):
+    """fmaf in NumPy: the product of two float32 exact in float64, the sum
+    rounded to float32."""
+    return (np.float64(1) * a * b + c).astype(np.float32)
+
+
+def _butterfly(shares):
+    """csrc/sgns_conv.cu's transposed butterfly (acc_fold) on the lane
+    shares [K, 32] of K sums (f32): at steps 16, 8, 4, 2, 1 each lane adds
+    its partner's (lane ^ step) partial to its own, and lane k % 32 ends
+    with sum k (the offsets of a round of 32), which is returned for each
+    k."""
+    lanes = np.arange(32)
+    q = shares.astype(np.float32)
+    for h in (16, 8, 4, 2, 1):
+        q = q + q[:, lanes ^ h]
+    return q[np.arange(len(q)), np.arange(len(q)) % 32]
+
+
+def _lane_dots(a, e, cols):
+    """The dots of row a [cols] with rows e [K, cols] as the kernel's warp
+    takes them: lane l's share over its four columns 4 * (ch * 32 + l) + j
+    of each 128-column chunk ch (none past cols), in (ch, j) order by
+    fmaf, then the butterfly over the lanes."""
+    ch = -(-cols // 128)
+    pad = ch * 128 - cols
+    A = np.pad(a, (0, pad)).reshape(ch, 32, 4)
+    E = np.pad(e, ((0, 0), (0, pad))).reshape(len(e), ch, 32, 4)
+    v = np.zeros((len(e), 32), np.float32)
+    for c in range(ch):
+        for j in range(4):
+            v = _fma(A[c, :, j], E[:, c, :, j], v)
+    return _butterfly(v)
+
+
 def _accumulate(w_in, w_out, block, cwin, negs, window, nw, plan):
-    """The accumulate kernel's grid walked in NumPy (f32): a tile's rows and
-    its halo gathered, each pair's dot taken by its center's tile and again
-    by its context's."""
+    """The accumulate kernel's grid walked in NumPy (f32): a block a tile
+    of a walk, its rows and a halo of `window` rows a side gathered (zero
+    outside the walk, at padding and beyond D), rows in slices of plan.cols
+    columns; a warp a position x, each pair's dot taken by its center's
+    tile (ein[x] . eout[x + d]) and again by its context's (ein[x - d] .
+    eout[x]) in lane shares and a butterfly, summed over the slices in
+    order; g_pos = sigmoid - 1 on a valid pair; acc_in and acc_out by fmaf
+    over the offsets in order."""
     B, T = block.shape
     D = w_in.shape[1]
     W2, tile, cols = 2 * window, plan.tile, plan.cols
+    assert cols % 32 == 0
     H = tile + W2
     N = B * T
+    offs = [_offset(o, window) for o in range(W2)]
     ein = np.zeros((N, D), np.float32)
     acc_in = np.zeros((N, D), np.float32)
     acc_out = np.zeros((N, D), np.float32)
     cnt = np.zeros((2, N), np.int64)
     valid = np.zeros(plan.blocks, np.int64)
+
+    def rows(tab, tok, c0):
+        out = np.zeros((H, cols), np.float32)
+        w = min(cols, D - c0)
+        out[:, :w] = np.where((tok >= 0)[:, None],
+                              tab[np.maximum(tok, 0), c0:c0 + w], 0)
+        return out
+
     for b in range(B):
         for tx in range(plan.tiles):
             t0 = tx * tile
@@ -115,51 +167,40 @@ def _accumulate(w_in, w_out, block, cwin, negs, window, nw, plan):
                                  and abs(hx - hc) <= win[hc])
             dots = np.zeros((2, nt, W2), np.float32)
             for s in range(plan.slices):
-                c0 = s * cols
-                w = min(cols, D - c0)
-                rows = lambda tab: np.where(
-                    (tok >= 0)[:, None], tab[np.maximum(tok, 0), c0:c0 + w],
-                    np.float32(0))
-                s_in, s_out = rows(w_in), rows(w_out)
-                for side in range(2):
-                    for tl in range(nt):
-                        for o in range(W2):
-                            d = _offset(o, window)
-                            hc = window + tl - side * d
-                            if ok(hc, hc + d):
-                                dots[side, tl, o] += np.float32(
-                                    s_in[hc] @ s_out[hc + d])
-            g = np.zeros_like(dots)
-            for side in range(2):
+                s_in, s_out = rows(w_in, tok, s * cols), rows(
+                    w_out, tok, s * cols)
                 for tl in range(nt):
-                    for o in range(W2):
-                        d = _offset(o, window)
-                        hc = window + tl - side * d
-                        if ok(hc, hc + d):
-                            g[side, tl, o] = np.float32(1) / (
-                                np.float32(1) + np.exp(-dots[side, tl, o])
-                            ) - np.float32(1)
+                    h = window + tl
+                    dots[0, tl] += _lane_dots(
+                        s_in[h], np.stack([s_out[h + d] for d in offs]), cols)
+                    dots[1, tl] += _lane_dots(
+                        s_out[h], np.stack([s_in[h - d] for d in offs]), cols)
+            g = np.zeros_like(dots)
             for tl in range(nt):
                 h, p = window + tl, b * T + t0 + tl
-                cnt[0, p] = sum(ok(h, h + _offset(o, window))
-                                for o in range(W2))
-                cnt[1, p] = sum(ok(h - _offset(o, window), h)
-                                for o in range(W2))
+                okc = [ok(h, h + d) for d in offs]
+                okx = [ok(h - d, h) for d in offs]
+                one = np.float32(1)
+                g[0, tl] = np.where(okc, one / (one + np.exp(-dots[0, tl]))
+                                    - one, 0)
+                g[1, tl] = np.where(okx, one / (one + np.exp(-dots[1, tl]))
+                                    - one, 0)
+                cnt[0, p], cnt[1, p] = sum(okc), sum(okx)
                 valid[b * plan.tiles + tx] += cnt[0, p]
             for s in range(plan.slices):
                 c0 = s * cols
                 w = min(cols, D - c0)
-                s_in = np.where((tok >= 0)[:, None],
-                                w_in[np.maximum(tok, 0), c0:c0 + w], 0)
-                s_out = np.where((tok >= 0)[:, None],
-                                 w_out[np.maximum(tok, 0), c0:c0 + w], 0)
+                s_in, s_out = rows(w_in, tok, c0), rows(w_out, tok, c0)
                 for tl in range(nt):
                     h, p = window + tl, b * T + t0 + tl
-                    for o in range(W2):
-                        d = _offset(o, window)
-                        acc_in[p, c0:c0 + w] += g[0, tl, o] * s_out[h + d]
-                        acc_out[p, c0:c0 + w] += g[1, tl, o] * s_in[h - d]
-                    ein[p, c0:c0 + w] = s_in[h]
+                    ai = np.zeros(cols, np.float32)
+                    ao = np.zeros(cols, np.float32)
+                    for o, d in enumerate(offs):
+                        ai = _fma(g[0, tl, o], s_out[h + d], ai)
+                        ao = _fma(g[1, tl, o], s_in[h - d], ao)
+                    acc_in[p, c0:c0 + w] = ai[:w]
+                    acc_out[p, c0:c0 + w] = ao[:w]
+                    ein[p, c0:c0 + w] = s_in[h, :w]
     wn = w_out[negs]
     mask = np.float32(nw) * cnt[0].astype(np.float32)
     return ein, acc_in, acc_out, cnt, mask, valid, wn
@@ -271,6 +312,10 @@ DESIGN_CASES = {
     "a walk of 201 positions, a hub every other position": (
         2, 201, 80, 8, 10, 8, "every other", {"sm_count": 132}, 16,
         "a token"),
+    "a slot's block (B 16)": (16, 82, 300, 40, 10, 16, "zipf",
+                              {"sm_count": 132}, 16, "random"),
+    "D 1,536: two slices of six chunks": (3, 11, 50, 1536, 5, 16, "zipf",
+                                          {"sm_count": 132}, 16, "a token"),
 }
 
 
@@ -289,6 +334,10 @@ def test_kernel_design_matches_the_plain_step(monkeypatch, case):
             plan.tile, window, 32))
         plan = sgns_conv.launch_plan(B, T, D, window, **kw)
         assert plan.slices == 3 and plan.cols == 32
+    if "slices of six" in case:
+        assert (plan.slices, plan.cols, plan.threads) == (2, 768, 256)
+    if "B 16" in case:
+        assert (plan.tile, plan.blocks, plan.threads) == (8, 176, 128)
     if "wider" in case:
         assert plan.tile < window
     if "201" in case:
@@ -416,17 +465,23 @@ LAUNCH_SHAPES = [(32, 82, 10), (32, 81, 10), (1, 5, 5), (128, 82, 10),
 @pytest.mark.parametrize("B,T,window", LAUNCH_SHAPES)
 def test_launch_plan_fits_and_fills(D, B, T, window):
     """The accumulate kernel's plan: shared memory within two blocks an SM
-    (so within 232,448 bytes) at any D, slices covering the row, tiles
-    covering the walk, and the grid giving each of 132 SMs two blocks
+    (so within 232,448 bytes) at any D, slices of a multiple of 32 columns
+    covering the row, tiles covering the walk, 128 threads a block at one
+    chunk and 256 at more, and the grid giving each of 132 SMs two blocks
     where a tile of 8 can; at walk_10k's blocks (B 32, T 81-82) tiles of 8
-    give 352 blocks; longer walks take wider tiles where they still fill
-    the SMs."""
+    give 352 blocks, and at a slot's (B 16) 176, at least 0.9 x 132 both;
+    longer walks take wider tiles where they still fill the SMs."""
     plan = sgns_conv.launch_plan(B, T, D, window)
     assert plan.smem_bytes <= sgns_conv.SMEM_BUDGET <= 232_448
     assert plan.smem_bytes == sgns_conv.smem_bytes(plan.tile, window,
                                                    plan.cols)
     assert plan.cols % 32 == 0 and plan.slices * plan.cols >= D > (
         plan.slices - 1) * plan.cols
+    assert plan.threads == (sgns_conv.ACC_THREADS
+                            * (1 if plan.cols <= sgns_conv.CHUNK else 2))
+    if B == 32 and T >= 81:
+        for b in (32, 16):
+            assert sgns_conv.launch_plan(b, T, D, window).blocks >= 0.9 * 132
     assert plan.tiles * plan.tile >= T > (plan.tiles - 1) * plan.tile
     assert plan.blocks == plan.tiles * B
     assert plan.halo_rows == plan.tile + 2 * window
@@ -435,6 +490,7 @@ def test_launch_plan_fits_and_fills(D, B, T, window):
     if (B, T) in ((32, 82), (32, 81)):
         assert (plan.tile, plan.blocks) == (8, 352)
         assert plan.slices == (1 if D <= 480 else -(-D // 480))
+        assert sgns_conv.launch_plan(16, T, D, window).blocks == 176
     if (B, T) == (32, 401):
         assert (plan.tile, plan.blocks) == (32, 416)
     forced = sgns_conv.launch_plan(B, T, D, window, tiles=(32,))
@@ -448,3 +504,17 @@ def test_launch_plan_refuses_what_it_cannot_place():
         sgns_conv.launch_plan(0, 82, 128, 5)
     with pytest.raises(ValueError):
         sgns_conv.launch_plan(70_000, 82, 128, 5)
+
+
+def test_the_plan_mirrors_the_source():
+    """ops/sgns_conv.py's constants are csrc/sgns_conv.cu's: the scatters'
+    threads a block, the accumulate kernel's at a narrow slice, and the
+    threads the launch picks by the slice."""
+    from stellar_rw_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "sgns_conv.cu").read_text()
+    assert f"constexpr int kThreads = {sgns_conv.THREADS};" in src
+    assert f"constexpr int kAccThreads = {sgns_conv.ACC_THREADS};" in src
+    assert (f"const int threads = cols > {sgns_conv.CHUNK} ? 2 * kAccThreads"
+            f" : kAccThreads;") in src
+    assert "cols < 32 || cols % 32 != 0" in src
